@@ -1,0 +1,405 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with a CUDA card and nvcc:
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases, in order; any failure exits nonzero:
+
+1. Environment: the card's name and power limit; build every CUDA kernel
+   of the serving path from csrc/ (one nvcc per source, started together).
+2. Each kernel against its plain PyTorch version at the serving path's
+   shapes (GPT-1.3B: heads 16, head_dim 128, block 16, batch 8; step widths
+   1, 5 and 128), in float32 (TF32 off, tolerance 1e-3) and bfloat16
+   (tolerance 2e-2), with the kernel's, the plain version's and one PyTorch
+   library call's device times (CUDA-graph replays) beside the least time
+   the card could take, and the kernel's eager per-call time.
+3. Serve: gpt_1p3b in bf16 (random weights from a seed) behind
+   LLMEngine(block_size=16, max_batch=8, spec_decoding=True) answers 8
+   greedy requests of 64-1000 prompt tokens, four sharing a 256-token
+   prefix, 32 new tokens each. The kernels' launch counts are set to 0
+   just before and read just after; every kernel must have run once per
+   layer and step, with one host sync per step and an idle pool after.
+4. float32 parity: gpt_1p3b widths at 4 layers, greedy LLMEngine (the
+   kernel) against GPT.generate (contiguous cache, no kernel).
+
+Prints a `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
+and last `{"ok": true, "device": {...}}`.
+"""
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+H, D, BS, B = 16, 128, 16, 8             # gpt_1p3b heads/head_dim, serving
+WIDTHS = (1, 5, 128)                      # decode, 1 + num_spec, chunk
+TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+HBM_BYTES_PER_S = 3.35e12                 # H100 SXM
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def time_ms(fn, iters):
+    """Device time of one `fn` call: `iters` calls captured in a CUDA
+    graph, the graph replayed between two CUDA events. Host launch cost
+    stays out (an eager call of a small kernel waits on its Python
+    wrapper, not on the card)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def eager_ms(fn, iters):
+    """Wall time of one eager `fn` call, host launch cost included."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+# -- phase 1 ------------------------------------------------------------------
+
+def build_kernels():
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paddle_tpu_torch.ops import _build
+
+    sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as ex:
+        list(ex.map(_build.load_library, sources))
+    log(f"[build] {len(sources)} source(s) in "
+        f"{time.perf_counter() - t0:.1f} s: {sources}")
+    for s in sources:
+        for line in (_build.build_log(s) or "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {s}: {line.strip()}")
+
+
+# -- phase 2 ------------------------------------------------------------------
+
+def _case(width, gen, n_blocks, dtype, dev):
+    """A mixed batch at step width `width`: decode rows, a prefill chunk
+    crossing block boundaries, partly filled last blocks, an idle lane
+    (null block only), null-block table padding. Contexts 64-1000 tokens
+    like the serving phase's prompts."""
+    nb = 2048 // BS
+    rs = np.random.RandomState(width)
+    ctx = rs.randint(64, 1001, B)
+    ctx[1] = 16 * 40 + 7            # partly filled last block
+    if width > 1:
+        q_lens = rs.randint(1, width + 1, B)
+        q_lens[2] = width           # a full-width row
+        q_lens[3] = 1               # a decode row
+    else:
+        q_lens = np.ones(B, np.int64)
+    if width == 128:
+        ctx[2] = 40 + 128           # chunk from position 40: crosses blocks
+        ctx[4] = 128                # a fresh prefill chunk
+    ctx = np.maximum(ctx, q_lens)
+    ctx[B - 1], q_lens[B - 1] = 1, 1   # idle lane: walks the null block
+    tables = np.zeros((B, nb), np.int32)
+    perm = rs.permutation(np.arange(1, n_blocks))
+    kv_live = (ctx - 1) // BS + 1
+    o = 0
+    for i in range(B - 1):
+        tables[i, :kv_live[i]] = perm[o:o + kv_live[i]]
+        o += kv_live[i]
+    q_start = ctx - q_lens
+    qpos = np.zeros((B, width), np.int32)
+    for i in range(B):
+        qpos[i, :q_lens[i]] = np.arange(q_start[i], ctx[i])
+    to = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa
+    q = torch.randn((B, width, H, D), generator=gen, device=dev).to(dtype)
+    return dict(q=q, tables=to(tables), qpos=to(qpos), q_start=to(q_start),
+                kv_live=to(kv_live), q_lens=to(q_lens), ctx=ctx,
+                q_lens_np=q_lens, kv_live_np=kv_live)
+
+
+def _bound(c, dtype):
+    """Least time for this case's work: the bytes it must move (each live
+    query read and its output written once, each live row's `ctx` keys of
+    K and V read once, its live table entries and metadata), or the causal
+    flops of its live queries. The idle lane (the last row), whose output
+    is discarded, counts nothing."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    n = B - 1                                        # live rows
+    ql, live, ctx = c["q_lens_np"][:n], c["kv_live_np"][:n], c["ctx"][:n]
+    nbytes = (2 * ql.sum() * H * D * isz             # q in, out
+              + 2 * ctx.sum() * H * D * isz          # K and V, live keys
+              + live.sum() * 4 + 3 * n * 4)          # table entries, metadata
+    flops = 0
+    for i in range(n):
+        keys = ctx[i] - ql[i] + 1 + np.arange(ql[i])  # causal keys per query
+        flops += 4 * H * D * int(keys.sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _library_call(c, k_arena, v_arena, layer, width):
+    """scaled_dot_product_attention on K/V gathered beforehand into
+    contiguous [B, H, L, D] with a boolean causal/ragged mask: the timed
+    yardstick only, never used by the port."""
+    F = torch.nn.functional
+    L = int(c["kv_live_np"].max()) * BS
+    bt = c["tables"][:, :L // BS].long()
+    k = k_arena[layer][:, bt].permute(1, 0, 2, 3, 4).reshape(B, H, L, D)
+    v = v_arena[layer][:, bt].permute(1, 0, 2, 3, 4).reshape(B, H, L, D)
+    k, v = k.contiguous(), v.contiguous()
+    q = c["q"].transpose(1, 2).contiguous()
+    kpos = torch.arange(L, device=q.device)
+    mask = (kpos[None, None, None, :] <= c["qpos"][:, None, :, None])
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def kernel_cases():
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    n_layers, n_blocks, layer = 24, B * (2048 // BS) + 1, 17
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        # the serving arena's shape, random garbage in every slot
+        shape = (n_layers, H, n_blocks, BS, D)
+        k_arena = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        v_arena = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        for width in WIDTHS:
+            c = _case(width, gen, n_blocks, dtype, dev)
+            args = (c["q"], k_arena, v_arena, layer, c["tables"], c["qpos"])
+            meta = dict(q_start=c["q_start"], kv_live=c["kv_live"],
+                        q_lens=c["q_lens"])
+            got = pa.paged_attention_arrays(*args, **meta)
+            want = pa.paged_attention_ref(*args)
+            torch.cuda.synchronize()
+            err = 0.0
+            for i in range(B):
+                n = int(c["q_lens_np"][i])
+                if i == B - 1:
+                    continue                    # the idle lane is garbage
+                err = max(err, (got[i, :n].float() - want[i, :n].float())
+                          .abs().max().item())
+            ok = err <= TOL[dtype]
+            kernel = lambda: pa.ragged_paged_attention(  # noqa: E731
+                c["q"], k_arena, v_arena, layer, c["tables"], **meta)
+            kms = time_ms(kernel, 50)
+            pms = time_ms(lambda: pa.paged_attention_ref(*args), 5)
+            lms = time_ms(_library_call(c, k_arena, v_arena, layer, width), 20)
+            bms, by = _bound(c, dtype)
+            rec = dict(dtype=str(dtype).replace("torch.", ""), width=width,
+                       max_err=err, tol=TOL[dtype], kernel_ms=kms,
+                       kernel_eager_call_ms=eager_ms(kernel, 50),
+                       plain_ms=pms, library_ms=lms, bound_ms=bms,
+                       bound_by=by, kv_blocks=int(c["kv_live_np"].sum()),
+                       q_tokens=int(c["q_lens_np"].sum()))
+            log("[kernel] " + json.dumps(rec))
+            out.append(rec)
+            if not ok:
+                raise SystemExit(f"kernel disagrees with the plain version: "
+                                 f"{rec}")
+        del k_arena, v_arena
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 3 ------------------------------------------------------------------
+
+def _prompts(rs, vocab):
+    shared = rs.randint(0, vocab, 256).tolist()
+    lens = rs.randint(64, 1001, 8)
+    prompts = []
+    for i, n in enumerate(lens):
+        if i in (0, 5, 6, 7):           # the four that share the prefix
+            n = max(n, 300)
+            prompts.append(shared + rs.randint(0, vocab, n - 256).tolist())
+        else:
+            prompts.append(rs.randint(0, vocab, n).tolist())
+    return prompts
+
+
+def serving_engine(model):
+    """The serve phase's engine, warmed up (cuBLAS handles, allocator)
+    outside the measured run, with its metrics cleared."""
+    from paddle_tpu_torch.serving import LLMEngine
+
+    engine = LLMEngine(model, block_size=16, max_batch=8,
+                       spec_decoding=True)
+    engine.generate([[1, 2, 3, 4] * 8], max_new_tokens=2)
+    engine.metrics.counters.clear()
+    engine.metrics.reset_schedule()
+    return engine
+
+
+def serve_waves(engine, prompts):
+    """The serve phase's traffic: 32 greedy tokens for each prompt, sent
+    as two waves (5 then 3) so the first publishes the shared prefix and
+    the second hits it. Returns the outputs once the card is done."""
+    outs = [o for wave in (prompts[:5], prompts[5:])
+            for o in engine.generate(wave, max_new_tokens=32,
+                                     temperature=0.0)]
+    torch.cuda.synchronize()
+    return outs
+
+
+def serve():
+    from paddle_tpu_torch.models.gpt import gpt_1p3b
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    t0 = time.perf_counter()
+    model = gpt_1p3b(device="cuda", dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    log(f"[serve] gpt_1p3b bf16 built in {time.perf_counter() - t0:.1f} s")
+    engine = serving_engine(model)
+    prompts = _prompts(np.random.RandomState(0), model.cfg.vocab_size)
+    steps0 = engine.step_count
+    torch.cuda.reset_peak_memory_stats()
+    pa.ragged_paged_attention.launches = 0
+    t1 = time.perf_counter()
+    outs = serve_waves(engine, prompts)
+    wall = time.perf_counter() - t1
+    launches = pa.ragged_paged_attention.launches
+    steps = engine.step_count - steps0
+    c = engine.metrics.counters
+    lat = engine.metrics.latency_summary()
+    res = dict(
+        requests=len(outs), prompt_tokens=sum(map(len, prompts)),
+        generated_tokens=int(sum(map(len, outs))), steps=steps,
+        wall_s=wall, tok_per_s=sum(map(len, outs)) / wall,
+        ttft_p50_ms=lat["ttft"]["p50_ms"],
+        step_p50_ms={k: v["p50_ms"] for k, v in lat.items()
+                     if k.endswith("_step")},
+        step_counts={k: int(c.get(k + "s", 0))
+                     for k in ("mixed_step", "decode_step", "verify_step")},
+        launches=launches, layers=model.cfg.num_layers,
+        host_syncs=int(c.get("host_syncs", 0)),
+        prefix_cache_hit_rate=engine.metrics.gauges.get(
+            "prefix_cache_hit_rate", 0.0),
+        spec_acceptance_rate=engine.metrics.gauges.get(
+            "spec_acceptance_rate", 0.0),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        pool=engine.pool_stats())
+    log("[serve] " + json.dumps(res))
+    assert all(len(o) == 32 for o in outs), "a request did not finish"
+    assert not c.get("nonfinite_rows"), "non-finite logits in a served row"
+    assert launches == model.cfg.num_layers * steps, (launches, steps)
+    assert res["host_syncs"] == steps, (res["host_syncs"], steps)
+    assert res["prefix_cache_hit_rate"] > 0
+    assert engine.pool.num_free == engine.pool.num_blocks - 1
+    assert engine.pool._refcount == {}
+    del engine, model
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 4 ------------------------------------------------------------------
+
+def parity():
+    from paddle_tpu_torch.models.gpt import gpt_1p3b
+    from paddle_tpu_torch.serving import LLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = gpt_1p3b(num_layers=4, device="cuda", dtype=torch.float32,
+                     seed=1)
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(0, model.cfg.vocab_size, n).tolist()
+               for n in (20, 37, 64, 150)]
+    got = LLMEngine(model, block_size=16, max_batch=4).generate(
+        prompts, max_new_tokens=16, temperature=0.0)
+    worst_gap, diverged = 0.0, 0
+    for p, g in zip(prompts, got):
+        ref = model.generate([p], max_new_tokens=16,
+                             temperature=0.0)[0, len(p):].tolist()
+        if g == ref:
+            continue
+        diverged += 1
+        j = next(i for i, (a, b) in enumerate(zip(g, ref)) if a != b)
+        with torch.no_grad():
+            lg = model(torch.tensor([p + ref[:j]], device="cuda"))[0, -1]
+        top2 = torch.topk(lg.float(), 2).values
+        gap = (top2[0] - top2[1]).item()
+        worst_gap = max(worst_gap, gap)
+        log(f"[parity] diverged at token {j}: top-2 logit gap {gap:.3g}")
+        assert gap <= 1e-3, f"divergence with top-2 gap {gap} > 1e-3"
+    res = dict(prompts=len(prompts), diverged=diverged,
+               worst_top2_gap=worst_gap)
+    log("[parity] " + json.dumps(res))
+    return res
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write every result to this JSON file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"[env] {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+    build_kernels()
+    cases = kernel_cases()
+    served = serve()
+    par = parity()
+    # the kernel line's headline numbers: the bf16 decode case (width 1),
+    # the launch shape the serving path runs most
+    head = next(r for r in cases if r["dtype"] == "bfloat16"
+                and r["width"] == 1)
+    kernels = [{
+        "name": "ragged_paged_attention",
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/paged_attention.py:108",
+        "launches": served["launches"],
+        "max_abs_err": max(r["max_err"] for r in cases
+                           if r["dtype"] == "bfloat16"),
+        "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "cases": cases,
+    }]
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(dict(card=smi, kind=kind, kernels=kernels,
+                           serve=served, parity=par), f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,13 @@
+"""paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
+
+The JAX package `paddle_tpu` stays the reference; this package keeps its
+module names (`models/gpt.py`, `serving/engine.py`, ...) and imports neither
+JAX nor anything of `paddle_tpu`. Its entry points run on CUDA unless the
+caller passes ``device="cpu"``, and raise when no CUDA device exists.
+"""
+from .models.gpt import GPT, GPTConfig, gpt_1p3b, gpt_small, gpt_tiny
+from .serving import LLMEngine
+from .weights import from_jax_state_dict
+
+__all__ = ["GPT", "GPTConfig", "LLMEngine", "from_jax_state_dict",
+           "gpt_1p3b", "gpt_small", "gpt_tiny"]

@@ -1,0 +1,292 @@
+"""Paged KV cache: a global block arena plus per-sequence block tables.
+
+K/V live in ONE head-major arena ``[layers, heads, num_blocks, block_size,
+head_dim]`` on the engine's device, and every sequence owns a list of block
+ids. Each (layer, head, block) slice is a contiguous ``[block_size,
+head_dim]`` tile, which the CUDA kernel reads straight from device memory
+(ops/paged_attention.py). Appending tokens is an in-place scatter.
+
+Block 0 is the NULL block: the allocator never hands it out, and every
+padded or inactive scatter is routed there, so out-of-range writes can
+never corrupt a live sequence. Reads through padding see garbage from block
+0, which the causal ``kpos <= qpos`` mask discards.
+
+Host-side bookkeeping is plain Python. **Automatic prefix caching**: every
+block carries a refcount, and FULL blocks can be published under a chained
+content hash into a hash->block index. A published block whose refcount
+drops to zero moves to a **cached-free LRU tier** instead of the truly-free
+list: its KV stays valid and `match_prefix` can hand it to a later request
+with the same token prefix. ``num_free`` counts both tiers; `allocate`
+pops truly-free blocks first and evicts cached blocks oldest-first only
+when the free list runs dry. Writes into a block shared by several
+sequences go through copy-on-write (`copy_blocks` + the scheduler's
+`_ensure_writable`).
+"""
+from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+
+
+def blocks_for(num_tokens, block_size):
+    """KV blocks `num_tokens` tokens occupy (>= 1)."""
+    return max(1, -(-int(num_tokens) // int(block_size)))
+
+
+def chain_block_hashes(token_ids, block_size, salt=None):
+    """Chained sha256 digests of each FULL block of `token_ids`:
+    ``h_i = sha256(h_{i-1} || tokens[i*bs:(i+1)*bs] as int64)`` from an
+    empty seed (or `salt`). Two sequences share digest i iff their first
+    ``(i+1)*block_size`` tokens are identical; the trailing partial block
+    gets no digest. A cryptographic digest, not Python's ``hash``: the index
+    serves KV across requests, so an engineered collision would hand one
+    prompt another prompt's KV. Byte-identical to the JAX package's."""
+    bs = int(block_size)
+    hashes = []
+    h = b"" if salt is None else str(salt).encode("utf-8")
+    for i in range(len(token_ids) // bs):
+        m = hashlib.sha256(h)
+        m.update(np.asarray(token_ids[i * bs:(i + 1) * bs],
+                            np.int64).tobytes())
+        h = m.digest()
+        hashes.append(h)
+    return hashes
+
+
+class PagedLayerView:
+    """One layer's window onto a paged forward: `CausalSelfAttention`
+    receives it as its `cache` and calls `paged_attention`."""
+
+    is_paged = True
+
+    def __init__(self, state, layer):
+        self.state = state
+        self.layer = layer
+
+
+class PagedState:
+    """Arena and step metadata threaded through `GPT.hidden`.
+
+    Tensors, all on the engine's device:
+      k, v          [layers, heads, num_blocks, block_size, head_dim]
+      block_tables  [B, max_blocks] int32 (padded with 0 = null block)
+      slots         [B, S] int32 — destination block of each new token
+      offs          [B, S] int32 — destination offset inside that block
+      qpos          [B, S] int32 — absolute position of each query token
+                    (also the model's position-embedding indices)
+      q_start       [B] int32 — first query position per row
+      kv_live       [B] int32 — live KV blocks per row (>= 1)
+      q_lens        [B] int32 — live query tokens per row (None = full)
+    """
+
+    is_paged = True
+
+    def __init__(self, k, v, block_tables, slots, offs, qpos, q_start=None,
+                 kv_live=None, q_lens=None):
+        self.k = k
+        self.v = v
+        self.block_tables = block_tables
+        self.slots = slots
+        self.offs = offs
+        self.qpos = qpos
+        self.q_start = q_start
+        self.kv_live = kv_live
+        self.q_lens = q_lens
+
+    def layer(self, i):
+        return PagedLayerView(self, i)
+
+
+def scatter_kv(arena, layer, slots, offs, new):
+    """Write `new` [B, S, H, D] into ``arena[layer]`` at (slots, offs), in
+    place. ``arena[layer]`` is a view [H, N, bs, D]; the two adjacent index
+    tensors make the indexed result [H, B, S, D] (torch applies the integer
+    `layer` first, unlike numpy, whose broadcast dims would land in front),
+    hence the permute of `new`."""
+    arena[layer][:, slots, offs] = new.permute(2, 0, 1, 3).to(arena.dtype)
+
+
+def paged_attention(q, k_new, v_new, view, scale=None):
+    """Append `k_new`/`v_new` [B, S, heads, head_dim] into the arena and
+    attend `q` through the block table (ops/paged_attention.py's dispatch).
+    Returns [B, S, heads, head_dim]."""
+    from ..ops.paged_attention import paged_attention_arrays
+
+    st, layer = view.state, view.layer
+    scatter_kv(st.k, layer, st.slots, st.offs, k_new)
+    scatter_kv(st.v, layer, st.slots, st.offs, v_new)
+    return paged_attention_arrays(
+        q, st.k, st.v, layer, st.block_tables, st.qpos,
+        q_start=st.q_start, kv_live=st.kv_live, q_lens=st.q_lens,
+        scale=scale)
+
+
+class BlockPool:
+    """Host-side allocator over the device arena.
+
+    Owns the K/V arena tensors plus the two-tier free bookkeeping:
+    ``_free`` (truly free blocks) and ``_cached`` (refcount-0 blocks whose
+    full-block KV is still valid and published in ``_hash_index``, LRU
+    order). A held block lives in ``_refcount``; every holder releases
+    exactly once, and a release below zero raises. The arena lives on
+    `device` (None = CUDA, which must exist).
+    """
+
+    def __init__(self, num_blocks, num_layers, block_size, num_heads,
+                 head_dim, dtype=torch.float32, device=None, metrics=None):
+        if num_blocks < 2:
+            raise ValueError("BlockPool needs >= 2 blocks (block 0 is null)")
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        self.device = resolve_device(device)
+        shape = (num_layers, num_heads, self.num_blocks, self.block_size,
+                 head_dim)
+        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.kv_dtype = str(dtype).replace("torch.", "")
+        # block 0 reserved as the null/scratch block
+        self._free = list(range(self.num_blocks - 1, 0, -1))
+        self._refcount = {}           # block -> holders (held blocks only)
+        self._hash_index = {}         # content hash -> block
+        self._block_hash = {}         # block -> content hash (inverse)
+        self._cached = OrderedDict()  # refcount-0 indexed blocks, LRU order
+        self.evictions = 0
+        self.metrics = metrics
+
+    @property
+    def num_free(self):
+        """Allocatable blocks: truly free PLUS evictable cached-free."""
+        return len(self._free) + len(self._cached)
+
+    @property
+    def num_truly_free(self):
+        """Blocks allocatable without evicting a cached prefix block."""
+        return len(self._free)
+
+    @property
+    def num_cached_blocks(self):
+        return len(self._cached)
+
+    def blocks_for(self, num_tokens):
+        return blocks_for(num_tokens, self.block_size)
+
+    def bytes_per_block(self):
+        """Device bytes one block costs: K + V payloads over all layers."""
+        L, H, _, bs, D = self.k.shape
+        return 2 * L * H * bs * D * self.k.element_size()
+
+    def refcount(self, block):
+        return self._refcount.get(int(block), 0)
+
+    def block_hash(self, block):
+        return self._block_hash.get(int(block))
+
+    def allocate(self, n, evict=True):
+        """Pop `n` blocks, or None if not enough. Truly-free blocks go
+        first; then cached-free blocks are evicted LRU-first. ``evict=False``
+        restricts the request to truly-free blocks (speculative
+        reservations never push a cached prefix out)."""
+        if n > (self.num_free if evict else len(self._free)):
+            return None
+        out = []
+        for _ in range(n):
+            if self._free:
+                b = self._free.pop()
+            else:
+                b, _ = self._cached.popitem(last=False)  # LRU victim
+                h = self._block_hash.pop(b)
+                del self._hash_index[h]
+                self.evictions += 1
+                if self.metrics is not None:
+                    self.metrics.inc("prefix_cache_evictions")
+            self._refcount[b] = 1
+            out.append(b)
+        return out
+
+    def release(self, blocks, hashes=()):
+        """Drop one holder's reference on each of `blocks`. A block whose
+        refcount reaches zero retires to the cached-free tier when
+        ``hashes[i]`` supplies its content hash, to the truly-free list
+        otherwise. Raises on the null block and on a double free."""
+        for i, b in enumerate(blocks):
+            b = int(b)
+            if b == 0:
+                raise ValueError("cannot free the null block")
+            rc = self._refcount.get(b)
+            if rc is None:
+                raise ValueError(f"double free of block {b}")
+            if rc > 1:
+                self._refcount[b] = rc - 1
+                continue
+            del self._refcount[b]
+            self._retire(b, hashes[i] if i < len(hashes) else None)
+
+    def _retire(self, b, h):
+        """Move refcount-0 block `b` to its tier, keeping ``_hash_index``
+        and ``_block_hash`` exact inverses."""
+        old = self._block_hash.get(b)
+        if h is None:
+            if old is not None:
+                del self._hash_index[old]
+                del self._block_hash[b]
+            self._free.append(b)
+            return
+        if old is not None and old != h:
+            del self._hash_index[old]
+            del self._block_hash[b]
+        owner = self._hash_index.get(h)
+        if owner is not None and owner != b:
+            # another block already serves this content: free truly
+            self._free.append(b)
+            return
+        self._hash_index[h] = b
+        self._block_hash[b] = h
+        self._cached[b] = h           # MRU end of the LRU order
+
+    def match_prefix(self, hashes):
+        """Longest cached prefix: pin (refcount++) every block `hashes`
+        walks through the index, stopping at the first miss. Returns the
+        pinned block ids in prefix order."""
+        out = []
+        for h in hashes:
+            b = self._hash_index.get(h)
+            if b is None:
+                break
+            if b in self._cached:
+                del self._cached[b]
+                self._refcount[b] = 1
+            else:
+                self._refcount[b] += 1
+            out.append(b)
+        return out
+
+    def copy_blocks(self, src, dst):
+        """Copy arena blocks `src` into blocks `dst` in place (the
+        copy-on-write path), over every layer and head."""
+        s = torch.as_tensor(src, dtype=torch.long, device=self.device)
+        d = torch.as_tensor(dst, dtype=torch.long, device=self.device)
+        self.k.index_copy_(2, d, self.k.index_select(2, s))
+        self.v.index_copy_(2, d, self.v.index_select(2, s))
+
+    def table_for(self, blocks, max_blocks):
+        """Padded [max_blocks] int32 block table (0-padded)."""
+        t = np.zeros(max_blocks, np.int32)
+        t[: len(blocks)] = blocks
+        return t
+
+    def positions_to_slots(self, blocks, start, count, width):
+        """(slots[width], offs[width]) scatter targets for token positions
+        [start, start+count); positions beyond `count` go to the null
+        block. `width` is the padded step width."""
+        pos = np.arange(width)
+        idx = (start + pos) // self.block_size
+        offs = ((start + pos) % self.block_size).astype(np.int32)
+        btab = np.asarray(blocks, np.int64)
+        valid = (pos < count) & (idx < len(btab))
+        slots = np.where(valid, btab[np.minimum(idx, len(btab) - 1)], 0)
+        return slots.astype(np.int32), np.where(valid, offs, 0).astype(np.int32)

@@ -1,0 +1,535 @@
+"""LLMEngine: continuous-batching generation over the paged KV cache.
+
+`add_request` enqueues, `step` runs ONE mixed device step (decode rows plus
+chunked-prefill rows, planned by the scheduler), `stream` yields a request's
+tokens as they land, `generate` runs a batch to completion.
+
+- Every planned row is ragged: a decode row feeds its 1 pending token, a
+  prefill row its next ``<= prefill_chunk`` tokens, a speculative row its
+  pending token plus up to ``num_spec_tokens`` drafted candidates. A step's
+  width is the smallest **width bucket** covering its widest row (by
+  default ``{1, 1 + num_spec_tokens (spec engines), prefill_chunk}``), and
+  the ragged kernel keeps a narrow row cheap inside a wide step.
+- **Sampling and the speculative accept decision run on the device**
+  (serving/spec.py), and the step returns ONE packed int32 tensor
+  ``[B, K + 3]`` (emitted run, accept length, row-finite flag), which the
+  host reads with exactly one ``.cpu()`` per step, counted in the
+  ``host_syncs`` counter.
+- **Prefix caching** (on by default): full-block prompt hashes are chained
+  once at `add`, the scheduler pins a cached prefix at admission, and freed
+  blocks park in the pool's cached-free LRU tier.
+- A row whose logits are not finite is aborted with
+  ``error:nonfinite_logits`` instead of sampling garbage (``step_faults``).
+
+Greedy outputs are token-for-token identical to `GPT.generate`: the same
+attention math runs through the block table instead of a contiguous cache
+(the plain version on the CPU; the CUDA kernel on the card matches it to
+kernel-accumulation tolerance).
+
+The engine runs on CUDA unless `device` says otherwise; the model must
+live on the engine's device. Options of the JAX engine that this port does
+not have yet raise `NotImplementedError` at construction.
+"""
+from __future__ import annotations
+
+import time
+from collections import namedtuple
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from .block_pool import BlockPool, PagedState, blocks_for, chain_block_hashes
+from .metrics import ServingMetrics
+from .scheduler import Request, Scheduler
+from .spec import NgramDrafter, filter_active, spec_emit_arrays
+
+StepOutput = namedtuple("StepOutput", ["request_id", "token", "finished"])
+
+# constructor options of the JAX engine that later slices of the port add
+# (ROADMAP.md), with the value that means "off"
+_LATER = {
+    "mesh": (None, "tensor-parallel serving"),
+    "kv_dtype": (None, "the int8 KV arena"),
+    "quantize": (None, "int8 (AdaRound) weights"),
+    "lora_slots": (0, "LoRA adapter serving"),
+    "host_kv_blocks": (None, "the host KV tier"),
+    "policy": (None, "the scheduling policy"),
+    "trace": (None, "the lifecycle tracer"),
+    "slo": (None, "the SLO ledger"),
+    "checkpoint_path": (None, "checkpoint streaming"),
+}
+
+# host metadata packed into one int32 transfer per step: [B, W] fields,
+# then [B, max_blocks] tables, then the [B] fields
+_ROW_FIELDS = ("ids", "qpos", "slots", "offs")
+_LANE_FIELDS = ("q_start", "kv_live", "last_idx", "spec_lens", "top_ks")
+
+
+class LLMEngine:
+    def __init__(self, model, device=None, block_size=16, num_blocks=None,
+                 max_batch=4, prefill_chunk=None, token_budget=None,
+                 max_seq_len=None, seed=0, prefix_cache=True,
+                 spec_decoding=False, num_spec_tokens=4, spec_max_ngram=3,
+                 spec_min_ngram=1, kv_hbm_bytes=None, width_buckets=None,
+                 **later):
+        for name, value in later.items():
+            if name not in _LATER:
+                raise TypeError(f"LLMEngine got an unexpected keyword "
+                                f"argument {name!r}")
+            off, what = _LATER[name]
+            if value is not None and value is not False and value != off:
+                raise NotImplementedError(
+                    f"{name}={value!r}: {what} is not in the first slice of "
+                    "the PyTorch port; ROADMAP.md queues it for a later one")
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(
+                f"model lives on {model.device} but the engine runs on "
+                f"{self.device}: build the model on the engine's device")
+        model.eval()
+        self.model = model
+        cfg = model.cfg
+        self.max_seq_len = int(max_seq_len or cfg.max_seq_len)
+        if self.max_seq_len > cfg.max_seq_len:
+            raise ValueError(
+                f"max_seq_len {self.max_seq_len} exceeds the model's "
+                f"max_seq_len {cfg.max_seq_len}")
+        self.block_size = int(block_size)
+        self.max_blocks = -(-self.max_seq_len // self.block_size)
+        self.max_batch = int(max_batch)
+        head_dim = cfg.hidden_size // cfg.num_heads
+        if kv_hbm_bytes is not None:
+            if num_blocks is not None:
+                raise ValueError(
+                    "pass num_blocks OR kv_hbm_bytes, not both — the byte "
+                    "budget would be silently ignored")
+            per_block = (2 * cfg.num_layers * cfg.num_heads * self.block_size
+                         * head_dim * model.wte.weight.element_size())
+            num_blocks = int(kv_hbm_bytes) // per_block
+            worst = blocks_for(self.max_seq_len - 1, self.block_size)
+            if num_blocks < 1 + worst:
+                raise ValueError(
+                    f"kv_hbm_bytes {kv_hbm_bytes} buys only {num_blocks} KV "
+                    f"blocks but one max_seq_len={self.max_seq_len} "
+                    f"sequence needs {worst} (+ the null block)")
+        if num_blocks is None:
+            # a full decode batch of max-length sequences (+ the null block)
+            num_blocks = self.max_batch * self.max_blocks + 1
+        if prefill_chunk is None:
+            prefill_chunk = min(128, self.max_seq_len)
+        self.prefill_chunk = max(1, min(int(prefill_chunk), self.max_seq_len))
+        if token_budget is None:
+            token_budget = self.max_batch * self.prefill_chunk
+        self.prefill_chunk = min(self.prefill_chunk, int(token_budget))
+        self.prefix_cache = bool(prefix_cache)
+        self.spec_decoding = bool(spec_decoding)
+        self.num_spec_tokens = int(num_spec_tokens)
+        drafter = None
+        if self.spec_decoding:
+            if self.num_spec_tokens + 1 > self.max_seq_len:
+                raise ValueError(
+                    f"num_spec_tokens {self.num_spec_tokens} does not fit "
+                    f"max_seq_len {self.max_seq_len}")
+            drafter = NgramDrafter(num_spec_tokens=self.num_spec_tokens,
+                                   max_ngram=spec_max_ngram,
+                                   min_ngram=spec_min_ngram)
+        # ragged width buckets: {1, 1 + num_spec_tokens, prefill_chunk}
+        # plus any intermediate widths the caller asks for
+        buckets = {1, self.prefill_chunk}
+        if self.spec_decoding:
+            buckets.add(min(1 + self.num_spec_tokens, self.max_seq_len))
+        top = max(buckets)
+        for w in width_buckets or ():
+            w = int(w)
+            if w < 1:
+                raise ValueError(f"width_buckets entries must be >= 1; "
+                                 f"got {w}")
+            if w <= top:
+                buckets.add(w)
+        self.width_buckets = sorted(buckets)
+        self.metrics = ServingMetrics()
+        self.pool = BlockPool(num_blocks, cfg.num_layers, self.block_size,
+                              cfg.num_heads, head_dim, dtype=model.dtype,
+                              device=self.device, metrics=self.metrics)
+        self.scheduler = Scheduler(
+            self.pool, max_batch=self.max_batch,
+            token_budget=int(token_budget), prefill_chunk=self.prefill_chunk,
+            metrics=self.metrics, prefix_cache=self.prefix_cache,
+            drafter=drafter, width_buckets=self.width_buckets)
+        self._requests = {}
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
+        self.step_count = 0      # planned steps run
+        self.step_faults = []    # (rid, detail) rows contained this step
+
+    # -- request lifecycle -------------------------------------------------
+
+    def add_request(self, prompt_ids, max_new_tokens=16, temperature=0.0,
+                    eos_token_id=None, request_id=None, top_k=None,
+                    top_p=None, spec_decoding=None, num_spec_tokens=None):
+        """Enqueue one generation request; returns its id. Admission
+        happens inside a later `step()`."""
+        prompt_ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
+        req = Request(prompt_ids, max_new_tokens=max_new_tokens,
+                      temperature=temperature, eos_token_id=eos_token_id,
+                      request_id=request_id, top_k=top_k, top_p=top_p,
+                      spec_decoding=spec_decoding,
+                      num_spec_tokens=num_spec_tokens)
+        return self.add(req)
+
+    def kv_capacity_blocks(self):
+        """Usable KV blocks (the null block excluded)."""
+        return self.pool.num_blocks - 1
+
+    def validate(self, req):
+        """Raise ValueError on a request that could never complete: too
+        long for the model, or needing more KV blocks at its worst case
+        than the pool holds. Returns that worst-case block need."""
+        if req.num_tokens + req.max_new_tokens > self.max_seq_len:
+            raise ValueError(
+                f"request {req.request_id}: prompt {req.num_tokens} + "
+                f"{req.max_new_tokens} new tokens exceeds max_seq_len "
+                f"{self.max_seq_len}")
+        need = self.pool.blocks_for(req.num_tokens + req.max_new_tokens - 1)
+        if need > self.kv_capacity_blocks():
+            raise ValueError(
+                f"request {req.request_id}: needs up to {need} KV blocks "
+                f"but the pool only has {self.kv_capacity_blocks()} usable "
+                "— raise num_blocks or shorten the request")
+        return need
+
+    def add(self, req):
+        """Enqueue a pre-built Request. Returns the request id."""
+        self.validate(req)
+        if req.request_id in self._requests:
+            raise ValueError(f"duplicate request id {req.request_id}")
+        if self.prefix_cache and not req.block_hashes:
+            req.block_hashes = chain_block_hashes(req.prompt_ids,
+                                                  self.block_size)
+        self._requests[req.request_id] = req
+        self.scheduler.add(req)
+        self.metrics.inc("requests_added")
+        return req.request_id
+
+    def abort(self, request_id, reason="aborted"):
+        """Cancel a request in any live state; its KV blocks return to the
+        pool. Returns True if a live request was aborted."""
+        req = self._requests.get(request_id)
+        if req is None or req.finished:
+            return False
+        self.scheduler.abort(req)
+        del self._requests[request_id]
+        self._finalize(req, reason)
+        return True
+
+    def has_unfinished(self):
+        return self.scheduler.has_unfinished()
+
+    def get_request(self, request_id):
+        return self._requests[request_id]
+
+    def release(self, request_id):
+        """Drop a finished request's host-side record."""
+        req = self._requests.pop(request_id)
+        if not req.finished:
+            self._requests[request_id] = req
+            raise ValueError(
+                f"request {request_id} is still {req.state}; release only "
+                "finished requests")
+
+    # -- the device step -----------------------------------------------------
+
+    def _draft_capacity(self, W):
+        """Draft capacity K of a width-``W`` step: the packed result is
+        ``[B, K + 3]``. Width 1 degenerates to the one-token sampler."""
+        return min(self.num_spec_tokens if self.spec_decoding else 0, W - 1)
+
+    def expected_program_count(self):
+        """How many step shapes this engine can run: one per width
+        bucket. PyTorch runs eagerly, so nothing is compiled per shape;
+        the count bounds the distinct widths `step` uses."""
+        return len(self.width_buckets)
+
+    def _width_for(self, w):
+        for b in self.width_buckets:
+            if b >= w:
+                return b
+        raise AssertionError(
+            f"step width {w} exceeds the top width bucket "
+            f"{self.width_buckets[-1]} — scheduler width capping broke")
+
+    def _to_device(self, a, W):
+        """Move one step's host arrays to the device in two transfers (one
+        int32, one float32) and return the device tensors by name."""
+        B, nb = self.max_batch, self.max_blocks
+        ints = np.concatenate(
+            [a[f].reshape(-1) for f in _ROW_FIELDS]
+            + [a["tables"].reshape(-1)] + [a[f] for f in _LANE_FIELDS])
+        floats = np.stack([a["temps"], a["top_ps"]])
+        ints = torch.from_numpy(ints).to(self.device)
+        floats = torch.from_numpy(floats).to(self.device)
+        t, o = {}, 0
+        for f in _ROW_FIELDS:
+            t[f] = ints[o:o + B * W].view(B, W)
+            o += B * W
+        t["tables"] = ints[o:o + B * nb].view(B, nb)
+        o += B * nb
+        for f in _LANE_FIELDS:
+            t[f] = ints[o:o + B]
+            o += B
+        t["temps"], t["top_ps"] = floats[0], floats[1]
+        return t
+
+    @torch.inference_mode()
+    def _device_step(self, t, W, sample, filter_on):
+        """The unified ragged step on the device: the forward over every
+        row's fed tokens (writing their K/V into the arena), the scored
+        window of ``K + 1`` positions from each row's last chunk token,
+        the row-finite check, sampling and the speculative accept
+        decision. Returns the packed ``[B, K + 3]`` int32 tensor (still on
+        the device)."""
+        K = self._draft_capacity(W)
+        last_idx, spec_lens = t["last_idx"], t["spec_lens"]
+        # per-row live width for the ragged kernel: chunk tokens through
+        # last_idx plus the drafted candidates
+        q_lens = last_idx + 1 + spec_lens
+        state = PagedState(self.pool.k, self.pool.v, t["tables"], t["slots"],
+                           t["offs"], t["qpos"], q_start=t["q_start"],
+                           kv_live=t["kv_live"], q_lens=q_lens)
+        h, _ = self.model.hidden(t["ids"], caches=state)
+        # the scored window: position last_idx + j scores the distribution
+        # after fed token last_idx + j (j = 0 samples, j >= 1 verifies)
+        win = (last_idx[:, None].long()
+               + torch.arange(K + 1, device=self.device)[None, :])
+        win = win.clamp(0, W - 1)
+        hw = torch.gather(h, 1, win[..., None].expand(-1, -1, h.shape[-1]))
+        lg = self.model.logits(hw).float()
+        win_ids = torch.gather(t["ids"], 1, win)
+        # non-finite containment over each row's LIVE window positions
+        live = torch.arange(K + 1, device=self.device)[None, :] \
+            <= spec_lens[:, None]
+        pos_ok = torch.isfinite(lg).all(dim=-1)
+        row_ok = torch.where(live, pos_ok, torch.ones_like(pos_ok)).all(-1)
+        run, n_acc = spec_emit_arrays(
+            lg, win_ids, spec_lens, t["temps"], t["top_ks"], t["top_ps"],
+            generator=self._gen, sample=sample, filter_on=filter_on)
+        return torch.cat([run, n_acc[:, None],
+                          row_ok.to(torch.int32)[:, None]], dim=1)
+
+    # -- one engine step -----------------------------------------------------
+
+    def step(self):
+        """Run one mixed (or pure-decode) step; returns [StepOutput] for
+        every request that produced a token. Rows with non-finite logits
+        emit nothing; they are aborted and listed in ``self.step_faults``
+        as ``(request_id, detail)`` pairs."""
+        self.step_faults = []
+        rows = self.scheduler.schedule()
+        if not rows:
+            return []
+        self.step_count += 1
+        W = self._width_for(max(r.count + len(r.draft) for r in rows))
+        if any(r.count > 1 for r in rows):
+            kind = "mixed"
+        elif any(r.draft for r in rows):
+            kind = "verify"
+        else:
+            kind = "decode"
+        with self.metrics.timed(f"{kind}_step"):
+            outs = self._run_rows(rows, W)
+        self.metrics.inc(f"{kind}_steps")
+        self.metrics.set_gauge(
+            "tokens_in_flight",
+            sum(r.num_tokens for r in self.scheduler.running))
+        usable = self.pool.num_blocks - 1
+        self.metrics.set_gauge("block_utilization",
+                               (usable - self.pool.num_free) / usable)
+        self.metrics.set_gauge("num_running", len(self.scheduler.running))
+        self.metrics.set_gauge("num_waiting", len(self.scheduler.waiting))
+        c = self.metrics.counters
+        self.metrics.set_gauge("tokens_per_step",
+                               c.get("generated_tokens", 0) / self.step_count)
+        if self.spec_decoding and c.get("spec_proposed_tokens"):
+            self.metrics.set_gauge(
+                "spec_acceptance_rate",
+                c["spec_accepted_tokens"] / c["spec_proposed_tokens"])
+            self.metrics.set_gauge(
+                "spec_mean_accepted_len",
+                c["spec_accepted_tokens"] / c["spec_drafted_rows"])
+        if self.prefix_cache:
+            self.metrics.set_gauge("prefix_cached_blocks",
+                                   self.pool.num_cached_blocks)
+            lookup = c.get("prefix_cache_lookup_tokens", 0)
+            if lookup:
+                self.metrics.set_gauge(
+                    "prefix_cache_hit_rate",
+                    c.get("prefix_cache_hit_tokens", 0) / lookup)
+        return outs
+
+    def _row_arrays(self, S):
+        """Zeroed per-step host arrays for the unified ragged step."""
+        B = self.max_batch
+        return {
+            "ids": np.zeros((B, S), np.int32),
+            "qpos": np.zeros((B, S), np.int32),
+            "slots": np.zeros((B, S), np.int32),
+            "offs": np.zeros((B, S), np.int32),
+            "tables": np.zeros((B, self.max_blocks), np.int32),
+            "temps": np.zeros(B, np.float32),
+            "top_ks": np.zeros(B, np.int32),
+            "top_ps": np.ones(B, np.float32),
+            "q_start": np.zeros(B, np.int32),
+            # idle lanes walk just the null block
+            "kv_live": np.ones(B, np.int32),
+            "last_idx": np.zeros(B, np.int32),
+            "spec_lens": np.zeros(B, np.int32),
+        }
+
+    def _fill_row(self, a, i, req, start, w, S):
+        """Everything about row `i` that does not depend on WHICH tokens
+        are fed: scatter targets for positions [start, start+w), the block
+        table, and the per-row sampling knobs."""
+        a["qpos"][i, :w] = np.arange(start, start + w)
+        a["slots"][i], a["offs"][i] = self.pool.positions_to_slots(
+            req.blocks, start, w, S)
+        a["tables"][i] = self.pool.table_for(req.blocks, self.max_blocks)
+        a["temps"][i] = req.temperature
+        a["top_ks"][i] = req.top_k or 0
+        a["top_ps"][i] = 1.0 if req.top_p is None else req.top_p
+        a["q_start"][i] = start
+        a["kv_live"][i] = (start + w - 1) // self.block_size + 1
+
+    def _run_rows(self, rows, W):
+        """Run one unified ragged step at width bucket `W` and publish its
+        tokens. The host reads ONE packed tensor (the step's single
+        device->host transfer). Rejected speculative tails roll back:
+        their KV slots are stale (overwritten before they are ever
+        attended) and their reserved blocks return via
+        `reclaim_spec_blocks`."""
+        a = self._row_arrays(W)
+        for i, row in enumerate(rows):
+            req, start, count, k = row.req, row.start, row.count, len(row.draft)
+            if start == req.num_tokens - 1:
+                a["ids"][i, 0] = req.last_token   # decode fast path
+            else:
+                a["ids"][i, :count] = req.all_ids[start:start + count]
+            if k:
+                a["ids"][i, count:count + k] = row.draft
+            a["last_idx"][i] = count - 1
+            a["spec_lens"][i] = k
+            self._fill_row(a, i, req, start, count + k, W)
+        K = self._draft_capacity(W)
+        sample = bool((a["temps"] > 0.0).any())
+        filter_on = sample and filter_active(
+            a["top_ks"], a["top_ps"], self.model.cfg.vocab_size)
+        packed_dev = self._device_step(self._to_device(a, W), W, sample,
+                                       filter_on)
+        # THE host sync of the step
+        packed = packed_dev.cpu().numpy()
+        self.metrics.inc("host_syncs")
+        run, n_accs, row_ok = (packed[:, :K + 1], packed[:, K + 1],
+                               packed[:, K + 2])
+        outs = []
+        for i, row in enumerate(rows):
+            req, k = row.req, len(row.draft)
+            if not row_ok[i]:
+                self._poison(req, "nonfinite_logits")
+                continue
+            n_acc = min(int(n_accs[i]), k)
+            if k:
+                self.metrics.inc("spec_drafted_rows")
+                self.metrics.inc("spec_proposed_tokens", k)
+                self.metrics.inc("spec_accepted_tokens", n_acc)
+                req.spec_accepted += n_acc
+            # the fed run [chunk tokens, accepted drafts] is real content:
+            # advance num_cached BEFORE emitting (release publishes full
+            # prompt blocks off num_cached)
+            req.num_cached += row.count + n_acc
+            if not row.emit:
+                continue
+            for tok in run[i, :n_acc + 1]:
+                outs.append(self._emit(req, int(tok)))
+                if req.finished:
+                    break
+            if k and not req.finished:
+                self.scheduler.reclaim_spec_blocks(req)
+        return outs
+
+    def _poison(self, req, detail):
+        """Abort one row with non-finite logits, never publishing the
+        blocks its own prefill wrote."""
+        req.block_hashes = req.block_hashes[:req.num_matched_blocks]
+        self.metrics.inc("nonfinite_rows")
+        self.step_faults.append((req.request_id, detail))
+        self.abort(req.request_id, reason=f"error:{detail}")
+
+    def _emit(self, req, token):
+        if not req.output_ids:
+            now = time.monotonic()
+            req.first_token_time = now
+            self.metrics.observe("ttft", now - req.arrival_time,
+                                 interval=False)
+        req.output_ids.append(token)
+        self.metrics.inc("generated_tokens")
+        done = (len(req.output_ids) >= req.max_new_tokens
+                or (req.eos_token_id is not None
+                    and token == req.eos_token_id))
+        if done:
+            self.scheduler.finish(req)
+            self.metrics.inc("requests_finished")
+            self._finalize(req, "finished")
+        return StepOutput(req.request_id, token, done)
+
+    def _finalize(self, req, reason):
+        """Every terminal path (finish, abort) ends here: the request
+        records why it ended."""
+        req.finish_reason = reason
+
+    def pool_stats(self):
+        """Block-pool occupancy by tier plus scheduler queue depths."""
+        usable = self.pool.num_blocks - 1
+        return {
+            "kv_dtype": self.pool.kv_dtype,
+            "kv_bytes_per_block": self.pool.bytes_per_block(),
+            "blocks_total": usable,
+            "blocks_truly_free": self.pool.num_truly_free,
+            "blocks_cached_free": self.pool.num_cached_blocks,
+            "blocks_allocated": usable - self.pool.num_free,
+            "requests_running": len(self.scheduler.running),
+            "requests_waiting": len(self.scheduler.waiting),
+        }
+
+    # -- conveniences --------------------------------------------------------
+
+    def stream(self, prompt_ids, **kwargs):
+        """Add one request and yield its StepOutputs as tokens land; other
+        in-flight requests keep decoding in the same steps."""
+        rid = self.add_request(prompt_ids, **kwargs)
+        req = self._requests[rid]
+        emitted = 0
+        while True:
+            if emitted < len(req.output_ids):
+                tok = req.output_ids[emitted]
+                emitted += 1
+                last = req.finished and emitted == len(req.output_ids)
+                yield StepOutput(rid, tok, last)
+                if last:
+                    self.release(rid)
+                    return
+                continue
+            if req.finished:
+                self.release(rid)
+                return
+            self.step()
+
+    def generate(self, prompts, **kwargs):
+        """Add every prompt, run to completion, return each request's
+        generated token list (in input order)."""
+        rids = [self.add_request(p, **kwargs) for p in prompts]
+        while self.has_unfinished():
+            self.step()
+        outs = [list(self._requests[r].output_ids) for r in rids]
+        for r in rids:
+            self.release(r)
+        return outs

@@ -1,0 +1,623 @@
+"""Serving metrics: counters, gauges, and step-latency intervals.
+
+Kept deliberately framework-free (plain dicts/floats) so three consumers can
+read them without adapters:
+
+- `snapshot()`  — flat JSON-able dict for `bench.py` and log shipping;
+- `schedule_view()` — per-plane span/busy/idle/utilization/top_gaps stats
+  of the recorded step intervals (`interval_union_stats`);
+- `prometheus_text()` — Prometheus text exposition for the HTTP frontend's
+  `/metrics` endpoint (serving/server.py): counters, gauges, duration
+  summaries with p50/p95 quantiles, plus LABELED families — `inc_labeled`
+  counters, `set_labeled_gauges` gauge families (the scheduling policy's
+  per-class queue depths and tenant shares), and `observe_hist` true
+  cumulative histograms (ordered ``le`` buckets ending ``+Inf`` with
+  ``_sum``/``_count``), which the SLO ledger (serving/slo.py) uses for
+  its per-tenant/priority-class series;
+- direct attribute access for tests (`metrics.counters["preemptions"]`).
+
+Counters and gauges are open-ended (a `defaultdict` — every series any
+producer `inc`s flows into all three exports). The prefix-cache series the
+engine/scheduler/pool emit when caching is on:
+
+- counters `prefix_cache_lookup_tokens` (full-block prompt tokens walked
+  through the index at admission), `prefix_cache_hit_tokens` (tokens of
+  MATCHED blocks — a fully-cached prompt counts 100% even though its last
+  token is re-fed as the query), `prefix_cache_evictions` (cached-free
+  blocks reclaimed by `allocate`), `prefix_cache_cow_copies`
+  (copy-on-write duplications of shared blocks);
+- gauges `prefix_cache_hit_rate` (cumulative hit/lookup) and
+  `prefix_cached_blocks` (blocks parked in the cached-free tier).
+
+The speculative-decoding series (engine emits when spec decoding is on):
+
+- counters `spec_proposed_tokens` (drafted candidates fed through verify
+  steps), `spec_accepted_tokens` (candidates that survived verification),
+  `spec_drafted_rows` (verify rows that carried a draft), `verify_steps`
+  and the `verify_step` duration series (next to `mixed_step` /
+  `decode_step`);
+- gauges `spec_acceptance_rate` (cumulative accepted/proposed),
+  `spec_mean_accepted_len` (accepted per drafted row), and
+  `tokens_per_step` (generated tokens per device step — THE number
+  speculative decoding exists to raise above 1.0).
+"""
+from __future__ import annotations
+
+import bisect
+import re
+import threading
+import time
+from collections import defaultdict
+
+_NAME_RE = re.compile(r"[^a-zA-Z0-9_]")
+
+# default latency buckets (seconds) for `observe_hist` — a cumulative
+# histogram's resolution is fixed at first observation, so these span
+# sub-millisecond decode steps through multi-second queue waits
+DEFAULT_LATENCY_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+)
+
+
+def interval_union_stats(intervals, to_ms=1.0, top_gaps=10, min_span=1e-12,
+                         name_limit=None):
+    """Merge (start, end, name) intervals into per-plane schedule stats:
+    overlaps union into busy time, the gaps between merged runs become
+    top_gaps. `to_ms` converts the caller's units to milliseconds and
+    `min_span` floors the utilization denominator. An empty interval list
+    yields a zeroed record rather than an error."""
+    iv = sorted(intervals)
+    if not iv:
+        return {"span_ms": 0.0, "busy_ms": 0.0, "idle_ms": 0.0,
+                "utilization": 0.0, "n_ops": 0, "top_gaps": []}
+    span_start = iv[0][0]
+    span_end = max(e for _, e, _ in iv)
+    busy = 0
+    gaps = []
+    cur_s, cur_e, last_name = iv[0]
+    for s, e, name in iv[1:]:
+        if s <= cur_e:
+            if e >= cur_e:
+                cur_e, last_name = e, name
+        else:
+            busy += cur_e - cur_s
+            gaps.append((s - cur_e, last_name, name))
+            cur_s, cur_e, last_name = s, e, name
+    busy += cur_e - cur_s
+    span = max(span_end - span_start, min_span)
+    gaps.sort(key=lambda g: -g[0])
+    trim = (lambda n: n[:name_limit]) if name_limit else (lambda n: n)
+    return {
+        "span_ms": span * to_ms,
+        "busy_ms": busy * to_ms,
+        "idle_ms": (span - busy) * to_ms,
+        "utilization": busy / span,
+        "n_ops": len(iv),
+        "top_gaps": [
+            {"gap_ms": g * to_ms, "after_op": trim(a), "before_op": trim(b)}
+            for g, a, b in gaps[:top_gaps]
+        ],
+    }
+
+
+def _escape_label_value(v):
+    """Exposition-format label-value escaping: a raw backslash, quote, or
+    newline in a label value (e.g. an adversarial tenant name) would
+    invalidate the WHOLE scrape."""
+    return (str(v).replace("\\", r"\\").replace('"', r"\"")
+            .replace("\n", r"\n"))
+
+
+def _label_tuple(labels):
+    """Normalize a labels mapping to the sorted (key, value) tuple the
+    stores key series by — one canonical order, so {a, b} and {b, a}
+    are the same series."""
+    if not labels:
+        return ()
+    return tuple(sorted((str(k), str(v)) for k, v in dict(labels).items()))
+
+
+def _label_body(label_t, extra=()):
+    return ",".join(
+        f'{_NAME_RE.sub("_", k)}="{_escape_label_value(v)}"'
+        for k, v in tuple(label_t) + tuple(extra))
+
+# HELP text for the well-known series (open-ended producers get a generic
+# fallback). Scrapers surface these verbatim, so say what the number IS,
+# not how it is computed.
+_HELP = {
+    "requests_added": "Requests accepted by the engine",
+    "requests_finished": "Requests that ran to natural completion",
+    "requests_aborted": "Requests cancelled in-flight (disconnect, "
+                        "deadline, policy)",
+    "requests_rejected": "Requests rejected at admission (bounded queue "
+                         "full)",
+    "generated_tokens": "Tokens emitted across all requests",
+    "preemptions": "Sequences preempted-by-recompute for KV blocks",
+    "mixed_steps": "Device steps carrying at least one prefill chunk",
+    "decode_steps": "Pure-decode device steps",
+    "verify_steps": "Speculative verify device steps",
+    "jit_traces": "XLA program traces (recompile alarm; constant after "
+                  "warmup)",
+    "mixed_step": "Mixed-step wall time",
+    "decode_step": "Decode-step wall time",
+    "verify_step": "Verify-step wall time",
+    "ttft": "Request arrival to first emitted token",
+    "tokens_in_flight": "Tokens held by running sequences",
+    "num_running": "Sequences in the running batch",
+    "num_waiting": "Requests waiting for a lane",
+    "block_utilization": "Fraction of usable KV blocks allocated",
+    "tokens_per_step": "Generated tokens per device step",
+    "prefix_cache_hit_tokens": "Prompt tokens served from the prefix "
+                               "cache",
+    "prefix_cache_lookup_tokens": "Prompt tokens walked through the "
+                                  "prefix index",
+    "prefix_cache_evictions": "Cached-free blocks evicted by allocation",
+    "prefix_cache_cow_copies": "Copy-on-write block duplications",
+    "prefix_cache_hit_rate": "Cumulative prefix-cache hit/lookup ratio",
+    "prefix_cached_blocks": "Blocks parked in the cached-free tier",
+    "spec_proposed_tokens": "Drafted candidate tokens fed to verify "
+                            "steps",
+    "spec_accepted_tokens": "Drafted tokens that survived verification",
+    "spec_drafted_rows": "Verify rows that carried a draft",
+    "spec_acceptance_rate": "Cumulative accepted/proposed draft ratio",
+    "spec_mean_accepted_len": "Accepted draft tokens per drafted row",
+    "jit_retraces": "Re-traces of already-compiled step programs "
+                    "(recompile sentinel; 0 in steady state)",
+    "pool_kv_bytes_per_block": "Device bytes one KV block costs in the "
+                               "active KV dtype (int8 arenas include the "
+                               "f32 scale sidecars)",
+    "pool_blocks_total": "Usable KV blocks in the pool (excludes the "
+                         "null block)",
+    "pool_blocks_truly_free": "KV blocks free and holding no cached "
+                              "prefix",
+    "pool_blocks_cached_free": "Refcount-0 KV blocks parked in the "
+                               "cached-free LRU tier (still matchable)",
+    "pool_blocks_allocated": "KV blocks held by live sequences",
+    "pool_requests_running": "Sequences in the running batch (pool view)",
+    "pool_requests_waiting": "Requests waiting for a lane (pool view)",
+    "pool_host_blocks_total": "Host-tier slab capacity in KV blocks "
+                              "(0 when the tier is off)",
+    "pool_host_blocks_used": "Host-tier slab slots holding a matchable "
+                             "block (resident + pending saves)",
+    "pool_swap_ins": "KV blocks restored from the host tier into the "
+                     "device arena (gauge mirror of swap_ins)",
+    "pool_swap_outs": "Evicted KV blocks demoted to the host slab "
+                      "(gauge mirror of swap_outs)",
+    "pool_swap_in_hit_tokens": "Prefill tokens served from host-tier "
+                               "blocks instead of recompute",
+    "pool_migrated_blocks_out": "KV blocks exported to a peer replica "
+                                "(drain / ejection salvage)",
+    "pool_migrated_blocks_in": "KV blocks adopted from a peer replica's "
+                               "export",
+    "swap_ins": "KV blocks restored from the host tier into the device "
+                "arena",
+    "swap_outs": "Evicted KV blocks demoted to the host slab",
+    "swap_in_hit_tokens": "Prefill tokens served from host-tier blocks "
+                          "instead of recompute",
+    "kv_migrated_blocks_out": "KV blocks exported to a peer replica "
+                              "(drain / ejection salvage)",
+    "kv_migrated_blocks_in": "KV blocks adopted from a peer replica's "
+                             "export",
+    "backpressure_drops": "Streams switched to catch-up mode (consumer "
+                          "lagged)",
+    "client_disconnects": "Requests aborted because the client went away",
+    "frontend_inflight": "Requests admitted by the frontend and not yet "
+                         "finished",
+    "engine_step_errors": "Engine steps that raised (supervisor recovery "
+                          "entered)",
+    "engine_step_retries": "Bisection probe steps run while isolating a "
+                           "poisoned request",
+    "poison_requests_isolated": "Requests attributed by bisection and "
+                                "aborted alone (batch survived)",
+    "nonfinite_rows": "Step rows aborted for NaN/Inf logits "
+                      "(error:nonfinite_logits)",
+    "watchdog_trips": "Stuck-step watchdog firings (engine flipped "
+                      "unhealthy)",
+    "engine_thread_deaths": "Engine threads lost to an escaping "
+                            "exception (crash-safe exit ran)",
+    "engine_unhealthy": "1 when the engine is unhealthy (watchdog trip / "
+                        "thread death), else 0",
+    "requests_cancelled": "Requests aborted via the frontend",
+    "requests_timeout": "Requests aborted by their deadline",
+    "mesh_tp_degree": "Tensor-parallel degree of this replica's serving "
+                      "mesh (1 = single-chip)",
+    "mesh_device_count": "Devices in this replica's serving mesh",
+    "mesh": "Serving mesh topology labels (backend)",
+    "slo_ttft_seconds": "Arrival to first token, by tenant/priority "
+                        "class (SLO ledger)",
+    "slo_tpot_seconds": "Inter-token latency (time per output token), "
+                        "by tenant/priority class",
+    "slo_e2e_seconds": "Request end-to-end wall time, by tenant/priority "
+                       "class",
+    "slo_requests": "Requests finalized by the SLO ledger, by class",
+    "slo_output_tokens": "Output tokens emitted, by tenant/priority "
+                         "class",
+    "slo_phase_seconds": "Request wall time attributed to each lifecycle "
+                         "phase, by class (phases sum to e2e)",
+    "slo_deadline_met": "Requests that finished within their deadline, "
+                        "by class",
+    "slo_deadline_missed": "Requests that finished late or were aborted "
+                           "by their deadline, by class",
+    "slo_deadline_aborted": "Deadline-carrying requests aborted for "
+                            "other reasons, by class",
+    "postmortem_bundles": "Postmortem bundles written by the flight "
+                          "recorder",
+    "postmortem_write_errors": "Flight-recorder bundle writes that "
+                               "failed (disk/permission)",
+    "poison_isolated_in_window": "Poison isolations inside the "
+                                 "supervisor's sliding window",
+    "poison_distinct_sources": "Distinct request sources (tenants) with "
+                               "a poison isolation in the window — the "
+                               "router's sick-chip ejection signal",
+    "router_requests": "Requests submitted to the replica-fleet router",
+    "router_requests_completed": "Routed requests that finished "
+                                 "naturally (length/stop)",
+    "router_requests_failed": "Routed requests that ended with a "
+                              "terminal error",
+    "router_routed_affinity": "Admissions routed to the prefix-affinity "
+                              "home replica",
+    "router_routed_load": "Admissions routed by least-loaded spread "
+                          "(cache-cold or diverted traffic)",
+    "router_affinity_diverted": "Affinity-homed requests diverted to a "
+                                "less-loaded replica to protect their "
+                                "deadline",
+    "router_admission_rejects": "Per-replica admission rejections the "
+                                "router absorbed by trying elsewhere",
+    "router_retries": "Backoff rounds after every eligible replica "
+                      "rejected an admission",
+    "router_replays": "Zero-token requests replayed on another replica "
+                      "after a replica-attributed stream error",
+    "router_midstream_errors": "Streams failed mid-flight by a replica "
+                               "fault after tokens were delivered "
+                               "(never replayed — the safe-retry rule)",
+    "router_early_rejections": "Requests rejected because the predicted "
+                               "queue wait already exceeded their "
+                               "deadline (reject-early beats miss-SLO)",
+    "router_ejections": "Replicas ejected from rotation (unhealthy, "
+                        "dead, or poison-rate)",
+    "router_probes": "Half-open re-admission probes run against "
+                     "ejected replicas",
+    "router_readmissions": "Ejected replicas re-admitted after a "
+                           "passing half-open probe",
+    "router_restarts": "Replica engines rebuilt via the replica factory "
+                       "(probe recovery or rolling drain)",
+    "router_drains": "Replicas drained by a rolling drain pass",
+    "router_migrations": "KV-tier handoffs between replicas (rolling "
+                         "drain demotion or ejection salvage)",
+    "router_migrated_blocks": "KV blocks moved between replicas across "
+                              "all handoffs",
+    "router_replica_events": "Per-replica lifecycle events (eject / "
+                             "readmit / restart / drain), by replica",
+    "router_replica_requests": "Admissions per replica, by routing "
+                               "decision (affinity vs load)",
+    "router_replicas_active": "Replicas currently in rotation",
+    "router_replicas_draining": "Replicas draining (router- or "
+                                "replica-initiated)",
+    "router_replicas_ejected": "Replicas out of rotation awaiting a "
+                               "half-open probe",
+    "router_replicas_probing": "Replicas running a half-open "
+                               "re-admission probe",
+    "router_inflight": "Requests in flight across the whole fleet",
+    "router_prefix_cache_hit_rate": "Fleet-aggregate prefix-cache "
+                                    "hit/lookup ratio across replicas",
+    "policy_queue_depth": "Requests waiting for a lane, by tenant/"
+                          "priority class (scheduling policy)",
+    "policy_served_share": "Windowed served-token share, by tenant "
+                           "(scheduling policy fairness window)",
+    "policy_preemptions": "Sequences preempted by the scheduling "
+                          "policy's fairness victim rule, by the "
+                          "victim's tenant/priority class",
+    "policy_early_rejections": "Requests rejected at lane admission "
+                               "because their predicted completion "
+                               "overshot the remaining deadline, by "
+                               "tenant/priority class",
+    "lora_adapters_loaded": "LoRA adapters resident in the engine's "
+                            "slot table",
+    "lora_adapter_evictions": "LoRA adapters LRU-evicted to make room "
+                              "for a load_adapter",
+    "lora_requests": "Requests served with a non-base LoRA adapter, "
+                     "by adapter",
+}
+
+
+def _quantile(sorted_window, pct):
+    """Nearest-rank percentile over a sorted window: ceil(pct/100 * n) - 1.
+    (int(pct/100 * n) is one rank high and reads as the max for windows up
+    to 20.) The ONE quantile convention for latency_summary and the
+    Prometheus exposition — they must never diverge."""
+    return sorted_window[max(0, -(-pct * len(sorted_window) // 100) - 1)]
+
+
+class ServingMetrics:
+    def __init__(self, max_intervals=4096):
+        self.counters = defaultdict(float)
+        self.gauges = {}
+        self.infos = {}   # name -> {label: value} (constant-1 info series)
+        # name -> running stats + a bounded recent window for percentiles
+        # (a long-running engine must not grow per-step history without
+        # bound — same reason _intervals is capped)
+        self._durations = defaultdict(
+            lambda: {"count": 0, "total": 0.0, "max": 0.0, "recent": []}
+        )
+        self._intervals = []                  # (start_s, end_s, name)
+        self._max_intervals = int(max_intervals)
+        # labeled families (the SLO ledger's per-class series):
+        # name -> {"buckets": (...), "series": {label_tuple: {...}}}
+        self._hist = {}
+        # name -> {label_tuple: float}
+        self._labeled = defaultdict(lambda: defaultdict(float))
+        # labeled GAUGE families (the scheduling policy's per-class
+        # queue depths / shares): name -> {label_tuple: float},
+        # replaced wholesale per update so vanished classes drop out
+        # instead of lingering at their last value
+        self._labeled_gauges = {}
+        # serializes family writes against scrape/snapshot copies: a
+        # histogram's bucket counts and _sum must come from ONE moment
+        # (unlike the plain counters, where a torn read is a benign
+        # off-by-one, a _count/_sum mismatch is an invalid histogram)
+        self._families_lock = threading.Lock()
+
+    def inc(self, name, value=1.0):
+        self.counters[name] += value
+
+    def inc_labeled(self, name, labels, value=1.0):
+        """Increment one series of a LABELED counter family — exported
+        as ``<prefix>_<name>_total{label="value",...}``. Callers own
+        label cardinality (the SLO ledger caps its class count)."""
+        with self._families_lock:
+            self._labeled[name][_label_tuple(labels)] += value
+
+    def observe_hist(self, name, value, labels=None, buckets=None):
+        """Record one observation into a TRUE cumulative Prometheus
+        histogram (per label set): bucket counts + ``_sum``/``_count``,
+        unbounded over the process lifetime — aggregable across replicas
+        and windowable by the scraper, unlike the bounded-window summary
+        quantiles `observe` exports. Bucket bounds are fixed by the
+        family's first observation."""
+        with self._families_lock:
+            h = self._hist.get(name)
+            if h is None:
+                h = self._hist[name] = {
+                    "buckets": tuple(DEFAULT_LATENCY_BUCKETS
+                                     if buckets is None else sorted(buckets)),
+                    "series": {},
+                }
+            lt = _label_tuple(labels)
+            s = h["series"].get(lt)
+            if s is None:
+                s = h["series"][lt] = {
+                    "counts": [0] * (len(h["buckets"]) + 1), "sum": 0.0}
+            # le is an INCLUSIVE upper bound: first bucket with bound
+            # >= value
+            s["counts"][bisect.bisect_left(h["buckets"], float(value))] += 1
+            s["sum"] += float(value)
+
+    def set_gauge(self, name, value):
+        self.gauges[name] = value
+
+    def set_labeled_gauges(self, name, series):
+        """Replace one LABELED gauge family atomically: `series` is an
+        iterable of ``(labels_dict, value)``. Whole-family replacement
+        (not per-series set) so a class that emptied since the last
+        update disappears from the scrape instead of reporting its
+        stale depth forever. Callers own label cardinality."""
+        fam = {_label_tuple(labels): float(v) for labels, v in series}
+        with self._families_lock:
+            self._labeled_gauges[name] = fam
+
+    def set_info(self, name, labels):
+        """Record an info-style series: constant value 1 with string
+        labels (the Prometheus ``*_info`` convention — how non-numeric
+        facts like the mesh backend reach a scraper). Exported as
+        ``<prefix>_<name>_info{label="value",...} 1``."""
+        self.infos[name] = {str(k): str(v) for k, v in dict(labels).items()}
+
+    def observe(self, name, seconds, start=None, interval=True):
+        """Record one timed operation (a mixed or decode step). Pass
+        ``interval=False`` for request-level durations (e.g. TTFT) that are
+        latency observations, not engine busy time — they feed the
+        percentile summary but stay out of the schedule view."""
+        d = self._durations[name]
+        s = float(seconds)
+        d["count"] += 1
+        d["total"] += s
+        d["max"] = max(d["max"], s)
+        d["recent"].append(s)
+        if len(d["recent"]) > self._max_intervals:
+            del d["recent"][: -self._max_intervals]
+        if not interval:
+            return
+        end = time.monotonic() if start is None else start + seconds
+        self._intervals.append((end - seconds, end, name))
+        if len(self._intervals) > self._max_intervals:
+            del self._intervals[: -self._max_intervals]
+
+    def reset_schedule(self):
+        """Drop recorded step timings (e.g. after a warmup phase that
+        included jit traces) so schedule_view/latency_summary describe only
+        the steps that follow. Counters and gauges are kept."""
+        self._durations.clear()
+        self._intervals.clear()
+
+    def timed(self, name):
+        """Context manager: `with metrics.timed("decode_step"): ...`"""
+        return _Timer(self, name)
+
+    def latency_summary(self):
+        out = {}
+        for name, d in dict(self._durations).items():
+            recent = sorted(d["recent"])
+            out[name] = {
+                "count": d["count"],
+                "total_ms": d["total"] * 1e3,
+                "mean_ms": d["total"] / d["count"] * 1e3,
+                "p50_ms": recent[len(recent) // 2] * 1e3,
+                "p95_ms": _quantile(recent, 95) * 1e3,
+                "max_ms": d["max"] * 1e3,
+            }
+        return out
+
+    def snapshot(self):
+        out = {
+            "counters": dict(self.counters),
+            "gauges": dict(self.gauges),
+            "latency": self.latency_summary(),
+        }
+        with self._families_lock:
+            if self._labeled:
+                # label tuples are not JSON keys: flatten to rows (the
+                # postmortem bundle is the consumer)
+                out["labeled"] = {
+                    name: [{"labels": dict(lt), "value": v}
+                           for lt, v in sorted(series.items())]
+                    for name, series in self._labeled.items()
+                }
+            if self._labeled_gauges:
+                out["labeled_gauges"] = {
+                    name: [{"labels": dict(lt), "value": v}
+                           for lt, v in sorted(series.items())]
+                    for name, series in self._labeled_gauges.items()
+                }
+            if self._hist:
+                out["histograms"] = {
+                    name: {
+                        "buckets": list(h["buckets"]),
+                        "series": [{"labels": dict(lt),
+                                    "counts": list(s["counts"]),
+                                    "sum": s["sum"]}
+                                   for lt, s in sorted(
+                                       h["series"].items())],
+                    }
+                    for name, h in self._hist.items()
+                }
+        return out
+
+    def prometheus_text(self, prefix="paddle_tpu_serving"):
+        """Prometheus text-format exposition (version 0.0.4): counters as
+        `<prefix>_<name>_total`, gauges as `<prefix>_<name>`, and each
+        duration series as a summary in SECONDS. Every family carries
+        `# HELP` and `# TYPE` lines, and every summary carries `_count` +
+        `_sum`, so a scraper can compute TRUE rates and mean latencies
+        (`rate(x_sum)/rate(x_count)`) over any window it likes. The
+        exported p50/p95 quantile samples, by contrast, come from a
+        BOUNDED window of the most recent observations (`max_intervals`,
+        default 4096) — they describe recent behavior, not the whole
+        process lifetime, and cannot be aggregated across replicas; use
+        the `_count`/`_sum` pair for anything longitudinal."""
+        lines = []
+
+        def _n(name):
+            return f"{prefix}_{_NAME_RE.sub('_', name)}"
+
+        def _header(metric, name, kind, note=""):
+            help_text = _HELP.get(name, f"{name} ({kind})")
+            lines.append(f"# HELP {metric} {help_text}{note}")
+            lines.append(f"# TYPE {metric} {kind}")
+
+        # dict() snapshots: the engine thread may insert a NEW series key
+        # mid-scrape (first step after warmup); iterating the live dicts
+        # from the event loop could raise "changed size during iteration"
+        counters = dict(self.counters)
+        with self._families_lock:
+            labeled = {n: dict(v) for n, v in self._labeled.items()}
+            labeled_g = {n: dict(v)
+                         for n, v in self._labeled_gauges.items()}
+            hists = {n: {"buckets": h["buckets"],
+                         "series": {lt: {"counts": list(s["counts"]),
+                                         "sum": s["sum"]}
+                                    for lt, s in h["series"].items()}}
+                     for n, h in self._hist.items()}
+        gauges = dict(self.gauges)
+        durations = dict(self._durations)
+        for name in sorted(counters):
+            m = _n(name) + "_total"
+            _header(m, name, "counter")
+            lines.append(f"{m} {counters[name]:g}")
+        for name in sorted(labeled):
+            m = _n(name) + "_total"
+            _header(m, name, "counter")
+            for lt in sorted(labeled[name]):
+                lines.append(f"{m}{{{_label_body(lt)}}} "
+                             f"{labeled[name][lt]:g}")
+        for name in sorted(gauges):
+            m = _n(name)
+            _header(m, name, "gauge")
+            lines.append(f"{m} {float(gauges[name]):g}")
+        for name in sorted(labeled_g):
+            m = _n(name)
+            _header(m, name, "gauge")
+            for lt in sorted(labeled_g[name]):
+                lines.append(f"{m}{{{_label_body(lt)}}} "
+                             f"{labeled_g[name][lt]:g}")
+        for name in sorted(dict(self.infos)):
+            labels = self.infos[name]
+            m = _n(name) + "_info"
+            _header(m, name, "gauge")
+            lines.append(f"{m}{{{_label_body(sorted(labels.items()))}}} 1")
+        for name in sorted(hists):
+            # exposition-spec histograms: cumulative `le` buckets in
+            # ascending order ending at +Inf, `_count` == the +Inf
+            # bucket, `_sum` alongside — all rendered from ONE snapshot
+            # of the series so a mid-scrape observation cannot make the
+            # family internally inconsistent
+            h = hists[name]
+            m = _n(name)
+            _header(m, name, "histogram")
+            for lt in sorted(h["series"]):
+                s = h["series"][lt]
+                total = sum(s["counts"])
+                cum = 0
+                for ub, c in zip(h["buckets"], s["counts"]):
+                    cum += c
+                    lines.append(
+                        f'{m}_bucket{{{_label_body(lt, (("le", f"{ub:g}"),))}}}'
+                        f" {cum}")
+                lines.append(
+                    f'{m}_bucket{{{_label_body(lt, (("le", "+Inf"),))}}}'
+                    f" {total}")
+                lines.append(f"{m}_sum{{{_label_body(lt)}}} {s['sum']:g}")
+                lines.append(f"{m}_count{{{_label_body(lt)}}} {total}")
+        for name in sorted(durations):
+            d = durations[name]
+            m = _n(name) + "_seconds"
+            recent = sorted(d["recent"])
+            _header(m, name, "summary",
+                    note=f" (seconds; quantiles over the most recent "
+                         f"{self._max_intervals} observations)")
+            if recent:
+                lines.append(
+                    f'{m}{{quantile="0.5"}} {recent[len(recent) // 2]:g}')
+                lines.append(
+                    f'{m}{{quantile="0.95"}} {_quantile(recent, 95):g}')
+            lines.append(f"{m}_sum {d['total']:g}")
+            lines.append(f"{m}_count {d['count']:g}")
+        return "\n".join(lines) + "\n"
+
+    def schedule_view(self, top_gaps=10, plane_name="serving-engine"):
+        """Engine-schedule statistics in schedule_analysis's per-plane shape:
+        {plane: {span_ms, busy_ms, idle_ms, utilization, n_ops, top_gaps}}.
+        Busy = union of recorded step intervals; gaps = host time between
+        device steps (scheduling + sampling sync overhead)."""
+        if not self._intervals:
+            return {}
+        return {
+            plane_name: interval_union_stats(
+                self._intervals, to_ms=1e3, top_gaps=top_gaps
+            )
+        }
+
+
+class _Timer:
+    def __init__(self, metrics, name):
+        self._m = metrics
+        self._name = name
+
+    def __enter__(self):
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        self._m.observe(self._name, time.monotonic() - self._t0)
+        return False

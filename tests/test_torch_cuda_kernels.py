@@ -1,0 +1,132 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+These need an NVIDIA GPU and nvcc (the kernels have no CPU mode), so they
+carry the `cuda` marker and skip elsewhere. This file imports neither JAX
+nor the JAX package, so it runs where only PyTorch is installed (skip
+tests/conftest.py, which sets JAX up):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+from paddle_tpu_torch.ops import paged_attention as pa
+from paddle_tpu_torch.serving import LLMEngine
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(lengths_counts, block_size, head_dim, dtype, dev, pad_to=None,
+          heads=4, layers=2, seed=0):
+    """Ragged batch over a random arena (garbage in every slot, so the
+    result must come from masking); returns tensors on `dev`."""
+    g = torch.Generator().manual_seed(seed)
+    B = len(lengths_counts)
+    per = [max(1, -(-t // block_size)) for t, _ in lengths_counts]
+    n_blocks = 1 + sum(per)
+    tables = torch.zeros((B, max(per) + 1), dtype=torch.int32)
+    order = torch.randperm(n_blocks - 1, generator=g) + 1
+    o = 0
+    for i, n in enumerate(per):
+        tables[i, :n] = order[o:o + n]
+        o += n
+    S = pad_to or max(c for _, c in lengths_counts)
+    qpos = torch.zeros((B, S), dtype=torch.int32)
+    meta = torch.zeros((3, B), dtype=torch.int32)
+    for i, (total, count) in enumerate(lengths_counts):
+        qpos[i, :count] = torch.arange(total - count, total)
+        meta[:, i] = torch.tensor([total - count, (total - 1) // block_size
+                                   + 1, count])
+    shape = (layers, heads, n_blocks, block_size, head_dim)
+    k, v = (torch.randn(shape, generator=g).to(dev, dtype) for _ in "kv")
+    q = torch.randn((B, S, heads, head_dim), generator=g).to(dev, dtype)
+    return dict(q=q, k=k, v=v, tables=tables.to(dev), qpos=qpos.to(dev),
+                q_start=meta[0].to(dev), kv_live=meta[1].to(dev),
+                q_lens=meta[2].to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("lengths_counts,block_size,pad_to", [
+    ([(18, 1), (5, 5), (13, 7)], 8, None),        # decode, prefill, crossing
+    ([(31, 15), (32, 1), (3, 3), (20, 4)], 4, 16),
+    ([(700, 1), (300, 1), (16, 16)], 16, 16),     # long contexts
+    ([(9, 1)], 8, 8),                             # partial block, wide launch
+    ([(67, 5), (1000, 5), (129, 1)], 16, 8),      # verify rows across chunks
+    ([(200, 40), (64, 64), (65, 1)], 16, 64),     # prefill tiles over chunks
+    ([(300, 3), (257, 1), (40, 12)], 32, 16),     # two blocks per chunk
+    ([(300, 3), (257, 1), (40, 12)], 128, 16),    # one block per chunk
+    ([(50, 2), (7, 7)], 1, 8),                    # 64 one-token blocks
+])
+def test_kernel_matches_plain_version(dev, dtype, head_dim, lengths_counts,
+                                      block_size, pad_to):
+    c = _case(lengths_counts, block_size, head_dim, dtype, dev, pad_to)
+    before = pa.ragged_paged_attention.launches
+    got = pa.paged_attention_arrays(
+        c["q"], c["k"], c["v"], 1, c["tables"], c["qpos"],
+        q_start=c["q_start"], kv_live=c["kv_live"], q_lens=c["q_lens"])
+    torch.cuda.synchronize()
+    assert pa.ragged_paged_attention.launches == before + 1
+    want = pa.paged_attention_ref(c["q"], c["k"], c["v"], 1, c["tables"],
+                                  c["qpos"])
+    for i, (_, count) in enumerate(lengths_counts):
+        err = (got[i, :count].float() - want[i, :count].float()).abs().max()
+        assert err.item() < TOL[dtype], f"row {i}: max err {err.item()}"
+
+
+def test_kernel_custom_scale_and_strided_q(dev):
+    c = _case([(40, 6), (17, 1)], 16, 64, torch.float32, dev)
+    # q as a strided view, the way the fused QKV split hands it over
+    wide = torch.randn((2, 6, 4, 3, 64), device=dev)
+    q = wide[:, :, :, 0]
+    assert not q.is_contiguous()
+    got = pa.ragged_paged_attention(q, c["k"], c["v"], 0, c["tables"],
+                                    c["q_start"], c["kv_live"],
+                                    q_lens=c["q_lens"], scale=0.05)
+    want = pa.paged_attention_ref(q, c["k"], c["v"], 0, c["tables"],
+                                  c["qpos"], scale=0.05)
+    for i, n in enumerate((6, 1)):
+        torch.testing.assert_close(got[i, :n], want[i, :n], atol=1e-3,
+                                   rtol=0)
+
+
+def test_kernel_rejects_what_it_cannot_take(dev):
+    c = _case([(9, 1)], 8, 48, torch.float32, dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.ragged_paged_attention(c["q"], c["k"], c["v"], 0, c["tables"],
+                                  c["q_start"], c["kv_live"])
+    c = _case([(9, 1)], 8, 32, torch.float16, dev)
+    with pytest.raises(ValueError, match="dtype"):
+        pa.ragged_paged_attention(c["q"], c["k"], c["v"], 0, c["tables"],
+                                  c["q_start"], c["kv_live"])
+
+
+def test_engine_greedy_matches_generate_on_the_card(dev):
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=4, max_seq_len=128)
+    model = GPT(cfg, device=dev, seed=0)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 512, n).tolist() for n in (5, 20, 33, 70)]
+    eng = LLMEngine(model, device=dev, block_size=16, max_batch=2,
+                    prefill_chunk=16, spec_decoding=True)
+    before = pa.ragged_paged_attention.launches
+    got = eng.generate(prompts, max_new_tokens=12, temperature=0.0)
+    assert (pa.ragged_paged_attention.launches - before
+            == cfg.num_layers * eng.step_count)
+    assert eng.metrics.counters["host_syncs"] == eng.step_count
+    for p, g in zip(prompts, got):
+        ref = model.generate([p], max_new_tokens=12, temperature=0.0)
+        assert g == ref[0, len(p):].tolist()

@@ -1,0 +1,193 @@
+"""The port's LLMEngine against the JAX package's, on the CPU.
+
+Both engines get the same weights (carried over with `from_jax_state_dict`)
+and the same greedy wave: prompts longer than `prefill_chunk=8` (chunked
+prefill), a repeated prompt prefix admitted after its first owner finished
+(prefix-cache hits, copy-on-write of a shared tail block), prompt-lookup
+speculative decoding, and, in the second configuration, a pool too small
+for the wave (preempt-by-recompute). Greedy outputs must be token-identical.
+"""
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu.core.functional import state_dict_arrays
+from paddle_tpu.models.gpt import GPT as JaxGPT
+from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
+from paddle_tpu.serving import LLMEngine as JaxLLMEngine
+from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+from paddle_tpu_torch.serving import BlockPool, LLMEngine
+from paddle_tpu_torch.weights import from_jax_state_dict
+
+CFG = dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
+           max_seq_len=64)
+ENGINE = dict(block_size=4, max_batch=2, prefill_chunk=8, max_seq_len=64,
+              spec_decoding=True, num_spec_tokens=4)
+NEW_TOKENS = 12
+
+
+def _prompts():
+    rs = np.random.RandomState(7)
+    shared = rs.randint(0, 512, 16).tolist()
+    return [
+        shared + rs.randint(0, 512, 5).tolist(),   # 21 tokens: 3 chunks
+        rs.randint(0, 512, 13).tolist(),
+        shared + rs.randint(0, 512, 2).tolist(),   # prefix hit on `shared`
+        shared,                                    # fully cached prompt
+        rs.randint(0, 512, 3).tolist(),
+        [5, 6, 7, 5, 6, 7, 5, 6, 7, 5],            # drafter-friendly cycle
+    ]
+
+
+@pytest.fixture(scope="module")
+def models():
+    paddle.seed(0)
+    jm = JaxGPT(JaxGPTConfig(**CFG, attn_impl="xla"))
+    jm.eval()
+    arrays = {k: np.asarray(v) for k, v in state_dict_arrays(jm)[0].items()}
+    tm = from_jax_state_dict(GPT(GPTConfig(**CFG), device="cpu"), arrays)
+    return jm, tm
+
+
+# num_blocks None: the default pool (no pressure); 12: too few blocks for
+# two concurrent sequences, so the younger one is preempted and replayed
+@pytest.mark.parametrize("num_blocks", [None, 12])
+def test_greedy_wave_matches_jax_engine(models, num_blocks):
+    jm, tm = models
+    prompts = _prompts()
+    jeng = JaxLLMEngine(jm, num_blocks=num_blocks, prefix_cache=True,
+                        **ENGINE)
+    want = jeng.generate(prompts, max_new_tokens=NEW_TOKENS,
+                         temperature=0.0)
+    eng = LLMEngine(tm, device="cpu", num_blocks=num_blocks, **ENGINE)
+    got = eng.generate(prompts, max_new_tokens=NEW_TOKENS, temperature=0.0)
+    assert got == want
+    c = eng.metrics.counters
+    assert c["prefix_cache_hit_tokens"] > 0
+    assert c["spec_proposed_tokens"] > 0
+    assert c["mixed_steps"] > 0
+    if num_blocks is not None:
+        assert c["preemptions"] >= 1
+    # one device->host read per step
+    assert c["host_syncs"] == eng.step_count
+    # the pool is idle again: no block held, every refcount released
+    assert eng.pool.num_free == eng.pool.num_blocks - 1
+    assert eng.pool._refcount == {}
+    assert not eng.has_unfinished()
+
+
+def test_stream_matches_generate(models):
+    _, tm = models
+    prompt = _prompts()[0]
+    ref = tm.generate(np.asarray([prompt]), max_new_tokens=NEW_TOKENS,
+                      temperature=0.0)[0, len(prompt):].tolist()
+    eng = LLMEngine(tm, device="cpu", **ENGINE)
+    outs = list(eng.stream(prompt, max_new_tokens=NEW_TOKENS))
+    assert [o.token for o in outs] == ref
+    assert [o.finished for o in outs] == [False] * (NEW_TOKENS - 1) + [True]
+    assert eng._requests == {}
+
+
+def test_sampling_is_seeded_and_within_top_k(models):
+    """Temperature sampling draws from the engine's torch.Generator: the
+    same seed gives the same tokens, and top_k=1 collapses to greedy."""
+    _, tm = models
+    prompts = _prompts()[:3]
+
+    def run(seed, **kw):
+        eng = LLMEngine(tm, device="cpu", seed=seed, **ENGINE)
+        return eng.generate(prompts, max_new_tokens=6, temperature=0.8, **kw)
+
+    assert run(3) == run(3)
+    greedy = LLMEngine(tm, device="cpu", **ENGINE).generate(
+        prompts, max_new_tokens=6, temperature=0.0)
+    assert run(5, top_k=1) == greedy
+
+
+def test_abort_returns_blocks(models):
+    _, tm = models
+    eng = LLMEngine(tm, device="cpu", **ENGINE)
+    rid = eng.add_request(_prompts()[0], max_new_tokens=NEW_TOKENS)
+    eng.step()
+    assert eng.pool.num_free < eng.pool.num_blocks - 1
+    assert eng.abort(rid)
+    assert rid not in eng._requests
+    assert eng.pool.num_free == eng.pool.num_blocks - 1
+    assert not eng.has_unfinished()
+
+
+def test_engine_without_device_raises_when_cuda_is_absent(models,
+                                                          monkeypatch):
+    """The model, the engine and the KV pool default to CUDA and raise
+    without it."""
+    _, tm = models
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLMEngine(tm)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GPT(GPTConfig(**CFG))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BlockPool(8, 2, 4, 4, 16)
+
+
+def test_engine_rejects_a_model_on_another_device(models):
+    _, tm = models
+    with pytest.raises(ValueError, match="build the model"):
+        LLMEngine(tm, device="meta")
+
+
+@pytest.mark.parametrize("option", [
+    {"mesh": 2}, {"kv_dtype": "int8"}, {"quantize": "int8"},
+    {"lora_slots": 2}, {"host_kv_blocks": 8}, {"policy": "fair"},
+    {"trace": True}, {"slo": True}, {"checkpoint_path": "ckpt"},
+])
+def test_left_out_options_raise(models, option):
+    _, tm = models
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        LLMEngine(tm, device="cpu", **option)
+
+
+def test_left_out_options_accept_their_off_values(models):
+    _, tm = models
+    eng = LLMEngine(tm, device="cpu", mesh=None, kv_dtype=None,
+                    quantize=False, lora_slots=0, trace=False, slo=None)
+    assert eng.expected_program_count() == 1 + 1  # widths {1, chunk}
+
+
+def test_validate_rejects_impossible_requests(models):
+    _, tm = models
+    eng = LLMEngine(tm, device="cpu", num_blocks=4, **ENGINE)
+    with pytest.raises(ValueError, match="max_seq_len"):
+        eng.add_request([1] * 60, max_new_tokens=8)
+    with pytest.raises(ValueError, match="KV blocks"):
+        eng.add_request([1] * 20, max_new_tokens=8)
+
+
+def test_kv_hbm_bytes_sizes_the_pool(models):
+    _, tm = models
+    # K + V, 2 layers, 4 heads, block 4, head_dim 16, float32
+    per_block = 2 * 2 * 4 * 4 * 16 * 4
+    eng = LLMEngine(tm, device="cpu", kv_hbm_bytes=per_block * 40 + 7,
+                    **ENGINE)
+    assert eng.pool.num_blocks == 40
+    assert eng.pool_stats()["kv_bytes_per_block"] == per_block
+    with pytest.raises(ValueError, match="not both"):
+        LLMEngine(tm, device="cpu", num_blocks=40,
+                  kv_hbm_bytes=per_block * 40, **ENGINE)
+    # one max_seq_len sequence needs 16 blocks plus the null block
+    with pytest.raises(ValueError, match="buys only"):
+        LLMEngine(tm, device="cpu", kv_hbm_bytes=per_block * 16, **ENGINE)
+
+
+def test_width_buckets_keep_greedy_output(models):
+    _, tm = models
+    prompts = _prompts()
+    base = LLMEngine(tm, device="cpu", **ENGINE).generate(
+        prompts, max_new_tokens=NEW_TOKENS)
+    eng = LLMEngine(tm, device="cpu", width_buckets=[2, 3, 99], **ENGINE)
+    assert eng.width_buckets == [1, 2, 3, 5, 8]   # 99 exceeds every row
+    assert eng.expected_program_count() == 5
+    assert eng.generate(prompts, max_new_tokens=NEW_TOKENS) == base
+    with pytest.raises(ValueError, match=">= 1"):
+        LLMEngine(tm, device="cpu", width_buckets=[0], **ENGINE)
