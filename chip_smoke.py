@@ -23,6 +23,22 @@ Phases, in order; any failure exits nonzero:
    layer and step, with one host sync per step and an idle pool after.
 4. float32 parity: gpt_1p3b widths at 4 layers, greedy LLMEngine (the
    kernel) against GPT.generate (contiguous cache, no kernel).
+5. The flash-attention kernels (forward; dK/dV and dQ) against the plain
+   version (`attention_ref` in float32 on the same values, and autograd's
+   gradients) at the training shape (B 16, H 8, S 1024, D 128, causal) in
+   bfloat16 (tolerance 2e-2) and in float32 at B 2 (TF32 off, 1e-3),
+   comparing O, LSE, dQ, dK and dV; with the kernels', the plain
+   version's and scaled_dot_product_attention's device times beside the
+   least time the card could take.
+6. Train: the flagship GPT (vocab 32768, hidden 1024, 12 layers, 8 heads,
+   seq 1024; bench.py's bench_gpt) in bf16 with AdamW(1e-4), batch 16 x
+   1024 from np.random.RandomState(0): one warm-up step, then 10 timed
+   steps. The flash launch counts are set to 0 just before the timed
+   steps and read just after: 12 forward and 12 backward launches a step.
+   Losses finite and falling (the same batch each step).
+7. float32 train parity: the flagship widths at 2 layers, batch 2, seq
+   256, TF32 off: two AdamW steps on the card (kernels) and on a CPU copy
+   (plain attention) give the same losses and parameters.
 
 Prints a `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
 and last `{"ok": true, "device": {...}}`.
@@ -64,6 +80,22 @@ def time_ms(fn, iters):
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def event_ms(fn, iters):
+    """Device time of one eager `fn` call between two CUDA events (for
+    calls too large for their launch cost to matter, or that a graph
+    cannot capture, such as autograd's backward)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -353,6 +385,257 @@ def parity():
     return res
 
 
+# -- phase 5 ------------------------------------------------------------------
+
+FLASH_SHAPES = {torch.bfloat16: (16, 1024, 8, 128), torch.float32: (2, 1024, 8,
+                                                                    128)}
+
+
+def _flash_bounds(B, S, H, D, dtype):
+    """Least time of each function at this causal shape: (ms, bound_by)
+    for the forward (2 products over the visible pairs), dK/dV (4: S, dP,
+    dV, dK), dQ (3: S, dP, dQ) and the whole backward (5), each against
+    the bytes it must move (each [B, S, H, D] input read once, each output
+    written once, the f32 LSE / delta rows)."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    pairs = B * H * S * (S + 1) // 2          # visible (query, key) pairs
+    t = B * S * H * D * isz                   # one [B, S, H, D] tensor
+    rows = B * H * S * 4                      # one f32 LSE or delta
+    work = {"fwd": (2, 4 * t + rows), "dkv": (4, 6 * t + 2 * rows),
+            "dq": (3, 5 * t + 2 * rows), "bwd": (5, 8 * t + rows)}
+    out = {}
+    for name, (products, nbytes) in work.items():
+        t_ops = products * 2 * D * pairs / PEAK_FLOPS[dtype]
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def _flash_case(dtype, gen):
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = FLASH_SHAPES[dtype]
+    q, k, v, do = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, do, lse, True)
+    # the plain version in float32 on the same values
+    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    o32 = fa.attention_ref(q32, k32, v32, True)
+    o32.backward(do.float())
+    lse32 = fa.attention_lse_ref(q32.detach(), k32.detach(), True)
+    torch.cuda.synchronize()
+    err = {n: (a.float() - b).abs().max().item() for n, a, b in (
+        ("o", o, o32), ("lse", lse, lse32), ("dq", dq, q32.grad),
+        ("dk", dk, k32.grad), ("dv", dv, v32.grad))}
+    del o32, q32, k32, v32
+    delta = fa._delta(o, do)
+
+    def plain_fwd():
+        return fa.attention_ref(q, k, v, True)
+
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    og = fa.attention_ref(qg, kg, vg, True)
+
+    def plain_bwd():
+        torch.autograd.grad(og, (qg, kg, vg), do, retain_graph=True)
+
+    F = torch.nn.functional
+    ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dol = do.transpose(1, 2).contiguous()
+
+    def library_fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=True), (ql, kl, vl), dol)
+
+    times = dict(
+        fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, True), 20),
+        bwd_ms=time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do, lse,
+                                                      True), 10),
+        dkv_ms=time_ms(lambda: fa._launch_bwd(q, k, v, do, lse, delta, True,
+                                              1), 10),
+        dq_ms=time_ms(lambda: fa._launch_bwd(q, k, v, do, lse, delta, True,
+                                             2), 10),
+        plain_fwd_ms=event_ms(plain_fwd, 3),
+        plain_bwd_ms=event_ms(plain_bwd, 3),
+        library_fwd_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=True), 20),
+        library_fwd_bwd_ms=event_ms(library_fwd_bwd, 10))
+    times["library_bwd_ms"] = (times["library_fwd_bwd_ms"]
+                               - times["library_fwd_ms"])
+    bounds = _flash_bounds(B, S, H, D, dtype)
+    rec = dict(dtype=str(dtype).replace("torch.", ""), shape=[B, S, H, D],
+               causal=True, max_err=err, tol=TOL[dtype], **times,
+               **{f"bound_{n}_ms": b[0] for n, b in bounds.items()},
+               **{f"bound_{n}_by": b[1] for n, b in bounds.items()})
+    log("[flash] " + json.dumps(rec))
+    if max(err.values()) > TOL[dtype]:
+        raise SystemExit(f"a flash kernel disagrees with the plain version: "
+                         f"{rec}")
+    return rec
+
+
+def flash_cases():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    out = [_flash_case(dt, gen) for dt in (torch.bfloat16, torch.float32)]
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 6 ------------------------------------------------------------------
+
+def flagship_config(**kw):
+    """bench.py's bench_gpt on a TPU: vocab 32768, hidden 1024, 12 layers,
+    8 heads (head_dim 128), seq 1024, no dropout, flash attention."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = dict(vocab_size=32768, hidden_size=1024, num_layers=12,
+               num_heads=8, max_seq_len=1024, attn_impl="flash")
+    cfg.update(kw)
+    return GPTConfig(**cfg)
+
+
+def train_batch(cfg, batch, seq, device):
+    """ids and labels from np.random.RandomState(0), as bench.py draws
+    them."""
+    rs = np.random.RandomState(0)
+    return [torch.from_numpy(rs.randint(0, cfg.vocab_size, (batch, seq)))
+            .to(device) for _ in range(2)]
+
+
+def train_step(model, opt, ids, labels):
+    loss = model(ids, labels=labels)
+    loss.backward()
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return loss
+
+
+def flagship_trainer(seed=0):
+    """The flagship GPT in bf16 on the card with AdamW(1e-4), in train
+    mode, and its batch of 16 x 1024."""
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = flagship_config()
+    model = GPT(cfg, device="cuda", dtype=torch.bfloat16, seed=seed)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    model.train()
+    return model, opt, train_batch(cfg, 16, cfg.max_seq_len, "cuda")
+
+
+def train(smi):
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.profiler.flops import (gpt_train_flops_per_token,
+                                                 mfu, peak_flops)
+
+    t0 = time.perf_counter()
+    model, opt, (ids, labels) = flagship_trainer()
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[train] flagship GPT bf16, {n_params} parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    losses = [train_step(model, opt, ids, labels).item()]   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    steps, step_ms = 10, []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        loss = train_step(model, opt, ids, labels)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss.item())
+    fwd, bwd = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    tokens = ids.numel()
+    tok_s = tokens * steps / (sum(step_ms) / 1e3)
+    fpt = gpt_train_flops_per_token(cfg)
+    res = dict(
+        batch=list(ids.shape), steps=steps, params=n_params,
+        tokens_per_s=tok_s, step_p50_ms=float(np.median(step_ms)),
+        step_ms=step_ms, flops_per_token=fpt,
+        mfu=mfu(tok_s, fpt, torch.cuda.get_device_name(0)),
+        peak_flops=peak_flops(torch.cuda.get_device_name(0)), card=smi,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        losses=losses, fwd_launches=fwd, bwd_launches=bwd,
+        layers=cfg.num_layers)
+    log("[train] " + json.dumps(res))
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    assert fwd == cfg.num_layers * steps, (fwd, steps)
+    assert bwd == cfg.num_layers * steps, (bwd, steps)
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 7 ------------------------------------------------------------------
+
+def train_parity():
+    """Two float32 AdamW steps of the flagship widths at 2 layers on the
+    card and on a CPU copy. Losses agree to 1e-5 relative; parameters to
+    2e-5 (a tenth of the two steps' lr: Adam divides each gradient by its
+    own magnitude, so two summation orders of a small gradient can move
+    its entry by a visible share of a step), except entries whose first
+    gradient is float noise (below 1e-6 of the largest in its tensor; the
+    key biases' true gradient is zero), which Adam may move by up to lr a
+    step either way."""
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = flagship_config(num_layers=2)
+    lr, steps = 1e-4, 2
+    param_tol = 0.1 * lr * steps
+    cuda = GPT(cfg, device="cuda", seed=2)
+    cpu = GPT(cfg, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in cuda.state_dict().items()})
+    losses, grads, params = [], [], []
+    for m in (cuda, cpu):
+        ids, labels = train_batch(cfg, 2, 256, m.device)
+        opt = AdamW(learning_rate=lr, parameters=m.parameters())
+        m.train()
+        run = []
+        for i in range(steps):
+            loss = m(ids, labels=labels)
+            loss.backward()
+            if i == 0:
+                grads.append({n: p.grad.detach().cpu()
+                              for n, p in m.named_parameters()})
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            run.append(loss.item())
+        losses.append(run)
+        params.append({n: p.detach().cpu() for n, p in m.named_parameters()})
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    worst, noisy = 0.0, 0
+    for n, want in params[1].items():
+        d = (params[0][n] - want).abs()
+        g = grads[1][n].abs()
+        noise = g < 1e-6 * g.max()
+        noisy += int(noise.sum())
+        assert bool((d[noise] <= 2 * steps * lr).all()), n
+        if (~noise).any():
+            worst = max(worst, d[~noise].max().item())
+    res = dict(layers=cfg.num_layers, batch=[2, 256], steps=steps,
+               losses_cuda=losses[0], losses_cpu=losses[1],
+               loss_rel_err=loss_err, param_max_err=worst,
+               noise_entries=noisy, param_tol=param_tol)
+    log("[train-parity] " + json.dumps(res))
+    assert loss_err < 1e-5, res
+    assert worst < param_tol, res
+    del cuda, cpu
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -372,10 +655,17 @@ def main():
     cases = kernel_cases()
     served = serve()
     par = parity()
+    flash = flash_cases()
+    trained = train(smi)
+    tpar = train_parity()
     # the kernel line's headline numbers: the bf16 decode case (width 1),
-    # the launch shape the serving path runs most
+    # the launch shape the serving path runs most, and the bf16 flash case
+    # at the training shape
     head = next(r for r in cases if r["dtype"] == "bfloat16"
                 and r["width"] == 1)
+    fl = flash[0]
+    src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    tpu = "paddle_tpu/ops/pallas/flash_attention.py"
     kernels = [{
         "name": "ragged_paged_attention",
         "route": "cuda",
@@ -388,11 +678,37 @@ def main():
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "cases": cases,
+    }, {
+        "name": "flash_attention_fwd", "route": "cuda", "source": src,
+        "replaces": f"{tpu}:121", "launches": trained["fwd_launches"],
+        "max_abs_err": max(fl["max_err"]["o"], fl["max_err"]["lse"]),
+        "ms": fl["fwd_ms"], "plain_ms": fl["plain_fwd_ms"],
+        "bound_ms": fl["bound_fwd_ms"], "bound_by": fl["bound_fwd_by"],
+        "library_ms": fl["library_fwd_ms"],
+        "cases": flash,
+    }, {
+        # one counted backward launch runs dK/dV then dQ; plain_ms is the
+        # plain version's whole backward (autograd computes the three
+        # gradients together); no one library call computes dK/dV alone
+        "name": "flash_attention_dkv", "route": "cuda", "source": src,
+        "replaces": f"{tpu}:238", "launches": trained["bwd_launches"],
+        "max_abs_err": max(fl["max_err"]["dk"], fl["max_err"]["dv"]),
+        "ms": fl["dkv_ms"], "plain_ms": fl["plain_bwd_ms"],
+        "bound_ms": fl["bound_dkv_ms"], "bound_by": fl["bound_dkv_by"],
+        "library_ms": None,
+    }, {
+        "name": "flash_attention_dq", "route": "cuda", "source": src,
+        "replaces": f"{tpu}:295", "launches": trained["bwd_launches"],
+        "max_abs_err": fl["max_err"]["dq"],
+        "ms": fl["dq_ms"], "plain_ms": fl["plain_bwd_ms"],
+        "bound_ms": fl["bound_dq_ms"], "bound_by": fl["bound_dq_by"],
+        "library_ms": None,
     }]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=smi, kind=kind, kernels=kernels,
-                           serve=served, parity=par), f, indent=1)
+                           serve=served, parity=par, train=trained,
+                           train_parity=tpar), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

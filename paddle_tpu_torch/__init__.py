@@ -6,8 +6,9 @@ JAX nor anything of `paddle_tpu`. Its entry points run on CUDA unless the
 caller passes ``device="cpu"``, and raise when no CUDA device exists.
 """
 from .models.gpt import GPT, GPTConfig, gpt_1p3b, gpt_small, gpt_tiny
+from .optimizer import AdamW
 from .serving import LLMEngine
-from .weights import from_jax_state_dict
+from .weights import from_jax_state_dict, to_jax_state_dict
 
-__all__ = ["GPT", "GPTConfig", "LLMEngine", "from_jax_state_dict",
-           "gpt_1p3b", "gpt_small", "gpt_tiny"]
+__all__ = ["AdamW", "GPT", "GPTConfig", "LLMEngine", "from_jax_state_dict",
+           "gpt_1p3b", "gpt_small", "gpt_tiny", "to_jax_state_dict"]

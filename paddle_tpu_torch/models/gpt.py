@@ -1,9 +1,9 @@
 """GPT: the decoder-only LM (BASELINE config 4: GPT-1.3B), in PyTorch.
 
-The counterpart of `paddle_tpu/models/gpt.py` for serving. Its tensor-
-parallel layers run at tp=1 here, so they are plain `nn.Linear` and
-`nn.Embedding`. Parameter names are the JAX package's (`weights.py`
-carries a JAX state dict over). Three attention paths:
+The counterpart of `paddle_tpu/models/gpt.py` for serving and training.
+Its tensor-parallel layers run at tp=1 here, so they are plain
+`nn.Linear` and `nn.Embedding`. Parameter names are the JAX package's
+(`weights.py` carries a JAX state dict over). Three attention paths:
 
 - the paged path, when `caches` is a `PagedState` (`serving/block_pool.py`):
   new K/V go into the block arena and attention goes through
@@ -11,7 +11,13 @@ carries a JAX state dict over). Three attention paths:
   on the CPU);
 - the contiguous-cache decode of `generate`, with fixed-size per-layer
   ``(k_buf [b, L, h, d], v_buf, cur)`` caches updated in place;
-- no cache: plain causal attention over the whole input.
+- no cache (training, and a full forward): causal attention over the
+  whole input through `ops/common_nn.py` `scaled_dot_product_attention`,
+  i.e. the flash-attention kernels on the card and the plain version on
+  the CPU.
+
+With `labels`, `forward` returns the mean next-token cross-entropy from
+the hidden states through the tied head (`ops/fused_ce.py`).
 """
 from __future__ import annotations
 
@@ -22,19 +28,41 @@ from torch import nn
 from torch.nn import functional as F
 
 from .._device import resolve_device
+from ..ops.common_nn import scaled_dot_product_attention
+from ..ops.fused_ce import fused_linear_cross_entropy, linear_cross_entropy
 
 _NEG_INF = -1e30
+_TODO = "is not ported yet (ROADMAP Queue 1, item 4)"
 
 
 class GPTConfig:
+    """The JAX package's GPTConfig fields. Values this port does not run
+    yet raise NotImplementedError: dropout > 0, remat, attn_impl 'ring'.
+    ('flash' and 'xla' both take scaled_dot_product_attention, as in the
+    JAX model.)"""
+
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
-                 num_heads=12, max_seq_len=1024, intermediate_size=None):
+                 num_heads=12, max_seq_len=1024, intermediate_size=None,
+                 dropout=0.0, attn_impl="flash", remat=False,
+                 fused_head_chunks=None):
+        if dropout > 0:
+            raise NotImplementedError(f"GPTConfig: dropout {_TODO}")
+        if remat:
+            raise NotImplementedError(f"GPTConfig: remat {_TODO}")
+        if attn_impl not in ("flash", "xla"):
+            raise NotImplementedError(
+                f"GPTConfig: attn_impl={attn_impl!r} is not ported "
+                "(ROADMAP Queue 1, item 8: ring attention)")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.num_heads = num_heads
         self.max_seq_len = max_seq_len
         self.intermediate_size = intermediate_size or 4 * hidden_size
+        self.dropout = dropout
+        self.attn_impl = attn_impl
+        self.remat = remat
+        self.fused_head_chunks = fused_head_chunks
 
 
 def _split_fused_qkv(qkv, b, s, num_heads, head_dim):
@@ -75,7 +103,6 @@ class CausalSelfAttention(nn.Module):
 
             o = paged_attention(q, k, v, cache)
             return self.proj(o.reshape(b, s, width)), cache
-        scale = 1.0 / math.sqrt(self.head_dim)
         if cache is not None:
             # incremental decode over a fixed-size cache, updated in place
             k_buf, v_buf, cur = cache
@@ -83,10 +110,11 @@ class CausalSelfAttention(nn.Module):
             v_buf[:, cur:cur + s] = v
             kpos = torch.arange(k_buf.shape[1], device=x.device)
             qpos = cur + torch.arange(s, device=x.device)
-            o = _attend(q, k_buf, v_buf, qpos, kpos, scale)
+            o = _attend(q, k_buf, v_buf, qpos, kpos,
+                        1.0 / math.sqrt(self.head_dim))
             return self.proj(o.reshape(b, s, width)), (k_buf, v_buf, cur + s)
-        pos = torch.arange(s, device=x.device)
-        o = _attend(q, k, v, pos, pos, scale)
+        o = scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         training=self.training)
         return self.proj(o.reshape(b, s, width))
 
 
@@ -193,8 +221,26 @@ class GPT(nn.Module):
         """The tied LM head: h @ wte.weight^T."""
         return h @ self.wte.weight.t()
 
-    def forward(self, input_ids, caches=None, pos_offset=0):
+    def head_loss(self, h, labels):
+        """Mean cross-entropy of the tied head's f32 logits against
+        `labels` (the targets themselves: no shift). The chunked fused
+        head runs when `fused_head_chunks` asks for it, or when bf16
+        logits would pass 1.5e9 bytes; otherwise one product whose logits
+        are kept for the backward (the JAX model's switch)."""
+        b, s, _ = h.shape
+        labels = torch.as_tensor(labels, device=h.device)
+        n_chunks = self.cfg.fused_head_chunks
+        logits_bytes = 2 * b * s * self.cfg.vocab_size
+        if (n_chunks or 0) != 1 and (n_chunks is not None
+                                     or logits_bytes > 1.5e9):
+            return fused_linear_cross_entropy(h, self.wte.weight, labels,
+                                              n_chunks)
+        return linear_cross_entropy(h, self.wte.weight, labels)
+
+    def forward(self, input_ids, caches=None, pos_offset=0, labels=None):
         h, new_caches = self.hidden(input_ids, caches, pos_offset)
+        if labels is not None and caches is None:
+            return self.head_loss(h, labels)
         logits = self.logits(h)
         return logits if caches is None else (logits, new_caches)
 
@@ -249,6 +295,15 @@ class GPT(nn.Module):
             if eos_token_id is not None and bool((tok == eos_token_id).all()):
                 break
         return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
+
+
+def gpt_loss_fn(logits, labels):
+    """Mean next-token cross-entropy of logits [b, s, vocab] against
+    labels [b, s], in float32 (the JAX package's functional loss)."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = lg.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - picked).mean()
 
 
 def gpt_tiny(**kw):

@@ -1,9 +1,14 @@
-"""Carry weights from the JAX package's GPT into the port's GPT."""
+"""Carry weights between the JAX package's GPT and the port's GPT."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+
+
+def _linear_weights(model):
+    return {f"{name}.weight" for name, m in model.named_modules()
+            if isinstance(m, nn.Linear)}
 
 
 def from_jax_state_dict(model, arrays):
@@ -20,8 +25,7 @@ def from_jax_state_dict(model, arrays):
     if missing or unexpected:
         raise KeyError(f"state dict mismatch: missing {missing}, "
                        f"unexpected {unexpected}")
-    linear = {f"{name}.weight" for name, m in model.named_modules()
-              if isinstance(m, nn.Linear)}
+    linear = _linear_weights(model)
     with torch.no_grad():
         for name, p in params.items():
             a = np.asarray(arrays[name])
@@ -32,3 +36,19 @@ def from_jax_state_dict(model, arrays):
                                  f"not fit parameter {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(a)))
     return model
+
+
+def to_jax_state_dict(model):
+    """The inverse of `from_jax_state_dict`: {name: numpy array} in the JAX
+    package's layout (Linear weights transposed back to ``[in, out]``),
+    in each parameter's dtype (bfloat16 comes back as float32, which holds
+    it exactly; numpy has no bfloat16)."""
+    linear = _linear_weights(model)
+    out = {}
+    for name, p in model.named_parameters():
+        t = p.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        a = t.numpy()
+        out[name] = np.ascontiguousarray(a.T) if name in linear else a.copy()
+    return out

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.serving import LLMEngine
 
@@ -130,3 +131,123 @@ def test_engine_greedy_matches_generate_on_the_card(dev):
     for p, g in zip(prompts, got):
         ref = model.generate([p], max_new_tokens=12, temperature=0.0)
         assert g == ref[0, len(p):].tolist()
+
+
+# -- flash attention -----------------------------------------------------------
+
+def _flash_inputs(b, sq, sk, h, d, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn((b, sq, h, d), generator=g) for _ in "qo")
+    k, v = (torch.randn((b, sk, h, d), generator=g) for _ in "kv")
+    return [t.to(dev, dtype) for t in (q, k, v, do)]
+
+
+def _flash_ref(q, k, v, do, causal):
+    """The plain version in float32 on the same (possibly bf16) values:
+    O, LSE and autograd's dQ, dK, dV."""
+    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    o = fa.attention_ref(q32, k32, v32, causal)
+    o.backward(do.float())
+    lse = fa.attention_lse_ref(q32.detach(), k32.detach(), causal)
+    return o.detach(), lse, q32.grad, k32.grad, v32.grad
+
+
+def _max_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(1024, 1024), (77, 77), (200, 200),
+                                   (77, 200), (1, 130)])
+def test_flash_kernels_match_plain_version(dev, dtype, head_dim, causal, sq,
+                                           sk):
+    """Forward (O, LSE) and both backward kernels (dQ; dK, dV) against the
+    plain version and its autograd gradients, sq <= sk (a query row always
+    sees a key), ragged edges included."""
+    q, k, v, do = _flash_inputs(2, sq, sk, 3, head_dim, dtype, dev)
+    f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == f0 + 1
+    assert fa.flash_attention_bwd.launches == b0 + 1
+    want = _flash_ref(q, k, v, do, causal)
+    for name, got, ref in zip(("o", "lse", "dq", "dk", "dv"),
+                              (o, lse, dq, dk, dv), want):
+        assert got.dtype == (torch.float32 if name == "lse" else dtype)
+        assert got.shape == ref.shape, name
+        err = _max_err(got, ref)
+        assert err < TOL[dtype], f"{name}: max err {err}"
+
+
+def test_flash_autograd_through_strided_views(dev):
+    """The training path: q, k, v as strided views of one fused QKV
+    projection [b, s, h, 3, d], gradients through `flash_attention`."""
+    g = torch.Generator().manual_seed(1)
+    qkv = torch.randn((2, 100, 4, 3, 64), generator=g).to(dev)
+    do = torch.randn((2, 100, 4, 64), generator=g).to(dev)
+    got_in = qkv.clone().requires_grad_()
+    q, k, v = got_in[:, :, :, 0], got_in[:, :, :, 1], got_in[:, :, :, 2]
+    assert not q.is_contiguous()
+    fa.flash_attention(q, k, v, causal=True).backward(do)
+    ref_in = qkv.clone().requires_grad_()
+    fa.attention_ref(ref_in[:, :, :, 0], ref_in[:, :, :, 1],
+                     ref_in[:, :, :, 2], causal=True).backward(do)
+    assert _max_err(got_in.grad, ref_in.grad) < TOL[torch.float32]
+
+
+def test_flash_rejects_what_it_cannot_take(dev):
+    q, k, v, _ = _flash_inputs(1, 16, 16, 2, 32, torch.float32, dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(q, k, v)
+    q, k, v, _ = _flash_inputs(1, 16, 16, 2, 64, torch.float16, dev)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_fwd(q, k, v)
+    q, k, v, _ = _flash_inputs(1, 16, 16, 2, 64, torch.float32, dev)
+    with pytest.raises(ValueError, match="shape"):
+        fa.flash_attention_fwd(q, k[:, :, :1], v)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_fwd(q, k, torch.randn(1, 16, 2, 65, device=dev)
+                               [..., 1:])
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(NotImplementedError, match="mask"):
+        fa.flash_attention(q, k, v, mask=torch.zeros(1, 1, 16, 16,
+                                                     device=dev))
+    with pytest.raises(NotImplementedError, match="dropout"):
+        fa.flash_attention(q, k, v, dropout_p=0.1)
+
+
+def test_gpt_train_step_on_the_card_matches_the_cpu(dev):
+    """Two AdamW steps of a small GPT in float32: the card (flash kernels)
+    against a CPU copy (plain attention), same weights and batch."""
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=96)
+    models = [GPT(cfg, device=d, seed=0) for d in (dev, "cpu")]
+    models[1].load_state_dict({k: t.cpu() for k, t in
+                               models[0].state_dict().items()})
+    rs = np.random.RandomState(0)
+    ids, labels = (torch.from_numpy(rs.randint(0, 512, (2, 96)))
+                   for _ in "il")
+    losses = []
+    f0 = fa.flash_attention_fwd.launches
+    for m in models:
+        opt = AdamW(learning_rate=1e-3, parameters=m.parameters())
+        m.train()
+        run = []
+        for _ in range(2):
+            loss = m(ids.to(m.device), labels=labels.to(m.device))
+            loss.backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            run.append(loss.item())
+        losses.append(run)
+    assert fa.flash_attention_fwd.launches - f0 == 2 * cfg.num_layers
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+    for (n, a), (_, b) in zip(models[0].named_parameters(),
+                              models[1].named_parameters()):
+        assert _max_err(a.cpu(), b) < 1e-3, n

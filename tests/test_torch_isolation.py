@@ -1,6 +1,6 @@
-"""The port stands alone: no module of `paddle_tpu_torch`, and neither
-`chip_smoke.py` nor `torch_serve_profile.py`, imports JAX or anything of
-the JAX package `paddle_tpu`.
+"""The port stands alone: no module of `paddle_tpu_torch`, and none of
+`chip_smoke.py`, `torch_serve_profile.py` and `torch_train_profile.py`,
+imports JAX or anything of the JAX package `paddle_tpu`.
 
 Roots are compared exactly: ``"paddle_tpu_torch".startswith("paddle_tpu")``
 holds, so a prefix test would wrongly flag the port's own imports."""
@@ -15,7 +15,8 @@ FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
 
 def _port_files():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "torch_serve_profile.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "torch_serve_profile.py",
+                    ROOT / "torch_train_profile.py"]
 
 
 def _import_roots(path):
@@ -32,6 +33,9 @@ def _import_roots(path):
 def test_port_has_modules_and_a_smoke_script():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for want in ("paddle_tpu_torch/ops/paged_attention.py",
+                 "paddle_tpu_torch/ops/flash_attention.py",
+                 "paddle_tpu_torch/ops/fused_ce.py",
+                 "paddle_tpu_torch/optimizer/optimizers.py",
                  "paddle_tpu_torch/serving/engine.py",
                  "paddle_tpu_torch/models/gpt.py", "chip_smoke.py"):
         assert want in names

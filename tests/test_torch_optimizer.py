@@ -1,0 +1,99 @@
+"""The port's AdamW against the JAX package's `AdamW.apply_gradients_arrays`
+over three steps, on the same parameters and gradients (seeded numpy)."""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.optimizer import AdamW as JaxAdamW
+from paddle_tpu_torch.optimizer import AdamW
+
+SHAPES = {"fc.weight": (8, 6), "fc.bias": (6,), "ln.weight": (6,)}
+LR = 1e-3
+
+
+def _params_and_grads(steps=3, seed=0):
+    rs = np.random.RandomState(seed)
+    params = {k: rs.randn(*s).astype(np.float32) for k, s in SHAPES.items()}
+    grads = [{k: (rs.randn(*s) * 10 ** rs.uniform(-3, 1)).astype(np.float32)
+              for k, s in SHAPES.items()} for _ in range(steps)]
+    return params, grads
+
+
+def _run_jax(params, grads, dtype, **kw):
+    opt = JaxAdamW(learning_rate=LR, **kw)
+    p = {k: jnp.asarray(a, dtype) for k, a in params.items()}
+    state = opt.init_state_arrays(p)
+    for g in grads:
+        p, state = opt.apply_gradients_arrays(
+            p, {k: jnp.asarray(a, dtype) for k, a in g.items()}, state,
+            jnp.asarray(LR, jnp.float32))
+    return {k: np.asarray(a.astype(jnp.float32)) for k, a in p.items()}
+
+
+def _run_torch(params, grads, dtype, **kw):
+    p = {k: torch.nn.Parameter(torch.tensor(a, dtype=dtype))
+         for k, a in params.items()}
+    opt = AdamW(learning_rate=LR, parameters=list(p.items()), **kw)
+    for g in grads:
+        for k, t in p.items():
+            t.grad = torch.from_numpy(g[k]).to(dtype)
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+    return {k: t.detach().float().numpy() for k, t in p.items()}
+
+
+@pytest.mark.parametrize("decay_fun", [None,
+                                       lambda name: "bias" not in name])
+def test_adamw_float32_matches_jax(decay_fun):
+    params, grads = _params_and_grads()
+    want = _run_jax(params, grads, jnp.float32,
+                    apply_decay_param_fun=decay_fun)
+    got = _run_torch(params, grads, torch.float32,
+                     apply_decay_param_fun=decay_fun)
+    for k in SHAPES:
+        # float32: a rounding or two apart at most
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
+    if decay_fun is not None:
+        # the exempt bias moved by the Adam step alone
+        undecayed = _run_torch(params, grads, torch.float32, weight_decay=0.0)
+        np.testing.assert_array_equal(got["fc.bias"], undecayed["fc.bias"])
+        assert not np.array_equal(got["fc.weight"], undecayed["fc.weight"])
+
+
+@pytest.mark.parametrize("decay_fun", [None,
+                                       lambda name: "bias" not in name])
+def test_adamw_bfloat16_within_one_ulp_of_jax(decay_fun):
+    params, grads = _params_and_grads(seed=1)
+    want = _run_jax(params, grads, jnp.bfloat16,
+                    apply_decay_param_fun=decay_fun)
+    got = _run_torch(params, grads, torch.bfloat16,
+                     apply_decay_param_fun=decay_fun)
+    for k in SHAPES:
+        ulp = np.abs(np.spacing(want[k].astype(ml_dtypes.bfloat16))
+                     .astype(np.float32))
+        assert np.all(np.abs(got[k] - want[k]) <= ulp), k
+
+
+def test_adamw_keeps_float32_moments_for_bfloat16_parameters():
+    p = torch.nn.Parameter(torch.ones(4, dtype=torch.bfloat16))
+    opt = AdamW(parameters=[p])
+    p.grad = torch.full((4,), 0.5, dtype=torch.bfloat16)
+    opt.step()
+    st = opt.state[p]
+    assert st["moment1"].dtype == st["moment2"].dtype == torch.float32
+    assert p.dtype == torch.bfloat16
+
+
+def test_adamw_refuses_what_is_not_ported():
+    p = [torch.nn.Parameter(torch.ones(2))]
+    with pytest.raises(NotImplementedError, match="grad_clip"):
+        AdamW(parameters=p, grad_clip=1.0)
+    with pytest.raises(NotImplementedError, match="multi_precision"):
+        AdamW(parameters=p, multi_precision=True)
+    with pytest.raises(NotImplementedError, match="scheduler"):
+        AdamW(learning_rate=lambda step: 1e-3, parameters=p)
+    with pytest.raises(ValueError, match="named_parameters"):
+        AdamW(parameters=p, apply_decay_param_fun=lambda n: True)
