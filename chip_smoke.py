@@ -9,20 +9,30 @@ Phases, in order; any failure exits nonzero:
 
 1. Environment: the card's name and power limit; build every CUDA kernel
    of the serving path from csrc/ (one nvcc per source, started together).
-2. Each kernel against its plain PyTorch version at the serving path's
-   shapes (GPT-1.3B: heads 16, head_dim 128, block 16, batch 8; step widths
-   1, 5 and 128), in float32 (TF32 off, tolerance 1e-3) and bfloat16
-   (tolerance 2e-2), with the kernel's, the plain version's and one PyTorch
-   library call's device times (CUDA-graph replays) beside the least time
-   the card could take, and the kernel's eager per-call time.
+2. The ragged paged-attention kernel against its plain PyTorch version at
+   the serving path's shapes (GPT-1.3B: heads 16, head_dim 128, block 16,
+   batch 8; step widths 1, 5 and 128), in float32 (TF32 off, tolerance
+   1e-3) and bfloat16 (tolerance 2e-2), over a float arena and over an
+   int8 arena with its float32 scales, with the kernel's, the plain
+   version's and one PyTorch library call's device times (CUDA-graph
+   replays) beside the least time the card could take, and the kernel's
+   eager per-call time.
 3. Serve: gpt_1p3b in bf16 (random weights from a seed) behind
    LLMEngine(block_size=16, max_batch=8, spec_decoding=True) answers 8
    greedy requests of 64-1000 prompt tokens, four sharing a 256-token
    prefix, 32 new tokens each. The kernels' launch counts are set to 0
    just before and read just after; every kernel must have run once per
    layer and step, with one host sync per step and an idle pool after.
+   3b. The same with kv_dtype="int8": every launch is the int8 variant.
+   3c. The overcap pair (bench.py's int8 overcap wave): one byte budget of
+   12 bf16 blocks, block 16, max_seq_len 128, max_batch 4, 8 prompts of
+   96 tokens, 8 new tokens, served from a bf16 and from an int8 arena;
+   blocks, bytes a block, preemptions, tok/s and the greedy parity rate.
+   The int8 arena must hold at least 1.9x the blocks.
 4. float32 parity: gpt_1p3b widths at 4 layers, greedy LLMEngine (the
    kernel) against GPT.generate (contiguous cache, no kernel).
+   4b. The int8 engine on the card against the int8 engine on a CPU copy
+   (the plain version): at least 90 % of the greedy tokens equal.
 5. The flash-attention kernels (forward; dK/dV and dQ) against the plain
    version (`attention_ref` in float32 on the same values, and autograd's
    gradients) at the training shape (B 16, H 8, S 1024, D 128, causal) in
@@ -171,17 +181,20 @@ def _case(width, gen, n_blocks, dtype, dev):
                 q_lens_np=q_lens, kv_live_np=kv_live)
 
 
-def _bound(c, dtype):
+def _bound(c, dtype, int8=False):
     """Least time for this case's work: the bytes it must move (each live
     query read and its output written once, each live row's `ctx` keys of
-    K and V read once, its live table entries and metadata), or the causal
-    flops of its live queries. The idle lane (the last row), whose output
-    is discarded, counts nothing."""
+    K and V read once, an int8 arena's K and V scale for each live block
+    and head, its live table entries and metadata), or the causal flops of
+    its live queries. The idle lane (the last row), whose output is
+    discarded, counts nothing."""
     isz = torch.tensor([], dtype=dtype).element_size()
+    kv_isz = 1 if int8 else isz
     n = B - 1                                        # live rows
     ql, live, ctx = c["q_lens_np"][:n], c["kv_live_np"][:n], c["ctx"][:n]
     nbytes = (2 * ql.sum() * H * D * isz             # q in, out
-              + 2 * ctx.sum() * H * D * isz          # K and V, live keys
+              + 2 * ctx.sum() * H * D * kv_isz       # K and V, live keys
+              + (2 * live.sum() * H * 4 if int8 else 0)  # their scales
               + live.sum() * 4 + 3 * n * 4)          # table entries, metadata
     flops = 0
     for i in range(n):
@@ -193,16 +206,20 @@ def _bound(c, dtype):
                                        else "operations")
 
 
-def _library_call(c, k_arena, v_arena, layer, width):
-    """scaled_dot_product_attention on K/V gathered beforehand into
-    contiguous [B, H, L, D] with a boolean causal/ragged mask: the timed
-    yardstick only, never used by the port."""
+def _library_call(c, k_arena, v_arena, layer, scales=None):
+    """scaled_dot_product_attention on K/V gathered (and, from an int8
+    arena, dequantized to q's dtype) beforehand into contiguous [B, H, L,
+    D] with a boolean causal/ragged mask: the timed yardstick only, never
+    used by the port."""
     F = torch.nn.functional
     L = int(c["kv_live_np"].max()) * BS
     bt = c["tables"][:, :L // BS].long()
-    k = k_arena[layer][:, bt].permute(1, 0, 2, 3, 4).reshape(B, H, L, D)
-    v = v_arena[layer][:, bt].permute(1, 0, 2, 3, 4).reshape(B, H, L, D)
-    k, v = k.contiguous(), v.contiguous()
+    k, v = k_arena[layer][:, bt], v_arena[layer][:, bt]  # [H, B, nb, bs, D]
+    if scales is not None:
+        k, v = (a.float() * sc[layer][:, bt][..., None, None]
+                for a, sc in zip((k, v), scales))
+    k, v = (a.permute(1, 0, 2, 3, 4).reshape(B, H, L, D).to(c["q"].dtype)
+            .contiguous() for a in (k, v))
     q = c["q"].transpose(1, 2).contiguous()
     kpos = torch.arange(L, device=q.device)
     mask = (kpos[None, None, None, :] <= c["qpos"][:, None, :, None])
@@ -212,23 +229,35 @@ def _library_call(c, k_arena, v_arena, layer, width):
 def kernel_cases():
     from paddle_tpu_torch.ops import paged_attention as pa
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     n_layers, n_blocks, layer = 24, B * (2048 // BS) + 1, 17
+    # the serving arena's shape, random garbage in every slot
+    shape = (n_layers, H, n_blocks, BS, D)
     out = []
-    for dtype in (torch.float32, torch.bfloat16):
-        # the serving arena's shape, random garbage in every slot
-        shape = (n_layers, H, n_blocks, BS, D)
-        k_arena = torch.randn(shape, generator=gen, device=dev).to(dtype)
-        v_arena = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    for arena, dtype in (("float", torch.float32), ("float", torch.bfloat16),
+                         ("int8", torch.float32), ("int8", torch.bfloat16)):
+        sc = {}
+        if arena == "int8":
+            k_arena, v_arena = (torch.randint(
+                -127, 128, shape, generator=gen, device=dev,
+                dtype=torch.int8) for _ in "kv")
+            sc = dict(zip(("k_scale", "v_scale"), (
+                torch.rand(shape[:3], generator=gen, device=dev) * 0.03
+                + 0.002 for _ in "kv")))
+        else:
+            k_arena, v_arena = (torch.randn(shape, generator=gen, device=dev)
+                                .to(dtype) for _ in "kv")
         for width in WIDTHS:
             c = _case(width, gen, n_blocks, dtype, dev)
             args = (c["q"], k_arena, v_arena, layer, c["tables"], c["qpos"])
             meta = dict(q_start=c["q_start"], kv_live=c["kv_live"],
-                        q_lens=c["q_lens"])
+                        q_lens=c["q_lens"], **sc)
             got = pa.paged_attention_arrays(*args, **meta)
-            want = pa.paged_attention_ref(*args)
+            want = pa.paged_attention_ref(*args, **sc)
             torch.cuda.synchronize()
             err = 0.0
             for i in range(B):
@@ -241,10 +270,13 @@ def kernel_cases():
             kernel = lambda: pa.ragged_paged_attention(  # noqa: E731
                 c["q"], k_arena, v_arena, layer, c["tables"], **meta)
             kms = time_ms(kernel, 50)
-            pms = time_ms(lambda: pa.paged_attention_ref(*args), 5)
-            lms = time_ms(_library_call(c, k_arena, v_arena, layer, width), 20)
-            bms, by = _bound(c, dtype)
-            rec = dict(dtype=str(dtype).replace("torch.", ""), width=width,
+            pms = time_ms(lambda: pa.paged_attention_ref(*args, **sc), 5)
+            lms = time_ms(_library_call(
+                c, k_arena, v_arena, layer,
+                (sc["k_scale"], sc["v_scale"]) if sc else None), 20)
+            bms, by = _bound(c, dtype, int8=bool(sc))
+            rec = dict(arena=arena, dtype=str(dtype).replace("torch.", ""),
+                       width=width,
                        max_err=err, tol=TOL[dtype], kernel_ms=kms,
                        kernel_eager_call_ms=eager_ms(kernel, 50),
                        plain_ms=pms, library_ms=lms, bound_ms=bms,
@@ -255,7 +287,7 @@ def kernel_cases():
             if not ok:
                 raise SystemExit(f"kernel disagrees with the plain version: "
                                  f"{rec}")
-        del k_arena, v_arena
+        del k_arena, v_arena, sc
         torch.cuda.empty_cache()
     return out
 
@@ -275,13 +307,13 @@ def _prompts(rs, vocab):
     return prompts
 
 
-def serving_engine(model):
+def serving_engine(model, kv_dtype=None):
     """The serve phase's engine, warmed up (cuBLAS handles, allocator)
     outside the measured run, with its metrics cleared."""
     from paddle_tpu_torch.serving import LLMEngine
 
     engine = LLMEngine(model, block_size=16, max_batch=8,
-                       spec_decoding=True)
+                       spec_decoding=True, kv_dtype=kv_dtype)
     engine.generate([[1, 2, 3, 4] * 8], max_new_tokens=2)
     engine.metrics.counters.clear()
     engine.metrics.reset_schedule()
@@ -299,23 +331,42 @@ def serve_waves(engine, prompts):
     return outs
 
 
-def serve():
+def serving_model():
     from paddle_tpu_torch.models.gpt import gpt_1p3b
-    from paddle_tpu_torch.ops import paged_attention as pa
 
     t0 = time.perf_counter()
     model = gpt_1p3b(device="cuda", dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
     log(f"[serve] gpt_1p3b bf16 built in {time.perf_counter() - t0:.1f} s")
-    engine = serving_engine(model)
+    return model
+
+
+def _zero_counts():
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    pa.ragged_paged_attention.launches = 0
+    pa.ragged_paged_attention.int8_launches = 0
+
+
+def _read_counts():
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    return (pa.ragged_paged_attention.launches,
+            pa.ragged_paged_attention.int8_launches)
+
+
+def serve(model, kv_dtype=None):
+    """Phase 3 (float arena) or 3b (kv_dtype="int8")."""
+    tag = "serve" if kv_dtype is None else f"serve-{kv_dtype}"
+    engine = serving_engine(model, kv_dtype)
     prompts = _prompts(np.random.RandomState(0), model.cfg.vocab_size)
     steps0 = engine.step_count
     torch.cuda.reset_peak_memory_stats()
-    pa.ragged_paged_attention.launches = 0
+    _zero_counts()
     t1 = time.perf_counter()
     outs = serve_waves(engine, prompts)
     wall = time.perf_counter() - t1
-    launches = pa.ragged_paged_attention.launches
+    launches, int8_launches = _read_counts()
     steps = engine.step_count - steps0
     c = engine.metrics.counters
     lat = engine.metrics.latency_summary()
@@ -328,7 +379,8 @@ def serve():
                      if k.endswith("_step")},
         step_counts={k: int(c.get(k + "s", 0))
                      for k in ("mixed_step", "decode_step", "verify_step")},
-        launches=launches, layers=model.cfg.num_layers,
+        launches=launches, int8_launches=int8_launches,
+        layers=model.cfg.num_layers,
         host_syncs=int(c.get("host_syncs", 0)),
         prefix_cache_hit_rate=engine.metrics.gauges.get(
             "prefix_cache_hit_rate", 0.0),
@@ -336,16 +388,75 @@ def serve():
             "spec_acceptance_rate", 0.0),
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         pool=engine.pool_stats())
-    log("[serve] " + json.dumps(res))
+    log(f"[{tag}] " + json.dumps(res))
     assert all(len(o) == 32 for o in outs), "a request did not finish"
     assert not c.get("nonfinite_rows"), "non-finite logits in a served row"
     assert launches == model.cfg.num_layers * steps, (launches, steps)
+    # every launch of the int8 wave is the int8 variant, none of the other
+    assert int8_launches == (launches if kv_dtype else 0), int8_launches
     assert res["host_syncs"] == steps, (res["host_syncs"], steps)
     assert res["prefix_cache_hit_rate"] > 0
     assert engine.pool.num_free == engine.pool.num_blocks - 1
     assert engine.pool._refcount == {}
-    del engine, model
+    del engine
     torch.cuda.empty_cache()
+    return res
+
+
+def overcap_pair(model):
+    """Phase 3c, bench.py's int8 overcap wave at gpt_1p3b: at one byte
+    budget (12 bf16 blocks), the int8 arena's smaller blocks buy about
+    twice the capacity, so a wave that churns the bf16 engine through
+    preemptions mostly fits resident."""
+    from paddle_tpu_torch.serving import LLMEngine
+
+    cfg = model.cfg
+    bs, max_seq, max_new, n_req = 16, 128, 8, 8
+    per_block = (2 * cfg.num_layers * cfg.num_heads * bs
+                 * (cfg.hidden_size // cfg.num_heads)
+                 * model.wte.weight.element_size())
+    budget = 12 * per_block
+    rs = np.random.RandomState(2)
+    prompts = [rs.randint(0, cfg.vocab_size, 96).tolist()
+               for _ in range(n_req)]
+    outs, res = {}, dict(kv_hbm_bytes=budget, requests=n_req)
+    for kv_dtype in (None, "int8"):
+        eng = LLMEngine(model, block_size=bs, max_batch=4,
+                        max_seq_len=max_seq, kv_hbm_bytes=budget,
+                        kv_dtype=kv_dtype)
+        eng.generate([prompts[0][:24]], max_new_tokens=2)        # warm-up
+        eng.metrics.counters.clear()
+        steps0 = eng.step_count
+        _zero_counts()
+        t0 = time.perf_counter()
+        outs[kv_dtype] = eng.generate(prompts, max_new_tokens=max_new,
+                                      temperature=0.0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, int8_launches = _read_counts()
+        steps = eng.step_count - steps0
+        c = eng.metrics.counters
+        st = eng.pool_stats()
+        rec = dict(kv_dtype=st["kv_dtype"], num_blocks=eng.pool.num_blocks,
+                   blocks_total=st["blocks_total"],
+                   kv_bytes_per_block=st["kv_bytes_per_block"],
+                   preemptions=int(c.get("preemptions", 0)), steps=steps,
+                   tok_s=c["generated_tokens"] / dt, launches=launches,
+                   int8_launches=int8_launches)
+        res["int8" if kv_dtype else "base"] = rec
+        assert all(len(o) == max_new for o in outs[kv_dtype])
+        assert launches == cfg.num_layers * steps, (launches, steps)
+        assert int8_launches == (launches if kv_dtype else 0), int8_launches
+        assert c["host_syncs"] == steps
+        assert eng.pool.num_free == eng.pool.num_blocks - 1
+        del eng
+        torch.cuda.empty_cache()
+    res["capacity_ratio"] = (res["int8"]["num_blocks"]
+                             / res["base"]["num_blocks"])
+    res["greedy_parity_rate"] = float(np.mean(
+        [a == b for a, b in zip(outs[None], outs["int8"])]))
+    log("[overcap] " + json.dumps(res))
+    assert res["capacity_ratio"] >= 1.9, res
     return res
 
 
@@ -382,6 +493,45 @@ def parity():
     res = dict(prompts=len(prompts), diverged=diverged,
                worst_top2_gap=worst_gap)
     log("[parity] " + json.dumps(res))
+    return res
+
+
+def parity_int8():
+    """Phase 4b: the int8 engine in float32 on the card (the int8 kernel)
+    against the same engine on a CPU copy (the plain version); the greedy
+    token parity rate must reach 0.9, the JAX package's int8 gate."""
+    from paddle_tpu_torch.models.gpt import GPT, gpt_1p3b
+    from paddle_tpu_torch.serving import LLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = gpt_1p3b(num_layers=4, device="cuda", dtype=torch.float32,
+                    seed=1)
+    cfg = cuda.cfg
+    cpu = GPT(cfg, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in cuda.state_dict().items()})
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(0, cfg.vocab_size, n).tolist()
+               for n in (20, 37, 64, 150)]
+    outs, steps = [], []
+    for m in (cuda, cpu):
+        eng = LLMEngine(m, device=m.device, kv_dtype="int8", block_size=16,
+                        max_batch=4)
+        _zero_counts()
+        outs.append(eng.generate(prompts, max_new_tokens=16,
+                                 temperature=0.0))
+        launches, int8_launches = _read_counts()
+        steps.append(eng.step_count)
+        assert int8_launches == launches == (
+            cfg.num_layers * eng.step_count if m is cuda else 0)
+    toks = [(a, b) for ga, gb in zip(*outs) for a, b in zip(ga, gb)]
+    rate = float(np.mean([a == b for a, b in toks]))
+    res = dict(layers=cfg.num_layers, prompts=len(prompts), tokens=len(toks),
+               parity_rate=rate, steps_cuda=steps[0], steps_cpu=steps[1])
+    log("[parity-int8] " + json.dumps(res))
+    assert rate >= 0.9, res
+    del cuda, cpu
+    torch.cuda.empty_cache()
     return res
 
 
@@ -653,32 +803,44 @@ def main():
     log(f"[env] {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
     build_kernels()
     cases = kernel_cases()
-    served = serve()
+    model = serving_model()
+    served = serve(model)
+    served_int8 = serve(model, "int8")
+    overcap = overcap_pair(model)
+    del model
+    torch.cuda.empty_cache()
     par = parity()
+    par_int8 = parity_int8()
     flash = flash_cases()
     trained = train(smi)
     tpar = train_parity()
     # the kernel line's headline numbers: the bf16 decode case (width 1),
     # the launch shape the serving path runs most, and the bf16 flash case
     # at the training shape
-    head = next(r for r in cases if r["dtype"] == "bfloat16"
-                and r["width"] == 1)
+    rpa = []
+    for arena, launches in (("float", served["launches"]),
+                            ("int8", served_int8["int8_launches"])):
+        mine = [r for r in cases if r["arena"] == arena]
+        head = next(r for r in mine if r["dtype"] == "bfloat16"
+                    and r["width"] == 1)
+        rpa.append({
+            "name": "ragged_paged_attention"
+                    + ("_int8" if arena == "int8" else ""),
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/paged_attention.py:108",
+            "launches": launches,
+            "max_abs_err": max(r["max_err"] for r in mine
+                               if r["dtype"] == "bfloat16"),
+            "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "cases": mine,
+        })
     fl = flash[0]
     src = "paddle_tpu_torch/csrc/flash_attention.cu"
     tpu = "paddle_tpu/ops/pallas/flash_attention.py"
-    kernels = [{
-        "name": "ragged_paged_attention",
-        "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
-        "replaces": "paddle_tpu/ops/pallas/paged_attention.py:108",
-        "launches": served["launches"],
-        "max_abs_err": max(r["max_err"] for r in cases
-                           if r["dtype"] == "bfloat16"),
-        "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "cases": cases,
-    }, {
+    kernels = rpa + [{
         "name": "flash_attention_fwd", "route": "cuda", "source": src,
         "replaces": f"{tpu}:121", "launches": trained["fwd_launches"],
         "max_abs_err": max(fl["max_err"]["o"], fl["max_err"]["lse"]),
@@ -707,8 +869,9 @@ def main():
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=smi, kind=kind, kernels=kernels,
-                           serve=served, parity=par, train=trained,
-                           train_parity=tpar), f, indent=1)
+                           serve=served, serve_int8=served_int8,
+                           overcap=overcap, parity=par, parity_int8=par_int8,
+                           train=trained, train_parity=tpar), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

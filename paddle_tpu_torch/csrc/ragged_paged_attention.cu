@@ -1,7 +1,7 @@
 // Ragged paged attention for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces the TPU kernel `_ragged_kernel` (built by `_build_ragged`,
-// paddle_tpu/ops/pallas/paged_attention.py), float-arena variant: every
+// paddle_tpu/ops/pallas/paged_attention.py), both of its variants: every
 // live query token attends, with an fp32 softmax, over its row's live KV
 // blocks under the positional causal mask `q_start + i >= j * bs + k`,
 // which also hides the stale tail of a partly filled last block. Dead
@@ -9,16 +9,28 @@
 // inside a live tile past q_len are neither computed nor written (their
 // output is garbage, as on the TPU, and the engine discards it).
 //
+// - Float arena (the arena has q's dtype): P is rounded to that dtype
+//   before the PV product, as the TPU kernel's `p.astype(vt.dtype)` does.
+// - Int8 arena (`quant=True` on the TPU): each (layer, head, block) tile
+//   carries one float32 scale in the sidecars k_scale / v_scale [L, H, N].
+//   A 16-byte load brings 16 int8 values, which are converted to float and
+//   multiplied by their block's scale as they are staged into the f32
+//   shared tiles (the chunk's scales are read once into shared memory), so
+//   the products see dequantized K and V exactly as the TPU kernel's
+//   `kt.astype(f32) * scale` before its dot. P stays fp32 (V is fp32 after
+//   the dequant). Everything after staging is the float path's.
+//
 // Layouts (the JAX package's): q and out [B, S, H, D] with unit stride on
 // D (other strides are arguments, so the strided q view of the fused QKV
 // projection needs no copy); arenas [L, H, N, bs, D] contiguous and
-// 16-byte aligned; block_tables [B, nb] int32; q_start, kv_live, q_lens
-// [B] int32.
+// 16-byte aligned; scale sidecars [L, H, N] float32 contiguous;
+// block_tables [B, nb] int32; q_start, kv_live, q_lens [B] int32.
 //
 // Bound: memory. A decode step reads each live KV block of each head once,
-// about 2 * live_blocks * bs * D * H * itemsize bytes per step and layer,
-// over the card's 3.35 TB/s; the arithmetic (4 * q_len * kv_len * D * H
-// flops) is far below the ridge for decode and short chunks.
+// about 2 * live_blocks * bs * D * H * itemsize bytes per step and layer
+// (itemsize 1 plus two 4-byte scales a block for the int8 arena), over the
+// card's 3.35 TB/s; the arithmetic (4 * q_len * kv_len * D * H flops) is
+// far below the ridge for decode and short chunks.
 //
 // What the design does about it:
 // - Work is cut into chunks of whole KV blocks, about 64 keys each
@@ -48,7 +60,8 @@
 // share left blocks that drew long items holding the kernel.)
 //
 // Shared memory (floats): Q [QT][D], K [CK][D + 4], V [CK][D], P [QT][CK4],
-// m / l / alpha [QT]; CK = keys per chunk, CK4 = CK rounded up to 4. The
+// m / l / alpha [QT], the chunk's K and V scales [CB] each (int8 arena);
+// CK = keys per chunk, CK4 = CK rounded up to 4, CB = blocks per chunk. The
 // math reads shared memory as float4: a score is one key against a group
 // of 4 query rows, a PV term 4 output columns of one row against 4 keys
 // (the K row padding keeps a quarter-warp's float4 loads of 8 keys on
@@ -59,6 +72,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -98,6 +113,14 @@ template <> struct Vec<__nv_bfloat16> {
     }
   }
 };
+template <> struct Vec<int8_t> {
+  static constexpr int N = 16;
+  __device__ static void unpack(const uint4& u, float* out) {
+    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = static_cast<float>(c[i]);
+  }
+};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -109,11 +132,13 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 }
 
 // P is rounded to the V dtype before the PV product, as the TPU kernel
-// does with `p.astype(vt.dtype)`.
+// does with `p.astype(vt.dtype)`; V from an int8 arena is float32 after
+// its dequant, so P stays float32 there.
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }
 __device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
 }
+__device__ __forceinline__ float round_to(float x, const int8_t*) { return x; }
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -128,6 +153,8 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
+  const float* k_scale;  // int8 arena: [L, H, N] sidecars; null otherwise
+  const float* v_scale;
   void* out;
   float* ws;  // split partials [B][H][n_split][QT][4 + D]: m, l, -, -, acc
   const int32_t* tables;
@@ -136,7 +163,7 @@ struct Params {
   const int32_t* q_lens;
   int64_t S, H, bs, nb, num_blocks, n_split, cblocks;
   int64_t q_sb, q_ss, q_sh, o_sb, o_ss, o_sh;
-  int64_t layer_off, a_sh, a_sn;
+  int64_t layer_off, a_sh, a_sn, sc_layer_off, sc_sh;
   float scale;
 };
 
@@ -148,16 +175,18 @@ __device__ __forceinline__ float* partial(const Params& p, int64_t b, int h,
 
 // The first pass: one block per work item, query tile `tile` of row `b`,
 // head `h`, KV split `split`. Returns at once (uniformly over the block)
-// when the item holds no work.
-template <typename T, int D>
+// when the item holds no work. T is q's and out's type, TA the arena's
+// (T itself, or int8_t with the scale sidecars).
+template <typename T, typename TA, int D>
 __global__ void __launch_bounds__(kThreads) rpa_attend(Params p) {
   static_assert(D % 16 == 0 && D <= 128 && kThreads % (D / 4) == 0,
                 "D must be one of 16, 32, 64, 128");
-  static_assert(D % Vec<T>::N == 0, "D must hold whole 16-byte vectors");
+  static_assert(D % Vec<TA>::N == 0, "D must hold whole 16-byte vectors");
+  constexpr bool kQuant = std::is_same<TA, int8_t>::value;
   constexpr int kD4 = D / 4;                   // float4 columns of a row
   constexpr int kRowStep = kThreads / kD4;     // PV rows per pass
   constexpr int kAcc = (kQTile + kRowStep - 1) / kRowStep;
-  constexpr int kVec = Vec<T>::N;
+  constexpr int kVec = Vec<TA>::N;
   constexpr int kKStride = D + 4;              // padded K row (floats)
 
   const int64_t ntiles = (p.S + kQTile - 1) / kQTile;
@@ -201,6 +230,8 @@ __global__ void __launch_bounds__(kThreads) rpa_attend(Params p) {
   float* m_s = ps + kQTile * ckp;               // [kQTile]
   float* l_s = m_s + kQTile;                    // [kQTile]
   float* a_s = l_s + kQTile;                    // [kQTile]
+  float* ksc_s = a_s + kQTile;                  // [cblocks] (int8 arena)
+  float* vsc_s = ksc_s + p.cblocks;             // [cblocks]
 
   const T* q = static_cast<const T*>(p.q);
   for (int i = tid; i < kQTile * D; i += kThreads) {
@@ -222,8 +253,8 @@ __global__ void __launch_bounds__(kThreads) rpa_attend(Params p) {
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  const T* kbase = static_cast<const T*>(p.k) + p.layer_off + h * p.a_sh;
-  const T* vbase = static_cast<const T*>(p.v) + p.layer_off + h * p.a_sh;
+  const TA* kbase = static_cast<const TA*>(p.k) + p.layer_off + h * p.a_sh;
+  const TA* vbase = static_cast<const TA*>(p.v) + p.layer_off + h * p.a_sh;
   const int32_t* table = p.tables + b * p.nb;
   const int warp = tid / 32, lane = tid % 32;
   const int tile_vecs = (int)(p.bs * D / kVec);  // 16-byte vectors per block
@@ -233,6 +264,17 @@ __global__ void __launch_bounds__(kThreads) rpa_attend(Params p) {
     const int j0 = c * (int)p.cblocks;
     const int nblk = min((int)p.cblocks, live - j0);
     const int nkeys = nblk * (int)p.bs;
+    if constexpr (kQuant) {
+      // this chunk's block scales, once per block (every thread has
+      // finished staging the previous chunk, the only reader of these)
+      if (tid < nblk) {
+        int64_t blk = table[j0 + tid];
+        if (blk < 0 || blk >= p.num_blocks) blk = 0;
+        const int64_t so = p.sc_layer_off + h * p.sc_sh + blk;
+        ksc_s[tid] = p.k_scale[so];
+        vsc_s[tid] = p.v_scale[so];
+      }
+    }
     __syncthreads();  // the previous chunk's K/V/P are no longer read
     // issue a batch of 16-byte loads per thread before using any of them,
     // so their latencies overlap
@@ -257,8 +299,17 @@ __global__ void __launch_bounds__(kThreads) rpa_attend(Params p) {
         if (i < nvec) {
           const int jj = i / tile_vecs, w = i % tile_vecs;
           float kf[kVec], vf[kVec];
-          Vec<T>::unpack(ku[u], kf);
-          Vec<T>::unpack(vu[u], vf);
+          Vec<TA>::unpack(ku[u], kf);
+          Vec<TA>::unpack(vu[u], vf);
+          if constexpr (kQuant) {
+            // dequantize with the block's scale before any product
+            const float ks = ksc_s[jj], vsc = vsc_s[jj];
+#pragma unroll
+            for (int x = 0; x < kVec; ++x) {
+              kf[x] *= ks;
+              vf[x] *= vsc;
+            }
+          }
           const int e = w * kVec;
           const int key = jj * (int)p.bs + e / D, d = e % D;
           float4* kd = reinterpret_cast<float4*>(ks + key * kKStride + d);
@@ -442,13 +493,14 @@ __global__ void __launch_bounds__(kThreads) rpa_combine(Params p) {
   }
 }
 
-template <typename T, int D>
+template <typename T, typename TA, int D>
 int launch(const Params& p, int64_t B, cudaStream_t stream) {
   const int64_t ckeys = p.cblocks * p.bs;
   const int64_t ckp = (ckeys + 3) / 4 * 4;
   const size_t smem = sizeof(float) *
-      (kQTile * D + ckeys * (D + 4) + ckeys * D + kQTile * ckp + 3 * kQTile);
-  auto attend = rpa_attend<T, D>;
+      (kQTile * D + ckeys * (D + 4) + ckeys * D + kQTile * ckp + 3 * kQTile +
+       2 * p.cblocks);
+  auto attend = rpa_attend<T, TA, D>;
   // raise the kernel's dynamic shared-memory cap once per size it needs
   // (not a stream operation, so it stays out of captured graphs after the
   // first call at a given size)
@@ -470,13 +522,13 @@ int launch(const Params& p, int64_t B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TA>
 int launch_d(int64_t D, const Params& p, int64_t B, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(p, B, stream);
-    case 32: return launch<T, 32>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
+    case 16: return launch<T, TA, 16>(p, B, stream);
+    case 32: return launch<T, TA, 32>(p, B, stream);
+    case 64: return launch<T, TA, 64>(p, B, stream);
+    case 128: return launch<T, TA, 128>(p, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -490,15 +542,20 @@ extern "C" int64_t ragged_paged_attention_workspace(int64_t B, int64_t H,
   return B * H * max_splits(bs, nb) * kQTile * (4 + D);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. `ws` holds at least
-// ragged_paged_attention_workspace(...) floats. Returns cudaGetLastError()
-// after the launches (0 on success). Launches on `stream` and does not
-// synchronise.
+// dtype (q and out) and arena_dtype: 0 = float32, 1 = bfloat16, 2 = int8
+// (the arena only). A float arena has q's dtype; an int8 arena needs the
+// float32 scale sidecars k_scale / v_scale [L, H, N] (offsets in floats:
+// sc_layer_off to the layer, sc_sh between heads), which are null for a
+// float arena. `ws` holds at least ragged_paged_attention_workspace(...)
+// floats. Returns cudaGetLastError() after the launches (0 on success).
+// Launches on `stream` and does not synchronise.
 extern "C" int ragged_paged_attention_launch(
-    int dtype, int64_t B, int64_t S, int64_t H, int64_t D, int64_t bs,
-    int64_t nb, int64_t num_blocks, const void* q, int64_t q_sb, int64_t q_ss,
-    int64_t q_sh, const void* k, const void* v, int64_t layer_off,
-    int64_t a_sh, int64_t a_sn, const void* tables, const void* q_start,
+    int dtype, int arena_dtype, int64_t B, int64_t S, int64_t H, int64_t D,
+    int64_t bs, int64_t nb, int64_t num_blocks, const void* q, int64_t q_sb,
+    int64_t q_ss, int64_t q_sh, const void* k, const void* v,
+    int64_t layer_off, int64_t a_sh, int64_t a_sn, const float* k_scale,
+    const float* v_scale, int64_t sc_layer_off, int64_t sc_sh,
+    const void* tables, const void* q_start,
     const void* kv_live, const void* q_lens, void* out, int64_t o_sb,
     int64_t o_ss, int64_t o_sh, float* ws, float scale, void* stream) {
   if (B == 0 || S == 0) return 0;
@@ -508,6 +565,8 @@ extern "C" int ragged_paged_attention_launch(
   p.q = q;
   p.k = k;
   p.v = v;
+  p.k_scale = k_scale;
+  p.v_scale = v_scale;
   p.out = out;
   p.ws = ws;
   p.tables = static_cast<const int32_t*>(tables);
@@ -530,9 +589,19 @@ extern "C" int ragged_paged_attention_launch(
   p.layer_off = layer_off;
   p.a_sh = a_sh;
   p.a_sn = a_sn;
+  p.sc_layer_off = sc_layer_off;
+  p.sc_sh = sc_sh;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(D, p, B, st);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(D, p, B, st);
+  if (arena_dtype == 2) {
+    if (k_scale == nullptr || v_scale == nullptr)
+      return (int)cudaErrorInvalidValue;
+    if (dtype == 0) return launch_d<float, int8_t>(D, p, B, st);
+    if (dtype == 1) return launch_d<__nv_bfloat16, int8_t>(D, p, B, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (arena_dtype != dtype) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_d<float, float>(D, p, B, st);
+  if (dtype == 1) return launch_d<__nv_bfloat16, __nv_bfloat16>(D, p, B, st);
   return (int)cudaErrorInvalidValue;
 }

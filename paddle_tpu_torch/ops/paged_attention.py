@@ -11,7 +11,10 @@ beside prefill-chunk and speculative-verify rows.
   token-identical to `GPT.generate`.
 - `ragged_paged_attention` launches ``csrc/ragged_paged_attention.cu``, which
   walks only each row's live KV blocks and live query tiles (the port of the
-  TPU kernel `_ragged_kernel`).
+  TPU kernel `_ragged_kernel`, float and int8 arena variants).
+- An int8 arena comes with float32 scale sidecars ``[layers, heads,
+  num_blocks]`` (`k_scale`, `v_scale`): one scale per (layer, head, block)
+  dequantizes that block's tile before any product, in both versions.
 - `paged_attention_arrays` chooses by the tensor's device alone: a CPU tensor
   takes the plain version, a CUDA tensor the kernel. There is no switch and
   no fallback: a CUDA call the kernel cannot take raises.
@@ -28,19 +31,22 @@ from . import _build
 _NEG_INF = -1e30
 _SOURCE = "ragged_paged_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INT8 = 2  # the kernel's code for an int8 arena
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_BLOCK_SIZE = 128
 
 
 def paged_attention_ref(q, k_arena, v_arena, layer, block_tables, qpos,
-                        scale=None):
+                        scale=None, k_scale=None, v_scale=None):
     """Plain paged attention over the full padded block table.
 
     q: [B, S, H, D]; arenas: [layers, H, num_blocks, block_size, D];
     block_tables: [B, max_blocks] int (0 = null block); qpos: [B, S]
     absolute query positions (padding carries 0 and is discarded by the
-    caller). Scores and softmax in fp32; P is cast to V's dtype before the
-    PV product. Returns [B, S, H, D] in q's dtype.
+    caller). `k_scale`/`v_scale` [layers, H, num_blocks] float32 dequantize
+    an int8 arena to float32 before the products. Scores and softmax in
+    fp32; P is cast to V's dtype before the PV product (float32 after a
+    dequant). Returns [B, S, H, D] in q's dtype.
     """
     B, S, H, D = q.shape
     if scale is None:
@@ -48,6 +54,9 @@ def paged_attention_ref(q, k_arena, v_arena, layer, block_tables, qpos,
     bt = block_tables.long()
     k_seq = k_arena[layer][:, bt]  # [H, B, nb, bs, D]
     v_seq = v_arena[layer][:, bt]
+    if k_scale is not None:
+        k_seq = k_seq.float() * k_scale[layer][:, bt][..., None, None]
+        v_seq = v_seq.float() * v_scale[layer][:, bt][..., None, None]
     nb, bs = k_seq.shape[2], k_seq.shape[3]
     L = nb * bs
     k_seq = k_seq.permute(1, 2, 3, 0, 4).reshape(B, L, H, D)
@@ -67,10 +76,11 @@ def _library():
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
         fn = lib.ragged_paged_attention_launch
         fn.argtypes = [
-            ctypes.c_int,                          # dtype
+            ctypes.c_int, ctypes.c_int,            # dtype arena_dtype
             i64, i64, i64, i64, i64, i64, i64,     # B S H D bs nb num_blocks
             ptr, i64, i64, i64,                    # q + strides
             ptr, ptr, i64, i64, i64,               # k v layer_off a_sh a_sn
+            ptr, ptr, i64, i64,                    # k_scale v_scale + strides
             ptr, ptr, ptr, ptr,                    # tables q_start kv_live q_lens
             ptr, i64, i64, i64,                    # out + strides
             ptr, ctypes.c_float, ptr,              # workspace scale stream
@@ -91,21 +101,25 @@ def _check_meta(name, t, shape, device):
 
 
 def ragged_paged_attention(q, k_arena, v_arena, layer, block_tables,
-                           q_start, kv_live, q_lens=None, scale=None):
+                           q_start, kv_live, q_lens=None, scale=None,
+                           k_scale=None, v_scale=None):
     """The CUDA ragged paged-attention kernel over live KV blocks and live
     query tiles only.
 
-    q: [B, S, H, D] (unit stride on D); arenas: [layers, H, num_blocks, bs,
-    D] contiguous, q's dtype (float32 or bfloat16); block_tables: [B,
-    max_blocks]; q_start: [B] first query position per row; kv_live: [B]
-    live KV blocks per row (clamped to >= 1); q_lens: [B] live query tokens
-    per row (None = every row full width). Metadata is int32 on q's device.
-    Returns [B, S, H, D]; rows past each row's live tokens hold garbage.
-    Launches on the current stream without synchronising; the workspace
-    for split rows' partials comes from `torch.empty`. The count of
-    launches is ``ragged_paged_attention.launches``; one launch is the
-    pair of CUDA kernels a call runs, the attend pass (`rpa_attend`) and
-    the merge of split rows' partials (`rpa_combine`).
+    q: [B, S, H, D] (unit stride on D), float32 or bfloat16; arenas:
+    [layers, H, num_blocks, bs, D] contiguous and 16-byte aligned, either
+    of q's dtype or int8 with `k_scale`/`v_scale` (float32 [layers, H,
+    num_blocks], contiguous); block_tables: [B, max_blocks]; q_start: [B]
+    first query position per row; kv_live: [B] live KV blocks per row
+    (clamped to >= 1); q_lens: [B] live query tokens per row (None = every
+    row full width). Metadata is int32 on q's device. Returns [B, S, H, D]
+    in q's dtype; rows past each row's live tokens hold garbage. Launches
+    on the current stream without synchronising; the workspace for split
+    rows' partials comes from `torch.empty`. The count of launches is
+    ``ragged_paged_attention.launches`` (of them, those over an int8 arena
+    also count in ``ragged_paged_attention.int8_launches``); one launch is
+    the pair of CUDA kernels a call runs, the attend pass (`rpa_attend`)
+    and the merge of split rows' partials (`rpa_combine`).
     """
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention runs on CUDA tensors; q is "
@@ -120,9 +134,14 @@ def ragged_paged_attention(q, k_arena, v_arena, layer, block_tables,
         raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
     if q.stride(-1) != 1:
         raise ValueError("q needs unit stride on head_dim")
+    quant = k_scale is not None or v_scale is not None
+    arena_dtype = torch.int8 if quant else q.dtype
     for name, a in (("k_arena", k_arena), ("v_arena", v_arena)):
-        if a.device != dev or a.dtype != q.dtype or not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {q.dtype} on {dev}")
+        if a.device != dev or a.dtype != arena_dtype or not a.is_contiguous():
+            raise ValueError(
+                f"{name} must be contiguous {arena_dtype} on {dev}"
+                + (" (an int8 arena needs k_scale and v_scale)"
+                   if a.dtype == torch.int8 and not quant else ""))
         if a.dim() != 5 or a.shape[1] != H or a.shape[4] != D:
             raise ValueError(f"{name} shape {tuple(a.shape)} does not match "
                              f"[layers, {H}, blocks, block_size, {D}]")
@@ -131,6 +150,16 @@ def ragged_paged_attention(q, k_arena, v_arena, layer, block_tables,
     if k_arena.data_ptr() % 16 or v_arena.data_ptr() % 16:
         raise ValueError("the arenas must be 16-byte aligned")
     n_layers, _, num_blocks, bs, _ = k_arena.shape
+    sc_st = (0, 0)
+    if quant:
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if (sc is None or sc.device != dev or sc.dtype != torch.float32
+                    or not sc.is_contiguous()
+                    or sc.shape != k_arena.shape[:3]):
+                raise ValueError(
+                    f"{name} must be a contiguous float32 tensor of shape "
+                    f"{tuple(k_arena.shape[:3])} on {dev}")
+        sc_st = k_scale.stride()
     layer = int(layer)
     if not 0 <= layer < n_layers:
         raise ValueError(f"layer {layer} out of range [0, {n_layers})")
@@ -155,10 +184,15 @@ def ragged_paged_attention(q, k_arena, v_arena, layer, block_tables,
     a_st = k_arena.stride()
     with torch.cuda.device(dev):
         err = lib.ragged_paged_attention_launch(
-            _DTYPES[q.dtype], B, S, H, D, bs, nb, num_blocks,
+            _DTYPES[q.dtype], _INT8 if quant else _DTYPES[q.dtype],
+            B, S, H, D, bs, nb, num_blocks,
             q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
             k_arena.data_ptr(), v_arena.data_ptr(), layer * a_st[0],
-            a_st[1], a_st[2], block_tables.data_ptr(), q_start.data_ptr(),
+            a_st[1], a_st[2],
+            k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None,
+            layer * sc_st[0], sc_st[1],
+            block_tables.data_ptr(), q_start.data_ptr(),
             kv_live.data_ptr(), q_lens.data_ptr(),
             out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
             ws.data_ptr(), float(scale),
@@ -168,28 +202,34 @@ def ragged_paged_attention(q, k_arena, v_arena, layer, block_tables,
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
                            f"error {err}")
     ragged_paged_attention.launches += 1
+    if quant:
+        ragged_paged_attention.int8_launches += 1
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.int8_launches = 0
 
 
 def paged_attention_arrays(q, k_arena, v_arena, layer, block_tables, qpos,
                            q_start=None, kv_live=None, q_lens=None,
-                           scale=None):
+                           scale=None, k_scale=None, v_scale=None):
     """Attend q through the block table, chosen by q's device: the plain
     version for a CPU tensor, the CUDA kernel for a CUDA tensor (which
     needs the ragged metadata `q_start`/`kv_live`, and raises without it).
-    `scale` defaults to 1/sqrt(head_dim) on both."""
+    `scale` defaults to 1/sqrt(head_dim) on both; `k_scale`/`v_scale` are
+    an int8 arena's scale sidecars."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_arena, v_arena, layer, block_tables,
-                                   qpos, scale)
+                                   qpos, scale, k_scale=k_scale,
+                                   v_scale=v_scale)
     if q.device.type == "cuda":
         if q_start is None or kv_live is None:
             raise ValueError("the CUDA path needs q_start and kv_live")
         return ragged_paged_attention(q, k_arena, v_arena, layer,
                                       block_tables, q_start, kv_live,
-                                      q_lens=q_lens, scale=scale)
+                                      q_lens=q_lens, scale=scale,
+                                      k_scale=k_scale, v_scale=v_scale)
     raise ValueError(f"no paged attention for device {q.device}")

@@ -11,6 +11,13 @@ padded or inactive scatter is routed there, so out-of-range writes can
 never corrupt a live sequence. Reads through padding see garbage from block
 0, which the causal ``kpos <= qpos`` mask discards.
 
+**Int8 arena** (``kv_dtype="int8"``): the payload is int8 and every
+(layer, head, block) carries one float32 dequant scale in the sidecars
+``k_scale``/``v_scale`` ``[layers, heads, num_blocks]``. The append
+(`_quantize_scatter`) grows a block's scale to fit its new tokens and
+requantizes the block's existing payload to the grown scale; attention
+dequantizes each tile with its scale before any product.
+
 Host-side bookkeeping is plain Python. **Automatic prefix caching**: every
 block carries a refcount, and FULL blocks can be published under a chained
 content hash into a hash->block index. A published block whose refcount
@@ -36,6 +43,21 @@ from .._device import resolve_device
 def blocks_for(num_tokens, block_size):
     """KV blocks `num_tokens` tokens occupy (>= 1)."""
     return max(1, -(-int(num_tokens) // int(block_size)))
+
+
+def kv_capacity_blocks(kv_bytes, num_layers, num_heads, block_size,
+                       head_dim, dtype_itemsize, scale_itemsize=0):
+    """KV blocks a byte budget buys on one card: K + V payloads of
+    `dtype_itemsize` bytes a value, plus, for an int8 arena, the two
+    per-(layer, head) scale entries of `scale_itemsize` (4, float32) each
+    block carries. The JAX package's single-chip formula
+    (serving/sharded.py `kv_capacity_blocks` at tp_degree 1). Returns the
+    raw count (possibly 0 or 1); the engine rejects a budget too small to
+    serve."""
+    per_block = (2 * int(num_layers) * int(num_heads) * int(block_size)
+                 * int(head_dim) * int(dtype_itemsize)
+                 + 2 * int(num_layers) * int(num_heads) * int(scale_itemsize))
+    return int(kv_bytes) // per_block
 
 
 def chain_block_hashes(token_ids, block_size, salt=None):
@@ -82,12 +104,22 @@ class PagedState:
       q_start       [B] int32 — first query position per row
       kv_live       [B] int32 — live KV blocks per row (>= 1)
       q_lens        [B] int32 — live query tokens per row (None = full)
+
+    An int8 arena adds four more (None on a float arena):
+      k_scale, v_scale  [layers, heads, num_blocks] float32 — per-block
+                    per-head dequant scales
+      touched       [B, T] int32 — the blocks this step's scatter can write
+                    per row, slot 0 reserved for the null block (padded
+                    tokens route their scale updates there)
+      touch_idx     [B, S] int32 — each fed token's index into its row's
+                    `touched` list (0 = the null slot)
     """
 
     is_paged = True
 
     def __init__(self, k, v, block_tables, slots, offs, qpos, q_start=None,
-                 kv_live=None, q_lens=None):
+                 kv_live=None, q_lens=None, k_scale=None, v_scale=None,
+                 touched=None, touch_idx=None):
         self.k = k
         self.v = v
         self.block_tables = block_tables
@@ -97,6 +129,10 @@ class PagedState:
         self.q_start = q_start
         self.kv_live = kv_live
         self.q_lens = q_lens
+        self.k_scale = k_scale
+        self.v_scale = v_scale
+        self.touched = touched
+        self.touch_idx = touch_idx
 
     def layer(self, i):
         return PagedLayerView(self, i)
@@ -111,19 +147,73 @@ def scatter_kv(arena, layer, slots, offs, new):
     arena[layer][:, slots, offs] = new.permute(2, 0, 1, 3).to(arena.dtype)
 
 
+def _quantize_scatter(arena, scales, layer, new, slots, offs, touched,
+                      touch_idx):
+    """Int8 arena append with per-(layer, head, block) scale growth, in
+    place on `arena` and `scales` (the JAX package's functional
+    `_quantize_scatter`, same arithmetic).
+
+    `new` [B, S, H, D] tokens land in blocks `slots`/`offs`; every block
+    the step can write is listed in `touched` [B, T] (slot 0 = the null
+    block) and `touch_idx` [B, S] maps each token to its row's touched
+    slot. Scales only grow while a block is owned: when a new token's
+    per-head absmax exceeds the block's stored scale, the block's existing
+    payload is requantized to the grown scale before the new tokens
+    scatter, so earlier tokens keep dequantizing correctly. A block's first
+    write under its current owner always carries offset 0, so ``offs ==
+    0`` marks the block fresh and its stale scale from a prior occupant is
+    ignored (its stale bytes requantize to zero). Duplicate `touched`
+    entries only ever name the null block, whose payload and scale are
+    scratch. Rounding is half to even and clipped to [-127, 127]."""
+    B, S, H, _ = new.shape
+    T = touched.shape[1]
+    dev = new.device
+    flat_t = touched.reshape(-1).long()                        # [B*T]
+    gidx = (touch_idx.long()
+            + torch.arange(B, device=dev)[:, None] * T).reshape(-1)
+    am = new.float().abs().amax(dim=3).reshape(B * S, H)       # [B*S, H]
+    blk_am = torch.zeros((B * T, H), dtype=torch.float32, device=dev)
+    blk_am.scatter_reduce_(0, gidx[:, None].expand(-1, H), am, "amax")
+    fresh = torch.zeros(B * T, dtype=torch.float32, device=dev)
+    fresh.scatter_reduce_(0, gidx, (offs.reshape(-1) == 0).float(), "amax")
+    old_sc = scales[layer][:, flat_t]                          # [H, B*T]
+    old_eff = torch.where(fresh[None, :] > 0, torch.zeros_like(old_sc),
+                          old_sc)
+    new_sc = torch.maximum(old_eff, blk_am.T / 127.0).clamp_min(1e-8)
+    # requantize the touched blocks' existing payload to the grown scale;
+    # torch applies the integer `layer` first, so the indexed view is
+    # [H, B*T, bs, D], the gathered payload's own layout
+    ratio = old_eff / new_sc
+    old_q = arena[layer][:, flat_t]                            # [H, B*T, bs, D]
+    req = torch.round(old_q.float() * ratio[..., None, None]).clamp(-127, 127)
+    arena[layer][:, flat_t] = req.to(arena.dtype)
+    scales[layer][:, flat_t] = new_sc
+    # quantize the new tokens at their block's (grown) scale and scatter
+    tok_sc = new_sc.T[gidx].reshape(B, S, H)
+    qn = torch.round(new.float() / tok_sc[..., None]).clamp(-127, 127)
+    scatter_kv(arena, layer, slots, offs, qn)
+
+
 def paged_attention(q, k_new, v_new, view, scale=None):
-    """Append `k_new`/`v_new` [B, S, heads, head_dim] into the arena and
-    attend `q` through the block table (ops/paged_attention.py's dispatch).
-    Returns [B, S, heads, head_dim]."""
+    """Append `k_new`/`v_new` [B, S, heads, head_dim] into the arena (an
+    int8 arena through `_quantize_scatter`) and attend `q` through the
+    block table (ops/paged_attention.py's dispatch). Returns [B, S, heads,
+    head_dim]."""
     from ..ops.paged_attention import paged_attention_arrays
 
     st, layer = view.state, view.layer
-    scatter_kv(st.k, layer, st.slots, st.offs, k_new)
-    scatter_kv(st.v, layer, st.slots, st.offs, v_new)
+    if st.k_scale is not None:
+        _quantize_scatter(st.k, st.k_scale, layer, k_new, st.slots, st.offs,
+                          st.touched, st.touch_idx)
+        _quantize_scatter(st.v, st.v_scale, layer, v_new, st.slots, st.offs,
+                          st.touched, st.touch_idx)
+    else:
+        scatter_kv(st.k, layer, st.slots, st.offs, k_new)
+        scatter_kv(st.v, layer, st.slots, st.offs, v_new)
     return paged_attention_arrays(
         q, st.k, st.v, layer, st.block_tables, st.qpos,
         q_start=st.q_start, kv_live=st.kv_live, q_lens=st.q_lens,
-        scale=scale)
+        scale=scale, k_scale=st.k_scale, v_scale=st.v_scale)
 
 
 class BlockPool:
@@ -134,21 +224,35 @@ class BlockPool:
     full-block KV is still valid and published in ``_hash_index``, LRU
     order). A held block lives in ``_refcount``; every holder releases
     exactly once, and a release below zero raises. The arena lives on
-    `device` (None = CUDA, which must exist).
+    `device` (None = CUDA, which must exist). ``kv_dtype="int8"`` stores an
+    int8 payload with zeroed float32 scale sidecars ``k_scale``/``v_scale``
+    ``[layers, heads, num_blocks]`` (``quantized`` is True); None keeps a
+    `dtype` arena and no sidecars.
     """
 
     def __init__(self, num_blocks, num_layers, block_size, num_heads,
-                 head_dim, dtype=torch.float32, device=None, metrics=None):
+                 head_dim, dtype=torch.float32, device=None, metrics=None,
+                 kv_dtype=None):
         if num_blocks < 2:
             raise ValueError("BlockPool needs >= 2 blocks (block 0 is null)")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"kv_dtype {kv_dtype!r} not supported: 'int8' "
+                             "or None (the weight dtype)")
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self.device = resolve_device(device)
         shape = (num_layers, num_heads, self.num_blocks, self.block_size,
                  head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.kv_dtype = str(dtype).replace("torch.", "")
+        self.quantized = kv_dtype == "int8"
+        dt = torch.int8 if self.quantized else dtype
+        self.k = torch.zeros(shape, dtype=dt, device=self.device)
+        self.v = torch.zeros(shape, dtype=dt, device=self.device)
+        self.k_scale = self.v_scale = None
+        if self.quantized:
+            self.k_scale = torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=self.device)
+            self.v_scale = torch.zeros_like(self.k_scale)
+        self.kv_dtype = str(dt).replace("torch.", "")
         # block 0 reserved as the null/scratch block
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self._refcount = {}           # block -> holders (held blocks only)
@@ -176,9 +280,13 @@ class BlockPool:
         return blocks_for(num_tokens, self.block_size)
 
     def bytes_per_block(self):
-        """Device bytes one block costs: K + V payloads over all layers."""
+        """Device bytes one block costs: K + V payloads over all layers,
+        plus an int8 arena's two scale-sidecar entries per (layer, head)."""
         L, H, _, bs, D = self.k.shape
-        return 2 * L * H * bs * D * self.k.element_size()
+        per = 2 * L * H * bs * D * self.k.element_size()
+        if self.quantized:
+            per += 2 * L * H * self.k_scale.element_size()
+        return per
 
     def refcount(self, block):
         return self._refcount.get(int(block), 0)
@@ -267,11 +375,13 @@ class BlockPool:
 
     def copy_blocks(self, src, dst):
         """Copy arena blocks `src` into blocks `dst` in place (the
-        copy-on-write path), over every layer and head."""
+        copy-on-write path), over every layer and head; an int8 arena's
+        copies carry their sources' scales."""
         s = torch.as_tensor(src, dtype=torch.long, device=self.device)
         d = torch.as_tensor(dst, dtype=torch.long, device=self.device)
-        self.k.index_copy_(2, d, self.k.index_select(2, s))
-        self.v.index_copy_(2, d, self.v.index_select(2, s))
+        for t in (self.k, self.v, self.k_scale, self.v_scale):
+            if t is not None:
+                t.index_copy_(2, d, t.index_select(2, s))
 
     def table_for(self, blocks, max_blocks):
         """Padded [max_blocks] int32 block table (0-padded)."""

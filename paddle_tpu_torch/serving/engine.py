@@ -20,6 +20,10 @@ tokens as they land, `generate` runs a batch to completion.
   blocks park in the pool's cached-free LRU tier.
 - A row whose logits are not finite is aborted with
   ``error:nonfinite_logits`` instead of sampling garbage (``step_faults``).
+- ``kv_dtype="int8"`` stores the KV arena in int8 with per-(layer, head,
+  block) float32 scales (serving/block_pool.py): at one ``kv_hbm_bytes``
+  budget it holds about twice the blocks of a bf16 arena. The step's
+  touched-block lists ride the same one int32 transfer.
 
 Greedy outputs are token-for-token identical to `GPT.generate`: the same
 attention math runs through the block table instead of a contiguous cache
@@ -39,7 +43,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .block_pool import BlockPool, PagedState, blocks_for, chain_block_hashes
+from .block_pool import (BlockPool, PagedState, blocks_for,
+                         chain_block_hashes, kv_capacity_blocks)
 from .metrics import ServingMetrics
 from .scheduler import Request, Scheduler
 from .spec import NgramDrafter, filter_active, spec_emit_arrays
@@ -50,7 +55,6 @@ StepOutput = namedtuple("StepOutput", ["request_id", "token", "finished"])
 # (ROADMAP.md), with the value that means "off"
 _LATER = {
     "mesh": (None, "tensor-parallel serving"),
-    "kv_dtype": (None, "the int8 KV arena"),
     "quantize": (None, "int8 (AdaRound) weights"),
     "lora_slots": (0, "LoRA adapter serving"),
     "host_kv_blocks": (None, "the host KV tier"),
@@ -61,7 +65,8 @@ _LATER = {
 }
 
 # host metadata packed into one int32 transfer per step: [B, W] fields,
-# then [B, max_blocks] tables, then the [B] fields
+# then [B, max_blocks] tables, then the [B] fields, then (int8 arena)
+# touch_idx [B, W] and touched [B, T]
 _ROW_FIELDS = ("ids", "qpos", "slots", "offs")
 _LANE_FIELDS = ("q_start", "kv_live", "last_idx", "spec_lens", "top_ks")
 
@@ -72,7 +77,7 @@ class LLMEngine:
                  max_seq_len=None, seed=0, prefix_cache=True,
                  spec_decoding=False, num_spec_tokens=4, spec_max_ngram=3,
                  spec_min_ngram=1, kv_hbm_bytes=None, width_buckets=None,
-                 **later):
+                 kv_dtype=None, **later):
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"LLMEngine got an unexpected keyword "
@@ -82,6 +87,11 @@ class LLMEngine:
                 raise NotImplementedError(
                     f"{name}={value!r}: {what} is not in the first slice of "
                     "the PyTorch port; ROADMAP.md queues it for a later one")
+        if kv_dtype is not None and kv_dtype != "int8":
+            raise ValueError(
+                f"kv_dtype {kv_dtype!r} not supported: pass 'int8' for the "
+                "quantized arena or None for the weight dtype")
+        quantized = kv_dtype == "int8"
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(
@@ -104,9 +114,12 @@ class LLMEngine:
                 raise ValueError(
                     "pass num_blocks OR kv_hbm_bytes, not both — the byte "
                     "budget would be silently ignored")
-            per_block = (2 * cfg.num_layers * cfg.num_heads * self.block_size
-                         * head_dim * model.wte.weight.element_size())
-            num_blocks = int(kv_hbm_bytes) // per_block
+            # an int8 block costs itemsize 1 plus its scale sidecar entries
+            num_blocks = kv_capacity_blocks(
+                kv_hbm_bytes, cfg.num_layers, cfg.num_heads, self.block_size,
+                head_dim,
+                1 if quantized else model.wte.weight.element_size(),
+                scale_itemsize=4 if quantized else 0)
             worst = blocks_for(self.max_seq_len - 1, self.block_size)
             if num_blocks < 1 + worst:
                 raise ValueError(
@@ -151,7 +164,11 @@ class LLMEngine:
         self.metrics = ServingMetrics()
         self.pool = BlockPool(num_blocks, cfg.num_layers, self.block_size,
                               cfg.num_heads, head_dim, dtype=model.dtype,
-                              device=self.device, metrics=self.metrics)
+                              device=self.device, metrics=self.metrics,
+                              kv_dtype=kv_dtype)
+        self.metrics.set_gauge("kv_bytes_per_block",
+                               self.pool.bytes_per_block())
+        self.metrics.set_info("kv", {"dtype": self.pool.kv_dtype})
         self.scheduler = Scheduler(
             self.pool, max_batch=self.max_batch,
             token_budget=int(token_budget), prefill_chunk=self.prefill_chunk,
@@ -259,25 +276,30 @@ class LLMEngine:
             f"step width {w} exceeds the top width bucket "
             f"{self.width_buckets[-1]} — scheduler width capping broke")
 
+    def _touched_width(self, W):
+        """Columns of an int8 step's per-row ``touched`` block list: ``W``
+        consecutive fed positions straddle at most ``(W + bs - 2) // bs +
+        1`` blocks, plus slot 0 reserved for the null block."""
+        return (W + self.block_size - 2) // self.block_size + 2
+
     def _to_device(self, a, W):
         """Move one step's host arrays to the device in two transfers (one
         int32, one float32) and return the device tensors by name."""
         B, nb = self.max_batch, self.max_blocks
-        ints = np.concatenate(
-            [a[f].reshape(-1) for f in _ROW_FIELDS]
-            + [a["tables"].reshape(-1)] + [a[f] for f in _LANE_FIELDS])
+        shapes = ([(f, (B, W)) for f in _ROW_FIELDS]
+                  + [("tables", (B, nb))] + [(f, (B,)) for f in _LANE_FIELDS])
+        if self.pool.quantized:
+            shapes += [("touch_idx", (B, W)),
+                       ("touched", (B, self._touched_width(W)))]
+        ints = np.concatenate([a[f].reshape(-1) for f, _ in shapes])
         floats = np.stack([a["temps"], a["top_ps"]])
         ints = torch.from_numpy(ints).to(self.device)
         floats = torch.from_numpy(floats).to(self.device)
         t, o = {}, 0
-        for f in _ROW_FIELDS:
-            t[f] = ints[o:o + B * W].view(B, W)
-            o += B * W
-        t["tables"] = ints[o:o + B * nb].view(B, nb)
-        o += B * nb
-        for f in _LANE_FIELDS:
-            t[f] = ints[o:o + B]
-            o += B
+        for f, shape in shapes:
+            n = int(np.prod(shape))
+            t[f] = ints[o:o + n].view(shape)
+            o += n
         t["temps"], t["top_ps"] = floats[0], floats[1]
         return t
 
@@ -294,9 +316,13 @@ class LLMEngine:
         # per-row live width for the ragged kernel: chunk tokens through
         # last_idx plus the drafted candidates
         q_lens = last_idx + 1 + spec_lens
-        state = PagedState(self.pool.k, self.pool.v, t["tables"], t["slots"],
+        pool = self.pool
+        state = PagedState(pool.k, pool.v, t["tables"], t["slots"],
                            t["offs"], t["qpos"], q_start=t["q_start"],
-                           kv_live=t["kv_live"], q_lens=q_lens)
+                           kv_live=t["kv_live"], q_lens=q_lens,
+                           k_scale=pool.k_scale, v_scale=pool.v_scale,
+                           touched=t.get("touched"),
+                           touch_idx=t.get("touch_idx"))
         h, _ = self.model.hidden(t["ids"], caches=state)
         # the scored window: position last_idx + j scores the distribution
         # after fed token last_idx + j (j = 0 samples, j >= 1 verifies)
@@ -370,7 +396,7 @@ class LLMEngine:
     def _row_arrays(self, S):
         """Zeroed per-step host arrays for the unified ragged step."""
         B = self.max_batch
-        return {
+        a = {
             "ids": np.zeros((B, S), np.int32),
             "qpos": np.zeros((B, S), np.int32),
             "slots": np.zeros((B, S), np.int32),
@@ -385,6 +411,13 @@ class LLMEngine:
             "last_idx": np.zeros(B, np.int32),
             "spec_lens": np.zeros(B, np.int32),
         }
+        if self.pool.quantized:
+            # per-row touched-block list (slot 0 = the null block, so
+            # zeroed rows are inert) and each token's index into it, the
+            # quantize-scatter's scatter-max targets
+            a["touched"] = np.zeros((B, self._touched_width(S)), np.int32)
+            a["touch_idx"] = np.zeros((B, S), np.int32)
+        return a
 
     def _fill_row(self, a, i, req, start, w, S):
         """Everything about row `i` that does not depend on WHICH tokens
@@ -399,6 +432,14 @@ class LLMEngine:
         a["top_ps"][i] = 1.0 if req.top_p is None else req.top_p
         a["q_start"][i] = start
         a["kv_live"][i] = (start + w - 1) // self.block_size + 1
+        if self.pool.quantized:
+            # unique non-null blocks this row's scatter writes, listed
+            # after the null slot; pad tokens keep touch_idx 0
+            sl = a["slots"][i, :w]
+            uniq = np.unique(sl[sl != 0])
+            a["touched"][i, 1:1 + len(uniq)] = uniq
+            lut = {int(b): j + 1 for j, b in enumerate(uniq)}
+            a["touch_idx"][i, :w] = [lut.get(int(s), 0) for s in sl]
 
     def _run_rows(self, rows, W):
         """Run one unified ragged step at width bucket `W` and publish its

@@ -31,9 +31,10 @@ def dev():
 
 
 def _case(lengths_counts, block_size, head_dim, dtype, dev, pad_to=None,
-          heads=4, layers=2, seed=0):
+          heads=4, layers=2, seed=0, int8=False):
     """Ragged batch over a random arena (garbage in every slot, so the
-    result must come from masking); returns tensors on `dev`."""
+    result must come from masking); returns tensors on `dev`. `int8`: the
+    arena is int8 with float32 scale sidecars (k_scale, v_scale)."""
     g = torch.Generator().manual_seed(seed)
     B = len(lengths_counts)
     per = [max(1, -(-t // block_size)) for t, _ in lengths_counts]
@@ -52,16 +53,22 @@ def _case(lengths_counts, block_size, head_dim, dtype, dev, pad_to=None,
         meta[:, i] = torch.tensor([total - count, (total - 1) // block_size
                                    + 1, count])
     shape = (layers, heads, n_blocks, block_size, head_dim)
-    k, v = (torch.randn(shape, generator=g).to(dev, dtype) for _ in "kv")
+    c = {}
+    if int8:
+        k, v = (torch.randint(-127, 128, shape, generator=g,
+                              dtype=torch.int8).to(dev) for _ in "kv")
+        c["k_scale"], c["v_scale"] = (
+            (torch.rand(shape[:3], generator=g) * 0.03 + 0.002).to(dev)
+            for _ in "kv")
+    else:
+        k, v = (torch.randn(shape, generator=g).to(dev, dtype) for _ in "kv")
     q = torch.randn((B, S, heads, head_dim), generator=g).to(dev, dtype)
     return dict(q=q, k=k, v=v, tables=tables.to(dev), qpos=qpos.to(dev),
                 q_start=meta[0].to(dev), kv_live=meta[1].to(dev),
-                q_lens=meta[2].to(dev))
+                q_lens=meta[2].to(dev), **c)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
-@pytest.mark.parametrize("lengths_counts,block_size,pad_to", [
+SHAPES = [
     ([(18, 1), (5, 5), (13, 7)], 8, None),        # decode, prefill, crossing
     ([(31, 15), (32, 1), (3, 3), (20, 4)], 4, 16),
     ([(700, 1), (300, 1), (16, 16)], 16, 16),     # long contexts
@@ -71,7 +78,12 @@ def _case(lengths_counts, block_size, head_dim, dtype, dev, pad_to=None,
     ([(300, 3), (257, 1), (40, 12)], 32, 16),     # two blocks per chunk
     ([(300, 3), (257, 1), (40, 12)], 128, 16),    # one block per chunk
     ([(50, 2), (7, 7)], 1, 8),                    # 64 one-token blocks
-])
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("lengths_counts,block_size,pad_to", SHAPES)
 def test_kernel_matches_plain_version(dev, dtype, head_dim, lengths_counts,
                                       block_size, pad_to):
     c = _case(lengths_counts, block_size, head_dim, dtype, dev, pad_to)
@@ -83,6 +95,34 @@ def test_kernel_matches_plain_version(dev, dtype, head_dim, lengths_counts,
     assert pa.ragged_paged_attention.launches == before + 1
     want = pa.paged_attention_ref(c["q"], c["k"], c["v"], 1, c["tables"],
                                   c["qpos"])
+    for i, (_, count) in enumerate(lengths_counts):
+        err = (got[i, :count].float() - want[i, :count].float()).abs().max()
+        assert err.item() < TOL[dtype], f"row {i}: max err {err.item()}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("lengths_counts,block_size,pad_to", SHAPES)
+def test_int8_kernel_matches_plain_version(dev, dtype, head_dim,
+                                           lengths_counts, block_size,
+                                           pad_to):
+    """The int8-arena variant: q (and the output) float32 or bfloat16, the
+    arena int8 with one float32 scale per (layer, head, block)."""
+    c = _case(lengths_counts, block_size, head_dim, dtype, dev, pad_to,
+              int8=True)
+    sc = dict(k_scale=c["k_scale"], v_scale=c["v_scale"])
+    before = (pa.ragged_paged_attention.launches,
+              pa.ragged_paged_attention.int8_launches)
+    got = pa.paged_attention_arrays(
+        c["q"], c["k"], c["v"], 1, c["tables"], c["qpos"],
+        q_start=c["q_start"], kv_live=c["kv_live"], q_lens=c["q_lens"], **sc)
+    torch.cuda.synchronize()
+    assert (pa.ragged_paged_attention.launches,
+            pa.ragged_paged_attention.int8_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert got.dtype == dtype
+    want = pa.paged_attention_ref(c["q"], c["k"], c["v"], 1, c["tables"],
+                                  c["qpos"], **sc)
     for i, (_, count) in enumerate(lengths_counts):
         err = (got[i, :count].float() - want[i, :count].float()).abs().max()
         assert err.item() < TOL[dtype], f"row {i}: max err {err.item()}"
@@ -115,6 +155,28 @@ def test_kernel_rejects_what_it_cannot_take(dev):
                                   c["q_start"], c["kv_live"])
 
 
+def test_int8_kernel_rejects_what_it_cannot_take(dev):
+    c = _case([(9, 1)], 8, 32, torch.bfloat16, dev, int8=True)
+    args = (c["q"], c["k"], c["v"], 0, c["tables"], c["q_start"],
+            c["kv_live"])
+    before = pa.ragged_paged_attention.launches
+    with pytest.raises(ValueError, match="needs k_scale and v_scale"):
+        pa.ragged_paged_attention(*args)                 # no sidecars
+    with pytest.raises(ValueError, match="v_scale"):
+        pa.ragged_paged_attention(*args, k_scale=c["k_scale"])
+    for bad in (c["v_scale"].double(), c["v_scale"][:, :, :-1],
+                c["v_scale"].cpu(), c["v_scale"].transpose(0, 1)):
+        with pytest.raises(ValueError, match="v_scale"):
+            pa.ragged_paged_attention(*args, k_scale=c["k_scale"],
+                                      v_scale=bad)
+    f = _case([(9, 1)], 8, 32, torch.bfloat16, dev)      # float arena
+    with pytest.raises(ValueError, match="int8"):
+        pa.ragged_paged_attention(f["q"], f["k"], f["v"], 0, f["tables"],
+                                  f["q_start"], f["kv_live"],
+                                  k_scale=c["k_scale"], v_scale=c["v_scale"])
+    assert pa.ragged_paged_attention.launches == before
+
+
 def test_engine_greedy_matches_generate_on_the_card(dev):
     cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
                     num_heads=4, max_seq_len=128)
@@ -131,6 +193,34 @@ def test_engine_greedy_matches_generate_on_the_card(dev):
     for p, g in zip(prompts, got):
         ref = model.generate([p], max_new_tokens=12, temperature=0.0)
         assert g == ref[0, len(p):].tolist()
+
+
+def test_int8_engine_on_the_card_matches_the_cpu(dev):
+    """LLMEngine(kv_dtype="int8") in float32 on the card (the int8 kernel;
+    TF32 off) against the same engine on a CPU copy (the plain version):
+    one kernel launch per layer and step, one host sync per step, and at
+    least 90 % of the greedy tokens equal (the JAX package's int8 gate)."""
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=4, max_seq_len=128)
+    models = [GPT(cfg, device=d, seed=0) for d in (dev, "cpu")]
+    models[1].load_state_dict({k: t.cpu() for k, t in
+                               models[0].state_dict().items()})
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 512, n).tolist() for n in (5, 20, 33, 70)]
+    outs = []
+    for m in models:
+        eng = LLMEngine(m, device=m.device, kv_dtype="int8", block_size=16,
+                        max_batch=2, prefill_chunk=16, spec_decoding=True)
+        before = pa.ragged_paged_attention.int8_launches
+        outs.append(eng.generate(prompts, max_new_tokens=12,
+                                 temperature=0.0))
+        launched = pa.ragged_paged_attention.int8_launches - before
+        assert launched == (cfg.num_layers * eng.step_count
+                            if m.device.type == "cuda" else 0)
+        assert eng.metrics.counters["host_syncs"] == eng.step_count
+        assert eng.pool.num_free == eng.pool.num_blocks - 1
+    toks = [(a, b) for ga, gb in zip(*outs) for a, b in zip(ga, gb)]
+    assert np.mean([a == b for a, b in toks]) >= 0.9, outs
 
 
 # -- flash attention -----------------------------------------------------------

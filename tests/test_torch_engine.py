@@ -138,7 +138,8 @@ def test_engine_rejects_a_model_on_another_device(models):
 
 
 @pytest.mark.parametrize("option", [
-    {"mesh": 2}, {"kv_dtype": "int8"}, {"quantize": "int8"},
+    {"mesh": 2}, {"kv_dtype": "int8", "host_kv_blocks": 8},
+    {"quantize": "int8"},
     {"lora_slots": 2}, {"host_kv_blocks": 8}, {"policy": "fair"},
     {"trace": True}, {"slo": True}, {"checkpoint_path": "ckpt"},
 ])

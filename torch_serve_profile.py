@@ -7,10 +7,14 @@ requests, four sharing a 256-token prefix, 32 new tokens each): first
 `--repeats` times without the profiler, each on a fresh engine (the spread
 of tok/s and step latency), then once under `torch.profiler`, and prints
 the device time by kernel, the device's busy share of the wall time, the
-host time per step kind, and the card's clock and power after the runs:
+host time per step kind, and the card's clock and power after the runs.
+`--kv-dtype int8` serves from the int8 KV arena; the profiled run then
+also reports the device time of the plain-PyTorch quantize-scatter
+(`block_pool._quantize_scatter`, annotated with `record_function`) and
+its share of the busy time:
 
-    python3 torch_serve_profile.py [--repeats 3] [--out profile.json]
-                                   [--trace trace.json]
+    python3 torch_serve_profile.py [--repeats 3] [--kv-dtype int8]
+                                   [--out profile.json] [--trace trace.json]
 
 Needs one CUDA card and nvcc (the kernels are built on first use).
 """
@@ -30,14 +34,16 @@ def main():
     ap.add_argument("--trace", help="export the Chrome trace to this file")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--kv-dtype", choices=["int8"], default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from chip_smoke import _prompts, serve_waves, serving_engine
     from paddle_tpu_torch.models.gpt import gpt_1p3b
+    from paddle_tpu_torch.serving import block_pool
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -47,7 +53,7 @@ def main():
     prompts = _prompts(np.random.RandomState(0), model.cfg.vocab_size)
 
     def fresh_engine():
-        eng = serving_engine(model)
+        eng = serving_engine(model, args.kv_dtype)
         return eng, eng.step_count
 
     def serve(eng):
@@ -68,14 +74,32 @@ def main():
                          if k.endswith("_step")}))
         print(json.dumps(runs[-1]), flush=True)
     engine, steps0 = fresh_engine()
+    quantize_scatter = block_pool._quantize_scatter
+
+    def annotated(*a, **kw):
+        with record_function("quantize_scatter"):
+            return quantize_scatter(*a, **kw)
+
+    block_pool._quantize_scatter = annotated
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        serve(engine)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            serve(engine)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        block_pool._quantize_scatter = quantize_scatter
+    averages = prof.key_averages()
+    # the annotation's device time: the kernels launched inside it (its
+    # device-side twin, a span over those kernels and the gaps between
+    # them, is left out of the busy time)
+    qs_ms = sum(e.device_time_total for e in averages
+                if e.key == "quantize_scatter"
+                and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key != "quantize_scatter"]
     dev_us = {e.key: e.self_device_time_total for e in events}
     busy_ms = sum(dev_us.values()) / 1e3
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:args.top]
@@ -86,9 +110,12 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     res = dict(
-        card=card, clocks_power_temp_after=clocks, unprofiled_runs=runs,
+        card=card, clocks_power_temp_after=clocks,
+        kv_dtype=engine.pool.kv_dtype, unprofiled_runs=runs,
         wall_ms=wall_ms, device_busy_ms=busy_ms,
         device_busy_share=busy_ms / wall_ms,
+        quantize_scatter_device_ms=qs_ms,
+        quantize_scatter_share_of_busy=qs_ms / busy_ms,
         steps=engine.step_count - steps0,
         step_ms={k: {"count": v["count"], "total_ms": v["total_ms"],
                      "p50_ms": v["p50_ms"]}
