@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 Phases, in order; any failure exits nonzero:
 
 1. Environment: the card's name and power limit; build every CUDA kernel
-   of the serving path from csrc/ (one nvcc per source, started together).
+   of the port from csrc/ (one nvcc per source, started together).
 2. The ragged paged-attention kernel against its plain PyTorch version at
    the serving path's shapes (GPT-1.3B: heads 16, head_dim 128, block 16,
    batch 8; step widths 1, 5 and 128), in float32 (TF32 off, tolerance
@@ -40,6 +40,15 @@ Phases, in order; any failure exits nonzero:
    comparing O, LSE, dQ, dK and dV; with the kernels', the plain
    version's and scaled_dot_product_attention's device times beside the
    least time the card could take.
+   5b. The flash kernels' additive-mask and dropout variants against the
+   plain version on the same values, mask and seed (the same Philox keep
+   bits), q/k/v being strided views of a fused projection as in the
+   models: the ERNIE step's shape (B 32, S 512, H 12, D 64, non-causal,
+   [B, 1, 1, S] padding mask, p 0.1) in bfloat16 with mask and dropout,
+   mask alone, dropout alone and neither; causal dropout at the flagship
+   shape; float32 mask + dropout at B 2 (TF32 off). Times beside SDPA
+   with the same mask and dropout_p and the least time the card could
+   take.
 6. Train: the flagship GPT (vocab 32768, hidden 1024, 12 layers, 8 heads,
    seq 1024; bench.py's bench_gpt) in bf16 with AdamW(1e-4), batch 16 x
    1024 from np.random.RandomState(0): one warm-up step, then 10 timed
@@ -49,6 +58,19 @@ Phases, in order; any failure exits nonzero:
 7. float32 train parity: the flagship widths at 2 layers, batch 2, seq
    256, TF32 off: two AdamW steps on the card (kernels) and on a CPU copy
    (plain attention) give the same losses and parameters.
+8. ERNIE-base pretrain: ernie_base (hidden 768, 12 layers, 12 heads,
+   vocab 40000) in bf16, dropout 0.1, AdamW(1e-4, weight decay 0.01),
+   batch 32 x 512 with per-row real lengths uniform in 256-512 and an
+   additive padding mask, MLM labels at 15 % of real positions: one
+   warm-up step, then 10 timed steps. Counts set to 0 just before the
+   timed steps: 12 forward and 12 backward launches a step, every one the
+   mask + dropout variant; losses finite, the mean of the last 3 below the
+   first. tokens/s (all and real), step p50, MFU and peak memory.
+   8b. The flagship GPT with dropout 0.1 for 3 steps: finite losses and
+   12 + 12 dropout launches a step.
+9. float32 ERNIE parity: ERNIE widths at 2 layers, batch 2, seq 128,
+   padding mask, dropout 0, TF32 off: two AdamW steps on the card and on
+   a CPU copy give the same losses and parameters (phase 7's rule).
 
 Prints a `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
 and last `{"ok": true, "device": {...}}`.
@@ -541,14 +563,17 @@ FLASH_SHAPES = {torch.bfloat16: (16, 1024, 8, 128), torch.float32: (2, 1024, 8,
                                                                     128)}
 
 
-def _flash_bounds(B, S, H, D, dtype):
-    """Least time of each function at this causal shape: (ms, bound_by)
-    for the forward (2 products over the visible pairs), dK/dV (4: S, dP,
-    dV, dK), dQ (3: S, dP, dQ) and the whole backward (5), each against
-    the bytes it must move (each [B, S, H, D] input read once, each output
-    written once, the f32 LSE / delta rows)."""
+def _flash_bounds(B, S, H, D, dtype, causal=True, mask_bytes=0):
+    """Least time of each function at this shape: (ms, bound_by) for the
+    forward (2 products over the visible pairs), dK/dV (4: S, dP, dV, dK),
+    dQ (3: S, dP, dQ) and the whole backward (5), each against the bytes
+    it must move (each [B, S, H, D] input read once, each output written
+    once, the f32 LSE / delta rows, and the mask's own bytes once where
+    there is one). The dropout bits are computed, not moved, and no
+    product: they add nothing to the bound."""
     isz = torch.tensor([], dtype=dtype).element_size()
-    pairs = B * H * S * (S + 1) // 2          # visible (query, key) pairs
+    # visible (query, key) pairs
+    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
     t = B * S * H * D * isz                   # one [B, S, H, D] tensor
     rows = B * H * S * 4                      # one f32 LSE or delta
     work = {"fwd": (2, 4 * t + rows), "dkv": (4, 6 * t + 2 * rows),
@@ -556,7 +581,7 @@ def _flash_bounds(B, S, H, D, dtype):
     out = {}
     for name, (products, nbytes) in work.items():
         t_ops = products * 2 * D * pairs / PEAK_FLOPS[dtype]
-        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_bytes = (nbytes + mask_bytes) / HBM_BYTES_PER_S
         out[name] = (max(t_ops, t_bytes) * 1e3,
                      "operations" if t_ops >= t_bytes else "bytes")
     return out
@@ -637,7 +662,159 @@ def flash_cases():
     return out
 
 
+# -- phase 5b -----------------------------------------------------------------
+
+ERNIE_SHAPE = (32, 512, 12, 64)   # B, S, H, D of the ERNIE pretrain step
+# name, dtype, (B, S, H, D), causal, padding mask, dropout p
+VARIANT_CASES = [
+    ("ernie_mask_dropout", torch.bfloat16, ERNIE_SHAPE, False, True, 0.1),
+    ("ernie_mask", torch.bfloat16, ERNIE_SHAPE, False, True, 0.0),
+    ("ernie_dropout", torch.bfloat16, ERNIE_SHAPE, False, False, 0.1),
+    ("ernie_no_mask_no_dropout", torch.bfloat16, ERNIE_SHAPE, False, False,
+     0.0),
+    ("flagship_causal_dropout", torch.bfloat16, (16, 1024, 8, 128), True,
+     False, 0.1),
+    ("f32_mask_dropout", torch.float32, (2, 512, 12, 64), False, True, 0.1),
+]
+DROPOUT_SEED = 20261016
+
+
+def padding_lengths(batch, seq, rs):
+    """Per-row real lengths, uniform in seq/2 .. seq (256-512 at 512)."""
+    return rs.randint(seq // 2, seq + 1, batch)
+
+
+def padding_mask(lengths, seq, device):
+    """ERNIE's additive padding mask [B, 1, 1, S] f32: 0 on real keys,
+    -1e4 on padding ((1 - mask) * -1e4)."""
+    real = np.arange(seq)[None] < np.asarray(lengths)[:, None]
+    m = np.where(real, 0.0, -1e4).astype(np.float32)
+    return torch.from_numpy(m)[:, None, None, :].to(device)
+
+
+def _qkv_views(shape, dtype, causal, gen):
+    """q, k, v as the models hand them to attention: strided views of one
+    fused projection [B, S, 3 * H * D], split in the model's column order
+    (ERNIE's [3, heads, head_dim] for the bidirectional cases, GPT's
+    per-head groups for the causal one), so the kernels read the strides
+    of the main path."""
+    from paddle_tpu_torch.models.bert import split_qkv
+    from paddle_tpu_torch.models.gpt import _split_fused_qkv
+
+    B, S, H, D = shape
+    qkv = torch.randn((B, S, 3 * H * D), generator=gen, device="cuda").to(
+        dtype)
+    return (_split_fused_qkv if causal else split_qkv)(qkv, B, S, H, D)
+
+
+def _variant_case(name, dtype, shape, causal, with_mask, p, gen):
+    """Phase 5b: the three kernels with the additive mask and/or dropout
+    against the plain version in float32 on the same values, mask and
+    seed (so the same Philox bits: exact up to rounding), with the
+    kernels', the plain version's and SDPA's times (the same mask and
+    dropout_p) beside the least time the card could take. q, k and v are
+    the strided views of a fused projection (`_qkv_views`)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = shape
+    q, k, v = _qkv_views(shape, dtype, causal, gen)
+    do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+    mask = (padding_mask(padding_lengths(B, S, np.random.RandomState(0)),
+                         S, "cuda") if with_mask else None)
+    seed = DROPOUT_SEED if p > 0 else None
+    var = (causal, mask, p, seed)
+    # with dropout the forward also writes O in f32 for the backward's
+    # delta, as FlashAttention does
+    o_f32 = torch.empty(q.shape, device="cuda") if p > 0 else None
+    o, lse = fa.flash_attention_fwd(q, k, v, *var, o_f32)
+    o_bwd = o if o_f32 is None else o_f32
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o_bwd, do, lse, *var)
+    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    o32 = fa.attention_ref(q32, k32, v32, *var)
+    o32.backward(do.float())
+    lse32 = fa.attention_lse_ref(q32.detach(), k32.detach(), causal, mask)
+    torch.cuda.synchronize()
+    err = {n: (a.float() - b).abs().max().item() for n, a, b in (
+        ("o", o, o32), ("lse", lse, lse32), ("dq", dq, q32.grad),
+        ("dk", dk, k32.grad), ("dv", dv, v32.grad))}
+    del o32, q32, k32, v32, lse32
+    delta = fa._delta(o_bwd, do)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    og = fa.attention_ref(qg, kg, vg, *var)
+
+    def plain_bwd():
+        torch.autograd.grad(og, (qg, kg, vg), do, retain_graph=True)
+
+    F = torch.nn.functional
+    ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dol = do.transpose(1, 2).contiguous()
+    lib_kw = dict(attn_mask=None if mask is None else mask.to(dtype),
+                  dropout_p=p, is_causal=causal)
+
+    def library_fwd_bwd():
+        torch.autograd.grad(F.scaled_dot_product_attention(
+            ql, kl, vl, **lib_kw), (ql, kl, vl), dol)
+
+    times = dict(
+        fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, *var, o_f32),
+                       20),
+        dkv_ms=time_ms(lambda: fa._launch_bwd(q, k, v, do, lse, delta,
+                                              causal, 1, *var[1:]), 10),
+        dq_ms=time_ms(lambda: fa._launch_bwd(q, k, v, do, lse, delta,
+                                             causal, 2, *var[1:]), 10),
+        plain_fwd_ms=event_ms(lambda: fa.attention_ref(q, k, v, *var), 3),
+        plain_bwd_ms=event_ms(plain_bwd, 3),
+        library_fwd_ms=event_ms(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, **lib_kw), 10),
+        library_fwd_bwd_ms=event_ms(library_fwd_bwd, 10))
+    times["bwd_ms"] = times["dkv_ms"] + times["dq_ms"]
+    times["library_bwd_ms"] = (times["library_fwd_bwd_ms"]
+                               - times["library_fwd_ms"])
+    bounds = _flash_bounds(B, S, H, D, dtype, causal,
+                           0 if mask is None else mask.numel() * 4)
+    rec = dict(case=name, dtype=str(dtype).replace("torch.", ""),
+               shape=[B, S, H, D], causal=causal,
+               mask=None if mask is None else list(mask.shape),
+               dropout_p=p, max_err=err, tol=TOL[dtype], **times,
+               **{f"bound_{n}_ms": b[0] for n, b in bounds.items()},
+               **{f"bound_{n}_by": b[1] for n, b in bounds.items()})
+    log("[flash-variant] " + json.dumps(rec))
+    if max(err.values()) > TOL[dtype]:
+        raise SystemExit(f"a flash kernel variant disagrees with the plain "
+                         f"version: {rec}")
+    return rec
+
+
+def variant_cases():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    out = []
+    for case in VARIANT_CASES:
+        out.append(_variant_case(*case, gen))
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 6 ------------------------------------------------------------------
+
+def _zero_flash_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    for f in (fa.flash_attention_fwd, fa.flash_attention_bwd):
+        f.launches = f.mask_launches = f.dropout_launches = 0
+
+
+def _read_flash_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    return {f"{d}_{n}": getattr(f, n)
+            for d, f in (("fwd", fa.flash_attention_fwd),
+                         ("bwd", fa.flash_attention_bwd))
+            for n in ("launches", "mask_launches", "dropout_launches")}
+
 
 def flagship_config(**kw):
     """bench.py's bench_gpt on a TPU: vocab 32768, hidden 1024, 12 layers,
@@ -680,7 +857,6 @@ def flagship_trainer(seed=0):
 
 
 def train(smi):
-    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.profiler.flops import (gpt_train_flops_per_token,
                                                  mfu, peak_flops)
 
@@ -693,8 +869,7 @@ def train(smi):
     losses = [train_step(model, opt, ids, labels).item()]   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_fwd.launches = 0
-    fa.flash_attention_bwd.launches = 0
+    _zero_flash_counts()
     steps, step_ms = 10, []
     for _ in range(steps):
         t1 = time.perf_counter()
@@ -702,7 +877,8 @@ def train(smi):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         losses.append(loss.item())
-    fwd, bwd = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    counts = _read_flash_counts()
+    fwd, bwd = counts["fwd_launches"], counts["bwd_launches"]
     tokens = ids.numel()
     tok_s = tokens * steps / (sum(step_ms) / 1e3)
     fpt = gpt_train_flops_per_token(cfg)
@@ -786,6 +962,218 @@ def train_parity():
     return res
 
 
+# -- phase 8 ------------------------------------------------------------------
+
+def ernie_batch(vocab, batch, seq, device):
+    """The ERNIE pretrain batch from np.random.RandomState(0): per-row real
+    lengths uniform in seq/2 .. seq, token ids (0 on padding), type ids (0
+    on the first half of a row's real tokens, 1 on the second), the
+    additive padding mask [B, 1, 1, S], MLM labels (the token id at 15 %
+    of real positions, -100 elsewhere). Returns (ids, type_ids, mask,
+    labels, lengths)."""
+    rs = np.random.RandomState(0)
+    lens = padding_lengths(batch, seq, rs)
+    pos = np.arange(seq)[None]
+    real = pos < lens[:, None]
+    ids = np.where(real, rs.randint(0, vocab, (batch, seq)), 0)
+    type_ids = (real & (pos >= (lens // 2)[:, None])).astype(np.int64)
+    labels = np.where(real & (rs.rand(batch, seq) < 0.15), ids, -100)
+    to = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(device)  # noqa
+    return (to(ids), to(type_ids), padding_mask(lens, seq, device),
+            to(labels), lens)
+
+
+def ernie_step(model, opt, ids, type_ids, mask, labels):
+    from paddle_tpu_torch.models.bert import bert_pretrain_loss_fn
+
+    logits, nsp = model(ids, type_ids, mask)
+    loss = bert_pretrain_loss_fn((logits, nsp), labels)
+    loss.backward()
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    return loss
+
+
+def ernie_trainer(seed=0):
+    """ernie_base in bf16 on the card with AdamW(1e-4, weight decay 0.01),
+    in train mode (dropout 0.1), its batch (ids, type_ids, mask, labels)
+    of 32 x 512 and the rows' real lengths."""
+    from paddle_tpu_torch.models.bert import ernie_base
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = ernie_base(device="cuda", dtype=torch.bfloat16, seed=seed)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters())
+    model.train()
+    *batch, lens = ernie_batch(model.cfg.vocab_size, 32, 512, "cuda")
+    return model, opt, tuple(batch), lens
+
+
+def ernie_pretrain(smi):
+    """Phase 8: ernie_base (hidden 768, 12 layers, 12 heads, vocab 40000)
+    in bf16 with AdamW(1e-4, weight decay 0.01), dropout 0.1, batch 32 x
+    512 with padding: one warm-up step, then 10 timed steps on the same
+    batch. Every attention call is the mask + dropout variant of the three
+    kernels: 12 forward and 12 backward launches a step."""
+    from paddle_tpu_torch.profiler.flops import (bert_train_flops_per_token,
+                                                 mfu, peak_flops)
+
+    t0 = time.perf_counter()
+    model, opt, batch, lens = ernie_trainer()
+    cfg = model.cfg
+    ids = batch[0]
+    B, S = ids.shape
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[ernie] ernie_base bf16, {n_params} parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    losses = [ernie_step(model, opt, *batch).item()]        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()
+    steps, step_ms = 10, []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        loss = ernie_step(model, opt, *batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss.item())
+    counts = _read_flash_counts()
+    tokens, real = ids.numel(), int(lens.sum())
+    secs = sum(step_ms) / 1e3
+    fpt = bert_train_flops_per_token(cfg, S)
+    tok_s = tokens * steps / secs
+    res = dict(
+        batch=[B, S], steps=steps, params=n_params, dropout=cfg.dropout,
+        real_tokens_per_step=real, tokens_per_s=tok_s,
+        real_tokens_per_s=real * steps / secs,
+        step_p50_ms=float(np.median(step_ms)), step_ms=step_ms,
+        flops_per_token=fpt,
+        flops_per_token_formula=("6 * (L * (4 H^2 + 2 H F) + H^2 + V H) "
+                                 "+ 12 L S H (bidirectional attention, "
+                                 "every position counted, padding too)"),
+        mfu=mfu(tok_s, fpt, torch.cuda.get_device_name(0)),
+        peak_flops=peak_flops(torch.cuda.get_device_name(0)), card=smi,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        losses=losses, layers=cfg.num_layers, **counts)
+    log("[ernie] " + json.dumps(res))
+    assert all(np.isfinite(losses)), losses
+    assert np.mean(losses[-3:]) < losses[0], losses
+    n = cfg.num_layers * steps
+    for d in ("fwd", "bwd"):
+        assert (counts[f"{d}_launches"], counts[f"{d}_mask_launches"],
+                counts[f"{d}_dropout_launches"]) == (n, n, n), counts
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def gpt_dropout_train():
+    """Phase 8b: the flagship GPT with dropout 0.1 (bf16, AdamW(1e-4),
+    batch 16 x 1024), 3 steps: finite losses, and 12 forward and 12
+    backward dropout launches a step (causal, no mask)."""
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = flagship_config(dropout=0.1)
+    model = GPT(cfg, device="cuda", dtype=torch.bfloat16, seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    model.train()
+    ids, labels = train_batch(cfg, 16, cfg.max_seq_len, "cuda")
+    _zero_flash_counts()
+    steps, losses, step_ms = 3, [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(train_step(model, opt, ids, labels).item())
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    counts = _read_flash_counts()
+    res = dict(dropout=cfg.dropout, steps=steps, losses=losses,
+               step_ms=step_ms, **counts)
+    log("[train-dropout] " + json.dumps(res))
+    assert all(np.isfinite(losses)), losses
+    n = cfg.num_layers * steps
+    for d in ("fwd", "bwd"):
+        assert (counts[f"{d}_launches"], counts[f"{d}_mask_launches"],
+                counts[f"{d}_dropout_launches"]) == (n, 0, n), counts
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 9 ------------------------------------------------------------------
+
+def ernie_parity():
+    """Phase 9: ERNIE widths at 2 layers, batch 2, seq 128, padding mask,
+    dropout 0, float32 with TF32 off: two AdamW steps on the card (the
+    kernels' mask variant) and on a CPU copy (plain attention) give the
+    same losses and parameters, with phase 7's rule. The pooler and the
+    NSP head get no gradient from the MLM loss: AdamW takes it as zero and
+    decays them, on both sides alike."""
+    from paddle_tpu_torch.models.bert import (Bert, BertConfig,
+                                              bert_pretrain_loss_fn)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = BertConfig(vocab_size=40000, num_layers=2, dropout=0.0)
+    lr, steps = 1e-4, 2
+    param_tol = 0.1 * lr * steps
+    cuda = Bert(cfg, device="cuda", seed=3)
+    cpu = Bert(cfg, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in cuda.state_dict().items()})
+    _zero_flash_counts()
+    losses, grads, params = [], [], []
+    for m in (cuda, cpu):
+        ids, type_ids, mask, labels, _ = ernie_batch(cfg.vocab_size, 2, 128,
+                                                     m.device)
+        opt = AdamW(learning_rate=lr, parameters=m.parameters())
+        m.train()
+        run = []
+        for i in range(steps):
+            logits, nsp = m(ids, type_ids, mask)
+            loss = bert_pretrain_loss_fn(logits, labels)
+            loss.backward()
+            if i == 0:
+                grads.append({n: p.grad.detach().cpu()
+                              for n, p in m.named_parameters()
+                              if p.grad is not None})
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            run.append(loss.item())
+        losses.append(run)
+        params.append({n: p.detach().cpu() for n, p in m.named_parameters()})
+    counts = _read_flash_counts()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    assert set(grads[0]) == set(grads[1])
+    worst, noisy = 0.0, 0
+    for n, want in params[1].items():
+        d = (params[0][n] - want).abs()
+        if n not in grads[1]:             # no gradient: weight decay alone
+            worst = max(worst, d.max().item())
+            continue
+        g = grads[1][n].abs()
+        noise = g < 1e-6 * g.max()
+        noisy += int(noise.sum())
+        assert bool((d[noise] <= 2 * steps * lr).all()), n
+        if (~noise).any():
+            worst = max(worst, d[~noise].max().item())
+    res = dict(layers=cfg.num_layers, batch=[2, 128], steps=steps,
+               losses_cuda=losses[0], losses_cpu=losses[1],
+               loss_rel_err=loss_err, param_max_err=worst,
+               noise_entries=noisy, param_tol=param_tol,
+               no_grad_params=sorted(set(params[1]) - set(grads[1])),
+               **counts)
+    log("[ernie-parity] " + json.dumps(res))
+    assert loss_err < 1e-5, res
+    assert worst < param_tol, res
+    n = cfg.num_layers * steps
+    for d in ("fwd", "bwd"):
+        assert counts[f"{d}_mask_launches"] == counts[f"{d}_launches"] == n, \
+            counts
+    del cuda, cpu
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -812,8 +1200,12 @@ def main():
     par = parity()
     par_int8 = parity_int8()
     flash = flash_cases()
+    variants = variant_cases()
     trained = train(smi)
     tpar = train_parity()
+    ernie = ernie_pretrain(smi)
+    gpt_drop = gpt_dropout_train()
+    epar = ernie_parity()
     # the kernel line's headline numbers: the bf16 decode case (width 1),
     # the launch shape the serving path runs most, and the bf16 flash case
     # at the training shape
@@ -866,12 +1258,34 @@ def main():
         "bound_ms": fl["bound_dq_ms"], "bound_by": fl["bound_dq_by"],
         "library_ms": None,
     }]
+    # the ERNIE step's launch shape: mask + dropout, B 32, S 512, H 12, D 64
+    ev = next(r for r in variants if r["case"] == "ernie_mask_dropout")
+    for kname, site, key, errs, launches, lib in (
+            ("fwd", 143, "fwd", ("o", "lse"), ernie["fwd_mask_launches"],
+             ev["library_fwd_ms"]),
+            ("dkv", 263, "dkv", ("dk", "dv"), ernie["bwd_mask_launches"],
+             None),
+            ("dq", 319, "dq", ("dq",), ernie["bwd_mask_launches"], None)):
+        kernels.append({
+            "name": f"flash_attention_{kname}_mask_dropout", "route": "cuda",
+            "source": src, "replaces": f"{tpu}:{site}",
+            "launches": launches,
+            "max_abs_err": max(ev["max_err"][e] for e in errs),
+            "ms": ev[f"{key}_ms"],
+            "plain_ms": ev["plain_fwd_ms" if key == "fwd"
+                           else "plain_bwd_ms"],
+            "bound_ms": ev[f"bound_{key}_ms"],
+            "bound_by": ev[f"bound_{key}_by"], "library_ms": lib,
+            **({"cases": variants} if key == "fwd" else {}),
+        })
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=smi, kind=kind, kernels=kernels,
                            serve=served, serve_int8=served_int8,
                            overcap=overcap, parity=par, parity_int8=par_int8,
-                           train=trained, train_parity=tpar), f, indent=1)
+                           train=trained, train_parity=tpar, ernie=ernie,
+                           train_dropout=gpt_drop, ernie_parity=epar), f,
+                      indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,14 @@ module names (`models/gpt.py`, `serving/engine.py`, ...) and imports neither
 JAX nor anything of `paddle_tpu`. Its entry points run on CUDA unless the
 caller passes ``device="cpu"``, and raise when no CUDA device exists.
 """
+from .models.bert import (Bert, BertConfig, bert_base,
+                          bert_pretrain_loss_fn, ernie_base)
 from .models.gpt import GPT, GPTConfig, gpt_1p3b, gpt_small, gpt_tiny
 from .optimizer import AdamW
 from .serving import LLMEngine
 from .weights import from_jax_state_dict, to_jax_state_dict
 
-__all__ = ["AdamW", "GPT", "GPTConfig", "LLMEngine", "from_jax_state_dict",
-           "gpt_1p3b", "gpt_small", "gpt_tiny", "to_jax_state_dict"]
+__all__ = ["AdamW", "Bert", "BertConfig", "GPT", "GPTConfig", "LLMEngine",
+           "bert_base", "bert_pretrain_loss_fn", "ernie_base",
+           "from_jax_state_dict", "gpt_1p3b", "gpt_small", "gpt_tiny",
+           "to_jax_state_dict"]

@@ -3,24 +3,48 @@
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
 // `_fwd_kernel` (built by `_build_fwd`), `_dkv_kernel` and `_dq_kernel`
-// (built by `_build_bwd`), without the additive-mask and dropout variants.
-// What they compute, on [B, S, H, D] tensors with scale 1/sqrt(D):
-// - forward: O = softmax(Q K^T * scale) V and LSE = m + log(l) per query,
-//   with an online softmax over key tiles (l clamped to at least 1e-30);
-// - dK/dV: over query tiles, p = exp(s - lse), dV += P^T dO,
-//   dS = P * (dO V^T - delta) * scale, dK += dS^T Q;
+// (built by `_build_bwd`), with their additive-mask (`has_mask`) and dropout
+// (`_tile_keep`) variants. What they compute, on [B, S, H, D] tensors with
+// scale 1/sqrt(D):
+// - forward: O = softmax(Q K^T * scale + M) V and LSE = m + log(l) per
+//   query, with an online softmax over key tiles (l clamped to at least
+//   1e-30); with dropout, O = (softmax(...) * keep / (1 - p)) V while l
+//   sums the undropped P, as on the TPU;
+// - dK/dV: over query tiles, p = exp(s - lse), dV += (P * D)^T dO,
+//   dS = P * (dO V^T * D - delta) * scale, dK += dS^T Q, where D is the
+//   dropout factor keep / (1 - p) (1 without dropout);
 // - dQ: over key tiles, the same recompute, dQ += dS K;
 //   delta = rowsum(dO * O) comes in precomputed (f32, [B*H, Sq]).
+// The mask M is f32 and is read in place through four element strides
+// (batch, head, query, key; 0 broadcasts), so a [B, 1, 1, Sk] padding mask
+// is never copied; each score gets s * scale + M, clamped at -1e30. The
+// mask's gradient is not a kernel: the wrapper recomputes it in plain torch.
+// The keep bits are a pure function of absolute coordinates, the same in
+// every tiling and in the plain version (ops/philox.py):
+//   bits(seed, bh, i, j) = philox4x32_10(counter (j >> 2, i, bh, 0),
+//                                        key (seed lo, seed hi))[j & 3],
+//   keep = bits >= threshold(p)   (the JAX kernel's threshold rule),
+// for query i, key j and bh = b * H + h. Forward, dK/dV and dQ each draw
+// them anew. Both variants are runtime flags, uniform over a launch; each
+// kernel holds two bodies, the plain one (no variant code at all, so the
+// path without mask and dropout runs what it ran before) and the variant
+// one, chosen once at the top, so the build stays at 12 instantiations.
 // Causal masking is bottom-right aligned: query i sees key j when
 // i + (Sk - Sq) >= j. Tiles wholly above the diagonal are skipped, not
 // masked. A query row that sees no key at all (only possible when Sq > Sk)
 // gets O = 0; GPT training never has Sq > Sk.
 //
-// Rounding points are the JAX kernels': scores accumulate in f32 and are
-// then scaled (by scale * log2(e): the softmax runs in base 2, the same
-// function to a rounding); P is rounded to V's dtype before P V; dS is
+// Rounding points are the JAX kernels', but for dropout's: scores
+// accumulate in f32 and are then scaled (by scale * log2(e): the softmax
+// runs in base 2, the same function to a rounding); P (zeroed where
+// dropped) is rounded to V's dtype before P V and (P D)^T dO, and the
+// dropout's 1 / (1 - p) multiplies the f32 result (the TPU kernel rounds
+// P / (1 - p), one rounding more; `attention_ref` rounds as here); dS is
 // rounded to the input dtype before dS^T Q and dS K; every accumulator is
-// f32.
+// f32. Two more steps hold bf16 dropout to the no-dropout kernel's error:
+// the forward can also write O in f32 (`o32`), from which the wrapper takes
+// the backward's delta, and dV adds the product of P's bf16 rounding
+// residual (without it dV missed 2e-2 against the f32 plain version).
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [B, S, H, D] views with unit
 // stride on D; the other strides are arguments, so the strided q/k/v views
@@ -30,7 +54,9 @@
 // Bound: at the training shape (B 16, H 8, S 1024, D 128, causal, bf16)
 // the forward moves 134 MB (q, k, v, o) for 34 GFLOP and is bound by bytes
 // (0.040 ms at 3.35 TB/s); the backward needs 5 causal matmuls (86 GFLOP)
-// and is bound by operations (0.087 ms at 989 TFLOP/s).
+// and is bound by operations (0.087 ms at 989 TFLOP/s). Philox costs ten
+// rounds of two 32-bit multiply-highs for four keep bits, on the integer
+// units, beside the tensor cores' work.
 //
 // What the design does about it (a simple design, fourth version):
 // - Tensor cores: bf16 products run on mma.sync.m16n8k16 with f32
@@ -58,8 +84,15 @@
 // - Shared memory (bf16, D 128): forward 94 KB, dK/dV 112 KB, dQ 111 KB,
 //   so two blocks (eight warps) share an SM, the most their registers
 //   allow.
+// - Dropout draws each Philox output once: in the forward and dQ layout
+//   (rows = queries) the two lanes that hold one group of four keys each
+//   draw it for one of their two rows and swap halves; in the dK/dV layout
+//   (rows = keys) the four lanes that hold a group's keys each draw one of
+//   their four (key group, query) counters and trade words through four
+//   shuffles. Mask values are read from global memory (L1-cached) at the
+//   score's fragment position.
 // Not yet: TMA, P kept in registers as the next product's operand, wgmma,
-// and a fused backward.
+// the mask tile staged through shared memory, and a fused backward.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -72,6 +105,13 @@ struct View {
   int64_t sb, ss, sh;  // batch, sequence and head strides, in elements
 };
 
+// The additive f32 mask, read in place: element (b, h, i, j) sits at
+// p + b * sb + h * sh + i * sq + j * sk; a stride of 0 broadcasts.
+struct MaskView {
+  const float* p;
+  int64_t sb, sh, sq, sk;
+};
+
 // Mirrored by the ctypes structure `_Args` in ops/flash_attention.py.
 struct FlashArgs {
   int64_t B, H, Sq, Sk;
@@ -80,6 +120,13 @@ struct FlashArgs {
   float* delta;  // [B*H, Sq], backward only
   float scale;
   int32_t causal;
+  int32_t has_mask;         // add `mask` to the scaled scores
+  int32_t has_dropout;      // drop P where the keep bits say so
+  uint32_t keep_threshold;  // keep where bits >= this
+  float drop_scale;         // 1 / (1 - p)
+  uint64_t seed;            // Philox key: (low word, high word)
+  MaskView mask;
+  View o32;  // optional f32 copy of O (p null: none), for an exact delta
 };
 
 namespace {
@@ -314,6 +361,11 @@ __device__ __forceinline__ void store_rows(const View& out, int64_t b,
   }
 }
 
+template <typename T>
+constexpr bool kBf16 = false;
+template <>
+constexpr bool kBf16<__nv_bfloat16> = true;
+
 template <int N>
 __device__ __forceinline__ void zero(float (&acc)[N][4]) {
 #pragma unroll
@@ -321,11 +373,106 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
 }
 
 // ---------------------------------------------------------------------------
+// mask and dropout
+// ---------------------------------------------------------------------------
+
+// The mask's slab of batch*head bh (null without a mask).
+__device__ __forceinline__ const float* mask_slab(const FlashArgs& a,
+                                                  int64_t bh) {
+  if (!a.has_mask) return nullptr;
+  return a.mask.p + (bh / a.H) * a.mask.sb + (bh % a.H) * a.mask.sh;
+}
+
+// The base-2 score x (s * scale * log2(e)) of a live (query, key) pair plus
+// its mask value, clamped at kNegInf like a hidden pair.
+__device__ __forceinline__ float add_mask(const FlashArgs& a, const float* mb,
+                                          int64_t qpos, int64_t kpos,
+                                          float x) {
+  const float m = __ldg(mb + qpos * a.mask.sq + kpos * a.mask.sk);
+  return fmaxf(fmaf(m, kLog2e, x), kNegInf);
+}
+
+// Philox4x32-10 (Random123's philox4x32) at counter (c0, c1, c2, 0) under
+// the 64-bit key `seed`; ops/philox.py is the same function in torch.
+__device__ __forceinline__ uint4 philox(uint32_t c0, uint32_t c1, uint32_t c2,
+                                        uint64_t seed) {
+  uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32), c3 = 0;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return make_uint4(c0, c1, c2, c3);
+}
+
+__device__ __forceinline__ uint32_t pick(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+
+// 1 where the keep bits keep, else 0. The 1 / (1 - p) is applied in f32
+// where the kept value meets the accumulator, so a kept P is rounded to
+// V's dtype exactly as without dropout.
+__device__ __forceinline__ float keep_flag(const FlashArgs& a, uint32_t bits) {
+  return bits >= a.keep_threshold ? 1.f : 0.f;
+}
+
+// Keep flags of a lane's four elements of one m16n8 accumulator tile
+// with rows = queries (the forward and dQ layout): element 2i + u is query
+// qrow + 8i, key kcol + u, where qrow = q0 + 16 * warp + g and kcol = k0 +
+// 8j + 2t. Lanes t and t ^ 1 hold the same group of four keys (kcol >> 2);
+// each draws it for one of the two rows and passes its partner the half
+// the partner needs. Every lane of the warp must call this together.
+__device__ __forceinline__ void drop_rows(const FlashArgs& a, int64_t bh,
+                                          int64_t qrow, int64_t kcol,
+                                          float (&f)[4]) {
+  const bool odd = threadIdx.x & 1;  // t & 1: words 2, 3 of the group
+  const uint4 r = philox((uint32_t)(kcol >> 2), (uint32_t)(qrow + (odd ? 8 : 0)),
+                         (uint32_t)bh, a.seed);
+  // even lanes drew row g and keep words 0, 1; odd lanes row g + 8, words 2, 3
+  const uint32_t x0 = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.z, 1);
+  const uint32_t x1 = __shfl_xor_sync(0xffffffffu, odd ? r.y : r.w, 1);
+  f[0] = keep_flag(a, odd ? x0 : r.x);
+  f[1] = keep_flag(a, odd ? x1 : r.y);
+  f[2] = keep_flag(a, odd ? r.z : x0);
+  f[3] = keep_flag(a, odd ? r.w : x1);
+}
+
+// The same for the dK/dV layout (rows = keys): element e is key krow + 8 *
+// (e / 2), query qcol + e % 2, where krow = k0 + 16 * warp + g and qcol =
+// q0 + 8j + 2t. The four lanes g & 3 = u of a quad (same t) hold one key
+// group's four keys at both key rows and both queries: lane u draws the
+// counter of element u (key group of row u / 2, query qcol + u % 2), and
+// in round k sends word u ^ k of it to lane u ^ k, which takes it as its
+// element u ^ k. Every lane of the warp must call this together.
+__device__ __forceinline__ void drop_cols(const FlashArgs& a, int64_t bh,
+                                          int64_t krow, int64_t qcol,
+                                          float (&f)[4]) {
+  const int u = (threadIdx.x >> 2) & 3;
+  const uint4 r = philox((uint32_t)(((krow - u) >> 2) + 2 * (u >> 1)),
+                         (uint32_t)(qcol + (u & 1)), (uint32_t)bh, a.seed);
+  uint4 got;  // word k: element u ^ k
+  got.x = pick(r, u);
+  got.y = __shfl_xor_sync(0xffffffffu, pick(r, u ^ 1), 4);
+  got.z = __shfl_xor_sync(0xffffffffu, pick(r, u ^ 2), 8);
+  got.w = __shfl_xor_sync(0xffffffffu, pick(r, u ^ 3), 12);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) f[e] = keep_flag(a, pick(got, u ^ e));
+}
+
+// ---------------------------------------------------------------------------
 // forward: grid (query tiles, B*H)
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd(const FlashArgs a) {
+// kVar: the mask / dropout variant (runtime flags inside); without it the
+// body compiles to the plain kernel, untouched by the variants' code.
+template <typename T, int D, bool kVar>
+__device__ __forceinline__ void fwd_body(const FlashArgs& a) {
   using L = Ld<T, D>;
   extern __shared__ uint4 smem_u4[];
   constexpr int kTileElems = kTile * L::kD;
@@ -357,6 +504,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const FlashArgs a) {
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   const float sl2 = a.scale * kLog2e;
   T* pw = ps + warp * 16 * L::kT;  // this warp's rows of P
+  const bool has_mask = kVar && a.has_mask;
+  const bool has_drop = kVar && a.has_dropout;
+  const float* mb = mask_slab(a, bh);
+  const int64_t qrow = q0 + warp * 16 + g;
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int64_t k0 = (int64_t)kt * kTile;
@@ -383,10 +534,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const FlashArgs a) {
     for (int j = 0; j < kTile / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int64_t qpos = q0 + warp * 16 + g + 8 * (e >> 1);
+        const int64_t qpos = qrow + 8 * (e >> 1);
         const int64_t kpos = k0 + 8 * j + 2 * t + (e & 1);
-        const float x = full || visible(a, qpos, kpos) ? s[j][e] * sl2
-                                                       : kNegInf;
+        const bool live = full || visible(a, qpos, kpos);
+        float x = live ? s[j][e] * sl2 : kNegInf;
+        if (has_mask && live) x = add_mask(a, mb, qpos, kpos, x);
         s[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -400,14 +552,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const FlashArgs a) {
       m[i] = m_new;
     }
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < kTile / 8; ++j) {
+      float f[4] = {1.f, 1.f, 1.f, 1.f};
+      if (has_drop) drop_rows(a, bh, qrow, k0 + 8 * j + 2 * t, f);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const float p0 = exp2f(s[j][2 * i] - m[i]);
         const float p1 = exp2f(s[j][2 * i + 1] - m[i]);
-        sum[i] += p0 + p1;  // l takes the unrounded p, as on the TPU
-        store2(pw + (g + 8 * i) * L::kT + 8 * j + 2 * t, p0, p1);
+        // l takes the unrounded p before dropout, as on the TPU
+        sum[i] += p0 + p1;
+        if (has_drop)
+          store2(pw + (g + 8 * i) * L::kT + 8 * j + 2 * t, p0 * f[2 * i],
+                 p1 * f[2 * i + 1]);
+        else
+          store2(pw + (g + 8 * i) * L::kT + 8 * j + 2 * t, p0, p1);
       }
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
@@ -428,12 +588,21 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const FlashArgs a) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const float lc = fmaxf(l[i], 1e-30f);
-    inv[i] = 1.f / lc;
+    inv[i] = (has_drop ? a.drop_scale : 1.f) / lc;
     const int64_t qpos = q0 + warp * 16 + g + 8 * i;
     if (t == 0 && qpos < a.Sq)
       a.lse[bh * a.Sq + qpos] = m[i] * kLn2 + logf(lc);
   }
   store_rows<T, D>(a.o, b, h, q0, a.Sq, o, inv);
+  if (kVar && a.o32.p) store_rows<float, D>(a.o32, b, h, q0, a.Sq, o, inv);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd(const FlashArgs a) {
+  if (a.has_mask || a.has_dropout)
+    fwd_body<T, D, true>(a);
+  else
+    fwd_body<T, D, false>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -441,8 +610,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const FlashArgs a) {
 // transposed tiles (rows = keys, columns = queries).
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv(const FlashArgs a) {
+template <typename T, int D, bool kVar>
+__device__ __forceinline__ void dkv_body(const FlashArgs& a) {
   using L = Ld<T, D>;
   extern __shared__ uint4 smem_u4[];
   constexpr int kTileElems = kTile * L::kD;
@@ -484,6 +653,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv(const FlashArgs a) {
   zero(dv);
   const float sl2 = a.scale * kLog2e;
   T* pw = pt + warp * 16 * L::kT;
+  const bool has_mask = kVar && a.has_mask;
+  const bool has_drop = kVar && a.has_dropout;
+  const float* mb = mask_slab(a, bh);
+  const int64_t krow = k0 + warp * 16 + g;
 
   for (int qi = qt_begin; qi < n_qt; ++qi) {
     const int64_t q0 = (int64_t)qi * kTile;
@@ -508,36 +681,71 @@ __global__ void __launch_bounds__(kThreads) flash_dkv(const FlashArgs a) {
     warp_gemm<kTile / 8, D, false>(dpt, vs + warp * 16 * L::kD, L::kD, dos,
                                    L::kD);
 
-    // P^T, rounded into shared memory for dV += P^T dO
+    // P^T (times the keep flags), rounded into shared memory for
+    // dV += (P keep)^T dO; st keeps P, dpt becomes dP D
     const bool full = all_visible(a, q0, k0);
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < kTile / 8; ++j) {
+      float f[4] = {1.f, 1.f, 1.f, 1.f};
+      if (has_drop) drop_cols(a, bh, krow, q0 + 8 * j + 2 * t, f);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
-        const bool live = full || visible(a, q0 + c, k0 + warp * 16 + r);
-        st[j][e] = live ? exp2f(fmaf(st[j][e], sl2, -lse_s[c] * kLog2e))
-                        : 0.f;
+        const int64_t qpos = q0 + 8 * j + 2 * t + (e & 1);
+        const int64_t kpos = krow + 8 * (e >> 1);
+        const float lse2 = lse_s[qpos - q0] * kLog2e;
+        float p = 0.f;
+        if (full || visible(a, qpos, kpos))
+          p = has_mask
+                  ? exp2f(add_mask(a, mb, qpos, kpos, st[j][e] * sl2) - lse2)
+                  : exp2f(fmaf(st[j][e], sl2, -lse2));
+        // with dropout, a dropped P is kept negated: |st| is P for dS,
+        // max(st, 0) is P keep for dV
+        st[j][e] = has_drop && f[e] == 0.f ? -p : p;
+        if (has_drop) dpt[j][e] *= f[e] * a.drop_scale;
       }
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        store2(pw + (g + 8 * i) * L::kT + 8 * j + 2 * t, st[j][2 * i],
-               st[j][2 * i + 1]);
+      for (int i = 0; i < 2; ++i) {
+        T* dst = pw + (g + 8 * i) * L::kT + 8 * j + 2 * t;
+        if (has_drop)
+          store2(dst, fmaxf(st[j][2 * i], 0.f), fmaxf(st[j][2 * i + 1], 0.f));
+        else
+          store2(dst, st[j][2 * i], st[j][2 * i + 1]);
+      }
+    }
     __syncwarp();
     warp_gemm<D / 8, kTile, true>(dv, pw, L::kT, dos, L::kD);
     __syncwarp();
+    if (kBf16<T> && has_drop) {
+      // dV += (the rounding residual of P keep)^T dO: with dropout the
+      // largest dV entries carry the bf16 rounding of their P through a
+      // 1 / (1 - p) gain, and the residual product keeps them at the
+      // no-dropout kernel's precision
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float x0 = fmaxf(st[j][2 * i], 0.f);
+          const float x1 = fmaxf(st[j][2 * i + 1], 0.f);
+          store2(pw + (g + 8 * i) * L::kT + 8 * j + 2 * t,
+                 x0 - __bfloat162float(__float2bfloat16_rn(x0)),
+                 x1 - __bfloat162float(__float2bfloat16_rn(x1)));
+        }
+      __syncwarp();
+      warp_gemm<D / 8, kTile, true>(dv, pw, L::kT, dos, L::kD);
+      __syncwarp();
+    }
     // dS^T over the same buffer, for dK += dS^T Q
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int c = 8 * j + 2 * t;
+        const float p0 = has_drop ? fabsf(st[j][2 * i]) : st[j][2 * i];
+        const float p1 =
+            has_drop ? fabsf(st[j][2 * i + 1]) : st[j][2 * i + 1];
         store2(pw + (g + 8 * i) * L::kT + c,
-               st[j][2 * i] * (dpt[j][2 * i] - delta_s[c]) * a.scale,
-               st[j][2 * i + 1] * (dpt[j][2 * i + 1] - delta_s[c + 1]) *
-                   a.scale);
+               p0 * (dpt[j][2 * i] - delta_s[c]) * a.scale,
+               p1 * (dpt[j][2 * i + 1] - delta_s[c + 1]) * a.scale);
       }
     __syncwarp();
     warp_gemm<D / 8, kTile, true>(dk, pw, L::kT, qs, L::kD);
@@ -545,16 +753,25 @@ __global__ void __launch_bounds__(kThreads) flash_dkv(const FlashArgs a) {
   }
 
   const float one[2] = {1.f, 1.f};
+  const float ds = has_drop ? a.drop_scale : 1.f, dscale[2] = {ds, ds};
   store_rows<T, D>(a.dk, b, h, k0, a.Sk, dk, one);
-  store_rows<T, D>(a.dv, b, h, k0, a.Sk, dv, one);
+  store_rows<T, D>(a.dv, b, h, k0, a.Sk, dv, dscale);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_dkv(const FlashArgs a) {
+  if (a.has_mask || a.has_dropout)
+    dkv_body<T, D, true>(a);
+  else
+    dkv_body<T, D, false>(a);
 }
 
 // ---------------------------------------------------------------------------
 // dQ: grid (query tiles, B*H)
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_dq(const FlashArgs a) {
+template <typename T, int D, bool kVar>
+__device__ __forceinline__ void dq_body(const FlashArgs& a) {
   using L = Ld<T, D>;
   extern __shared__ uint4 smem_u4[];
   constexpr int kTileElems = kTile * L::kD;
@@ -593,6 +810,10 @@ __global__ void __launch_bounds__(kThreads) flash_dq(const FlashArgs a) {
   float dq[D / 8][4];
   zero(dq);
   T* dw = dss + warp * 16 * L::kT;
+  const bool has_mask = kVar && a.has_mask;
+  const bool has_drop = kVar && a.has_dropout;
+  const float* mb = mask_slab(a, bh);
+  const int64_t qrow = q0 + warp * 16 + g;
 
   for (int kj = 0; kj < n_kt; ++kj) {
     const int64_t k0 = (int64_t)kj * kTile;
@@ -616,20 +837,32 @@ __global__ void __launch_bounds__(kThreads) flash_dq(const FlashArgs a) {
                                    L::kD);
     const bool full = all_visible(a, q0, k0);
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < kTile / 8; ++j) {
+      float f[4] = {1.f, 1.f, 1.f, 1.f};
+      if (has_drop) {
+        drop_rows(a, bh, qrow, k0 + 8 * j + 2 * t, f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[e] *= a.drop_scale;
+      }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         float ds[2];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int e = 2 * i + u;
-          const bool live = full || visible(a, q0 + warp * 16 + g + 8 * i,
-                                            k0 + 8 * j + 2 * t + u);
-          const float p = live ? exp2f(fmaf(s[j][e], sl2, -lse2[i])) : 0.f;
-          ds[u] = p * (dp[j][e] - delta[i]) * a.scale;
+          const int64_t qpos = qrow + 8 * i, kpos = k0 + 8 * j + 2 * t + u;
+          float p = 0.f;
+          if (full || visible(a, qpos, kpos))
+            p = has_mask
+                    ? exp2f(add_mask(a, mb, qpos, kpos, s[j][e] * sl2) -
+                            lse2[i])
+                    : exp2f(fmaf(s[j][e], sl2, -lse2[i]));
+          const float dpe = has_drop ? dp[j][e] * f[e] : dp[j][e];
+          ds[u] = p * (dpe - delta[i]) * a.scale;
         }
         store2(dw + (g + 8 * i) * L::kT + 8 * j + 2 * t, ds[0], ds[1]);
       }
+    }
     __syncwarp();
     warp_gemm<D / 8, kTile, true>(dq, dw, L::kT, ks, L::kD);
     __syncthreads();  // every warp is done with this stage before its refill
@@ -638,6 +871,14 @@ __global__ void __launch_bounds__(kThreads) flash_dq(const FlashArgs a) {
 
   const float one[2] = {1.f, 1.f};
   store_rows<T, D>(a.dq, b, h, q0, a.Sq, dq, one);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_dq(const FlashArgs a) {
+  if (a.has_mask || a.has_dropout)
+    dq_body<T, D, true>(a);
+  else
+    dq_body<T, D, false>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -699,14 +940,16 @@ int bwd(const FlashArgs& a, int which, cudaStream_t stream) {
 
 int check(const FlashArgs* a) {
   if (a->B * a->H > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (a->has_mask && a->mask.p == nullptr) return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim 64 or 128. Writes a->o and
-// a->lse. Returns cudaGetLastError() after the launch (0 on success).
-// Launches on `stream` and does not synchronise.
+// a->lse, adding a->mask when a->has_mask and dropping P when
+// a->has_dropout. Returns cudaGetLastError() after the launch (0 on
+// success). Launches on `stream` and does not synchronise.
 extern "C" int flash_attention_fwd_launch(int dtype, int64_t head_dim,
                                           const FlashArgs* a, void* stream) {
   if (a->B * a->H == 0 || a->Sq == 0) return 0;
@@ -720,8 +963,9 @@ extern "C" int flash_attention_fwd_launch(int dtype, int64_t head_dim,
 }
 
 // The backward kernels (`which`: 1 = dK/dV, 2 = dQ, 3 = both). Reads q, k,
-// v, dout, lse, delta; writes dk and dv (1), dq (2). Same conventions as
-// the forward.
+// v, dout, lse, delta (and the mask); writes dk and dv (1), dq (2). The
+// mask and dropout flags and the seed must be the forward's. Same
+// conventions as the forward.
 extern "C" int flash_attention_bwd_launch(int dtype, int64_t head_dim,
                                           int which, const FlashArgs* a,
                                           void* stream) {

@@ -17,7 +17,11 @@ Its tensor-parallel layers run at tp=1 here, so they are plain
   the CPU.
 
 With `labels`, `forward` returns the mean next-token cross-entropy from
-the hidden states through the tied head (`ops/fused_ce.py`).
+the hidden states through the tied head (`ops/fused_ce.py`). In train mode
+with `dropout` > 0, the JAX model's dropouts apply: on the embeddings, on
+each block's two residual branches (the full forward only) and on the
+attention probabilities (the flash kernels' dropout variant), drawn from
+the model's own `DropoutGenerators` (`seed_dropout`).
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from .._device import resolve_device
-from ..ops.common_nn import scaled_dot_product_attention
+from ..ops.common_nn import (DropoutGenerators, dropout,
+                             scaled_dot_product_attention)
 from ..ops.fused_ce import fused_linear_cross_entropy, linear_cross_entropy
 
 _NEG_INF = -1e30
@@ -37,16 +42,13 @@ _TODO = "is not ported yet (ROADMAP Queue 1, item 4)"
 
 class GPTConfig:
     """The JAX package's GPTConfig fields. Values this port does not run
-    yet raise NotImplementedError: dropout > 0, remat, attn_impl 'ring'.
-    ('flash' and 'xla' both take scaled_dot_product_attention, as in the
-    JAX model.)"""
+    yet raise NotImplementedError: remat, attn_impl 'ring'. ('flash' and
+    'xla' both take scaled_dot_product_attention, as in the JAX model.)"""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, max_seq_len=1024, intermediate_size=None,
                  dropout=0.0, attn_impl="flash", remat=False,
                  fused_head_chunks=None):
-        if dropout > 0:
-            raise NotImplementedError(f"GPTConfig: dropout {_TODO}")
         if remat:
             raise NotImplementedError(f"GPTConfig: remat {_TODO}")
         if attn_impl not in ("flash", "xla"):
@@ -89,11 +91,12 @@ class CausalSelfAttention(nn.Module):
         super().__init__()
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
+        self.dropout = cfg.dropout
         kw = {"device": device, "dtype": dtype}
         self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size, **kw)
         self.proj = nn.Linear(cfg.hidden_size, cfg.hidden_size, **kw)
 
-    def forward(self, x, cache=None):
+    def forward(self, x, cache=None, generator=None):
         b, s, _ = x.shape
         q, k, v = _split_fused_qkv(self.qkv(x), b, s, self.num_heads,
                                    self.head_dim)
@@ -114,7 +117,9 @@ class CausalSelfAttention(nn.Module):
                         1.0 / math.sqrt(self.head_dim))
             return self.proj(o.reshape(b, s, width)), (k_buf, v_buf, cur + s)
         o = scaled_dot_product_attention(q, k, v, is_causal=True,
-                                         training=self.training)
+                                         dropout_p=self.dropout,
+                                         training=self.training,
+                                         generator=generator)
         return self.proj(o.reshape(b, s, width))
 
 
@@ -127,17 +132,23 @@ class GPTBlock(nn.Module):
         self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+        self.p = cfg.dropout
 
     def _mlp(self, x):
         return self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
 
-    def forward(self, x, cache=None):
+    def forward(self, x, cache=None, gens=None):
         if cache is not None:
             attn_out, new_cache = self.attn(self.ln1(x), cache=cache)
             x = x + attn_out
             return x + self._mlp(x), new_cache
-        x = x + self.attn(self.ln1(x))
-        return x + self._mlp(x)
+        attn_gen, elem_gen = (gens.attn, gens.elem) if gens else (None, None)
+
+        def drop(y):
+            return dropout(y, self.p, self.training, elem_gen)
+
+        x = x + drop(self.attn(self.ln1(x), generator=attn_gen))
+        return x + drop(self._mlp(x))
 
 
 class GPT(nn.Module):
@@ -147,7 +158,8 @@ class GPT(nn.Module):
     weights drawn from a `torch.Generator` seeded with `seed`: Xavier-normal
     Linear and token-embedding weights, normal(0, 1/sqrt(hidden)) position
     embeddings, zero biases, unit LayerNorm scales (the JAX package's
-    initialisers)."""
+    initialisers). Dropout draws from generators seeded with
+    `seed` (`seed_dropout` reseeds them)."""
 
     def __init__(self, cfg, device=None, dtype=torch.float32, seed=0):
         super().__init__()
@@ -160,11 +172,16 @@ class GPT(nn.Module):
             [GPTBlock(cfg, **kw) for _ in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
         self._init_weights(seed)
+        self.seed_dropout(seed)
         self.eval()
 
     @property
     def device(self):
         return self.wte.weight.device
+
+    def seed_dropout(self, seed):
+        """Reseed the generators every dropout of the model draws from."""
+        self.dropout_generators = DropoutGenerators(seed, self.device)
 
     @property
     def dtype(self):
@@ -204,7 +221,9 @@ class GPT(nn.Module):
             pos = caches.qpos
         else:
             pos = pos_offset + torch.arange(s, device=input_ids.device)[None]
-        x = self.wte(input_ids) + self.wpe(pos)
+        gens = self.dropout_generators
+        x = dropout(self.wte(input_ids) + self.wpe(pos), self.cfg.dropout,
+                    self.training, gens.elem)
         new_caches = [] if caches is not None and not paged else None
         for i, blk in enumerate(self.blocks):
             if paged:
@@ -213,7 +232,7 @@ class GPT(nn.Module):
                 x, c = blk(x, cache=caches[i])
                 new_caches.append(c)
             else:
-                x = blk(x)
+                x = blk(x, gens=gens)
         x = self.ln_f(x)
         return x, (caches if paged else new_caches)
 

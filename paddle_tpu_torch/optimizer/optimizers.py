@@ -14,6 +14,11 @@ parameters at other points. Per parameter p with gradient g:
 
 with the moments and the beta powers kept in float32 whatever the
 parameter's dtype, and the decay taken from the parameter before the step.
+A parameter the optimizer was given that got no gradient (``.grad`` None)
+takes a zero gradient, as the JAX package's compiled step hands it one: its
+moments decay, its Adam step is 0 and weight decay still applies (where
+`torch.optim` skips it). A parameter that does not require a gradient is
+left alone.
 The arithmetic runs on lists of tensors (`torch._foreach_*`), a few
 launches for the whole model instead of a dozen per parameter.
 """
@@ -72,7 +77,7 @@ class AdamW(torch.optim.Optimizer):
             raise NotImplementedError("AdamW.step: closures are not "
                                       "supported")
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
+            params = [p for p in group["params"] if p.requires_grad]
             # one list per (device, dtype): a _foreach op takes one of each
             buckets = {}
             for p in params:
@@ -92,7 +97,8 @@ class AdamW(torch.optim.Optimizer):
         states = [self.state[p] for p in ps]
         m = [s["moment1"] for s in states]
         v = [s["moment2"] for s in states]
-        g = [p.grad.to(p.dtype).float() for p in ps]
+        g = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+             else p.grad.to(p.dtype).float() for p in ps]
         # the beta powers: float32 scalars per parameter, rounded as the
         # JAX package's f32 state is
         for s in states:

@@ -1,7 +1,8 @@
 """Model FLOPs and MFU for the port (the JAX package's `profiler/flops.py`).
 
 `dense_train_flops_per_token`, `gpt_train_flops_per_token` and `mfu` are
-the JAX package's, unchanged: useful model FLOPs only (the fused CE head's
+the JAX package's, unchanged; `bert_train_flops_per_token` counts the
+encoder the same way. Useful model FLOPs only (the fused CE head's
 backward recompute and the flash backward's second recompute are extra
 work the hardware does, not model FLOPs). `peak_flops` looks the card up
 in a table of NVIDIA parts by `torch.cuda.get_device_name` and raises on a
@@ -52,6 +53,19 @@ def gpt_train_flops_per_token(cfg) -> float:
         cfg.hidden_size, cfg.num_layers, cfg.max_seq_len, cfg.vocab_size,
         cfg.intermediate_size,
     )
+
+
+def bert_train_flops_per_token(cfg, seq_len) -> float:
+    """Training FLOPs per token of the BERT / ERNIE encoder off a
+    BertConfig-shaped object: 6 * N for the matmuls every position runs
+    (qkv, out, mlp, the MLM transform and the tied MLM head; the pooler and
+    NSP head run once a sequence and are left out), plus the bidirectional
+    attention's score and value products: 2 of S * H per token forward,
+    x3 for training, none skipped."""
+    H, L, S = cfg.hidden_size, cfg.num_layers, seq_len
+    n_matmul = (L * (4 * H * H + 2 * H * cfg.intermediate_size) + H * H
+                + cfg.vocab_size * H)
+    return 6.0 * n_matmul + L * 4 * S * H * 3
 
 
 def mfu(tokens_per_sec, flops_per_token, device_name=None,

@@ -1,4 +1,11 @@
-"""Carry weights between the JAX package's GPT and the port's GPT."""
+"""Carry weights between the JAX package's models and the port's.
+
+Serves every model of the port (`models/gpt.py` GPT, `models/bert.py`
+Bert): parameter names are the same on both sides, so the carry works by
+name. A tied weight is one parameter on both sides (GPT's `wte`, BERT's
+`word_emb`); `nn.Linear` weights are transposed between the JAX
+package's ``[in, out]`` and torch's ``[out, in]``.
+"""
 from __future__ import annotations
 
 import numpy as np

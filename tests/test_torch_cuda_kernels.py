@@ -303,11 +303,17 @@ def test_flash_rejects_what_it_cannot_take(dev):
                                [..., 1:])
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu())
-    with pytest.raises(NotImplementedError, match="mask"):
-        fa.flash_attention(q, k, v, mask=torch.zeros(1, 1, 16, 16,
+    before = fa.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="broadcast"):
+        fa.flash_attention(q, k, v, mask=torch.zeros(1, 1, 16, 15,
                                                      device=dev))
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="mask must be on"):
+        fa.flash_attention(q, k, v, mask=torch.zeros(1, 1, 16, 16))
+    with pytest.raises(ValueError, match="seed"):
         fa.flash_attention(q, k, v, dropout_p=0.1)
+    with pytest.raises(ValueError, match="dropout_p"):
+        fa.flash_attention(q, k, v, dropout_p=1.0, seed=0)
+    assert fa.flash_attention_fwd.launches == before
 
 
 def test_gpt_train_step_on_the_card_matches_the_cpu(dev):
@@ -337,6 +343,148 @@ def test_gpt_train_step_on_the_card_matches_the_cpu(dev):
             run.append(loss.item())
         losses.append(run)
     assert fa.flash_attention_fwd.launches - f0 == 2 * cfg.num_layers
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+    for (n, a), (_, b) in zip(models[0].named_parameters(),
+                              models[1].named_parameters()):
+        assert _max_err(a.cpu(), b) < 1e-3, n
+
+
+# -- flash attention: the mask and dropout variants ----------------------------
+
+def _padding_mask(b, sk, dev, seed=0):
+    """ERNIE's additive padding mask [b, 1, 1, sk]: 0 on each row's real
+    keys (at least half of them), -1e4 on the rest."""
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(sk // 2, sk + 1, b)
+    keep = np.arange(sk)[None] < lens[:, None]
+    return torch.from_numpy(np.where(keep, 0.0, -1e4).astype(np.float32)
+                            ).view(b, 1, 1, sk).to(dev)
+
+
+def _variant_ref(q, k, v, do, causal, mask, p, seed):
+    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    o = fa.attention_ref(q32, k32, v32, causal, mask, p, seed)
+    o.backward(do.float())
+    lse = fa.attention_lse_ref(q32.detach(), k32.detach(), causal, mask)
+    return o.detach(), lse, q32.grad, k32.grad, v32.grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("variant", ["mask", "padding", "dropout",
+                                     "padding+dropout"])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (77, 200), (200, 200)])
+def test_flash_variants_match_plain_version(dev, dtype, head_dim, causal,
+                                            variant, sq, sk):
+    """The three kernels with an additive mask ([B, H, Sq, Sk] random, or
+    a [B, 1, 1, Sk] padding mask read through stride-0 dims), with dropout
+    (p 0.1, the plain version replaying the same Philox bits), and with
+    both, against the plain version in float32 on the same values."""
+    b, h = 2, 3
+    q, k, v, do = _flash_inputs(b, sq, sk, h, head_dim, dtype, dev, seed=3)
+    mask = None
+    if variant == "mask":
+        g = torch.Generator().manual_seed(4)
+        mask = torch.randn((b, h, sq, sk), generator=g).to(dev)
+    elif variant.startswith("padding"):
+        mask = _padding_mask(b, sk, dev)
+    p, seed = (0.1, 1234567) if "dropout" in variant else (0.0, None)
+    counts = [(f.launches, f.mask_launches, f.dropout_launches)
+              for f in (fa.flash_attention_fwd, fa.flash_attention_bwd)]
+    # with dropout the forward also writes O in f32, which the backward's
+    # delta takes (as FlashAttention does)
+    o32 = torch.empty(q.shape, device=dev) if p > 0 else None
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, mask, p, seed, o32)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o if o32 is None else o32,
+                                        do, lse, causal, mask, p, seed)
+    torch.cuda.synchronize()
+    if o32 is not None:
+        assert _max_err(o, o32) < TOL[dtype]
+    for f, (n, nm, nd) in zip((fa.flash_attention_fwd,
+                               fa.flash_attention_bwd), counts):
+        assert (f.launches, f.mask_launches, f.dropout_launches) == (
+            n + 1, nm + (mask is not None), nd + (p > 0))
+    want = _variant_ref(q, k, v, do, causal, mask, p, seed)
+    for name, got, ref in zip(("o", "lse", "dq", "dk", "dv"),
+                              (o, lse, dq, dk, dv), want):
+        err = _max_err(got, ref)
+        assert err < TOL[dtype], f"{name}: max err {err}"
+
+
+def test_padding_mask_is_read_in_place(dev):
+    """A [B, 1, 1, Sk] float32 mask reaches the kernel as an expanded view
+    (stride 0 on heads and queries, no copy), and gives what the same mask
+    materialized to [B, H, Sq, Sk] gives."""
+    q, k, v, do = _flash_inputs(2, 130, 130, 4, 64, torch.bfloat16, dev)
+    mask = _padding_mask(2, 130, dev)
+    view = fa._mask_view(mask, 2, 4, 130, 130, q.device)
+    assert view.data_ptr() == mask.data_ptr()
+    assert view.stride() == (130, 0, 0, 1)
+    full = mask.expand(2, 4, 130, 130).contiguous()
+    a = fa.flash_attention_fwd(q, k, v, False, mask, 0.1, 9)
+    b = fa.flash_attention_fwd(q, k, v, False, full, 0.1, 9)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_bool_mask_and_mask_grad_on_the_card(dev):
+    """A bool mask keeps the scores where True (as `where(mask, s, -1e30)`),
+    and a float mask that requires a gradient gets P * (dP D - delta),
+    summed over its broadcast head dim, as autograd gives on the CPU."""
+    q, k, v, do = _flash_inputs(2, 96, 96, 3, 64, torch.float32, dev)
+    g = torch.Generator().manual_seed(5)
+    keep = torch.rand((2, 1, 96, 96), generator=g) > 0.3
+    keep[..., 0] = True
+    got = fa.flash_attention(q, k, v, mask=keep.to(dev))
+    want = fa.attention_ref(q, k, v, mask=keep.to(dev))
+    assert _max_err(got, want) < TOL[torch.float32]
+    m = torch.randn((2, 1, 96, 96), generator=g)
+    grads = []
+    for d in (dev, "cpu"):
+        mt = m.to(d).requires_grad_()
+        o = fa.flash_attention(q.to(d), k.to(d), v.to(d), causal=True,
+                               mask=mt, dropout_p=0.2, seed=77)
+        o.backward(do.to(d))
+        grads.append(mt.grad.cpu())
+    assert grads[0].shape == m.shape
+    assert _max_err(grads[0], grads[1]) < TOL[torch.float32]
+
+
+def test_bert_train_step_on_the_card_matches_the_cpu(dev):
+    """Two AdamW steps of a 2-layer ERNIE-width encoder in float32 with a
+    padding mask (dropout 0): the card (the flash kernels' mask variant)
+    against a CPU copy (plain attention), same weights and batch."""
+    from paddle_tpu_torch.models.bert import (Bert, BertConfig,
+                                              bert_pretrain_loss_fn)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = BertConfig(vocab_size=1024, hidden_size=256, num_layers=2,
+                     num_heads=4, intermediate_size=1024,
+                     max_position_embeddings=128, dropout=0.0)
+    models = [Bert(cfg, device=d, seed=0) for d in (dev, "cpu")]
+    models[1].load_state_dict({k: t.cpu() for k, t in
+                               models[0].state_dict().items()})
+    rs = np.random.RandomState(0)
+    ids = torch.from_numpy(rs.randint(0, 1024, (2, 128)))
+    labels = torch.where(torch.from_numpy(rs.rand(2, 128) < 0.15), ids,
+                         torch.full_like(ids, -100))
+    mask = _padding_mask(2, 128, "cpu")
+    losses = []
+    f0 = fa.flash_attention_fwd.mask_launches
+    for m in models:
+        opt = AdamW(learning_rate=1e-3, parameters=m.parameters())
+        m.train()
+        run = []
+        for _ in range(2):
+            out = m(ids.to(m.device), None, mask.to(m.device))
+            loss = bert_pretrain_loss_fn(out, labels.to(m.device))
+            loss.backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            run.append(loss.item())
+        losses.append(run)
+    assert fa.flash_attention_fwd.mask_launches - f0 == 2 * cfg.num_layers
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
     for (n, a), (_, b) in zip(models[0].named_parameters(),
                               models[1].named_parameters()):

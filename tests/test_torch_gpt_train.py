@@ -170,9 +170,33 @@ def test_to_jax_state_dict_inverts_from_jax_state_dict():
     assert bf["wte.weight"].dtype == np.float32
 
 
-@pytest.mark.parametrize("kw,match", [(dict(dropout=0.1), "dropout"),
-                                      (dict(remat=True), "remat"),
+@pytest.mark.parametrize("kw,match", [(dict(remat=True), "remat"),
                                       (dict(attn_impl="ring"), "ring")])
 def test_unported_config_values_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         GPTConfig(**CFG, **kw)
+
+
+def test_dropout_trains_and_eval_equals_no_dropout(batch):
+    """GPTConfig(dropout=0.1) trains on the CPU (embedding, residual and
+    attention dropout, the JAX model's sites): losses finite and falling
+    on one batch; in eval it equals the dropout-0 model with the same
+    weights, and train mode differs from it."""
+    ids, labels = map(torch.from_numpy, batch)
+    model = GPT(GPTConfig(**CFG, dropout=0.1), device="cpu", seed=4)
+    model.seed_dropout(9)
+    plain = GPT(GPTConfig(**CFG), device="cpu", seed=4)
+    with torch.no_grad():
+        torch.testing.assert_close(model(ids), plain(ids), atol=0, rtol=0)
+        model.train()
+        assert (model(ids) - plain(ids)).abs().max() > 1e-3
+    opt = AdamW(learning_rate=LR, parameters=model.parameters())
+    losses = []
+    for _ in range(6):
+        loss = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(loss.item())
+    assert np.all(np.isfinite(losses))
+    assert np.mean(losses[-2:]) < losses[0], losses

@@ -77,6 +77,35 @@ def test_adamw_bfloat16_within_one_ulp_of_jax(decay_fun):
         assert np.all(np.abs(got[k] - want[k]) <= ulp), k
 
 
+def test_adamw_missing_gradient_is_a_zero_gradient():
+    """A parameter that got no gradient (``.grad`` None) steps as the JAX
+    step does with a zero gradient: moments decay, weight decay applies.
+    Here `ln.weight` has none on the second and third steps, `fc.bias`
+    none at all; a parameter that does not require a gradient is left
+    alone."""
+    params, grads = _params_and_grads(seed=2)
+    for i, g in enumerate(grads):
+        g["fc.bias"] = np.zeros_like(g["fc.bias"])
+        if i:
+            g["ln.weight"] = np.zeros_like(g["ln.weight"])
+    want = _run_jax(params, grads, jnp.float32)
+    p = {k: torch.nn.Parameter(torch.tensor(a)) for k, a in params.items()}
+    frozen = torch.nn.Parameter(torch.ones(3), requires_grad=False)
+    opt = AdamW(learning_rate=LR, parameters=list(p.values()) + [frozen])
+    for i, g in enumerate(grads):
+        p["fc.weight"].grad = torch.from_numpy(g["fc.weight"])
+        if i == 0:
+            p["ln.weight"].grad = torch.from_numpy(g["ln.weight"])
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+    for k in SHAPES:
+        np.testing.assert_allclose(p[k].detach().numpy(), want[k], rtol=1e-6,
+                                   atol=1e-7, err_msg=k)
+    assert not np.array_equal(p["fc.bias"].detach().numpy(),
+                              params["fc.bias"])
+    assert torch.equal(frozen, torch.ones(3)) and frozen not in opt.state
+
+
 def test_adamw_keeps_float32_moments_for_bfloat16_parameters():
     p = torch.nn.Parameter(torch.ones(4, dtype=torch.bfloat16))
     opt = AdamW(parameters=[p])

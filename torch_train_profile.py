@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Where a training step's time goes on the card, for the PyTorch port.
 
-Trains chip_smoke.py's flagship GPT (vocab 32768, hidden 1024, 12 layers,
-8 heads, seq 1024, bf16, AdamW(1e-4), batch 16 x 1024 from
-np.random.RandomState(0)): two warm-up steps, then `--steps` steps with
-CUDA events between forward, backward and optimizer (device time of each
-phase), then `--steps` steps under `torch.profiler`, and prints the device
-time by kernel and by kind of kernel, the device's busy share of the wall
-time, and the card's clock and power after the runs:
+Trains chip_smoke.py's flagship GPT (`--model gpt`: vocab 32768, hidden
+1024, 12 layers, 8 heads, seq 1024, bf16, AdamW(1e-4), batch 16 x 1024
+from np.random.RandomState(0)) or its ERNIE-base pretrain step (`--model
+ernie`: hidden 768, 12 layers, 12 heads, vocab 40000, bf16, dropout 0.1,
+batch 32 x 512 with a padding mask): two warm-up steps, then `--steps`
+steps with CUDA events between forward, backward and optimizer (device
+time of each phase), then `--steps` steps under `torch.profiler`, and
+prints the device time by kernel and by kind of kernel, the device's busy
+share of the wall time, and the card's clock and power after the runs:
 
-    python3 torch_train_profile.py [--steps 5] [--out profile.json]
-                                   [--trace trace.json]
+    python3 torch_train_profile.py [--model gpt|ernie] [--steps 5]
+                                   [--out profile.json] [--trace trace.json]
 
 Needs one CUDA card and nvcc (the kernels are built on first use).
 """
@@ -29,6 +31,7 @@ KINDS = [("flash_fwd", r"flash_fwd"), ("flash_dkv", r"flash_dkv"),
          ("flash_dq", r"flash_dq"),
          ("gemm", r"gemm|Gemm|GEMM|sm90_|cutlass|xmma|nvjet|cublas"),
          ("optimizer", r"multi_tensor|foreach"),
+         ("rng", r"distribution|uniform|bernoulli|philox"),
          ("softmax_reduce", r"reduce|softmax|logsumexp|Reduce"),
          ("layernorm", r"layer_norm|LayerNorm|GammaBeta"),
          ("elementwise_copy", r"elementwise|vectorized|unrolled|copy|Copy"
@@ -45,28 +48,48 @@ def main():
     ap.add_argument("--trace", help="export the Chrome trace to this file")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--model", choices=("gpt", "ernie"), default="gpt")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import flagship_trainer, train_step
+    import chip_smoke
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    model, opt, (ids, labels) = flagship_trainer()
+    if args.model == "gpt":
+        model, opt, (ids, labels) = chip_smoke.flagship_trainer()
+
+        def loss_fn():
+            return model(ids, labels=labels)
+    else:
+        from paddle_tpu_torch.models.bert import bert_pretrain_loss_fn
+
+        model, opt, batch, _ = chip_smoke.ernie_trainer()
+
+        def loss_fn():
+            logits, nsp = model(*batch[:3])
+            return bert_pretrain_loss_fn((logits, nsp), batch[3])
+
+    def step():
+        loss = loss_fn()
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+
     for _ in range(2):
-        train_step(model, opt, ids, labels)
+        step()
     torch.cuda.synchronize()
 
     phases = {"forward": [], "backward": [], "optimizer": [], "step": []}
     for _ in range(args.steps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-        loss = model(ids, labels=labels)
+        loss = loss_fn()
         ev[1].record()
         loss.backward()
         ev[2].record()
@@ -83,7 +106,7 @@ def main():
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            train_step(model, opt, ids, labels)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernels only: a record_function range (such as the optimizer's
@@ -105,7 +128,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     res = dict(
-        card=card, clocks_power_temp_after=clocks, steps=args.steps,
+        model=args.model, card=card, clocks_power_temp_after=clocks,
+        steps=args.steps,
         phase_p50_ms=phase_ms, profiled_wall_ms=wall_ms,
         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
         busy_ms_per_step=busy_ms / args.steps,
