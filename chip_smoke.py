@@ -72,11 +72,14 @@ Phases, in order; any failure exits nonzero:
    padding mask, dropout 0, TF32 off: two AdamW steps on the card and on
    a CPU copy give the same losses and parameters (phase 7's rule).
 
-Prints a `{"kernels": [...]}` line, the nvidia-smi name/power-limit line,
-and last `{"ok": true, "device": {...}}`.
+Prints a `{"kernels": [...]}` line (the flash rows also name the bf16
+kernel's design and ptxas's registers and spill bytes for it), the
+nvidia-smi name/power-limit line, and last `{"ok": true, "device":
+{...}}`.
 """
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -161,6 +164,27 @@ def build_kernels():
         for line in (_build.build_log(s) or "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {s}: {line.strip()}")
+
+
+def ptxas_report(source, entry):
+    """ptxas's report on one kernel of `source`'s build: (registers,
+    spill-store bytes) of the first entry function whose mangled name
+    contains `entry`. With setmaxnreg, the registers are the count at
+    entry (65536 / 384 = 168 for the three-warpgroup kernels; the
+    consumers then take 240 and the producer gives up to 24)."""
+    from paddle_tpu_torch.ops import _build
+
+    lines = (_build.build_log(source) or "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            regs = spill = None
+            for nxt in lines[i + 1:i + 5]:
+                m = re.search(r"(\d+) bytes spill stores", nxt)
+                spill = int(m.group(1)) if m else spill
+                m = re.search(r"Used (\d+) registers", nxt)
+                regs = int(m.group(1)) if m else regs
+            return regs, spill
+    raise SystemExit(f"no ptxas report for {entry} in {source}'s build")
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -1232,13 +1256,29 @@ def main():
     fl = flash[0]
     src = "paddle_tpu_torch/csrc/flash_attention.cu"
     tpu = "paddle_tpu/ops/pallas/flash_attention.py"
+    # the bf16 designs, and ptxas's report on the instantiation each row
+    # times (head_dim, mask kind 0 none / 1 key-only, dropout)
+    design = {
+        "fwd": "sm90 wgmma+tma, 128x128 tiles, 2 consumer warpgroups "
+               "(ping-pong) + 1 TMA producer",
+        "dkv": "sm90 wgmma+tma, 128 keys x 64-query ring, 2 consumer "
+               "warpgroups + 1 TMA producer",
+        "dq": "mma.sync v4, 64x64 tiles, 4 warps, cp.async double buffer"}
+
+    def report(kname, d, mask_kind, drop):
+        entry = (f"flash_dqI13__nv_bfloat16Li{d}E" if kname == "dq" else
+                 f"flash_{kname}_sm90ILi{d}ELi{mask_kind}ELb{int(drop)}E")
+        regs, spill = ptxas_report("flash_attention.cu", entry)
+        return {"design": design[kname], "registers": regs,
+                "spill_bytes": spill}
+
     kernels = rpa + [{
         "name": "flash_attention_fwd", "route": "cuda", "source": src,
         "replaces": f"{tpu}:121", "launches": trained["fwd_launches"],
         "max_abs_err": max(fl["max_err"]["o"], fl["max_err"]["lse"]),
         "ms": fl["fwd_ms"], "plain_ms": fl["plain_fwd_ms"],
         "bound_ms": fl["bound_fwd_ms"], "bound_by": fl["bound_fwd_by"],
-        "library_ms": fl["library_fwd_ms"],
+        "library_ms": fl["library_fwd_ms"], **report("fwd", 128, 0, False),
         "cases": flash,
     }, {
         # one counted backward launch runs dK/dV then dQ; plain_ms is the
@@ -1249,14 +1289,14 @@ def main():
         "max_abs_err": max(fl["max_err"]["dk"], fl["max_err"]["dv"]),
         "ms": fl["dkv_ms"], "plain_ms": fl["plain_bwd_ms"],
         "bound_ms": fl["bound_dkv_ms"], "bound_by": fl["bound_dkv_by"],
-        "library_ms": None,
+        "library_ms": None, **report("dkv", 128, 0, False),
     }, {
         "name": "flash_attention_dq", "route": "cuda", "source": src,
         "replaces": f"{tpu}:295", "launches": trained["bwd_launches"],
         "max_abs_err": fl["max_err"]["dq"],
         "ms": fl["dq_ms"], "plain_ms": fl["plain_bwd_ms"],
         "bound_ms": fl["bound_dq_ms"], "bound_by": fl["bound_dq_by"],
-        "library_ms": None,
+        "library_ms": None, **report("dq", 128, 0, False),
     }]
     # the ERNIE step's launch shape: mask + dropout, B 32, S 512, H 12, D 64
     ev = next(r for r in variants if r["case"] == "ernie_mask_dropout")
@@ -1276,6 +1316,7 @@ def main():
                            else "plain_bwd_ms"],
             "bound_ms": ev[f"bound_{key}_ms"],
             "bound_by": ev[f"bound_{key}_by"], "library_ms": lib,
+            **report(kname, ev["shape"][3], 1, True),
             **({"cases": variants} if key == "fwd" else {}),
         })
     if args.out:

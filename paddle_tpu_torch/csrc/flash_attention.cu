@@ -58,7 +58,55 @@
 // rounds of two 32-bit multiply-highs for four keep bits, on the integer
 // units, beside the tensor cores' work.
 //
-// What the design does about it (a simple design, fourth version):
+// Which design runs: the bf16 forward and dK/dV run the sm_90a kernels
+// (`flash_fwd_sm90`, `flash_dkv_sm90`: TMA, wgmma, warp-specialised
+// warpgroups); the bf16 dQ and all three float32 kernels run the mma.sync
+// design (wgmma has no f32 form, and the f32 kernels are the card-vs-CPU
+// parity path).
+//
+// The sm_90a design (bf16 forward and dK/dV). What bounded the mma.sync
+// kernels there: Ampere's mma.sync cannot reach the tensor cores' full
+// rate, each warp's ldmatrix re-read whole K / V tiles for 16 rows, P and
+// dS went through shared memory before every second product, and no warp
+// loaded while others computed. So:
+// - A block is three warpgroups. Warpgroup 0, the producer, gives its
+//   registers up (setmaxnreg 24); one thread issues TMA tile loads into a
+//   ring of stages guarded by full / empty mbarriers, and warp 1 stages the
+//   f32 rows TMA cannot take (LSE and delta; a key-only mask's values) with
+//   plain loads. Warpgroups 1 and 2, the consumers, take 240 registers
+//   each and run the products as wgmma. The tensor maps cover the [B, S,
+//   H, D] views with their own strides (so the fused projection's strided
+//   q/k/v are read in place), 64-column boxes with 128-byte swizzle, rows
+//   past S zero-filled; they are encoded on the host at each launch with
+//   the driver's cuTensorMapEncodeTiled, reached through
+//   cudaGetDriverEntryPoint (sm90.cuh), and passed by value.
+// - Forward: a block owns 128 queries (64 a consumer) and loops over key
+//   tiles of 128; Q is loaded once, K and V sit in 3 (D 128, 226 KB of
+//   shared memory) or 4 (D 64) stages. S = Q K^T is an SS wgmma (both operands K-major); the online
+//   softmax runs on the accumulator in registers; P, packed to bf16 in
+//   place, is the A operand of O += P V (RS, V read MN-major as stored), so
+//   P never touches shared memory. Tile kt's S product is issued together
+//   with tile kt - 1's P V, and two named barriers order the consumers'
+//   issues (ping-pong), so one consumer's softmax runs beside the other's
+//   products. Causal query tiles start heaviest first.
+// - dK/dV: a block owns 128 keys (64 a consumer, K and V loaded once) and
+//   loops over a ring of 64-query Q / dO tiles (3 stages at D 128, 4 at D
+//   64). Every product has keys as its rows: S^T = K Q^T and dP^T = V dO^T
+//   are SS; P^T (times the keep flags), its bf16 rounding residual under
+//   dropout and dS^T are packed in registers as the A operands of dV +=
+//   (P keep)^T dO and dK += dS^T Q (RS, dO and Q read MN-major from the same
+//   swizzled tiles that served as K-major operands).
+// - Variants are compile-time: a kernel per (mask kind, dropout), chosen on
+//   the host: no mask, a key-only mask ([B, 1, 1, Sk]: staged per key tile
+//   in the forward, held in two registers for the whole block in dK/dV),
+//   any other mask (read per element), each with or without dropout.
+//   With runtime flags inside the unrolled tile loops instead, the variant
+//   forwards ran slower than the mma.sync kernels on the H100. Hidden (causal / edge) pairs are found by
+//   one integer compare per score against per-row limits, and only on the
+//   tiles that need it; exp2 runs on the special function unit directly.
+//
+// The mma.sync design (bf16 dQ; float32 forward, dK/dV and dQ; a simple
+// design, fourth version):
 // - Tensor cores: bf16 products run on mma.sync.m16n8k16 with f32
 //   accumulators; fragments come from shared memory through ldmatrix
 //   (`.trans` where the right-hand operand is stored [depth][columns], as
@@ -72,31 +120,38 @@
 // - Forward: one block per (query tile, batch*head), looping over key
 //   tiles. dK/dV: one block per (key tile, batch*head), looping over query
 //   tiles. dQ: one block per (query tile, batch*head), looping over key
-//   tiles. The backward is split in two kernels with no atomics (the JAX
-//   design): each gradient is summed in one fixed order, so the result is
-//   the same on every run, at the price of recomputing S and dP twice.
+//   tiles.
 // - The softmax runs in base 2 (exp2f on scores pre-scaled by log2(e)),
 //   and the per-element causal / edge test only on the tiles that need it.
 // - A two-stage cp.async pipeline: while a tile's products run, the next
 //   tile's operands (K and V; Q, dO, LSE and delta for dK/dV) are already
 //   on their way to the other half of a double buffer, and no register
 //   holds them in transit.
-// - Shared memory (bf16, D 128): forward 94 KB, dK/dV 112 KB, dQ 111 KB,
-//   so two blocks (eight warps) share an SM, the most their registers
-//   allow.
-// - Dropout draws each Philox output once: in the forward and dQ layout
-//   (rows = queries) the two lanes that hold one group of four keys each
-//   draw it for one of their two rows and swap halves; in the dK/dV layout
-//   (rows = keys) the four lanes that hold a group's keys each draw one of
-//   their four (key group, query) counters and trade words through four
-//   shuffles. Mask values are read from global memory (L1-cached) at the
-//   score's fragment position.
-// Not yet: TMA, P kept in registers as the next product's operand, wgmma,
-// the mask tile staged through shared memory, and a fused backward.
+// - Shared memory (bf16, D 128): dQ 111 KB, so two blocks (eight warps)
+//   share an SM, the most their registers allow.
+// - Mask values are read from global memory (L1-cached) at the score's
+//   fragment position.
+//
+// Both designs: the backward is split in two kernels with no atomics (the
+// JAX design): each gradient is summed in one fixed order, so the result
+// is the same on every run, at the price of recomputing S and dP twice.
+// Dropout draws each Philox output once: in the forward and dQ layout
+// (rows = queries) the two lanes that hold one group of four keys each
+// draw it for one of their two rows and swap halves; in the dK/dV layout
+// (rows = keys) the four lanes that hold a group's keys each draw one of
+// their four (key group, query) counters and trade words through four
+// shuffles (the wgmma accumulator is the m16n8 layout repeated along N, so
+// both kinds of kernel share these helpers).
+// Not yet: the dQ redesign for sm_90a; a persistent grid (one block an SM
+// walking over tiles, so one tile's epilogue overlaps the next's loads);
+// TMA stores of the outputs; overlap inside a dK/dV consumer (the next
+// tile's S^T product beside this tile's dV and dK); a fused backward.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 // Outside the unnamed namespace: the C entry points take a FlashArgs*, and
 // a type with internal linkage would give them internal linkage too.
@@ -127,6 +182,13 @@ struct FlashArgs {
   uint64_t seed;            // Philox key: (low word, high word)
   MaskView mask;
   View o32;  // optional f32 copy of O (p null: none), for an exact delta
+};
+
+// The TMA descriptors of the bf16 sm_90a kernels over q, k, v and dout,
+// encoded on the host at each launch and passed by value (a CUDA graph
+// captures them with the launch).
+struct TmaMaps {
+  CUtensorMap q, k, v, dout;
 };
 
 namespace {
@@ -310,13 +372,15 @@ __device__ __forceinline__ int64_t min64(int64_t x, int64_t y) {
   return x < y ? x : y;
 }
 
-// Key tiles a query tile [q0, q0 + kTile) visits: all of them, or with
-// causal masking those up to the last visible key of its last live row.
+// Key tiles (of KT keys) a query tile [q0, q0 + QT) visits: all of them,
+// or with causal masking those up to the last visible key of its last live
+// row.
+template <int QT = kTile, int KT = kTile>
 __device__ __forceinline__ int key_tiles(const FlashArgs& a, int64_t q0) {
-  const int64_t n = (a.Sk + kTile - 1) / kTile;
+  const int64_t n = (a.Sk + KT - 1) / KT;
   if (!a.causal) return (int)n;
-  const int64_t last = min64(q0 + kTile, a.Sq) - 1 + (a.Sk - a.Sq);
-  return last < 0 ? 0 : (int)min64(n, last / kTile + 1);
+  const int64_t last = min64(q0 + QT, a.Sq) - 1 + (a.Sk - a.Sq);
+  return last < 0 ? 0 : (int)min64(n, last / KT + 1);
 }
 
 __device__ __forceinline__ bool visible(const FlashArgs& a, int64_t qpos,
@@ -325,12 +389,13 @@ __device__ __forceinline__ bool visible(const FlashArgs& a, int64_t qpos,
          (!a.causal || qpos + (a.Sk - a.Sq) >= kpos);
 }
 
-// Whether every (query, key) pair of the query tile at q0 and the key tile
+// Whether every (query, key) pair of the QT queries at q0 and the KT keys
 // at k0 is visible, so the per-element test can be skipped.
+template <int QT = kTile, int KT = kTile>
 __device__ __forceinline__ bool all_visible(const FlashArgs& a, int64_t q0,
                                             int64_t k0) {
-  return q0 + kTile <= a.Sq && k0 + kTile <= a.Sk &&
-         (!a.causal || q0 + (a.Sk - a.Sq) >= k0 + kTile - 1);
+  return q0 + QT <= a.Sq && k0 + KT <= a.Sk &&
+         (!a.causal || q0 + (a.Sk - a.Sq) >= k0 + KT - 1);
 }
 
 template <typename T>
@@ -338,20 +403,20 @@ __device__ __forceinline__ const T* slab(const View& v, int64_t b, int64_t h) {
   return static_cast<const T*>(v.p) + b * v.sb + h * v.sh;
 }
 
-// Writes a warp's [16][D] f32 accumulator (times `mul` per row) to rows
-// [r0 + 16 * warp, ...) of `out`, skipping rows at or past n_rows.
+// Writes a thread's part of a [16][D] f32 accumulator fragment (times
+// `mul` per row) to rows `row` and row + 8 of `out` (row: the fragment's
+// row g), skipping rows at or past n_rows.
 template <typename T, int D>
 __device__ __forceinline__ void store_rows(const View& out, int64_t b,
-                                           int64_t h, int64_t r0,
+                                           int64_t h, int64_t row,
                                            int64_t n_rows,
                                            const float (&acc)[D / 8][4],
                                            const float (&mul)[2]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int warp = threadIdx.x >> 5;
+  const int t = threadIdx.x & 3;
   T* base = static_cast<T*>(out.p) + b * out.sb + h * out.sh;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int64_t r = r0 + warp * 16 + g + 8 * i;
+    const int64_t r = row + 8 * i;
     if (r >= n_rows) continue;
     T* row = base + r * out.ss;
 #pragma unroll
@@ -593,8 +658,8 @@ __device__ __forceinline__ void fwd_body(const FlashArgs& a) {
     if (t == 0 && qpos < a.Sq)
       a.lse[bh * a.Sq + qpos] = m[i] * kLn2 + logf(lc);
   }
-  store_rows<T, D>(a.o, b, h, q0, a.Sq, o, inv);
-  if (kVar && a.o32.p) store_rows<float, D>(a.o32, b, h, q0, a.Sq, o, inv);
+  store_rows<T, D>(a.o, b, h, qrow, a.Sq, o, inv);
+  if (kVar && a.o32.p) store_rows<float, D>(a.o32, b, h, qrow, a.Sq, o, inv);
 }
 
 template <typename T, int D>
@@ -715,25 +780,6 @@ __device__ __forceinline__ void dkv_body(const FlashArgs& a) {
     __syncwarp();
     warp_gemm<D / 8, kTile, true>(dv, pw, L::kT, dos, L::kD);
     __syncwarp();
-    if (kBf16<T> && has_drop) {
-      // dV += (the rounding residual of P keep)^T dO: with dropout the
-      // largest dV entries carry the bf16 rounding of their P through a
-      // 1 / (1 - p) gain, and the residual product keeps them at the
-      // no-dropout kernel's precision
-#pragma unroll
-      for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float x0 = fmaxf(st[j][2 * i], 0.f);
-          const float x1 = fmaxf(st[j][2 * i + 1], 0.f);
-          store2(pw + (g + 8 * i) * L::kT + 8 * j + 2 * t,
-                 x0 - __bfloat162float(__float2bfloat16_rn(x0)),
-                 x1 - __bfloat162float(__float2bfloat16_rn(x1)));
-        }
-      __syncwarp();
-      warp_gemm<D / 8, kTile, true>(dv, pw, L::kT, dos, L::kD);
-      __syncwarp();
-    }
     // dS^T over the same buffer, for dK += dS^T Q
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j)
@@ -754,8 +800,8 @@ __device__ __forceinline__ void dkv_body(const FlashArgs& a) {
 
   const float one[2] = {1.f, 1.f};
   const float ds = has_drop ? a.drop_scale : 1.f, dscale[2] = {ds, ds};
-  store_rows<T, D>(a.dk, b, h, k0, a.Sk, dk, one);
-  store_rows<T, D>(a.dv, b, h, k0, a.Sk, dv, dscale);
+  store_rows<T, D>(a.dk, b, h, krow, a.Sk, dk, one);
+  store_rows<T, D>(a.dv, b, h, krow, a.Sk, dv, dscale);
 }
 
 template <typename T, int D>
@@ -870,7 +916,7 @@ __device__ __forceinline__ void dq_body(const FlashArgs& a) {
   cp_async_wait<0>();
 
   const float one[2] = {1.f, 1.f};
-  store_rows<T, D>(a.dq, b, h, q0, a.Sq, dq, one);
+  store_rows<T, D>(a.dq, b, h, qrow, a.Sq, dq, one);
 }
 
 template <typename T, int D>
@@ -879,6 +925,537 @@ __global__ void __launch_bounds__(kThreads) flash_dq(const FlashArgs a) {
     dq_body<T, D, true>(a);
   else
     dq_body<T, D, false>(a);
+}
+
+// `drop_cols` with the words traded by a 4 x 4 transpose over the quad's
+// lanes (two rounds of two shuffles, each lane choosing by its own bits)
+// in place of picks by a lane-dependent index: the same flags. With the
+// picks, the sm_90a dK/dV kernel's dropout variants took 0.16-0.19 ms a
+// call more on the H100 (torch_flash_bench.py, PERF.md).
+__device__ __forceinline__ void drop_cols_sm90(const FlashArgs& a, int64_t bh,
+                                               int64_t krow, int64_t qcol,
+                                               float (&f)[4]) {
+  const int u = (threadIdx.x >> 2) & 3;
+  const uint4 r = philox((uint32_t)(((krow - u) >> 2) + 2 * (u >> 1)),
+                         (uint32_t)(qcol + (u & 1)), (uint32_t)bh, a.seed);
+  // lane u holds word w of counter u; lane u needs word u of counter e as
+  // its element e. Round 1 swaps with lane u ^ 1 the words w with
+  // (u ^ w) & 1, round 2 with lane u ^ 2 those with (u ^ w) & 2.
+  const bool o1 = u & 1, o2 = u & 2;
+  const uint32_t s0 = __shfl_xor_sync(0xffffffffu, o1 ? r.x : r.y, 4);
+  const uint32_t s1 = __shfl_xor_sync(0xffffffffu, o1 ? r.z : r.w, 4);
+  const uint32_t a0 = o1 ? s0 : r.x, a1 = o1 ? r.y : s0;
+  const uint32_t a2 = o1 ? s1 : r.z, a3 = o1 ? r.w : s1;
+  const uint32_t t0 = __shfl_xor_sync(0xffffffffu, o2 ? a0 : a2, 8);
+  const uint32_t t1 = __shfl_xor_sync(0xffffffffu, o2 ? a1 : a3, 8);
+  f[0] = keep_flag(a, o2 ? t0 : a0);
+  f[1] = keep_flag(a, o2 ? t1 : a1);
+  f[2] = keep_flag(a, o2 ? a2 : t0);
+  f[3] = keep_flag(a, o2 ? a3 : t1);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward and dK/dV on sm_90a: one producer warpgroup (TMA) and two
+// consumer warpgroups (wgmma), the products' P and dS kept in registers
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kWg = 128;                // threads of a warpgroup
+constexpr int kSm90Threads = 3 * kWg;   // producer, consumer 0, consumer 1
+constexpr int kRowBytes = 128;          // a row of one 64-column block
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+
+// Shared memory of the forward (byte offsets from a 1024-byte aligned
+// base): Q [128][D] once, a ring of K and V [128][D] tiles with the key
+// tile's f32 mask values (a key-only mask), and the barriers. Each tile is
+// D / 64 column blocks of [128][64] (kBox bytes), 128-byte swizzled.
+template <int D> struct FwdSm90 {
+  static constexpr int kStages = D == 128 ? 3 : 4;
+  static constexpr int kBox = 128 * kRowBytes;
+  static constexpr int kTileB = D / 64 * kBox;
+  static constexpr int kQ = 0, kK = kTileB, kV = kK + kStages * kTileB;
+  static constexpr int kMask = kV + kStages * kTileB;   // f32 [stages][128]
+  static constexpr int kBar = kMask + kStages * 128 * 4;  // q, full, empty
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// Named barriers of the consumers' ping-pong: barrier 1 + c lets consumer
+// c issue its products (id 0 is __syncthreads).
+constexpr int kPingPong = 2 * kWg;
+
+// kMask: 0 none, 1 a key-only mask ([B, 1, 1, Sk], staged per key tile),
+// 2 any other mask (read per element); kDrop: dropout.
+template <int D, int kMask, bool kDrop>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+    flash_fwd_sm90(const __grid_constant__ FlashArgs a,
+                   const __grid_constant__ TmaMaps tm) {
+  using L = FwdSm90<D>;
+  constexpr int S = L::kStages;
+  extern __shared__ uint8_t smem_sm90[];
+  const uint32_t raw = sm90::smem_u32(smem_sm90);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bar_q = base + L::kBar;
+  const auto full = [&](int s) { return bar_q + 8 + 8 * s; };
+  const auto empty = [&](int s) { return bar_q + 8 + 8 * (S + s); };
+  float* mask_s = reinterpret_cast<float*>(smem_sm90 + (base - raw) + L::kMask);
+
+  constexpr bool has_mask = kMask != 0, key_mask = kMask == 1;
+  constexpr bool has_drop = kDrop;
+  const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  // causal: the query tiles with the most key tiles start first
+  const int qt = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int64_t q0 = (int64_t)qt * 128;
+  const int n_kt = key_tiles<128, 128>(a, q0);
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < S; ++s) {
+      // TMA's arrival, and the mask loader warp's 32 lanes
+      sm90::mbar_init(full(s), key_mask ? 33 : 1);
+      sm90::mbar_init(empty(s), 8);  // the consumers' eight warps
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == 0) {
+    // producer: one thread issues every TMA load; warp 1 stages the mask
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0) {
+      sm90::mbar_expect_tx(bar_q, L::kTileB);
+      for (int c = 0; c < D / 64; ++c)
+        sm90::tma_load_4d(base + L::kQ + c * L::kBox, &tm.q, bar_q, c * 64,
+                          (int)h, (int)q0, (int)b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % S;
+        sm90::mbar_wait(empty(s), ((kt / S) & 1) ^ 1);
+        sm90::mbar_expect_tx(full(s), 2 * L::kTileB);
+        for (int c = 0; c < D / 64; ++c) {
+          const uint32_t off = s * L::kTileB + c * L::kBox;
+          sm90::tma_load_4d(base + L::kK + off, &tm.k, full(s), c * 64, (int)h,
+                            kt * 128, (int)b);
+          sm90::tma_load_4d(base + L::kV + off, &tm.v, full(s), c * 64, (int)h,
+                            kt * 128, (int)b);
+        }
+      }
+    } else if (warp == 1 && key_mask) {
+      const float* mrow = a.mask.p + b * a.mask.sb;
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % S;
+        sm90::mbar_wait(empty(s), ((kt / S) & 1) ^ 1);
+        for (int i = lane; i < 128; i += 32) {
+          // plain loads: a row of Sk f32 values need not suit a bulk copy
+          const int64_t kpos = (int64_t)kt * 128 + i;
+          mask_s[s * 128 + i] = kpos < a.Sk ? __ldg(mrow + kpos * a.mask.sk) : 0.f;
+        }
+        sm90::mbar_arrive(full(s));
+      }
+    }
+    return;
+  }
+
+  // consumer c owns query rows [q0 + 64 c, q0 + 64 c + 64)
+  sm90::setmaxnreg_inc<kConsumerRegs>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x % kWg, w = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t qc0 = q0 + 64 * c;
+  const int64_t qrow = qc0 + 16 * w + g;  // and qrow + 8
+  const float sl2 = a.scale * kLog2e;
+  const float* mb = mask_slab(a, bh);
+  const uint32_t qa = base + L::kQ + c * 64 * kRowBytes;
+
+  float o[D / 8][4];
+  zero(o);
+  // m is the running row max of the base-2 scores s * scale * log2(e)
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float s[16][4];     // a tile's scores, then its P (dropped entries zero)
+  uint32_t p[8][4];   // P in bf16: the A operand of O += P V
+  float alpha[2];     // this tile's rescale of O
+
+  // S = Q K^T of key tile kt (issued, not waited for)
+  const auto issue_s = [&](int kt) {
+    const int st = kt % S;
+    sm90::mbar_wait(full(st), (kt / S) & 1);
+    const uint32_t kb = base + L::kK + st * L::kTileB;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::kBox + (kk % 4) * 32;
+      sm90::wgmma_ss(s, sm90::desc_sw128(qa + off, 16, 1024),
+                     sm90::desc_sw128(kb + off, 16, 1024), kk > 0);
+    }
+  };
+  // O += P V of key tile kt; V [keys][D] is read MN-major, as stored
+  const auto issue_pv = [&](int kt) {
+    const uint32_t vb = base + L::kV + (kt % S) * L::kTileB;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      sm90::wgmma_rs(o, p[kk], sm90::desc_sw128(vb + kk * 16 * kRowBytes,
+                                                 L::kBox, 1024),
+                     1);
+  };
+  const auto release = [&](int kt) {
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty(kt % S));
+  };
+  // the online softmax of tile kt: s becomes P (times the keep flags), m
+  // and l move on, alpha is O's rescale
+  const auto softmax = [&](int kt) {
+    const int64_t k0 = (int64_t)kt * 128;
+    const bool all = all_visible<64, 128>(a, qc0, k0);
+    // row i sees the tile's columns [0, lim[i]): keys past Sk and, with
+    // causal masking, past the diagonal are hidden; rows past Sq see none
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int64_t qpos = qrow + 8 * i;
+      const int64_t hi =
+          a.causal ? min64(a.Sk, qpos + a.Sk - a.Sq + 1) : a.Sk;
+      lim[i] = qpos >= a.Sq || hi <= k0 ? 0 : (int)min64(hi - k0, 128);
+    }
+    const float* ms = mask_s + (kt % S) * 128;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        const bool live = all || col < lim[e >> 1];
+        float x = live ? s[j][e] * sl2 : kNegInf;
+        if (has_mask && live)
+          x = key_mask ? fmaxf(fmaf(ms[col], kLog2e, x), kNegInf)
+                       : add_mask(a, mb, qrow + 8 * (e >> 1), k0 + col, x);
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = sm90::exp2_approx(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float f[4] = {1.f, 1.f, 1.f, 1.f};
+      if (has_drop) drop_rows(a, bh, qrow, k0 + 8 * j + 2 * t, f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = sm90::exp2_approx(s[j][e] - m[e >> 1]);
+        sum[e >> 1] += pe;  // l takes P before dropout, as on the TPU
+        s[j][e] = has_drop ? pe * f[e] : pe;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * alpha[i] + sum[i];
+    }
+  };
+  const auto pack_p = [&] {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) sm90::pack_a(p[kk], s[2 * kk], s[2 * kk + 1]);
+  };
+
+  // Consumer 0 issues first; each then lets the other issue once its own
+  // products are queued, so one's softmax runs beside the other's products.
+  const int me = 1 + c, other = 2 - c;
+  if (c == 1) sm90::bar_arrive(1, kPingPong);
+  sm90::mbar_wait(bar_q, 0);
+  if (n_kt > 0) {
+    sm90::bar_sync(me, kPingPong);
+    sm90::wgmma_fence();
+    issue_s(0);
+    sm90::wgmma_commit();
+    sm90::bar_arrive(other, kPingPong);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    softmax(0);
+    pack_p();
+    // tile kt's S = Q K^T runs beside tile kt - 1's O += P V
+    for (int kt = 1; kt < n_kt; ++kt) {
+      sm90::bar_sync(me, kPingPong);
+      sm90::wgmma_fence();
+      issue_s(kt);
+      sm90::wgmma_commit();
+      issue_pv(kt - 1);
+      sm90::wgmma_commit();
+      sm90::bar_arrive(other, kPingPong);
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(s);
+      softmax(kt);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      sm90::fence_regs(p);
+      release(kt - 1);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+      pack_p();
+    }
+    sm90::wgmma_fence();
+    issue_pv(n_kt - 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o);
+    sm90::fence_regs(p);
+    release(n_kt - 1);
+  }
+  if (c == 0) sm90::bar_sync(1, kPingPong);  // consumer 1's last arrival
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float lc = fmaxf(l[i], 1e-30f);
+    inv[i] = (has_drop ? a.drop_scale : 1.f) / lc;
+    const int64_t qpos = qrow + 8 * i;
+    if (t == 0 && qpos < a.Sq)
+      a.lse[bh * a.Sq + qpos] = m[i] * kLn2 + logf(lc);
+  }
+  store_rows<bf16, D>(a.o, b, h, qrow, a.Sq, o, inv);
+  if (kDrop && a.o32.p) store_rows<float, D>(a.o32, b, h, qrow, a.Sq, o, inv);
+}
+
+// Shared memory of dK/dV: K and V [128][D] of the block's key tile once,
+// a ring of Q and dO [64][D] tiles with their f32 LSE and delta rows, and
+// the barriers.
+template <int D> struct DkvSm90 {
+  static constexpr int kStages = D == 128 ? 3 : 4;
+  static constexpr int kKBox = 128 * kRowBytes;  // a block of K or V
+  static constexpr int kQBox = 64 * kRowBytes;   // a block of Q or dO
+  static constexpr int kKV = D / 64 * kKBox, kQD = D / 64 * kQBox;
+  static constexpr int kK = 0, kV = kKV, kQ = 2 * kKV;
+  static constexpr int kDO = kQ + kStages * kQD;
+  static constexpr int kRows = kDO + kStages * kQD;  // f32 [stages][2][64]
+  static constexpr int kBar = kRows + kStages * 2 * 64 * 4;  // kv, full, empty
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D, int kMask, bool kDrop>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+    flash_dkv_sm90(const __grid_constant__ FlashArgs a,
+                   const __grid_constant__ TmaMaps tm) {
+  using L = DkvSm90<D>;
+  constexpr int S = L::kStages;
+  extern __shared__ uint8_t smem_sm90[];
+  const uint32_t raw = sm90::smem_u32(smem_sm90);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bar_kv = base + L::kBar;
+  const auto full = [&](int s) { return bar_kv + 8 + 8 * s; };
+  const auto empty = [&](int s) { return bar_kv + 8 + 8 * (S + s); };
+  float* rows_s = reinterpret_cast<float*>(smem_sm90 + (base - raw) + L::kRows);
+
+  constexpr bool has_mask = kMask != 0, key_mask = kMask == 1;
+  constexpr bool has_drop = kDrop;
+  const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int64_t k0 = (int64_t)blockIdx.x * 128;
+  const int64_t off = a.Sk - a.Sq;
+  // first query tile holding a query that sees key k0
+  int qt_begin = 0;
+  if (a.causal && k0 - off > 0) qt_begin = (int)((k0 - off) / 64);
+  const int n_qt = (int)((a.Sq + 63) / 64);
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar_kv, 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(full(s), 33);  // TMA's arrival and the row loader's
+      sm90::mbar_init(empty(s), 8);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == 0) {
+    // producer: one thread issues every TMA load; warp 1 loads LSE and
+    // delta (plain loads: a row of Sq f32 values need not suit a bulk copy)
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0) {
+      sm90::mbar_expect_tx(bar_kv, 2 * L::kKV);
+      for (int c = 0; c < D / 64; ++c) {
+        sm90::tma_load_4d(base + L::kK + c * L::kKBox, &tm.k, bar_kv, c * 64,
+                          (int)h, (int)k0, (int)b);
+        sm90::tma_load_4d(base + L::kV + c * L::kKBox, &tm.v, bar_kv, c * 64,
+                          (int)h, (int)k0, (int)b);
+      }
+      for (int qi = qt_begin; qi < n_qt; ++qi) {
+        const int i = qi - qt_begin, s = i % S;
+        sm90::mbar_wait(empty(s), ((i / S) & 1) ^ 1);
+        sm90::mbar_expect_tx(full(s), 2 * L::kQD);
+        for (int c = 0; c < D / 64; ++c) {
+          const uint32_t o = s * L::kQD + c * L::kQBox;
+          sm90::tma_load_4d(base + L::kQ + o, &tm.q, full(s), c * 64, (int)h,
+                            qi * 64, (int)b);
+          sm90::tma_load_4d(base + L::kDO + o, &tm.dout, full(s), c * 64,
+                            (int)h, qi * 64, (int)b);
+        }
+      }
+    } else if (warp == 1) {
+      const float* lse = a.lse + bh * a.Sq;
+      const float* delta = a.delta + bh * a.Sq;
+      for (int qi = qt_begin; qi < n_qt; ++qi) {
+        const int i = qi - qt_begin, s = i % S;
+        sm90::mbar_wait(empty(s), ((i / S) & 1) ^ 1);
+        for (int r = lane; r < 64; r += 32) {
+          const int64_t qpos = (int64_t)qi * 64 + r;
+          const bool in = qpos < a.Sq;
+          rows_s[s * 128 + r] = in ? lse[qpos] : 0.f;
+          rows_s[s * 128 + 64 + r] = in ? delta[qpos] : 0.f;
+        }
+        sm90::mbar_arrive(full(s));
+      }
+    }
+    return;
+  }
+
+  // consumer c owns keys [k0 + 64 c, k0 + 64 c + 64); every product has
+  // keys as its rows
+  sm90::setmaxnreg_inc<kConsumerRegs>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x % kWg, w = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t kc0 = k0 + 64 * c;
+  const int64_t krow = kc0 + 16 * w + g;  // and krow + 8
+  const float sl2 = a.scale * kLog2e;
+  const float* mb = mask_slab(a, bh);
+  const uint32_t ka = base + L::kK + c * 64 * kRowBytes;
+  const uint32_t va = base + L::kV + c * 64 * kRowBytes;
+  // a key-only mask is constant along this thread's two key rows
+  float mk[2] = {0.f, 0.f};
+  if (key_mask)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (krow + 8 * i < a.Sk) mk[i] = __ldg(mb + (krow + 8 * i) * a.mask.sk);
+
+  float dk[D / 8][4], dv[D / 8][4];
+  zero(dk);
+  zero(dv);
+  sm90::mbar_wait(bar_kv, 0);
+  for (int qi = qt_begin; qi < n_qt; ++qi) {
+    const int i = qi - qt_begin, s = i % S;
+    const int64_t q0 = (int64_t)qi * 64;
+    sm90::mbar_wait(full(s), (i / S) & 1);
+    const uint32_t qb = base + L::kQ + s * L::kQD;
+    const uint32_t dob = base + L::kDO + s * L::kQD;
+    const float* lse_s = rows_s + s * 128;
+    const float* delta_s = lse_s + 64;
+
+    // S^T = K Q^T and dP^T = V dO^T, all four operands K-major
+    float st[8][4], dpt[8][4];
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t ko = (kk / 4) * L::kKBox + (kk % 4) * 32;
+      const uint32_t qo = (kk / 4) * L::kQBox + (kk % 4) * 32;
+      sm90::wgmma_ss(st, sm90::desc_sw128(ka + ko, 16, 1024),
+                     sm90::desc_sw128(qb + qo, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t ko = (kk / 4) * L::kKBox + (kk % 4) * 32;
+      const uint32_t qo = (kk / 4) * L::kQBox + (kk % 4) * 32;
+      sm90::wgmma_ss(dpt, sm90::desc_sw128(va + ko, 16, 1024),
+                     sm90::desc_sw128(dob + qo, 16, 1024), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(st);
+    sm90::fence_regs(dpt);
+
+    // P^T (times the keep flags) and its bf16 rounding residual for dV,
+    // dS^T for dK, packed as A operands: n-tile j is depth step j / 2
+    const bool all = all_visible<64, 64>(a, q0, kc0);
+    // key row i sees the tile's query columns [lo[i], hi[i])
+    int lo[2], hi[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int64_t kpos = krow + 8 * i, first = kpos - off - q0;
+      hi[i] = kpos < a.Sk ? (int)min64(64, a.Sq - q0) : 0;
+      lo[i] = !a.causal || first < 0 ? 0 : (int)min64(first, 64);
+    }
+    uint32_t pa[4][4], ra[4][4], dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float f[4] = {1.f, 1.f, 1.f, 1.f};
+      if (has_drop) drop_cols_sm90(a, bh, krow, q0 + 8 * j + 2 * t, f);
+      float pk[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        const int r = e >> 1;  // the key row, krow + 8 r
+        const float lse2 = lse_s[col] * kLog2e;
+        float p = 0.f;
+        if (all || (col >= lo[r] && col < hi[r])) {
+          if (has_mask) {
+            const float x = st[j][e] * sl2;
+            p = sm90::exp2_approx(
+                (key_mask ? fmaxf(fmaf(mk[r], kLog2e, x), kNegInf)
+                          : add_mask(a, mb, q0 + col, krow + 8 * r, x)) -
+                lse2);
+          } else {
+            p = sm90::exp2_approx(fmaf(st[j][e], sl2, -lse2));
+          }
+        }
+        pk[e] = has_drop ? p * f[e] : p;
+        const float dpe =
+            has_drop ? dpt[j][e] * (f[e] * a.drop_scale) : dpt[j][e];
+        ds[e] = p * (dpe - delta_s[col]) * a.scale;
+      }
+      const int kk = j / 2, r = 2 * (j % 2);  // depth step, register pair
+      pa[kk][r] = sm90::pack_bf16(pk[0], pk[1]);
+      pa[kk][r + 1] = sm90::pack_bf16(pk[2], pk[3]);
+      if (has_drop) {
+        float rk[4];  // P keep minus its bf16 rounding
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          rk[e] = pk[e] - __bfloat162float(__float2bfloat16_rn(pk[e]));
+        ra[kk][r] = sm90::pack_bf16(rk[0], rk[1]);
+        ra[kk][r + 1] = sm90::pack_bf16(rk[2], rk[3]);
+      }
+      dsa[kk][r] = sm90::pack_bf16(ds[0], ds[1]);
+      dsa[kk][r + 1] = sm90::pack_bf16(ds[2], ds[3]);
+    }
+    // dV += (P keep)^T dO (+ the residual's product under dropout: with
+    // dropout the largest dV entries carry P's bf16 rounding through a
+    // 1 / (1 - p) gain), dK += dS^T Q; dO and Q are read MN-major
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_rs(dv, pa[kk], sm90::desc_sw128(dob + kk * 16 * kRowBytes,
+                                                  L::kQBox, 1024),
+                     1);
+    if (has_drop)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        sm90::wgmma_rs(dv, ra[kk],
+                       sm90::desc_sw128(dob + kk * 16 * kRowBytes, L::kQBox,
+                                        1024),
+                       1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      sm90::wgmma_rs(dk, dsa[kk], sm90::desc_sw128(qb + kk * 16 * kRowBytes,
+                                                   L::kQBox, 1024),
+                     1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dk);
+    sm90::fence_regs(dv);
+    sm90::fence_regs(pa);
+    if (has_drop) sm90::fence_regs(ra);
+    sm90::fence_regs(dsa);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty(s));
+  }
+
+  const float one[2] = {1.f, 1.f};
+  const float dsc = has_drop ? a.drop_scale : 1.f, dscale[2] = {dsc, dsc};
+  store_rows<bf16, D>(a.dk, b, h, krow, a.Sk, dk, one);
+  store_rows<bf16, D>(a.dv, b, h, krow, a.Sk, dv, dscale);
 }
 
 // ---------------------------------------------------------------------------
@@ -916,11 +1493,94 @@ int launch(Kernel kernel, size_t smem, bool& ready, int64_t tiles,
   return (int)cudaGetLastError();
 }
 
+// The bf16 kernels' launches: tensor maps over the [B, S, H, D] views
+// (boxes of `q_rows` rows for q and dout, 128 for k and v), then one block
+// of three warpgroups per 128-row tile and batch*head.
+template <int D, typename Kernel>
+int launch_sm90(Kernel kernel, size_t smem, bool& ready, int64_t tiles,
+                int q_rows, const FlashArgs& a, cudaStream_t stream) {
+  TmaMaps m;
+  const struct {
+    CUtensorMap* map;
+    const View& v;
+    int64_t s;
+    int rows;
+  } maps[4] = {{&m.q, a.q, a.Sq, q_rows},
+               {&m.k, a.k, a.Sk, 128},
+               {&m.v, a.v, a.Sk, 128},
+               {&m.dout, a.dout, a.Sq, q_rows}};
+  for (const auto& x : maps) {
+    if (!x.v.p) {  // the forward has no dout
+      *x.map = CUtensorMap{};
+      continue;
+    }
+    if (int err = sm90::encode_bshd(x.map, x.v.p, a.B, x.s, a.H, D, x.v.sb,
+                                    x.v.ss, x.v.sh, x.rows))
+      return err;
+  }
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  kernel<<<dim3((unsigned)tiles, (unsigned)(a.B * a.H)), kSm90Threads, smem,
+           stream>>>(a, m);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int kMask, bool kDrop>
+int fwd_sm90(const FlashArgs& a, cudaStream_t stream) {
+  static bool ready = false;
+  return launch_sm90<D>(flash_fwd_sm90<D, kMask, kDrop>, FwdSm90<D>::kBytes,
+                        ready, (a.Sq + 127) / 128, 128, a, stream);
+}
+
+template <int D, int kMask, bool kDrop>
+int dkv_sm90(const FlashArgs& a, cudaStream_t stream) {
+  static bool ready = false;
+  return launch_sm90<D>(flash_dkv_sm90<D, kMask, kDrop>, DkvSm90<D>::kBytes,
+                        ready, (a.Sk + 127) / 128, 64, a, stream);
+}
+
+// The variant a launch runs: kMask 0 without a mask, 1 for a mask that
+// depends on the key alone (batch and key strides only), 2 for any other.
+int mask_kind(const FlashArgs& a) {
+  if (!a.has_mask) return 0;
+  return a.mask.sh == 0 && a.mask.sq == 0 ? 1 : 2;
+}
+
+template <int D, template <int, int, bool> class Run>
+int dispatch_sm90(const FlashArgs& a, cudaStream_t stream) {
+  switch (2 * mask_kind(a) + (a.has_dropout ? 1 : 0)) {
+    case 0: return Run<D, 0, false>::go(a, stream);
+    case 1: return Run<D, 0, true>::go(a, stream);
+    case 2: return Run<D, 1, false>::go(a, stream);
+    case 3: return Run<D, 1, true>::go(a, stream);
+    case 4: return Run<D, 2, false>::go(a, stream);
+    default: return Run<D, 2, true>::go(a, stream);
+  }
+}
+template <int D, int kMask, bool kDrop> struct RunFwd {
+  static int go(const FlashArgs& a, cudaStream_t s) {
+    return fwd_sm90<D, kMask, kDrop>(a, s);
+  }
+};
+template <int D, int kMask, bool kDrop> struct RunDkv {
+  static int go(const FlashArgs& a, cudaStream_t s) {
+    return dkv_sm90<D, kMask, kDrop>(a, s);
+  }
+};
+
 template <typename T, int D>
 int fwd(const FlashArgs& a, cudaStream_t stream) {
-  static bool ready = false;
-  return launch(flash_fwd<T, D>, fwd_smem<T, D>(), ready,
-                (a.Sq + kTile - 1) / kTile, a, stream);
+  if constexpr (kBf16<T>) {
+    return dispatch_sm90<D, RunFwd>(a, stream);
+  } else {
+    static bool ready = false;
+    return launch(flash_fwd<T, D>, fwd_smem<T, D>(), ready,
+                  (a.Sq + kTile - 1) / kTile, a, stream);
+  }
 }
 
 // which: 1 = dK/dV, 2 = dQ, 3 = both (dK/dV first)
@@ -928,8 +1588,12 @@ template <typename T, int D>
 int bwd(const FlashArgs& a, int which, cudaStream_t stream) {
   static bool ready_dkv = false, ready_dq = false;
   if (which & 1) {
-    const int err = launch(flash_dkv<T, D>, dkv_smem<T, D>(), ready_dkv,
-                           (a.Sk + kTile - 1) / kTile, a, stream);
+    int err;
+    if constexpr (kBf16<T>)
+      err = dispatch_sm90<D, RunDkv>(a, stream);
+    else
+      err = launch(flash_dkv<T, D>, dkv_smem<T, D>(), ready_dkv,
+                   (a.Sk + kTile - 1) / kTile, a, stream);
     if (err) return err;
   }
   if (which & 2)

@@ -3,9 +3,10 @@
 Each source under ``paddle_tpu_torch/csrc`` exposes a plain C function; it
 is compiled at first use into ``build/`` at the root of the checkout
 (``.gitignore`` lists it) and loaded with ``ctypes``. The library's file
-name carries a hash of the source and the flags, so an edited source never
-loads a stale build. Nothing here runs at import time: the CPU tests import
-every module of the port on a machine without ``nvcc``.
+name carries a hash of the source, the headers beside it (``*.cuh``) and
+the flags, so an edited source or header never loads a stale build.
+Nothing here runs at import time: the CPU tests import every module of the
+port on a machine without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -40,6 +41,18 @@ def nvcc_path():
                        "on first use on a machine with the CUDA toolkit")
 
 
+def source_digest(src, flags=NVCC_FLAGS):
+    """The hash in the library name of source file `src`: its bytes, the
+    name and bytes of every ``*.cuh`` header in its directory, and the
+    flags."""
+    src = Path(src)
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(source):
     """Build (once) and load ``csrc/<source>``; returns the ctypes CDLL.
     Builds of different sources may run in parallel threads."""
@@ -47,9 +60,7 @@ def load_library(source):
         if source in _LIBS:
             return _LIBS[source]
     src = CSRC / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"{src.stem}-{digest}.so"
+    lib_path = BUILD_DIR / f"{src.stem}-{source_digest(src)}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(

@@ -25,7 +25,9 @@ with `_attention_xla`'s optional mask and dropout:
   (plain XLA in the JAX package) and launches the dK/dV and dQ kernels
   (`_dkv_kernel`, `_dq_kernel`). Each counts its launches in `.launches`,
   and those with a mask or dropout also in `.mask_launches` /
-  `.dropout_launches`.
+  `.dropout_launches`. In bfloat16 the forward and dK/dV kernels are the
+  sm_90a designs (TMA tile loads through tensor maps over the views'
+  strides, wgmma); float32 and the bfloat16 dQ run the mma.sync kernels.
 - `FlashAttention` is the autograd function around the two directions
   (the counterpart of `_flash_custom`). With dropout on bfloat16 inputs
   the forward kernel also writes O in f32, and the backward's delta is

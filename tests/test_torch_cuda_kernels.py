@@ -250,12 +250,14 @@ def _max_err(got, want):
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("sq,sk", [(1024, 1024), (77, 77), (200, 200),
-                                   (77, 200), (1, 130)])
+                                   (77, 200), (1, 130), (64, 64), (127, 127),
+                                   (128, 128), (129, 129)])
 def test_flash_kernels_match_plain_version(dev, dtype, head_dim, causal, sq,
                                            sk):
     """Forward (O, LSE) and both backward kernels (dQ; dK, dV) against the
     plain version and its autograd gradients, sq <= sk (a query row always
-    sees a key), ragged edges included."""
+    sees a key), ragged edges included (the bf16 kernels' 128-row tiles:
+    64, 127, 128, 129; one consumer's rows all dead at 1 and 64)."""
     q, k, v, do = _flash_inputs(2, sq, sk, 3, head_dim, dtype, dev)
     f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
@@ -272,20 +274,61 @@ def test_flash_kernels_match_plain_version(dev, dtype, head_dim, causal, sq,
         assert err < TOL[dtype], f"{name}: max err {err}"
 
 
-def test_flash_autograd_through_strided_views(dev):
+def _split_views(qkv, split, b, s, h, d):
+    """q, k, v as strided views of one fused projection: [b, s, h, 3, d]
+    ("heads"), the encoder's [3, heads, head_dim] columns ("split_qkv") or
+    the decoder's per-head groups ("fused_gpt")."""
+    from paddle_tpu_torch.models.bert import split_qkv
+    from paddle_tpu_torch.models.gpt import _split_fused_qkv
+
+    if split == "heads":
+        x = qkv.view(b, s, h, 3, d)
+        return x[:, :, :, 0], x[:, :, :, 1], x[:, :, :, 2]
+    return (split_qkv if split == "split_qkv" else _split_fused_qkv)(
+        qkv, b, s, h, d)
+
+
+@pytest.mark.parametrize("dtype,head_dim,split", [
+    (torch.float32, 64, "heads"),
+    (torch.bfloat16, 64, "split_qkv"), (torch.bfloat16, 64, "fused_gpt"),
+    (torch.bfloat16, 128, "split_qkv"), (torch.bfloat16, 128, "fused_gpt")])
+def test_flash_autograd_through_strided_views(dev, dtype, head_dim, split):
     """The training path: q, k, v as strided views of one fused QKV
-    projection [b, s, h, 3, d], gradients through `flash_attention`."""
+    projection (read in place: the bf16 kernels' tensor maps carry the
+    views' strides), gradients through `flash_attention` against the plain
+    version in float32 on the same values."""
+    b, s, h = 2, 100, 4
     g = torch.Generator().manual_seed(1)
-    qkv = torch.randn((2, 100, 4, 3, 64), generator=g).to(dev)
-    do = torch.randn((2, 100, 4, 64), generator=g).to(dev)
+    qkv = torch.randn((b, s, 3 * h * head_dim), generator=g).to(dev, dtype)
+    do = torch.randn((b, s, h, head_dim), generator=g).to(dev, dtype)
     got_in = qkv.clone().requires_grad_()
-    q, k, v = got_in[:, :, :, 0], got_in[:, :, :, 1], got_in[:, :, :, 2]
+    q, k, v = _split_views(got_in, split, b, s, h, head_dim)
     assert not q.is_contiguous()
     fa.flash_attention(q, k, v, causal=True).backward(do)
-    ref_in = qkv.clone().requires_grad_()
-    fa.attention_ref(ref_in[:, :, :, 0], ref_in[:, :, :, 1],
-                     ref_in[:, :, :, 2], causal=True).backward(do)
-    assert _max_err(got_in.grad, ref_in.grad) < TOL[torch.float32]
+    ref_in = qkv.float().requires_grad_()
+    fa.attention_ref(*_split_views(ref_in, split, b, s, h, head_dim),
+                     causal=True).backward(do.float())
+    assert _max_err(got_in.grad, ref_in.grad) < TOL[dtype]
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("variant", ["plain", "padding+dropout"])
+def test_flash_dkv_is_deterministic(dev, head_dim, variant):
+    """The dK/dV kernel sums each gradient in one fixed order (no atomics):
+    two launches on the same inputs give bit-identical dK and dV."""
+    b, sq, h = 2, 300, 3
+    q, k, v, do = _flash_inputs(b, sq, sq, h, head_dim, torch.bfloat16, dev,
+                                seed=6)
+    mask, p, seed = None, 0.0, None
+    if variant != "plain":
+        mask, p, seed = _padding_mask(b, sq, dev), 0.1, 99
+    o, lse = fa.flash_attention_fwd(q, k, v, True, mask, p, seed)
+    delta = fa._delta(o, do)
+    runs = [fa._launch_bwd(q, k, v, do, lse, delta, True, 1, mask, p, seed)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for x, y in zip(runs[0][1:], runs[1][1:]):
+        assert torch.equal(x, y)
 
 
 def test_flash_rejects_what_it_cannot_take(dev):
