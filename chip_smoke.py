@@ -16,13 +16,17 @@ Phases, in order; any failure exits nonzero:
    int8 arena with its float32 scales, with the kernel's, the plain
    version's and one PyTorch library call's device times (CUDA-graph
    replays) beside the least time the card could take, and the kernel's
-   eager per-call time.
+   eager per-call time. Each case names the kernel design it ran (bf16 at
+   this shape: the sm_90a design, its split-row and, at width 128,
+   wide-row kernels with ptxas's registers and spill bytes; float32: the
+   SIMT design).
 3. Serve: gpt_1p3b in bf16 (random weights from a seed) behind
    LLMEngine(block_size=16, max_batch=8, spec_decoding=True) answers 8
    greedy requests of 64-1000 prompt tokens, four sharing a 256-token
    prefix, 32 new tokens each. The kernels' launch counts are set to 0
    just before and read just after; every kernel must have run once per
-   layer and step, with one host sync per step and an idle pool after.
+   layer and step, with one host sync per step and an idle pool after;
+   the ragged launches are also reported by step width (1, 5, 128).
    3b. The same with kv_dtype="int8": every launch is the int8 variant.
    3c. The overcap pair (bench.py's int8 overcap wave): one byte budget of
    12 bf16 blocks, block 16, max_seq_len 128, max_batch 4, 8 prompts of
@@ -189,6 +193,25 @@ def ptxas_report(source, entry):
 
 # -- phase 2 ------------------------------------------------------------------
 
+RPA_DESIGNS = {
+    "sm90": "sm90: split rows (q_len <= 8) on mma.sync, 4 warp pipelines of "
+            "16-key TMA stages, 256-key splits, PDL merge; wide rows wgmma "
+            "64 queries x 64-key TMA ring",
+    "simt": "simt v6: f32 shared tiles, 8-query tiles, 64-key chunks, "
+            "split-KV + merge"}
+
+
+def rpa_kernels(design, dtype, int8, width):
+    """The sm_90a kernels a phase 2 case runs, with ptxas's (registers,
+    spill-store bytes) for each; empty for the SIMT design."""
+    if design != "sm90":
+        return {}
+    ta = "a" if int8 else "13__nv_bfloat16"
+    names = ["split"] + (["wide"] if width > 8 else [])
+    return {n: ptxas_report("ragged_paged_attention.cu",
+                            f"rpa_{n}_sm90I{ta}E") for n in names}
+
+
 def _case(width, gen, n_blocks, dtype, dev):
     """A mixed batch at step width `width`: decode rows, a prefill chunk
     crossing block boundaries, partly filled last blocks, an idle lane
@@ -321,8 +344,13 @@ def kernel_cases():
                 c, k_arena, v_arena, layer,
                 (sc["k_scale"], sc["v_scale"]) if sc else None), 20)
             bms, by = _bound(c, dtype, int8=bool(sc))
+            design = pa.kernel_design(dtype, D, BS)
             rec = dict(arena=arena, dtype=str(dtype).replace("torch.", ""),
-                       width=width,
+                       width=width, design=RPA_DESIGNS[design],
+                       ptxas={k: dict(registers=r, spill_bytes=sp)
+                              for k, (r, sp) in rpa_kernels(
+                                  design, dtype, arena == "int8",
+                                  width).items()},
                        max_err=err, tol=TOL[dtype], kernel_ms=kms,
                        kernel_eager_call_ms=eager_ms(kernel, 50),
                        plain_ms=pms, library_ms=lms, bound_ms=bms,
@@ -392,6 +420,7 @@ def _zero_counts():
 
     pa.ragged_paged_attention.launches = 0
     pa.ragged_paged_attention.int8_launches = 0
+    pa.ragged_paged_attention.width_launches = {}
 
 
 def _read_counts():
@@ -399,6 +428,14 @@ def _read_counts():
 
     return (pa.ragged_paged_attention.launches,
             pa.ragged_paged_attention.int8_launches)
+
+
+def _width_counts():
+    """The ragged launches since `_zero_counts`, by step width."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    return {str(w): n for w, n in
+            sorted(pa.ragged_paged_attention.width_launches.items())}
 
 
 def serve(model, kv_dtype=None):
@@ -413,6 +450,7 @@ def serve(model, kv_dtype=None):
     outs = serve_waves(engine, prompts)
     wall = time.perf_counter() - t1
     launches, int8_launches = _read_counts()
+    width_launches = _width_counts()
     steps = engine.step_count - steps0
     c = engine.metrics.counters
     lat = engine.metrics.latency_summary()
@@ -426,7 +464,7 @@ def serve(model, kv_dtype=None):
         step_counts={k: int(c.get(k + "s", 0))
                      for k in ("mixed_step", "decode_step", "verify_step")},
         launches=launches, int8_launches=int8_launches,
-        layers=model.cfg.num_layers,
+        width_launches=width_launches, layers=model.cfg.num_layers,
         host_syncs=int(c.get("host_syncs", 0)),
         prefix_cache_hit_rate=engine.metrics.gauges.get(
             "prefix_cache_hit_rate", 0.0),
@@ -438,6 +476,7 @@ def serve(model, kv_dtype=None):
     assert all(len(o) == 32 for o in outs), "a request did not finish"
     assert not c.get("nonfinite_rows"), "non-finite logits in a served row"
     assert launches == model.cfg.num_layers * steps, (launches, steps)
+    assert sum(width_launches.values()) == launches, width_launches
     # every launch of the int8 wave is the int8 variant, none of the other
     assert int8_launches == (launches if kv_dtype else 0), int8_launches
     assert res["host_syncs"] == steps, (res["host_syncs"], steps)
@@ -1239,6 +1278,8 @@ def main():
         mine = [r for r in cases if r["arena"] == arena]
         head = next(r for r in mine if r["dtype"] == "bfloat16"
                     and r["width"] == 1)
+        wide = next(r for r in mine if r["dtype"] == "bfloat16"
+                    and r["width"] == 128)
         rpa.append({
             "name": "ragged_paged_attention"
                     + ("_int8" if arena == "int8" else ""),
@@ -1251,6 +1292,13 @@ def main():
             "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            "design": head["design"],
+            # ptxas on the split-row kernel (the decode case's), and on the
+            # wide-row kernel the width-128 case adds
+            "registers": head["ptxas"]["split"]["registers"],
+            "spill_bytes": head["ptxas"]["split"]["spill_bytes"],
+            "wide_registers": wide["ptxas"]["wide"]["registers"],
+            "wide_spill_bytes": wide["ptxas"]["wide"]["spill_bytes"],
             "cases": mine,
         })
     fl = flash[0]

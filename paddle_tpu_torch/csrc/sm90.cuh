@@ -265,6 +265,24 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The box at coordinates (c0, c1, c2) of a 3-d tensor map, as tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// Orders this thread's earlier generic-proxy accesses of shared memory
+// before later async-proxy ones (wgmma operand reads, TMA writes).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // -- warpgroups ----------------------------------------------------------------
 
 // Every thread of the warpgroup must execute these, on one path of a
@@ -327,6 +345,31 @@ inline int encode_bshd(CUtensorMap* map, void* p, int64_t B, int64_t S,
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A tensor map over a paged KV arena [L, H, N, bs, D] (contiguous, D 128)
+// seen as rows of blocks [L * H * N][bs][D]: boxes of 128 bytes x `rows`
+// rows of one block (64 bf16 or 128 int8 columns), 128-byte swizzled.
+// Returns 0 or a CUDA error.
+inline int encode_arena(CUtensorMap* map, void* p, bool int8, int64_t blocks,
+                        int64_t bs, int64_t D, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const int64_t esz = int8 ? 1 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)bs,
+                              (cuuint64_t)blocks};
+  const cuuint64_t strides[2] = {(cuuint64_t)(D * esz),
+                                 (cuuint64_t)(bs * D * esz)};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / esz), (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                        3, p, dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -43,12 +43,14 @@ _TODO = "is not ported yet (ROADMAP Queue 1, item 4)"
 class GPTConfig:
     """The JAX package's GPTConfig fields. Values this port does not run
     yet raise NotImplementedError: remat, attn_impl 'ring'. ('flash' and
-    'xla' both take scaled_dot_product_attention, as in the JAX model.)"""
+    'xla' both take scaled_dot_product_attention, as in the JAX model.)
+    `dtype` is stored and never read, as in the JAX model: the parameter
+    dtype is the `dtype` argument of `GPT` and `gpt_*`."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, max_seq_len=1024, intermediate_size=None,
                  dropout=0.0, attn_impl="flash", remat=False,
-                 fused_head_chunks=None):
+                 dtype="float32", fused_head_chunks=None):
         if remat:
             raise NotImplementedError(f"GPTConfig: remat {_TODO}")
         if attn_impl not in ("flash", "xla"):
@@ -64,6 +66,7 @@ class GPTConfig:
         self.dropout = dropout
         self.attn_impl = attn_impl
         self.remat = remat
+        self.dtype = dtype
         self.fused_head_chunks = fused_head_chunks
 
 

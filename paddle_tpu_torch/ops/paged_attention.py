@@ -11,7 +11,9 @@ beside prefill-chunk and speculative-verify rows.
   token-identical to `GPT.generate`.
 - `ragged_paged_attention` launches ``csrc/ragged_paged_attention.cu``, which
   walks only each row's live KV blocks and live query tiles (the port of the
-  TPU kernel `_ragged_kernel`, float and int8 arena variants).
+  TPU kernel `_ragged_kernel`, float and int8 arena variants), in the design
+  `kernel_design` picks by shape: the sm_90a one (TMA, mma.sync split rows,
+  wgmma wide rows) at the serving shape, the SIMT one elsewhere.
 - An int8 arena comes with float32 scale sidecars ``[layers, heads,
   num_blocks]`` (`k_scale`, `v_scale`): one scale per (layer, head, block)
   dequantizes that block's tile before any product, in both versions.
@@ -34,6 +36,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8 = 2  # the kernel's code for an int8 arena
 _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_BLOCK_SIZE = 128
+_DESIGNS = {"simt": 0, "sm90": 1}
+_SM90_BLOCK_SIZES = (16, 32, 64, 128)
+
+
+def kernel_design(dtype, head_dim, block_size):
+    """Which design of the CUDA kernel a call runs, by shape alone:
+    ``"sm90"`` (TMA, mma.sync split rows, wgmma wide rows) for bfloat16 q
+    at head_dim 128 with a block size of 16, 32, 64 or 128, over either
+    arena; ``"simt"`` (the f32 shared-tile design) for everything else,
+    float32 included. Inside one sm90 launch a row with at most 8 live
+    queries (decode, verify) is a split row, a longer one (a prefill chunk)
+    a wide row."""
+    if (dtype == torch.bfloat16 and head_dim == 128
+            and block_size in _SM90_BLOCK_SIZES):
+        return "sm90"
+    return "simt"
 
 
 def paged_attention_ref(q, k_arena, v_arena, layer, block_tables, qpos,
@@ -76,7 +94,8 @@ def _library():
         i64, ptr = ctypes.c_int64, ctypes.c_void_p
         fn = lib.ragged_paged_attention_launch
         fn.argtypes = [
-            ctypes.c_int, ctypes.c_int,            # dtype arena_dtype
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # design dtype arena
+            i64,                                   # layers of the arena
             i64, i64, i64, i64, i64, i64, i64,     # B S H D bs nb num_blocks
             ptr, i64, i64, i64,                    # q + strides
             ptr, ptr, i64, i64, i64,               # k v layer_off a_sh a_sn
@@ -117,9 +136,13 @@ def ragged_paged_attention(q, k_arena, v_arena, layer, block_tables,
     on the current stream without synchronising; the workspace for split
     rows' partials comes from `torch.empty`. The count of launches is
     ``ragged_paged_attention.launches`` (of them, those over an int8 arena
-    also count in ``ragged_paged_attention.int8_launches``); one launch is
-    the pair of CUDA kernels a call runs, the attend pass (`rpa_attend`)
-    and the merge of split rows' partials (`rpa_combine`).
+    also count in ``ragged_paged_attention.int8_launches``, and
+    ``ragged_paged_attention.width_launches`` counts them by step width S);
+    one launch is the CUDA kernels a call runs: in the SIMT design the
+    attend pass (`rpa_attend`) and the merge of split rows' partials
+    (`rpa_combine`); in the sm_90a design the wide rows' pass
+    (`rpa_wide_sm90`, when S > 8), the split rows' (`rpa_split_sm90`) and
+    their merge (`rpa_combine`, launched as a programmatic dependent).
     """
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention runs on CUDA tensors; q is "
@@ -184,8 +207,9 @@ def ragged_paged_attention(q, k_arena, v_arena, layer, block_tables,
     a_st = k_arena.stride()
     with torch.cuda.device(dev):
         err = lib.ragged_paged_attention_launch(
+            _DESIGNS[kernel_design(q.dtype, D, bs)],
             _DTYPES[q.dtype], _INT8 if quant else _DTYPES[q.dtype],
-            B, S, H, D, bs, nb, num_blocks,
+            n_layers, B, S, H, D, bs, nb, num_blocks,
             q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
             k_arena.data_ptr(), v_arena.data_ptr(), layer * a_st[0],
             a_st[1], a_st[2],
@@ -202,6 +226,8 @@ def ragged_paged_attention(q, k_arena, v_arena, layer, block_tables,
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
                            f"error {err}")
     ragged_paged_attention.launches += 1
+    widths = ragged_paged_attention.width_launches
+    widths[S] = widths.get(S, 0) + 1
     if quant:
         ragged_paged_attention.int8_launches += 1
     return out
@@ -209,6 +235,7 @@ def ragged_paged_attention(q, k_arena, v_arena, layer, block_tables,
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.int8_launches = 0
+ragged_paged_attention.width_launches = {}
 
 
 def paged_attention_arrays(q, k_arena, v_arena, layer, block_tables, qpos,

@@ -62,6 +62,20 @@ _LATER = {
     "trace": (None, "the lifecycle tracer"),
     "slo": (None, "the SLO ledger"),
     "checkpoint_path": (None, "checkpoint streaming"),
+    "prefill_buckets": (None, "compile-once prefill buckets"),
+    "prefill_interval": (None, "the prefill interval"),
+    "trace_buffer": (None, "the lifecycle tracer's buffer"),
+    "request_log": (None, "the request log"),
+    "postmortem_dir": (None, "postmortem dumps"),
+    "postmortem_keep": (None, "postmortem dumps"),
+    "host_swap_chunk": (4, "the host KV tier"),
+    "calib_prompts": (None, "int8 (AdaRound) weights"),
+    "quantize_iters": (300, "int8 (AdaRound) weights"),
+    "quant_allreduce": (None, "int8 (AdaRound) weights"),
+    "param_hbm_bytes": (None, "the parameter memory budget"),
+    "lora_rank": (8, "LoRA adapter serving"),
+    "lora_targets": (None, "LoRA adapter serving"),
+    "warmup": (False, "compile warm-up"),
 }
 
 # host metadata packed into one int32 transfer per step: [B, W] fields,
@@ -85,8 +99,8 @@ class LLMEngine:
             off, what = _LATER[name]
             if value is not None and value is not False and value != off:
                 raise NotImplementedError(
-                    f"{name}={value!r}: {what} is not in the first slice of "
-                    "the PyTorch port; ROADMAP.md queues it for a later one")
+                    f"{name}={value!r}: {what} is not in the PyTorch port "
+                    "yet; ROADMAP.md queues it for a later slice")
         if kv_dtype is not None and kv_dtype != "int8":
             raise ValueError(
                 f"kv_dtype {kv_dtype!r} not supported: pass 'int8' for the "
@@ -135,7 +149,9 @@ class LLMEngine:
         if token_budget is None:
             token_budget = self.max_batch * self.prefill_chunk
         self.prefill_chunk = min(self.prefill_chunk, int(token_budget))
-        self.prefix_cache = bool(prefix_cache)
+        # None takes the default, as in the JAX engine (which also reads an
+        # env switch there; the port has none)
+        self.prefix_cache = prefix_cache is None or bool(prefix_cache)
         self.spec_decoding = bool(spec_decoding)
         self.num_spec_tokens = int(num_spec_tokens)
         drafter = None

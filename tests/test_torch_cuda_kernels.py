@@ -128,6 +128,58 @@ def test_int8_kernel_matches_plain_version(dev, dtype, head_dim,
         assert err.item() < TOL[dtype], f"row {i}: max err {err.item()}"
 
 
+# bf16, head_dim 128 (the serving shape): the sm_90a design, both regimes
+SM90_SHAPES = [
+    # a 128-wide chunk from position 40 (mid-block), decode rows beside it
+    [(40 + 128, 128), (300, 1), (17, 1)],
+    # q_len 8 (a split row), 9 and 16 (wide rows), a decode row
+    [(100, 8), (100, 9), (64, 16), (33, 1)],
+    # a context of 2000 keys: split rows over 8 splits, a wide row
+    [(2000, 1), (2000, 5), (2000, 64)],
+    # a chunk over two 64-query tiles, a whole block, a one-token row
+    [(129, 129), (16, 16), (1, 1)],
+]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("block_size", [16, 64])
+@pytest.mark.parametrize("lengths_counts", SM90_SHAPES)
+def test_sm90_design_matches_plain_version(dev, lengths_counts, block_size,
+                                           int8):
+    assert pa.kernel_design(torch.bfloat16, 128, block_size) == "sm90"
+    c = _case(lengths_counts, block_size, 128, torch.bfloat16, dev,
+              int8=int8)
+    sc = dict(k_scale=c["k_scale"], v_scale=c["v_scale"]) if int8 else {}
+    before = pa.ragged_paged_attention.launches
+    got = pa.paged_attention_arrays(
+        c["q"], c["k"], c["v"], 1, c["tables"], c["qpos"],
+        q_start=c["q_start"], kv_live=c["kv_live"], q_lens=c["q_lens"], **sc)
+    torch.cuda.synchronize()
+    assert pa.ragged_paged_attention.launches == before + 1
+    want = pa.paged_attention_ref(c["q"], c["k"], c["v"], 1, c["tables"],
+                                  c["qpos"], **sc)
+    for i, (_, count) in enumerate(lengths_counts):
+        err = (got[i, :count].float() - want[i, :count].float()).abs().max()
+        assert err.item() < TOL[torch.bfloat16], \
+            f"row {i}: max err {err.item()}"
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_sm90_split_rows_are_deterministic(dev, int8):
+    """Split rows of many splits (2000-2048 keys: 8 splits of 256) and a
+    wide row: two runs give bit-identical outputs (partials merge in a
+    fixed order, no atomics)."""
+    c = _case([(2000, 1), (1500, 3), (2048, 8), (700, 40)], 16, 128,
+              torch.bfloat16, dev, int8=int8, seed=3)
+    sc = dict(k_scale=c["k_scale"], v_scale=c["v_scale"]) if int8 else {}
+    runs = [pa.ragged_paged_attention(
+        c["q"], c["k"], c["v"], 1, c["tables"], c["q_start"], c["kv_live"],
+        q_lens=c["q_lens"], **sc) for _ in range(2)]
+    torch.cuda.synchronize()
+    for i, n in enumerate((1, 3, 8, 40)):
+        assert torch.equal(runs[0][i, :n], runs[1][i, :n])
+
+
 def test_kernel_custom_scale_and_strided_q(dev):
     c = _case([(40, 6), (17, 1)], 16, 64, torch.float32, dev)
     # q as a strided view, the way the fused QKV split hands it over

@@ -1,6 +1,7 @@
 """The port stands alone: no module of `paddle_tpu_torch`, and none of
-`chip_smoke.py`, `torch_serve_profile.py` and `torch_train_profile.py`,
-imports JAX or anything of the JAX package `paddle_tpu`.
+`chip_smoke.py`, `torch_serve_profile.py`, `torch_train_profile.py`,
+`torch_flash_bench.py` and `torch_paged_bench.py`, imports JAX or anything
+of the JAX package `paddle_tpu`.
 
 Roots are compared exactly: ``"paddle_tpu_torch".startswith("paddle_tpu")``
 holds, so a prefix test would wrongly flag the port's own imports."""
@@ -15,8 +16,9 @@ FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
 
 def _port_files():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "torch_serve_profile.py",
-                    ROOT / "torch_train_profile.py"]
+    return files + [ROOT / name for name in (
+        "chip_smoke.py", "torch_serve_profile.py", "torch_train_profile.py",
+        "torch_flash_bench.py", "torch_paged_bench.py")]
 
 
 def _import_roots(path):

@@ -151,3 +151,32 @@ def test_dispatch_raises_on_other_devices():
     q = torch.empty((1, 1, 2, 16), device="meta")
     with pytest.raises(ValueError, match="no paged attention"):
         pa.paged_attention_arrays(q, q, q, 0, q, q)
+
+
+@pytest.mark.parametrize("dtype,head_dim,block_size,want", [
+    (torch.bfloat16, 128, 16, "sm90"),   # the serving shape (gpt_1p3b)
+    (torch.bfloat16, 128, 32, "sm90"),
+    (torch.bfloat16, 128, 64, "sm90"),
+    (torch.bfloat16, 128, 128, "sm90"),
+    (torch.float32, 128, 16, "simt"),    # the card-vs-CPU parity path
+    (torch.bfloat16, 64, 16, "simt"),
+    (torch.bfloat16, 32, 16, "simt"),
+    (torch.bfloat16, 128, 8, "simt"),
+    (torch.bfloat16, 128, 4, "simt"),
+    (torch.bfloat16, 128, 1, "simt"),
+])
+def test_kernel_design_is_chosen_by_shape(dtype, head_dim, block_size, want):
+    assert pa.kernel_design(dtype, head_dim, block_size) == want
+
+
+def test_serving_shape_takes_the_sm90_design():
+    """gpt_1p3b (hidden 2048, 16 heads) in bf16 behind the engine's default
+    block size takes the sm_90a design, over either arena (the design does
+    not depend on the arena's dtype)."""
+    import inspect
+
+    from paddle_tpu_torch.serving import LLMEngine
+
+    block_size = inspect.signature(LLMEngine).parameters["block_size"]
+    assert pa.kernel_design(torch.bfloat16, 2048 // 16,
+                            block_size.default) == "sm90"

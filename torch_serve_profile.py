@@ -8,6 +8,8 @@ requests, four sharing a 256-token prefix, 32 new tokens each): first
 of tok/s and step latency), then once under `torch.profiler`, and prints
 the device time by kernel, the device's busy share of the wall time, the
 host time per step kind, and the card's clock and power after the runs.
+The ragged paged-attention kernels' device time (every `rpa_*` kernel)
+and its share of the busy time are reported apart.
 `--kv-dtype int8` serves from the int8 KV arena; the profiled run then
 also reports the device time of the plain-PyTorch quantize-scatter
 (`block_pool._quantize_scatter`, annotated with `record_function`) and
@@ -116,6 +118,11 @@ def main():
         device_busy_share=busy_ms / wall_ms,
         quantize_scatter_device_ms=qs_ms,
         quantize_scatter_share_of_busy=qs_ms / busy_ms,
+        # the ragged paged-attention kernels (every design's: rpa_*)
+        ragged_attention_device_ms=sum(
+            us for k, us in dev_us.items() if "rpa_" in k) / 1e3,
+        ragged_attention_share_of_busy=sum(
+            us for k, us in dev_us.items() if "rpa_" in k) / 1e3 / busy_ms,
         steps=engine.step_count - steps0,
         step_ms={k: {"count": v["count"], "total_ms": v["total_ms"],
                      "p50_ms": v["p50_ms"]}
