@@ -77,7 +77,8 @@ Phases, in order; any failure exits nonzero:
    a CPU copy give the same losses and parameters (phase 7's rule).
 
 Prints a `{"kernels": [...]}` line (the flash rows also name the bf16
-kernel's design and ptxas's registers and spill bytes for it), the
+kernel's design and ptxas's registers and spill bytes for it; a spill in
+either dQ row's instantiation fails the run), the
 nvidia-smi name/power-limit line, and last `{"ok": true, "device":
 {...}}`.
 """
@@ -1311,12 +1312,16 @@ def main():
                "(ping-pong) + 1 TMA producer",
         "dkv": "sm90 wgmma+tma, 128 keys x 64-query ring, 2 consumer "
                "warpgroups + 1 TMA producer",
-        "dq": "mma.sync v4, 64x64 tiles, 4 warps, cp.async double buffer"}
+        "dq": "sm90 wgmma+tma, 128 queries x 64-key ring, 2 consumer "
+              "warpgroups (ping-pong) + 1 TMA producer"}
 
     def report(kname, d, mask_kind, drop):
-        entry = (f"flash_dqI13__nv_bfloat16Li{d}E" if kname == "dq" else
-                 f"flash_{kname}_sm90ILi{d}ELi{mask_kind}ELb{int(drop)}E")
+        entry = f"flash_{kname}_sm90ILi{d}ELi{mask_kind}ELb{int(drop)}E"
         regs, spill = ptxas_report("flash_attention.cu", entry)
+        # the dQ kernel's consumers hold S, dP, dS and the dQ accumulator
+        # in registers: a spill on the main path's instantiations fails
+        if kname == "dq" and spill:
+            raise SystemExit(f"ptxas: {entry} spills {spill} bytes")
         return {"design": design[kname], "registers": regs,
                 "spill_bytes": spill}
 

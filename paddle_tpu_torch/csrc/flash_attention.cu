@@ -58,17 +58,17 @@
 // rounds of two 32-bit multiply-highs for four keep bits, on the integer
 // units, beside the tensor cores' work.
 //
-// Which design runs: the bf16 forward and dK/dV run the sm_90a kernels
-// (`flash_fwd_sm90`, `flash_dkv_sm90`: TMA, wgmma, warp-specialised
-// warpgroups); the bf16 dQ and all three float32 kernels run the mma.sync
-// design (wgmma has no f32 form, and the f32 kernels are the card-vs-CPU
-// parity path).
+// Which design runs: every bf16 kernel runs the sm_90a design
+// (`flash_fwd_sm90`, `flash_dkv_sm90`, `flash_dq_sm90`: TMA, wgmma,
+// warp-specialised warpgroups); the three float32 kernels run the float32
+// design below (wgmma has no f32 form, and the f32 kernels are the
+// card-vs-CPU parity path).
 //
-// The sm_90a design (bf16 forward and dK/dV). What bounded the mma.sync
-// kernels there: Ampere's mma.sync cannot reach the tensor cores' full
-// rate, each warp's ldmatrix re-read whole K / V tiles for 16 rows, P and
-// dS went through shared memory before every second product, and no warp
-// loaded while others computed. So:
+// The sm_90a design. What bounded the mma.sync kernels on bf16: Ampere's
+// mma.sync cannot reach the tensor cores' full rate, each warp's ldmatrix
+// re-read whole K / V tiles for 16 rows, P and dS went through shared
+// memory before every second product, and no warp loaded while others
+// computed. So:
 // - A block is three warpgroups. Warpgroup 0, the producer, gives its
 //   registers up (setmaxnreg 24); one thread issues TMA tile loads into a
 //   ring of stages guarded by full / empty mbarriers, and warp 1 stages the
@@ -96,23 +96,35 @@
 //   dropout and dS^T are packed in registers as the A operands of dV +=
 //   (P keep)^T dO and dK += dS^T Q (RS, dO and Q read MN-major from the same
 //   swizzled tiles that served as K-major operands).
+// - dQ: a block owns 128 queries (64 a consumer; Q and dO loaded once, LSE
+//   and delta held in two registers a thread) and loops over a ring of 4
+//   K / V stages of 64 keys (194 KB of shared memory at D 128, 98 KB at D
+//   64). S = Q K^T and dP = dO V^T are SS; dS is computed on the
+//   accumulators in registers and packed to bf16 as the A operand of dQ +=
+//   dS K (RS, K read MN-major from the tile that served Q K^T). The tile
+//   width is set by registers: a consumer thread holds S and dP (32 f32
+//   each), the dQ accumulator (D / 2 f32) and the packed dS (16), so tile
+//   kt's S and dP products run beside tile kt - 1's dQ product within the
+//   240 registers (at 128 keys and D 128, S, dP and dQ alone would take
+//   192). The consumers ping-pong as in the forward; causal query tiles
+//   start heaviest first, and a consumer only waits for and releases the
+//   block's key tiles that none of its rows sees.
 // - Variants are compile-time: a kernel per (mask kind, dropout), chosen on
 //   the host: no mask, a key-only mask ([B, 1, 1, Sk]: staged per key tile
-//   in the forward, held in two registers for the whole block in dK/dV),
-//   any other mask (read per element), each with or without dropout.
-//   With runtime flags inside the unrolled tile loops instead, the variant
-//   forwards ran slower than the mma.sync kernels on the H100. Hidden (causal / edge) pairs are found by
-//   one integer compare per score against per-row limits, and only on the
-//   tiles that need it; exp2 runs on the special function unit directly.
+//   in the forward and dQ, held in two registers for the whole block in
+//   dK/dV), any other mask (read per element), each with or without
+//   dropout. With runtime flags inside the unrolled tile loops instead, the
+//   variant forwards ran slower than the mma.sync kernels on the H100.
+//   Hidden (causal / edge) pairs are found by one integer compare per score
+//   against per-row limits, and only on the tiles that need it; exp2 runs
+//   on the special function unit directly.
 //
-// The mma.sync design (bf16 dQ; float32 forward, dK/dV and dQ; a simple
-// design, fourth version):
-// - Tensor cores: bf16 products run on mma.sync.m16n8k16 with f32
-//   accumulators; fragments come from shared memory through ldmatrix
-//   (`.trans` where the right-hand operand is stored [depth][columns], as
-//   V is for P V), so no tile is ever stored transposed. float32 inputs
-//   take an f32-FMA path on the same fragment layout (no TF32), for parity
-//   checks.
+// The float32 design (forward, dK/dV and dQ; a simple design, fourth
+// version of what began as the bf16 mma.sync kernels):
+// - Products in f32 FMAs (no TF32, for the parity checks) on the fragment
+//   layout of mma.sync.m16n8k16, read from shared memory, where the
+//   right-hand operand is stored [depth][columns] as V is for P V, so no
+//   tile is ever stored transposed.
 // - Tiles of 64 queries x 64 keys; four warps per block, each owning 16
 //   rows of the tile, so the softmax and the P / dS round trip through
 //   shared memory stay inside one warp (no block barrier between the two
@@ -127,8 +139,6 @@
 //   tile's operands (K and V; Q, dO, LSE and delta for dK/dV) are already
 //   on their way to the other half of a double buffer, and no register
 //   holds them in transit.
-// - Shared memory (bf16, D 128): dQ 111 KB, so two blocks (eight warps)
-//   share an SM, the most their registers allow.
 // - Mask values are read from global memory (L1-cached) at the score's
 //   fragment position.
 //
@@ -142,10 +152,10 @@
 // their four (key group, query) counters and trade words through four
 // shuffles (the wgmma accumulator is the m16n8 layout repeated along N, so
 // both kinds of kernel share these helpers).
-// Not yet: the dQ redesign for sm_90a; a persistent grid (one block an SM
-// walking over tiles, so one tile's epilogue overlaps the next's loads);
-// TMA stores of the outputs; overlap inside a dK/dV consumer (the next
-// tile's S^T product beside this tile's dV and dK); a fused backward.
+// Not yet: a persistent grid (one block an SM walking over tiles, so one
+// tile's epilogue overlaps the next's loads); TMA stores of the outputs;
+// overlap inside a dK/dV consumer (the next tile's S^T product beside this
+// tile's dV and dK); a fused backward.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -206,70 +216,12 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices from shared memory; lane i gives the address of
-// row i % 8 of matrix i / 8. Plain: lane (g, t) = (lane / 4, lane % 4)
-// receives row g, columns 2t and 2t + 1 of each; `.trans`: column g, rows
-// 2t and 2t + 1.
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// One warp: acc[j] += A[16][K] * B[K][8j .. 8j+7] for j < NT. A's rows
-// are at `a` (stride lda, [row][depth]); B is stored [column][depth]
-// (stride ldb) or, with kBKN, [depth][column]. Both live in shared memory.
-// acc[j] is the m16n8 accumulator fragment: element e of lane (g = lane /
-// 4, t = lane % 4) is row g + 8 * (e / 2), column 8j + 2t + e % 2.
-template <int NT, int K, bool kBKN>
-__device__ __forceinline__ void warp_gemm(float (&acc)[NT][4],
-                                          const __nv_bfloat16* a, int lda,
-                                          const __nv_bfloat16* b, int ldb) {
-  static_assert(NT % 2 == 0 && K % 16 == 0, "whole 16 x 16 steps");
-  const int lane = threadIdx.x & 31, mi = lane >> 3, r = lane & 7;
-  // matrix mi of A: rows 8 * (mi % 2) + r, depth 8 * (mi / 2)
-  const __nv_bfloat16* al = a + (8 * (mi & 1) + r) * lda + 8 * (mi >> 1);
-  // matrices of B: (b0, b1) of column tile 2jj, then of 2jj + 1
-  const __nv_bfloat16* bl =
-      kBKN ? b + (8 * (mi & 1) + r) * ldb + 8 * (mi >> 1)
-           : b + (8 * (mi >> 1) + r) * ldb + 8 * (mi & 1);
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t af[4];
-    ldsm(af, al + k0);
-#pragma unroll
-    for (int jj = 0; jj < NT / 2; ++jj) {
-      uint32_t bf[4];
-      if (kBKN)
-        ldsm_t(bf, bl + k0 * ldb + 16 * jj);
-      else
-        ldsm(bf, bl + 16 * jj * ldb + k0);
-      mma_bf16(acc[2 * jj], af, bf[0], bf[1]);
-      mma_bf16(acc[2 * jj + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// The same product in float32 FMAs on the same fragment layout.
+// One warp: acc[j] += A[16][K] * B[K][8j .. 8j+7] for j < NT, in float32
+// FMAs. A's rows are at `a` (stride lda, [row][depth]); B is stored
+// [column][depth] (stride ldb) or, with kBKN, [depth][column]. Both live in
+// shared memory. acc[j] is the m16n8 accumulator fragment of mma.sync:
+// element e of lane (g = lane / 4, t = lane % 4) is row g + 8 * (e / 2),
+// column 8j + 2t + e % 2.
 template <int NT, int K, bool kBKN>
 __device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], const float* a,
                                           int lda, const float* b, int ldb) {
@@ -1458,6 +1410,269 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
   store_rows<bf16, D>(a.dv, b, h, krow, a.Sk, dv, dscale);
 }
 
+// Shared memory of dQ: Q and dO [128][D] of the block's query tile once, a
+// ring of K and V [kKT][D] tiles with the key tile's f32 mask values (a
+// key-only mask), and the barriers. Key tiles are 64 wide: S and dP take
+// 32 registers each, so the next tile's S and dP fit beside the dQ
+// accumulator while this tile's dQ product runs. (128-key tiles at D 64
+// spilled under dropout and ran the ERNIE shape's mask + dropout case 15 %
+// slower on the H100, torch_flash_bench.py.)
+template <int D> struct DqSm90 {
+  static constexpr int kKT = 64;
+  static constexpr int kStages = 4;
+  static constexpr int kQBox = 128 * kRowBytes;  // a block of Q or dO
+  static constexpr int kKBox = kKT * kRowBytes;  // a block of K or V
+  static constexpr int kQD = D / 64 * kQBox, kKV = D / 64 * kKBox;
+  static constexpr int kQ = 0, kDO = kQD, kK = 2 * kQD;
+  static constexpr int kV = kK + kStages * kKV;
+  static constexpr int kMask = kV + kStages * kKV;         // f32 [stages][kKT]
+  static constexpr int kBar = kMask + kStages * kKT * 4;   // q, full, empty
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D, int kMask, bool kDrop>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+    flash_dq_sm90(const __grid_constant__ FlashArgs a,
+                  const __grid_constant__ TmaMaps tm) {
+  using L = DqSm90<D>;
+  constexpr int S = L::kStages, KT = L::kKT;
+  extern __shared__ uint8_t smem_sm90[];
+  const uint32_t raw = sm90::smem_u32(smem_sm90);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bar_q = base + L::kBar;
+  const auto full = [&](int s) { return bar_q + 8 + 8 * s; };
+  const auto empty = [&](int s) { return bar_q + 8 + 8 * (S + s); };
+  float* mask_s = reinterpret_cast<float*>(smem_sm90 + (base - raw) + L::kMask);
+
+  constexpr bool has_mask = kMask != 0, key_mask = kMask == 1;
+  constexpr bool has_drop = kDrop;
+  const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  // causal: the query tiles with the most key tiles start first
+  const int qt = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int64_t q0 = (int64_t)qt * 128;
+  const int n_kt = key_tiles<128, KT>(a, q0);
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar_q, 1);
+    for (int s = 0; s < S; ++s) {
+      // TMA's arrival, and the mask loader warp's 32 lanes
+      sm90::mbar_init(full(s), key_mask ? 33 : 1);
+      sm90::mbar_init(empty(s), 8);  // the consumers' eight warps
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg == 0) {
+    // producer: one thread issues every TMA load; warp 1 stages the mask
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0) {
+      sm90::mbar_expect_tx(bar_q, 2 * L::kQD);
+      for (int c = 0; c < D / 64; ++c) {
+        sm90::tma_load_4d(base + L::kQ + c * L::kQBox, &tm.q, bar_q, c * 64,
+                          (int)h, (int)q0, (int)b);
+        sm90::tma_load_4d(base + L::kDO + c * L::kQBox, &tm.dout, bar_q,
+                          c * 64, (int)h, (int)q0, (int)b);
+      }
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % S;
+        sm90::mbar_wait(empty(s), ((kt / S) & 1) ^ 1);
+        sm90::mbar_expect_tx(full(s), 2 * L::kKV);
+        for (int c = 0; c < D / 64; ++c) {
+          const uint32_t off = s * L::kKV + c * L::kKBox;
+          sm90::tma_load_4d(base + L::kK + off, &tm.k, full(s), c * 64, (int)h,
+                            kt * KT, (int)b);
+          sm90::tma_load_4d(base + L::kV + off, &tm.v, full(s), c * 64, (int)h,
+                            kt * KT, (int)b);
+        }
+      }
+    } else if (warp == 1 && key_mask) {
+      const float* mrow = a.mask.p + b * a.mask.sb;
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % S;
+        sm90::mbar_wait(empty(s), ((kt / S) & 1) ^ 1);
+        for (int i = lane; i < KT; i += 32) {
+          const int64_t kpos = (int64_t)kt * KT + i;
+          mask_s[s * KT + i] = kpos < a.Sk ? __ldg(mrow + kpos * a.mask.sk) : 0.f;
+        }
+        sm90::mbar_arrive(full(s));
+      }
+    }
+    return;
+  }
+
+  // consumer c owns query rows [q0 + 64 c, q0 + 64 c + 64); c is
+  // broadcast from lane 0 so that ptxas sees it warp-uniform: the loops
+  // below run to a bound that depends on c, and a bound ptxas takes for
+  // divergent makes it serialise every wgmma of the kernel (C7520)
+  sm90::setmaxnreg_inc<kConsumerRegs>();
+  const int c = __shfl_sync(0xffffffffu, wg, 0) - 1;
+  const int tid = threadIdx.x % kWg, w = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int64_t qc0 = q0 + 64 * c;
+  const int64_t qrow = qc0 + 16 * w + g;  // and qrow + 8
+  const float sl2 = a.scale * kLog2e;
+  const float* mb = mask_slab(a, bh);
+  const uint32_t qa = base + L::kQ + c * 64 * kRowBytes;
+  const uint32_t da = base + L::kDO + c * 64 * kRowBytes;
+  // the key tiles that hold a key one of this consumer's rows sees (the
+  // block's later tiles, causal, are only waited for and released)
+  const int n_mine = qc0 < a.Sq ? key_tiles<64, KT>(a, qc0) : 0;
+  float lse2[2], delta[2];  // lse2: the row's LSE in base 2
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t qpos = qrow + 8 * i;
+    lse2[i] = qpos < a.Sq ? a.lse[bh * a.Sq + qpos] * kLog2e : 0.f;
+    delta[i] = qpos < a.Sq ? a.delta[bh * a.Sq + qpos] : 0.f;
+  }
+
+  float dq[D / 8][4];
+  zero(dq);
+  float s[KT / 8][4];    // a tile's scores, then its dS
+  float dp[KT / 8][4];   // dO V^T
+  uint32_t ds[KT / 16][4];  // dS in bf16: the A operand of dQ += dS K
+
+  // S = Q K^T and dP = dO V^T of key tile kt, all four operands K-major
+  // (issued, not waited for)
+  const auto issue_sdp = [&](int kt) {
+    const int st = kt % S;
+    sm90::mbar_wait(full(st), (kt / S) & 1);
+    const uint32_t kb = base + L::kK + st * L::kKV;
+    const uint32_t vb = base + L::kV + st * L::kKV;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t qo = (kk / 4) * L::kQBox + (kk % 4) * 32;
+      const uint32_t ko = (kk / 4) * L::kKBox + (kk % 4) * 32;
+      sm90::wgmma_ss(s, sm90::desc_sw128(qa + qo, 16, 1024),
+                     sm90::desc_sw128(kb + ko, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t qo = (kk / 4) * L::kQBox + (kk % 4) * 32;
+      const uint32_t ko = (kk / 4) * L::kKBox + (kk % 4) * 32;
+      sm90::wgmma_ss(dp, sm90::desc_sw128(da + qo, 16, 1024),
+                     sm90::desc_sw128(vb + ko, 16, 1024), kk > 0);
+    }
+  };
+  // dQ += dS K of key tile kt; K [keys][D] is read MN-major, from the same
+  // swizzled tile that served Q K^T
+  const auto issue_dq = [&](int kt) {
+    const uint32_t kb = base + L::kK + (kt % S) * L::kKV;
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+      sm90::wgmma_rs(dq, ds[kk], sm90::desc_sw128(kb + kk * 16 * kRowBytes,
+                                                   L::kKBox, 1024),
+                     1);
+  };
+  const auto release = [&](int kt) {
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty(kt % S));
+  };
+  // dS of tile kt in place of its scores: p = exp(s - lse) recomputed,
+  // dS = P (dP D - delta) * scale, D the dropout factor keep / (1 - p)
+  const auto grad_s = [&](int kt) {
+    const int64_t k0 = (int64_t)kt * KT;
+    const bool all = all_visible<64, KT>(a, qc0, k0);
+    // row i sees the tile's columns [0, lim[i]): keys past Sk and, with
+    // causal masking, past the diagonal are hidden; rows past Sq see none
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int64_t qpos = qrow + 8 * i;
+      const int64_t hi =
+          a.causal ? min64(a.Sk, qpos + a.Sk - a.Sq + 1) : a.Sk;
+      lim[i] = qpos >= a.Sq || hi <= k0 ? 0 : (int)min64(hi - k0, KT);
+    }
+    const float* ms = mask_s + (kt % S) * KT;
+#pragma unroll
+    for (int j = 0; j < KT / 8; ++j) {
+      float f[4] = {1.f, 1.f, 1.f, 1.f};
+      if (has_drop) drop_rows(a, bh, qrow, k0 + 8 * j + 2 * t, f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        const int r = e >> 1;  // the query row, qrow + 8 r
+        float p = 0.f;
+        if (all || col < lim[r]) {
+          if (has_mask) {
+            const float x = s[j][e] * sl2;
+            p = sm90::exp2_approx(
+                (key_mask ? fmaxf(fmaf(ms[col], kLog2e, x), kNegInf)
+                          : add_mask(a, mb, qrow + 8 * r, k0 + col, x)) -
+                lse2[r]);
+          } else {
+            p = sm90::exp2_approx(fmaf(s[j][e], sl2, -lse2[r]));
+          }
+        }
+        const float dpe =
+            has_drop ? dp[j][e] * (f[e] * a.drop_scale) : dp[j][e];
+        s[j][e] = p * (dpe - delta[r]) * a.scale;
+      }
+    }
+  };
+  const auto pack_ds = [&] {
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+      sm90::pack_a(ds[kk], s[2 * kk], s[2 * kk + 1]);
+  };
+
+  // Consumer 0 issues first; each then lets the other issue once its own
+  // products are queued, so one's dS work runs beside the other's products.
+  // Both take part in the ping-pong for each of the block's n_kt tiles.
+  const int me = 1 + c, other = 2 - c;
+  if (c == 1) sm90::bar_arrive(1, kPingPong);
+  sm90::mbar_wait(bar_q, 0);
+  if (n_mine > 0) {
+    sm90::bar_sync(me, kPingPong);
+    sm90::wgmma_fence();
+    issue_sdp(0);
+    sm90::wgmma_commit();
+    sm90::bar_arrive(other, kPingPong);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    grad_s(0);
+    pack_ds();
+    // tile kt's S and dP run beside tile kt - 1's dQ += dS K
+    for (int kt = 1; kt < n_mine; ++kt) {
+      sm90::bar_sync(me, kPingPong);
+      sm90::wgmma_fence();
+      issue_sdp(kt);
+      sm90::wgmma_commit();
+      issue_dq(kt - 1);
+      sm90::wgmma_commit();
+      sm90::bar_arrive(other, kPingPong);
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      grad_s(kt);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dq);
+      sm90::fence_regs(ds);
+      release(kt - 1);
+      pack_ds();
+    }
+    sm90::wgmma_fence();
+    issue_dq(n_mine - 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dq);
+    sm90::fence_regs(ds);
+    release(n_mine - 1);
+  }
+  for (int kt = n_mine; kt < n_kt; ++kt) {
+    sm90::bar_sync(me, kPingPong);
+    sm90::bar_arrive(other, kPingPong);
+    sm90::mbar_wait(full(kt % S), (kt / S) & 1);
+    release(kt);
+  }
+  if (c == 0) sm90::bar_sync(1, kPingPong);  // consumer 1's last arrival
+
+  const float one[2] = {1.f, 1.f};
+  store_rows<bf16, D>(a.dq, b, h, qrow, a.Sq, dq, one);
+}
+
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
@@ -1494,11 +1709,12 @@ int launch(Kernel kernel, size_t smem, bool& ready, int64_t tiles,
 }
 
 // The bf16 kernels' launches: tensor maps over the [B, S, H, D] views
-// (boxes of `q_rows` rows for q and dout, 128 for k and v), then one block
-// of three warpgroups per 128-row tile and batch*head.
+// (boxes of `q_rows` rows for q and dout, `kv_rows` for k and v), then one
+// block of three warpgroups per 128-row tile and batch*head.
 template <int D, typename Kernel>
 int launch_sm90(Kernel kernel, size_t smem, bool& ready, int64_t tiles,
-                int q_rows, const FlashArgs& a, cudaStream_t stream) {
+                int q_rows, int kv_rows, const FlashArgs& a,
+                cudaStream_t stream) {
   TmaMaps m;
   const struct {
     CUtensorMap* map;
@@ -1506,8 +1722,8 @@ int launch_sm90(Kernel kernel, size_t smem, bool& ready, int64_t tiles,
     int64_t s;
     int rows;
   } maps[4] = {{&m.q, a.q, a.Sq, q_rows},
-               {&m.k, a.k, a.Sk, 128},
-               {&m.v, a.v, a.Sk, 128},
+               {&m.k, a.k, a.Sk, kv_rows},
+               {&m.v, a.v, a.Sk, kv_rows},
                {&m.dout, a.dout, a.Sq, q_rows}};
   for (const auto& x : maps) {
     if (!x.v.p) {  // the forward has no dout
@@ -1533,14 +1749,22 @@ template <int D, int kMask, bool kDrop>
 int fwd_sm90(const FlashArgs& a, cudaStream_t stream) {
   static bool ready = false;
   return launch_sm90<D>(flash_fwd_sm90<D, kMask, kDrop>, FwdSm90<D>::kBytes,
-                        ready, (a.Sq + 127) / 128, 128, a, stream);
+                        ready, (a.Sq + 127) / 128, 128, 128, a, stream);
 }
 
 template <int D, int kMask, bool kDrop>
 int dkv_sm90(const FlashArgs& a, cudaStream_t stream) {
   static bool ready = false;
   return launch_sm90<D>(flash_dkv_sm90<D, kMask, kDrop>, DkvSm90<D>::kBytes,
-                        ready, (a.Sk + 127) / 128, 64, a, stream);
+                        ready, (a.Sk + 127) / 128, 64, 128, a, stream);
+}
+
+template <int D, int kMask, bool kDrop>
+int dq_sm90(const FlashArgs& a, cudaStream_t stream) {
+  static bool ready = false;
+  return launch_sm90<D>(flash_dq_sm90<D, kMask, kDrop>, DqSm90<D>::kBytes,
+                        ready, (a.Sq + 127) / 128, 128, DqSm90<D>::kKT, a,
+                        stream);
 }
 
 // The variant a launch runs: kMask 0 without a mask, 1 for a mask that
@@ -1571,6 +1795,11 @@ template <int D, int kMask, bool kDrop> struct RunDkv {
     return dkv_sm90<D, kMask, kDrop>(a, s);
   }
 };
+template <int D, int kMask, bool kDrop> struct RunDq {
+  static int go(const FlashArgs& a, cudaStream_t s) {
+    return dq_sm90<D, kMask, kDrop>(a, s);
+  }
+};
 
 template <typename T, int D>
 int fwd(const FlashArgs& a, cudaStream_t stream) {
@@ -1596,9 +1825,13 @@ int bwd(const FlashArgs& a, int which, cudaStream_t stream) {
                    (a.Sk + kTile - 1) / kTile, a, stream);
     if (err) return err;
   }
-  if (which & 2)
-    return launch(flash_dq<T, D>, dq_smem<T, D>(), ready_dq,
-                  (a.Sq + kTile - 1) / kTile, a, stream);
+  if (which & 2) {
+    if constexpr (kBf16<T>)
+      return dispatch_sm90<D, RunDq>(a, stream);
+    else
+      return launch(flash_dq<T, D>, dq_smem<T, D>(), ready_dq,
+                    (a.Sq + kTile - 1) / kTile, a, stream);
+  }
   return 0;
 }
 

@@ -25,9 +25,9 @@ with `_attention_xla`'s optional mask and dropout:
   (plain XLA in the JAX package) and launches the dK/dV and dQ kernels
   (`_dkv_kernel`, `_dq_kernel`). Each counts its launches in `.launches`,
   and those with a mask or dropout also in `.mask_launches` /
-  `.dropout_launches`. In bfloat16 the forward and dK/dV kernels are the
-  sm_90a designs (TMA tile loads through tensor maps over the views'
-  strides, wgmma); float32 and the bfloat16 dQ run the mma.sync kernels.
+  `.dropout_launches`. In bfloat16 all three kernels are the sm_90a
+  designs (TMA tile loads through tensor maps over the views' strides,
+  wgmma); float32 runs the f32 kernels on mma.sync's fragment layout.
 - `FlashAttention` is the autograd function around the two directions
   (the counterpart of `_flash_custom`). With dropout on bfloat16 inputs
   the forward kernel also writes O in f32, and the backward's delta is
@@ -338,7 +338,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal=False, mask=None,
     forward's `o32`); do is dL/dO [B, Sq, H, D]. Returns (dq, dk, dv) in
     q's dtype. One counted launch (``flash_attention_bwd.launches``, and
     `.mask_launches`, `.dropout_launches`) is the pair of CUDA kernels,
-    `flash_dkv` then `flash_dq`."""
+    dK/dV then dQ."""
     out = _launch_bwd(q, k, v, do, lse, _delta(o, do), causal, 3, mask,
                       dropout_p, seed)
     _count(flash_attention_bwd, mask, dropout_p)

@@ -363,11 +363,13 @@ def test_flash_autograd_through_strided_views(dev, dtype, head_dim, split):
     assert _max_err(got_in.grad, ref_in.grad) < TOL[dtype]
 
 
+@pytest.mark.parametrize("which", [1, 2], ids=["dkv", "dq"])
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("variant", ["plain", "padding+dropout"])
-def test_flash_dkv_is_deterministic(dev, head_dim, variant):
-    """The dK/dV kernel sums each gradient in one fixed order (no atomics):
-    two launches on the same inputs give bit-identical dK and dV."""
+def test_flash_backward_is_deterministic(dev, which, head_dim, variant):
+    """The dK/dV kernel (`which` 1) and the dQ kernel (2) each sum a
+    gradient in one fixed order (no atomics): two launches on the same
+    inputs give bit-identical results."""
     b, sq, h = 2, 300, 3
     q, k, v, do = _flash_inputs(b, sq, sq, h, head_dim, torch.bfloat16, dev,
                                 seed=6)
@@ -376,11 +378,34 @@ def test_flash_dkv_is_deterministic(dev, head_dim, variant):
         mask, p, seed = _padding_mask(b, sq, dev), 0.1, 99
     o, lse = fa.flash_attention_fwd(q, k, v, True, mask, p, seed)
     delta = fa._delta(o, do)
-    runs = [fa._launch_bwd(q, k, v, do, lse, delta, True, 1, mask, p, seed)
+    runs = [fa._launch_bwd(q, k, v, do, lse, delta, True, which, mask, p,
+                           seed)
             for _ in range(2)]
     torch.cuda.synchronize()
-    for x, y in zip(runs[0][1:], runs[1][1:]):
-        assert torch.equal(x, y)
+    # (dq, dk, dv): which of them the launch computed
+    computed = (False, True, True) if which == 1 else (True, False, False)
+    for x, y, want in zip(runs[0], runs[1], computed):
+        assert (x is not None, y is not None) == (want, want)
+        if want:
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("sq,sk", [(77, 200), (129, 129)])
+def test_flash_dq_alone_matches_plain_version(dev, dtype, head_dim, sq, sk):
+    """The dQ kernel launched alone (`which` 2) at a ragged causal shape:
+    dQ matches the plain version's gradient, and dK, dV are not
+    computed."""
+    q, k, v, do = _flash_inputs(2, sq, sk, 3, head_dim, dtype, dev, seed=7)
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    dq, dk, dv = fa._launch_bwd(q, k, v, do, lse, fa._delta(o, do), True, 2)
+    torch.cuda.synchronize()
+    assert dk is None and dv is None
+    want = _flash_ref(q, k, v, do, True)[2]
+    assert dq.dtype == dtype and dq.shape == want.shape
+    err = _max_err(dq, want)
+    assert err < TOL[dtype], f"dq: max err {err}"
 
 
 def test_flash_rejects_what_it_cannot_take(dev):
