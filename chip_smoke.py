@@ -20,21 +20,42 @@ Phases, in order; any failure exits nonzero:
    this shape: the sm_90a design, its split-row and, at width 128,
    wide-row kernels with ptxas's registers and spill bytes; float32: the
    SIMT design).
+   2b. The int8 append kernel (csrc/kv_quantize_scatter.cu) against its
+   plain version (run on the CPU copy, bit-equal to the JAX function) at
+   the serving shape (B 8, H 16, D 128, block 16; widths 1, 5 and 128;
+   bf16 and f32 K/V; fresh blocks, growing and holding scales, a prefix
+   row, padded rows, an idle lane): bit-equal outside the null block,
+   with the kernel's and the plain version's device times and the bound
+   (the bytes this case's blocks need: a fresh block is written whole, a
+   grown scale's block read where no new token lands and written whole,
+   a held scale's block written at the new tokens alone).
 3. Serve: gpt_1p3b in bf16 (random weights from a seed) behind
-   LLMEngine(block_size=16, max_batch=8, spec_decoding=True) answers 8
-   greedy requests of 64-1000 prompt tokens, four sharing a 256-token
-   prefix, 32 new tokens each. The kernels' launch counts are set to 0
-   just before and read just after; every kernel must have run once per
-   layer and step, with one host sync per step and an idle pool after;
-   the ragged launches are also reported by step width (1, 5, 128).
-   3b. The same with kv_dtype="int8": every launch is the int8 variant.
+   LLMEngine(block_size=16, max_batch=8, spec_decoding=True, warmup=True)
+   answers 8 greedy requests of 64-1000 prompt tokens, four sharing a
+   256-token prefix, 32 new tokens each. Warmup captures one CUDA graph
+   per width bucket (1, 5, 128); no program is built during the wave and
+   every step replays one. The kernels' launch counts (kept through
+   replays by the step programs) are set to 0 just before and read just
+   after; every kernel must have run once per layer and step, with one
+   host sync per step and an idle pool after; the ragged launches are
+   also reported by step width, the replays by bucket, the warmup's
+   seconds, and the device busy share (CUDA events around every step's
+   copy-in and replay, over the wave's wall time).
+   3b. The same with kv_dtype="int8": every ragged launch is the int8
+   variant, and the append kernel runs for K and V in every layer and
+   step.
    3c. The overcap pair (bench.py's int8 overcap wave): one byte budget of
    12 bf16 blocks, block 16, max_seq_len 128, max_batch 4, 8 prompts of
    96 tokens, 8 new tokens, served from a bf16 and from an int8 arena;
    blocks, bytes a block, preemptions, tok/s and the greedy parity rate.
    The int8 arena must hold at least 1.9x the blocks.
+   3d. The bf16 and the int8 waves again, each on a fresh engine whose
+   steps run their program's body eagerly (the staged inputs copied in,
+   then `body()`): greedy tokens equal to phase 3's and 3b's graph
+   replays, token for token.
 4. float32 parity: gpt_1p3b widths at 4 layers, greedy LLMEngine (the
-   kernel) against GPT.generate (contiguous cache, no kernel).
+   kernel, through captured graphs) against GPT.generate (contiguous
+   cache, no kernel).
    4b. The int8 engine on the card against the int8 engine on a CPU copy
    (the plain version): at least 90 % of the greedy tokens equal.
 5. The flash-attention kernels (forward; dK/dV and dQ) against the plain
@@ -367,6 +388,141 @@ def kernel_cases():
     return out
 
 
+# -- phase 2b -----------------------------------------------------------------
+
+def _append_case(width, dtype):
+    """One serve step's int8 append at step width `width` (B 8, H 16, D
+    128, block 16) over an arena of random payload and scales: a fresh row
+    from position 0, rows appending small values (scale holds) and large
+    ones (scale grows, payload requantized) to a partly filled block, a
+    row after a shared prefix block, short rows padded to the width, an
+    idle lane (every token to the null block). K is a strided view of a
+    fused QKV projection, as in the model. Host metadata built as the
+    engine builds it (`LLMEngine._fill_row`)."""
+    from paddle_tpu_torch.serving import BlockPool
+
+    rs = np.random.RandomState(width)
+    starts = [0, 5, 7, 256, 3, 0, int(rs.randint(0, 400)), 531]
+    counts = [width, width, width, width, max(1, width // 2), 0,
+              max(1, width - 1), width]
+    mags = [1.0, 0.01, 40.0, 2.0, 1.0, 1.0, 0.5, 8.0]
+    per = [-(-(st + max(c, 1)) // BS) for st, c in zip(starts, counts)]
+    N = 1 + sum(per)
+    perm = rs.permutation(np.arange(1, N))
+    pool = BlockPool(N, 2, BS, H, D, device="cpu", kv_dtype="int8")
+    slots, offs, o = [], [], 0
+    for st, c, n in zip(starts, counts, per):
+        sl, of = pool.positions_to_slots(perm[o:o + n].tolist(), st, c,
+                                         width)
+        slots.append(sl)
+        offs.append(of)
+        o += n
+    slots, offs = np.stack(slots), np.stack(offs)
+    T = (width + BS - 2) // BS + 2
+    touched = np.zeros((B, T), np.int32)
+    touch_idx = np.zeros((B, width), np.int32)
+    for i, (row, c) in enumerate(zip(slots, counts)):
+        uniq = np.unique(row[:c][row[:c] != 0])
+        touched[i, 1:1 + len(uniq)] = uniq
+        lut = {int(b): j + 1 for j, b in enumerate(uniq)}
+        touch_idx[i, :c] = [lut.get(int(x), 0) for x in row[:c]]
+    fused = (rs.randn(B, width, H, 3, D)
+             * np.asarray(mags)[:, None, None, None, None])
+    t = torch.from_numpy
+    return dict(
+        arena=t(rs.randint(-127, 128, (2, H, N, BS, D)).astype(np.int8)),
+        scales=t(rs.uniform(0.01, 0.05, (2, H, N)).astype(np.float32)),
+        new=t(fused.astype(np.float32)).to(dtype),
+        slots=t(slots), offs=t(offs), touched=t(touched),
+        touch_idx=t(touch_idx), tokens=int(sum(counts)),
+        blocks=int((touched != 0).sum()))
+
+
+def _append_bytes(c, want_s, layer, isz):
+    """The bytes the append must move for case `c`, from its own metadata
+    and result: the live tokens read once and the metadata read once; for
+    each touched (row, block, head), by what the step does to that block:
+    fresh (a token at offset 0: the old payload counts for nothing) writes
+    the whole block and its scale; a grown scale reads the positions no
+    new token lands on and writes the whole requantized block, and reads
+    and writes the scale; a held scale writes the new tokens' positions
+    alone and reads the scale. The null block is scratch: nothing."""
+    offs, touched = c["offs"].numpy(), c["touched"].numpy()
+    touch_idx = c["touch_idx"].numpy()
+    old = c["scales"][layer].numpy()
+    grew = want_s[layer].numpy() != old                     # [H, N]
+    n = (c["tokens"] * H * D * isz
+         + (offs.size + touch_idx.size + touched.size) * 4)
+    for i, t in zip(*np.nonzero(touched)):
+        lanes = touch_idx[i] == t
+        n_new, blk = int(lanes.sum()), touched[i, t]
+        if (offs[i][lanes] == 0).any():                     # fresh
+            n += H * (BS * D + 4)
+            continue
+        g = int(grew[:, blk].sum())
+        n += g * ((2 * BS - n_new) * D + 8)
+        n += (H - g) * (n_new * D + 4)
+    return n
+
+
+def append_cases():
+    """Phase 2b: the int8 append kernel against its plain version run on
+    the CPU copy (bit-equal to the JAX function; tests/test_torch_int8_kv)
+    at the serve shape, widths 1, 5 and 128, bf16 and f32 input: bit-equal
+    outside the null block, with the kernel's and the plain version's card
+    times beside the least time the card could take. The plain version's
+    own difference on the card is reported beside (`plain_on_card_err`)."""
+    from paddle_tpu_torch.ops.kv_quantize_scatter import kv_quantize_scatter
+    from paddle_tpu_torch.serving import block_pool
+
+    dev, layer, out = torch.device("cuda"), 1, []
+    for dtype in (torch.bfloat16, torch.float32):
+        for width in WIDTHS:
+            c = _append_case(width, dtype)
+            want_a, want_s = c["arena"].clone(), c["scales"].clone()
+            block_pool._quantize_scatter(
+                want_a, want_s, layer, c["new"][:, :, :, 1], c["slots"],
+                c["offs"], c["touched"], c["touch_idx"])
+            d = {k: v.to(dev) for k, v in c.items()
+                 if isinstance(v, torch.Tensor)}
+            new = d["new"][:, :, :, 1]
+            meta = (d["offs"], d["touched"], d["touch_idx"])
+            got_a, got_s = d["arena"].clone(), d["scales"].clone()
+            kv_quantize_scatter(got_a, got_s, layer, new, *meta)
+            torch.cuda.synchronize()
+
+            def diff(arena, scales):    # outside the null block
+                return max((arena.cpu()[:, :, 1:].int()
+                            - want_a[:, :, 1:].int()).abs().max().item(),
+                           (scales.cpu()[:, :, 1:]
+                            - want_s[:, :, 1:]).abs().max().item())
+
+            err = diff(got_a, got_s)
+            # the append is idempotent on its own output (a repeat finds
+            # the grown scale and ratio 1), so repeated calls time it
+            kms = time_ms(lambda: kv_quantize_scatter(
+                got_a, got_s, layer, new, *meta), 50)
+            pa_, ps_ = d["arena"].clone(), d["scales"].clone()
+            block_pool._quantize_scatter(pa_, ps_, layer, new, d["slots"],
+                                         *meta)
+            plain_card_err = diff(pa_, ps_)
+            pms = time_ms(lambda: block_pool._quantize_scatter(
+                pa_, ps_, layer, new, d["slots"], *meta), 5)
+            nbytes = _append_bytes(c, want_s, layer, new.element_size())
+            rec = dict(dtype=str(dtype).replace("torch.", ""), width=width,
+                       tokens=c["tokens"], blocks=c["blocks"],
+                       max_err=err, plain_on_card_err=plain_card_err,
+                       kernel_ms=kms, plain_ms=pms,
+                       bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       bound_by="bytes")
+            log("[append] " + json.dumps(rec))
+            out.append(rec)
+            if err != 0:
+                raise SystemExit(f"the append kernel differs from the plain "
+                                 f"version: {rec}")
+    return out
+
+
 # -- phase 3 ------------------------------------------------------------------
 
 def _prompts(rs, vocab):
@@ -383,16 +539,54 @@ def _prompts(rs, vocab):
 
 
 def serving_engine(model, kv_dtype=None):
-    """The serve phase's engine, warmed up (cuBLAS handles, allocator)
-    outside the measured run, with its metrics cleared."""
+    """The serve phase's engine, built with warmup=True (one CUDA graph per
+    width bucket, captured before the first request), with its metrics
+    cleared but for the program builds (`jit_traces`), which the serve
+    phase holds constant."""
     from paddle_tpu_torch.serving import LLMEngine
 
     engine = LLMEngine(model, block_size=16, max_batch=8,
-                       spec_decoding=True, kv_dtype=kv_dtype)
-    engine.generate([[1, 2, 3, 4] * 8], max_new_tokens=2)
+                       spec_decoding=True, kv_dtype=kv_dtype, warmup=True)
+    traces = engine.metrics.counters["jit_traces"]
+    assert traces == len(engine._step_fns) \
+        == engine.expected_program_count(), traces
     engine.metrics.counters.clear()
+    engine.metrics.counters["jit_traces"] = traces
     engine.metrics.reset_schedule()
     return engine
+
+
+class StepEvents:
+    """CUDA events around every step program call (the staged inputs'
+    copy and the graph replay), for the device time the steps take: the
+    serve phase's device busy ms. Two event records a step."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.serving import engine as em
+
+        self._call = call = em._StepProgram.__call__
+        self.pairs = []
+
+        def timed(prog):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = call(prog)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        em._StepProgram.__call__ = timed
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.serving import engine as em
+
+        em._StepProgram.__call__ = self._call
+
+    def busy_ms(self):
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
 
 
 def serve_waves(engine, prompts):
@@ -418,17 +612,22 @@ def serving_model():
 
 def _zero_counts():
     from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops.kv_quantize_scatter import kv_quantize_scatter
 
     pa.ragged_paged_attention.launches = 0
     pa.ragged_paged_attention.int8_launches = 0
     pa.ragged_paged_attention.width_launches = {}
+    kv_quantize_scatter.launches = 0
 
 
 def _read_counts():
+    """(ragged launches, of them int8, int8 append launches)."""
     from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops.kv_quantize_scatter import kv_quantize_scatter
 
     return (pa.ragged_paged_attention.launches,
-            pa.ragged_paged_attention.int8_launches)
+            pa.ragged_paged_attention.int8_launches,
+            kv_quantize_scatter.launches)
 
 
 def _width_counts():
@@ -439,34 +638,48 @@ def _width_counts():
             sorted(pa.ragged_paged_attention.width_launches.items())}
 
 
+def _replays(engine):
+    return {f"w{W}": prog.replays
+            for (_, W), prog in sorted(engine._step_fns.items())}
+
+
 def serve(model, kv_dtype=None):
-    """Phase 3 (float arena) or 3b (kv_dtype="int8")."""
+    """Phase 3 (float arena) or 3b (kv_dtype="int8"). Returns the result
+    and the greedy tokens."""
     tag = "serve" if kv_dtype is None else f"serve-{kv_dtype}"
     engine = serving_engine(model, kv_dtype)
     prompts = _prompts(np.random.RandomState(0), model.cfg.vocab_size)
     steps0 = engine.step_count
+    replays0 = _replays(engine)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    t1 = time.perf_counter()
-    outs = serve_waves(engine, prompts)
-    wall = time.perf_counter() - t1
-    launches, int8_launches = _read_counts()
+    with StepEvents() as ev:
+        t1 = time.perf_counter()
+        outs = serve_waves(engine, prompts)
+        wall = time.perf_counter() - t1
+    busy_ms = ev.busy_ms()
+    launches, int8_launches, appends = _read_counts()
     width_launches = _width_counts()
     steps = engine.step_count - steps0
     c = engine.metrics.counters
     lat = engine.metrics.latency_summary()
+    layers = model.cfg.num_layers
     res = dict(
         requests=len(outs), prompt_tokens=sum(map(len, prompts)),
         generated_tokens=int(sum(map(len, outs))), steps=steps,
         wall_s=wall, tok_per_s=sum(map(len, outs)) / wall,
+        device_busy_ms=busy_ms, device_busy_share=busy_ms / 1e3 / wall,
+        warmup_s=engine.metrics.gauges["warmup_seconds"],
+        programs=int(c["jit_traces"]),
+        replays={k: n - replays0[k] for k, n in _replays(engine).items()},
         ttft_p50_ms=lat["ttft"]["p50_ms"],
         step_p50_ms={k: v["p50_ms"] for k, v in lat.items()
                      if k.endswith("_step")},
         step_counts={k: int(c.get(k + "s", 0))
                      for k in ("mixed_step", "decode_step", "verify_step")},
         launches=launches, int8_launches=int8_launches,
-        width_launches=width_launches, layers=model.cfg.num_layers,
-        host_syncs=int(c.get("host_syncs", 0)),
+        append_launches=appends, width_launches=width_launches,
+        layers=layers, host_syncs=int(c.get("host_syncs", 0)),
         prefix_cache_hit_rate=engine.metrics.gauges.get(
             "prefix_cache_hit_rate", 0.0),
         spec_acceptance_rate=engine.metrics.gauges.get(
@@ -476,14 +689,52 @@ def serve(model, kv_dtype=None):
     log(f"[{tag}] " + json.dumps(res))
     assert all(len(o) == 32 for o in outs), "a request did not finish"
     assert not c.get("nonfinite_rows"), "non-finite logits in a served row"
-    assert launches == model.cfg.num_layers * steps, (launches, steps)
+    # no program was built during the wave: every step replayed a graph
+    # captured by warmup
+    assert res["programs"] == engine.expected_program_count(), res
+    assert sum(res["replays"].values()) == steps, res["replays"]
+    assert launches == layers * steps, (launches, steps)
     assert sum(width_launches.values()) == launches, width_launches
-    # every launch of the int8 wave is the int8 variant, none of the other
+    # every launch of the int8 wave is the int8 variant, none of the other,
+    # and the int8 wave appends K and V through the kernel every layer
     assert int8_launches == (launches if kv_dtype else 0), int8_launches
+    assert appends == (2 * layers * steps if kv_dtype else 0), appends
     assert res["host_syncs"] == steps, (res["host_syncs"], steps)
     assert res["prefix_cache_hit_rate"] > 0
     assert engine.pool.num_free == engine.pool.num_blocks - 1
     assert engine.pool._refcount == {}
+    del engine
+    torch.cuda.empty_cache()
+    return res, outs
+
+
+def eager_tokens(model, graph_outs, kv_dtype=None):
+    """Phase 3d: a wave's greedy tokens from an engine like phase 3's
+    (or 3b's, with kv_dtype="int8") whose steps run their program's body
+    eagerly on the card (the staged inputs copied in, then `body()`, no
+    replay) must equal the graph engine's token for token."""
+    from paddle_tpu_torch.serving import engine as em
+
+    engine = serving_engine(model, kv_dtype)
+    prompts = _prompts(np.random.RandomState(0), model.cfg.vocab_size)
+    call = em._StepProgram.__call__
+
+    def eager(prog):
+        prog.load_inputs()
+        return prog.body()
+
+    em._StepProgram.__call__ = eager
+    try:
+        outs = serve_waves(engine, prompts)
+    finally:
+        em._StepProgram.__call__ = call
+    toks = [(a, b) for ga, gb in zip(graph_outs, outs)
+            for a, b in zip(ga, gb)]
+    res = dict(arena=kv_dtype or "float", tokens=len(toks),
+               equal=int(sum(a == b for a, b in toks)),
+               replays=sum(_replays(engine).values()))
+    log("[graph-vs-eager] " + json.dumps(res))
+    assert outs == graph_outs, res
     del engine
     torch.cuda.empty_cache()
     return res
@@ -509,8 +760,8 @@ def overcap_pair(model):
     for kv_dtype in (None, "int8"):
         eng = LLMEngine(model, block_size=bs, max_batch=4,
                         max_seq_len=max_seq, kv_hbm_bytes=budget,
-                        kv_dtype=kv_dtype)
-        eng.generate([prompts[0][:24]], max_new_tokens=2)        # warm-up
+                        kv_dtype=kv_dtype, warmup=True)
+        programs = eng.metrics.counters["jit_traces"]
         eng.metrics.counters.clear()
         steps0 = eng.step_count
         _zero_counts()
@@ -519,7 +770,7 @@ def overcap_pair(model):
                                       temperature=0.0)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches, int8_launches = _read_counts()
+        launches, int8_launches, appends = _read_counts()
         steps = eng.step_count - steps0
         c = eng.metrics.counters
         st = eng.pool_stats()
@@ -528,11 +779,15 @@ def overcap_pair(model):
                    kv_bytes_per_block=st["kv_bytes_per_block"],
                    preemptions=int(c.get("preemptions", 0)), steps=steps,
                    tok_s=c["generated_tokens"] / dt, launches=launches,
-                   int8_launches=int8_launches)
+                   int8_launches=int8_launches, append_launches=appends,
+                   programs=int(programs))
         res["int8" if kv_dtype else "base"] = rec
         assert all(len(o) == max_new for o in outs[kv_dtype])
+        assert not c.get("jit_traces"), "a program was built in the wave"
+        assert programs == eng.expected_program_count(), programs
         assert launches == cfg.num_layers * steps, (launches, steps)
         assert int8_launches == (launches if kv_dtype else 0), int8_launches
+        assert appends == (2 * launches if kv_dtype else 0), appends
         assert c["host_syncs"] == steps
         assert eng.pool.num_free == eng.pool.num_blocks - 1
         del eng
@@ -606,9 +861,9 @@ def parity_int8():
         _zero_counts()
         outs.append(eng.generate(prompts, max_new_tokens=16,
                                  temperature=0.0))
-        launches, int8_launches = _read_counts()
+        launches, int8_launches, appends = _read_counts()
         steps.append(eng.step_count)
-        assert int8_launches == launches == (
+        assert int8_launches == launches == appends // 2 == (
             cfg.num_layers * eng.step_count if m is cuda else 0)
     toks = [(a, b) for ga, gb in zip(*outs) for a, b in zip(ga, gb)]
     rate = float(np.mean([a == b for a, b in toks]))
@@ -1255,10 +1510,13 @@ def main():
     log(f"[env] {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
     build_kernels()
     cases = kernel_cases()
+    appends = append_cases()
     model = serving_model()
-    served = serve(model)
-    served_int8 = serve(model, "int8")
+    served, graph_outs = serve(model)
+    served_int8, graph_outs_int8 = serve(model, "int8")
     overcap = overcap_pair(model)
+    graph_eager = [eager_tokens(model, graph_outs),
+                   eager_tokens(model, graph_outs_int8, "int8")]
     del model
     torch.cuda.empty_cache()
     par = parity()
@@ -1302,6 +1560,20 @@ def main():
             "wide_spill_bytes": wide["ptxas"]["wide"]["spill_bytes"],
             "cases": mine,
         })
+    # the int8 append at the decode width (bf16 K/V, as the int8 wave
+    # appends them); every case in "cases"
+    head = next(r for r in appends if r["dtype"] == "bfloat16"
+                and r["width"] == 1)
+    rpa.append({
+        "name": "kv_quantize_scatter", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/kv_quantize_scatter.cu",
+        "replaces": "paddle_tpu/serving/block_pool.py:185",
+        "launches": served_int8["append_launches"],
+        "max_abs_err": max(r["max_err"] for r in appends),
+        "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "cases": appends,
+    })
     fl = flash[0]
     src = "paddle_tpu_torch/csrc/flash_attention.cu"
     tpu = "paddle_tpu/ops/pallas/flash_attention.py"
@@ -1375,6 +1647,7 @@ def main():
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=smi, kind=kind, kernels=kernels,
+                           appends=appends, graph_vs_eager=graph_eager,
                            serve=served, serve_int8=served_int8,
                            overcap=overcap, parity=par, parity_int8=par_int8,
                            train=trained, train_parity=tpar, ernie=ernie,

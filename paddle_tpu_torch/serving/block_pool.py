@@ -195,18 +195,25 @@ def _quantize_scatter(arena, scales, layer, new, slots, offs, touched,
 
 
 def paged_attention(q, k_new, v_new, view, scale=None):
-    """Append `k_new`/`v_new` [B, S, heads, head_dim] into the arena (an
-    int8 arena through `_quantize_scatter`) and attend `q` through the
-    block table (ops/paged_attention.py's dispatch). Returns [B, S, heads,
-    head_dim]."""
+    """Append `k_new`/`v_new` [B, S, heads, head_dim] into the arena and
+    attend `q` through the block table (ops/paged_attention.py's dispatch).
+    An int8 arena appends by the arena's device: a CPU arena through the
+    plain `_quantize_scatter`, any other through the CUDA kernel
+    (ops/kv_quantize_scatter.py), which raises off CUDA. Returns [B, S,
+    heads, head_dim]."""
+    from ..ops.kv_quantize_scatter import kv_quantize_scatter
     from ..ops.paged_attention import paged_attention_arrays
 
     st, layer = view.state, view.layer
     if st.k_scale is not None:
-        _quantize_scatter(st.k, st.k_scale, layer, k_new, st.slots, st.offs,
-                          st.touched, st.touch_idx)
-        _quantize_scatter(st.v, st.v_scale, layer, v_new, st.slots, st.offs,
-                          st.touched, st.touch_idx)
+        for arena, scales, new in ((st.k, st.k_scale, k_new),
+                                   (st.v, st.v_scale, v_new)):
+            if arena.device.type == "cpu":
+                _quantize_scatter(arena, scales, layer, new, st.slots,
+                                  st.offs, st.touched, st.touch_idx)
+            else:
+                kv_quantize_scatter(arena, scales, layer, new, st.offs,
+                                    st.touched, st.touch_idx)
     else:
         scatter_kv(st.k, layer, st.slots, st.offs, k_new)
         scatter_kv(st.v, layer, st.slots, st.offs, v_new)

@@ -30,6 +30,20 @@ attention math runs through the block table instead of a contiguous cache
 (the plain version on the CPU; the CUDA kernel on the card matches it to
 kernel-accumulation tolerance).
 
+**The step program table** (the JAX engine's compiled programs, one per
+``(max_batch, W)`` width bucket): `_get_step_fn` builds a `_StepProgram` at
+a bucket's first step. On a CUDA engine it captures the step's whole body
+(forward, scored window, non-finite check, sampler and accept decision)
+once as a `torch.cuda.CUDAGraph`, and every later step of that width
+replays it; on a CPU engine the same body runs eagerly. `warmup()` (or
+``warmup=True``) builds the whole table before the first request. Each
+build counts once in the ``jit_traces`` counter; a surplus build sets the
+``jit_retraces`` gauge and warns once (the recompile sentinel). A capture
+bakes in device addresses: the arena (never reallocated), its own
+workspace, and the model's parameters, so weights are loaded
+(`weights.from_jax_state_dict`) before the engine is built and never
+replaced while it serves.
+
 The engine runs on CUDA unless `device` says otherwise; the model must
 live on the engine's device. Options of the JAX engine that this port does
 not have yet raise `NotImplementedError` at construction.
@@ -37,6 +51,7 @@ not have yet raise `NotImplementedError` at construction.
 from __future__ import annotations
 
 import time
+import warnings
 from collections import namedtuple
 
 import numpy as np
@@ -47,7 +62,7 @@ from .block_pool import (BlockPool, PagedState, blocks_for,
                          chain_block_hashes, kv_capacity_blocks)
 from .metrics import ServingMetrics
 from .scheduler import Request, Scheduler
-from .spec import NgramDrafter, filter_active, spec_emit_arrays
+from .spec import NgramDrafter, spec_emit_arrays
 
 StepOutput = namedtuple("StepOutput", ["request_id", "token", "finished"])
 
@@ -62,8 +77,6 @@ _LATER = {
     "trace": (None, "the lifecycle tracer"),
     "slo": (None, "the SLO ledger"),
     "checkpoint_path": (None, "checkpoint streaming"),
-    "prefill_buckets": (None, "compile-once prefill buckets"),
-    "prefill_interval": (None, "the prefill interval"),
     "trace_buffer": (None, "the lifecycle tracer's buffer"),
     "request_log": (None, "the request log"),
     "postmortem_dir": (None, "postmortem dumps"),
@@ -75,7 +88,6 @@ _LATER = {
     "param_hbm_bytes": (None, "the parameter memory budget"),
     "lora_rank": (8, "LoRA adapter serving"),
     "lora_targets": (None, "LoRA adapter serving"),
-    "warmup": (False, "compile warm-up"),
 }
 
 # host metadata packed into one int32 transfer per step: [B, W] fields,
@@ -91,7 +103,8 @@ class LLMEngine:
                  max_seq_len=None, seed=0, prefix_cache=True,
                  spec_decoding=False, num_spec_tokens=4, spec_max_ngram=3,
                  spec_min_ngram=1, kv_hbm_bytes=None, width_buckets=None,
-                 kv_dtype=None, **later):
+                 kv_dtype=None, prefill_buckets=None, prefill_interval=None,
+                 warmup=False, **later):
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"LLMEngine got an unexpected keyword "
@@ -143,6 +156,10 @@ class LLMEngine:
         if num_blocks is None:
             # a full decode batch of max-length sequences (+ the null block)
             num_blocks = self.max_batch * self.max_blocks + 1
+        # prefill_buckets/prefill_interval are accepted for API compatibility
+        # with the bucketed engine and ignored: chunked prefill replaced the
+        # per-bucket programs with one mixed program
+        del prefill_buckets, prefill_interval
         if prefill_chunk is None:
             prefill_chunk = min(128, self.max_seq_len)
         self.prefill_chunk = max(1, min(int(prefill_chunk), self.max_seq_len))
@@ -195,6 +212,85 @@ class LLMEngine:
         self._gen.manual_seed(int(seed))
         self.step_count = 0      # planned steps run
         self.step_faults = []    # (rid, detail) rows contained this step
+        # the step program table, (max_batch, W) -> _StepProgram, and the
+        # one private memory pool its CUDA graphs share
+        self._step_fns = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" else None)
+        self._retrace_warned = False
+        if warmup:
+            self.warmup()
+
+    def warmup(self):
+        """Build the engine's whole width-bucket program table by serving
+        one synthetic greedy request per bucket, one at a time (a batch of
+        mixed widths would build only its widest bucket):
+
+        - a bucket ``W <= prefill_chunk`` is reached by a prompt of exactly
+          ``W`` tokens: its first prefill chunk has width W;
+        - a spec bucket wider than ``prefill_chunk`` is reachable only as a
+          drafted decode step, so its request carries a cyclic prompt the
+          n-gram drafter always matches, forcing one full-width verify step.
+
+        The engine must be idle. Prefix caching is suspended meanwhile
+        (synthetic prompts must neither seed the cache nor skip a build
+        through a hit), and each synthetic request is dropped once its
+        bucket is built. After warmup a served step builds nothing
+        (``jit_traces`` stays at the table's size). Sets the
+        ``warmup_programs`` and ``warmup_seconds`` gauges and returns the
+        number of programs built."""
+        if self.has_unfinished():
+            raise RuntimeError(
+                "warmup() requires an idle engine — it serves synthetic "
+                "requests through the real step path")
+        t0 = time.monotonic()
+        expected = self.expected_program_count()
+        pc_engine, pc_sched = self.prefix_cache, self.scheduler.prefix_cache
+        self.prefix_cache = self.scheduler.prefix_cache = False
+        try:
+            for W in self.width_buckets:
+                if (self.max_batch, W) in self._step_fns:
+                    continue
+                if W <= self.prefill_chunk:
+                    plen = min(W, self.max_seq_len - 1)
+                    prompt = [0] * plen
+                    mnt = 1
+                else:
+                    # drafted-only bucket (1 + num_spec_tokens beyond the
+                    # chunk): a cyclic prompt makes the drafter propose a
+                    # full draft on the first decode step
+                    mnt = self.num_spec_tokens + 2
+                    plen = max(1, min(self.prefill_chunk,
+                                      self.max_seq_len - mnt))
+                    prompt = [(i % 3) + 1 for i in range(plen)]
+                rid = self.add_request(prompt, max_new_tokens=mnt,
+                                       temperature=0.0)
+                for _ in range(8 * mnt + 8):
+                    if not self.has_unfinished():
+                        break
+                    self.step()
+                    if (self.max_batch, W) in self._step_fns:
+                        self.abort(rid)   # the rest is redundant work
+                        break
+                else:
+                    raise RuntimeError(
+                        f"warmup: synthetic request for bucket {W} never "
+                        "finished")
+                self._requests.pop(rid, None)
+        finally:
+            self.prefix_cache = pc_engine
+            self.scheduler.prefix_cache = pc_sched
+        built = len(self._step_fns)
+        if built < expected:
+            missing = [W for W in self.width_buckets
+                       if (self.max_batch, W) not in self._step_fns]
+            raise RuntimeError(
+                f"warmup built {built}/{expected} width-bucket programs — "
+                f"buckets {missing} were never exercised")
+        self.metrics.set_gauge("warmup_programs", float(built))
+        self.metrics.set_gauge("warmup_seconds",
+                               round(time.monotonic() - t0, 3))
+        return built
 
     # -- request lifecycle -------------------------------------------------
 
@@ -279,10 +375,24 @@ class LLMEngine:
         return min(self.num_spec_tokens if self.spec_decoding else 0, W - 1)
 
     def expected_program_count(self):
-        """How many step shapes this engine can run: one per width
-        bucket. PyTorch runs eagerly, so nothing is compiled per shape;
-        the count bounds the distinct widths `step` uses."""
+        """The program-count contract: the engine builds at most one step
+        program per ragged width bucket (a CUDA graph on the card, the
+        eager body on the CPU), so ``jit_traces <=
+        expected_program_count()``, with equality once traffic (or
+        `warmup`) has reached every width."""
         return len(self.width_buckets)
+
+    def step_program_shapes(self):
+        """{name: (B, W)} of every program this engine can build: one
+        unified ragged step per width bucket, named ``w<width>``."""
+        return {f"w{W}": (self.max_batch, W) for W in self.width_buckets}
+
+    def _get_step_fn(self, B, W):
+        """The step program of width bucket `W`, built at its first use."""
+        prog = self._step_fns.get((B, W))
+        if prog is None:
+            prog = self._step_fns[(B, W)] = _StepProgram(self, W)
+        return prog
 
     def _width_for(self, w):
         for b in self.width_buckets:
@@ -298,35 +408,29 @@ class LLMEngine:
         1`` blocks, plus slot 0 reserved for the null block."""
         return (W + self.block_size - 2) // self.block_size + 2
 
-    def _to_device(self, a, W):
-        """Move one step's host arrays to the device in two transfers (one
-        int32, one float32) and return the device tensors by name."""
-        B, nb = self.max_batch, self.max_blocks
-        shapes = ([(f, (B, W)) for f in _ROW_FIELDS]
-                  + [("tables", (B, nb))] + [(f, (B,)) for f in _LANE_FIELDS])
+    def _input_fields(self, W):
+        """(name, shape) of the int32 step inputs of width `W`, in the
+        order of their one packed buffer (`_ROW_FIELDS` above)."""
+        B = self.max_batch
+        fields = ([(f, (B, W)) for f in _ROW_FIELDS]
+                  + [("tables", (B, self.max_blocks))]
+                  + [(f, (B,)) for f in _LANE_FIELDS])
         if self.pool.quantized:
-            shapes += [("touch_idx", (B, W)),
+            fields += [("touch_idx", (B, W)),
                        ("touched", (B, self._touched_width(W)))]
-        ints = np.concatenate([a[f].reshape(-1) for f, _ in shapes])
-        floats = np.stack([a["temps"], a["top_ps"]])
-        ints = torch.from_numpy(ints).to(self.device)
-        floats = torch.from_numpy(floats).to(self.device)
-        t, o = {}, 0
-        for f, shape in shapes:
-            n = int(np.prod(shape))
-            t[f] = ints[o:o + n].view(shape)
-            o += n
-        t["temps"], t["top_ps"] = floats[0], floats[1]
-        return t
+        return fields
 
     @torch.inference_mode()
-    def _device_step(self, t, W, sample, filter_on):
-        """The unified ragged step on the device: the forward over every
-        row's fed tokens (writing their K/V into the arena), the scored
-        window of ``K + 1`` positions from each row's last chunk token,
-        the row-finite check, sampling and the speculative accept
-        decision. Returns the packed ``[B, K + 3]`` int32 tensor (still on
-        the device)."""
+    def _device_step(self, t, W):
+        """The unified ragged step on the device, the body of a width-`W`
+        step program: the forward over every row's fed tokens (writing
+        their K/V into the arena), the scored window of ``K + 1`` positions
+        from each row's last chunk token, the row-finite check, sampling
+        and the speculative accept decision. Branch-free, as the JAX
+        program is: the sampler always runs, greedy rows take the argmax
+        through its `torch.where`s, and nothing reads a device value on the
+        host, so a CUDA graph can capture it. Returns the packed
+        ``[B, K + 3]`` int32 tensor (still on the device)."""
         K = self._draft_capacity(W)
         last_idx, spec_lens = t["last_idx"], t["spec_lens"]
         # per-row live width for the ragged kernel: chunk tokens through
@@ -355,7 +459,7 @@ class LLMEngine:
         row_ok = torch.where(live, pos_ok, torch.ones_like(pos_ok)).all(-1)
         run, n_acc = spec_emit_arrays(
             lg, win_ids, spec_lens, t["temps"], t["top_ks"], t["top_ps"],
-            generator=self._gen, sample=sample, filter_on=filter_on)
+            generator=self._gen)
         return torch.cat([run, n_acc[:, None],
                           row_ok.to(torch.int32)[:, None]], dim=1)
 
@@ -407,33 +511,25 @@ class LLMEngine:
                 self.metrics.set_gauge(
                     "prefix_cache_hit_rate",
                     c.get("prefix_cache_hit_tokens", 0) / lookup)
+        # recompile sentinel: steady state means jit_traces == programs
+        # built (each bucket's program is built exactly once, and the table
+        # never outgrows expected_program_count()); a surplus build is a
+        # rebuild of an existing program, paid on the serving hot path
+        retraces = int(c.get("jit_traces", 0)) - len(self._step_fns)
+        self.metrics.set_gauge("jit_retraces", max(retraces, 0))
+        if (retraces > 0 or len(self._step_fns)
+                > self.expected_program_count()) and not self._retrace_warned:
+            self._retrace_warned = True
+            warnings.warn(
+                f"LLMEngine recompile sentinel: {max(retraces, 0)} "
+                f"rebuild(s) of existing step programs "
+                f"({len(self._step_fns)} programs built, "
+                f"{self.expected_program_count()} width buckets, "
+                f"{int(c.get('jit_traces', 0))} builds) — steady-state "
+                "serving builds at most one program per ragged width "
+                "bucket, each exactly once",
+                RuntimeWarning, stacklevel=2)
         return outs
-
-    def _row_arrays(self, S):
-        """Zeroed per-step host arrays for the unified ragged step."""
-        B = self.max_batch
-        a = {
-            "ids": np.zeros((B, S), np.int32),
-            "qpos": np.zeros((B, S), np.int32),
-            "slots": np.zeros((B, S), np.int32),
-            "offs": np.zeros((B, S), np.int32),
-            "tables": np.zeros((B, self.max_blocks), np.int32),
-            "temps": np.zeros(B, np.float32),
-            "top_ks": np.zeros(B, np.int32),
-            "top_ps": np.ones(B, np.float32),
-            "q_start": np.zeros(B, np.int32),
-            # idle lanes walk just the null block
-            "kv_live": np.ones(B, np.int32),
-            "last_idx": np.zeros(B, np.int32),
-            "spec_lens": np.zeros(B, np.int32),
-        }
-        if self.pool.quantized:
-            # per-row touched-block list (slot 0 = the null block, so
-            # zeroed rows are inert) and each token's index into it, the
-            # quantize-scatter's scatter-max targets
-            a["touched"] = np.zeros((B, self._touched_width(S)), np.int32)
-            a["touch_idx"] = np.zeros((B, S), np.int32)
-        return a
 
     def _fill_row(self, a, i, req, start, w, S):
         """Everything about row `i` that does not depend on WHICH tokens
@@ -464,7 +560,8 @@ class LLMEngine:
         their KV slots are stale (overwritten before they are ever
         attended) and their reserved blocks return via
         `reclaim_spec_blocks`."""
-        a = self._row_arrays(W)
+        prog = self._get_step_fn(self.max_batch, W)
+        a = prog.host_arrays()
         for i, row in enumerate(rows):
             req, start, count, k = row.req, row.start, row.count, len(row.draft)
             if start == req.num_tokens - 1:
@@ -477,13 +574,8 @@ class LLMEngine:
             a["spec_lens"][i] = k
             self._fill_row(a, i, req, start, count + k, W)
         K = self._draft_capacity(W)
-        sample = bool((a["temps"] > 0.0).any())
-        filter_on = sample and filter_active(
-            a["top_ks"], a["top_ps"], self.model.cfg.vocab_size)
-        packed_dev = self._device_step(self._to_device(a, W), W, sample,
-                                       filter_on)
         # THE host sync of the step
-        packed = packed_dev.cpu().numpy()
+        packed = prog().cpu().numpy()
         self.metrics.inc("host_syncs")
         run, n_accs, row_ok = (packed[:, :K + 1], packed[:, K + 1],
                                packed[:, K + 2])
@@ -590,3 +682,139 @@ class LLMEngine:
         for r in rids:
             self.release(r)
         return outs
+
+
+def _counted_wrappers():
+    """The kernel wrappers of the serve step that count their launches."""
+    from ..ops.kv_quantize_scatter import kv_quantize_scatter
+    from ..ops.paged_attention import ragged_paged_attention
+
+    return (ragged_paged_attention, kv_quantize_scatter)
+
+
+def _launch_counts():
+    """A copy of every counted wrapper's counters: {(wrapper, name):
+    int, or {step width: int}}."""
+    return {(fn, name): dict(v) if isinstance(v, dict) else v
+            for fn in _counted_wrappers() for name, v in vars(fn).items()}
+
+
+class _StepProgram:
+    """One width bucket's step program: the port's counterpart of one
+    compiled executable of the JAX engine's table.
+
+    It owns the bucket's static inputs: one int32 buffer in the packed
+    layout of `LLMEngine._input_fields` and one float32 ``[2, B]`` buffer
+    (temperatures, top-p), each with a host staging twin (pinned on CUDA).
+    A step fills the staging buffers through `host_arrays` and calling the
+    program copies them in with non-blocking transfers, then runs the body.
+    Its output is the packed ``[B, K + 3]`` int32 tensor.
+
+    On a CUDA engine the body is captured once, at construction, as a
+    `torch.cuda.CUDAGraph` in the engine's shared memory pool, and every
+    call replays it; a capture that fails raises. On a CPU engine the same
+    body runs eagerly at every call. A captured graph launches its kernels
+    without their Python wrappers, so the wrappers' launch counters tick
+    once, at capture: the program takes that capture's counts and adds
+    them at each replay, so a count still says how many kernels ran.
+    """
+
+    def __init__(self, engine, W):
+        self.engine = engine
+        self.W = W
+        self.replays = 0
+        B, dev = engine.max_batch, engine.device
+        pin = dev.type == "cuda"
+        fields = engine._input_fields(W)
+        n = sum(int(np.prod(shape)) for _, shape in fields)
+        self._host_ints = torch.zeros(n, dtype=torch.int32, pin_memory=pin)
+        self._host_floats = torch.zeros((2, B), dtype=torch.float32,
+                                        pin_memory=pin)
+        self._ints = torch.zeros(n, dtype=torch.int32, device=dev)
+        self._floats = torch.zeros((2, B), dtype=torch.float32, device=dev)
+        self._host, self.inputs, o = {}, {}, 0
+        host_ints = self._host_ints.numpy()
+        for name, shape in fields:
+            size = int(np.prod(shape))
+            self._host[name] = host_ints[o:o + size].reshape(shape)
+            self.inputs[name] = self._ints[o:o + size].view(shape)
+            o += size
+        host_floats = self._host_floats.numpy()
+        self._host["temps"], self._host["top_ps"] = host_floats
+        self.inputs["temps"], self.inputs["top_ps"] = self._floats
+        self.graph = self.out = None
+        self._launch_delta = {}
+        engine.metrics.inc("jit_traces")
+        if dev.type == "cuda":
+            self._capture()
+
+    def host_arrays(self):
+        """The staging buffers as numpy views by input name, reset to an
+        all-idle step: zeros, every lane walking just the null block
+        (``kv_live`` 1), top-p 1. On an int8 arena the zeroed ``touched``
+        rows (slot 0 = the null block) are inert."""
+        self._host_ints.zero_()
+        self._host_floats.zero_()
+        self._host["kv_live"][:] = 1
+        self._host["top_ps"][:] = 1.0
+        return self._host
+
+    def body(self):
+        """The step's device work on the static inputs, run eagerly."""
+        return self.engine._device_step(self.inputs, self.W)
+
+    def load_inputs(self):
+        """Copy the staged step into the static inputs (non-blocking from
+        pinned memory on CUDA, on the current stream)."""
+        self._ints.copy_(self._host_ints, non_blocking=True)
+        self._floats.copy_(self._host_floats, non_blocking=True)
+
+    def __call__(self):
+        """Copy the staged step in and run it: replay the graph (CUDA) or
+        the body (CPU). Returns the packed result on the device."""
+        self.load_inputs()
+        if self.graph is None:
+            return self.body()
+        self.graph.replay()
+        self.replays += 1
+        for (fn, name), d in self._launch_delta.items():
+            if isinstance(d, dict):
+                counts = getattr(fn, name)
+                for k, v in d.items():
+                    counts[k] = counts.get(k, 0) + v
+            else:
+                setattr(fn, name, getattr(fn, name) + d)
+        return self.out
+
+    def _capture(self):
+        """Capture the body on an all-idle step: every lane reads and
+        writes only the null block, so nothing live in the arena changes.
+        One eager run on the capture stream first does what must not
+        happen under capture (the kernels' lazy build, their shared-memory
+        attributes, cuBLAS's workspace); the engine's generator is
+        registered so each replay draws new numbers."""
+        self.host_arrays()
+        self.load_inputs()
+        before = _launch_counts()
+        stream = torch.cuda.Stream(self.engine.device)
+        stream.wait_stream(torch.cuda.current_stream(self.engine.device))
+        with torch.cuda.stream(stream):
+            self.body()
+        warm = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.engine._gen)
+        with torch.cuda.graph(graph, pool=self.engine._graph_pool,
+                              stream=stream):
+            self.out = self.body()
+        captured = _launch_counts()
+        torch.cuda.current_stream(self.engine.device).wait_stream(stream)
+        for key, v in captured.items():
+            if isinstance(v, dict):
+                self._launch_delta[key] = {k: n - warm[key].get(k, 0)
+                                           for k, n in v.items()
+                                           if n != warm[key].get(k, 0)}
+            else:
+                self._launch_delta[key] = v - warm[key]
+        for (fn, name), v in before.items():
+            setattr(fn, name, v)
+        self.graph = graph

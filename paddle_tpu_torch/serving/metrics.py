@@ -138,8 +138,9 @@ _HELP = {
     "mixed_steps": "Device steps carrying at least one prefill chunk",
     "decode_steps": "Pure-decode device steps",
     "verify_steps": "Speculative verify device steps",
-    "jit_traces": "XLA program traces (recompile alarm; constant after "
-                  "warmup)",
+    "jit_traces": "Step programs built: CUDA graph captures on the card, "
+                  "eager-body programs on the CPU (recompile alarm; "
+                  "constant after warmup)",
     "mixed_step": "Mixed-step wall time",
     "decode_step": "Decode-step wall time",
     "verify_step": "Verify-step wall time",
@@ -163,7 +164,7 @@ _HELP = {
     "spec_drafted_rows": "Verify rows that carried a draft",
     "spec_acceptance_rate": "Cumulative accepted/proposed draft ratio",
     "spec_mean_accepted_len": "Accepted draft tokens per drafted row",
-    "jit_retraces": "Re-traces of already-compiled step programs "
+    "jit_retraces": "Rebuilds of already-built step programs "
                     "(recompile sentinel; 0 in steady state)",
     "pool_kv_bytes_per_block": "Device bytes one KV block costs in the "
                                "active KV dtype (int8 arenas include the "

@@ -11,10 +11,11 @@ verification, in PyTorch.
   Sampling: rejection sampling against the temperature / top-k / top-p
   processed distribution with the point-mass proposal of the n-gram draft.
 
-The JAX package skips the vocab sort behind a ``lax.cond`` on a device
-predicate. Here the two gates (any row sampling, any row filtering) are
-host booleans the engine derives from the host-side request knobs it
-already has, so a step never reads a device value to decide them. Random
+The decision is branch-free, as the JAX program computes it: one body
+serves greedy and sampled rows alike (greedy rows take the argmax through
+the `torch.where`s), nothing is read back to the host, and a CUDA graph
+can capture it. The JAX program skips the vocab sort behind a
+``lax.cond`` on a device predicate; here the sort always runs. Random
 draws come from a `torch.Generator`; categorical samples are Gumbel-max.
 """
 from __future__ import annotations
@@ -88,28 +89,15 @@ class NgramDrafter:
         return []
 
 
-def filter_active(top_ks, top_ps, vocab_size):
-    """Whether any row restricts its support: top-k in (0, V) or top-p
-    below 1. Takes host arrays or CPU tensors."""
-    return any((0 < int(k) < vocab_size) or float(p) < 1.0
-               for k, p in zip(top_ks, top_ps))
-
-
-def apply_top_k_top_p(scaled, top_ks, top_ps, active=None):
+def apply_top_k_top_p(scaled, top_ks, top_ps):
     """Mask `scaled` logits ``[..., V]`` to the per-row top-k / nucleus
     top-p support. ``top_ks`` (int, 0 = off) and ``top_ps`` (float, 1.0 =
     off) broadcast against ``scaled[..., 0]``. Top-k keeps the k largest
     logits (ties at the k-th value all survive); top-p keeps the smallest
     set of tokens whose descending-probability cumsum reaches p (ties at
-    the cutoff survive). The top-1 token always survives both.
-
-    `active` (a host bool) skips the vocab sort when no row filters; None
-    decides from the tensors, which costs a device read on CUDA."""
+    the cutoff survive). The top-1 token always survives both; a row
+    with both knobs off comes back unchanged."""
     V = scaled.shape[-1]
-    if active is None:
-        active = bool((((top_ks > 0) & (top_ks < V)) | (top_ps < 1.0)).any())
-    if not active:
-        return scaled
     lead = scaled.shape[:-1]
     tk = top_ks[..., None].long().expand(*lead, 1)
     tp = top_ps[..., None].expand(*lead, 1)
@@ -143,7 +131,7 @@ def _categorical(logits, generator):
 
 
 def spec_accept_arrays(logits, ids, spec_lens, temps, top_ks, top_ps,
-                       generator=None, sample=None, filter_on=None):
+                       generator=None):
     """Verify-step accept/emit math.
 
       logits    [B, S, V] — model logits at the S scored positions
@@ -151,11 +139,8 @@ def spec_accept_arrays(logits, ids, spec_lens, temps, top_ks, top_ps,
                 token, ``ids[:, 1:]`` the drafted candidates
       spec_lens [B] int — live drafted tokens per row (0 = plain decode)
       temps/top_ks/top_ps [B] — per-row sampling knobs
-      generator — the `torch.Generator` for sampling draws
-      sample    — host bool: does any row sample (temperature > 0)? None
-                decides from `temps` (a device read on CUDA). False skips
-                every random draw: the output is then pure greedy.
-      filter_on — host bool gate for `apply_top_k_top_p` (None = decide)
+      generator — the `torch.Generator` for sampling draws (every call
+                draws, also when no row samples)
 
     Returns ``(accept [B, S-1] bool, out_tok [B, S] int32)``: whether
     drafted token ``ids[:, j+1]`` survives at slot j, and the token to emit
@@ -164,13 +149,8 @@ def spec_accept_arrays(logits, ids, spec_lens, temps, top_ks, top_ps,
     lg = logits.float()
     greedy = torch.argmax(lg, dim=-1)                  # [B, S]
     drafts = ids[:, 1:].long()                         # [B, S-1]
-    if sample is None:
-        sample = bool((temps > 0.0).any())
-    if not sample:
-        return drafts == greedy[:, :-1], greedy.to(torch.int32)
     scaled = lg / temps.clamp_min(1e-6)[:, None, None]
-    scaled = apply_top_k_top_p(scaled, top_ks[:, None], top_ps[:, None],
-                               active=filter_on)
+    scaled = apply_top_k_top_p(scaled, top_ks[:, None], top_ps[:, None])
     probs = torch.softmax(scaled, dim=-1)
     p_draft = torch.gather(probs[:, :-1], -1, drafts[..., None])[..., 0]
     u = torch.rand((B, S - 1), generator=generator, device=lg.device)
@@ -191,7 +171,7 @@ def spec_accept_arrays(logits, ids, spec_lens, temps, top_ks, top_ps,
 
 
 def spec_emit_arrays(logits, ids, spec_lens, temps, top_ks, top_ps,
-                     generator=None, sample=None, filter_on=None):
+                     generator=None):
     """The accept/rollback decision on the device: `spec_accept_arrays`
     plus the leading-accept walk. Returns ``(run [B, S] int32, n_acc [B]
     int32)``: ``n_acc`` is each row's leading-accept run length and
@@ -200,8 +180,7 @@ def spec_emit_arrays(logits, ids, spec_lens, temps, top_ks, top_ps,
     sampler: ``n_acc == 0`` and ``run[:, 0]`` is the sample."""
     B, S, _ = logits.shape
     accept, out_tok = spec_accept_arrays(
-        logits, ids, spec_lens, temps, top_ks, top_ps, generator=generator,
-        sample=sample, filter_on=filter_on)
+        logits, ids, spec_lens, temps, top_ks, top_ps, generator=generator)
     dev = logits.device
     if S > 1:
         j = torch.arange(S - 1, device=dev)[None, :]

@@ -4,7 +4,9 @@ For `LLMEngine.__init__`, `GPTConfig.__init__` and `BertConfig.__init__`,
 each keyword of the JAX signature is one case: passed at its JAX default
 it is accepted; passed at another value it is accepted or raises
 `NotImplementedError` (a part the port has not reached yet), never
-`TypeError`. A config that accepts a value stores it.
+`TypeError`. For the engine, which of the two is asserted: a keyword the
+port lists as a later slice's (`engine._LATER`) raises, every other one
+is accepted. A config that accepts a value stores it.
 """
 import inspect
 
@@ -16,6 +18,7 @@ from paddle_tpu.serving import LLMEngine as JaxLLMEngine
 from paddle_tpu_torch.models.bert import BertConfig
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.serving import LLMEngine
+from paddle_tpu_torch.serving.engine import _LATER
 
 
 def _keywords(fn, skip=("self", "model")):
@@ -93,7 +96,11 @@ def test_engine_takes_jax_keyword(model, name):
     ok, _ = _accepted_or_not_implemented(make, name, JAX_ENGINE[name])
     assert ok, f"{name} at its JAX default {JAX_ENGINE[name]!r} must be " \
                "accepted"
-    _accepted_or_not_implemented(make, name, ENGINE_OTHER[name])
+    ok, eng = _accepted_or_not_implemented(make, name, ENGINE_OTHER[name])
+    assert ok == (name not in _LATER), name
+    if name == "warmup":    # warmup=True builds the whole program table
+        assert eng.metrics.counters["jit_traces"] == len(eng._step_fns) \
+            == eng.expected_program_count()
 
 
 @pytest.mark.parametrize("name", sorted(JAX_GPT))

@@ -14,7 +14,10 @@ import torch
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import paged_attention as pa
-from paddle_tpu_torch.serving import LLMEngine
+from paddle_tpu_torch.ops.kv_quantize_scatter import kv_quantize_scatter
+from paddle_tpu_torch.serving import BlockPool, LLMEngine
+from paddle_tpu_torch.serving import block_pool as bp
+from paddle_tpu_torch.serving import engine as eng_mod
 
 pytestmark = pytest.mark.cuda
 
@@ -273,6 +276,167 @@ def test_int8_engine_on_the_card_matches_the_cpu(dev):
         assert eng.pool.num_free == eng.pool.num_blocks - 1
     toks = [(a, b) for ga, gb in zip(*outs) for a, b in zip(ga, gb)]
     assert np.mean([a == b for a, b in toks]) >= 0.9, outs
+
+
+# -- the int8 append and the compiled serve step ----------------------------
+
+def _append_case(width, dtype, seed=0):
+    """One serve step's int8 append at step width `width`: B 8 rows over
+    an arena of random payload and scales (H 4, D 128, block 16) — a
+    fresh row from position 0, rows appending small values (scale holds)
+    and large ones (scale grows, payload requantized) to a partly filled
+    block, a prefix row starting at a block boundary after a shared block,
+    short rows padded to the width, and an idle lane (every token to the
+    null block). K comes as a strided view of a fused projection, as in
+    the model."""
+    L, H, D, bs, B = 2, 4, 128, 16, 8
+    rs = np.random.RandomState(seed + width)
+    starts = [0, 5, 7, 16, 3, 0, int(rs.randint(0, 40)), 31]
+    counts = [width, width, width, width, max(1, width // 2), 0,
+              max(1, width - 1), width]
+    mags = [1.0, 0.01, 40.0, 2.0, 1.0, 1.0, 0.5, 8.0]
+    per = [-(-(st + max(c, 1)) // bs) for st, c in zip(starts, counts)]
+    N = 1 + sum(per) + 4
+    perm = rs.permutation(np.arange(1, N))
+    pool = BlockPool(N, L, bs, H, D, device="cpu", kv_dtype="int8")
+    slots, offs, o = [], [], 0
+    for st, c, n in zip(starts, counts, per):
+        sl, of = pool.positions_to_slots(perm[o:o + n].tolist(), st, c, width)
+        slots.append(sl)
+        offs.append(of)
+        o += n
+    slots, offs = np.stack(slots), np.stack(offs)
+    T = (width + bs - 2) // bs + 2
+    touched = np.zeros((B, T), np.int32)
+    touch_idx = np.zeros((B, width), np.int32)
+    for i, (row, c) in enumerate(zip(slots, counts)):
+        uniq = np.unique(row[:c][row[:c] != 0])
+        touched[i, 1:1 + len(uniq)] = uniq
+        lut = {int(b): j + 1 for j, b in enumerate(uniq)}
+        touch_idx[i, :c] = [lut.get(int(x), 0) for x in row[:c]]
+    fused = rs.randn(B, width, H, 3, D).astype(np.float32)
+    fused *= np.asarray(mags, np.float32)[:, None, None, None, None]
+    arena = rs.randint(-127, 128, (L, H, N, bs, D)).astype(np.int8)
+    scales = rs.uniform(0.01, 0.05, (L, H, N)).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    return dict(arena=t(arena), scales=t(scales), new=t(fused).to(dtype),
+                slots=t(slots), offs=t(offs), touched=t(touched),
+                touch_idx=t(touch_idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [1, 5, 128])
+def test_kv_quantize_scatter_matches_plain_version(dev, width, dtype):
+    """The CUDA append is bit-equal to the plain `_quantize_scatter` (itself
+    bit-equal to the JAX function) outside the null block, payload and
+    scales, and leaves the other layer alone."""
+    c = _append_case(width, dtype)
+    layer = 1
+    want_a, want_s = c["arena"].clone(), c["scales"].clone()
+    k_new = c["new"][:, :, :, 1]
+    bp._quantize_scatter(want_a, want_s, layer, k_new, c["slots"], c["offs"],
+                         c["touched"], c["touch_idx"])
+    got_a, got_s = c["arena"].to(dev), c["scales"].to(dev)
+    new = c["new"].to(dev)[:, :, :, 1]
+    before = kv_quantize_scatter.launches
+    kv_quantize_scatter(got_a, got_s, layer, new, c["offs"].to(dev),
+                        c["touched"].to(dev), c["touch_idx"].to(dev))
+    torch.cuda.synchronize()
+    assert kv_quantize_scatter.launches == before + 1
+    assert torch.equal(got_a.cpu()[:, :, 1:], want_a[:, :, 1:])
+    assert torch.equal(got_s.cpu()[:, :, 1:], want_s[:, :, 1:])
+    # the case exercises what it claims: among the touched blocks some
+    # scales grew and some held
+    tb = c["touched"][c["touched"] != 0].long()
+    old, new_sc = c["scales"][layer][:, tb], want_s[layer][:, tb]
+    assert (new_sc > old).any() and (new_sc == old).any()
+
+
+def test_kv_quantize_scatter_rejects_what_it_cannot_take(dev):
+    c = _append_case(5, torch.float32)
+    args = [c["arena"].to(dev), c["scales"].to(dev), 0,
+            c["new"].to(dev)[:, :, :, 1], c["offs"].to(dev),
+            c["touched"].to(dev), c["touch_idx"].to(dev)]
+    bad = [(0, args[0].float()), (1, args[1].double()), (2, 5),
+           (3, args[3].half()), (4, args[4].long()),
+           (6, args[6][:, :2].contiguous())]
+    for i, value in bad:
+        with pytest.raises(ValueError):
+            kv_quantize_scatter(*(args[:i] + [value] + args[i + 1:]))
+
+
+def _tiny_bf16_engine(dev, **kw):
+    """A bf16 engine at head_dim 128, block 16: the sm_90a ragged design."""
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                    num_heads=2, max_seq_len=256)
+    model = GPT(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    return LLMEngine(model, device=dev, block_size=16, max_batch=4,
+                     prefill_chunk=32, spec_decoding=True, **kw)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_graph_replay_matches_the_eager_body(dev, monkeypatch, kv_dtype):
+    """Every step of a greedy wave replays its bucket's CUDA graph; the
+    eager body on the same static inputs, run from the arena as it stood
+    before the replay, gives the same packed result and leaves the same
+    arena outside the null block (payload and, for int8, scales), and the
+    kernels' counts through replays equal the launches."""
+    engine = _tiny_bf16_engine(dev, kv_dtype=kv_dtype, warmup=True)
+    assert engine.metrics.counters["jit_traces"] == 3
+    pool = engine.pool
+    state = [t for t in (pool.k, pool.v, pool.k_scale, pool.v_scale)
+             if t is not None]
+    pairs = []
+    replay = eng_mod._StepProgram.__call__
+
+    def checked(prog):
+        before = [t.clone() for t in state]
+        got = replay(prog).clone()
+        after = [t.clone() for t in state]
+        for t, b in zip(state, before):
+            t.copy_(b)
+        counts = eng_mod._launch_counts()     # the eager run's launches
+        want = prog.body().clone()            # are not the replay's
+        for (fn, name), v in counts.items():
+            setattr(fn, name, v)
+        pairs.append((got, want))
+        for t, a in zip(state, after):       # the null block is scratch
+            assert torch.equal(t[:, :, 1:], a[:, :, 1:])
+        return got
+
+    monkeypatch.setattr(eng_mod._StepProgram, "__call__", checked)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 512, n).tolist() for n in (5, 40, 70, 12)]
+    prompts.append([5, 6, 7] * 6)
+    launches = pa.ragged_paged_attention.launches
+    appends = kv_quantize_scatter.launches
+    steps = engine.step_count
+    replays = sum(p.replays for p in engine._step_fns.values())
+    engine.generate(prompts, max_new_tokens=10)
+    steps = engine.step_count - steps
+    assert len(pairs) == steps
+    for got, want in pairs:
+        assert torch.equal(got, want)
+    assert pa.ragged_paged_attention.launches - launches == 2 * steps
+    assert kv_quantize_scatter.launches - appends == (
+        2 * 2 * steps if kv_dtype else 0)
+    assert engine.metrics.counters["jit_traces"] == 3
+    assert sum(p.replays for p in engine._step_fns.values()) \
+        == replays + steps
+
+
+def test_sampled_draws_differ_between_replays(dev):
+    """The engine's generator is registered with each graph: replays of
+    one step with a sampling row draw new numbers."""
+    engine = _tiny_bf16_engine(dev)
+    prog = engine._get_step_fn(engine.max_batch, 1)
+    draws = set()
+    for _ in range(8):
+        a = prog.host_arrays()
+        a["temps"][0] = 5.0
+        draws.add(int(prog()[0, 0]))
+    assert len(draws) > 1
+    assert prog.replays == 8
 
 
 # -- flash attention -----------------------------------------------------------

@@ -64,6 +64,12 @@ def test_greedy_wave_matches_jax_engine(models, num_blocks):
     got = eng.generate(prompts, max_new_tokens=NEW_TOKENS, temperature=0.0)
     assert got == want
     c = eng.metrics.counters
+    # the program table: one program per width bucket the wave reached,
+    # built once each, as the JAX engine traces its programs
+    assert c["jit_traces"] == len(eng._step_fns) \
+        == jeng.metrics.counters["jit_traces"] == len(jeng._step_fns)
+    assert eng.expected_program_count() == jeng.expected_program_count()
+    assert eng.step_program_shapes() == jeng.step_program_shapes()
     assert c["prefix_cache_hit_tokens"] > 0
     assert c["spec_proposed_tokens"] > 0
     assert c["mixed_steps"] > 0
@@ -75,6 +81,116 @@ def test_greedy_wave_matches_jax_engine(models, num_blocks):
     assert eng.pool.num_free == eng.pool.num_blocks - 1
     assert eng.pool._refcount == {}
     assert not eng.has_unfinished()
+
+
+def test_warmup_matches_jax_engine(models):
+    """`warmup()` builds the whole program table on both engines and
+    leaves the port's idle: the prefix cache back on, an empty pool, no
+    request record. A wave served afterwards builds nothing and emits what
+    an unwarmed engine emits."""
+    jm, tm = models
+    cfg = ENGINE
+    jeng = JaxLLMEngine(jm, **cfg)
+    eng = LLMEngine(tm, device="cpu", **cfg)
+    n = eng.warmup()
+    assert n == jeng.warmup() == len(eng.width_buckets) == 3
+    assert eng.metrics.gauges["warmup_programs"] == n
+    assert eng.metrics.gauges["warmup_seconds"] >= 0
+    assert eng.prefix_cache and eng.scheduler.prefix_cache
+    assert eng.pool.num_free == eng.pool.num_blocks - 1
+    assert eng.pool._refcount == {} and eng.pool.num_cached_blocks == 0
+    assert eng._requests == {} and not eng.has_unfinished()
+    traces = eng.metrics.counters["jit_traces"]
+    assert traces == n
+    prompts = _prompts()
+    got = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+    assert eng.metrics.counters["jit_traces"] == traces
+    assert got == LLMEngine(tm, device="cpu", **cfg).generate(
+        prompts, max_new_tokens=NEW_TOKENS)
+    with pytest.raises(RuntimeError, match="idle engine"):
+        eng.add_request(prompts[0], max_new_tokens=2)
+        eng.warmup()
+
+
+def test_warmup_of_a_drafted_only_bucket_matches_jax_engine(models):
+    """At chunk 4 the spec bucket 5 is wider than any prefill chunk, so
+    warmup reaches it only through a drafted decode step of its cyclic
+    prompt, which needs the model's first token to continue the cycle.
+    This random model's does not: both engines build buckets 1 and 4 and
+    raise for bucket 5 alike."""
+    jm, tm = models
+    cfg = dict(ENGINE, prefill_chunk=4)
+    jeng = JaxLLMEngine(jm, **cfg)
+    eng = LLMEngine(tm, device="cpu", **cfg)
+    assert eng.width_buckets == jeng.width_buckets == [1, 4, 5]
+    for e in (jeng, eng):
+        with pytest.raises(RuntimeError, match=r"buckets \[5\] were never"):
+            e.warmup()
+    assert sorted(eng._step_fns) == sorted(jeng._step_fns) == [(2, 1),
+                                                              (2, 4)]
+    assert eng.prefix_cache and not eng.has_unfinished()
+
+
+def test_recompile_sentinel_zero_retraces_steady_state(models):
+    """tests/test_serving_engine.py's sentinel contract on the port: the
+    table never exceeds `expected_program_count()`, and after a warming
+    wave greedy, sampled and cache-hit traffic builds nothing more —
+    `jit_traces` stays equal to the programs built, `jit_retraces` 0, and
+    the sentinel never warns."""
+    import warnings
+
+    _, tm = models
+    engine = LLMEngine(tm, device="cpu", block_size=8, max_batch=2,
+                       max_seq_len=64, spec_decoding=True, num_spec_tokens=3)
+    assert engine.expected_program_count() == 3
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        engine.generate([[7] * 24], max_new_tokens=12)
+        assert len(engine._step_fns) <= engine.expected_program_count()
+        warm = engine.metrics.counters["jit_traces"]
+        assert warm == len(engine._step_fns)
+        rs = np.random.RandomState(1)
+        for _ in range(3):
+            prompts = [rs.randint(0, 128, (n,)).tolist() for n in (5, 17, 9)]
+            engine.generate(prompts[:2], max_new_tokens=8)
+            engine.generate([prompts[2]], max_new_tokens=4,
+                            temperature=0.8, top_k=5)
+            engine.generate([prompts[1]], max_new_tokens=2)   # cache hit
+    assert engine.metrics.counters["prefix_cache_hit_tokens"] > 0
+    assert len(engine._step_fns) <= engine.expected_program_count()
+    assert engine.metrics.counters["jit_traces"] == len(engine._step_fns)
+    assert engine.metrics.gauges["jit_retraces"] == 0
+
+
+def test_recompile_sentinel_warns_on_surplus_trace(models):
+    """A build beyond one per program is what the sentinel catches: the
+    next step warns once, sets the gauge, and never warns again."""
+    import warnings
+
+    _, tm = models
+    engine = LLMEngine(tm, device="cpu", block_size=8, max_batch=2,
+                       max_seq_len=64)
+    rs = np.random.RandomState(0)
+    engine.generate([rs.randint(0, 512, 9).tolist()], max_new_tokens=2)
+    engine.metrics.inc("jit_traces")         # a phantom rebuild
+    with pytest.warns(RuntimeWarning, match="recompile sentinel"):
+        engine.generate([rs.randint(0, 512, 7).tolist()], max_new_tokens=2)
+    assert engine.metrics.gauges["jit_retraces"] == 1
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        engine.generate([rs.randint(0, 512, 5).tolist()], max_new_tokens=2)
+
+
+def test_prefill_buckets_and_interval_are_ignored(models):
+    """Accepted for API compatibility and ignored, as in the JAX engine:
+    chunked prefill replaced the per-bucket prefill programs."""
+    _, tm = models
+    prompts = _prompts()
+    base = LLMEngine(tm, device="cpu", **ENGINE).generate(
+        prompts, max_new_tokens=NEW_TOKENS)
+    eng = LLMEngine(tm, device="cpu", prefill_buckets=(16, 32),
+                    prefill_interval=2, **ENGINE)
+    assert eng.generate(prompts, max_new_tokens=NEW_TOKENS) == base
 
 
 def test_stream_matches_generate(models):

@@ -121,6 +121,40 @@ def test_quantize_scatter_matches_jax(layer):
                                rtol=1e-6)
 
 
+def test_int8_append_dispatches_by_device(monkeypatch):
+    """`block_pool.paged_attention` appends a CPU arena's K and V through
+    the plain `_quantize_scatter` (the CUDA kernel's wrapper is not
+    reached), and the kernel's wrapper refuses CPU tensors: no fallback."""
+    from paddle_tpu_torch.ops.kv_quantize_scatter import kv_quantize_scatter
+
+    L, H, N, BS, D, S = 2, 2, 8, 4, 8, 3
+    pool = tbp.BlockPool(N, L, BS, H, D, device="cpu", kv_dtype="int8")
+    slots, offs = (torch.from_numpy(a)[None] for a in
+                   pool.positions_to_slots([3, 5], 2, S, S))
+    touched, touch_idx = (torch.from_numpy(a) for a in _touch_lists(
+        slots.numpy(), [S], (S + BS - 2) // BS + 2))
+    z = torch.zeros((1,), dtype=torch.int32)
+    state = tbp.PagedState(
+        pool.k, pool.v, torch.tensor([[3, 5, 0, 0]], dtype=torch.int32),
+        slots, offs, torch.arange(2, 2 + S, dtype=torch.int32)[None],
+        q_start=z + 2, kv_live=z + 2, k_scale=pool.k_scale,
+        v_scale=pool.v_scale, touched=touched, touch_idx=touch_idx)
+    calls = []
+    plain = tbp._quantize_scatter
+    monkeypatch.setattr(tbp, "_quantize_scatter",
+                        lambda *a: calls.append(a[0]) or plain(*a))
+    launches = kv_quantize_scatter.launches
+    q, k, v = (torch.randn(1, S, H, D) for _ in "qkv")
+    out = tbp.paged_attention(q, k, v, state.layer(1))
+    assert [a is b for a, b in zip(calls, (pool.k, pool.v))] == [True, True]
+    assert kv_quantize_scatter.launches == launches
+    assert out.shape == (1, S, H, D) and torch.isfinite(out).all()
+    assert (pool.k_scale[1, :, [3, 5]] > 0).all()
+    with pytest.raises(ValueError, match="runs on CUDA tensors"):
+        kv_quantize_scatter(pool.k, pool.k_scale, 1, k, offs, touched,
+                            touch_idx)
+
+
 # -- attention over an int8 arena ------------------------------------------------
 
 def _int8_case(lengths_counts, block_size, pad_to=None, seed=0):

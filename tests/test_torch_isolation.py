@@ -35,6 +35,7 @@ def _import_roots(path):
 def test_port_has_modules_and_a_smoke_script():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for want in ("paddle_tpu_torch/ops/paged_attention.py",
+                 "paddle_tpu_torch/ops/kv_quantize_scatter.py",
                  "paddle_tpu_torch/ops/flash_attention.py",
                  "paddle_tpu_torch/ops/fused_ce.py",
                  "paddle_tpu_torch/optimizer/optimizers.py",

@@ -99,11 +99,9 @@ def test_top_k_top_p_masks_match_jax(seed):
 def test_top_k_top_p_gate_skips_when_no_row_filters():
     lg = torch.from_numpy(_logits(1, 3, 16, 0)[0])
     off_k, off_p = torch.zeros(3, dtype=torch.int32), torch.ones(3)
-    assert tspec.apply_top_k_top_p(lg, off_k, off_p) is lg
-    assert tspec.apply_top_k_top_p(lg, off_k + 2, off_p, active=False) is lg
-    assert not tspec.filter_active([0, 16], [1.0, 1.0], 16)
-    assert tspec.filter_active([0, 3], [1.0, 1.0], 16)
-    assert tspec.filter_active([0, 0], [1.0, 0.5], 16)
+    assert torch.equal(tspec.apply_top_k_top_p(lg, off_k, off_p), lg)
+    # top-k at the vocab size keeps everything, as top-k 0 does
+    assert torch.equal(tspec.apply_top_k_top_p(lg, off_k + 16, off_p), lg)
 
 
 def test_sampled_spec_emit_is_seeded_and_respects_top_k():
@@ -129,3 +127,45 @@ def test_sampled_spec_emit_is_seeded_and_respects_top_k():
         assert 0 <= n <= int(spec_lens[b])
         # the stop-slot token is drawn from slot n's top-3 support
         assert int(r1[b, n]) in top3[b, n].tolist()
+
+
+@pytest.mark.parametrize("case", ["drafts", "nonfinite"])
+def test_branch_free_decision_on_greedy_rows_is_greedy(case):
+    """The engine's step always runs the sampler, so one captured body
+    serves every row; on all-greedy rows it must emit the greedy oracle
+    (each drafted token accepted while it equals the argmax before it,
+    then the argmax at the stop slot), token for token: with drafts
+    accepted and rejected, and with non-finite logits in some rows (the
+    engine aborts those rows, but the packed result must not differ)."""
+    B, S, V = 6, 5, 64
+    rs = np.random.RandomState(7)
+    lg = _logits(B, S, V, 5)
+    greedy = lg.argmax(-1)
+    ids = rs.randint(0, V, (B, S)).astype(np.int32)
+    for b in range(B):
+        n_ok = rs.randint(0, S)
+        ids[b, 1:1 + n_ok] = greedy[b, :n_ok]
+    spec_lens = rs.randint(0, S, B).astype(np.int32)
+    if case == "nonfinite":
+        lg[1, 0, 3] = np.nan
+        lg[2, 2, :] = np.inf
+        lg[4, 1, 7] = -np.inf
+    greedy = torch.argmax(torch.from_numpy(lg), dim=-1).numpy()
+    want_n = np.zeros(B, np.int32)
+    want_run = np.zeros((B, S), np.int32)
+    for b in range(B):
+        n = 0
+        while n < spec_lens[b] and ids[b, n + 1] == greedy[b, n]:
+            n += 1
+        want_n[b] = n
+        want_run[b, :n] = ids[b, 1:n + 1]
+        want_run[b, n:] = greedy[b, n]
+    args = [torch.from_numpy(a) for a in (
+        lg, ids, spec_lens, np.zeros(B, np.float32), np.zeros(B, np.int32),
+        np.ones(B, np.float32))]
+    got_run, got_n = tspec.spec_emit_arrays(
+        *args, generator=torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(got_n.numpy(), want_n)
+    np.testing.assert_array_equal(got_run.numpy(), want_run)
+    if case == "drafts":
+        assert want_n.max() > 0 and (want_n < spec_lens).any()
