@@ -40,7 +40,8 @@ Phases, in order; any failure exits nonzero:
    host sync per step and an idle pool after; the ragged launches are
    also reported by step width, the replays by bucket, the warmup's
    seconds, and the device busy share (CUDA events around every step's
-   copy-in and replay, over the wave's wall time).
+   copy-in and replay, over the wave's wall time; recorded from the host,
+   so a host gap inside the pair counts as busy: an upper bound).
    3b. The same with kv_dtype="int8": every ragged launch is the int8
    variant, and the append kernel runs for K and V in every layer and
    step.
@@ -53,6 +54,31 @@ Phases, in order; any failure exits nonzero:
    steps run their program's body eagerly (the staged inputs copied in,
    then `body()`): greedy tokens equal to phase 3's and 3b's graph
    replays, token for token.
+   3e. The HTTP front door on phase 3's model and prompts:
+   `ServingServer` (loopback, ephemeral port) over `AsyncLLMEngine` over
+   LLMEngine(block_size=16, max_batch=8, spec_decoding=True, warmup=True,
+   trace=1.0, slo=True, postmortem_dir=<tmp>), 32 greedy tokens a
+   request. The 8 prompts one at a time (SSE and full responses in turn)
+   give the tokens of a second engine of the same build driven by
+   `step()` alone. Then all 8 at once through the server (4 streamed,
+   two tenant/priority classes), with the ragged launches set to 0 just
+   before and read just after (24 a step), no program built,
+   `jit_retraces` 0, one host sync a step, the pool idle. Then the timed
+   comparison, on the direct engine and through the server in turns
+   (direct, HTTP, HTTP, direct, direct, HTTP): each wave the 8 prompts 32
+   times over (256 requests), 16 live at once (a finished request's
+   client sends the next), with the HTTP waves held to the same checks;
+   each wave's tok/s, TTFT p50 (engine side; over HTTP also client side)
+   and host ms inside steps, and their medians beside phase 3's. Then one
+   wave of 32 requests each way under torch.profiler: the device busy
+   share is the union of the card's kernel and copy intervals over the
+   wave's wall. Then `/healthz`, `/metrics` (lifecycle, mesh, step and
+   `slo_*` families), `/debug/trace` (step phases plan, build, dispatch,
+   sync, emit) and `/debug/slo` (one class per one sent). Then a
+   wave with a non-finite row pinned to one request (that request alone
+   ends in error, one postmortem bundle) and a wave with a raising step
+   (the supervisor's bisection recovers it; every request completes);
+   `jit_retraces` stays 0; a drain leaves the lifecycle `stopped`.
 4. float32 parity: gpt_1p3b widths at 4 layers, greedy LLMEngine (the
    kernel, through captured graphs) against GPT.generate (contiguous
    cache, no kernel).
@@ -104,10 +130,13 @@ nvidia-smi name/power-limit line, and last `{"ok": true, "device":
 {...}}`.
 """
 import argparse
+import asyncio
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -558,8 +587,10 @@ def serving_engine(model, kv_dtype=None):
 
 class StepEvents:
     """CUDA events around every step program call (the staged inputs'
-    copy and the graph replay), for the device time the steps take: the
-    serve phase's device busy ms. Two event records a step."""
+    copy and the graph replay), for the serve phase's device busy ms. Two
+    event records a step. The events are recorded from the host, so a
+    host gap between the copy-in and the replay counts as busy: an upper
+    bound on the device's busy time."""
 
     def __enter__(self):
         from paddle_tpu_torch.serving import engine as em
@@ -798,6 +829,342 @@ def overcap_pair(model):
         [a == b for a, b in zip(outs[None], outs["int8"])]))
     log("[overcap] " + json.dumps(res))
     assert res["capacity_ratio"] >= 1.9, res
+    return res
+
+
+# -- phase 3e -----------------------------------------------------------------
+
+# the engine build of both phase 3e engines (the server's also writes
+# postmortem bundles)
+FRONT_DOOR = dict(block_size=16, max_batch=8, spec_decoding=True, warmup=True,
+                  trace=1.0, slo=True)
+# the concurrent waves' SLO classes: (tenant, priority) by request index
+CLASSES = [("t0", "interactive"), ("t1", "batch")]
+# the timed comparison: each wave serves the 8 prompts TIMED_ROUNDS times
+# over with CLIENTS requests live at once (twice max_batch, so the batch
+# stays full), seconds of wall; the profiled pair serves them
+# PROFILED_ROUNDS times (a profile takes seconds to read)
+TIMED_ROUNDS, CLIENTS, PROFILED_ROUNDS = 32, 16, 4
+
+
+async def _post(port, body):
+    """One /v1/completions exchange over loopback: (status, tokens,
+    finish_reason, seconds to the first SSE token or None)."""
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = json.dumps(body).encode()
+    writer.write((f"POST /v1/completions HTTP/1.1\r\nHost: smoke\r\n"
+                  f"Content-Type: application/json\r\n"
+                  f"Content-Length: {len(data)}\r\n\r\n").encode() + data)
+    await writer.drain()
+    status = int((await reader.readline()).split(b" ")[1])
+    while (await reader.readline()).strip():
+        pass                                   # the response headers
+    toks, reason, ttft = [], None, None
+    if body.get("stream"):
+        while line := await reader.readline():
+            if not line.startswith(b"data: ") or line.strip() == \
+                    b"data: [DONE]":
+                continue
+            choice = json.loads(line[6:])["choices"][0]
+            if choice["token_ids"] and ttft is None:
+                ttft = time.perf_counter() - t0
+            toks += choice["token_ids"]
+            reason = choice["finish_reason"] or reason
+    else:
+        out = json.loads(await reader.read())
+        if status == 200:
+            toks = out["choices"][0]["token_ids"]
+            reason = out["choices"][0]["finish_reason"]
+    writer.close()
+    return status, toks, reason, ttft
+
+
+async def _get(port, path):
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: smoke\r\n\r\n".encode())
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split(b" ")[1]), body
+
+
+def _in_step_ms(engine, since):
+    """Host wall ms inside `LLMEngine.step` calls that began at or after
+    monotonic time `since`: the tracer's step spans (plan to emit)."""
+    t = engine.tracer.ts(since)
+    return sum(e["dur"] for e in engine.tracer.chrome_trace()["traceEvents"]
+               if e["name"].startswith("step[") and e["ts"] >= t) / 1e3
+
+
+def _direct(engine, prompts, ids, clients=None):
+    """Serve `prompts` on `engine` by `step()` alone, at most `clients`
+    requests live at once (all at once by default; a finished request's
+    slot takes the next prompt, as a client of the server sends its next
+    request when its last one ends). Returns ({id: tokens}, the wave's
+    numbers)."""
+    todo = list(zip(ids, prompts))[::-1]
+    live, out, ttft = {}, {}, []
+
+    def admit():
+        rid, p = todo.pop()
+        engine.add_request(p, max_new_tokens=32, temperature=0.0,
+                           request_id=rid)
+        live[rid] = engine.get_request(rid)
+
+    steps0, mono0 = engine.step_count, time.monotonic()
+    t0 = time.perf_counter()
+    for _ in range(min(clients or len(todo), len(todo))):
+        admit()
+    while live:
+        engine.step()
+        for rid in [rid for rid, r in live.items() if r.finished]:
+            r = live.pop(rid)
+            out[rid] = list(r.output_ids)
+            ttft.append(r.first_token_time - r.arrival_time)
+            engine.release(rid)
+            if todo:
+                admit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, dict(
+        requests=len(prompts), steps=engine.step_count - steps0,
+        wall_s=wall, tok_per_s=sum(map(len, out.values())) / wall,
+        ttft_p50_ms=float(np.median(ttft)) * 1e3,
+        in_step_ms=_in_step_ms(engine, mono0))
+
+
+async def _http_wave(engine, port, prompts, tag, clients=None):
+    """`prompts` through the server, at most `clients` requests in flight
+    (all at once by default; each client sends its next request when its
+    last one ends), even ones streamed, two tenant/priority classes, the
+    ragged launch counts set to 0 just before and read just after.
+    Returns the wave's numbers; fails on a request that did not finish, a
+    program built, a second host sync in a step, a launch count off 24 a
+    step, or a busy pool after."""
+    c = engine.metrics.counters
+    traces0, steps0, syncs0 = (c["jit_traces"], engine.step_count,
+                               c["host_syncs"])
+    engine.metrics.reset_schedule()
+    todo = list(enumerate(prompts))[::-1]
+    wave = [None] * len(prompts)
+
+    async def client():
+        while todo:
+            i, p = todo.pop()
+            wave[i] = await _post(port, {
+                "prompt": p, "max_tokens": 32, "stream": i % 2 == 0,
+                "request_id": f"{tag}-{i}", "tenant": CLASSES[i % 2][0],
+                "priority": CLASSES[i % 2][1]})
+
+    mono0 = time.monotonic()
+    _zero_counts()
+    t0 = time.perf_counter()
+    await asyncio.gather(*[client() for _ in range(clients or len(todo))])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, int8_launches, _ = _read_counts()
+    steps = engine.step_count - steps0
+    rec = dict(
+        requests=len(prompts), steps=steps, wall_s=wall,
+        tok_per_s=sum(len(t) for _, t, _, _ in wave) / wall,
+        ttft_p50_ms=engine.metrics.latency_summary()["ttft"]["p50_ms"],
+        http_ttft_p50_ms=float(np.median(
+            [f for _, _, _, f in wave if f is not None])) * 1e3,
+        in_step_ms=_in_step_ms(engine, mono0), launches=launches,
+        host_syncs=int(c["host_syncs"] - syncs0))
+    assert all(s == 200 and r == "length" and len(t) == 32
+               for s, t, r, _ in wave), wave
+    assert engine.pool.num_free == engine.pool.num_blocks - 1
+    assert c["jit_traces"] == traces0, rec
+    assert engine.metrics.gauges["jit_retraces"] == 0, rec
+    assert rec["host_syncs"] == steps, rec
+    assert launches == engine.model.cfg.num_layers * steps, rec
+    assert not int8_launches, rec
+    return rec
+
+
+def _device_busy_ms(prof):
+    """Device time in a torch.profiler trace: the union of its kernel,
+    copy and set intervals on the card, in ms (CUPTI timestamps, so no
+    host gap counts)."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3
+
+
+def _with_busy(rec, prof):
+    """A wave's numbers with the device busy ms of its profile `prof`
+    (read after the wave's clock stopped) and their share of its wall."""
+    busy = _device_busy_ms(prof)
+    return dict(rec, device_busy_ms=busy,
+                device_busy_share=busy / 1e3 / rec["wall_s"])
+
+
+def _medians(runs):
+    return {k: float(np.median([r[k] for r in runs]))
+            for k in runs[0] if k != "requests"}
+
+
+def front_door(model, served):
+    """Phase 3e: the HTTP front door (`ServingServer` over
+    `AsyncLLMEngine` over `LLMEngine`) on phase 3's model and prompts."""
+    return asyncio.run(_front_door(model, served))
+
+
+async def _front_door(model, served):
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.serving import LLMEngine, ServingServer, faults
+
+    prompts = _prompts(np.random.RandomState(0), model.cfg.vocab_size)
+    n = len(prompts)
+    pm_dir = tempfile.mkdtemp(prefix="front-door-pm-")
+    res = {}
+    try:
+        # the direct engine: the same build, driven by step() alone
+        direct = LLMEngine(model, **FRONT_DOOR)
+        seq_direct = {}
+        for i, p in enumerate(prompts):
+            seq_direct.update(_direct(direct, [p], [f"s{i}"])[0])
+        engine = LLMEngine(model, postmortem_dir=pm_dir, **FRONT_DOOR)
+        server = ServingServer(engine, host="127.0.0.1", port=0)
+        await server.start()
+        port = server.port
+        # 1. one request at a time, alternating SSE and full responses:
+        # token for token the direct engine's
+        seq = []
+        for i, p in enumerate(prompts):
+            seq.append(await _post(port, {
+                "prompt": p, "max_tokens": 32, "stream": i % 2 == 0,
+                "request_id": f"s{i}"}))
+        equal = sum(toks == seq_direct[f"s{i}"]
+                    for i, (_, toks, _, _) in enumerate(seq))
+        res["sequential"] = dict(requests=n, equal=int(equal))
+        assert all(s == 200 and r == "length" for s, _, r, _ in seq), seq
+        assert equal == n, res["sequential"]
+
+        # 2. the 8 prompts at once through the server: the checks
+        res["concurrent"] = await _http_wave(engine, port, prompts, "c")
+
+        # 3. the timed comparison: TIMED_ROUNDS x the 8 prompts on the
+        # direct engine and through the server in turns (D H H D D H),
+        # CLIENTS requests live at once, warm prefix caches on both after
+        # the sequential pass; then one shorter wave each way under the
+        # profiler for the device busy share
+        timed = prompts * TIMED_ROUNDS
+        runs = {"direct": [], "http": []}
+        for r, way in enumerate("DHHDDH"):
+            if way == "D":
+                runs["direct"].append(_direct(
+                    direct, timed, [f"d{r}-{i}" for i in range(len(timed))],
+                    CLIENTS)[1])
+            else:
+                runs["http"].append(await _http_wave(
+                    engine, port, timed, f"w{r}", CLIENTS))
+        short = prompts * PROFILED_ROUNDS
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rec = _direct(direct, short,
+                          [f"pd-{i}" for i in range(len(short))], CLIENTS)[1]
+        res["profiled"] = {"direct": _with_busy(rec, prof)}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rec = await _http_wave(engine, port, short, "ph", CLIENTS)
+        res["profiled"]["http"] = _with_busy(rec, prof)
+        del direct
+        torch.cuda.empty_cache()
+        res.update(direct_waves=runs["direct"], http_waves=runs["http"])
+        res["direct"], res["http"] = (_medians(runs["direct"]),
+                                      _medians(runs["http"]))
+        res["http_over_direct_tok_per_s"] = (res["http"]["tok_per_s"]
+                                             / res["direct"]["tok_per_s"])
+        res["launches"] = (res["concurrent"]["launches"]
+                           + res["profiled"]["http"]["launches"]
+                           + sum(w["launches"] for w in runs["http"]))
+        res["phase3"] = dict(tok_per_s=served["tok_per_s"],
+                             ttft_p50_ms=served["ttft_p50_ms"])
+        ms, metrics = await _get(port, "/metrics")
+        hs, health = await _get(port, "/healthz")
+        ts, trace = await _get(port, "/debug/trace")
+        ss, slo = await _get(port, "/debug/slo")
+        metrics, health = metrics.decode(), json.loads(health)
+        trace, slo = json.loads(trace), json.loads(slo)
+        phases = {e["name"] for e in trace["traceEvents"]
+                  if e.get("pid") == 1 and e.get("tid") == 0
+                  and e["ph"] == "X" and not e["name"].startswith("step[")}
+        classes = sorted((k["tenant"], k["priority"])
+                         for k in slo["classes"])
+        res["endpoints"] = dict(step_phases=sorted(phases),
+                                slo_classes=classes)
+        assert ms == hs == ts == ss == 200, (ms, hs, ts, ss)
+        assert health["status"] == "ok" and health["mesh"]["backend"] == \
+            "cuda", health
+        for family in ("lifecycle_state", "mesh_tp_degree 1",
+                       "mixed_step_seconds", "decode_step_seconds",
+                       "slo_ttft_seconds", "slo_requests_total"):
+            assert f"paddle_tpu_serving_{family}" in metrics, family
+        assert phases == {"plan", "build", "dispatch", "sync", "emit"}, \
+            phases
+        # besides the waves': the sequential requests (no labels) and the
+        # warmup's synthetic ones
+        assert set(classes) == set(CLASSES) | {("-", "-"),
+                                               ("_warmup", "-")}, classes
+
+        # 4. faults: a non-finite row pinned to one request, then a raise
+        # at one step of a second wave
+        c = engine.metrics.counters
+        traces0 = c["jit_traces"]
+        faults.install(faults.FaultPlan(
+            [{"point": "step_nonfinite_logits", "request_id": "f2"}]))
+        nf = await asyncio.gather(*[_post(port, {
+            "prompt": p, "max_tokens": 32, "stream": i % 2 == 0,
+            "request_id": f"f{i}"}) for i, p in enumerate(prompts)])
+        faults.clear()
+        errors0 = c.get("engine_step_errors", 0)
+        faults.install(faults.FaultPlan(
+            [{"point": "step_raise", "at_step": engine.step_count + 3}]))
+        sr = await asyncio.gather(*[_post(port, {
+            "prompt": p, "max_tokens": 32, "stream": i % 2 == 0,
+            "request_id": f"r{i}"}) for i, p in enumerate(prompts)])
+        faults.clear()
+        ends = {e["args"]["request_id"]: e["args"]["reason"]
+                for e in json.loads((await _get(port, "/debug/trace"))[1])[
+                    "traceEvents"] if e["name"] == "request"}
+        ps, pm = await _get(port, "/debug/postmortem")
+        bundles = json.loads(pm)["bundles"]
+        res["faults"] = dict(
+            nonfinite=[r for _, _, r, _ in nf], nonfinite_end=ends["f2"],
+            step_raise=[r for _, _, r, _ in sr],
+            step_errors=int(c.get("engine_step_errors", 0) - errors0),
+            probes=int(c.get("engine_step_retries", 0)),
+            bundles=[b["event"] for b in bundles],
+            jit_retraces=engine.metrics.gauges["jit_retraces"])
+        f = res["faults"]
+        assert f["nonfinite"][2] == "error" and ends["f2"] == \
+            "error:nonfinite_logits", f
+        assert all(r == "length" and len(t) == 32
+                   for i, (_, t, r, _) in enumerate(nf) if i != 2), nf
+        assert all(s == 200 and r == "length" and len(t) == 32
+                   for s, t, r, _ in sr), sr
+        assert f["step_errors"] == 1 and f["probes"] > 0, f
+        assert ps == 200 and "nonfinite_row" in f["bundles"], f
+        assert f["jit_retraces"] == 0 and c["jit_traces"] == traces0, f
+
+        # 5. drain
+        await server.shutdown(drain=True)
+        res["lifecycle"] = engine.lifecycle.state
+        assert res["lifecycle"] == "stopped"
+        assert engine.pool.num_free == engine.pool.num_blocks - 1
+    finally:
+        faults.clear()
+        shutil.rmtree(pm_dir, ignore_errors=True)
+    log("[front-door] " + json.dumps(res))
+    del engine
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1517,6 +1884,7 @@ def main():
     overcap = overcap_pair(model)
     graph_eager = [eager_tokens(model, graph_outs),
                    eager_tokens(model, graph_outs_int8, "int8")]
+    http = front_door(model, served)
     del model
     torch.cuda.empty_cache()
     par = parity()
@@ -1546,6 +1914,10 @@ def main():
             "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/paged_attention.py:108",
             "launches": launches,
+            # the HTTP front door's concurrent wave (phase 3e) launches
+            # the float arena's kernels too
+            **({"front_door_launches": http["launches"]}
+               if arena == "float" else {}),
             "max_abs_err": max(r["max_err"] for r in mine
                                if r["dtype"] == "bfloat16"),
             "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
@@ -1649,6 +2021,7 @@ def main():
             json.dump(dict(card=smi, kind=kind, kernels=kernels,
                            appends=appends, graph_vs_eager=graph_eager,
                            serve=served, serve_int8=served_int8,
+                           front_door=http,
                            overcap=overcap, parity=par, parity_int8=par_int8,
                            train=trained, train_parity=tpar, ernie=ernie,
                            train_dropout=gpt_drop, ernie_parity=epar), f,

@@ -9,10 +9,10 @@ from .models.bert import (Bert, BertConfig, bert_base,
                           bert_pretrain_loss_fn, ernie_base)
 from .models.gpt import GPT, GPTConfig, gpt_1p3b, gpt_small, gpt_tiny
 from .optimizer import AdamW
-from .serving import LLMEngine
+from .serving import AsyncLLMEngine, LLMEngine, ServingServer
 from .weights import from_jax_state_dict, to_jax_state_dict
 
-__all__ = ["AdamW", "Bert", "BertConfig", "GPT", "GPTConfig", "LLMEngine",
-           "bert_base", "bert_pretrain_loss_fn", "ernie_base",
+__all__ = ["AdamW", "AsyncLLMEngine", "Bert", "BertConfig", "GPT",
+           "GPTConfig", "LLMEngine", "ServingServer", "bert_base", "bert_pretrain_loss_fn", "ernie_base",
            "from_jax_state_dict", "gpt_1p3b", "gpt_small", "gpt_tiny",
            "to_jax_state_dict"]

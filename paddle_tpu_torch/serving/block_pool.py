@@ -28,6 +28,10 @@ pops truly-free blocks first and evicts cached blocks oldest-first only
 when the free list runs dry. Writes into a block shared by several
 sequences go through copy-on-write (`copy_blocks` + the scheduler's
 `_ensure_writable`).
+
+With a lifecycle tracer (serving/trace.py) the pool marks evictions and
+injected ``alloc_fail`` faults (serving/faults.py) as instants on its
+``block-pool`` track; without one each hook is one pointer test.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from . import faults
 
 
 def blocks_for(num_tokens, block_size):
@@ -239,7 +244,7 @@ class BlockPool:
 
     def __init__(self, num_blocks, num_layers, block_size, num_heads,
                  head_dim, dtype=torch.float32, device=None, metrics=None,
-                 kv_dtype=None):
+                 tracer=None, kv_dtype=None):
         if num_blocks < 2:
             raise ValueError("BlockPool needs >= 2 blocks (block 0 is null)")
         if kv_dtype not in (None, "int8"):
@@ -268,6 +273,7 @@ class BlockPool:
         self._cached = OrderedDict()  # refcount-0 indexed blocks, LRU order
         self.evictions = 0
         self.metrics = metrics
+        self.tracer = tracer          # serving/trace.py EngineTracer or None
 
     @property
     def num_free(self):
@@ -305,10 +311,19 @@ class BlockPool:
         """Pop `n` blocks, or None if not enough. Truly-free blocks go
         first; then cached-free blocks are evicted LRU-first. ``evict=False``
         restricts the request to truly-free blocks (speculative
-        reservations never push a cached prefix out)."""
+        reservations never push a cached prefix out). An armed
+        ``alloc_fail`` fault reports the pool dry: callers defer or
+        preempt exactly as under real block pressure."""
+        if faults._PLAN is not None:
+            fp = faults._PLAN.match("alloc_fail")
+            if fp is not None:
+                if self.tracer is not None:
+                    self.tracer.pool_instant("fault[alloc_fail]", {"n": n})
+                return None
         if n > (self.num_free if evict else len(self._free)):
             return None
         out = []
+        n_evicted = 0
         for _ in range(n):
             if self._free:
                 b = self._free.pop()
@@ -317,10 +332,16 @@ class BlockPool:
                 h = self._block_hash.pop(b)
                 del self._hash_index[h]
                 self.evictions += 1
+                n_evicted += 1
                 if self.metrics is not None:
                     self.metrics.inc("prefix_cache_evictions")
             self._refcount[b] = 1
             out.append(b)
+        if self.tracer is not None and n_evicted:
+            self.tracer.pool_instant(
+                "evict", {"blocks": n_evicted,
+                          "cached_free": len(self._cached),
+                          "truly_free": len(self._free)})
         return out
 
     def release(self, blocks, hashes=()):

@@ -44,12 +44,44 @@ workspace, and the model's parameters, so weights are loaded
 (`weights.from_jax_state_dict`) before the engine is built and never
 replaced while it serves.
 
+**Fault tolerance and observability**, each off by default behind one
+pointer test per hook site, as in the JAX engine: ``step(only=...)``
+restricts a step to a set of request ids (the supervisor's bisection,
+serving/supervisor.py, with ``requeue`` re-queueing the rest); a fault plan
+(serving/faults.py, ``PADDLE_TPU_FAULTS``) fires at the step and alloc
+hook sites; ``trace=`` (serving/trace.py) records request lifecycles and a
+per-step phase timeline (``plan``, ``build``, ``dispatch``, ``sync``,
+``emit``), the dispatch running under a `torch.profiler.record_function`
+range named after the step id; ``slo=`` (serving/slo.py) keeps the
+per-request phase clock and per-(tenant, priority) rollups;
+``postmortem_dir=`` (serving/postmortem.py) writes a bundle per fault
+event; ``request_log=`` logs one JSON line per finished request; a
+``policy`` (serving/policy.py) orders admission by priority and tenant
+fairness and early-rejects deadline-doomed requests. `lifecycle`
+(serving/lifecycle.py) walks cold -> loading -> warm here and serving ->
+draining -> stopped under the async frontend (serving/frontend.py). None
+of these hooks reads a device value or touches a captured graph: they
+read host clocks and the one packed result the step already copies back.
+
+Every keyword left as None reads the JAX engine's environment switch
+(``PADDLE_TPU_PREFIX_CACHE``, ``_SPEC_DECODE``, ``_KV_DTYPE``,
+``_WIDTH_BUCKETS``, ``_TRACE``, ``_TRACE_BUF``, ``_REQUEST_LOG``, ``_SLO``,
+``_POSTMORTEM_DIR``, ``_POSTMORTEM_KEEP``, ``_FAULTS``) exactly as that
+engine does. ``PADDLE_TPU_TP``, ``_HOST_KV_BLOCKS`` and
+``_QUANT_ALLREDUCE`` name parts the port has not reached: set to anything
+but their "off" value, they raise `NotImplementedError`.
+
 The engine runs on CUDA unless `device` says otherwise; the model must
 live on the engine's device. Options of the JAX engine that this port does
 not have yet raise `NotImplementedError` at construction.
 """
 from __future__ import annotations
 
+import contextlib
+import json
+import logging
+import os
+import threading
 import time
 import warnings
 from collections import namedtuple
@@ -58,13 +90,30 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..profiler.tracing import trace_capacity_from_env, trace_sample_from_env
+from . import faults
 from .block_pool import (BlockPool, PagedState, blocks_for,
                          chain_block_hashes, kv_capacity_blocks)
+from .faults import FaultInjected
+from .lifecycle import ReplicaLifecycle
 from .metrics import ServingMetrics
-from .scheduler import Request, Scheduler
+from .policy import as_policy
+from .postmortem import FlightRecorder
+from .scheduler import WAITING, Request, Scheduler
+from .slo import SLOLedger
 from .spec import NgramDrafter, spec_emit_arrays
+from .trace import EngineTracer
+
+_request_log = logging.getLogger("paddle_tpu_torch.serving.request")
 
 StepOutput = namedtuple("StepOutput", ["request_id", "token", "finished"])
+
+
+def _env_flag(name, default):
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() not in ("0", "false", "off", "no", "")
 
 # constructor options of the JAX engine that later slices of the port add
 # (ROADMAP.md), with the value that means "off"
@@ -73,14 +122,7 @@ _LATER = {
     "quantize": (None, "int8 (AdaRound) weights"),
     "lora_slots": (0, "LoRA adapter serving"),
     "host_kv_blocks": (None, "the host KV tier"),
-    "policy": (None, "the scheduling policy"),
-    "trace": (None, "the lifecycle tracer"),
-    "slo": (None, "the SLO ledger"),
     "checkpoint_path": (None, "checkpoint streaming"),
-    "trace_buffer": (None, "the lifecycle tracer's buffer"),
-    "request_log": (None, "the request log"),
-    "postmortem_dir": (None, "postmortem dumps"),
-    "postmortem_keep": (None, "postmortem dumps"),
     "host_swap_chunk": (4, "the host KV tier"),
     "calib_prompts": (None, "int8 (AdaRound) weights"),
     "quantize_iters": (300, "int8 (AdaRound) weights"),
@@ -96,14 +138,36 @@ _LATER = {
 _ROW_FIELDS = ("ids", "qpos", "slots", "offs")
 _LANE_FIELDS = ("q_start", "kv_live", "last_idx", "spec_lens", "top_ks")
 
+# environment switches of the JAX engine that name a part the port has not
+# reached: (variable, what it turns on, its "off" test)
+_LATER_ENV = (
+    ("PADDLE_TPU_TP", "tensor-parallel serving",
+     lambda v: int(v or 1) <= 1),
+    ("PADDLE_TPU_HOST_KV_BLOCKS", "the host KV tier",
+     lambda v: not int(v or 0)),
+    ("PADDLE_TPU_QUANT_ALLREDUCE", "int8 (AdaRound) weights",
+     lambda v: v.strip().lower() in ("", "0", "false", "off", "no")),
+)
+
+
+def _refuse_later_env():
+    for name, what, off in _LATER_ENV:
+        v = os.environ.get(name)
+        if v is not None and not off(v):
+            raise NotImplementedError(
+                f"{name}={v!r}: {what} is not in the PyTorch port yet; "
+                "ROADMAP.md queues it for a later slice")
+
 
 class LLMEngine:
     def __init__(self, model, device=None, block_size=16, num_blocks=None,
                  max_batch=4, prefill_chunk=None, token_budget=None,
-                 max_seq_len=None, seed=0, prefix_cache=True,
-                 spec_decoding=False, num_spec_tokens=4, spec_max_ngram=3,
+                 max_seq_len=None, seed=0, prefix_cache=None,
+                 spec_decoding=None, num_spec_tokens=4, spec_max_ngram=3,
                  spec_min_ngram=1, kv_hbm_bytes=None, width_buckets=None,
                  kv_dtype=None, prefill_buckets=None, prefill_interval=None,
+                 trace=None, trace_buffer=None, request_log=None, slo=None,
+                 postmortem_dir=None, postmortem_keep=None, policy=None,
                  warmup=False, **later):
         for name, value in later.items():
             if name not in _LATER:
@@ -114,6 +178,9 @@ class LLMEngine:
                 raise NotImplementedError(
                     f"{name}={value!r}: {what} is not in the PyTorch port "
                     "yet; ROADMAP.md queues it for a later slice")
+        _refuse_later_env()
+        if kv_dtype is None:
+            kv_dtype = os.environ.get("PADDLE_TPU_KV_DTYPE", "") or None
         if kv_dtype is not None and kv_dtype != "int8":
             raise ValueError(
                 f"kv_dtype {kv_dtype!r} not supported: pass 'int8' for the "
@@ -166,10 +233,12 @@ class LLMEngine:
         if token_budget is None:
             token_budget = self.max_batch * self.prefill_chunk
         self.prefill_chunk = min(self.prefill_chunk, int(token_budget))
-        # None takes the default, as in the JAX engine (which also reads an
-        # env switch there; the port has none)
-        self.prefix_cache = prefix_cache is None or bool(prefix_cache)
-        self.spec_decoding = bool(spec_decoding)
+        # the constructor argument wins, then the env switch
+        self.prefix_cache = (_env_flag("PADDLE_TPU_PREFIX_CACHE", True)
+                             if prefix_cache is None else bool(prefix_cache))
+        self.spec_decoding = (_env_flag("PADDLE_TPU_SPEC_DECODE", False)
+                              if spec_decoding is None
+                              else bool(spec_decoding))
         self.num_spec_tokens = int(num_spec_tokens)
         drafter = None
         if self.spec_decoding:
@@ -181,12 +250,16 @@ class LLMEngine:
                                    max_ngram=spec_max_ngram,
                                    min_ngram=spec_min_ngram)
         # ragged width buckets: {1, 1 + num_spec_tokens, prefill_chunk}
-        # plus any intermediate widths the caller asks for
+        # plus any intermediate widths the caller (or
+        # PADDLE_TPU_WIDTH_BUCKETS, "8,32") asks for
+        if width_buckets is None:
+            wb = os.environ.get("PADDLE_TPU_WIDTH_BUCKETS", "")
+            width_buckets = [int(w) for w in wb.split(",") if w.strip()]
         buckets = {1, self.prefill_chunk}
         if self.spec_decoding:
             buckets.add(min(1 + self.num_spec_tokens, self.max_seq_len))
         top = max(buckets)
-        for w in width_buckets or ():
+        for w in width_buckets:
             w = int(w)
             if w < 1:
                 raise ValueError(f"width_buckets entries must be >= 1; "
@@ -195,22 +268,76 @@ class LLMEngine:
                 buckets.add(w)
         self.width_buckets = sorted(buckets)
         self.metrics = ServingMetrics()
+        # cold -> loading -> warm here; the async frontend drives serving,
+        # draining and stopped
+        self.lifecycle = ReplicaLifecycle(metrics=self.metrics)
+        # tracing: a value in (0, 1) samples that fraction of requests;
+        # the step timeline is recorded whenever the tracer exists
+        if trace is None:
+            sample = trace_sample_from_env()
+        elif trace is True:
+            sample = 1.0
+        elif trace is False:
+            sample = 0.0
+        else:
+            sample = min(max(float(trace), 0.0), 1.0)
+        cap = (trace_capacity_from_env() if trace_buffer is None
+               else max(16, int(trace_buffer)))
+        self.tracer = (EngineTracer(capacity=cap, sample=sample)
+                       if sample > 0.0 else None)
+        self.request_log = (_env_flag("PADDLE_TPU_REQUEST_LOG", False)
+                            if request_log is None else bool(request_log))
+        pm_dir = (os.environ.get("PADDLE_TPU_POSTMORTEM_DIR")
+                  if postmortem_dir is None else postmortem_dir) or None
+        self.recorder = None
+        if pm_dir:
+            keep = (int(postmortem_keep) if postmortem_keep is not None
+                    else int(os.environ.get("PADDLE_TPU_POSTMORTEM_KEEP",
+                                            "16") or 16))
+            self.recorder = FlightRecorder(pm_dir, keep=keep).attach(self)
+        # the SLO ledger rides along whenever the request log or the
+        # flight recorder is on: both embed its decomposition
+        slo_on = (_env_flag("PADDLE_TPU_SLO", False) if slo is None
+                  else bool(slo))
+        self.slo = (SLOLedger(metrics=self.metrics)
+                    if slo_on or self.request_log
+                    or self.recorder is not None else None)
+        self.lifecycle.to("loading", "placing weights")
         self.pool = BlockPool(num_blocks, cfg.num_layers, self.block_size,
                               cfg.num_heads, head_dim, dtype=model.dtype,
                               device=self.device, metrics=self.metrics,
-                              kv_dtype=kv_dtype)
+                              tracer=self.tracer, kv_dtype=kv_dtype)
+        mi = self.mesh_info()
+        self.metrics.set_gauge("mesh_tp_degree", mi["tp_degree"])
+        self.metrics.set_gauge("mesh_device_count", mi["device_count"])
+        self.metrics.set_info("mesh", {"backend": mi["backend"]})
         self.metrics.set_gauge("kv_bytes_per_block",
                                self.pool.bytes_per_block())
         self.metrics.set_info("kv", {"dtype": self.pool.kv_dtype})
+        self.policy = as_policy(policy)
         self.scheduler = Scheduler(
             self.pool, max_batch=self.max_batch,
             token_budget=int(token_budget), prefill_chunk=self.prefill_chunk,
             metrics=self.metrics, prefix_cache=self.prefix_cache,
-            drafter=drafter, width_buckets=self.width_buckets)
+            drafter=drafter, tracer=self.tracer, slo=self.slo,
+            width_buckets=self.width_buckets, policy=self.policy)
         self._requests = {}
+        self._phases = {}   # current step's {phase: (t0, t1)} when tracing
+        # stamped by AsyncLLMEngine.start(): while that thread lives, the
+        # synchronous drive surface refuses other threads (`_guard_thread`)
+        self._engine_thread = None
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
-        self.step_count = 0      # planned steps run
+        # the stream the step programs stage their inputs and replay on:
+        # the constructing thread's (warmup's), which `device_scope` hands
+        # to the async frontend's loop thread
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
+        # arm the PADDLE_TPU_FAULTS plan if one is configured
+        faults.maybe_install_from_env()
+        # supervision surface (serving/supervisor.py reads these)
+        self.step_count = 0      # planned steps run (bisection probes too)
+        self.last_planned = []   # request ids of the most recent plan
         self.step_faults = []    # (rid, detail) rows contained this step
         # the step program table, (max_batch, W) -> _StepProgram, and the
         # one private memory pool its CUDA graphs share
@@ -220,6 +347,8 @@ class LLMEngine:
         self._retrace_warned = False
         if warmup:
             self.warmup()
+        self.lifecycle.to("warm", "weights placed"
+                          + (" + programs built" if warmup else ""))
 
     def warmup(self):
         """Build the engine's whole width-bucket program table by serving
@@ -264,7 +393,7 @@ class LLMEngine:
                                       self.max_seq_len - mnt))
                     prompt = [(i % 3) + 1 for i in range(plen)]
                 rid = self.add_request(prompt, max_new_tokens=mnt,
-                                       temperature=0.0)
+                                       temperature=0.0, tenant="_warmup")
                 for _ in range(8 * mnt + 8):
                     if not self.has_unfinished():
                         break
@@ -287,6 +416,8 @@ class LLMEngine:
             raise RuntimeError(
                 f"warmup built {built}/{expected} width-bucket programs — "
                 f"buckets {missing} were never exercised")
+        self.lifecycle.warmed = True
+        self.lifecycle.programs_compiled = built
         self.metrics.set_gauge("warmup_programs", float(built))
         self.metrics.set_gauge("warmup_seconds",
                                round(time.monotonic() - t0, 3))
@@ -296,16 +427,38 @@ class LLMEngine:
 
     def add_request(self, prompt_ids, max_new_tokens=16, temperature=0.0,
                     eos_token_id=None, request_id=None, top_k=None,
-                    top_p=None, spec_decoding=None, num_spec_tokens=None):
+                    top_p=None, spec_decoding=None, num_spec_tokens=None,
+                    trace=None, tenant=None, priority=None,
+                    deadline_s=None, adapter=None):
         """Enqueue one generation request; returns its id. Admission
-        happens inside a later `step()`."""
+        happens inside a later `step()`. `trace` forces this request into
+        (out of) the tracer's sample; `tenant`/`priority` label its SLO
+        and policy class and `deadline_s` its attainment target;
+        `adapter` names a LoRA adapter, which this engine refuses (it has
+        no adapter slots)."""
         prompt_ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         req = Request(prompt_ids, max_new_tokens=max_new_tokens,
                       temperature=temperature, eos_token_id=eos_token_id,
                       request_id=request_id, top_k=top_k, top_p=top_p,
                       spec_decoding=spec_decoding,
-                      num_spec_tokens=num_spec_tokens)
+                      num_spec_tokens=num_spec_tokens, trace=trace,
+                      tenant=tenant, priority=priority,
+                      deadline_s=deadline_s, adapter=adapter)
         return self.add(req)
+
+    def mesh_info(self):
+        """Topology of this replica — {tp_degree, device_count, backend,
+        kv_dtype} — for /healthz and the ``mesh_*`` gauges. A one-card
+        engine reports degree and count 1 on its device's backend
+        ("cuda" or "cpu"); `kv_dtype` is the arena's."""
+        return {"tp_degree": 1, "device_count": 1,
+                "backend": self.device.type, "kv_dtype": self.pool.kv_dtype}
+
+    def load_adapter(self, name, weights, alpha=None):
+        """LoRA adapters are not in the port yet."""
+        raise NotImplementedError(
+            "load_adapter: LoRA adapter serving is not in the PyTorch port "
+            "yet; ROADMAP.md queues it for a later slice")
 
     def kv_capacity_blocks(self):
         """Usable KV blocks (the null block excluded)."""
@@ -314,7 +467,13 @@ class LLMEngine:
     def validate(self, req):
         """Raise ValueError on a request that could never complete: too
         long for the model, or needing more KV blocks at its worst case
-        than the pool holds. Returns that worst-case block need."""
+        than the pool holds, or naming a LoRA adapter (this engine has no
+        adapter slots: the JAX engine's ``lora_slots=0`` refusal). Returns
+        that worst-case block need."""
+        if req.adapter is not None:
+            raise ValueError(
+                f"request {req.request_id}: adapter {req.adapter!r} "
+                "on an engine built without LoRA slots (lora_slots=0)")
         if req.num_tokens + req.max_new_tokens > self.max_seq_len:
             raise ValueError(
                 f"request {req.request_id}: prompt {req.num_tokens} + "
@@ -337,8 +496,14 @@ class LLMEngine:
             req.block_hashes = chain_block_hashes(req.prompt_ids,
                                                   self.block_size)
         self._requests[req.request_id] = req
+        if self.slo is not None:
+            self.slo.begin(req)   # the `queued` phase opens at arrival
         self.scheduler.add(req)
         self.metrics.inc("requests_added")
+        tr = self.tracer
+        if tr is not None and tr.should_trace(req):
+            req.traced = True
+            tr.begin_request(req)
         return req.request_id
 
     def abort(self, request_id, reason="aborted"):
@@ -351,6 +516,27 @@ class LLMEngine:
         del self._requests[request_id]
         self._finalize(req, reason)
         return True
+
+    def requeue(self, request_id):
+        """Re-queue a live request by preempt-by-recompute: its KV blocks
+        return to the pool and it replays from scratch on re-admission
+        (the supervisor's recovery path). Returns True if the request is
+        (now) queued, False for unknown or finished ids."""
+        req = self._requests.get(request_id)
+        if req is None or req.finished:
+            return False
+        if req.state == WAITING:
+            return True          # already queued (e.g. a prior probe)
+        return self.scheduler.preempt(req)
+
+    def live_requests(self):
+        """Ids of requests not yet finished or aborted."""
+        return [rid for rid, r in self._requests.items() if not r.finished]
+
+    def peek_request(self, request_id):
+        """The request record (live or finished but unreleased), else
+        None; unlike `get_request` this never raises."""
+        return self._requests.get(request_id)
 
     def has_unfinished(self):
         return self.scheduler.has_unfinished()
@@ -463,18 +649,103 @@ class LLMEngine:
         return torch.cat([run, n_acc[:, None],
                           row_ok.to(torch.int32)[:, None]], dim=1)
 
+    # -- fault hooks (serving/faults.py; armed plans only) -------------------
+
+    def _fire_step_faults(self):
+        """Evaluate the step-scoped fault points against this step's plan,
+        in the order degrade -> hang -> raise. Only reached when a plan is
+        installed (the caller's one pointer test)."""
+        plan = faults._PLAN
+        tr = self.tracer
+        fp = plan.match("slow_step_ms", step=self.step_count,
+                        request_ids=self.last_planned)
+        if fp is not None:
+            if tr is not None:
+                tr.supervisor_instant("fault[slow_step_ms]",
+                                      {"step": self.step_count, "ms": fp.ms})
+            time.sleep((fp.ms or 0.0) / 1e3)
+        fp = plan.match("step_hang", step=self.step_count,
+                        request_ids=self.last_planned)
+        if fp is not None:
+            if tr is not None:
+                tr.supervisor_instant("fault[step_hang]",
+                                      {"step": self.step_count})
+            plan.hang(fp)
+        fp = plan.match("step_raise", step=self.step_count,
+                        request_ids=self.last_planned)
+        if fp is not None:
+            if tr is not None:
+                tr.supervisor_instant("fault[step_raise]",
+                                      {"step": self.step_count})
+            raise FaultInjected(
+                "step_raise",
+                None if fp.exc is None
+                else f"injected step fault ({fp.exc})")
+
+    def _corrupt_row_ok(self, rows, row_ok):
+        """``step_nonfinite_logits``: report the matched rows' logits as
+        non-finite, driving the containment path exactly as a poisoned
+        forward would. Works on the host copy of the step's one packed
+        result, so it adds no transfer. Only reached with a plan."""
+        plan = faults._PLAN
+        row_ok = np.array(row_ok)
+        for i, row in enumerate(rows):
+            fp = plan.match("step_nonfinite_logits", step=self.step_count,
+                            request_ids=(row.req.request_id,))
+            if fp is not None:
+                if self.tracer is not None:
+                    self.tracer.supervisor_instant(
+                        "fault[step_nonfinite_logits]",
+                        {"step": self.step_count,
+                         "request_id": row.req.request_id})
+                row_ok[i] = False
+        return row_ok
+
+    def _annotation(self, step_id):
+        """While tracing, the step's dispatch runs under a
+        `torch.profiler.record_function` range named after the step id,
+        the join key between a torch-profiler capture and the host step
+        timeline. A no-op context when tracing is off."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(
+            self.tracer.step_annotation(step_id))
+
     # -- one engine step -----------------------------------------------------
 
-    def step(self):
+    def step(self, only=None):
         """Run one mixed (or pure-decode) step; returns [StepOutput] for
-        every request that produced a token. Rows with non-finite logits
-        emit nothing; they are aborted and listed in ``self.step_faults``
-        as ``(request_id, detail)`` pairs."""
+        every request that produced a token. ``only`` restricts the plan
+        (admission included) to that set of request ids: the supervisor's
+        bisection probes step half the suspects of a failed batch while
+        everyone else holds still. Its step resolves to an existing width
+        bucket like any other. Rows with non-finite logits emit nothing;
+        they are aborted and listed in ``self.step_faults`` as
+        ``(request_id, detail)`` pairs, as are a policy's early
+        rejections."""
+        self._guard_thread("step()")
+        tr = self.tracer
+        t_plan0 = time.monotonic() if tr is not None else 0.0
         self.step_faults = []
-        rows = self.scheduler.schedule()
+        # cleared before planning: a raising schedule() must not leave the
+        # supervisor recovering against the previous step's plan
+        self.last_planned = []
+        rows = self.scheduler.schedule(only=only)
+        if self.policy is not None:
+            # deadline early-rejects decided during admission end as
+            # aborted requests on the step_faults channel
+            for req, reason in self.scheduler.drain_policy_rejects():
+                self.metrics.inc("policy_early_rejections")
+                self.metrics.inc_labeled("policy_early_rejections",
+                                         self.policy.class_labels(req))
+                self.step_faults.append((req.request_id, reason))
+                self.abort(req.request_id, reason=reason)
         if not rows:
             return []
         self.step_count += 1
+        self.last_planned = [row.req.request_id for row in rows]
+        if faults._PLAN is not None:
+            self._fire_step_faults()
         W = self._width_for(max(r.count + len(r.draft) for r in rows))
         if any(r.count > 1 for r in rows):
             kind = "mixed"
@@ -482,8 +753,26 @@ class LLMEngine:
             kind = "verify"
         else:
             kind = "decode"
+        step_id = tr.next_step_id() if tr is not None else 0
+        if tr is not None:
+            self._phases = {"plan": (t_plan0, time.monotonic())}
+        t_step0 = time.monotonic()
         with self.metrics.timed(f"{kind}_step"):
-            outs = self._run_rows(rows, W)
+            outs = self._run_rows(rows, W, step_id)
+        if self.policy is not None:
+            self.policy.observe_step(time.monotonic() - t_step0)
+        if tr is not None:
+            tr.record_step(step_id, kind, self._phases, {
+                "rows": len(rows),
+                "width": W,
+                "host_syncs": 1,
+                "decode_rows": sum(1 for r in rows
+                                   if r.count == 1 and not r.draft),
+                "prefill_rows": sum(1 for r in rows if r.count > 1),
+                "spec_lanes": sum(1 for r in rows if r.draft),
+                "fed_tokens": sum(r.count + len(r.draft) for r in rows),
+                "emitted_tokens": len(outs),
+            })
         self.metrics.inc(f"{kind}_steps")
         self.metrics.set_gauge(
             "tokens_in_flight",
@@ -493,6 +782,19 @@ class LLMEngine:
                                (usable - self.pool.num_free) / usable)
         self.metrics.set_gauge("num_running", len(self.scheduler.running))
         self.metrics.set_gauge("num_waiting", len(self.scheduler.waiting))
+        if self.policy is not None:
+            # whole-family replacement: drained classes leave the scrape
+            depth = {}
+            for req in self.scheduler.waiting:
+                lbl = tuple(sorted(self.policy.class_labels(req).items()))
+                depth[lbl] = depth.get(lbl, 0) + 1
+            self.metrics.set_labeled_gauges(
+                "policy_queue_depth",
+                [(dict(lbl), n) for lbl, n in depth.items()])
+            self.metrics.set_labeled_gauges(
+                "policy_served_share",
+                [({"tenant": t}, sh)
+                 for t, sh in self.policy.served_shares().items()])
         c = self.metrics.counters
         self.metrics.set_gauge("tokens_per_step",
                                c.get("generated_tokens", 0) / self.step_count)
@@ -553,13 +855,15 @@ class LLMEngine:
             lut = {int(b): j + 1 for j, b in enumerate(uniq)}
             a["touch_idx"][i, :w] = [lut.get(int(s), 0) for s in sl]
 
-    def _run_rows(self, rows, W):
+    def _run_rows(self, rows, W, step_id=0):
         """Run one unified ragged step at width bucket `W` and publish its
         tokens. The host reads ONE packed tensor (the step's single
         device->host transfer). Rejected speculative tails roll back:
         their KV slots are stale (overwritten before they are ever
         attended) and their reserved blocks return via
         `reclaim_spec_blocks`."""
+        tr = self.tracer
+        t_build = time.monotonic() if tr is not None else 0.0
         prog = self._get_step_fn(self.max_batch, W)
         a = prog.host_arrays()
         for i, row in enumerate(rows):
@@ -574,11 +878,18 @@ class LLMEngine:
             a["spec_lens"][i] = k
             self._fill_row(a, i, req, start, count + k, W)
         K = self._draft_capacity(W)
+        t_disp = time.monotonic() if tr is not None else 0.0
+        with self._annotation(step_id):
+            packed_dev = prog()
+        t_sync = time.monotonic() if tr is not None else 0.0
         # THE host sync of the step
-        packed = prog().cpu().numpy()
+        packed = packed_dev.cpu().numpy()
         self.metrics.inc("host_syncs")
         run, n_accs, row_ok = (packed[:, :K + 1], packed[:, K + 1],
                                packed[:, K + 2])
+        if faults._PLAN is not None:
+            row_ok = self._corrupt_row_ok(rows, row_ok)
+        t_emit = time.monotonic() if tr is not None else 0.0
         outs = []
         for i, row in enumerate(rows):
             req, k = row.req, len(row.draft)
@@ -595,6 +906,19 @@ class LLMEngine:
             # advance num_cached BEFORE emitting (release publishes full
             # prompt blocks off num_cached)
             req.num_cached += row.count + n_acc
+            if self.policy is not None:
+                # fairness charges the device work consumed: fed chunk
+                # tokens plus accepted drafts
+                self.policy.note_served(req, row.count + n_acc)
+            if tr is not None and req.traced:
+                tr.row_span(
+                    req,
+                    ("verify" if k else
+                     "prefill_chunk" if row.count > 1 else "decode"),
+                    t_disp, t_emit,
+                    {"step": step_id, "start": row.start,
+                     "count": row.count, "emit": row.emit,
+                     **({"drafted": k, "accepted": n_acc} if k else {})})
             if not row.emit:
                 continue
             for tok in run[i, :n_acc + 1]:
@@ -603,6 +927,11 @@ class LLMEngine:
                     break
             if k and not req.finished:
                 self.scheduler.reclaim_spec_blocks(req)
+        if tr is not None:
+            self._phases.update(build=(t_build, t_disp),
+                                dispatch=(t_disp, t_sync),
+                                sync=(t_sync, t_emit),
+                                emit=(t_emit, time.monotonic()))
         return outs
 
     def _poison(self, req, detail):
@@ -612,6 +941,10 @@ class LLMEngine:
         self.metrics.inc("nonfinite_rows")
         self.step_faults.append((req.request_id, detail))
         self.abort(req.request_id, reason=f"error:{detail}")
+        if self.recorder is not None:
+            # after the abort: the bundle carries the victim's final
+            # ledger decomposition (record never raises)
+            self.recorder.record("nonfinite_row", detail=detail, victim=req)
 
     def _emit(self, req, token):
         if not req.output_ids:
@@ -619,12 +952,21 @@ class LLMEngine:
             req.first_token_time = now
             self.metrics.observe("ttft", now - req.arrival_time,
                                  interval=False)
+            if self.slo is not None:
+                # the first token closes prefill: decode begins
+                self.slo.transition(req, "decode_compute", now)
+            if req.traced:
+                self.tracer.first_token(req, now)
         req.output_ids.append(token)
         self.metrics.inc("generated_tokens")
         done = (len(req.output_ids) >= req.max_new_tokens
                 or (req.eos_token_id is not None
                     and token == req.eos_token_id))
         if done:
+            if self.slo is not None:
+                # `emit` covers the final token's bookkeeping; its open
+                # time is the last token's emission for TPOT
+                self.slo.transition(req, "emit")
             self.scheduler.finish(req)
             self.metrics.inc("requests_finished")
             self._finalize(req, "finished")
@@ -632,13 +974,54 @@ class LLMEngine:
 
     def _finalize(self, req, reason):
         """Every terminal path (finish, abort) ends here: the request
-        records why it ended."""
+        records why it ended, and the tracer's request span, the SLO
+        ledger's clock, the request log and the flight recorder's tail
+        close. All no-ops in the default configuration."""
         req.finish_reason = reason
+        if req.traced:
+            self.tracer.end_request(req, reason)
+        if self.slo is None:
+            return   # request_log/recorder imply a ledger (constructor)
+        now = time.monotonic()
+        summary = self.slo.finalize(req, reason, now)
+        if not self.request_log and self.recorder is None:
+            return
+        ms = lambda t: None if t is None else round(t * 1e3, 3)  # noqa: E731
+        line = {
+            "event": "request_done",
+            "request_id": str(req.request_id),
+            "reason": reason,
+            "tenant": req.tenant,
+            "priority": req.priority,
+            "adapter": req.adapter,
+            "policy_reject": (reason if reason.startswith("policy_reject")
+                              else None),
+            "deadline_s": req.deadline_s,
+            "deadline": summary["deadline"],
+            "prompt_tokens": len(req.prompt_ids),
+            "output_tokens": len(req.output_ids),
+            "prefix_hit_tokens": req.prefix_hit_tokens,
+            "spec_accepted_tokens": req.spec_accepted,
+            "preemptions": req.preemptions,
+            "queue_wait_ms": ms(None if req.admit_time is None
+                                else req.admit_time - req.arrival_time),
+            "ttft_ms": ms(summary["ttft_s"]),
+            "tpot_ms": ms(summary["tpot_s"]),
+            # the ledger's e2e: the phase_<name>_ms fields sum to it
+            "total_ms": ms(summary["e2e_s"]),
+        }
+        for ph, v in summary["phases_ms"].items():
+            line[f"phase_{ph}_ms"] = v
+        if self.recorder is not None:
+            self.recorder.note_request_line(line)
+        if self.request_log:
+            _request_log.info(json.dumps(line, sort_keys=True))
 
     def pool_stats(self):
-        """Block-pool occupancy by tier plus scheduler queue depths."""
+        """Block-pool occupancy by tier plus scheduler queue depths (and
+        the policy's state, when one is installed)."""
         usable = self.pool.num_blocks - 1
-        return {
+        stats = {
             "kv_dtype": self.pool.kv_dtype,
             "kv_bytes_per_block": self.pool.bytes_per_block(),
             "blocks_total": usable,
@@ -648,12 +1031,45 @@ class LLMEngine:
             "requests_running": len(self.scheduler.running),
             "requests_waiting": len(self.scheduler.waiting),
         }
+        if self.policy is not None:
+            stats["policy"] = self.policy.snapshot(
+                waiting=self.scheduler.waiting,
+                running=self.scheduler.running)
+        return stats
 
     # -- conveniences --------------------------------------------------------
+
+    def device_scope(self):
+        """The context a thread other than the constructor's must step
+        this engine in: the engine's CUDA device and the stream its
+        programs stage and replay on (current device and stream are per
+        thread in PyTorch). A no-op on the CPU."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        scope = contextlib.ExitStack()
+        scope.enter_context(torch.cuda.device(self.device))
+        scope.enter_context(torch.cuda.stream(self._stream))
+        return scope
+
+    def _guard_thread(self, what):
+        """While an AsyncLLMEngine's loop thread owns this engine, any
+        other thread driving it would interleave two schedulers over one
+        block pool and one arena: raise instead. The owning thread
+        passes."""
+        owner = self._engine_thread
+        if (owner is not None and owner.is_alive()
+                and threading.current_thread() is not owner):
+            raise RuntimeError(
+                f"{what} called while an AsyncLLMEngine background loop "
+                f"({owner.name}) is driving this engine — two schedulers "
+                "would interleave over one block pool. Submit through "
+                "the AsyncLLMEngine (submit()/stream()), or stop() it "
+                "before driving the engine synchronously.")
 
     def stream(self, prompt_ids, **kwargs):
         """Add one request and yield its StepOutputs as tokens land; other
         in-flight requests keep decoding in the same steps."""
+        self._guard_thread("stream()")
         rid = self.add_request(prompt_ids, **kwargs)
         req = self._requests[rid]
         emitted = 0
@@ -675,6 +1091,7 @@ class LLMEngine:
     def generate(self, prompts, **kwargs):
         """Add every prompt, run to completion, return each request's
         generated token list (in input order)."""
+        self._guard_thread("generate()")
         rids = [self.add_request(p, **kwargs) for p in prompts]
         while self.has_unfinished():
             self.step()

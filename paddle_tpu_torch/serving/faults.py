@@ -1,0 +1,267 @@
+"""Deterministic fault injection for the serving stack.
+
+Production serving is judged on behavior at the failure boundaries — a
+poisoned request, a hung device step, a dying engine thread — but none of
+those paths can be tested unless the failures can be produced on demand,
+deterministically, inside the real engine. This module is the switchboard:
+a process-global **fault plan** (`FaultPlan`) names *fault points* compiled
+into the serving hot paths and decides, per call, whether each one fires.
+
+Fault points (where they are armed):
+
+- ``step_raise``           — `LLMEngine.step` raises `FaultInjected` after
+  planning, before the device dispatch (the poison-step model: scheduler
+  state is consistent, no partial KV was written);
+- ``step_hang``            — `LLMEngine.step` blocks on the plan's release
+  event (`release_hangs`; optional ``timeout_s`` auto-releases) — the
+  stuck-device model the watchdog exists for;
+- ``slow_step_ms``         — `LLMEngine.step` sleeps ``ms`` milliseconds
+  (SLO degradation without failure);
+- ``step_nonfinite_logits``— the step output path reports the matched
+  row's logits as non-finite, driving the engine's NaN/Inf containment
+  exactly as a real numerically-poisoned forward would;
+- ``alloc_fail``           — `BlockPool.allocate` returns None as if the
+  pool were dry (exercises defer/preempt paths under phantom pressure);
+- ``thread_die``           — the `AsyncLLMEngine` engine loop raises
+  OUTSIDE `step()` (exercises the crash-safe thread exit).
+
+Triggers (AND-ed when several are given; an unconditional point fires on
+every call):
+
+- ``at_step=N``      — fire when the engine's step counter equals N;
+- ``nth_call=N``     — fire on the point's N-th evaluation (1-based);
+- ``probability=p`` + ``seed`` — fire on a deterministic Bernoulli draw
+  from a per-point `random.Random(seed)` stream (same plan, same serve,
+  same faults — chaos runs are replayable);
+- ``request_id=R``   — fire only when request R is in the evaluated
+  context (a planned row / the step's batch) — the "poison request" pin;
+- ``times=K``        — cap total fires at K (default unlimited; the
+  triggers above already bound one-shot cases).
+
+The plan installs process-globally (`install`/`clear`, or the
+``PADDLE_TPU_FAULTS`` JSON env var picked up at engine construction), and
+every hook site is **one pointer test** (``faults._PLAN is not None``) —
+the same discipline as the tracer, so the disabled path costs one global
+load per hook and serving speed is unchanged when no plan is armed.
+
+Test API::
+
+    from paddle_tpu_torch.serving import faults
+    plan = faults.install(faults.FaultPlan([
+        {"point": "step_raise", "request_id": "poison", "exc": "ValueError"},
+        {"point": "slow_step_ms", "probability": 0.1, "seed": 7, "ms": 20},
+    ]))
+    try:
+        ...  # serve; plan.fired records every fire for assertions
+    finally:
+        plan.release_hangs()
+        faults.clear()
+
+Env: ``PADDLE_TPU_FAULTS='[{"point": "step_hang", "at_step": 12}]'``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import random
+import threading
+
+# the process-global plan; None = fault injection disabled. Hook sites in
+# engine.py / block_pool.py / frontend.py test this pointer and nothing
+# else on the no-fault path.
+_PLAN = None
+
+POINTS = (
+    "step_raise",
+    "step_hang",
+    "step_nonfinite_logits",
+    "alloc_fail",
+    "thread_die",
+    "slow_step_ms",
+)
+
+
+class FaultInjected(RuntimeError):
+    """Raised by a fired ``step_raise``/``thread_die`` fault point."""
+
+    def __init__(self, point, message=None):
+        super().__init__(message or f"injected fault: {point}")
+        self.point = point
+
+
+# points whose hook sites run with step/batch context; only these can
+# use the at_step / request_id triggers (alloc_fail and thread_die hooks
+# have neither a step counter nor a planned batch in scope — configuring
+# a context trigger there would silently never fire, so it is an error)
+_STEP_SCOPED = (
+    "step_raise",
+    "step_hang",
+    "step_nonfinite_logits",
+    "slow_step_ms",
+)
+
+
+class FaultPoint:
+    """One armed fault: a point name plus its trigger and payload."""
+
+    def __init__(self, point, at_step=None, nth_call=None, probability=None,
+                 seed=0, request_id=None, times=None, ms=None,
+                 timeout_s=None, exc=None):
+        if point not in POINTS:
+            raise ValueError(
+                f"unknown fault point {point!r} (known: {', '.join(POINTS)})"
+            )
+        if point not in _STEP_SCOPED and (at_step is not None
+                                          or request_id is not None):
+            raise ValueError(
+                f"fault point {point!r} has no step/batch context — "
+                "at_step/request_id triggers apply only to "
+                f"{', '.join(_STEP_SCOPED)}; use nth_call or probability"
+            )
+        self.point = point
+        self.at_step = None if at_step is None else int(at_step)
+        self.nth_call = None if nth_call is None else int(nth_call)
+        if self.nth_call is not None and self.nth_call < 1:
+            raise ValueError("nth_call is 1-based (must be >= 1)")
+        self.probability = None if probability is None else float(probability)
+        if (self.probability is not None
+                and not 0.0 <= self.probability <= 1.0):
+            raise ValueError("probability must be in [0, 1]")
+        self.request_id = request_id
+        self.times = None if times is None else int(times)
+        self.ms = None if ms is None else float(ms)          # slow_step_ms
+        self.timeout_s = (None if timeout_s is None
+                          else float(timeout_s))             # step_hang
+        self.exc = exc             # step_raise: exception message override
+        self._rng = random.Random(int(seed))
+        self.calls = 0             # trigger evaluations
+        self.fires = 0             # times the point actually fired
+
+    def _matches(self, step, request_ids):
+        """Evaluate the trigger for one call (counters already advanced).
+        All configured conditions must hold; the probability draw runs
+        LAST so conditional probabilities consume the seeded stream only
+        on calls that satisfy the structural conditions."""
+        if self.at_step is not None and step != self.at_step:
+            return False
+        if self.nth_call is not None and self.calls != self.nth_call:
+            return False
+        if self.request_id is not None:
+            if request_ids is None or self.request_id not in request_ids:
+                return False
+        if self.probability is not None:
+            return self._rng.random() < self.probability
+        return True
+
+
+class FaultPlan:
+    """An ordered set of `FaultPoint`s plus the shared hang-release event.
+
+    `match` is the single evaluation entry: hook sites ask for a point
+    name with their call context and get back the first armed point that
+    fires (or None). Every fire is appended to ``fired`` — chaos tests
+    assert against that log instead of inferring from behavior.
+    """
+
+    def __init__(self, points=()):
+        self.points = []
+        for p in points:
+            self.points.append(p if isinstance(p, FaultPoint)
+                               else FaultPoint(**p))
+        self.fired = []                      # [{point, step, request_ids}]
+        self._hang_release = threading.Event()
+        self._lock = threading.Lock()
+
+    def add(self, point, **kwargs):
+        """Arm one more fault point; returns it (fluent test setup)."""
+        fp = FaultPoint(point, **kwargs)
+        self.points.append(fp)
+        return fp
+
+    def match(self, point, step=None, request_ids=None):
+        """Evaluate every armed point named `point` against this call's
+        context; returns the first that fires, else None. Thread-safe:
+        the engine thread owns the hot hook sites, but tests may arm or
+        inspect the plan from other threads."""
+        fired = None
+        with self._lock:
+            # every same-named point sees every evaluation (calls advance
+            # uniformly even after another point fires), so nth_call
+            # arithmetic never depends on what else is armed
+            for fp in self.points:
+                if fp.point != point:
+                    continue
+                if fp.times is not None and fp.fires >= fp.times:
+                    continue
+                fp.calls += 1
+                if not fp._matches(step, request_ids):
+                    continue
+                fp.fires += 1
+                if fired is None:
+                    fired = fp
+                    self.fired.append({
+                        "point": point, "step": step,
+                        "request_ids": (None if request_ids is None
+                                        else list(request_ids)),
+                    })
+        return fired
+
+    # -- step_hang plumbing --------------------------------------------------
+
+    def hang(self, fp):
+        """Block the calling (engine) thread until `release_hangs` — or the
+        point's own ``timeout_s``, so an unattended plan cannot wedge a
+        test run forever."""
+        self._hang_release.wait(fp.timeout_s)
+
+    def release_hangs(self):
+        """Unstick every thread parked in a ``step_hang`` fault. Sticky:
+        later hangs pass straight through (one release per plan — arm a
+        fresh plan to hang again)."""
+        self._hang_release.set()
+
+
+def install(plan):
+    """Install `plan` process-globally; returns it. Replaces any plan."""
+    global _PLAN
+    if not isinstance(plan, FaultPlan):
+        raise TypeError("install() takes a FaultPlan")
+    _PLAN = plan
+    return plan
+
+
+def clear():
+    """Disarm fault injection (hook sites go back to one pointer test)."""
+    global _PLAN
+    _PLAN = None
+
+
+def active():
+    """The installed plan, or None."""
+    return _PLAN
+
+
+def plan_from_json(text):
+    """Parse a ``PADDLE_TPU_FAULTS``-style JSON spec into a FaultPlan:
+    either a list of point objects or ``{"points": [...]}``."""
+    spec = json.loads(text)
+    if isinstance(spec, dict):
+        spec = spec.get("points", [])
+    if not isinstance(spec, list):
+        raise ValueError(
+            "PADDLE_TPU_FAULTS must be a JSON list of fault points "
+            'or {"points": [...]}'
+        )
+    return FaultPlan(spec)
+
+
+def maybe_install_from_env():
+    """Arm the ``PADDLE_TPU_FAULTS`` plan if the env var is set and no
+    plan is already installed (an explicit `install` wins over the env).
+    Called once per engine construction — never on a hot path."""
+    if _PLAN is not None:
+        return _PLAN
+    text = os.environ.get("PADDLE_TPU_FAULTS")
+    if not text or not text.strip():
+        return None
+    return install(plan_from_json(text))

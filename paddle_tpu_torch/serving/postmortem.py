@@ -1,0 +1,199 @@
+"""Flight recorder: durable postmortem bundles for serving fault events.
+
+The supervisor's fault classes (poison isolation, watchdog trip, non-finite row
+containment, engine-thread death) are contained live — but the evidence
+dies with the process: ``/debug/trace`` is a ring that wraps, metrics are
+cumulative blurs, and the request log scrolls away. The flight recorder
+turns each supervisor event into ONE bounded on-disk bundle an operator
+can open after the replica is gone:
+
+    <PADDLE_TPU_POSTMORTEM_DIR>/pm-00042-watchdog_trip/
+        bundle.json   # everything below, one JSON document
+        trace.json    # the trace ring at event time (Perfetto-loadable;
+                      # only when the engine runs with tracing on)
+
+``bundle.json`` carries: a ``manifest`` (event, detail, seq, wall-clock
+created time), the engine's metrics snapshot, pool saturation stats,
+mesh topology, the health word, the armed fault plan and its fired log
+(chaos runs are self-describing), the victim request's SLO-ledger phase
+decomposition (serving/slo.py — where the failed request's time went),
+the current per-class SLO rollup, and the last N request-log lines
+(whether or not the log itself is enabled — the engine feeds the
+recorder's ring directly).
+
+Bundles are pruned oldest-first to ``keep`` (``PADDLE_TPU_POSTMORTEM_KEEP``)
+so a crash-looping replica cannot fill a disk, and are listable without
+shell access at ``GET /debug/postmortem`` (serving/server.py).
+
+Off by default: without a directory configured ``engine.recorder`` is
+None and every hook site is one pointer test. `record` never raises into
+the failure paths that call it — a broken disk downgrades to the
+``postmortem_write_errors`` counter, never a second failure.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import threading
+import time
+from collections import deque
+
+_EVENT_RE = re.compile(r"[^a-zA-Z0-9_]+")
+
+
+class FlightRecorder:
+    """Writes one postmortem bundle per supervisor event for one engine.
+
+    `record` runs on whatever thread observed the failure (engine,
+    watchdog, or the crashing engine thread's epilogue); the lock covers
+    the sequence counter and the request-log tail ring. Filesystem work
+    happens outside the lock — concurrent prunes are idempotent.
+    """
+
+    def __init__(self, directory, keep=16, request_log_tail=64):
+        self.dir = str(directory)
+        self.keep = max(1, int(keep))
+        self.engine = None
+        self._lock = threading.Lock()
+        self._req_lines = deque(maxlen=max(1, int(request_log_tail)))
+        os.makedirs(self.dir, exist_ok=True)
+        # sequence numbers survive restarts so a crash-looping replica's
+        # bundles sort chronologically across incarnations
+        seqs = [int(m.group(1)) for m in
+                (re.match(r"pm-(\d+)-", d) for d in os.listdir(self.dir))
+                if m]
+        self._seq = max(seqs, default=-1) + 1
+
+    def attach(self, engine):
+        """Bind the engine whose state bundles snapshot; returns self."""
+        self.engine = engine
+        return self
+
+    def note_request_line(self, line):
+        """Ring-buffer one request-log line dict (the engine calls this
+        from its terminal funnel whenever a recorder is attached)."""
+        with self._lock:
+            self._req_lines.append(line)
+
+    # -- the one write entry -------------------------------------------------
+
+    def record(self, event, detail=None, victim=None, health=None):
+        """Write one bundle for `event` (``poison_isolated`` /
+        ``watchdog_trip`` / ``nonfinite_row`` / ``engine_thread_died``).
+        Returns the bundle directory path, or None on a write failure —
+        this runs inside failure handling, so it must never raise."""
+        eng = self.engine
+        try:
+            with self._lock:
+                seq = self._seq
+                self._seq += 1
+                tail = list(self._req_lines)
+            name = f"pm-{seq:05d}-{_EVENT_RE.sub('_', str(event))[:48]}"
+            path = os.path.join(self.dir, name)
+            os.makedirs(path, exist_ok=True)
+            n_trace = None
+            if eng is not None and eng.tracer is not None:
+                n_trace = eng.tracer.dump(os.path.join(path, "trace.json"))
+            bundle = {
+                "manifest": {
+                    "name": name,
+                    "seq": seq,
+                    "event": str(event),
+                    "detail": detail,
+                    "created_unix": round(time.time(), 3),
+                    "victim": (None if victim is None
+                               else str(victim.request_id)),
+                    "trace_events": n_trace,
+                },
+                "health": health,
+                "mesh": None if eng is None else eng.mesh_info(),
+                "pool": None if eng is None else eng.pool_stats(),
+                "metrics": None if eng is None else eng.metrics.snapshot(),
+                "fault_plan": self._fault_plan(),
+                "victim": self._victim(victim),
+                "slo": (eng.slo.rollup()
+                        if eng is not None and eng.slo is not None
+                        else None),
+                "request_log_tail": tail,
+            }
+            with open(os.path.join(path, "bundle.json"), "w") as f:
+                # default=str: a snapshot field that is not JSON-native
+                # (numpy scalar, exotic gauge) must degrade to a string,
+                # never fail the postmortem of a real incident
+                json.dump(bundle, f, default=str)
+            self._prune()
+            if eng is not None:
+                eng.metrics.inc("postmortem_bundles")
+            return path
+        except Exception:  # noqa: BLE001 — last-resort recorder: a bad
+            # disk/permission must not cascade into the failure path
+            # that is being postmortemed
+            if eng is not None:
+                eng.metrics.inc("postmortem_write_errors")
+            return None
+
+    @staticmethod
+    def _fault_plan():
+        from . import faults
+
+        plan = faults.active()
+        if plan is None:
+            return None
+        return {
+            "points": [{
+                "point": fp.point, "at_step": fp.at_step,
+                "nth_call": fp.nth_call, "probability": fp.probability,
+                "request_id": fp.request_id, "times": fp.times,
+                "ms": fp.ms, "timeout_s": fp.timeout_s, "exc": fp.exc,
+                "calls": fp.calls, "fires": fp.fires,
+            } for fp in plan.points],
+            "fired": list(plan.fired),
+        }
+
+    @staticmethod
+    def _victim(req):
+        if req is None:
+            return None
+        from .slo import decompose
+
+        return {
+            "request_id": str(req.request_id),
+            "state": req.state,
+            "tenant": req.tenant,
+            "priority": req.priority,
+            "deadline_s": req.deadline_s,
+            "prompt_tokens": len(req.prompt_ids),
+            "output_tokens": len(req.output_ids),
+            "preemptions": req.preemptions,
+            "prefix_hit_tokens": req.prefix_hit_tokens,
+            "phases_ms": decompose(req),
+            "slo": getattr(req, "slo_summary", None),
+        }
+
+    def _prune(self):
+        names = sorted(d for d in os.listdir(self.dir)
+                       if re.match(r"pm-\d+-", d))
+        for name in names[:max(0, len(names) - self.keep)]:
+            shutil.rmtree(os.path.join(self.dir, name), ignore_errors=True)
+
+    # -- read side (GET /debug/postmortem) ----------------------------------
+
+    def list_bundles(self):
+        """Manifests of the bundles on disk, oldest first (each with its
+        file list so an operator knows whether a trace came along)."""
+        out = []
+        for name in sorted(os.listdir(self.dir)):
+            if not re.match(r"pm-\d+-", name):
+                continue
+            bdir = os.path.join(self.dir, name)
+            try:
+                with open(os.path.join(bdir, "bundle.json")) as f:
+                    man = dict(json.load(f).get("manifest") or {})
+                man["files"] = sorted(os.listdir(bdir))
+            except (OSError, ValueError):
+                man = {"name": name, "error": "unreadable"}
+            man.setdefault("name", name)
+            out.append(man)
+        return out

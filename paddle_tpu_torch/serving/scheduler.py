@@ -1,8 +1,9 @@
 """Continuous-batching scheduler: chunked-prefill mixed batching, FCFS
-admission, preemption-by-recompute. Host-only code.
+admission, preemption-by-recompute.
 
-Each `schedule()` call plans ONE mixed device step: every running sequence
-gets a row, and a row is either
+The policy half of the serving engine (the paged arena in block_pool.py is
+the memory half). Each `schedule()` call plans ONE mixed device step: every
+running sequence gets a row, and a row is either
 
 - a **decode row** — the sequence's single pending token (its last sampled
   token, fed at position ``num_cached``), always scheduled, never gated; or
@@ -10,27 +11,64 @@ gets a row, and a row is either
   sequence whose prompt (or post-preemption replay) is not yet in the KV
   arena, admitted FCFS under a per-step ``token_budget`` of prefill tokens.
 
-A row emits a token only when it reaches the sequence's last pending
-position, so a replay after preemption never re-emits tokens.
+Decode therefore never stalls behind prefill: a long prompt streams into
+the arena a chunk at a time WHILE the running batch keeps decoding in the
+same steps (the Ragged Paged Attention mixed-batch design). A row emits a
+token only when it reaches the sequence's last pending position — replayed
+chunks after a preemption emit nothing until the replay catches up, so
+recompute never re-emits tokens.
 
 Admission is FCFS into free lanes (``max_batch`` rows). KV blocks are
-allocated chunk by chunk, oldest sequence first; when the pool runs dry a
-row preempts the youngest running sequence that holds blocks (older may
-reclaim from younger, never the reverse): the victim's blocks are freed and
-its prompt+generated tokens re-queue at the FRONT of the waiting queue. The
-OLDEST sequence failing to grow means the pool cannot hold even one
+allocated chunk-by-chunk as rows are planned, oldest sequence first; when
+the pool runs dry a row preempts the youngest running sequence that holds
+blocks (vLLM's recompute policy, FCFS priority: older may reclaim from
+younger, never the reverse): the victim's blocks are freed, its
+prompt+generated tokens re-queue at the FRONT of the waiting queue, and
+later chunks rebuild the KV. A row with no younger victim defers a step;
+the OLDEST sequence failing to grow means the pool cannot hold even one
 sequence, which fails loudly as a config error.
 
-**Prefix caching** hooks in at admission (`_match_prefix` pins the longest
-cached full-block prefix), before a row's scatter (`_ensure_writable`
-copies a shared block on write), and at release (`_release_blocks`
-publishes the hashes of fully written prompt blocks).
+A **scheduling policy** (serving/policy.py, ``policy=``) replaces all
+three FCFS derivations — admission order, planning order, preemption
+victim — with its (priority class, tenant fairness, arrival) precedence,
+and may early-reject a deadline-doomed request at lane admission. With no
+policy (the default) every code path above is byte-identical to the FCFS
+scheduler.
 
-**Speculative decoding**: with a drafter, `_attach_drafts` asks the n-gram
-drafter for candidate continuations of each emitting row and reserves KV
-blocks for them from truly-free blocks only (speculation never evicts a
-cached prefix or preempts anyone). After verification the engine calls
-`reclaim_spec_blocks`, which frees the rejected tail's reservation.
+**Prefix caching** hooks in at exactly three seams:
+
+- at admission, a request's precomputed ``block_hashes`` (engine-computed,
+  prompt full blocks only) walk the pool's content index; the longest
+  matched prefix is pinned (refcount++) and ``num_cached`` jumps to the
+  first uncached token — capped at ``num_tokens - 1`` so at least one
+  query token always runs (a fully-cached prompt recomputes just its last
+  token). Cached tokens are never fed, so they never touch ``token_budget``
+  — mixed steps pack that much more real prefill;
+- before a row's tokens are scattered, `_ensure_writable` copy-on-writes
+  any destination block shared with another holder (refcount > 1), so a
+  write can never corrupt a sibling's cached prefix;
+- `finish`/`abort`/`_preempt` all release KV through ONE path
+  (`_release_blocks`), which publishes the hashes of fully-written full
+  prompt blocks — freed blocks land in the pool's cached-free tier and
+  stay matchable until evicted.
+
+**Speculative decoding** (serving/spec.py) extends a step's EMITTING rows
+in a post-planning pass: when a drafter is configured, `_attach_drafts`
+asks the prompt-lookup drafter for up to ``num_spec_tokens`` candidate
+continuations per row and reserves KV blocks for them through
+`_reserve_spec`. Row widths are ragged (the unified step program), so
+drafts ride chunk-carrying steps for free inside the step's width bucket,
+and a pure-decode step widens to the spec bucket only when the total
+proposed work amortizes the growth (the width gate — the old majority
+gate re-derived, see `_attach_drafts`). The reservation is deliberately
+second-class memory traffic: it only takes TRULY-free blocks (never
+evicts cached prefixes, never preempts another sequence — speculation
+must not steal from real work), drafted tokens are charged to the step's
+``token_budget``, and a short pool simply trims the draft. After
+verification the engine calls `reclaim_spec_blocks`, which frees the
+reservation's rejected tail (always private, never published) so any
+interleaving of accepts, rejections, preemptions, and aborts returns the
+pool to its idle free count.
 """
 from __future__ import annotations
 
@@ -46,8 +84,10 @@ ABORTED = "aborted"
 
 # One planned row of the next mixed step: feed `req.all_ids[start:start+count]`
 # at positions [start, start+count); `emit` marks rows whose last fed position
-# is the sequence's final pending token. `draft` carries drafted candidates fed
-# AFTER the pending token; their blocks are already reserved.
+# is the sequence's final pending token — the engine samples their next token.
+# `draft` (speculative decoding, pure-decode steps only) carries up to
+# num_spec_tokens drafted candidates fed AFTER the pending token; blocks for
+# them are already reserved when the row is returned.
 ScheduledRow = namedtuple(
     "ScheduledRow", ["req", "start", "count", "emit", "draft"],
     defaults=((),),
@@ -59,7 +99,9 @@ class Request:
 
     def __init__(self, prompt_ids, max_new_tokens=16, temperature=0.0,
                  eos_token_id=None, request_id=None, top_k=None, top_p=None,
-                 spec_decoding=None, num_spec_tokens=None):
+                 spec_decoding=None, num_spec_tokens=None, trace=None,
+                 tenant=None, priority=None, deadline_s=None,
+                 adapter=None):
         self.request_id = (
             request_id if request_id is not None else next(_rid_counter)
         )
@@ -70,6 +112,8 @@ class Request:
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         self.temperature = float(temperature)
+        # sampling support restriction (0/None = off): top-k keeps the k
+        # highest-probability tokens, top-p the smallest nucleus reaching p
         self.top_k = None if top_k in (None, 0) else int(top_k)
         if self.top_k is not None and self.top_k < 1:
             raise ValueError("top_k must be >= 1 (or 0/None to disable)")
@@ -77,7 +121,9 @@ class Request:
         if self.top_p is not None and not 0.0 < self.top_p <= 1.0:
             raise ValueError("top_p must be in (0, 1]")
         # speculative decoding overrides: None defers to the engine; False
-        # (or num_spec_tokens=0) opts out; num_spec_tokens lowers the cap
+        # (or num_spec_tokens=0) opts this request out; num_spec_tokens
+        # lowers the per-row draft cap (never raises it past the engine's
+        # compiled verify width)
         self.spec_decoding = spec_decoding
         self.num_spec_tokens = (
             None if num_spec_tokens is None else int(num_spec_tokens)
@@ -87,18 +133,48 @@ class Request:
         self.eos_token_id = eos_token_id
         self.output_ids = []
         self.state = WAITING
-        self.finish_reason = None
-        self.blocks = []            # arena block ids owned by this sequence
-        self.num_cached = 0         # tokens whose K/V live in the arena
-        self.block_hashes = []      # chained full-block prompt hashes
+        self.finish_reason = None   # why it ended (engine._finalize)
+        self.blocks = []      # arena block ids owned by this sequence
+        self.num_cached = 0   # tokens whose K/V currently live in the arena
+        self.block_hashes = []  # chained full-block prompt hashes (engine
         self.num_matched_blocks = 0  # cache-hit pins from this admission
-        self.preemptions = 0
-        self.arrival_time = time.monotonic()   # TTFT anchor
-        self.admit_time = None
+        self.preemptions = 0    # (engine fills hashes when caching is on)
+        self.arrival_time = time.monotonic()   # TTFT anchor for metrics
+        # observability (serving/trace.py + the per-request summary log):
+        # `trace` is the per-request tracer override (None = defer to the
+        # engine's sampling fraction), `traced` the engine's decision
+        self.trace = None if trace is None else bool(trace)
+        self.traced = False
+        # SLO accounting dimensions (serving/slo.py): free-form class
+        # labels (None reads "-" in rollups) and the deadline the ledger
+        # judges attainment against. The frontend stamps its timeout_s
+        # into deadline_s; on a bare engine the deadline is accounting
+        # only (nothing enforces it). Labels are truncated: they are
+        # stored per class and rendered on every /metrics scrape, so an
+        # adversarial multi-MB tenant string must not ride the 8 MB
+        # request-body cap into resident metrics state (the class COUNT
+        # is bounded by the ledger's max_classes fold).
+        self.tenant = None if tenant is None else str(tenant)[:64]
+        self.priority = None if priority is None else str(priority)[:64]
+        # LoRA adapter name, truncated like the class labels (it rides
+        # metrics/log lines). None = the shared base model; the port's
+        # engine has no adapter slots yet and refuses any other value.
+        self.adapter = None if adapter is None else str(adapter)[:64]
+        self.deadline_s = None if deadline_s is None else float(deadline_s)
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError("deadline_s must be > 0 (or None)")
+        # SLO phase clock (serving/slo.py drives these; inert otherwise)
+        self.phase = None
+        self.phase_since = 0.0
+        self.phases = {}
+        self.wait_since = self.arrival_time  # start of current wait span
+        self.admit_time = None        # FIRST admission (queue-wait anchor)
         self.first_token_time = None
-        self.prefix_hit_tokens = 0
-        self.spec_accepted = 0
-        # total arrival order, stable across preemption/re-admission
+        self.prefix_hit_tokens = 0    # prefix-cache tokens matched for us
+        self.spec_accepted = 0        # drafted tokens verification kept
+        # total arrival order, stable across preemption/re-admission —
+        # the scheduler's FCFS priority key (request_id may be user-supplied
+        # and unorderable; list position forgets age after a re-admit)
         self.arrival_seq = next(_arrival_counter)
 
     @property
@@ -112,11 +188,14 @@ class Request:
 
     @property
     def num_pending(self):
-        """Tokens not yet fed through the model (>= 1 while running)."""
+        """Tokens not yet fed through the model (>= 1 while running: during
+        decode the freshly sampled token is always pending)."""
         return self.num_tokens - self.num_cached
 
     @property
     def finished(self):
+        """Terminal — no more tokens will ever be emitted (natural
+        completion or abort); the request holds no KV blocks."""
         return self.state in (FINISHED, ABORTED)
 
     @property
@@ -133,13 +212,16 @@ class Request:
 
 class Scheduler:
     def __init__(self, pool, max_batch=8, token_budget=2048,
-                 prefill_chunk=None, metrics=None, prefix_cache=True,
-                 drafter=None, width_buckets=None):
+                 prefill_chunk=None, metrics=None,
+                 prefix_cache=True, drafter=None, tracer=None, slo=None,
+                 width_buckets=None, policy=None):
         self.pool = pool
         self.max_batch = int(max_batch)
         self.token_budget = int(token_budget)
         if self.token_budget < 1:
             raise ValueError("token_budget must be >= 1")
+        # chunk width defaults to the budget; never wider than the budget
+        # (a wider chunk could never be scheduled)
         self.prefill_chunk = min(
             int(prefill_chunk) if prefill_chunk is not None
             else self.token_budget,
@@ -149,17 +231,54 @@ class Scheduler:
             raise ValueError("prefill_chunk must be >= 1")
         self.metrics = metrics
         self.prefix_cache = bool(prefix_cache)
+        # speculative decoding: a drafter (serving/spec.py NgramDrafter)
+        # makes pure-decode steps carry drafted candidates; None = off
         self.drafter = drafter
-        # the engine's ragged width buckets: draft attachment may neither
-        # exceed the widest nor bump a step into a wider bucket than its
-        # drafted work amortizes. None means widths at face value.
+        # lifecycle tracer (serving/trace.py EngineTracer) or None; every
+        # hook below is gated on `tracer is not None and req.traced`
+        self.tracer = tracer
+        # SLO ledger (serving/slo.py SLOLedger) or None — admission and
+        # preemption are two of its phase-clock transitions; same
+        # one-pointer-test discipline as the tracer
+        self.slo = slo
+        # the engine's ragged width buckets (the only program shapes it
+        # compiles): draft attachment consults them so speculation can
+        # neither exceed the widest program nor bump a step into a wider
+        # bucket than its drafted work amortizes. None (bare-scheduler
+        # unit tests) means "no bucketing": widths are taken at face
+        # value.
         self.width_buckets = (sorted(int(w) for w in width_buckets)
                               if width_buckets else None)
+        # scheduling policy (serving/policy.py SchedulingPolicy) or None.
+        # None keeps the FCFS scheduler byte-identical; a policy replaces
+        # the admission order, the planning order, and the preemption
+        # victim rule with its precedence/fairness derivations, and may
+        # early-reject deadline-doomed requests at lane admission
+        # (collected in `policy_rejects`; the engine drains and aborts
+        # them with a structured reason after each plan).
+        self.policy = policy
+        self.policy_rejects = []
         self.waiting = deque()
         self.running = []
 
+    def _precedence(self, req):
+        """The planning/preemption total order: the policy's
+        (priority rank, arrival age) when one is installed, raw FCFS
+        arrival age otherwise. Smaller is stronger."""
+        if self.policy is not None:
+            return self.policy.precedence(req)
+        return (0, req.arrival_seq)
+
+    def drain_policy_rejects(self):
+        """The (req, reason) pairs the last `schedule()` early-rejected
+        at lane admission — the engine aborts each with the structured
+        reason so consumers get a terminal event."""
+        out, self.policy_rejects = self.policy_rejects, []
+        return out
+
     def _bucket(self, w):
-        """Smallest width bucket covering `w` (identity with no table)."""
+        """Smallest ragged width bucket covering `w` (identity with no
+        bucket table)."""
         if self.width_buckets is None:
             return w
         for b in self.width_buckets:
@@ -176,12 +295,20 @@ class Scheduler:
         return bool(self.waiting or self.running)
 
     def _release_blocks(self, req):
-        """The ONE place a request's KV blocks return to the pool. Full
-        prompt blocks whose KV is completely written (or that were matched
-        at admission) publish their content hash; the rest free truly."""
+        """The ONE place a request's KV blocks return to the pool
+        (finish, abort, and preemption all funnel here). Full prompt
+        blocks whose KV is completely written publish their content hash,
+        parking the block in the pool's cached-free tier for later
+        `match_prefix` hits; everything else frees truly."""
         if req.blocks:
             n_pub = 0
             if self.prefix_cache:
+                # blocks with fully-valid full-block content: everything
+                # the prefill has completely written PLUS everything that
+                # was matched from the index at admission — num_cached is
+                # capped below a matched block boundary for fully-cached
+                # prompts, and an early abort/preempt must not destroy
+                # that still-valid tail entry
                 n_pub = min(len(req.block_hashes),
                             max(req.num_cached // self.pool.block_size,
                                 req.num_matched_blocks),
@@ -198,7 +325,11 @@ class Scheduler:
             self.running.remove(req)
 
     def abort(self, req):
-        """Remove a request in ANY live state, freeing its KV blocks.
+        """Remove a request from the scheduler in ANY live state — queued
+        (never admitted), running mid-prefill or mid-decode, or preempted
+        awaiting re-admission — freeing its KV blocks. After abort the
+        request is terminal: `schedule()` can never emit a row for it
+        (it sits in neither queue), and its blocks are back in the pool.
         Idempotent for already-terminal requests."""
         if req.finished:
             return
@@ -213,13 +344,30 @@ class Scheduler:
         if self.metrics is not None:
             self.metrics.inc("requests_aborted")
 
+    def preempt(self, req):
+        """Public preempt-by-recompute of a RUNNING request (the engine
+        supervisor re-queues every row of a failed step through here:
+        blocks back to the pool, replay on re-admission — no partial step
+        state can survive). Returns False for requests not currently
+        running (queued, finished, aborted)."""
+        if req.finished or req not in self.running:
+            return False
+        self._preempt(req)
+        return True
+
     def _preempt(self, req):
         """Preempt-by-recompute: drop the KV, re-queue at the front. The
         released blocks publish their hashes, so a victim whose cached
-        prefix survives until re-admission repins it."""
+        prefix survives until re-admission repins it instead of replaying
+        the whole prompt."""
         self._release_blocks(req)
         req.state = WAITING
         req.preemptions += 1
+        req.wait_since = time.monotonic()
+        if self.slo is not None:
+            self.slo.transition(req, "preempted", req.wait_since)
+        if self.tracer is not None and req.traced:
+            self.tracer.request_instant(req, "preempt")
         if req in self.running:
             self.running.remove(req)
         self.waiting.appendleft(req)
@@ -229,9 +377,11 @@ class Scheduler:
     # -- policy ------------------------------------------------------------
 
     def _match_prefix(self, req):
-        """Pin the longest cached full-block prefix of `req`'s prompt.
-        ``num_cached`` starts at the first uncached token, capped at
-        ``num_tokens - 1`` so the last token always runs as the query."""
+        """Pin the longest cached full-block prefix of `req`'s prompt at
+        admission. ``num_cached`` starts at the first uncached token,
+        capped at ``num_tokens - 1``: a fully-cached prompt still feeds
+        its last token (the query that samples the first output), whose
+        scatter into the shared tail block goes through copy-on-write."""
         if self.metrics is not None:
             self.metrics.inc("prefix_cache_lookup_tokens",
                              len(req.block_hashes) * self.pool.block_size)
@@ -244,27 +394,50 @@ class Scheduler:
                              req.num_tokens - 1)
         req.prefix_hit_tokens = len(hit) * self.pool.block_size
         if self.metrics is not None:
+            # matched tokens, NOT the num_tokens-1 execution cap: a fully-
+            # cached prompt is a 100% hit (its last token is re-fed as the
+            # query, but its KV block was matched, so hit/lookup can reach
+            # 1.0 on a fully-warm workload)
             self.metrics.inc("prefix_cache_hit_tokens",
                              len(hit) * self.pool.block_size)
 
     def _take_block(self, req):
-        """One block for `req`, preempting strictly younger sequences when
-        the pool is dry. Returns the block id, or None to defer the row."""
+        """One block for `req`, preempting strictly WEAKER sequences when
+        the pool is dry. Without a policy, weaker = arrival-younger (FCFS
+        priority: an older request may reclaim a younger one's blocks,
+        never the reverse — age survives preemption/re-admission via
+        `arrival_seq`). With a policy, weaker = strictly lower
+        (priority rank, arrival) precedence, and the victim among the
+        eligible is the one whose tenant consumed the most windowed
+        tokens (serving/policy.py `select_victim`) instead of the blind
+        youngest. Returns the block id, or None if the row must be
+        deferred a step instead."""
         while True:
             got = self.pool.allocate(1)
             if got is not None:
                 return got[0]
-            victim = max(
-                (r for r in self.running
-                 if r.arrival_seq > req.arrival_seq and r.blocks),
-                key=lambda r: r.arrival_seq, default=None,
-            )
+            if self.policy is not None:
+                victim = self.policy.select_victim(self.running, req)
+                if victim is not None:
+                    self.policy.policy_preemptions += 1
+                    if self.metrics is not None:
+                        self.metrics.inc_labeled(
+                            "policy_preemptions",
+                            self.policy.class_labels(victim))
+            else:
+                victim = max(
+                    (r for r in self.running
+                     if r.arrival_seq > req.arrival_seq and r.blocks),
+                    key=lambda r: r.arrival_seq, default=None,
+                )
             if victim is not None:
                 self._preempt(victim)
                 continue
-            if not any(r.arrival_seq < req.arrival_seq for r in self.running):
-                # the oldest sequence cannot grow: the pool cannot hold
-                # even one sequence — a config error, not a scheduling state
+            if not any(self._precedence(r) < self._precedence(req)
+                       for r in self.running):
+                # the oldest sequence holds every allocated block and still
+                # cannot grow: the pool cannot hold even one sequence — a
+                # config error, not a scheduling state
                 raise ValueError(
                     f"request {req.request_id}: needs more KV blocks but "
                     f"the pool only has {self.pool.num_free} free with no "
@@ -275,18 +448,27 @@ class Scheduler:
 
     def _grow(self, req, need):
         """Grow `req.blocks` to `need` blocks. Returns False to defer."""
+        had = len(req.blocks)
         while len(req.blocks) < need:
             b = self._take_block(req)
             if b is None:
                 return False
             req.blocks.append(b)
+        if (self.tracer is not None and req.traced
+                and len(req.blocks) > had):
+            self.tracer.request_instant(
+                req, "alloc", {"blocks": len(req.blocks) - had,
+                               "total": len(req.blocks)})
         return True
 
     def _ensure_writable(self, req, start, count):
-        """Copy-on-write: any block receiving scatters for positions
-        [start, start+count) that is shared with another holder is first
+        """Copy-on-write: any block about to receive token scatters in
+        positions [start, start+count) that is shared with another holder
+        (refcount > 1 — e.g. the tail block of a fully-cached prompt, or a
+        prefix block some concurrent request also pinned) is first
         duplicated via `copy_blocks`, and `req` swaps its table entry to
-        the private copy. Returns False to defer (pool dry)."""
+        the private copy. The copy is NOT published: the original keeps
+        serving the index. Returns False to defer (pool dry)."""
         bs = self.pool.block_size
         for idx in range(start // bs, (start + count - 1) // bs + 1):
             b = req.blocks[idx]
@@ -296,15 +478,20 @@ class Scheduler:
             if nb is None:
                 return False
             if self.pool.refcount(b) <= 1:
-                # preempting for `nb` released the other holder
+                # preempting for `nb` released the other holder — the
+                # block is private again and the copy is unnecessary
                 self.pool.release([nb])
                 continue
             self.pool.copy_blocks([b], [nb])
-            # drop OUR reference only; co-holders and the index keep it
+            # drop OUR reference only; co-holders and the index keep the
+            # original (publish its hash back if we were the last holder)
             self.pool.release([b], [self.pool.block_hash(b)])
             req.blocks[idx] = nb
             if self.metrics is not None:
                 self.metrics.inc("prefix_cache_cow_copies")
+            if self.tracer is not None and req.traced:
+                self.tracer.request_instant(req, "cow",
+                                            {"src": b, "dst": nb})
         return True
 
     def _admit(self, req):
@@ -312,40 +499,96 @@ class Scheduler:
         if (self.prefix_cache and req.block_hashes and not req.blocks
                 and req.num_cached == 0):
             self._match_prefix(req)
+        now = time.monotonic()
         if req.admit_time is None:
-            req.admit_time = time.monotonic()
+            req.admit_time = now   # queue wait = first admission only
+        if self.slo is not None:
+            # compute phase opens at admission: prefill while >1 token
+            # is pending (fresh prompts AND post-preemption replays),
+            # decode when only the pending sampled token remains
+            self.slo.transition(
+                req, "prefill_compute" if req.num_pending > 1
+                else "decode_compute", now)
+        if self.tracer is not None and req.traced:
+            self.tracer.request_admitted(req, now)
         self.running.append(req)
 
-    def schedule(self):
+    def schedule(self, only=None):
         """Plan one mixed step. Returns the list of ScheduledRows (empty =
-        idle): waiting requests are admitted FCFS into free lanes, then
-        every running sequence gets its decode token or its next prefill
-        chunk, budget and pool permitting."""
-        while self.waiting and len(self.running) < self.max_batch:
-            self._admit(self.waiting.popleft())
+        idle). Every running sequence gets its decode token or its next
+        prefill chunk (budget and pool permitting); waiting requests are
+        admitted FCFS into free lanes first. ``only`` (a set of request
+        ids) restricts BOTH admission and planning to those requests —
+        the supervisor's bisection probes step a suspect subset while
+        every other sequence holds its state untouched."""
+        if only is None:
+            if self.policy is None:
+                while self.waiting and len(self.running) < self.max_batch:
+                    self._admit(self.waiting.popleft())
+            else:
+                # policy admission: the next lane goes to the strongest
+                # class, least-consuming tenant within it, oldest within
+                # that (serving/policy.py admission_key) — and a request
+                # whose deadline is already unattainable is rejected
+                # HERE, before it occupies the lane (the engine drains
+                # `policy_rejects` and aborts each with the structured
+                # reason)
+                now = time.monotonic()
+                while self.waiting and len(self.running) < self.max_batch:
+                    req = min(self.waiting,
+                              key=lambda r: self.policy.admission_key(r, now))
+                    self.waiting.remove(req)
+                    reason = self.policy.early_reject(
+                        req, self.prefill_chunk, now)
+                    if reason is not None:
+                        self.policy_rejects.append((req, reason))
+                        continue
+                    self._admit(req)
+        else:
+            # probe admission: pull ONLY the probed ids out of the queue,
+            # preserving everyone else's position and FCFS order
+            for req in [r for r in self.waiting if r.request_id in only]:
+                if len(self.running) >= self.max_batch:
+                    break
+                self.waiting.remove(req)
+                self._admit(req)
+
         budget = self.token_budget
         rows = []
-        # plan oldest first: the oldest request gets first claim on the
-        # budget and on pool blocks (the no-livelock guarantee)
-        for req in sorted(self.running, key=lambda r: r.arrival_seq):
+        # plan in precedence order (arrival order without a policy): the
+        # strongest request gets first claim on the budget and on pool
+        # blocks (it can preempt any weaker holder, so it always
+        # schedules or fails loudly — the no-livelock guarantee)
+        for req in sorted(self.running, key=self._precedence):
             if req not in self.running:
                 continue  # preempted while an earlier row grew its blocks
+            if only is not None and req.request_id not in only:
+                continue  # held still while a probe steps the suspects
             pending = req.num_pending
             if pending == 1:
-                count = 1   # decode rows are never gated on the budget
+                # decode row (also a prefill's final 1-token chunk): always
+                # scheduled — decode latency is never gated on the budget
+                count = 1
             else:
                 count = min(pending, self.prefill_chunk, budget)
                 if count < 1:
                     continue  # budget spent; this chunk waits a step
             start = req.num_cached
             if not self._grow(req, self.pool.blocks_for(start + count)):
-                continue
+                continue  # deferred — its budget share stays available
             if not self._ensure_writable(req, start, count):
-                continue
+                continue  # deferred mid-COW — already-copied blocks stay
             if pending > 1:
+                # budget is charged only for rows that actually scheduled,
+                # so a deferred/preempted chunk's share flows to later rows
                 budget -= count
             rows.append(ScheduledRow(req, start, count, emit=count == pending))
-        if self.drafter is not None and rows:
+        if self.drafter is not None and only is None and rows:
+            # the unified ragged step program carries drafted candidates
+            # at ANY width: emitting rows in a chunk-carrying step draft
+            # for free (the step already pays its bucket's width), and a
+            # pure-decode step may widen to the spec bucket when the
+            # proposed work amortizes it (see _attach_drafts)
             rows = self._attach_drafts(rows, budget)
         return rows
 
@@ -353,14 +596,25 @@ class Scheduler:
 
     def _attach_drafts(self, rows, budget):
         """Ask the drafter for candidate continuations of each emitting
-        row and reserve KV for them; drafted tokens are charged to the
-        remaining step `budget`.
+        row and reserve KV for them. Drafted tokens are charged to the
+        remaining step `budget` (extra step width is real compute); rows
+        keep their plain shape when the request opted out, nothing
+        matched, or memory/budget ran dry.
 
-        Width gate: a chunk-carrying (mixed) step already pays its width
-        bucket for every lane, so emitting rows there draft for free as
-        long as ``count + k`` stays inside that bucket. A pure-decode step
-        would widen from bucket 1 to ``bucket(1 + max k)``, so drafts attach
-        only when ``sum(k_i) >= bucket - 1``."""
+        Width gate — the old majority gate, re-derived for ragged
+        widths. A chunk-carrying (mixed) step already pays its width
+        bucket for every lane, so emitting rows there draft FREE as long
+        as ``count + k`` stays inside that bucket (drafts never widen a
+        mixed step). A pure-decode step would widen from bucket 1 to
+        ``bucket(1 + max k)``, so drafts attach only when the total
+        proposed work amortizes the growth: ``sum(k_i) >= bucket - 1``
+        (at least one lane's worth of drafted tokens per extra width).
+        Unlike the majority gate, a LONE full-window draft now passes —
+        the ragged kernel keeps the other lanes at one query tile, so a
+        single strong proposal no longer taxes the whole batch with a
+        uniform verify width — while a lone short draft still cannot
+        drag everyone to the spec bucket. Proposals are host-side and
+        free; nothing is reserved before the gate passes."""
         mixed = any(r.count > 1 for r in rows)
         base_w = self._bucket(max(r.count for r in rows))
         top_w = (self.width_buckets[-1] if self.width_buckets is not None
@@ -375,8 +629,10 @@ class Scheduler:
             # request's remaining token allowance
             cap = min(cap, req.remaining_new_tokens() - 1)
             if mixed:
+                # free riders only: never widen a chunk-carrying step
                 cap = min(cap, base_w - row.count)
             elif top_w is not None:
+                # never exceed the widest compiled program
                 cap = min(cap, top_w - row.count)
             draft = []
             if row.emit and req.spec_decoding is not False and cap >= 1:
@@ -391,6 +647,8 @@ class Scheduler:
         for row, draft in zip(rows, proposals):
             draft = draft[:budget]
             if draft:
+                # reserve after the row's PENDING token (its last chunk
+                # token — for decode rows that is row.start itself)
                 draft = self._reserve_spec(
                     row.req, row.start + row.count - 1, draft)
             if draft:
@@ -400,10 +658,17 @@ class Scheduler:
         return out
 
     def _reserve_spec(self, req, start, draft):
-        """Reserve truly-free KV blocks for `draft` tokens after the
+        """Reserve KV blocks for `draft` speculative tokens after the
         pending token at `start`; returns the (possibly trimmed) draft.
-        Every reserved block is fresh (refcount 1, unpublished), so
-        `reclaim_spec_blocks` can free a rejected tail safely."""
+
+        Speculation is an optimization, so its memory is second-class: only
+        TRULY-free blocks are taken (``evict=False`` — a drafted token must
+        never evict a cached prefix) and no sequence is ever preempted for
+        one. The pending token's own block was already made writable by
+        `_ensure_writable`, and planned rows only ever own blocks through
+        ``start // block_size``, so every reserved block is freshly
+        allocated (refcount 1, unpublished) — `reclaim_spec_blocks` can
+        free a rejected tail without touching shared state."""
         bs = self.pool.block_size
         avail = self.pool.num_truly_free
         k = min(len(draft), (len(req.blocks) + avail) * bs - start - 1)
@@ -412,15 +677,25 @@ class Scheduler:
         need = self.pool.blocks_for(start + 1 + k) - len(req.blocks)
         if need > 0:
             got = self.pool.allocate(need, evict=False)
-            if got is None:
+            if got is None:  # raced nothing (host-side), but stay safe
                 return []
             req.blocks.extend(got)
+            if self.tracer is not None and req.traced:
+                self.tracer.request_instant(req, "spec_reserve",
+                                            {"blocks": need})
         return draft[:k]
 
     def reclaim_spec_blocks(self, req):
-        """After a verify step keep the blocks covering the sequence's
-        tokens and truly-free the rejected tail's reservation."""
+        """Roll back the speculative reservation's rejected tail after a
+        verify step: keep the blocks covering the sequence's tokens (the
+        new pending token included), truly-free the rest. The freed blocks
+        are always private and unpublished (see `_reserve_spec`), so
+        refcounts, prefix-cache hashes, and COW state are untouched."""
         keep = self.pool.blocks_for(req.num_tokens)
         if len(req.blocks) > keep:
+            n = len(req.blocks) - keep
             self.pool.release(req.blocks[keep:])
             del req.blocks[keep:]
+            if self.tracer is not None and req.traced:
+                self.tracer.request_instant(req, "spec_reclaim",
+                                            {"blocks": n})

@@ -1,0 +1,206 @@
+"""Per-request lifecycle tracing and engine step timeline (Perfetto export).
+
+The diagnostic substrate for the serving stack: when p95 TTFT spikes or
+speculative acceptance drops, aggregate Prometheus counters
+(serving/metrics.py) can say *that* it happened, but not *where request X
+spent its time* or *what the engine did on step N*. `EngineTracer` records
+exactly those two views as Chrome/Perfetto trace events:
+
+- a **per-request lifecycle span tree** — one track per in-flight request
+  carrying its ``enqueue`` instant, the ``queued`` span (arrival →
+  admission, tagged with the prefix-cache match length), a ``requeued``
+  span per preemption round-trip, one span per prefill chunk and per
+  decode/verify step the request rode on, the ``ttft`` span (arrival →
+  first token), block-pool instants (``alloc``, ``cow``,
+  ``spec_reserve``/``spec_reclaim``, ``preempt``), and the closing
+  ``request`` span (arrival → finish/abort) with the request's summary;
+- an **engine step timeline** — one ``step`` span per `LLMEngine.step()`
+  with phase children ``plan`` (scheduling), ``build`` (host batch
+  assembly), ``dispatch`` (device program launch), ``sync`` (host sync on
+  the sampled tokens), ``emit`` (token emission), tagged with the batch
+  composition (decode rows, prefill chunks, spec lanes), program kind
+  (mixed/decode/verify), and token counts. Pool evictions land as
+  instants on a ``block-pool`` track.
+
+The ring buffer, clocks, export, and the step annotation are the shared
+recorder in `paddle_tpu_torch.profiler.tracing` (`Tracer`); this module
+adds only the serving-specific tracks and span vocabulary. The env knobs
+(``PADDLE_TPU_TRACE`` as an on/off switch or request sampling fraction,
+``PADDLE_TPU_TRACE_BUF`` as the ring bound) and the one-pointer-test
+off-by-default discipline are the base module's.
+
+Export: `chrome_trace()` returns the standard trace-event JSON object
+(``{"traceEvents": [...]}``) — serve it from ``GET /debug/trace``
+(serving/server.py), `dump()` it to a file, and open it at
+https://ui.perfetto.dev. Device-side correlation: while tracing, every
+step dispatch runs under a `torch.profiler.record_function` range named
+``paddle_tpu.step <id>`` carrying the SAME step id as the host ``step``
+span, so a torch-profiler capture joins the host phases by name.
+"""
+from __future__ import annotations
+
+import time
+
+from ..profiler.tracing import (  # noqa: F401  (re-exported API)
+    STEP_ANNOTATION_PREFIX,
+    Tracer,
+    trace_capacity_from_env,
+    trace_sample_from_env,
+)
+
+# process ids of the two fixed tracks groups
+PID_ENGINE = 1
+PID_REQUESTS = 2
+# tids inside PID_ENGINE
+TID_STEPS = 0
+TID_POOL = 1
+TID_SUPERVISOR = 2
+# request lanes: tids PID_REQUESTS/[_LANE_BASE, _LANE_BASE + _NUM_LANES).
+# Lanes are reused round-robin; concurrent requests can never collide as
+# long as max_batch + max_waiting < _NUM_LANES (every event still carries
+# its request_id in args, so even a collision is attributable).
+_LANE_BASE = 10
+_NUM_LANES = 256
+
+_STEP_PHASES = ("plan", "build", "dispatch", "sync", "emit")
+
+
+class EngineTracer(Tracer):
+    """Bounded trace-event recorder for one `LLMEngine`.
+
+    All timestamps come from ``time.monotonic()`` — the same clock
+    `Request.arrival_time` and ServingMetrics use, so TTFT/queue-wait
+    spans agree with the metric quantiles by construction. The engine
+    thread is the only writer; `chrome_trace()` may be called from any
+    thread (the HTTP event loop mid-serve) — the base class's lock covers
+    the ring append and the export snapshot.
+    """
+
+    producer = "paddle_tpu_torch.serving.trace"
+
+    def __init__(self, capacity=65536, sample=1.0):
+        super().__init__(capacity=capacity, sample=sample)
+        self._acc = 0.0           # deterministic sampling accumulator
+        self._lane_of = {}        # request_id -> tid (live requests only)
+        self._next_lane = 0
+        self._meta = [
+            self._meta_ev("process_name", PID_ENGINE, 0,
+                          {"name": "paddle-tpu-engine"}),
+            self._meta_ev("thread_name", PID_ENGINE, TID_STEPS,
+                          {"name": "engine-step"}),
+            self._meta_ev("thread_name", PID_ENGINE, TID_POOL,
+                          {"name": "block-pool"}),
+            self._meta_ev("thread_name", PID_ENGINE, TID_SUPERVISOR,
+                          {"name": "supervisor"}),
+            self._meta_ev("process_name", PID_REQUESTS, 0,
+                          {"name": "requests"}),
+        ]
+        self._named_lanes = set()
+
+    # -- request lifecycle --------------------------------------------------
+
+    def should_trace(self, req):
+        """Decide once per request at `add`: the per-request ``trace``
+        override wins; otherwise an error-diffusion accumulator admits
+        exactly ``sample`` of the request stream (deterministic — tests
+        and repeated captures see the same selection)."""
+        if req.trace is not None:
+            return bool(req.trace)
+        self._acc += self.sample
+        if self._acc >= 1.0:
+            self._acc -= 1.0
+            return True
+        return False
+
+    def _lane(self, req):
+        tid = self._lane_of.get(req.request_id)
+        if tid is None:
+            tid = _LANE_BASE + (self._next_lane % _NUM_LANES)
+            self._next_lane += 1
+            self._lane_of[req.request_id] = tid
+            if tid not in self._named_lanes:
+                self._named_lanes.add(tid)
+                # under the ring lock: chrome_trace() snapshots _meta
+                # from the HTTP thread while this (engine) thread names
+                # new lanes mid-serve
+                with self._lock:
+                    self._meta.append(self._meta_ev(
+                        "thread_name", PID_REQUESTS, tid,
+                        {"name": f"req-lane-{tid - _LANE_BASE:03d}"}))
+        return tid
+
+    def begin_request(self, req):
+        self.instant("enqueue", PID_REQUESTS, self._lane(req),
+                     t=req.arrival_time,
+                     args={"request_id": req.request_id,
+                           "prompt_tokens": len(req.prompt_ids),
+                           "max_new_tokens": req.max_new_tokens})
+
+    def request_admitted(self, req, now):
+        """Close the wait span: ``queued`` for the first admission (from
+        arrival), ``requeued`` for a post-preemption re-admission (from
+        the preemption)."""
+        first = req.wait_since == req.arrival_time and not req.preemptions
+        self.complete("queued" if first else "requeued",
+                      PID_REQUESTS, self._lane(req), req.wait_since, now,
+                      args={"request_id": req.request_id,
+                            "cached_tokens": req.num_cached,
+                            "prefix_hit_tokens": req.prefix_hit_tokens,
+                            "preemptions": req.preemptions})
+
+    def request_instant(self, req, name, args=None):
+        a = {"request_id": req.request_id}
+        if args:
+            a.update(args)
+        self.instant(name, PID_REQUESTS, self._lane(req), args=a)
+
+    def row_span(self, req, name, start, end, args=None):
+        """One span for a step this request rode on (``prefill_chunk``,
+        ``decode``, or ``verify``), covering the step's device window."""
+        a = {"request_id": req.request_id}
+        if args:
+            a.update(args)
+        self.complete(name, PID_REQUESTS, self._lane(req), start, end, a)
+
+    def first_token(self, req, now):
+        self.complete("ttft", PID_REQUESTS, self._lane(req),
+                      req.arrival_time, now,
+                      args={"request_id": req.request_id})
+
+    def end_request(self, req, reason, now=None):
+        """The closing ``request`` span (arrival -> finish/abort) with the
+        whole lifecycle summary; frees the request's lane."""
+        now = time.monotonic() if now is None else now
+        self.complete(
+            "request", PID_REQUESTS, self._lane(req), req.arrival_time, now,
+            args={
+                "request_id": req.request_id,
+                "reason": reason,
+                "prompt_tokens": len(req.prompt_ids),
+                "output_tokens": len(req.output_ids),
+                "prefix_hit_tokens": req.prefix_hit_tokens,
+                "preemptions": req.preemptions,
+                "spec_accepted_tokens": req.spec_accepted,
+            })
+        self._lane_of.pop(req.request_id, None)
+
+    # -- engine step timeline ----------------------------------------------
+
+    def record_step(self, step_id, kind, phases, args):
+        """Emit the ``step`` span and its phase children on the engine
+        track. `phases` is {name: (start, end)} in monotonic seconds; the
+        step span covers min(start)..max(end)."""
+        a = {"kind": kind}
+        a.update(args)
+        self.phased_span(f"step[{kind}]", PID_ENGINE, TID_STEPS, step_id,
+                         phases, _STEP_PHASES, a)
+
+    def pool_instant(self, name, args=None):
+        self.instant(name, PID_ENGINE, TID_POOL, args=args)
+
+    def supervisor_instant(self, name, args=None):
+        """Fault-injection fires, poison-bisection probes/verdicts, and
+        watchdog trips land on the ``supervisor`` track — a chaos run's
+        injected failures and the engine's recovery decisions line up
+        against the step timeline in one Perfetto view."""
+        self.instant(name, PID_ENGINE, TID_SUPERVISOR, args=args)

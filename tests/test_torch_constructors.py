@@ -46,7 +46,7 @@ ENGINE_OTHER = {
     "host_swap_chunk": 2, "kv_dtype": "int8", "quantize": "int8",
     "calib_prompts": [[1, 2, 3]], "quantize_iters": 10,
     "quant_allreduce": True, "checkpoint_path": "ckpt",
-    "param_hbm_bytes": 1 << 30, "policy": "priority", "lora_slots": 2,
+    "param_hbm_bytes": 1 << 30, "policy": True, "lora_slots": 2,
     "lora_rank": 4, "lora_targets": ("qkv",), "warmup": True,
 }
 GPT_OTHER = {
@@ -89,7 +89,10 @@ def test_every_jax_keyword_has_a_non_default_value():
 
 
 @pytest.mark.parametrize("name", sorted(JAX_ENGINE))
-def test_engine_takes_jax_keyword(model, name):
+def test_engine_takes_jax_keyword(model, name, tmp_path, monkeypatch):
+    # relative paths (postmortem_dir) land in a scratch directory
+    monkeypatch.chdir(tmp_path)
+
     def make(**kw):
         return LLMEngine(model, device="cpu", **kw)
 
@@ -131,7 +134,7 @@ def test_gpt_config_stores_dtype_as_jax_does():
 
 def test_engine_none_defaults_mean_the_jax_defaults(model):
     """prefix_cache=None and spec_decoding=None (the JAX defaults) give the
-    JAX engine's defaults without its env switches: prefix caching on,
+    JAX engine's defaults with its env switches unset: prefix caching on,
     speculative decoding off."""
     eng = LLMEngine(model, device="cpu", prefix_cache=None,
                     spec_decoding=None)

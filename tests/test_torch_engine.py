@@ -256,8 +256,9 @@ def test_engine_rejects_a_model_on_another_device(models):
 @pytest.mark.parametrize("option", [
     {"mesh": 2}, {"kv_dtype": "int8", "host_kv_blocks": 8},
     {"quantize": "int8"},
-    {"lora_slots": 2}, {"host_kv_blocks": 8}, {"policy": "fair"},
-    {"trace": True}, {"slo": True}, {"checkpoint_path": "ckpt"},
+    {"lora_slots": 2}, {"host_kv_blocks": 8}, {"param_hbm_bytes": 1 << 30},
+    {"lora_rank": 4}, {"calib_prompts": [[1, 2, 3]]},
+    {"checkpoint_path": "ckpt"},
 ])
 def test_left_out_options_raise(models, option):
     _, tm = models

@@ -40,6 +40,8 @@ def test_port_has_modules_and_a_smoke_script():
                  "paddle_tpu_torch/ops/fused_ce.py",
                  "paddle_tpu_torch/optimizer/optimizers.py",
                  "paddle_tpu_torch/serving/engine.py",
+                 "paddle_tpu_torch/serving/server.py",
+                 "paddle_tpu_torch/serving/frontend.py",
                  "paddle_tpu_torch/models/gpt.py", "chip_smoke.py"):
         assert want in names
 
