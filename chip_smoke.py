@@ -79,6 +79,32 @@ Phases, in order; any failure exits nonzero:
    ends in error, one postmortem bundle) and a wave with a raising step
    (the supervisor's bisection recovers it; every request completes);
    `jit_retraces` stays 0; a drain leaves the lifecycle `stopped`.
+   3f. The rest of single-card serving on phase 3's model, every engine
+   LLMEngine(block_size=16, max_batch=8, spec_decoding=True, warmup=True)
+   plus the feature, each wave with the kernels' counts set to 0 just
+   before and read just after (one ragged launch a layer and step, int8
+   appends two; no program built, one host sync a step, the pool idle):
+   LoRA (lora_slots=3, lora_rank=8; adapter alpha at rank 8, alpha 16,
+   beta at rank 4, alpha 8): phase 3's prompts split base / alpha / beta
+   in one wave, base lanes equal to phase 3's tokens and an adapter lane
+   different, tok/s beside phase 3's, the delta's device ms a step by
+   width (gather, products); phase 3's traffic on a second LoRA engine,
+   bit-identical to phase 3; one request naming alpha over HTTP equal to
+   the same request by step(); float32 (TF32 off, 4 layers) against an
+   engine over the merged weights, token parity >= 0.9. The host tier
+   (num_blocks=80, host_kv_blocks=256), float and int8 arenas: a
+   1024-token document with two tails cold, device-warm, churned out of
+   the device, host-warm, tokens equal in every state and swaps both
+   ways; TTFT p50 of each state, swap-out and swap-in GB/s, the busy
+   share of a profiled host-warm serve, an export imported by a second
+   engine that serves host-warm, and /debug/kvtier equal to the pool's
+   tier fields. AdaRound (quantize="int8", 40 iterations, 4 calibration
+   prompts of 24 tokens) on a second gpt_1p3b of the same seed, after the
+   flash forward at S 24 against its plain version: calibration seconds
+   and flash launches (one a layer and prompt), held-out NLL within 0.05
+   of the bf16 model's, greedy parity >= 0.9 against phase 3, the
+   embedding and norms unchanged, block 0's fc1 on the int8 grid up to
+   bf16's rounding of q * s.
 4. float32 parity: gpt_1p3b widths at 4 layers, greedy LLMEngine (the
    kernel, through captured graphs) against GPT.generate (contiguous
    cache, no kernel).
@@ -702,6 +728,7 @@ def serve(model, kv_dtype=None):
         device_busy_ms=busy_ms, device_busy_share=busy_ms / 1e3 / wall,
         warmup_s=engine.metrics.gauges["warmup_seconds"],
         programs=int(c["jit_traces"]),
+        program_shapes=engine.step_program_shapes(),
         replays={k: n - replays0[k] for k, n in _replays(engine).items()},
         ttft_p50_ms=lat["ttft"]["p50_ms"],
         step_p50_ms={k: v["p50_ms"] for k, v in lat.items()
@@ -1165,6 +1192,537 @@ async def _front_door(model, served):
     log("[front-door] " + json.dumps(res))
     del engine
     torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 3f -----------------------------------------------------------------
+
+# the build of every phase 3f engine, beside the feature under test
+FEATURE_ENGINE = dict(block_size=16, max_batch=8, spec_decoding=True,
+                      warmup=True)
+# the LoRA wave's adapter by prompt index: base, alpha, beta in turn
+LORA_WAVE = [None, "alpha", "beta", None, "alpha", "beta", None, "alpha"]
+# the host-tier wave: a device pool of 80 blocks under a 1024-token
+# document (64 blocks), 256 host blocks
+TIER_ENGINE = dict(num_blocks=80, host_kv_blocks=256)
+
+
+def _adapters(cfg):
+    """The two seeded adapters: alpha at rank 8 (alpha 16), beta at rank 4
+    (alpha 8, zero-padded to the table rank)."""
+    from paddle_tpu_torch.models import lora
+
+    return {"alpha": (lora.random_adapter(cfg, 8, seed=1), 16),
+            "beta": (lora.random_adapter(cfg, 4, seed=2), 8)}
+
+
+def _feature_engine(model, **kw):
+    """A phase 3f engine (warmup=True) with its counters cleared but for
+    the program builds, as `serving_engine` leaves phase 3's."""
+    from paddle_tpu_torch.serving import LLMEngine
+
+    engine = LLMEngine(model, **FEATURE_ENGINE, **kw)
+    traces = engine.metrics.counters["jit_traces"]
+    assert traces == len(engine._step_fns) \
+        == engine.expected_program_count(), traces
+    engine.metrics.counters.clear()
+    engine.metrics.counters["jit_traces"] = traces
+    engine.metrics.reset_schedule()
+    return engine
+
+
+def _wave_start(engine):
+    """What a wave's checks compare against, read just before it; the
+    kernels' launch counts are set to 0."""
+    c = engine.metrics.counters
+    _zero_counts()
+    return engine.step_count, c.get("host_syncs", 0), c["jit_traces"]
+
+
+def _wave_end(engine, start, tag):
+    """A wave's launches and steps; fails on a program built, a second
+    host sync in a step, a ragged launch count off one a layer and step,
+    or a busy pool."""
+    steps0, syncs0, traces0 = start
+    c = engine.metrics.counters
+    launches, int8_launches, appends = _read_counts()
+    steps = engine.step_count - steps0
+    rec = dict(steps=steps, host_syncs=int(c["host_syncs"] - syncs0),
+               launches=launches, int8_launches=int8_launches,
+               append_launches=appends)
+    layers = engine.model.cfg.num_layers
+    assert c["jit_traces"] == traces0, (tag, rec)
+    assert engine.metrics.gauges.get("jit_retraces", 0) == 0, (tag, rec)
+    assert rec["host_syncs"] == steps, (tag, rec)
+    assert launches == layers * steps, (tag, rec)
+    if engine.pool.quantized:
+        assert int8_launches == launches and appends == 2 * launches, \
+            (tag, rec)
+    assert engine.pool.num_free == engine.pool.num_blocks - 1, tag
+    assert engine.pool._refcount == {}, tag
+    return rec
+
+
+def _serve_each(engine, prompts, **kw):
+    """`prompts` one at a time through `step()`, 32 greedy tokens each:
+    (tokens, TTFT ms) per prompt. One request at a time gives every
+    serve of a prompt the same step shapes whatever its cache state."""
+    outs, ttft = [], []
+    for p in prompts:
+        rid = engine.add_request(p, max_new_tokens=32, temperature=0.0, **kw)
+        req = engine.get_request(rid)
+        while not req.finished:
+            engine.step()
+        outs.append(list(req.output_ids))
+        ttft.append((req.first_token_time - req.arrival_time) * 1e3)
+        engine.release(rid)
+    torch.cuda.synchronize()
+    return outs, ttft
+
+
+def _lora_delta_ms(engine):
+    """Device ms a step of the LoRA delta at the serve shapes, by width
+    bucket: the per-lane gather of both targets' rows, and the two
+    products plus the float32 add of both targets in every layer (models/
+    gpt.py `_serving_column_parallel`)."""
+    from paddle_tpu_torch.models.lora import (apply_adapter_rows,
+                                              gather_adapter_rows)
+
+    tables = engine._lora_tables
+    cfg = engine.model.cfg
+    slots = torch.tensor([0, 1, 2, 0, 1, 2, 0, 1], dtype=torch.int32,
+                         device=engine.device)
+    rows = gather_adapter_rows(tables, slots)
+    out = {}
+    for W in engine.width_buckets:
+        x = torch.randn((8, W, cfg.hidden_size), device=engine.device,
+                        dtype=engine.model.dtype)
+        ys = {t: torch.zeros((8, W, b.shape[-1]), device=engine.device,
+                             dtype=x.dtype) for t, (_, b) in tables.items()}
+
+        def products():
+            for t, (a_rows, b_rows) in rows.items():
+                (ys[t].float() + apply_adapter_rows(x, a_rows, b_rows, 0)
+                 ).to(x.dtype)
+
+        gather = time_ms(lambda: gather_adapter_rows(tables, slots), 20)
+        prod = time_ms(products, 20) * cfg.num_layers
+        out[f"w{W}"] = dict(gather_ms=gather, products_ms=prod,
+                            total_ms=gather + prod)
+    return out
+
+
+async def _http_adapter(engine, prompt, want):
+    """One /v1/completions request naming adapter alpha through a
+    `ServingServer` over `engine`: its tokens must be `want`."""
+    from paddle_tpu_torch.serving import ServingServer
+
+    server = ServingServer(engine, host="127.0.0.1", port=0)
+    await server.start()
+    try:
+        status, toks, reason, _ = await _post(server.port, {
+            "prompt": prompt, "max_tokens": 32, "adapter": "alpha",
+            "stream": True})
+    finally:
+        await server.shutdown()
+    assert status == 200 and reason == "length", (status, reason)
+    return toks == want
+
+
+def lora_waves(model, served, graph_outs):
+    """Phase 3f, LoRA: the mixed wave, phase 3's traffic on a LoRA engine,
+    the delta's device ms, the adapter over HTTP, and f32 merged parity."""
+    cfg = model.cfg
+    prompts = _prompts(np.random.RandomState(0), cfg.vocab_size)
+    res = {}
+    # 1. the mixed wave: base, alpha and beta requests in one wave
+    engine = _feature_engine(model, lora_slots=3, lora_rank=8)
+    for name, (w, alpha) in _adapters(cfg).items():
+        engine.load_adapter(name, w, alpha=alpha)
+    assert engine.step_program_shapes() == served["program_shapes"]
+    start = _wave_start(engine)
+    with StepEvents() as ev:
+        t0 = time.perf_counter()
+        rids = [engine.add_request(p, max_new_tokens=32, temperature=0.0,
+                                   adapter=a)
+                for p, a in zip(prompts, LORA_WAVE)]
+        while engine.has_unfinished():
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    outs = [engine.get_request(r).output_ids for r in rids]
+    rec = _wave_end(engine, start, "lora-mixed")
+    base = [i for i, a in enumerate(LORA_WAVE) if a is None]
+    adapted = [i for i, a in enumerate(LORA_WAVE) if a is not None]
+    rec.update(
+        tok_per_s=sum(map(len, outs)) / wall, wall_s=wall,
+        device_busy_share=ev.busy_ms() / 1e3 / wall,
+        base_equal=sum(outs[i] == graph_outs[i] for i in base),
+        base_lanes=len(base),
+        adapter_differs=sum(outs[i] != graph_outs[i] for i in adapted),
+        adapter_lanes=len(adapted),
+        lora_requests=int(engine.metrics.counters.get("lora_requests", 0)),
+        delta_ms=_lora_delta_ms(engine))
+    res["mixed"] = rec
+    assert all(len(o) == 32 for o in outs)
+    assert engine.pool_stats()["lora"]["inflight"] == {}
+    del engine
+    torch.cuda.empty_cache()
+    # 2. phase 3's traffic (every lane on slot 0) on a fresh LoRA engine:
+    # the same schedule as phase 3, so the same tokens bit for bit
+    engine = _feature_engine(model, lora_slots=3, lora_rank=8)
+    for name, (w, alpha) in _adapters(cfg).items():
+        engine.load_adapter(name, w, alpha=alpha)
+    start = _wave_start(engine)
+    t0 = time.perf_counter()
+    outs = serve_waves(engine, prompts)
+    wall = time.perf_counter() - t0
+    rec = _wave_end(engine, start, "lora-base")
+    rec.update(tok_per_s=sum(map(len, outs)) / wall, wall_s=wall,
+               equal=sum(a == b for a, b in zip(outs, graph_outs)))
+    res["base_traffic"] = rec
+    # 3. one request naming alpha over HTTP: the tokens the engine gives
+    # the same request driven by step() (both warm: served once before)
+    p = prompts[1]
+    direct = _serve_each(engine, [p, p], adapter="alpha")[0]
+    res["http_adapter_equal"] = asyncio.run(
+        _http_adapter(engine, p, direct[1]))
+    del engine
+    torch.cuda.empty_cache()
+    res["phase3_tok_per_s"] = served["tok_per_s"]
+    res["f32_merged"] = lora_f32_parity()
+    log("[lora] " + json.dumps(res))
+    mixed = res["mixed"]
+    # slot 0 adds an exact zero: base lanes are phase 3's tokens
+    assert mixed["base_equal"] == mixed["base_lanes"], mixed
+    assert mixed["adapter_differs"] > 0, mixed
+    assert res["base_traffic"]["equal"] == len(graph_outs), res
+    assert res["http_adapter_equal"], res
+    assert res["f32_merged"]["parity_rate"] >= 0.9, res
+    return res
+
+
+def lora_f32_parity():
+    """The LoRA engine in float32 (TF32 off) at gpt_1p3b widths and 4
+    layers, every request on adapter alpha, against a plain engine over
+    the model with alpha merged into its weights: the greedy token
+    equality rate must reach 0.9 (phase 3b's card-parity rate)."""
+    from paddle_tpu_torch.models import lora
+    from paddle_tpu_torch.models.gpt import gpt_1p3b
+    from paddle_tpu_torch.serving import LLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    outs = []
+    for merged in (False, True):
+        model = gpt_1p3b(num_layers=4, device="cuda", dtype=torch.float32,
+                         seed=1)
+        rs = np.random.RandomState(1)
+        prompts = [rs.randint(0, model.cfg.vocab_size, n).tolist()
+                   for n in (20, 37, 64, 150)]
+        w, alpha = _adapters(model.cfg)["alpha"]
+        if merged:
+            lora.merge_adapter_into(model, w, alpha=alpha)
+            eng = LLMEngine(model, block_size=16, max_batch=4)
+            kw = {}
+        else:
+            eng = LLMEngine(model, block_size=16, max_batch=4, lora_slots=1,
+                            lora_rank=8)
+            eng.load_adapter("alpha", w, alpha=alpha)
+            kw = {"adapter": "alpha"}
+        outs.append(eng.generate(prompts, max_new_tokens=16,
+                                 temperature=0.0, **kw))
+        del eng, model
+        torch.cuda.empty_cache()
+    toks = [(a, b) for ga, gb in zip(*outs) for a, b in zip(ga, gb)]
+    rate = float(np.mean([a == b for a, b in toks]))
+    return dict(layers=4, prompts=4, tokens=len(toks), parity_rate=rate)
+
+
+def _tier_prompts(vocab):
+    """The document (1024 tokens) with two short tails, and three rounds of
+    churn: distinct prompts of 300 and 400 tokens, 46 blocks a round with
+    their decode, so two rounds push the whole document out of the
+    79-block device pool while the 256-block host tier keeps it and all
+    three rounds."""
+    rs = np.random.RandomState(3)
+    doc = rs.randint(0, vocab, 1024).tolist()
+    docs = [doc + rs.randint(0, vocab, n).tolist() for n in (5, 9)]
+    churn = [[rs.randint(0, vocab, n).tolist() for n in (300, 400)]
+             for _ in range(3)]
+    return docs, churn
+
+
+def _churn(engine, churn):
+    for wave in churn:
+        engine.generate(wave, max_new_tokens=8, temperature=0.0)
+
+
+def _swap_rates(engine, blocks):
+    """Swap-out and swap-in GB/s of `blocks` arena blocks: saved under
+    fresh hashes, flushed and settled into the host slabs (the host clock,
+    slab writes included), then restored into as many allocated blocks
+    (the host clock to a synchronize)."""
+    tier, pool = engine.tier, engine.pool
+    per_block = pool.bytes_per_block()
+    hashes = [b"rate-%d" % i for i in range(len(blocks))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for h, b in zip(hashes, blocks):
+        tier.save(h, b)
+    tier.flush_saves()
+    tier.settle()
+    out_s = time.perf_counter() - t0
+    dst = pool.allocate(len(blocks))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = tier.restore(hashes, dst)
+    torch.cuda.synchronize()
+    in_s = time.perf_counter() - t0
+    pool.release(dst)
+    assert got == len(blocks), got
+    nbytes = per_block * len(blocks)
+    return dict(blocks=len(blocks), bytes=nbytes,
+                swap_out_gb_s=nbytes / out_s / 1e9,
+                swap_in_gb_s=nbytes / in_s / 1e9)
+
+
+async def _http_kvtier(engine):
+    """/debug/kvtier and /healthz through a `ServingServer` over `engine`:
+    (snapshot, pool)."""
+    from paddle_tpu_torch.serving import ServingServer
+
+    server = ServingServer(engine, host="127.0.0.1", port=0)
+    await server.start()
+    try:
+        ks, snap = await _get(server.port, "/debug/kvtier")
+        hs, health = await _get(server.port, "/healthz")
+    finally:
+        await server.shutdown()
+    assert ks == hs == 200, (ks, hs)
+    return json.loads(snap), json.loads(health)["pool"]
+
+
+def tier_wave(model, kv_dtype=None):
+    """Phase 3f, the host tier over a float or an int8 arena: cold,
+    device-warm, churn, host-warm; a second churn and host-warm serve
+    under the profiler (its busy share); export into a second engine
+    (a third host-warm serve); the swap rates; /debug/kvtier over HTTP
+    (float arena)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tag = "tier" if kv_dtype is None else f"tier-{kv_dtype}"
+    docs, churn = _tier_prompts(model.cfg.vocab_size)
+    engine = _feature_engine(model, kv_dtype=kv_dtype, **TIER_ENGINE)
+    tier = engine.tier
+    start = _wave_start(engine)
+    # the first document cold, then device-warm three times, then the
+    # second (its tail is longer); after the churn both host-warm, the
+    # second one finding the first's restored blocks on the device
+    cold, cold_ttft = _serve_each(engine, docs[:1])
+    warm, warm_ttft = _serve_each(engine, [docs[0]] * 3 + docs[1:])
+    ins0 = tier.swap_ins
+    _churn(engine, churn)
+    tier.settle()
+    host, host_ttft = _serve_each(engine, docs)
+    rec = _wave_end(engine, start, tag)
+    stats = tier.stats()
+    host_warm = [host_ttft[0]]
+    rec.update(
+        ttft_ms=dict(cold=cold_ttft[0], device_warm=warm_ttft[:3],
+                     host_warm=host_warm,
+                     second_device_warm=warm_ttft[3],
+                     second_after_restore=host_ttft[1]),
+        tokens_equal=(cold[0] == warm[0] == warm[1] == warm[2] == host[0]
+                      and warm[3] == host[1]),
+        swap_ins=stats["swap_ins"] - ins0, swap_outs=stats["swap_outs"],
+        host_blocks_used=stats["host_blocks_used"])
+    tier.settle()
+    with tier._lock:
+        assert tier._pending == {} and tier._save_buf == []
+    # a third host-warm serve, under the profiler for its busy share
+    _churn(engine, churn)
+    tier.settle()
+    start = _wave_start(engine)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        outs, ttft = _serve_each(engine, docs[:1])
+        wall = time.perf_counter() - t0
+    host_warm.append(ttft[0])
+    prof_rec = _wave_end(engine, start, tag + "-profiled")
+    busy = _device_busy_ms(prof)
+    rec["profiled_host_warm"] = dict(wall_s=wall, device_busy_ms=busy,
+                                     device_busy_share=busy / 1e3 / wall)
+    rec["profiled_host_warm"]["tokens_equal"] = outs[0] == cold[0]
+    assert rec["profiled_host_warm"]["tokens_equal"], rec
+    # export into a second engine of the same build: it serves host-warm
+    payload = engine.export_kv_tier(demote=True)
+    second = _feature_engine(model, kv_dtype=kv_dtype, **TIER_ENGINE)
+    rec["imported"] = second.import_kv_tier(payload)
+    del payload
+    start = _wave_start(second)
+    moved, ttft = _serve_each(second, docs[:1])
+    host_warm.append(ttft[0])
+    import_rec = _wave_end(second, start, tag + "-import")
+    for k in ("launches", "int8_launches", "append_launches"):
+        rec[k] += import_rec[k] + prof_rec[k]
+    rec["import_swap_ins"] = second.tier.swap_ins
+    rec["import_tokens_equal"] = moved[0] == cold[0]
+    second.close()
+    del second
+    # the swap rates, on the document's 64 blocks (device-resident after
+    # the host-warm serve); last, as their hashes take host slots
+    blocks = [engine.pool._hash_index[h]
+              for h in _doc_hashes(docs[0], engine.block_size)]
+    rec["rates"] = _swap_rates(engine, blocks)
+    t = rec["ttft_ms"]
+    t.update(cold_p50=t["cold"], device_warm_p50=float(np.median(
+        t["device_warm"])), host_warm_p50=float(np.median(host_warm)))
+    rec["host_over_device_ttft"] = t["host_warm_p50"] / t["device_warm_p50"]
+    rec["cold_over_host_ttft"] = t["cold_p50"] / t["host_warm_p50"]
+    if kv_dtype is None:
+        snap, pool = asyncio.run(_http_kvtier(engine))
+        fields = ("host_blocks_total", "host_blocks_used", "swap_ins",
+                  "swap_outs", "swap_in_hit_tokens", "migrated_blocks_out",
+                  "migrated_blocks_in")
+        rec["debug_kvtier_equal"] = all(snap[k] == pool[k] for k in fields)
+    engine.close()
+    log(f"[{tag}] " + json.dumps(rec))
+    del engine
+    torch.cuda.empty_cache()
+    assert rec["tokens_equal"], (cold, warm, host)
+    assert rec["swap_outs"] > 0 and rec["swap_ins"] > 0, rec
+    assert rec["import_tokens_equal"] and rec["import_swap_ins"] > 0, rec
+    assert rec.get("debug_kvtier_equal", True), rec
+    return rec
+
+
+def _doc_hashes(prompt, block_size):
+    from paddle_tpu_torch.serving import chain_block_hashes
+
+    return chain_block_hashes(prompt, block_size)[:1024 // block_size]
+
+
+def _mean_nll(model, seqs):
+    """Mean next-token NLL of `seqs` under `model` (full forwards)."""
+    tot, n = 0.0, 0
+    with torch.no_grad():
+        for seq in seqs:
+            logits = model(torch.tensor([seq], device=model.device))[0]
+            logits = logits.float()
+            lse = torch.logsumexp(logits[:-1], dim=-1)
+            ll = logits[torch.arange(len(seq) - 1), seq[1:]] - lse
+            tot += float(-ll.sum())
+            n += len(seq) - 1
+    return tot / n
+
+
+def _flash_short():
+    """The flash forward at calibration's shape (B 1, S 24, H 16, D 128,
+    causal, bf16) against the plain version, with times: no other phase
+    runs the sm_90a forward under 64 keys."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    q, k, v = (torch.randn((1, 24, H, D), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    o32 = fa.attention_ref(q.float(), k.float(), v.float(), True)
+    lse32 = fa.attention_lse_ref(q.float(), k.float(), True)
+    torch.cuda.synchronize()
+    err = max((o.float() - o32).abs().max().item(),
+              (lse - lse32).abs().max().item())
+    bound = _flash_bounds(1, 24, H, D, torch.bfloat16)["fwd"]
+    F = torch.nn.functional
+    ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    rec = dict(shape=[1, 24, H, D], max_err=err, tol=TOL[torch.bfloat16],
+               ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, True), 50),
+               plain_ms=time_ms(lambda: fa.attention_ref(q, k, v, True), 50),
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                   ql, kl, vl, is_causal=True), 50),
+               bound_ms=bound[0], bound_by=bound[1])
+    assert err <= TOL[torch.bfloat16], rec
+    return rec
+
+
+def adaround(model, graph_outs):
+    """Phase 3f, AdaRound: gpt_1p3b (the same seed as phase 3's) built
+    with quantize="int8", quantize_iters=40 over 4 calibration prompts of
+    24 tokens; the held-out NLL gate, greedy parity against phase 3, the
+    untouched embedding and norms, and block 0's fc1 on the int8 grid."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = model.cfg
+    rs = np.random.RandomState(4)
+    calib = [rs.randint(0, cfg.vocab_size, 24).tolist() for _ in range(4)]
+    held = [rs.randint(0, cfg.vocab_size, 32).tolist() for _ in range(4)]
+    res = {"flash_s24": _flash_short()}
+    base_nll = _mean_nll(model, held)
+    qmodel = serving_model()
+    wte = qmodel.wte.weight.detach().clone()
+    ln = [qmodel.blocks[0].ln1.weight.detach().clone(),
+          qmodel.ln_f.weight.detach().clone()]
+    fa.flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    engine = _feature_engine(qmodel, quantize="int8", calib_prompts=calib,
+                             quantize_iters=40)
+    build_s = time.perf_counter() - t0
+    res.update(calibration_s=build_s - engine.metrics.gauges[
+        "warmup_seconds"], engine_build_s=build_s,
+        calibration_flash_launches=fa.flash_attention_fwd.launches)
+    assert res["calibration_flash_launches"] == cfg.num_layers * len(calib)
+    prompts = _prompts(np.random.RandomState(0), cfg.vocab_size)
+    start = _wave_start(engine)
+    outs = serve_waves(engine, prompts)
+    res["wave"] = _wave_end(engine, start, "adaround")
+    toks = [(a, b) for go, gq in zip(graph_outs, outs)
+            for a, b in zip(go, gq)]
+    res["parity_rate"] = float(np.mean([a == b for a, b in toks]))
+    res["base_nll"] = base_nll
+    res["int8_nll"] = _mean_nll(qmodel, held)
+    res["nll_delta"] = res["int8_nll"] - base_nll
+    res["untouched"] = bool(torch.equal(qmodel.wte.weight, wte) and all(
+        torch.equal(a, b) for a, b in zip(
+            (qmodel.blocks[0].ln1.weight, qmodel.ln_f.weight), ln)))
+    w = qmodel.blocks[0].fc1.weight.detach().float().t()      # [in, out]
+    s = w.abs().amax(dim=0, keepdim=True) / 127.0
+    g = w / s
+    res["fc1_grid_worst"] = float(((g - g.round()).abs()
+                                   / g.round().abs().clamp_min(1)).max())
+    log("[adaround] " + json.dumps(res))
+    assert res["nll_delta"] <= 0.05, res
+    assert res["parity_rate"] >= 0.9, res
+    assert res["untouched"], res
+    # bf16 rounds q * s to 8 significant bits: |w/s - round(w/s)| <=
+    # |round(w/s)| * 2^-8
+    assert bool(((g - g.round()).abs()
+                 <= g.round().abs() * 2.0 ** -8 + 1e-6).all()), res
+    del engine, qmodel
+    torch.cuda.empty_cache()
+    return res
+
+
+def feature_waves(model, served, graph_outs):
+    """Phase 3f: LoRA, the host tier (float and int8 arenas) and AdaRound
+    on gpt_1p3b, each wave with the kernels' counts set to 0 just before
+    and read just after; returns the results and the launches by
+    kernel."""
+    t0 = time.perf_counter()
+    res = {"lora": lora_waves(model, served, graph_outs)}
+    res["tier"] = tier_wave(model)
+    res["tier_int8"] = tier_wave(model, "int8")
+    res["adaround"] = adaround(model, graph_outs)
+    res["seconds"] = time.perf_counter() - t0
+    waves = [res["lora"]["mixed"], res["lora"]["base_traffic"],
+             res["tier"], res["tier_int8"], res["adaround"]["wave"]]
+    res["launches"] = dict(
+        ragged=sum(w["launches"] - w["int8_launches"] for w in waves),
+        ragged_int8=sum(w["int8_launches"] for w in waves),
+        append=sum(w["append_launches"] for w in waves),
+        flash_fwd=res["adaround"]["calibration_flash_launches"])
+    log("[phase-3f] " + json.dumps({"seconds": res["seconds"],
+                                    "launches": res["launches"]}))
     return res
 
 
@@ -1885,6 +2443,7 @@ def main():
     graph_eager = [eager_tokens(model, graph_outs),
                    eager_tokens(model, graph_outs_int8, "int8")]
     http = front_door(model, served)
+    feature = feature_waves(model, served, graph_outs)
     del model
     torch.cuda.empty_cache()
     par = parity()
@@ -1915,9 +2474,11 @@ def main():
             "replaces": "paddle_tpu/ops/pallas/paged_attention.py:108",
             "launches": launches,
             # the HTTP front door's concurrent wave (phase 3e) launches
-            # the float arena's kernels too
+            # the float arena's kernels too, and phase 3f's waves both
             **({"front_door_launches": http["launches"]}
                if arena == "float" else {}),
+            "phase3f_launches": feature["launches"][
+                "ragged_int8" if arena == "int8" else "ragged"],
             "max_abs_err": max(r["max_err"] for r in mine
                                if r["dtype"] == "bfloat16"),
             "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
@@ -1941,6 +2502,7 @@ def main():
         "source": "paddle_tpu_torch/csrc/kv_quantize_scatter.cu",
         "replaces": "paddle_tpu/serving/block_pool.py:185",
         "launches": served_int8["append_launches"],
+        "phase3f_launches": feature["launches"]["append"],
         "max_abs_err": max(r["max_err"] for r in appends),
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1976,6 +2538,9 @@ def main():
         "ms": fl["fwd_ms"], "plain_ms": fl["plain_fwd_ms"],
         "bound_ms": fl["bound_fwd_ms"], "bound_by": fl["bound_fwd_by"],
         "library_ms": fl["library_fwd_ms"], **report("fwd", 128, 0, False),
+        # AdaRound's calibration forwards (phase 3f) at S 24
+        "calibration_launches": feature["launches"]["flash_fwd"],
+        "calibration_case": feature["adaround"]["flash_s24"],
         "cases": flash,
     }, {
         # one counted backward launch runs dK/dV then dQ; plain_ms is the
@@ -2021,7 +2586,7 @@ def main():
             json.dump(dict(card=smi, kind=kind, kernels=kernels,
                            appends=appends, graph_vs_eager=graph_eager,
                            serve=served, serve_int8=served_int8,
-                           front_door=http,
+                           front_door=http, phase3f=feature,
                            overcap=overcap, parity=par, parity_int8=par_int8,
                            train=trained, train_parity=tpar, ernie=ernie,
                            train_dropout=gpt_drop, ernie_parity=epar), f,

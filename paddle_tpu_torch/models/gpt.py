@@ -89,6 +89,31 @@ def _attend(q, k, v, qpos, kpos, scale):
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).to(q.dtype)
 
 
+def _serving_column_parallel(linear, x, op_name, cache):
+    """A column-parallel projection on the paged serving path, with each
+    lane's LoRA delta added when the threaded-through `PagedState` carries
+    gathered adapter rows for `op_name` (models/lora.py: ``y + x @
+    A[slot] @ B[slot]``, slot 0 all zeros = base). With no rows (a
+    lora-off engine, or any other path) it is the plain projection.
+
+    The sum is taken in float32 and rounded back to y's dtype. This is the
+    one place where the port's bf16 dtype differs from the JAX package,
+    whose ``y + delta`` promotes to the float32 delta and carries float32
+    on from there: rounding back keeps the bf16 path, its CUDA graphs and
+    the bf16 ragged kernels on their bf16 forms, and slot 0's exact zero
+    leaves a base lane's y bit for bit. In float32 the two are the
+    same."""
+    y = linear(x)
+    lora = getattr(getattr(cache, "state", None), "lora", None)
+    if lora is None or op_name not in lora:
+        return y
+    from .lora import apply_adapter_rows
+
+    a_rows, b_rows = lora[op_name]
+    delta = apply_adapter_rows(x, a_rows, b_rows, cache.layer)
+    return (y.float() + delta).to(y.dtype)
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
@@ -101,8 +126,8 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x, cache=None, generator=None):
         b, s, _ = x.shape
-        q, k, v = _split_fused_qkv(self.qkv(x), b, s, self.num_heads,
-                                   self.head_dim)
+        qkv = _serving_column_parallel(self.qkv, x, "attn_qkv", cache)
+        q, k, v = _split_fused_qkv(qkv, b, s, self.num_heads, self.head_dim)
         width = self.num_heads * self.head_dim
         if cache is not None and getattr(cache, "is_paged", False):
             from ..serving.block_pool import paged_attention
@@ -137,14 +162,15 @@ class GPTBlock(nn.Module):
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
         self.p = cfg.dropout
 
-    def _mlp(self, x):
-        return self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
+    def _mlp(self, x, cache=None):
+        h = _serving_column_parallel(self.fc1, self.ln2(x), "ffn_fc1", cache)
+        return self.fc2(F.gelu(h, approximate="tanh"))
 
     def forward(self, x, cache=None, gens=None):
         if cache is not None:
             attn_out, new_cache = self.attn(self.ln1(x), cache=cache)
             x = x + attn_out
-            return x + self._mlp(x), new_cache
+            return x + self._mlp(x, cache), new_cache
         attn_gen, elem_gen = (gens.attn, gens.elem) if gens else (None, None)
 
         def drop(y):

@@ -29,6 +29,11 @@ when the free list runs dry. Writes into a block shared by several
 sequences go through copy-on-write (`copy_blocks` + the scheduler's
 `_ensure_writable`).
 
+**Host tier** (serving/kv_tier.py, `attach_tier`): an evicted cached-free
+block is handed to the tier, which copies its bytes to host memory before
+the next arena write, and a later prompt that walks past the device index
+into host-resident hashes gets them back through `adopt`.
+
 With a lifecycle tracer (serving/trace.py) the pool marks evictions and
 injected ``alloc_fail`` faults (serving/faults.py) as instants on its
 ``block-pool`` track; without one each hook is one pointer test.
@@ -118,13 +123,18 @@ class PagedState:
                     tokens route their scale updates there)
       touch_idx     [B, S] int32 — each fed token's index into its row's
                     `touched` list (0 = the null slot)
+
+    A LoRA engine adds ``lora``: {target op -> (a_rows [B, L, in, r],
+    b_rows [B, L, r, out])}, the step's lanes' adapter rows
+    (models/lora.py `gather_adapter_rows`), or None; models/gpt.py's
+    column-parallel hook reads it per op.
     """
 
     is_paged = True
 
     def __init__(self, k, v, block_tables, slots, offs, qpos, q_start=None,
                  kv_live=None, q_lens=None, k_scale=None, v_scale=None,
-                 touched=None, touch_idx=None):
+                 touched=None, touch_idx=None, lora=None):
         self.k = k
         self.v = v
         self.block_tables = block_tables
@@ -138,6 +148,7 @@ class PagedState:
         self.v_scale = v_scale
         self.touched = touched
         self.touch_idx = touch_idx
+        self.lora = lora
 
     def layer(self, i):
         return PagedLayerView(self, i)
@@ -274,6 +285,14 @@ class BlockPool:
         self.evictions = 0
         self.metrics = metrics
         self.tracer = tracer          # serving/trace.py EngineTracer or None
+        self.tier = None              # host-memory tier (serving/kv_tier.py)
+
+    def attach_tier(self, tier):
+        """Install the host-memory tier (serving/kv_tier.py): evicted
+        cached-free blocks demote to host instead of dying, and the
+        scheduler can swap them back on a prefix match. One pointer: None
+        keeps every hook below a single test."""
+        self.tier = tier
 
     @property
     def num_free(self):
@@ -288,6 +307,11 @@ class BlockPool:
     @property
     def num_cached_blocks(self):
         return len(self._cached)
+
+    def cached_blocks(self):
+        """``(block, hash)`` pairs parked in the cached-free tier, LRU
+        order: the demote walk of `LLMEngine.export_kv_tier`."""
+        return list(self._cached.items())
 
     def blocks_for(self, num_tokens):
         return blocks_for(num_tokens, self.block_size)
@@ -331,6 +355,11 @@ class BlockPool:
                 b, _ = self._cached.popitem(last=False)  # LRU victim
                 h = self._block_hash.pop(b)
                 del self._hash_index[h]
+                if self.tier is not None:
+                    # demote instead of dying: the tier buffers the (hash,
+                    # block) pair and copies the bytes out at its next
+                    # flush, which every arena-write site runs first
+                    self.tier.save(h, b)
                 self.evictions += 1
                 n_evicted += 1
                 if self.metrics is not None:
@@ -401,10 +430,31 @@ class BlockPool:
             out.append(b)
         return out
 
+    def adopt(self, blocks, hashes):
+        """Publish freshly allocated (held) blocks into the content index:
+        the tier's swap-in path. A restored block holds valid full-block
+        KV for ``hashes[i]`` and is matchable by later admissions exactly
+        like a device-warm block. A hash already served by another block
+        is skipped (the block stays held and correct, just unpublished),
+        so the index and its inverse stay exact."""
+        for b, h in zip(blocks, hashes):
+            b = int(b)
+            if self._hash_index.get(h) is not None:
+                continue
+            old = self._block_hash.get(b)
+            if old is not None:
+                del self._hash_index[old]
+            self._hash_index[h] = b
+            self._block_hash[b] = h
+
     def copy_blocks(self, src, dst):
         """Copy arena blocks `src` into blocks `dst` in place (the
         copy-on-write path), over every layer and head; an int8 arena's
         copies carry their sources' scales."""
+        if self.tier is not None:
+            # arena-write ordering: buffered demotions copy their (still
+            # valid) bytes out before this copy lands on them
+            self.tier.flush_saves()
         s = torch.as_tensor(src, dtype=torch.long, device=self.device)
         d = torch.as_tensor(dst, dtype=torch.long, device=self.device)
         for t in (self.k, self.v, self.k_scale, self.v_scale):

@@ -24,6 +24,18 @@ tokens as they land, `generate` runs a batch to completion.
   block) float32 scales (serving/block_pool.py): at one ``kv_hbm_bytes``
   budget it holds about twice the blocks of a bf16 arena. The step's
   touched-block lists ride the same one int32 transfer.
+- ``lora_slots`` serves many LoRA adapters over the one base model
+  (models/lora.py): `load_adapter` writes an adapter into a slot of the
+  stacked tables in place, a request names it with ``adapter=``, and the
+  step body gathers each lane's rows by its ``adapter_slots`` entry (one
+  more field of the packed int32 input). Which adapters a step mixes never
+  keys a program.
+- ``host_kv_blocks`` adds the host KV tier (serving/kv_tier.py): evicted
+  prefix blocks are copied to host memory and copied back when a later
+  prompt matches them, on the stream the step programs replay on.
+- ``quantize="int8"`` rounds the blocks' Linear weights to an int8 grid
+  with AdaRound (quantization/adaround.py) at construction, calibrated on
+  ``calib_prompts``, and serves the dequantized values.
 
 Greedy outputs are token-for-token identical to `GPT.generate`: the same
 attention math runs through the block table instead of a contiguous cache
@@ -65,9 +77,9 @@ read host clocks and the one packed result the step already copies back.
 
 Every keyword left as None reads the JAX engine's environment switch
 (``PADDLE_TPU_PREFIX_CACHE``, ``_SPEC_DECODE``, ``_KV_DTYPE``,
-``_WIDTH_BUCKETS``, ``_TRACE``, ``_TRACE_BUF``, ``_REQUEST_LOG``, ``_SLO``,
-``_POSTMORTEM_DIR``, ``_POSTMORTEM_KEEP``, ``_FAULTS``) exactly as that
-engine does. ``PADDLE_TPU_TP``, ``_HOST_KV_BLOCKS`` and
+``_WIDTH_BUCKETS``, ``_HOST_KV_BLOCKS``, ``_TRACE``, ``_TRACE_BUF``,
+``_REQUEST_LOG``, ``_SLO``, ``_POSTMORTEM_DIR``, ``_POSTMORTEM_KEEP``,
+``_FAULTS``) exactly as that engine does. ``PADDLE_TPU_TP`` and
 ``_QUANT_ALLREDUCE`` name parts the port has not reached: set to anything
 but their "off" value, they raise `NotImplementedError`.
 
@@ -90,6 +102,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..models import lora as lora_mod
 from ..profiler.tracing import trace_capacity_from_env, trace_sample_from_env
 from . import faults
 from .block_pool import (BlockPool, PagedState, blocks_for,
@@ -119,35 +132,81 @@ def _env_flag(name, default):
 # (ROADMAP.md), with the value that means "off"
 _LATER = {
     "mesh": (None, "tensor-parallel serving"),
-    "quantize": (None, "int8 (AdaRound) weights"),
-    "lora_slots": (0, "LoRA adapter serving"),
-    "host_kv_blocks": (None, "the host KV tier"),
     "checkpoint_path": (None, "checkpoint streaming"),
-    "host_swap_chunk": (4, "the host KV tier"),
-    "calib_prompts": (None, "int8 (AdaRound) weights"),
-    "quantize_iters": (300, "int8 (AdaRound) weights"),
-    "quant_allreduce": (None, "int8 (AdaRound) weights"),
+    "quant_allreduce": (None, "the quantized tensor-parallel all-reduce"),
     "param_hbm_bytes": (None, "the parameter memory budget"),
-    "lora_rank": (8, "LoRA adapter serving"),
-    "lora_targets": (None, "LoRA adapter serving"),
 }
 
 # host metadata packed into one int32 transfer per step: [B, W] fields,
 # then [B, max_blocks] tables, then the [B] fields, then (int8 arena)
 # touch_idx [B, W] and touched [B, T]
 _ROW_FIELDS = ("ids", "qpos", "slots", "offs")
-_LANE_FIELDS = ("q_start", "kv_live", "last_idx", "spec_lens", "top_ks")
+_LANE_FIELDS = ("q_start", "kv_live", "last_idx", "spec_lens", "top_ks",
+                "adapter_slots")
 
 # environment switches of the JAX engine that name a part the port has not
 # reached: (variable, what it turns on, its "off" test)
 _LATER_ENV = (
     ("PADDLE_TPU_TP", "tensor-parallel serving",
      lambda v: int(v or 1) <= 1),
-    ("PADDLE_TPU_HOST_KV_BLOCKS", "the host KV tier",
-     lambda v: not int(v or 0)),
-    ("PADDLE_TPU_QUANT_ALLREDUCE", "int8 (AdaRound) weights",
+    ("PADDLE_TPU_QUANT_ALLREDUCE", "the quantized tensor-parallel all-reduce",
      lambda v: v.strip().lower() in ("", "0", "false", "off", "no")),
 )
+
+
+def _adaround_model_int8(model, calib_prompts, iters=300):
+    """Int8 weight quantization for a GPT serving model, in place: AdaRound
+    (quantization/adaround.py `learn_rounding`) on every Linear of the
+    blocks (qkv, proj, fc1, fc2) with per-output-channel absmax scales,
+    written back as ``q * s`` in the weight's own dtype, so every later
+    consumer (the step programs included) sees the quantized values with
+    no layer swaps. Norms, embeddings (the tied head) and biases stay as
+    they are. Calibration inputs are captured per layer, as float32, by
+    forward pre-hooks over full forwards of `calib_prompts` (token-id
+    sequences; a small fixed set when None). ``iters=0`` is round-to-
+    nearest. The JAX engine's function, on the model's device."""
+    from ..quantization.adaround import learn_rounding
+
+    if calib_prompts is None:
+        vocab = int(model.cfg.vocab_size)
+        calib_prompts = [
+            [(7 * i + 3 * j + 1) % vocab for j in range(16)]
+            for i in range(4)
+        ]
+    subs = []
+    for blk in model.blocks:
+        subs += [blk.attn.qkv, blk.attn.proj, blk.fc1, blk.fc2]
+    captured = {id(s): [] for s in subs}
+
+    def _capture(store):
+        return lambda layer, inputs: store.append(
+            inputs[0].detach().float())
+
+    hooks = [s.register_forward_pre_hook(_capture(captured[id(s)]))
+             for s in subs]
+    try:
+        with torch.no_grad():
+            for prompt in calib_prompts:
+                model(torch.tensor([list(prompt)], device=model.device))
+    finally:
+        for h in hooks:
+            h.remove()
+    for s in subs:
+        xs = captured[id(s)]
+        w = s.weight.detach().float().t()                     # [in, out]
+        scales = torch.clamp(w.abs().amax(dim=0), min=1e-8)[None, :] / 127.0
+        bias = None if s.bias is None else s.bias.detach().float()
+
+        def apply_fn(wq, x, _b=bias):
+            y = x.float() @ wq
+            return y if _b is None else y + _b
+
+        with torch.no_grad():
+            targets = [apply_fn(w, x) for x in xs]
+        q = learn_rounding(w, scales, apply_fn, xs, targets, 127.0,
+                           iters=int(iters))
+        with torch.no_grad():
+            s.weight.copy_((q * scales).to(s.weight.dtype).t())
 
 
 def _refuse_later_env():
@@ -168,7 +227,19 @@ class LLMEngine:
                  kv_dtype=None, prefill_buckets=None, prefill_interval=None,
                  trace=None, trace_buffer=None, request_log=None, slo=None,
                  postmortem_dir=None, postmortem_keep=None, policy=None,
-                 warmup=False, **later):
+                 host_kv_blocks=None, host_swap_chunk=4, quantize=None,
+                 calib_prompts=None, quantize_iters=300, lora_slots=0,
+                 lora_rank=8, lora_targets=None, warmup=False, **later):
+        if quantize is not None and quantize is not False:
+            if quantize != "int8":
+                raise ValueError(
+                    f"quantize={quantize!r} not supported — only 'int8'")
+            if later.get("mesh") is not None:
+                raise ValueError(
+                    "quantize='int8' requires mesh=None: AdaRound "
+                    "calibrates against the eager single-device model "
+                    "before placement — quantize first, then build the "
+                    "sharded engine from the quantized model")
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"LLMEngine got an unexpected keyword "
@@ -192,6 +263,11 @@ class LLMEngine:
                 f"model lives on {model.device} but the engine runs on "
                 f"{self.device}: build the model on the engine's device")
         model.eval()
+        if quantize:
+            # AdaRound int8 weights, in place on the caller's model
+            _adaround_model_int8(model, calib_prompts,
+                                 iters=int(quantize_iters))
+        self.quantize = quantize or None
         self.model = model
         cfg = model.cfg
         self.max_seq_len = int(max_seq_len or cfg.max_seq_len)
@@ -303,10 +379,30 @@ class LLMEngine:
                     if slo_on or self.request_log
                     or self.recorder is not None else None)
         self.lifecycle.to("loading", "placing weights")
+        # the stream the step programs stage their inputs and replay on
+        # (and the host tier copies on): the constructing thread's
+        # (warmup's), which `device_scope` hands to the async frontend's
+        # loop thread
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
         self.pool = BlockPool(num_blocks, cfg.num_layers, self.block_size,
                               cfg.num_heads, head_dim, dtype=model.dtype,
                               device=self.device, metrics=self.metrics,
                               tracer=self.tracer, kv_dtype=kv_dtype)
+        # host-memory KV tier (serving/kv_tier.py): None/0 = off, one
+        # pointer, every hook a single test
+        if host_kv_blocks is None:
+            host_kv_blocks = int(
+                os.environ.get("PADDLE_TPU_HOST_KV_BLOCKS", "0") or 0)
+        self.tier = None
+        if host_kv_blocks:
+            from .kv_tier import KVTier
+
+            self.tier = KVTier(self.pool, host_kv_blocks,
+                               metrics=self.metrics,
+                               swap_chunk=host_swap_chunk,
+                               stream=self._stream)
+            self.pool.attach_tier(self.tier)
         mi = self.mesh_info()
         self.metrics.set_gauge("mesh_tp_degree", mi["tp_degree"])
         self.metrics.set_gauge("mesh_device_count", mi["device_count"])
@@ -321,6 +417,27 @@ class LLMEngine:
             metrics=self.metrics, prefix_cache=self.prefix_cache,
             drafter=drafter, tracer=self.tracer, slo=self.slo,
             width_buckets=self.width_buckets, policy=self.policy)
+        # per-request LoRA adapters over the shared base model
+        # (models/lora.py): `lora_slots` table slots (slot 0 = the
+        # all-zeros "no adapter"), each holding a rank <= lora_rank adapter
+        # over the column-parallel targets, gathered per row inside the
+        # step body. 0 slots = off: no tables, and the step body is the
+        # lora-off one.
+        self.lora_slots = int(lora_slots)
+        self.lora_rank = int(lora_rank)
+        self._lora_tables = {}
+        self._adapters = {}            # name -> slot (1-based; 0 = base)
+        self._adapter_inflight = {}    # name -> live request count
+        self._adapter_lru = []         # names, least-recent first
+        self.lora_targets = ()
+        if self.lora_slots:
+            if self.lora_rank < 1:
+                raise ValueError("lora_rank must be >= 1 with lora_slots")
+            self.lora_targets = tuple(lora_targets
+                                      or lora_mod.LORA_TARGETS)
+            self._lora_tables = lora_mod.init_adapter_tables(
+                cfg, 1 + self.lora_slots, self.lora_rank,
+                self.lora_targets, device=self.device)
         self._requests = {}
         self._phases = {}   # current step's {phase: (t0, t1)} when tracing
         # stamped by AsyncLLMEngine.start(): while that thread lives, the
@@ -328,11 +445,6 @@ class LLMEngine:
         self._engine_thread = None
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
-        # the stream the step programs stage their inputs and replay on:
-        # the constructing thread's (warmup's), which `device_scope` hands
-        # to the async frontend's loop thread
-        self._stream = (torch.cuda.current_stream(self.device)
-                        if self.device.type == "cuda" else None)
         # arm the PADDLE_TPU_FAULTS plan if one is configured
         faults.maybe_install_from_env()
         # supervision surface (serving/supervisor.py reads these)
@@ -434,8 +546,8 @@ class LLMEngine:
         happens inside a later `step()`. `trace` forces this request into
         (out of) the tracer's sample; `tenant`/`priority` label its SLO
         and policy class and `deadline_s` its attainment target;
-        `adapter` names a LoRA adapter, which this engine refuses (it has
-        no adapter slots)."""
+        `adapter` names a loaded LoRA adapter to decode through
+        (`load_adapter`)."""
         prompt_ids = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         req = Request(prompt_ids, max_new_tokens=max_new_tokens,
                       temperature=temperature, eos_token_id=eos_token_id,
@@ -454,11 +566,89 @@ class LLMEngine:
         return {"tp_degree": 1, "device_count": 1,
                 "backend": self.device.type, "kv_dtype": self.pool.kv_dtype}
 
+    # -- LoRA adapter registry (models/lora.py owns the math) --------------
+
+    def _touch_adapter(self, name):
+        """Move `name` to the recently-used end of the LRU order."""
+        if name in self._adapter_lru:
+            self._adapter_lru.remove(name)
+        self._adapter_lru.append(name)
+
+    def _find_adapter_slot(self, name):
+        """Slot for a (re)load of `name`: its current slot, else a free
+        one, else the least-recently-used idle adapter's (evicting it).
+        Raises when every slot holds an adapter with requests in
+        flight."""
+        if name in self._adapters:
+            return self._adapters[name]
+        used = set(self._adapters.values())
+        for slot in range(1, 1 + self.lora_slots):
+            if slot not in used:
+                return slot
+        for victim in self._adapter_lru:
+            if not self._adapter_inflight.get(victim, 0):
+                slot = self._adapters.pop(victim)
+                self._adapter_lru.remove(victim)
+                self._adapter_inflight.pop(victim, None)
+                self.metrics.inc("lora_adapter_evictions")
+                self.metrics.inc_labeled("lora_adapter_evictions",
+                                         {"adapter": victim})
+                return slot
+        inflight = {k: v for k, v in self._adapter_inflight.items() if v}
+        raise RuntimeError(
+            f"all {self.lora_slots} adapter slots hold adapters with "
+            f"requests in flight — raise lora_slots or drain first "
+            f"(inflight: {inflight})")
+
     def load_adapter(self, name, weights, alpha=None):
-        """LoRA adapters are not in the port yet."""
-        raise NotImplementedError(
-            "load_adapter: LoRA adapter serving is not in the PyTorch port "
-            "yet; ROADMAP.md queues it for a later slice")
+        """Load (or replace) a named LoRA adapter into a table slot so
+        requests can decode through it (``add_request(adapter=name)``).
+        `weights` maps target op names to ``(A [L, in, r], B [L, r, out])``
+        host arrays with ``r <= lora_rank`` (`models.lora.pack_adapter`
+        validates; `alpha` folds the ``alpha / r`` scale into B). When all
+        ``lora_slots`` are taken, the least-recently-used adapter with no
+        request in flight is evicted; if every adapter is busy this raises.
+        The slot is written in place on the engine's stream (the step
+        programs read the tables by address), from the thread that drives
+        the engine. Returns the slot index."""
+        self._guard_thread("load_adapter()")
+        if not self.lora_slots:
+            raise RuntimeError(
+                "engine built without LoRA slots (lora_slots=0)")
+        name = str(name)[:64]
+        packed = lora_mod.pack_adapter(self.model.cfg, weights,
+                                       self.lora_rank, self.lora_targets,
+                                       alpha=alpha)
+        slot = self._find_adapter_slot(name)
+        with self.device_scope():
+            lora_mod.write_slot(self._lora_tables, slot, packed)
+        self._adapters[name] = slot
+        self._adapter_inflight.setdefault(name, 0)
+        self._touch_adapter(name)
+        self.metrics.set_gauge("lora_adapters_loaded", len(self._adapters))
+        return slot
+
+    def unload_adapter(self, name):
+        """Free a named adapter's slot. Refuses while any request on it is
+        still in flight (their lanes index this slot: zeroing it mid-decode
+        would silently serve base-model tokens). The freed slot is zeroed
+        in place so no stale weights linger."""
+        self._guard_thread("unload_adapter()")
+        if name not in self._adapters:
+            raise ValueError(f"unknown adapter {name!r} "
+                             f"(loaded: {sorted(self._adapters)})")
+        n = self._adapter_inflight.get(name, 0)
+        if n:
+            raise RuntimeError(
+                f"adapter {name!r} has {n} request(s) in flight — drain "
+                "or abort them before unloading")
+        slot = self._adapters.pop(name)
+        self._adapter_inflight.pop(name, None)
+        if name in self._adapter_lru:
+            self._adapter_lru.remove(name)
+        with self.device_scope():
+            lora_mod.zero_slot(self._lora_tables, slot)
+        self.metrics.set_gauge("lora_adapters_loaded", len(self._adapters))
 
     def kv_capacity_blocks(self):
         """Usable KV blocks (the null block excluded)."""
@@ -466,14 +656,20 @@ class LLMEngine:
 
     def validate(self, req):
         """Raise ValueError on a request that could never complete: too
-        long for the model, or needing more KV blocks at its worst case
-        than the pool holds, or naming a LoRA adapter (this engine has no
-        adapter slots: the JAX engine's ``lora_slots=0`` refusal). Returns
-        that worst-case block need."""
+        long for the model, needing more KV blocks at its worst case than
+        the pool holds, or naming a LoRA adapter this engine has not
+        loaded (or has no slots for). Returns that worst-case block
+        need."""
         if req.adapter is not None:
-            raise ValueError(
-                f"request {req.request_id}: adapter {req.adapter!r} "
-                "on an engine built without LoRA slots (lora_slots=0)")
+            if not self.lora_slots:
+                raise ValueError(
+                    f"request {req.request_id}: adapter {req.adapter!r} "
+                    "on an engine built without LoRA slots (lora_slots=0)")
+            if req.adapter not in self._adapters:
+                raise ValueError(
+                    f"request {req.request_id}: unknown adapter "
+                    f"{req.adapter!r} — load_adapter() it first "
+                    f"(loaded: {sorted(self._adapters)})")
         if req.num_tokens + req.max_new_tokens > self.max_seq_len:
             raise ValueError(
                 f"request {req.request_id}: prompt {req.num_tokens} + "
@@ -492,9 +688,22 @@ class LLMEngine:
         self.validate(req)
         if req.request_id in self._requests:
             raise ValueError(f"duplicate request id {req.request_id}")
+        if req.adapter is not None:
+            # pin the adapter's slot for the request's whole life (a
+            # preempted request replays through the same adapter) and hold
+            # it against LRU eviction while any request is in flight
+            req.adapter_slot = self._adapters[req.adapter]
+            self._adapter_inflight[req.adapter] = (
+                self._adapter_inflight.get(req.adapter, 0) + 1)
+            self._touch_adapter(req.adapter)
+            self.metrics.inc("lora_requests")
+            self.metrics.inc_labeled("lora_requests",
+                                     {"adapter": req.adapter})
         if self.prefix_cache and not req.block_hashes:
-            req.block_hashes = chain_block_hashes(req.prompt_ids,
-                                                  self.block_size)
+            # the adapter name salts the chain: KV is computed through the
+            # adapter, so one prompt under two adapters never shares blocks
+            req.block_hashes = chain_block_hashes(
+                req.prompt_ids, self.block_size, salt=req.adapter)
         self._requests[req.request_id] = req
         if self.slo is not None:
             self.slo.begin(req)   # the `queued` phase opens at arrival
@@ -628,7 +837,11 @@ class LLMEngine:
                            kv_live=t["kv_live"], q_lens=q_lens,
                            k_scale=pool.k_scale, v_scale=pool.v_scale,
                            touched=t.get("touched"),
-                           touch_idx=t.get("touch_idx"))
+                           touch_idx=t.get("touch_idx"),
+                           # each lane's adapter rows, or None on a
+                           # lora-off engine (no gather, no add)
+                           lora=lora_mod.gather_adapter_rows(
+                               self._lora_tables, t["adapter_slots"]))
         h, _ = self.model.hidden(t["ids"], caches=state)
         # the scored window: position last_idx + j scores the distribution
         # after fed token last_idx + j (j = 0 samples, j >= 1 verifies)
@@ -740,6 +953,11 @@ class LLMEngine:
                                          self.policy.class_labels(req))
                 self.step_faults.append((req.request_id, reason))
                 self.abort(req.request_id, reason=reason)
+        if self.tier is not None:
+            # arena-write ordering (kv_tier.py rule 1): demotions buffered
+            # by this plan's evictions gather their bytes before the step's
+            # scatters land on those blocks
+            self.tier.flush_saves()
         if not rows:
             return []
         self.step_count += 1
@@ -846,6 +1064,7 @@ class LLMEngine:
         a["top_ps"][i] = 1.0 if req.top_p is None else req.top_p
         a["q_start"][i] = start
         a["kv_live"][i] = (start + w - 1) // self.block_size + 1
+        a["adapter_slots"][i] = req.adapter_slot
         if self.pool.quantized:
             # unique non-null blocks this row's scatter writes, listed
             # after the null slot; pad tokens keep touch_idx 0
@@ -976,8 +1195,13 @@ class LLMEngine:
         """Every terminal path (finish, abort) ends here: the request
         records why it ended, and the tracer's request span, the SLO
         ledger's clock, the request log and the flight recorder's tail
-        close. All no-ops in the default configuration."""
+        close. All no-ops in the default configuration. The request's
+        adapter pin is released here on every terminal path (finish,
+        abort, policy reject)."""
         req.finish_reason = reason
+        if req.adapter is not None and self._adapter_inflight.get(
+                req.adapter, 0) > 0:
+            self._adapter_inflight[req.adapter] -= 1
         if req.traced:
             self.tracer.end_request(req, reason)
         if self.slo is None:
@@ -1031,11 +1255,62 @@ class LLMEngine:
             "requests_running": len(self.scheduler.running),
             "requests_waiting": len(self.scheduler.waiting),
         }
+        if self.tier is not None:
+            # host-tier occupancy and swap/migration counters ride the same
+            # dict, so /healthz "pool" and the /metrics pool_* gauges agree
+            stats.update(self.tier.stats())
         if self.policy is not None:
             stats["policy"] = self.policy.snapshot(
                 waiting=self.scheduler.waiting,
                 running=self.scheduler.running)
+        if self.lora_slots:
+            stats["lora"] = {
+                "slots": self.lora_slots,
+                "rank": self.lora_rank,
+                "loaded": sorted(self._adapters),
+                "inflight": {k: v for k, v in
+                             self._adapter_inflight.items() if v},
+            }
         return stats
+
+    def swap_program_shapes(self):
+        """{name: chunk width} of the host tier's two copy paths (the
+        gather out, the copy back in); empty when the tier is off."""
+        if self.tier is None:
+            return {}
+        return {"swap_out": self.tier.swap_chunk,
+                "swap_in": self.tier.swap_chunk}
+
+    # -- host-tier migration -------------------------------------------------
+
+    def export_kv_tier(self, demote=True):
+        """This engine's reusable prefix blocks as a payload for another
+        engine's `import_kv_tier`, or None when the tier is off. With
+        ``demote=True`` every device cached-free block is first saved into
+        the host tier (it stays device-resident and matchable: demotion
+        copies), which needs a quiescent engine; ``demote=False`` reads
+        only settled host slabs under the tier's lock."""
+        if self.tier is None:
+            return None
+        if demote:
+            for b, h in self.pool.cached_blocks():
+                self.tier.save(h, b)
+            self.tier.settle()
+        return self.tier.export()
+
+    def import_kv_tier(self, payload):
+        """Adopt another engine's exported host tier into ours (geometry
+        must match: `KVTier.import_payload`). Returns blocks imported (0
+        when the tier is off or the payload is None)."""
+        if self.tier is None or payload is None:
+            return 0
+        return self.tier.import_payload(payload)
+
+    def close(self):
+        """Release engine-owned background resources (the tier's drain
+        thread). Idempotent; a no-op without the tier."""
+        if self.tier is not None:
+            self.tier.close()
 
     # -- conveniences --------------------------------------------------------
 

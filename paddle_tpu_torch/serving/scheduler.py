@@ -156,10 +156,12 @@ class Request:
         # is bounded by the ledger's max_classes fold).
         self.tenant = None if tenant is None else str(tenant)[:64]
         self.priority = None if priority is None else str(priority)[:64]
-        # LoRA adapter name, truncated like the class labels (it rides
-        # metrics/log lines). None = the shared base model; the port's
-        # engine has no adapter slots yet and refuses any other value.
+        # LoRA adapter name (models/lora.py): None = the shared base
+        # model. The engine resolves it to a table slot at add();
+        # truncated like the class labels (it rides metrics/log lines).
         self.adapter = None if adapter is None else str(adapter)[:64]
+        # table slot the engine resolved `adapter` to (0 = base)
+        self.adapter_slot = 0
         self.deadline_s = None if deadline_s is None else float(deadline_s)
         if self.deadline_s is not None and self.deadline_s <= 0:
             raise ValueError("deadline_s must be > 0 (or None)")
@@ -386,6 +388,7 @@ class Scheduler:
             self.metrics.inc("prefix_cache_lookup_tokens",
                              len(req.block_hashes) * self.pool.block_size)
         hit = self.pool.match_prefix(req.block_hashes)
+        hit = list(hit) + self._swap_in(req, len(hit))
         if not hit:
             return
         req.blocks = list(hit)
@@ -400,6 +403,38 @@ class Scheduler:
             # 1.0 on a fully-warm workload)
             self.metrics.inc("prefix_cache_hit_tokens",
                              len(hit) * self.pool.block_size)
+
+    def _swap_in(self, req, n_dev):
+        """Extend a device-index walk that stopped after `n_dev` blocks
+        with host-tier (serving/kv_tier.py) hits: consecutive host-resident
+        hashes past the device run are copied back into freshly allocated
+        arena blocks at plan time, on the stream the step replays on and
+        ahead of it, so admission charges them exactly like device cache
+        hits. The restored blocks' hashes are published (`pool.adopt`) so
+        later admissions share them; the host copies are kept. Returns the
+        restored block ids (possibly empty)."""
+        tier = self.pool.tier
+        want = req.block_hashes[n_dev:]
+        if tier is None or not want:
+            return []
+        n = min(tier.match(want),
+                # at least one query token must run; blocks past the
+                # num_tokens - 1 cap would be pinned but never charged
+                max(0, (req.num_tokens - 1) // self.pool.block_size - n_dev),
+                self.pool.num_free)
+        if n < 1:
+            return []
+        blocks = self.pool.allocate(n)
+        if blocks is None:            # injected alloc pressure (faults)
+            return []
+        got = tier.restore(want[:n], blocks)
+        if got < n:
+            # trimmed between match and restore: return the unused tail
+            self.pool.release(blocks[got:])
+            blocks = blocks[:got]
+        if blocks:
+            self.pool.adopt(blocks, want[:got])
+        return blocks
 
     def _take_block(self, req):
         """One block for `req`, preempting strictly WEAKER sequences when

@@ -16,7 +16,8 @@ Endpoints:
   Admission control maps onto status codes: 429 when the bounded wait
   queue is full (`EngineOverloadedError`, with ``Retry-After``), 503
   while draining (`EngineClosedError`), 400 on invalid requests (an
-  ``adapter`` included: the port's engine has no LoRA slots). A client
+  ``adapter`` the engine has not loaded included; a loaded one decodes the
+  request through that LoRA adapter). A client
   that disconnects mid-request is detected (EOF on its socket) and its
   request is aborted — KV blocks return to the pool while the engine
   keeps serving everyone else.
@@ -38,6 +39,9 @@ Endpoints:
   doubles as the deadline.
 - ``GET /debug/postmortem`` — manifests of the flight recorder's bundles;
   404 unless ``PADDLE_TPU_POSTMORTEM_DIR`` / ``postmortem_dir=`` is set.
+- ``GET /debug/kvtier`` — the host KV tier's snapshot (stats, resident
+  hashes, slab geometry); 404 with a hint unless the tier is on
+  (``LLMEngine(host_kv_blocks=N)`` / ``PADDLE_TPU_HOST_KV_BLOCKS=N``).
 
 `ServingServer.shutdown(drain=True)` is the graceful path: the listener
 closes, the engine stops admitting and finishes or aborts in-flight work,
@@ -505,6 +509,26 @@ class ServingServer(_HTTPServerBase):
             # streams or disconnect detection
             body = await asyncio.to_thread(
                 lambda: json.dumps(tracer.chrome_trace()).encode())
+            writer.write(_http_response("200 OK", body))
+            return await writer.drain()
+        if path == "/debug/kvtier":
+            tier = getattr(self.engine.engine, "tier", None)
+            if tier is None:
+                writer.write(_http_response(
+                    "404 Not Found",
+                    _error_body(
+                        404,
+                        "the host KV tier is off — start the engine with "
+                        "LLMEngine(host_kv_blocks=N) (or "
+                        "PADDLE_TPU_HOST_KV_BLOCKS=N) to spill evicted "
+                        "cache blocks to a host slab", "not_found"),
+                ))
+                return await writer.drain()
+            # the snapshot takes the tier lock (shared with the engine
+            # thread's flush path and the drain thread's slab writes):
+            # off the event loop so a scrape can't stall live SSE streams
+            body = await asyncio.to_thread(
+                lambda: json.dumps(tier.debug_snapshot()).encode())
             writer.write(_http_response("200 OK", body))
             return await writer.drain()
         if path == "/v1/completions":

@@ -439,6 +439,62 @@ def test_sampled_draws_differ_between_replays(dev):
     assert prog.replays == 8
 
 
+def test_replayed_graph_reads_an_adapter_rewritten_in_place(dev):
+    """`load_adapter` writes the tables in place, so graphs captured before
+    a load serve it: the same request on one adapter name gives other
+    tokens after a different adapter is loaded into the same slot, every
+    step a replay, and the base lanes keep their tokens."""
+    from paddle_tpu_torch.models import lora
+
+    engine = _tiny_bf16_engine(dev, lora_slots=1, lora_rank=4, warmup=True)
+    cfg = engine.model.cfg
+    prompt = list(range(1, 40))
+    base = engine.generate([prompt], max_new_tokens=12)
+    outs = []
+    for seed in (1, 2):
+        slot = engine.load_adapter("a", lora.random_adapter(cfg, 4,
+                                                            seed=seed),
+                                   alpha=8)
+        assert slot == 1
+        outs.append(engine.generate([prompt], max_new_tokens=12,
+                                    adapter="a"))
+    assert outs[0] != outs[1]
+    assert base != outs[0]
+    assert engine.generate([prompt], max_new_tokens=12) == base
+    assert engine.metrics.counters["jit_traces"] == 3     # no rebuild
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_tier_round_trip_is_bit_equal(dev, kv_dtype):
+    """Blocks demoted to the host tier and copied back hold their bytes
+    (and an int8 arena's scales) bit for bit, with no host sync beyond
+    one a step, and the host-warm serve emits the cold serve's tokens."""
+    engine = _tiny_bf16_engine(dev, kv_dtype=kv_dtype, num_blocks=24,
+                               host_kv_blocks=32, warmup=True)
+    rs = np.random.RandomState(0)
+    doc = rs.randint(0, 512, 96).tolist()
+    cold = engine.generate([doc + [1, 2]], max_new_tokens=8)
+    pool, tier = engine.pool, engine.tier
+    saved = {h: [a[:, :, b].clone() for a in tier._arenas()]
+             for h, b in pool._hash_index.items()}
+    for r in range(3):                      # churn the doc out of the pool
+        engine.generate([rs.randint(0, 512, 150).tolist()],
+                        max_new_tokens=4)
+    tier.settle()
+    assert tier.swap_outs > 0
+    assert engine.generate([doc + [1, 2]], max_new_tokens=8) == cold
+    assert tier.swap_ins > 0
+    restored = [h for h in saved if h in pool._hash_index]
+    assert restored
+    for h in restored:
+        for before, arena in zip(saved[h], tier._arenas()):
+            assert torch.equal(arena[:, :, pool._hash_index[h]], before)
+    c = engine.metrics.counters
+    assert c["host_syncs"] == engine.step_count
+    assert c["jit_traces"] == 3
+    engine.close()
+
+
 # -- flash attention -----------------------------------------------------------
 
 def _flash_inputs(b, sq, sk, h, d, dtype, dev, seed=0):

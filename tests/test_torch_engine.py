@@ -254,16 +254,43 @@ def test_engine_rejects_a_model_on_another_device(models):
 
 
 @pytest.mark.parametrize("option", [
-    {"mesh": 2}, {"kv_dtype": "int8", "host_kv_blocks": 8},
-    {"quantize": "int8"},
-    {"lora_slots": 2}, {"host_kv_blocks": 8}, {"param_hbm_bytes": 1 << 30},
-    {"lora_rank": 4}, {"calib_prompts": [[1, 2, 3]]},
-    {"checkpoint_path": "ckpt"},
+    {"mesh": 2}, {"param_hbm_bytes": 1 << 30}, {"checkpoint_path": "ckpt"},
+    {"quant_allreduce": True},
 ])
 def test_left_out_options_raise(models, option):
     _, tm = models
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         LLMEngine(tm, device="cpu", **option)
+
+
+# the options the port took over from the left-out list: each builds an
+# engine whose pool, tier and adapter surfaces read as the JAX engine's
+@pytest.mark.parametrize("option", [
+    {"kv_dtype": "int8", "host_kv_blocks": 8}, {"quantize": "int8"},
+    {"lora_slots": 2}, {"host_kv_blocks": 8}, {"lora_rank": 4},
+    {"calib_prompts": [[1, 2, 3]]},
+])
+def test_ported_options_act_as_in_the_jax_engine(option):
+    cfg = dict(block_size=4, max_batch=2, max_seq_len=64)
+    if "quantize" in option:
+        option = dict(option, quantize_iters=0)   # round-to-nearest
+    paddle.seed(0)
+    jm = JaxGPT(JaxGPTConfig(**CFG, attn_impl="xla"))
+    jm.eval()
+    arrays = {k: np.asarray(v) for k, v in state_dict_arrays(jm)[0].items()}
+    tm = from_jax_state_dict(GPT(GPTConfig(**CFG), device="cpu"), arrays)
+    jeng = JaxLLMEngine(jm, **cfg, **option)
+    eng = LLMEngine(tm, device="cpu", **cfg, **option)
+    try:
+        assert eng.pool_stats() == jeng.pool_stats()
+        assert eng.swap_program_shapes() == jeng.swap_program_shapes()
+        assert eng.quantize == jeng.quantize
+        assert eng.lora_targets == jeng.lora_targets
+        assert (eng.generate([[5, 6, 7, 8, 9]], max_new_tokens=4)
+                == jeng.generate([[5, 6, 7, 8, 9]], max_new_tokens=4))
+    finally:
+        eng.close()
+        jeng.close()
 
 
 def test_left_out_options_accept_their_off_values(models):

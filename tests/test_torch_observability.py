@@ -322,6 +322,8 @@ ENV_CASES = [
     ("PADDLE_TPU_SPEC_DECODE", "1", lambda e: e.spec_decoding),
     ("PADDLE_TPU_KV_DTYPE", "int8", lambda e: e.pool.kv_dtype),
     ("PADDLE_TPU_WIDTH_BUCKETS", "4,8", lambda e: e.width_buckets),
+    ("PADDLE_TPU_HOST_KV_BLOCKS", "8",
+     lambda e: (e.pool_stats(), e.swap_program_shapes())),
     ("PADDLE_TPU_TRACE", "0.5", lambda e: e.tracer.sample),
     ("PADDLE_TPU_TRACE_BUF", "64", lambda e: e.tracer),
     ("PADDLE_TPU_REQUEST_LOG", "1",
@@ -346,8 +348,7 @@ def test_env_switch_reads_like_jax(sides, monkeypatch, tmp_path, name, value,
 
 
 @pytest.mark.parametrize("name,value", [
-    ("PADDLE_TPU_TP", "2"), ("PADDLE_TPU_HOST_KV_BLOCKS", "8"),
-    ("PADDLE_TPU_QUANT_ALLREDUCE", "attn_proj")])
+    ("PADDLE_TPU_TP", "2"), ("PADDLE_TPU_QUANT_ALLREDUCE", "attn_proj")])
 def test_later_env_switches_raise(sides, monkeypatch, name, value):
     monkeypatch.setenv(name, value)
     with pytest.raises(NotImplementedError, match=name):
