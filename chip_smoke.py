@@ -134,7 +134,8 @@ Phases, in order; any failure exits nonzero:
    Losses finite and falling (the same batch each step).
 7. float32 train parity: the flagship widths at 2 layers, batch 2, seq
    256, TF32 off: two AdamW steps on the card (kernels) and on a CPU copy
-   (plain attention) give the same losses and parameters.
+   (plain attention) give the same losses and parameters; then one step
+   of a pair with remat=True (2 forward launches a layer on the card).
 8. ERNIE-base pretrain: ernie_base (hidden 768, 12 layers, 12 heads,
    vocab 40000) in bf16, dropout 0.1, AdamW(1e-4, weight decay 0.01),
    batch 32 x 512 with per-row real lengths uniform in 256-512 and an
@@ -147,7 +148,38 @@ Phases, in order; any failure exits nonzero:
    12 + 12 dropout launches a step.
 9. float32 ERNIE parity: ERNIE widths at 2 layers, batch 2, seq 128,
    padding mask, dropout 0, TF32 off: two AdamW steps on the card and on
-   a CPU copy give the same losses and parameters (phase 7's rule).
+   a CPU copy give the same losses and parameters (phase 7's rule); then
+   one step of a pair with remat=True.
+6c. The training surface (run last: it sets its figures beside phases 6
+   and 8). (a) The flagship GPT with remat=True, built in float32 and put
+   through amp.decorate(level="O2") (bf16 parameters, float32 masters),
+   AdamW(weight decay 0.01) with the learning rate of
+   LinearWarmup(CosineAnnealingDecay(1e-4, T_max=100), 5 warm-up steps
+   from 0) and ClipGradByGlobalNorm(1.0), batch 16 x 1024, each step an
+   InstrumentedStep under enable_train_tracing(): one warm-up step, then
+   10 timed steps, each under torch.cuda.set_sync_debug_mode("error")
+   but for the loss read, scheduler.step() after each. Held to: finite,
+   falling losses; 24 forward (12 recomputed) and 12 backward flash
+   launches a step (counts set to 0 just before the timed steps);
+   the float32 lr the step's update applied (opt._last_lr) equal to the
+   scheduler's value read before the step; every parameter bf16 and
+   equal bit for bit to its float32 master's rounding after every step;
+   a finite pre-clip global norm; 11 train_step spans each with a
+   dispatch child, valid Chrome JSON. Step p50, tokens/s, MFU (model
+   FLOPs) and peak memory, beside the same O2 run without remat (3 timed
+   steps) and phase 6's. (Every training phase's peak_mem_gib includes
+   its base_mem_gib: what earlier phases left allocated as it began.) (b) ernie_base with remat=True, phase 8's batch
+   and dropout, 3 counted steps: 24 + 12 launches a step, all mask +
+   dropout; peak memory beside phase 8's. (c) Remat against itself on the
+   card, float32, TF32 off, dropout 0.1: one step of the flagship widths
+   at 2 layers (batch 2, seq 256) and of ERNIE's at 2 layers (batch 2,
+   seq 128, padding mask), remat and not, from the same weights and
+   dropout seeds: the same loss, gradients within 1e-5, the same
+   generator states after. (d) GradScaler(init_loss_scaling=2**15) on a
+   bf16 O2 flagship at 2 layers (batch 4): a step that steps, then one
+   with an inf planted in a gradient: skipped (parameters and masters
+   unchanged bit for bit), the scale halved; one host sync a scaler.step
+   (unscale_'s, counted in set_sync_debug_mode("warn")).
 
 Prints a `{"kernels": [...]}` line (the flash rows also name the bf16
 kernel's design and ptxas's registers and spill bytes for it; a spill in
@@ -2105,6 +2137,7 @@ def train(smi):
                                                  mfu, peak_flops)
 
     t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated() / 2**30
     model, opt, (ids, labels) = flagship_trainer()
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
@@ -2133,6 +2166,7 @@ def train(smi):
         mfu=mfu(tok_s, fpt, torch.cuda.get_device_name(0)),
         peak_flops=peak_flops(torch.cuda.get_device_name(0)), card=smi,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        base_mem_gib=base,
         losses=losses, fwd_launches=fwd, bwd_launches=bwd,
         layers=cfg.num_layers)
     log("[train] " + json.dumps(res))
@@ -2149,24 +2183,33 @@ def train(smi):
 
 def train_parity():
     """Two float32 AdamW steps of the flagship widths at 2 layers on the
-    card and on a CPU copy. Losses agree to 1e-5 relative; parameters to
+    card and on a CPU copy, then one more pair of models with
+    `remat=True` for one step (the recomputed forward on the card runs
+    the kernels twice). Losses agree to 1e-5 relative; parameters to
     2e-5 (a tenth of the two steps' lr: Adam divides each gradient by its
     own magnitude, so two summation orders of a small gradient can move
     its entry by a visible share of a step), except entries whose first
     gradient is float noise (below 1e-6 of the largest in its tensor; the
     key biases' true gradient is zero), which Adam may move by up to lr a
     step either way."""
+    res = _gpt_parity(flagship_config(num_layers=2), steps=2)
+    res["remat"] = _gpt_parity(flagship_config(num_layers=2, remat=True),
+                               steps=1)
+    log("[train-parity] " + json.dumps(res))
+    return res
+
+
+def _gpt_parity(cfg, steps, lr=1e-4):
     from paddle_tpu_torch.models.gpt import GPT
     from paddle_tpu_torch.optimizer import AdamW
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = flagship_config(num_layers=2)
-    lr, steps = 1e-4, 2
     param_tol = 0.1 * lr * steps
     cuda = GPT(cfg, device="cuda", seed=2)
     cpu = GPT(cfg, device="cpu")
     cpu.load_state_dict({k: t.cpu() for k, t in cuda.state_dict().items()})
+    _zero_flash_counts()
     losses, grads, params = [], [], []
     for m in (cuda, cpu):
         ids, labels = train_batch(cfg, 2, 256, m.device)
@@ -2184,6 +2227,7 @@ def train_parity():
             run.append(loss.item())
         losses.append(run)
         params.append({n: p.detach().cpu() for n, p in m.named_parameters()})
+    counts = _read_flash_counts()
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
     worst, noisy = 0.0, 0
     for n, want in params[1].items():
@@ -2194,13 +2238,17 @@ def train_parity():
         assert bool((d[noise] <= 2 * steps * lr).all()), n
         if (~noise).any():
             worst = max(worst, d[~noise].max().item())
-    res = dict(layers=cfg.num_layers, batch=[2, 256], steps=steps,
-               losses_cuda=losses[0], losses_cpu=losses[1],
+    res = dict(layers=cfg.num_layers, remat=cfg.remat, batch=[2, 256],
+               steps=steps, losses_cuda=losses[0], losses_cpu=losses[1],
                loss_rel_err=loss_err, param_max_err=worst,
-               noise_entries=noisy, param_tol=param_tol)
-    log("[train-parity] " + json.dumps(res))
+               noise_entries=noisy, param_tol=param_tol,
+               fwd_launches=counts["fwd_launches"],
+               bwd_launches=counts["bwd_launches"])
     assert loss_err < 1e-5, res
     assert worst < param_tol, res
+    n = cfg.num_layers * steps
+    assert res["fwd_launches"] == (2 if cfg.remat else 1) * n, res
+    assert res["bwd_launches"] == n, res
     del cuda, cpu
     torch.cuda.empty_cache()
     return res
@@ -2263,6 +2311,7 @@ def ernie_pretrain(smi):
                                                  mfu, peak_flops)
 
     t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated() / 2**30
     model, opt, batch, lens = ernie_trainer()
     cfg = model.cfg
     ids = batch[0]
@@ -2298,6 +2347,7 @@ def ernie_pretrain(smi):
         mfu=mfu(tok_s, fpt, torch.cuda.get_device_name(0)),
         peak_flops=peak_flops(torch.cuda.get_device_name(0)), card=smi,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        base_mem_gib=base,
         losses=losses, layers=cfg.num_layers, **counts)
     log("[ernie] " + json.dumps(res))
     assert all(np.isfinite(losses)), losses
@@ -2349,17 +2399,27 @@ def ernie_parity():
     """Phase 9: ERNIE widths at 2 layers, batch 2, seq 128, padding mask,
     dropout 0, float32 with TF32 off: two AdamW steps on the card (the
     kernels' mask variant) and on a CPU copy (plain attention) give the
-    same losses and parameters, with phase 7's rule. The pooler and the
-    NSP head get no gradient from the MLM loss: AdamW takes it as zero and
-    decays them, on both sides alike."""
-    from paddle_tpu_torch.models.bert import (Bert, BertConfig,
-                                              bert_pretrain_loss_fn)
+    same losses and parameters, with phase 7's rule; then one step of a
+    pair with `remat=True`. The pooler and the NSP head get no gradient
+    from the MLM loss: AdamW takes it as zero and decays them, on both
+    sides alike."""
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    res = _ernie_parity(BertConfig(vocab_size=40000, num_layers=2,
+                                   dropout=0.0), steps=2)
+    res["remat"] = _ernie_parity(BertConfig(vocab_size=40000, num_layers=2,
+                                            dropout=0.0, remat=True),
+                                 steps=1)
+    log("[ernie-parity] " + json.dumps(res))
+    return res
+
+
+def _ernie_parity(cfg, steps, lr=1e-4):
+    from paddle_tpu_torch.models.bert import Bert, bert_pretrain_loss_fn
     from paddle_tpu_torch.optimizer import AdamW
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = BertConfig(vocab_size=40000, num_layers=2, dropout=0.0)
-    lr, steps = 1e-4, 2
     param_tol = 0.1 * lr * steps
     cuda = Bert(cfg, device="cuda", seed=3)
     cpu = Bert(cfg, device="cpu")
@@ -2400,21 +2460,338 @@ def ernie_parity():
         assert bool((d[noise] <= 2 * steps * lr).all()), n
         if (~noise).any():
             worst = max(worst, d[~noise].max().item())
-    res = dict(layers=cfg.num_layers, batch=[2, 128], steps=steps,
-               losses_cuda=losses[0], losses_cpu=losses[1],
+    res = dict(layers=cfg.num_layers, remat=cfg.remat, batch=[2, 128],
+               steps=steps, losses_cuda=losses[0], losses_cpu=losses[1],
                loss_rel_err=loss_err, param_max_err=worst,
                noise_entries=noisy, param_tol=param_tol,
                no_grad_params=sorted(set(params[1]) - set(grads[1])),
                **counts)
-    log("[ernie-parity] " + json.dumps(res))
     assert loss_err < 1e-5, res
     assert worst < param_tol, res
     n = cfg.num_layers * steps
-    for d in ("fwd", "bwd"):
-        assert counts[f"{d}_mask_launches"] == counts[f"{d}_launches"] == n, \
-            counts
+    fwd = (2 if cfg.remat else 1) * n
+    assert (counts["fwd_mask_launches"], counts["fwd_launches"]) == \
+        (fwd, fwd), counts
+    assert counts["bwd_mask_launches"] == counts["bwd_launches"] == n, counts
     del cuda, cpu
     torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 6c -----------------------------------------------------------------
+#
+# Runs after phase 9: it sets its figures beside phases 6 and 8.
+
+def _surface_trainer(remat, num_layers=12, lr=None):
+    """The flagship GPT (`flagship_config`) built in float32 on the card,
+    with AdamW(weight decay 0.01) whose learning rate is `lr` (None: the
+    slice's schedule, LinearWarmup(CosineAnnealingDecay(1e-4, T_max=100),
+    5 warm-up steps from 0 to 1e-4)) and whose grad_clip is
+    ClipGradByGlobalNorm(1.0), put through amp.decorate(level="O2"): bf16
+    parameters, float32 masters seeded before the cast. Returns (model,
+    opt, scheduler or None, clip, (ids, labels) of 16 x 1024)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    cfg = flagship_config(num_layers=num_layers, remat=remat)
+    model = GPT(cfg, device="cuda", seed=0)
+    sched = None
+    if lr is None:
+        sched = lr = LinearWarmup(CosineAnnealingDecay(1e-4, T_max=100),
+                                  warmup_steps=5, start_lr=0.0, end_lr=1e-4)
+    clip = ClipGradByGlobalNorm(1.0)
+    opt = AdamW(learning_rate=lr, weight_decay=0.01, grad_clip=clip,
+                parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2")
+    model.train()
+    return model, opt, sched, clip, train_batch(cfg, 16, cfg.max_seq_len,
+                                                "cuda")
+
+
+def _masters_consistent(model, opt):
+    """Every parameter bf16 with a float32 master, and equal bit for bit
+    to the master's bf16 rounding."""
+    for p in model.parameters():
+        m = opt.state[p].get("master_weight")
+        if (p.dtype != torch.bfloat16 or m is None
+                or m.dtype != torch.float32
+                or not torch.equal(p, m.to(torch.bfloat16))):
+            return False
+    return True
+
+
+def _surface_run(smi, remat, steps):
+    """Phase 6c (a)'s run: one warm-up step, then `steps` timed steps,
+    each an `InstrumentedStep` under the train tracer with
+    `scheduler.step()` after it; the flash counts set to 0 just before the
+    timed steps and read just after; each timed step (all but the loss
+    read) under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from paddle_tpu_torch.profiler import tracing
+    from paddle_tpu_torch.profiler.flops import (gpt_train_flops_per_token,
+                                                 mfu)
+
+    base = torch.cuda.memory_allocated() / 2**30
+    model, opt, sched, clip, (ids, labels) = _surface_trainer(remat)
+    cfg = model.cfg
+    tracing.reset_train_tracing()
+    tr = tracing.enable_train_tracing()
+    step = tracing.InstrumentedStep(train_step, {"remat": remat})
+    losses, norms, lrs, lr_ok, masters_ok, step_ms = [], [], [], [], [], []
+
+    def one(timed):
+        want_lr = np.float32(sched())
+        t1 = time.perf_counter()
+        if timed:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = step(model, opt, ids, labels)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if timed:
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss.item())
+        norms.append(clip.global_norm.item())
+        masters_ok.append(_masters_consistent(model, opt))
+        lrs.append(float(opt._last_lr))
+        lr_ok.append(opt._last_lr == want_lr)
+        sched.step()
+
+    one(timed=False)                                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()
+    for _ in range(steps):
+        one(timed=True)
+    counts = _read_flash_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trace = json.loads(json.dumps(tr.chrome_trace()))
+    tracing.reset_train_tracing()
+    evs = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    spans = {e["args"]["step"]: e for e in evs if e["name"] == "train_step"}
+    dispatch = {e["args"]["step"] for e in evs if e["name"] == "dispatch"}
+    tok_s = ids.numel() * steps / (sum(step_ms) / 1e3)
+    fpt = gpt_train_flops_per_token(cfg)
+    res = dict(
+        remat=remat, batch=list(ids.shape), steps=steps,
+        step_p50_ms=float(np.median(step_ms)), step_ms=step_ms,
+        tokens_per_s=tok_s, flops_per_token=fpt,
+        mfu=mfu(tok_s, fpt, torch.cuda.get_device_name(0)),
+        peak_mem_gib=peak, base_mem_gib=base, losses=losses,
+        pre_clip_norms=norms,
+        lrs=lrs, lr_matches=all(lr_ok),
+        masters_consistent=all(masters_ok), train_step_spans=len(spans),
+        spans_with_dispatch=len(set(spans) & dispatch), card=smi,
+        layers=cfg.num_layers, **counts)
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    assert all(np.isfinite(norms)), norms
+    assert res["lr_matches"] and res["masters_consistent"], res
+    n = cfg.num_layers * steps
+    assert counts["fwd_launches"] == (2 if remat else 1) * n, counts
+    assert counts["bwd_launches"] == n, counts
+    assert len(spans) == len(dispatch) == steps + 1 \
+        == res["spans_with_dispatch"], (len(spans), len(dispatch))
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ernie_remat(smi, steps=3):
+    """Phase 6c (b): ernie_base with remat=True, bf16, dropout 0.1, AdamW(
+    1e-4, weight decay 0.01), phase 8's batch of 32 x 512 with padding:
+    one warm-up step, then `steps` steps counted: 24 forward launches (12
+    recomputed) and 12 backward a step, every one mask + dropout."""
+    from paddle_tpu_torch.models.bert import ernie_base
+    from paddle_tpu_torch.optimizer import AdamW
+
+    base = torch.cuda.memory_allocated() / 2**30
+    model = ernie_base(device="cuda", dtype=torch.bfloat16, seed=0,
+                       remat=True)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters())
+    model.train()
+    *batch, _ = ernie_batch(model.cfg.vocab_size, 32, 512, "cuda")
+    losses = [ernie_step(model, opt, *batch).item()]        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()
+    step_ms = []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        loss = ernie_step(model, opt, *batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss.item())
+    counts = _read_flash_counts()
+    res = dict(steps=steps, losses=losses, step_ms=step_ms,
+               step_p50_ms=float(np.median(step_ms)),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               base_mem_gib=base,
+               card=smi, **counts)
+    assert all(np.isfinite(losses)), losses
+    n = model.cfg.num_layers * steps
+    assert (counts["fwd_launches"], counts["fwd_mask_launches"],
+            counts["fwd_dropout_launches"]) == (2 * n, 2 * n, 2 * n), counts
+    assert (counts["bwd_launches"], counts["bwd_mask_launches"],
+            counts["bwd_dropout_launches"]) == (n, n, n), counts
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def _gen_states(model):
+    g = model.dropout_generators
+    return g.attn.get_state(), g.elem.get_state()
+
+
+def _remat_pair(make, run, tol=1e-5):
+    """One step of a remat=False and a remat=True model from the same
+    weights and dropout seeds, on the card in float32 (TF32 off): the same
+    loss, gradients within `tol`, the same generator states after."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    plain, remat = make(False), make(True)
+    remat.load_state_dict(plain.state_dict())
+    out = []
+    for m in (plain, remat):
+        m.train()
+        m.seed_dropout(7)
+        _zero_flash_counts()
+        loss = run(m)
+        loss.backward()
+        counts = _read_flash_counts()
+        out.append((loss.item(), {n: p.grad for n, p in m.named_parameters()
+                                  if p.grad is not None}, _gen_states(m),
+                    counts))
+    (l0, g0, s0, c0), (l1, g1, s1, c1) = out
+    assert set(g0) == set(g1)
+    err = max((g1[n] - g0[n]).abs().max().item() for n in g0)
+    res = dict(loss=l0, loss_remat=l1, grad_max_err=err, tol=tol,
+               generators_equal=all(torch.equal(a, b)
+                                    for a, b in zip(s0, s1)),
+               fwd_launches=[c0["fwd_launches"], c1["fwd_launches"]],
+               dropout_launches=[c0["fwd_dropout_launches"],
+                                 c1["fwd_dropout_launches"]])
+    assert l0 == l1 and err <= tol and res["generators_equal"], res
+    assert c1["fwd_launches"] == 2 * c0["fwd_launches"] > 0, res
+    assert c0["fwd_dropout_launches"] == c0["fwd_launches"], res
+    del plain, remat
+    torch.cuda.empty_cache()
+    return res
+
+
+def _remat_against_itself():
+    """Phase 6c (c): the flagship widths at 2 layers (batch 2, seq 256)
+    and ERNIE's at 2 layers (batch 2, seq 128, padding mask), float32,
+    dropout 0.1 on the attention kernel and the elementwise dropouts."""
+    from paddle_tpu_torch.models.bert import (Bert, BertConfig,
+                                              bert_pretrain_loss_fn)
+    from paddle_tpu_torch.models.gpt import GPT
+
+    gcfg = dict(num_layers=2, dropout=0.1)
+    ids, labels = train_batch(flagship_config(**gcfg), 2, 256, "cuda")
+    gpt = _remat_pair(
+        lambda r: GPT(flagship_config(**gcfg, remat=r), device="cuda",
+                      seed=2),
+        lambda m: m(ids, labels=labels))
+    def bcfg(remat):
+        return BertConfig(vocab_size=40000, num_layers=2, dropout=0.1,
+                          remat=remat)
+
+    eids, etypes, emask, elabels, _ = ernie_batch(bcfg(False).vocab_size, 2,
+                                                  128, "cuda")
+    ernie = _remat_pair(
+        lambda r: Bert(bcfg(r), device="cuda", seed=3),
+        lambda m: bert_pretrain_loss_fn(m(eids, etypes, emask), elabels))
+    return dict(gpt=gpt, ernie=ernie)
+
+
+def _grad_scaler_skip():
+    """Phase 6c (d): the flagship widths at 2 layers, bf16 O2 under
+    GradScaler(init_loss_scaling=2**15): one step that steps (the scale
+    stays), then one with an inf planted in one gradient: skipped (every
+    parameter and master unchanged bit for bit), the scale halves.
+    `unscale_` is the step's one host sync (counted in "warn" mode)."""
+    import warnings
+
+    from paddle_tpu_torch import amp
+
+    model, opt, _, _, (ids, labels) = _surface_trainer(
+        False, num_layers=2, lr=1e-4)
+    ids, labels = ids[:4], labels[:4]
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+
+    def snapshot():
+        return ([p.detach().clone() for p in model.parameters()],
+                [opt.state[p]["master_weight"].clone()
+                 for p in model.parameters()])
+
+    def scaled_step(plant=False):
+        scaler.scale(model(ids, labels=labels)).backward()
+        if plant:
+            model.blocks[0].fc1.weight.grad.view(-1)[7] = float("inf")
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                scaler.step(opt)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        scaler.update()
+        opt.zero_grad(set_to_none=True)
+        return sum("synchroniz" in str(w.message) for w in seen)
+
+    before = snapshot()
+    syncs = [scaled_step()]
+    after_good = snapshot()
+    moved = any(not torch.equal(a, b) for a, b in zip(before[0],
+                                                      after_good[0]))
+    scale_after_good = scaler._scale
+    syncs.append(scaled_step(plant=True))
+    after_bad = snapshot()
+    unchanged = all(torch.equal(a, b) for a, b in
+                    zip(after_good[0] + after_good[1],
+                        after_bad[0] + after_bad[1]))
+    res = dict(scale_before=2.0 ** 15, scale_after_good=scale_after_good,
+               scale_after_inf=scaler._scale, good_step_moved=moved,
+               skipped_step_unchanged=unchanged, step_syncs=syncs,
+               opt_steps=opt._step_count)
+    assert moved and unchanged, res
+    assert scale_after_good == 2.0 ** 15 and scaler._scale == 2.0 ** 14, res
+    assert syncs == [1, 1] and opt._step_count == 1, res
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def training_surface(smi, trained, ernie):
+    """Phase 6c: the training surface (remat, AMP O2 masters, the LR
+    schedule, the global-norm clip, the train tracer, GradScaler)."""
+    t0 = time.perf_counter()
+    remat = _surface_run(smi, remat=True, steps=10)
+    plain = _surface_run(smi, remat=False, steps=3)
+    res = dict(
+        remat=remat, o2_no_remat=plain,
+        remat_step_cost=remat["step_p50_ms"] / plain["step_p50_ms"],
+        remat_mem_saving_gib=plain["peak_mem_gib"] - remat["peak_mem_gib"],
+        phase6=dict(step_p50_ms=trained["step_p50_ms"],
+                    tokens_per_s=trained["tokens_per_s"],
+                    mfu=trained["mfu"],
+                    peak_mem_gib=trained["peak_mem_gib"],
+                    base_mem_gib=trained["base_mem_gib"]),
+        ernie_remat=_ernie_remat(smi),
+        phase8_peak_mem_gib=ernie["peak_mem_gib"],
+        phase8_base_mem_gib=ernie["base_mem_gib"],
+        phase8_step_p50_ms=ernie["step_p50_ms"],
+        remat_vs_plain=_remat_against_itself(),
+        grad_scaler=_grad_scaler_skip(), card=smi)
+    res["seconds"] = time.perf_counter() - t0
+    log("[training-surface] " + json.dumps(res))
     return res
 
 
@@ -2455,6 +2832,7 @@ def main():
     ernie = ernie_pretrain(smi)
     gpt_drop = gpt_dropout_train()
     epar = ernie_parity()
+    surface = training_surface(smi, trained, ernie)
     # the kernel line's headline numbers: the bf16 decode case (width 1),
     # the launch shape the serving path runs most, and the bf16 flash case
     # at the training shape
@@ -2538,6 +2916,8 @@ def main():
         "ms": fl["fwd_ms"], "plain_ms": fl["plain_fwd_ms"],
         "bound_ms": fl["bound_fwd_ms"], "bound_by": fl["bound_fwd_by"],
         "library_ms": fl["library_fwd_ms"], **report("fwd", 128, 0, False),
+        # phase 6c's remat + O2 run: each block's forward runs twice
+        "remat_launches": surface["remat"]["fwd_launches"],
         # AdaRound's calibration forwards (phase 3f) at S 24
         "calibration_launches": feature["launches"]["flash_fwd"],
         "calibration_case": feature["adaround"]["flash_s24"],
@@ -2548,6 +2928,7 @@ def main():
         # gradients together); no one library call computes dK/dV alone
         "name": "flash_attention_dkv", "route": "cuda", "source": src,
         "replaces": f"{tpu}:238", "launches": trained["bwd_launches"],
+        "remat_launches": surface["remat"]["bwd_launches"],
         "max_abs_err": max(fl["max_err"]["dk"], fl["max_err"]["dv"]),
         "ms": fl["dkv_ms"], "plain_ms": fl["plain_bwd_ms"],
         "bound_ms": fl["bound_dkv_ms"], "bound_by": fl["bound_dkv_by"],
@@ -2555,6 +2936,7 @@ def main():
     }, {
         "name": "flash_attention_dq", "route": "cuda", "source": src,
         "replaces": f"{tpu}:295", "launches": trained["bwd_launches"],
+        "remat_launches": surface["remat"]["bwd_launches"],
         "max_abs_err": fl["max_err"]["dq"],
         "ms": fl["dq_ms"], "plain_ms": fl["plain_bwd_ms"],
         "bound_ms": fl["bound_dq_ms"], "bound_by": fl["bound_dq_by"],
@@ -2562,16 +2944,18 @@ def main():
     }]
     # the ERNIE step's launch shape: mask + dropout, B 32, S 512, H 12, D 64
     ev = next(r for r in variants if r["case"] == "ernie_mask_dropout")
-    for kname, site, key, errs, launches, lib in (
+    er = surface["ernie_remat"]
+    for kname, site, key, errs, launches, remat_launches, lib in (
             ("fwd", 143, "fwd", ("o", "lse"), ernie["fwd_mask_launches"],
-             ev["library_fwd_ms"]),
+             er["fwd_mask_launches"], ev["library_fwd_ms"]),
             ("dkv", 263, "dkv", ("dk", "dv"), ernie["bwd_mask_launches"],
-             None),
-            ("dq", 319, "dq", ("dq",), ernie["bwd_mask_launches"], None)):
+             er["bwd_mask_launches"], None),
+            ("dq", 319, "dq", ("dq",), ernie["bwd_mask_launches"],
+             er["bwd_mask_launches"], None)):
         kernels.append({
             "name": f"flash_attention_{kname}_mask_dropout", "route": "cuda",
             "source": src, "replaces": f"{tpu}:{site}",
-            "launches": launches,
+            "launches": launches, "remat_launches": remat_launches,
             "max_abs_err": max(ev["max_err"][e] for e in errs),
             "ms": ev[f"{key}_ms"],
             "plain_ms": ev["plain_fwd_ms" if key == "fwd"
@@ -2589,7 +2973,8 @@ def main():
                            front_door=http, phase3f=feature,
                            overcap=overcap, parity=par, parity_int8=par_int8,
                            train=trained, train_parity=tpar, ernie=ernie,
-                           train_dropout=gpt_drop, ernie_parity=epar), f,
+                           train_dropout=gpt_drop, ernie_parity=epar,
+                           training_surface=surface), f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

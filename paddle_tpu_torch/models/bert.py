@@ -20,7 +20,12 @@ the model computes, as in the JAX package:
   `word_emb` with no bias.
 
 All LayerNorms use eps 1e-5. Dropout draws from the model's own
-`DropoutGenerators`, seeded explicitly (`seed_dropout`).
+`DropoutGenerators`, seeded explicitly (`seed_dropout`). With
+`BertConfig(remat=True)` each layer runs under
+`distributed/fleet/utils.recompute` while autograd records, with its
+attention mask and the dropout generators as the forward found them. The
+JAX model's remat drops the mask (`recompute(self._inner, x)`): that
+fault is not copied.
 """
 from __future__ import annotations
 
@@ -31,22 +36,18 @@ from torch import nn
 from torch.nn import functional as F
 
 from .._device import resolve_device
+from ..distributed.fleet.utils import recompute
 from ..ops.common_nn import (DropoutGenerators, dropout,
                              scaled_dot_product_attention)
 
 
 class BertConfig:
-    """The JAX package's BertConfig fields. `remat=True` raises
-    NotImplementedError (ROADMAP Queue 1, item 4)."""
+    """The JAX package's BertConfig fields."""
 
     def __init__(self, vocab_size=30522, hidden_size=768, num_layers=12,
                  num_heads=12, intermediate_size=3072,
                  max_position_embeddings=512, type_vocab_size=2,
                  dropout=0.1, remat=False):
-        if remat:
-            raise NotImplementedError(
-                "BertConfig: remat is not ported yet (ROADMAP Queue 1, "
-                "item 4)")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -95,8 +96,16 @@ class BertLayer(nn.Module):
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
         self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
         self.p = cfg.dropout
+        self.remat = cfg.remat
 
     def forward(self, x, attn_mask=None, gens=None):
+        if self.remat and torch.is_grad_enabled():
+            return recompute(self._inner, x, attn_mask, gens,
+                             generators=(gens.attn, gens.elem) if gens
+                             else ())
+        return self._inner(x, attn_mask, gens)
+
+    def _inner(self, x, attn_mask=None, gens=None):
         attn_gen, elem_gen = (gens.attn, gens.elem) if gens else (None, None)
 
         def drop(y):

@@ -21,7 +21,12 @@ the hidden states through the tied head (`ops/fused_ce.py`). In train mode
 with `dropout` > 0, the JAX model's dropouts apply: on the embeddings, on
 each block's two residual branches (the full forward only) and on the
 attention probabilities (the flash kernels' dropout variant), drawn from
-the model's own `DropoutGenerators` (`seed_dropout`).
+the model's own `DropoutGenerators` (`seed_dropout`). With
+`GPTConfig(remat=True)` each block's full forward runs under
+`distributed/fleet/utils.recompute` while autograd records (the JAX
+model's `recompute(self._inner, x)`): its activations are recomputed in
+the backward, the flash forward kernel with them, from the dropout
+generators as the forward found them.
 """
 from __future__ import annotations
 
@@ -32,18 +37,18 @@ from torch import nn
 from torch.nn import functional as F
 
 from .._device import resolve_device
+from ..distributed.fleet.utils import recompute
 from ..ops.common_nn import (DropoutGenerators, dropout,
                              scaled_dot_product_attention)
 from ..ops.fused_ce import fused_linear_cross_entropy, linear_cross_entropy
 
 _NEG_INF = -1e30
-_TODO = "is not ported yet (ROADMAP Queue 1, item 4)"
 
 
 class GPTConfig:
-    """The JAX package's GPTConfig fields. Values this port does not run
-    yet raise NotImplementedError: remat, attn_impl 'ring'. ('flash' and
-    'xla' both take scaled_dot_product_attention, as in the JAX model.)
+    """The JAX package's GPTConfig fields. attn_impl 'ring' is not ported
+    and raises NotImplementedError. ('flash' and 'xla' both take
+    scaled_dot_product_attention, as in the JAX model.)
     `dtype` is stored and never read, as in the JAX model: the parameter
     dtype is the `dtype` argument of `GPT` and `gpt_*`."""
 
@@ -51,8 +56,6 @@ class GPTConfig:
                  num_heads=12, max_seq_len=1024, intermediate_size=None,
                  dropout=0.0, attn_impl="flash", remat=False,
                  dtype="float32", fused_head_chunks=None):
-        if remat:
-            raise NotImplementedError(f"GPTConfig: remat {_TODO}")
         if attn_impl not in ("flash", "xla"):
             raise NotImplementedError(
                 f"GPTConfig: attn_impl={attn_impl!r} is not ported "
@@ -161,6 +164,7 @@ class GPTBlock(nn.Module):
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
         self.p = cfg.dropout
+        self.remat = cfg.remat
 
     def _mlp(self, x, cache=None):
         h = _serving_column_parallel(self.fc1, self.ln2(x), "ffn_fc1", cache)
@@ -171,6 +175,13 @@ class GPTBlock(nn.Module):
             attn_out, new_cache = self.attn(self.ln1(x), cache=cache)
             x = x + attn_out
             return x + self._mlp(x, cache), new_cache
+        if self.remat and torch.is_grad_enabled():
+            return recompute(self._inner, x, gens,
+                             generators=(gens.attn, gens.elem) if gens
+                             else ())
+        return self._inner(x, gens)
+
+    def _inner(self, x, gens=None):
         attn_gen, elem_gen = (gens.attn, gens.elem) if gens else (None, None)
 
         def drop(y):

@@ -1,110 +1,115 @@
-"""AdamW with the JAX package's exact update rule.
+"""SGD, Momentum, Adam and AdamW with the JAX package's exact update rules.
 
-The counterpart of `paddle_tpu/optimizer/optimizers.py` `Adam`/`AdamW` and
-the decoupled weight decay of `Optimizer.apply_gradients_arrays`
-(`paddle_tpu/optimizer/optimizer.py`). `torch.optim.AdamW` is not that
-rule: it decays the parameter before the Adam step and rounds low-precision
-parameters at other points. Per parameter p with gradient g:
+The counterparts of `paddle_tpu/optimizer/optimizers.py` `SGD`,
+`Momentum`, `Adam` and `AdamW`, on the base in `optimizer.py` (learning
+rate or scheduler, grad clip, coupled or decoupled decay, master weights,
+the JAX state-dict keys). `torch.optim.AdamW` is not the JAX rule: it
+decays the parameter before the Adam step and rounds low-precision
+parameters at other points. Per weight w (the parameter, or its float32
+master) with gradient g in w's dtype:
 
-    g32 = g.to(p.dtype).float();  m = b1 m + (1 - b1) g32
-    v = b2 v + (1 - b2) g32 g32;  b1p *= b1;  b2p *= b2      (all f32)
-    step = lr (m / (1 - b1p)) / (sqrt(v / (1 - b2p)) + eps)
-    new = (p.float() - step).to(p.dtype)
-    new = new - (lr * wd * p_old.float()).to(p.dtype)         (if decayed)
+- SGD: ``w - lr g`` (lr rounded to w's dtype);
+- Momentum: ``v = mu v + g`` (v float32); ``w - lr v``, or with Nesterov
+  ``w - lr (g + mu v)``, in float32 and rounded to w's dtype;
+- Adam / AdamW, all in float32 with w's dtype for the result::
 
-with the moments and the beta powers kept in float32 whatever the
-parameter's dtype, and the decay taken from the parameter before the step.
-A parameter the optimizer was given that got no gradient (``.grad`` None)
-takes a zero gradient, as the JAX package's compiled step hands it one: its
-moments decay, its Adam step is 0 and weight decay still applies (where
-`torch.optim` skips it). A parameter that does not require a gradient is
-left alone.
-The arithmetic runs on lists of tensors (`torch._foreach_*`), a few
-launches for the whole model instead of a dozen per parameter.
+      m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g g;  b1p *= b1;  b2p *= b2
+      w - lr (m / (1 - b1p)) / (sqrt(v / (1 - b2p)) + eps)
+
+  with the beta powers float32 scalars on the host. AdamW decays
+  decoupled: ``new - (lr wd w_old).to(w.dtype)``.
+
+The other rules of the JAX package (Adamax, Adagrad, Adadelta, RMSProp,
+DGCMomentum, Lars, Lamb) are not ported yet (ROADMAP Queue 1, item 8).
 """
 from __future__ import annotations
-
-import numbers
 
 import numpy as np
 import torch
 
-_TODO = "is not ported yet (ROADMAP Queue 1, item 4)"
+from .optimizer import L2Decay, Optimizer, as_dtype
+
+_F32 = np.float32
 
 
-class AdamW(torch.optim.Optimizer):
-    """AdamW(learning_rate, beta1, beta2, epsilon, parameters, weight_decay,
-    apply_decay_param_fun) with the JAX package's signature and rule.
+class SGD(Optimizer):
+    """SGD(learning_rate, parameters, weight_decay, grad_clip,
+    multi_precision) with the JAX package's signature and rule."""
 
-    `parameters` is an iterable of tensors or of ``(name, tensor)`` pairs
-    (``model.named_parameters()``); `apply_decay_param_fun(name)` says
-    whether a parameter is decayed (default: every one) and needs the
-    names. `grad_clip`, `multi_precision` and an LR scheduler raise
-    NotImplementedError."""
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+
+    def _update(self, works, works32, grads, lr, states):
+        step = torch._foreach_mul(grads, as_dtype(lr, works[0].dtype))
+        return torch._foreach_sub(works, step)
+
+
+class Momentum(Optimizer):
+    """Momentum(learning_rate, momentum, parameters, use_nesterov,
+    weight_decay, grad_clip, multi_precision) with the JAX package's
+    signature and rule; the velocity is float32 whatever the parameter's
+    dtype."""
+
+    _slot_names = ("velocity",)
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _init_slots(self, p):
+        return {"velocity": torch.zeros_like(p, dtype=torch.float32)}
+
+    def _update(self, works, works32, grads, lr, states):
+        mu = self._momentum
+        vel = [s["velocity"] for s in states]
+        g32 = [g.float() for g in grads]
+        torch._foreach_mul_(vel, mu)
+        torch._foreach_add_(vel, g32)
+        step = (torch._foreach_add(g32, torch._foreach_mul(vel, mu))
+                if self._use_nesterov else vel)
+        new = torch._foreach_sub(
+            works32, torch._foreach_mul(step, as_dtype(lr, works[0].dtype)))
+        return [n.to(w.dtype) for n, w in zip(new, works)]
+
+
+class Adam(Optimizer):
+    """Adam(learning_rate, beta1, beta2, epsilon, parameters, weight_decay,
+    grad_clip, lazy_mode, multi_precision) with the JAX package's
+    signature and rule (a `weight_decay` is coupled L2)."""
+
+    _slot_names = ("moment1", "moment2", "beta1_pow", "beta2_pow")
+    _host_slots = ("beta1_pow", "beta2_pow")
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, parameters=None, weight_decay=0.01,
-                 apply_decay_param_fun=None, grad_clip=None,
-                 multi_precision=False):
-        if not isinstance(learning_rate, numbers.Real):
-            raise NotImplementedError(f"AdamW: an LR scheduler {_TODO}")
-        if grad_clip is not None:
-            raise NotImplementedError(f"AdamW: grad_clip {_TODO}")
-        if multi_precision:
-            raise NotImplementedError(
-                f"AdamW: multi_precision (master weights) {_TODO}")
-        if parameters is None:
-            raise ValueError("AdamW needs its parameters")
-        items = list(parameters)
-        named = bool(items) and isinstance(items[0], tuple)
-        if apply_decay_param_fun is not None and not named:
-            raise ValueError("apply_decay_param_fun needs (name, parameter) "
-                             "pairs: pass model.named_parameters()")
-        params = [p for _, p in items] if named else items
-        self._names = {id(p): n for n, p in items} if named else {}
-        self._apply_decay_param_fun = apply_decay_param_fun
-        super().__init__(params, dict(lr=float(learning_rate), beta1=beta1,
-                                      beta2=beta2, eps=epsilon,
-                                      weight_decay=float(weight_decay)))
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 name=None, apply_decay_param_fun=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, apply_decay_param_fun)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
-    def _decays(self, p):
-        fn = self._apply_decay_param_fun
-        return fn is None or bool(fn(self._names[id(p)]))
+    def _init_slots(self, p):
+        return {"moment1": torch.zeros_like(p, dtype=torch.float32),
+                "moment2": torch.zeros_like(p, dtype=torch.float32),
+                "beta1_pow": _F32(1.0), "beta2_pow": _F32(1.0)}
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        if closure is not None:
-            raise NotImplementedError("AdamW.step: closures are not "
-                                      "supported")
-        for group in self.param_groups:
-            params = [p for p in group["params"] if p.requires_grad]
-            # one list per (device, dtype): a _foreach op takes one of each
-            buckets = {}
-            for p in params:
-                buckets.setdefault((p.device, p.dtype), []).append(p)
-            for ps in buckets.values():
-                self._update(ps, group)
-
-    def _update(self, ps, group):
-        b1, b2, eps = group["beta1"], group["beta2"], group["eps"]
-        f32 = np.float32
-        for p in ps:
-            if not self.state[p]:
-                self.state[p] = {
-                    "moment1": torch.zeros_like(p, dtype=torch.float32),
-                    "moment2": torch.zeros_like(p, dtype=torch.float32),
-                    "beta1_pow": f32(1.0), "beta2_pow": f32(1.0)}
-        states = [self.state[p] for p in ps]
+    def _update(self, works, works32, grads, lr, states):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
         m = [s["moment1"] for s in states]
         v = [s["moment2"] for s in states]
-        g = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
-             else p.grad.to(p.dtype).float() for p in ps]
+        g = [x.float() for x in grads]
         # the beta powers: float32 scalars per parameter, rounded as the
         # JAX package's f32 state is
         for s in states:
-            s["beta1_pow"] = s["beta1_pow"] * f32(b1)
-            s["beta2_pow"] = s["beta2_pow"] * f32(b2)
-        lr = f32(group["lr"])
+            s["beta1_pow"] = s["beta1_pow"] * _F32(b1)
+            s["beta2_pow"] = s["beta2_pow"] * _F32(b2)
         # the moments update in place: no second copy of the f32 state
         torch._foreach_mul_(m, b1)
         torch._foreach_add_(m, torch._foreach_mul(g, 1 - b1))
@@ -113,20 +118,36 @@ class AdamW(torch.optim.Optimizer):
         torch._foreach_mul_(v, b2)
         torch._foreach_add_(v, gg)
         mhat = torch._foreach_div(
-            m, [float(f32(1) - s["beta1_pow"]) for s in states])
+            m, [float(_F32(1) - s["beta1_pow"]) for s in states])
         vhat = torch._foreach_div(
-            v, [float(f32(1) - s["beta2_pow"]) for s in states])
+            v, [float(_F32(1) - s["beta2_pow"]) for s in states])
         den = torch._foreach_add(torch._foreach_sqrt(vhat), eps)
         step = torch._foreach_div(torch._foreach_mul(mhat, float(lr)), den)
-        old = [p.float() for p in ps]
-        new = [n.to(p.dtype) for n, p in
-               zip(torch._foreach_sub(old, step), ps)]
-        wd = group["weight_decay"]
-        decay = [i for i, p in enumerate(ps) if wd and self._decays(p)]
-        if decay:
-            dec = torch._foreach_mul([old[i] for i in decay],
-                                     float(lr * f32(wd)))
-            torch._foreach_sub_([new[i] for i in decay],
-                                [d.to(ps[i].dtype) for d, i in
-                                 zip(dec, decay)])
-        torch._foreach_copy_(ps, new)
+        return [n.to(w.dtype) for n, w in
+                zip(torch._foreach_sub(works32, step), works)]
+
+
+class AdamW(Adam):
+    """AdamW(learning_rate, beta1, beta2, epsilon, parameters,
+    weight_decay, lr_ratio, apply_decay_param_fun, grad_clip, lazy_mode,
+    multi_precision) with the JAX package's signature and rule: Adam with
+    decoupled decay. `parameters` is an iterable of tensors or of
+    ``(name, tensor)`` pairs (``model.named_parameters()``);
+    `apply_decay_param_fun(name)` says whether a parameter is decayed
+    (default: every one) and needs the names. `lr_ratio` and `lazy_mode`
+    are taken and not read, as in the JAX package."""
+
+    _decoupled_wd = True
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None):
+        if weight_decay is None:
+            weight_decay = 0.0
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         weight_decay, grad_clip, lazy_mode, multi_precision,
+                         name, apply_decay_param_fun)
+
+
+__all__ = ["SGD", "Momentum", "Adam", "AdamW", "L2Decay"]

@@ -1,30 +1,42 @@
 """Shared ring-buffered Chrome/Perfetto trace-event recorder.
 
-`Tracer` is the substrate the serving tracer (`serving.trace.EngineTracer`)
-builds on: a bounded ring of trace events behind a lock (any thread may
-export mid-run), a monotonic epoch, span/instant emitters, step-id
-allocation, and the Perfetto-loadable `chrome_trace()`/`dump()` export. It
-knows nothing about requests or batches — producers subclass it and name
-their own tracks.
+The counterpart of `paddle_tpu/profiler/tracing.py`:
 
-**Device-capture join**: every traced serve step dispatch runs under a
-`torch.profiler.record_function` range named ``paddle_tpu.step <id>``
-(`STEP_ANNOTATION_PREFIX`) carrying the SAME id as the host span, so a
-torch-profiler trace of the card lines up against the host ``step[kind]``
-spans by name.
+- `Tracer` is the substrate: a bounded ring of trace events behind a lock
+  (any thread may export mid-run), a monotonic epoch, span/instant
+  emitters, step-id allocation, and the Perfetto-loadable
+  `chrome_trace()`/`dump()` export. It knows nothing about requests or
+  batches — producers subclass it and name their own tracks.
+- `serving.trace.EngineTracer` subclasses it for the serving stack.
+- `TrainTracer` records **one ``train_step`` span per training step** with
+  phase children ``data``, ``shard``, ``dispatch``, ``sync`` and
+  ``callback`` (the JAX tracer's vocabulary); a step wrapped in
+  `InstrumentedStep`, or run inside `train_dispatch_span`, records a span
+  whose one phase is ``dispatch``.
+
+**Device-capture join**: every traced dispatch (a serve step, a training
+step) runs under a `torch.profiler.record_function` range named
+``paddle_tpu.step <id>`` (`STEP_ANNOTATION_PREFIX`) carrying the SAME id as
+the host span, so a torch-profiler trace of the card lines up against the
+host ``step[kind]`` and ``train_step`` spans by name.
 
 **Off by default, free when off**: ``PADDLE_TPU_TRACE`` (an on/off switch
 or a request sampling fraction) turns tracing on, ``PADDLE_TPU_TRACE_BUF``
 bounds the ring (default 65536 events); every hook site is a single
-``if tr is not None`` pointer test.
+``if tr is not None`` pointer test. Training asks `train_tracer()` for the
+process-wide tracer, which `enable_train_tracing()` /
+`disable_train_tracing()` override.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
 import time
 from collections import deque
+
+import torch
 
 # The device-capture join key: host step spans and the profiler range
 # wrapping the matching device dispatch share "paddle_tpu.step <id>".
@@ -173,3 +185,127 @@ class Tracer:
         with open(path, "w") as f:
             json.dump(trace, f)
         return len(trace["traceEvents"])
+
+
+class TrainTracer(Tracer):
+    """Training-step timeline recorder.
+
+    One ``train_step`` span per step on the ``paddle-tpu-train`` track,
+    with up to five phase children (``data``, ``shard``, ``dispatch``,
+    ``sync``, ``callback``), the JAX package's vocabulary. A producer
+    that only sees the dispatch window records a span with a single
+    ``dispatch`` phase via `train_dispatch_span`.
+    """
+
+    producer = "paddle_tpu_torch.profiler.tracing.train"
+
+    PID_TRAIN = 1
+    TID_STEPS = 0
+    PHASES = ("data", "shard", "dispatch", "sync", "callback")
+
+    def __init__(self, capacity=65536):
+        super().__init__(capacity=capacity, sample=1.0)
+        self._meta = [
+            self._meta_ev("process_name", self.PID_TRAIN, 0,
+                          {"name": "paddle-tpu-train"}),
+            self._meta_ev("thread_name", self.PID_TRAIN, self.TID_STEPS,
+                          {"name": "train-step"}),
+        ]
+
+    def record_train_step(self, step_id, phases, args=None):
+        """Emit the ``train_step`` span and its phase children. `phases`
+        is {name: (start, end)} in monotonic seconds; the step span covers
+        min(start)..max(end)."""
+        self.phased_span("train_step", self.PID_TRAIN, self.TID_STEPS,
+                         step_id, phases, self.PHASES, args)
+
+
+@contextlib.contextmanager
+def train_dispatch_span(tracer, args=None):
+    """Wrap ONE training-step dispatch: allocates a step id, runs the body
+    under the ``paddle_tpu.step <id>`` profiler range, and records a
+    ``train_step`` span whose only phase is ``dispatch`` (the host time of
+    the body: the card may still be running it). Yields the step id."""
+    sid = tracer.next_step_id()
+    t0 = time.monotonic()
+    try:
+        with torch.profiler.record_function(tracer.step_annotation(sid)):
+            yield sid
+    finally:
+        tracer.record_train_step(sid, {"dispatch": (t0, time.monotonic())},
+                                 args)
+
+
+class InstrumentedStep:
+    """Callable wrapper adding one `train_dispatch_span` per call when the
+    process train tracer is on (a single pointer test when off). Every
+    other attribute delegates to the wrapped callable."""
+
+    def __init__(self, fn, args=None):
+        self._fn = fn
+        self._span_args = args
+
+    def __call__(self, *args, **kwargs):
+        tr = train_tracer()
+        if tr is None:
+            return self._fn(*args, **kwargs)
+        with train_dispatch_span(tr, self._span_args):
+            return self._fn(*args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+
+# -- process-wide training tracer ------------------------------------------
+#
+# Training has no engine object to hang a tracer on, so the training tracer
+# is a process singleton, as in the JAX package: every producer asks
+# `train_tracer()` per step and gets None (one pointer test, nothing else)
+# unless tracing is on.
+
+_explicit = None        # set by enable_/disable_train_tracing
+_explicit_set = False
+_env_tracer = None      # lazily created when PADDLE_TPU_TRACE asks for it
+
+
+def train_tracer():
+    """The process-wide `TrainTracer`, or None when training tracing is
+    off. `enable_train_tracing()`/`disable_train_tracing()` win; otherwise
+    ``PADDLE_TPU_TRACE`` (any truthy value: sampling fractions apply to
+    serving requests, not training steps) turns it on with a
+    ``PADDLE_TPU_TRACE_BUF``-sized ring."""
+    if _explicit_set:
+        return _explicit
+    if trace_sample_from_env() <= 0.0:
+        return None
+    global _env_tracer
+    if _env_tracer is None:
+        _env_tracer = TrainTracer(capacity=trace_capacity_from_env())
+    return _env_tracer
+
+
+def enable_train_tracing(capacity=None):
+    """Turn training tracing on programmatically (overrides the env);
+    returns the tracer."""
+    global _explicit, _explicit_set
+    _explicit = TrainTracer(
+        capacity=trace_capacity_from_env() if capacity is None
+        else max(16, int(capacity)))
+    _explicit_set = True
+    return _explicit
+
+
+def disable_train_tracing():
+    """Force training tracing off regardless of the environment."""
+    global _explicit, _explicit_set
+    _explicit = None
+    _explicit_set = True
+
+
+def reset_train_tracing():
+    """Back to env-driven behavior with a fresh tracer (tests; long
+    processes that want to drop a recorded trace)."""
+    global _explicit, _explicit_set, _env_tracer
+    _explicit = None
+    _explicit_set = False
+    _env_tracer = None

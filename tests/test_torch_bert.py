@@ -262,8 +262,24 @@ def test_weights_round_trip(jax_model):
 
 
 def test_unported_and_shapes():
-    with pytest.raises(NotImplementedError, match="remat"):
-        BertConfig(**CFG, remat=True)
+    """Remat, once refused here, is ported: with the padding mask the
+    remat model's training loss and gradients equal the plain model's
+    (`test_torch_remat.py` holds the rest). Then ernie_base's shapes."""
+    ids, types, mask, labels = map(torch.from_numpy, _batch(2))
+    runs = []
+    for cfg in (BertConfig(**CFG), BertConfig(**CFG, remat=True)):
+        m = Bert(cfg, device="cpu", seed=1)
+        m.train()
+        m.seed_dropout(5)
+        loss = bert_pretrain_loss_fn(m(ids, types, mask), labels)
+        loss.backward()
+        runs.append((loss.item(), [p.grad for p in m.parameters()]))
+    assert runs[1][0] == runs[0][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        if a is None:
+            assert b is None
+        else:
+            torch.testing.assert_close(b, a, rtol=0, atol=0)
     m = ernie_base(device="cpu", num_layers=1, hidden_size=64, num_heads=4,
                    intermediate_size=128)
     assert m.cfg.vocab_size == 40000 and m.cfg.dropout == 0.1

@@ -106,6 +106,11 @@ def test_engine_takes_jax_keyword(model, name, tmp_path, monkeypatch):
             == eng.expected_program_count()
 
 
+# the config values the port refuses (NotImplementedError): ring attention
+# waits for ROADMAP Queue 1, item 8; remat is ported in both configs
+GPT_REFUSED = {"attn_impl"}
+
+
 @pytest.mark.parametrize("name", sorted(JAX_GPT))
 def test_gpt_config_takes_jax_keyword(name):
     ok, cfg = _accepted_or_not_implemented(GPTConfig, name, JAX_GPT[name])
@@ -113,6 +118,7 @@ def test_gpt_config_takes_jax_keyword(name):
     if name != "intermediate_size":  # None resolves to 4 * hidden, as in JAX
         assert getattr(cfg, name) == JAX_GPT[name]
     ok, cfg = _accepted_or_not_implemented(GPTConfig, name, GPT_OTHER[name])
+    assert ok == (name not in GPT_REFUSED), name
     if ok:
         assert getattr(cfg, name) == GPT_OTHER[name]
 
@@ -123,8 +129,8 @@ def test_bert_config_takes_jax_keyword(name):
     assert ok and getattr(cfg, name) == JAX_BERT[name]
     ok, cfg = _accepted_or_not_implemented(BertConfig, name,
                                            BERT_OTHER[name])
-    if ok:
-        assert getattr(cfg, name) == BERT_OTHER[name]
+    assert ok, name
+    assert getattr(cfg, name) == BERT_OTHER[name]
 
 
 def test_gpt_config_stores_dtype_as_jax_does():

@@ -829,3 +829,122 @@ def test_bert_train_step_on_the_card_matches_the_cpu(dev):
     for (n, a), (_, b) in zip(models[0].named_parameters(),
                               models[1].named_parameters()):
         assert _max_err(a.cpu(), b) < 1e-3, n
+
+
+# -- the training surface: remat, O2 masters, clip, GradScaler -----------------
+
+def _small_gpt_cfg(**kw):
+    return GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                     num_heads=1, max_seq_len=96, **kw)
+
+
+@pytest.mark.parametrize("model", ["gpt", "bert"])
+def test_remat_with_dropout_equals_no_remat_on_the_card(dev, model):
+    """float32, dropout 0.1 in the attention kernel and the elementwise
+    dropouts: a remat step gives the no-remat loss and gradients (the
+    recomputed kernel drew the same Philox keep bits), leaves the dropout
+    generators where the plain step leaves them, and runs the forward
+    kernel twice a layer."""
+    from paddle_tpu_torch.models.bert import (Bert, BertConfig,
+                                              bert_pretrain_loss_fn)
+
+    rs = np.random.RandomState(1)
+    ids = torch.from_numpy(rs.randint(0, 512, (2, 96))).to(dev)
+    if model == "gpt":
+        def make(remat):
+            return GPT(_small_gpt_cfg(dropout=0.1, remat=remat), device=dev,
+                       seed=0)
+
+        def run(m):
+            return m(ids, labels=ids)
+    else:
+        mask = _padding_mask(2, 96, dev)
+
+        def make(remat):
+            return Bert(BertConfig(vocab_size=512, hidden_size=128,
+                                   num_layers=2, num_heads=2,
+                                   intermediate_size=256,
+                                   max_position_embeddings=96, dropout=0.1,
+                                   remat=remat), device=dev, seed=0)
+
+        def run(m):
+            return bert_pretrain_loss_fn(m(ids, None, mask), ids)
+    out = []
+    for remat in (False, True):
+        m = make(remat)
+        m.train()
+        m.seed_dropout(5)
+        f0 = fa.flash_attention_fwd.dropout_launches
+        loss = run(m)
+        loss.backward()
+        g = m.dropout_generators
+        out.append((loss.item(), [p.grad for p in m.parameters()],
+                    (g.attn.get_state(), g.elem.get_state()),
+                    fa.flash_attention_fwd.dropout_launches - f0))
+    (l0, g0, s0, n0), (l1, g1, s1, n1) = out
+    assert l0 == l1
+    for a, b in zip(g0, g1):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert _max_err(a, b) <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(s0, s1))
+    assert n1 == 2 * n0 == 4
+
+
+def test_o2_step_with_clip_and_schedule_raises_no_host_sync(dev):
+    """A bf16 O2 step of a small GPT with remat, AdamW under a scheduler
+    and the global-norm clip runs under set_sync_debug_mode("error"), and
+    leaves every parameter the bf16 rounding of its float32 master."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    m = GPT(_small_gpt_cfg(remat=True), device=dev, seed=0)
+    sched = LinearWarmup(CosineAnnealingDecay(1e-3, T_max=10), 2, 0.0, 1e-3)
+    clip = ClipGradByGlobalNorm(0.5)
+    opt = AdamW(learning_rate=sched, grad_clip=clip,
+                parameters=m.parameters())
+    m, opt = amp.decorate(m, opt, level="O2")
+    m.train()
+    ids = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 512, (2, 96))).to(dev)
+    losses = []
+    for _ in range(3):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = m(ids, labels=ids)
+            loss.backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sched.step()
+        losses.append(loss.item())
+        for p in m.parameters():
+            master = opt.state[p]["master_weight"]
+            assert p.dtype == torch.bfloat16
+            assert torch.equal(p, master.to(torch.bfloat16))
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert np.isfinite(clip.global_norm.item())
+
+
+def test_grad_scaler_skips_a_step_with_an_inf_on_the_card(dev):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+
+    m = GPT(_small_gpt_cfg(), device=dev, seed=0)
+    opt = AdamW(learning_rate=1e-3, parameters=m.parameters())
+    m, opt = amp.decorate(m, opt, level="O2")
+    m.train()
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 512, (2, 96))).to(dev)
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    scaler.scale(m(ids, labels=ids)).backward()
+    m.blocks[1].fc2.weight.grad.view(-1)[3] = float("nan")
+    before = [p.detach().clone() for p in m.parameters()]
+    scaler.step(opt)
+    scaler.update()
+    assert all(torch.equal(a, p) for a, p in zip(before, m.parameters()))
+    assert scaler._scale == 2.0 ** 14 and opt._step_count == 0

@@ -172,9 +172,25 @@ def test_to_jax_state_dict_inverts_from_jax_state_dict():
 
 @pytest.mark.parametrize("kw,match", [(dict(remat=True), "remat"),
                                       (dict(attn_impl="ring"), "ring")])
-def test_unported_config_values_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        GPTConfig(**CFG, **kw)
+def test_unported_config_values_raise(batch, kw, match):
+    """Ring attention is not ported and raises. Remat, once refused here,
+    is ported: a remat model's training loss and gradients equal the
+    plain model's (`test_torch_remat.py` holds it against JAX)."""
+    if match == "ring":
+        with pytest.raises(NotImplementedError, match=match):
+            GPTConfig(**CFG, **kw)
+        return
+    ids, labels = map(torch.from_numpy, batch)
+    runs = []
+    for cfg in (GPTConfig(**CFG), GPTConfig(**CFG, **kw)):
+        m = GPT(cfg, device="cpu", seed=1)
+        m.train()
+        loss = m(ids, labels=labels)
+        loss.backward()
+        runs.append((loss.item(), [p.grad for p in m.parameters()]))
+    assert runs[1][0] == runs[0][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        torch.testing.assert_close(b, a, rtol=0, atol=0)
 
 
 def test_dropout_trains_and_eval_equals_no_dropout(batch):

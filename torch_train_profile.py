@@ -3,15 +3,20 @@
 
 Trains chip_smoke.py's flagship GPT (`--model gpt`: vocab 32768, hidden
 1024, 12 layers, 8 heads, seq 1024, bf16, AdamW(1e-4), batch 16 x 1024
-from np.random.RandomState(0)) or its ERNIE-base pretrain step (`--model
-ernie`: hidden 768, 12 layers, 12 heads, vocab 40000, bf16, dropout 0.1,
-batch 32 x 512 with a padding mask): two warm-up steps, then `--steps`
+from np.random.RandomState(0)), the same GPT as phase 6c trains it
+(`--model gpt-o2`: built in float32, amp.decorate(level="O2") masters,
+AdamW(weight decay 0.01) under the warm-up + cosine schedule, stepped
+after each step, and ClipGradByGlobalNorm(1.0); `gpt-o2-remat` with
+remat=True as well) or its ERNIE-base pretrain step (`--model ernie`:
+hidden 768, 12 layers, 12 heads, vocab 40000, bf16, dropout 0.1, batch
+32 x 512 with a padding mask): two warm-up steps, then `--steps`
 steps with CUDA events between forward, backward and optimizer (device
 time of each phase), then `--steps` steps under `torch.profiler`, and
 prints the device time by kernel and by kind of kernel, the device's busy
 share of the wall time, and the card's clock and power after the runs:
 
-    python3 torch_train_profile.py [--model gpt|ernie] [--steps 5]
+    python3 torch_train_profile.py [--model gpt|gpt-o2|gpt-o2-remat|ernie]
+                                   [--steps 5]
                                    [--out profile.json] [--trace trace.json]
 
 Needs one CUDA card and nvcc (the kernels are built on first use).
@@ -48,7 +53,8 @@ def main():
     ap.add_argument("--trace", help="export the Chrome trace to this file")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--model", choices=("gpt", "ernie"), default="gpt")
+    ap.add_argument("--model", default="gpt",
+                    choices=("gpt", "gpt-o2", "gpt-o2-remat", "ernie"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
@@ -61,9 +67,13 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    sched = None
     if args.model == "gpt":
         model, opt, (ids, labels) = chip_smoke.flagship_trainer()
-
+    elif args.model.startswith("gpt-o2"):
+        model, opt, sched, _, (ids, labels) = chip_smoke._surface_trainer(
+            remat=args.model.endswith("remat"))
+    if args.model.startswith("gpt"):
         def loss_fn():
             return model(ids, labels=labels)
     else:
@@ -80,6 +90,8 @@ def main():
         loss.backward()
         opt.step()
         opt.zero_grad(set_to_none=True)
+        if sched is not None:
+            sched.step()
 
     for _ in range(2):
         step()
@@ -96,6 +108,8 @@ def main():
         opt.step()
         opt.zero_grad(set_to_none=True)
         ev[3].record()
+        if sched is not None:
+            sched.step()
         torch.cuda.synchronize()
         for name, (a, b) in zip(phases, ((0, 1), (1, 2), (2, 3), (0, 3))):
             phases[name].append(ev[a].elapsed_time(ev[b]))
