@@ -105,6 +105,41 @@ Phases, in order; any failure exits nonzero:
    of the bf16 model's, greedy parity >= 0.9 against phase 3, the
    embedding and norms unchanged, block 0's fc1 on the int8 grid up to
    bf16's rounding of q * s.
+   3g. Weights from disk and the replica fleet, on phase 3's model. The
+   port's `save_sharded_model` writes it to a temporary directory (bytes,
+   seconds, GB/s; removed at the end). `skeleton_init()` builds gpt_1p3b
+   on the meta device; replicas are LLMEngine(skeleton, checkpoint_path=
+   dir, block_size=16, max_batch=8, spec_decoding=True, warmup=True,
+   host_kv_blocks=256), each streaming the weights leaf by leaf onto the
+   card (load seconds, GB/s, warmup seconds a replica). Gates: the load
+   report's total bytes are the model's parameter bytes and all of them
+   landed on the card, the host staged at most the largest leaf (wte,
+   206,045,184 bytes), phase 3's traffic on a streamed replica gives
+   phase 3's graph tokens exactly, param_hbm_bytes at the model's bytes
+   builds and one byte below raises the JAX engine's message. Then
+   `RouterServer` over `ReplicaRouter` (two streamed replicas, the
+   factory streaming a new one) and a one-replica `ServingServer` take a
+   shared-prefix wave (64 greedy requests over 8 system prompts of 256
+   tokens with 16-64-token suffixes, 32 new tokens, 16 in flight) in
+   turns F S S F F S, after 16 of them one at a time through the fleet
+   (tokens equal to a direct engine's one at a time: with 16 in flight a
+   row's steps take the width bucket of whatever shares them, so those
+   waves' agreement with a direct engine is counted, not gated); every
+   request on its affinity home but for diversions (counted), launches
+   one a layer and step; tok/s, TTFT p50 and a profiled wave's CUPTI
+   busy share each side, and the prefix hit rate of a wave of unseen
+   prompts each side and through the fleet with affinity off. Then `rolling_drain()`
+   under a continuous wave (16 clients): each restart streams and
+   captures on a worker thread while the other replica serves; zero
+   failed requests, migrated blocks > 0, and a probe prompt sent cold on
+   r0 just before comes back host-warm after (swap-ins, the same
+   tokens); restart seconds, the longest gap between tokens during a
+   restart. Then one replica under `AutoScaler(min_replicas=1,
+   max_replicas=2, cooldown_s=1, wait_high_s=0.2)`: a 64-client burst
+   spawns a replica
+   (spawn seconds, spawn TTFT), idle retires it; no failed request, and
+   `torch.cuda.memory_allocated()` after the retire within 64 MiB of its
+   value before the spawn.
 4. float32 parity: gpt_1p3b widths at 4 layers, greedy LLMEngine (the
    kernel, through captured graphs) against GPT.generate (contiguous
    cache, no kernel).
@@ -190,6 +225,7 @@ nvidia-smi name/power-limit line, and last `{"ok": true, "device":
 import argparse
 import asyncio
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -1758,6 +1794,509 @@ def feature_waves(model, served, graph_outs):
     return res
 
 
+# -- phase 3g -----------------------------------------------------------------
+
+# every phase 3g replica: phase 3's build with the float arena's host tier
+FLEET = dict(block_size=16, max_batch=8, spec_decoding=True, warmup=True,
+             host_kv_blocks=256)
+# the shared-prefix wave: FLEET_REQUESTS greedy requests over SYSTEMS
+# system prompts of 256 tokens, each with a unique 16-64-token suffix, 32
+# new tokens, FLEET_CLIENTS in flight; the timed turns (F: the fleet, S:
+# one replica) and the autoscale burst's clients
+FLEET_REQUESTS, SYSTEMS, FLEET_CLIENTS = 64, 8, 16
+FLEET_TURNS = "FSSFFS"
+BURST_CLIENTS = 64
+# the largest leaf of gpt_1p3b in bf16: wte, 50304 x 2048 x 2 bytes
+WTE_BYTES = 50304 * 2048 * 2
+
+
+def _fleet_prompts(vocab, systems=SYSTEMS, n=FLEET_REQUESTS, seed=7):
+    rs = np.random.RandomState(seed)
+    heads = [rs.randint(0, vocab, 256).tolist() for _ in range(systems)]
+    return [heads[i % systems]
+            + rs.randint(0, vocab, int(rs.randint(16, 65))).tolist()
+            for i in range(n)]
+
+
+class Births:
+    """Phase 3g's replica factory: each call builds an LLMEngine that
+    streams gpt_1p3b from the checkpoint onto the card and captures its
+    step programs (`FLEET`), and keeps the build's numbers in `log` and a
+    weak reference to the engine in `refs` (never the engine, so a retired
+    replica's memory can go). Called as
+    the router's and the autoscaler's factory it returns the engine
+    wrapped in an AsyncLLMEngine."""
+
+    def __init__(self, skeleton, path):
+        self.skeleton, self.path, self.log, self.refs = skeleton, path, [], []
+
+    def engine(self, **kw):
+        import threading
+        import weakref
+
+        from paddle_tpu_torch.serving import LLMEngine
+
+        t0 = time.perf_counter()
+        eng = LLMEngine(self.skeleton, checkpoint_path=self.path,
+                        **{**FLEET, **kw})
+        t1 = time.perf_counter()
+        rep = eng.load_report
+        self.log.append(dict(
+            t0=t0, t1=t1, seconds=t1 - t0, load_s=rep.seconds,
+            load_gb_per_s=rep.total_bytes / rep.seconds / 1e9,
+            warmup_s=eng.metrics.gauges.get("warmup_seconds"),
+            thread=threading.current_thread().name))
+        self.refs.append(weakref.ref(eng))
+        return eng
+
+    def __call__(self, index):
+        from paddle_tpu_torch.serving import AsyncLLMEngine
+
+        return AsyncLLMEngine(self.engine())
+
+
+async def _sse(port, body, times=None):
+    """One streamed /v1/completions exchange: (status, tokens,
+    finish_reason, seconds to the first token). `times` gets each token's
+    arrival (perf_counter)."""
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = json.dumps(dict(body, stream=True)).encode()
+    writer.write((f"POST /v1/completions HTTP/1.1\r\nHost: smoke\r\n"
+                  f"Content-Type: application/json\r\n"
+                  f"Content-Length: {len(data)}\r\n\r\n").encode() + data)
+    await writer.drain()
+    status = int((await reader.readline()).split(b" ")[1])
+    while (await reader.readline()).strip():
+        pass
+    toks, reason, ttft = [], None, None
+    while line := await reader.readline():
+        if not line.startswith(b"data: ") or line.strip() == b"data: [DONE]":
+            continue
+        choice = json.loads(line[6:])["choices"][0]
+        now = time.perf_counter()
+        if choice["token_ids"] and ttft is None:
+            ttft = now - t0
+        if times is not None:
+            times.extend([now] * len(choice["token_ids"]))
+        toks += choice["token_ids"]
+        reason = choice["finish_reason"] or reason
+    writer.close()
+    return status, toks, reason, ttft
+
+
+def _direct_tokens(engine, prompts, clients=FLEET_CLIENTS):
+    """`prompts` served by `step()` alone, `clients` live at once (a
+    finished request's slot takes the next prompt): their tokens, in
+    order."""
+    todo, live, out = list(enumerate(prompts))[::-1], {}, {}
+
+    def admit():
+        i, p = todo.pop()
+        live[i] = engine.get_request(engine.add_request(
+            p, max_new_tokens=32, temperature=0.0))
+
+    for _ in range(min(clients, len(todo))):
+        admit()
+    while live:
+        engine.step()
+        for i in [i for i, r in live.items() if r.finished]:
+            req = live.pop(i)
+            out[i] = list(req.output_ids)
+            engine.release(req.request_id)
+            if todo:
+                admit()
+    return [out[i] for i in range(len(prompts))]
+
+
+def _prefix_counts(engines):
+    hit = lookup = 0
+    for e in engines:
+        c = e.metrics.counters
+        hit += c.get("prefix_cache_hit_tokens", 0)
+        lookup += c.get("prefix_cache_lookup_tokens", 0)
+    return hit, lookup
+
+
+async def _fleet_wave(port, engines, prompts, tag, clients=FLEET_CLIENTS):
+    """`prompts` through the server on `port`, streamed, `clients` in
+    flight (each sends its next request when its last one ends), over the
+    replicas `engines`; the kernels' counts set to 0 just before and read
+    just after. Returns ({request id: tokens}, the wave's numbers); fails
+    on a request that did not finish, a program built, or a ragged launch
+    count off one a layer and step."""
+    todo = [(f"{tag}-{i}", p) for i, p in enumerate(prompts)][::-1]
+    out, ttft = {}, []
+
+    async def client():
+        while todo:
+            rid, p = todo.pop()
+            s, toks, reason, t = await _sse(port, {
+                "prompt": p, "max_tokens": 32, "request_id": rid})
+            assert s == 200 and reason == "length" and len(toks) == 32, \
+                (rid, s, reason, len(toks))
+            out[rid] = toks
+            ttft.append(t)
+
+    steps0 = [e.step_count for e in engines]
+    traces0 = [e.metrics.counters["jit_traces"] for e in engines]
+    hit0, look0 = _prefix_counts(engines)
+    _zero_counts()
+    t0 = time.perf_counter()
+    await asyncio.gather(*[client() for _ in range(clients)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, int8_launches, _ = _read_counts()
+    hit1, look1 = _prefix_counts(engines)
+    steps = sum(e.step_count - s for e, s in zip(engines, steps0))
+    rec = dict(requests=len(prompts), steps=steps, wall_s=wall,
+               tok_per_s=32 * len(prompts) / wall,
+               http_ttft_p50_ms=float(np.median(ttft)) * 1e3,
+               prefix_hit_rate=(hit1 - hit0) / max(1, look1 - look0),
+               launches=launches)
+    layers = engines[0].model.cfg.num_layers
+    assert [e.metrics.counters["jit_traces"] for e in engines] == traces0
+    assert launches == layers * steps and not int8_launches, rec
+    return out, rec
+
+
+def _host_gaps(times, windows):
+    """The longest gap between two tokens of one stream, over all streams
+    (`times`: each stream's arrival times), and the longest of those gaps
+    that overlap a window of `windows` ((t0, t1) pairs)."""
+    worst = during = 0.0
+    for ts in times:
+        for a, b in zip(ts, ts[1:]):
+            worst = max(worst, b - a)
+            if any(a < w1 and b > w0 for w0, w1 in windows):
+                during = max(during, b - a)
+    return worst, during
+
+
+def fleet(model, graph_outs, smi):
+    """Phase 3g: weights from disk and the replica fleet on gpt_1p3b."""
+    return asyncio.run(_fleet(model, graph_outs, smi))
+
+
+async def _fleet(model, graph_outs, smi):
+    import gc
+
+    from paddle_tpu_torch.distributed.checkpoint import save_sharded_model
+    from paddle_tpu_torch.models.gpt import gpt_1p3b
+    from paddle_tpu_torch.nn import skeleton_init
+    from paddle_tpu_torch.serving import (AsyncLLMEngine, AutoScaler,
+                                          ReplicaRouter, RouterServer,
+                                          ServingServer)
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    res = dict(card=smi)
+    total = sum(p.numel() * p.element_size() for p in model.parameters())
+    largest = max(p.numel() * p.element_size() for p in model.parameters())
+    assert largest == WTE_BYTES, largest
+    ckpt = tempfile.mkdtemp(prefix="fleet-ckpt-")
+    try:
+        # 1. save
+        t0 = time.perf_counter()
+        save_sharded_model(model, None, ckpt)
+        save_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(ckpt, f))
+                   for f in os.listdir(ckpt))
+        res["save"] = dict(param_bytes=total, file_bytes=disk,
+                           seconds=save_s, gb_per_s=total / save_s / 1e9)
+
+        # 2. stream: two replicas from a skeleton, phase 3's traffic on
+        # one, the parameter budget at the model's bytes and one below
+        with skeleton_init():
+            skeleton = gpt_1p3b(dtype=torch.bfloat16)
+        births = Births(skeleton, ckpt)
+        replicas = [births.engine(), births.engine()]
+        rep = replicas[0].load_report
+        res["stream"] = dict(
+            report=rep.summary(), largest_leaf_bytes=largest,
+            builds=[dict(b) for b in births.log])
+        assert rep.total_bytes == total, (rep.total_bytes, total)
+        assert rep.max_chip_bytes == total, rep.summary()
+        assert rep.peak_host_bytes <= WTE_BYTES, rep.summary()
+        outs = serve_waves(replicas[0],
+                           _prompts(np.random.RandomState(0),
+                                    model.cfg.vocab_size))
+        equal = sum(a == b for a, b in zip(outs, graph_outs))
+        res["stream"]["phase3_tokens_equal"] = f"{equal}/{len(outs)}"
+        assert outs == graph_outs, res["stream"]
+        single = births.engine(param_hbm_bytes=total)
+        try:
+            births.engine(param_hbm_bytes=total - 1, warmup=False,
+                          host_kv_blocks=0)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["stream"]["budget_refusal"] = refused
+        assert refused == (
+            f"param_hbm_bytes {total - 1}: a device holds {total} "
+            "parameter bytes — the model does not fit one chip. Serve it "
+            "from a sharded checkpoint (LLMEngine(skeleton, "
+            "checkpoint_path=..., mesh=N)) so no chip ever materializes "
+            "the full tree"), refused
+        log("[fleet] save " + json.dumps(res["save"]))
+        log("[fleet] stream " + json.dumps(res["stream"]))
+
+        # 3. the fleet over HTTP beside one replica. The gate on tokens:
+        # two requests a system prompt, one at a time, streamed and not in
+        # turn, against a direct engine serving them one at a time: each
+        # request's steps then have one composition on both sides, so the
+        # tokens must agree bit for bit. (With 16 in flight a row's steps
+        # take the width bucket of whatever shares them, and cuBLAS may
+        # round a bucket's products otherwise: those waves' agreement is
+        # counted, not gated.)
+        vocab = model.cfg.vocab_size
+        prompts = _fleet_prompts(vocab)
+        seq = prompts[:2 * SYSTEMS]
+        seq_ref = [single.generate([p], max_new_tokens=32)[0] for p in seq]
+        ref = _direct_tokens(single, prompts)
+        engines = list(replicas)
+        router = ReplicaRouter([AsyncLLMEngine(e) for e in replicas],
+                               factory=births)
+        del replicas
+        server = RouterServer(router, host="127.0.0.1", port=0)
+        one = ServingServer(single, host="127.0.0.1", port=0)
+        await server.start()
+        await one.start()
+        routed = {}
+        submit = router.submit
+
+        async def recording_submit(*a, **kw):
+            rs = await submit(*a, **kw)
+            routed[rs.request_id] = rs
+            return rs
+
+        router.submit = recording_submit
+        homes = {i: router.home_replica(p) for i, p in enumerate(prompts)}
+        seq_out = []
+        for i, p in enumerate(seq):
+            st, toks, reason, _ = await _post(server.port, {
+                "prompt": p, "max_tokens": 32, "stream": i % 2 == 0,
+                "request_id": f"seq-{i}"})
+            assert st == 200 and reason == "length", (i, st, reason)
+            seq_out.append(toks)
+            assert routed.pop(f"seq-{i}").replica == homes[i], i
+        seq_equal = sum(a == b for a, b in zip(seq_out, seq_ref))
+        assert seq_equal == len(seq), (seq_equal, len(seq))
+        # one wave of prompts neither side has seen, each way: the prefix
+        # hit rate affinity keeps under fan-out
+        cold = _fleet_prompts(vocab, seed=8)
+        cold_runs = {
+            "fleet": (await _fleet_wave(server.port, engines, cold,
+                                        "cold-f"))[1],
+            "single": (await _fleet_wave(one.port, [single], cold,
+                                         "cold-s"))[1]}
+        # and a fresh set through the fleet with affinity off (least-loaded
+        # spread): what affinity is worth under fan-out
+        router.affinity = False
+        cold_runs["fleet_no_affinity"] = (await _fleet_wave(
+            server.port, engines, _fleet_prompts(vocab, seed=9),
+            "cold-n"))[1]
+        router.affinity = True
+        routed.clear()
+        runs = {"fleet": [], "single": []}
+        waves = {"fleet": [], "single": []}
+        home_served = diverted = 0
+        for r, way in enumerate(FLEET_TURNS):
+            side = "fleet" if way == "F" else "single"
+            port, engs = ((server.port, engines) if way == "F"
+                          else (one.port, [single]))
+            got, rec = await _fleet_wave(port, engs, prompts, f"{way}{r}")
+            toks = [got[f"{way}{r}-{i}"] for i in range(len(prompts))]
+            rec["tokens_equal_direct"] = sum(
+                a == b for a, b in zip(toks, ref))
+            runs[side].append(rec)
+            waves[side].append(toks)
+            if way == "F":
+                for i in range(len(prompts)):
+                    rs = routed.pop(f"{way}{r}-{i}")
+                    home_served += rs.replica == homes[i]
+        diverted = int(router.metrics.counters.get(
+            "router_affinity_diverted", 0))
+        router.submit = submit
+        routed.clear()
+        short = prompts[:32]
+        prof_runs = {}
+        for side, port, engs in (("fleet", server.port, engines),
+                                 ("single", one.port, [single])):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, rec = await _fleet_wave(port, engs, short, f"p{side}")
+            prof_runs[side] = _with_busy(rec, prof)
+        res["fleet"] = dict(
+            requests=len(prompts), systems=SYSTEMS, clients=FLEET_CLIENTS,
+            turns=FLEET_TURNS, waves=runs,
+            fleet=_medians(runs["fleet"]), single=_medians(runs["single"]),
+            profiled=prof_runs,
+            sequential=dict(requests=len(seq), tokens_equal=seq_equal),
+            # requests with the same tokens in the first and the last wave
+            # of a side (16 in flight each time)
+            waves_agree={side: sum(a == b for a, b in zip(w[0], w[-1]))
+                         for side, w in waves.items()},
+            home_served=home_served, diverted=diverted,
+            homes={n: sum(1 for h in homes.values() if h == n)
+                   for n in sorted(set(homes.values()))},
+            launches=sum(w["launches"] for w in runs["fleet"])
+            + prof_runs["fleet"]["launches"])
+        res["fleet"]["cold_wave"] = cold_runs
+        res["fleet"]["fleet_over_single_tok_per_s"] = (
+            res["fleet"]["fleet"]["tok_per_s"]
+            / res["fleet"]["single"]["tok_per_s"])
+        n_fleet = len(prompts) * FLEET_TURNS.count("F")
+        assert home_served + diverted == n_fleet, res["fleet"]
+        log("[fleet] http " + json.dumps(res["fleet"]))
+        await one.shutdown(drain=True)
+        del single, one, engines
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. rolling drain under load: each restart streams and captures
+        # on a worker thread while the other replica serves
+        # the probe: a prompt of a ninth system prompt homed to r0, sent
+        # cold just before the drain, which takes r0 out of rotation before
+        # any client sends: the probe's blocks are r0's most recent when
+        # its restart hands them to the new engine's host tier
+        probe = next(p for seed in range(11, 1000)
+                     for p in _fleet_prompts(vocab, systems=1, n=1,
+                                             seed=seed)
+                     if router.home_replica(p) == "r0")
+        st, probe_toks, _, cold_ttft = await _sse(server.port, {
+            "prompt": probe, "max_tokens": 32, "request_id": "probe-cold"})
+        assert st == 200 and len(probe_toks) == 32
+        c = router.metrics.counters
+        failed0 = c.get("router_requests_failed", 0)
+        born0 = len(births.log)
+        drain = asyncio.ensure_future(router.rolling_drain())
+        await asyncio.sleep(0)
+        assert router.replicas[0].state == "draining"
+        wave, times, seq = [], [], iter(range(1 << 30))
+
+        async def client():
+            k = 0
+            while not drain.done() or k < 2:
+                n = next(seq)
+                k += 1
+                ts = []
+                wave.append(await _sse(server.port, {
+                    "prompt": prompts[n % len(prompts)], "max_tokens": 32,
+                    "request_id": f"drain-{n}"}, ts))
+                times.append(ts)
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*[client() for _ in range(FLEET_CLIENTS)])
+        drained = await drain
+        drain_s = time.perf_counter() - t0
+        restarts = births.log[born0:]
+        worst_gap, restart_gap = _host_gaps(
+            times, [(b["t0"], b["t1"]) for b in restarts])
+        home_eng = router.replicas[0].engine.engine
+        swaps0 = home_eng.tier.swap_ins
+        st, warm_toks, _, warm_ttft = await _sse(server.port, {
+            "prompt": probe, "max_tokens": 32, "request_id": "probe-warm"})
+        res["drain"] = dict(
+            drained=drained, seconds=drain_s, requests=len(wave),
+            failed=sum(1 for s, t, r, _ in wave
+                       if s != 200 or r != "length" or len(t) != 32),
+            router_failed=int(c.get("router_requests_failed", 0)
+                              - failed0),
+            restarts=[dict(b) for b in restarts],
+            migrated_blocks=int(c.get("router_migrated_blocks", 0)),
+            migrations=int(c.get("router_migrations", 0)),
+            longest_token_gap_ms=worst_gap * 1e3,
+            longest_token_gap_during_restart_ms=restart_gap * 1e3,
+            probe_cold_ttft_ms=cold_ttft * 1e3,
+            probe_host_warm_ttft_ms=warm_ttft * 1e3,
+            probe_swap_ins=home_eng.tier.swap_ins - swaps0,
+            probe_tokens_equal=warm_toks == probe_toks)
+        d = res["drain"]
+        log("[fleet] drain " + json.dumps(d))
+        assert drained == ["r0", "r1"] and len(restarts) == 2, d
+        assert all(b["thread"] != "MainThread" for b in restarts), d
+        assert d["failed"] == 0 and d["router_failed"] == 0, d
+        assert d["migrated_blocks"] > 0, d
+        assert st == 200 and d["probe_swap_ins"] > 0, d
+        assert d["probe_tokens_equal"], d
+        del home_eng, wave, times
+
+        # 5. autoscale: one replica, a burst scales up, idle scales down;
+        # the card's memory comes back after the retire
+        await router.retire_replica()
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        scaler = AutoScaler(router, min_replicas=1, max_replicas=2,
+                            cooldown_s=1.0, wait_high_s=0.2)
+        server.autoscaler = scaler
+        await scaler.start()
+        born0 = len(births.log)
+        burst = []
+
+        async def burster(j):
+            # until the scale-up lands, then two more each: the spawned
+            # replica takes part of the burst
+            k = after = 0
+            while after < 2:
+                if scaler.metrics.counters.get("autoscale_ups", 0):
+                    after += 1
+                i = (j + k * BURST_CLIENTS) % len(prompts)
+                k += 1
+                burst.append(await _sse(server.port, {
+                    "prompt": prompts[i], "max_tokens": 32,
+                    "request_id": f"burst-{j}-{k}"}))
+
+        t0 = time.perf_counter()
+        await asyncio.wait_for(asyncio.gather(
+            *[burster(j) for j in range(BURST_CLIENTS)]), 300)
+        served_by = {r.name: r.engine.engine.metrics.counters.get(
+            "requests_finished", 0) for r in router.replicas}
+        while scaler.metrics.counters.get("autoscale_downs", 0) < 1:
+            assert time.perf_counter() - t0 < 300, scaler.snapshot()
+            await asyncio.sleep(0.25)
+        await scaler.stop()
+        code, body = await _get(server.port, "/debug/autoscale")
+        snap = json.loads(body)
+        up = next(x for x in snap["decisions"] if x["action"] == "up")
+        down = next(x for x in snap["decisions"] if x["action"] == "down")
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        spawned = births.refs[born0]()
+        holders = ([type(r).__name__ for r in gc.get_referrers(spawned)]
+                   if spawned is not None else [])
+        del spawned
+        res["autoscale"] = dict(
+            requests=len(burst), clients=BURST_CLIENTS,
+            failed=sum(1 for s, t, r, _ in burst
+                       if s != 200 or r != "length" or len(t) != 32),
+            spawn_s=up["spawn_s"], spawn_ttft_s=up["spawn_ttft_s"],
+            spawned=up["replica"], retired=down["replica"],
+            spawn_build=[dict(b) for b in births.log[born0:]],
+            finished_by_replica=served_by,
+            mem_before_spawn_mib=mem0 / 2**20,
+            mem_after_retire_mib=mem1 / 2**20,
+            spawned_engine_freed=not holders, spawned_engine_holders=holders,
+            endpoint=code, seconds=time.perf_counter() - t0)
+        a = res["autoscale"]
+        log("[fleet] autoscale " + json.dumps(a))
+        assert a["failed"] == 0 and code == 200, a
+        assert a["retired"] == a["spawned"], a
+        assert abs(mem1 - mem0) <= 64 * 2**20, a
+        await server.shutdown(drain=True)
+        del router, server, scaler
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[fleet] seconds {res['seconds']:.1f}")
+    return res
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def parity():
@@ -2821,6 +3360,7 @@ def main():
                    eager_tokens(model, graph_outs_int8, "int8")]
     http = front_door(model, served)
     feature = feature_waves(model, served, graph_outs)
+    fleet_res = fleet(model, graph_outs, smi)
     del model
     torch.cuda.empty_cache()
     par = parity()
@@ -2851,9 +3391,11 @@ def main():
             "source": "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/paged_attention.py:108",
             "launches": launches,
-            # the HTTP front door's concurrent wave (phase 3e) launches
-            # the float arena's kernels too, and phase 3f's waves both
-            **({"front_door_launches": http["launches"]}
+            # the HTTP front door's concurrent wave (phase 3e) and the
+            # fleet's waves (phase 3g) launch the float arena's kernels
+            # too, and phase 3f's waves both
+            **({"front_door_launches": http["launches"],
+                "fleet_launches": fleet_res["fleet"]["launches"]}
                if arena == "float" else {}),
             "phase3f_launches": feature["launches"][
                 "ragged_int8" if arena == "int8" else "ragged"],
@@ -2971,6 +3513,7 @@ def main():
                            appends=appends, graph_vs_eager=graph_eager,
                            serve=served, serve_int8=served_int8,
                            front_door=http, phase3f=feature,
+                           fleet=fleet_res,
                            overcap=overcap, parity=par, parity_int8=par_int8,
                            train=trained, train_parity=tpar, ernie=ernie,
                            train_dropout=gpt_drop, ernie_parity=epar,

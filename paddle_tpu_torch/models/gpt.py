@@ -199,7 +199,9 @@ class GPT(nn.Module):
     Linear and token-embedding weights, normal(0, 1/sqrt(hidden)) position
     embeddings, zero biases, unit LayerNorm scales (the JAX package's
     initialisers). Dropout draws from generators seeded with
-    `seed` (`seed_dropout` reseeds them)."""
+    `seed` (`seed_dropout` reseeds them). Under `nn.layer.skeleton_init`
+    the model is built on ``meta`` with no weights and no generators;
+    `to_empty` materialises it."""
 
     def __init__(self, cfg, device=None, dtype=torch.float32, seed=0):
         super().__init__()
@@ -211,9 +213,22 @@ class GPT(nn.Module):
         self.blocks = nn.ModuleList(
             [GPTBlock(cfg, **kw) for _ in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
-        self._init_weights(seed)
-        self.seed_dropout(seed)
+        self._seed = seed
+        self.dropout_generators = None
+        if device.type != "meta":
+            # a skeleton (nn/layer.py skeleton_init) has no storage to
+            # draw into: it is seeded when `to_empty` materialises it
+            self._init_weights(seed)
+            self.seed_dropout(seed)
         self.eval()
+
+    def to_empty(self, *, device, recurse=True):
+        """Give the module uninitialised storage on `device` (a skeleton's
+        materialisation: the caller fills every parameter next) and seed
+        its dropout generators there with the model's seed."""
+        super().to_empty(device=device, recurse=recurse)
+        self.seed_dropout(self._seed)
+        return self
 
     @property
     def device(self):

@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, counts
 
 _SOURCE = "kv_quantize_scatter.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -106,7 +106,7 @@ def kv_quantize_scatter(arena, scales, layer, new, offs, touched, touch_idx):
     if err != 0:
         raise RuntimeError(f"kv_quantize_scatter launch failed: CUDA error "
                            f"{err}")
-    kv_quantize_scatter.launches += 1
+    counts.tick(kv_quantize_scatter, "launches")
 
 
 kv_quantize_scatter.launches = 0

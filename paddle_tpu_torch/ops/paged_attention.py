@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, counts
 
 _NEG_INF = -1e30
 _SOURCE = "ragged_paged_attention.cu"
@@ -225,11 +225,10 @@ def ragged_paged_attention(q, k_arena, v_arena, layer, block_tables,
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
                            f"error {err}")
-    ragged_paged_attention.launches += 1
-    widths = ragged_paged_attention.width_launches
-    widths[S] = widths.get(S, 0) + 1
+    counts.tick(ragged_paged_attention, "launches")
+    counts.tick(ragged_paged_attention, "width_launches", S)
     if quant:
-        ragged_paged_attention.int8_launches += 1
+        counts.tick(ragged_paged_attention, "int8_launches")
     return out
 
 

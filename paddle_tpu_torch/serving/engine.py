@@ -36,6 +36,12 @@ tokens as they land, `generate` runs a batch to completion.
 - ``quantize="int8"`` rounds the blocks' Linear weights to an int8 grid
   with AdaRound (quantization/adaround.py) at construction, calibrated on
   ``calib_prompts``, and serves the dequantized values.
+- ``checkpoint_path`` streams the weights from a checkpoint
+  (distributed/checkpoint.py) into the engine's own module, a copy of the
+  model's structure on the engine's device, so the model may be a
+  `nn.layer.skeleton_init` skeleton that many engines share;
+  ``param_hbm_bytes`` refuses construction when the device would hold
+  more parameter bytes than that.
 
 Greedy outputs are token-for-token identical to `GPT.generate`: the same
 attention math runs through the block table instead of a contiguous cache
@@ -53,8 +59,8 @@ build counts once in the ``jit_traces`` counter; a surplus build sets the
 ``jit_retraces`` gauge and warns once (the recompile sentinel). A capture
 bakes in device addresses: the arena (never reallocated), its own
 workspace, and the model's parameters, so weights are loaded
-(`weights.from_jax_state_dict`) before the engine is built and never
-replaced while it serves.
+(`weights.from_jax_state_dict`, or streamed by ``checkpoint_path``)
+before the programs are built and never replaced while it serves.
 
 **Fault tolerance and observability**, each off by default behind one
 pointer test per hook site, as in the JAX engine: ``step(only=...)``
@@ -90,6 +96,7 @@ not have yet raise `NotImplementedError` at construction.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import logging
 import os
@@ -103,6 +110,8 @@ import torch
 
 from .._device import resolve_device
 from ..models import lora as lora_mod
+from ..nn.layer import is_skeleton
+from ..ops import counts
 from ..profiler.tracing import trace_capacity_from_env, trace_sample_from_env
 from . import faults
 from .block_pool import (BlockPool, PagedState, blocks_for,
@@ -132,9 +141,7 @@ def _env_flag(name, default):
 # (ROADMAP.md), with the value that means "off"
 _LATER = {
     "mesh": (None, "tensor-parallel serving"),
-    "checkpoint_path": (None, "checkpoint streaming"),
     "quant_allreduce": (None, "the quantized tensor-parallel all-reduce"),
-    "param_hbm_bytes": (None, "the parameter memory budget"),
 }
 
 # host metadata packed into one int32 transfer per step: [B, W] fields,
@@ -229,11 +236,20 @@ class LLMEngine:
                  postmortem_dir=None, postmortem_keep=None, policy=None,
                  host_kv_blocks=None, host_swap_chunk=4, quantize=None,
                  calib_prompts=None, quantize_iters=300, lora_slots=0,
-                 lora_rank=8, lora_targets=None, warmup=False, **later):
+                 lora_rank=8, lora_targets=None, warmup=False,
+                 checkpoint_path=None, param_hbm_bytes=None, **later):
         if quantize is not None and quantize is not False:
             if quantize != "int8":
                 raise ValueError(
                     f"quantize={quantize!r} not supported — only 'int8'")
+            if checkpoint_path is not None:
+                raise ValueError(
+                    "checkpoint_path and quantize are mutually exclusive: "
+                    "AdaRound calibrates against eager weights the "
+                    "streamed engine never materializes — quantize a "
+                    "single-chip engine, save_sharded_model its weights, "
+                    "then serve THAT checkpoint (kv_dtype='int8' composes "
+                    "with streaming as-is)")
             if later.get("mesh") is not None:
                 raise ValueError(
                     "quantize='int8' requires mesh=None: AdaRound "
@@ -258,7 +274,12 @@ class LLMEngine:
                 "quantized arena or None for the weight dtype")
         quantized = kv_dtype == "int8"
         self.device = resolve_device(device)
-        if model.device != self.device:
+        if is_skeleton(model) and checkpoint_path is None:
+            raise ValueError(
+                "model was built under skeleton_init() (no real weight "
+                "arrays) — pass checkpoint_path= so the engine can stream "
+                "weights from disk, or build the model eagerly")
+        if checkpoint_path is None and model.device != self.device:
             raise ValueError(
                 f"model lives on {model.device} but the engine runs on "
                 f"{self.device}: build the model on the engine's device")
@@ -385,6 +406,32 @@ class LLMEngine:
         # loop thread
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
+        # weights: the eager path serves the caller's model as it is (the
+        # replicas of a fleet share its read-only weights); the streamed
+        # path (checkpoint_path=...) builds the engine's OWN module, a copy
+        # of the model's structure given storage on the engine's device
+        # and filled leaf by leaf from disk, so a skeleton shared by every
+        # replica and spawn never holds numbers
+        self.checkpoint_path = checkpoint_path
+        self.load_report = None
+        if checkpoint_path is not None:
+            self.model = self._stream_params_from_checkpoint(
+                model, checkpoint_path)
+        # per-card parameter budget: fail at construction, naming the
+        # overage, when the device holds more parameter bytes than allowed
+        # (`param_bytes_by_device` charges the caller's eager model too)
+        self.param_hbm_bytes = (None if param_hbm_bytes is None
+                                else int(param_hbm_bytes))
+        if self.param_hbm_bytes is not None:
+            peak = max(self.param_bytes_by_device(model).values(),
+                       default=0)
+            if peak > self.param_hbm_bytes:
+                raise ValueError(
+                    f"param_hbm_bytes {self.param_hbm_bytes}: a device "
+                    f"holds {peak} parameter bytes — the model does not "
+                    "fit one chip. Serve it from a sharded checkpoint "
+                    "(LLMEngine(skeleton, checkpoint_path=..., mesh=N)) "
+                    "so no chip ever materializes the full tree")
         self.pool = BlockPool(num_blocks, cfg.num_layers, self.block_size,
                               cfg.num_heads, head_dim, dtype=model.dtype,
                               device=self.device, metrics=self.metrics,
@@ -461,6 +508,96 @@ class LLMEngine:
             self.warmup()
         self.lifecycle.to("warm", "weights placed"
                           + (" + programs built" if warmup else ""))
+
+    # -- construction helpers ----------------------------------------------
+
+    def _stream_params_from_checkpoint(self, model, path):
+        """The engine's own module with its weights streamed from a
+        checkpoint (distributed/checkpoint.py `stream_leaves`): a copy of
+        `model`'s structure (its tensors are never copied: a skeleton has
+        none, an eager model keeps its own) gets uninitialised storage on
+        the engine's device, and each leaf goes from its memory-mapped
+        member to the card and into its parameter on its own (Linear
+        weights transposed from the checkpoint's ``[in, out]``), so at
+        most one leaf is staged on the host and one beside the weights on
+        the card. The measured bounds land in `self.load_report` (a
+        StreamLoadReport) and the ``ckpt_stream_*`` gauges."""
+        from ..distributed.checkpoint import (StreamLoadReport, _dtype_name,
+                                              _read_index, stream_leaves)
+        from ..weights import _linear_weights
+
+        # deepcopy with every tensor (and the dropout generators, which
+        # to_empty seeds anew) swapped for a meta stand-in
+        memo = {id(b): torch.empty_like(b, device="meta")
+                for b in model.buffers()}
+        memo.update({id(p): torch.nn.Parameter(
+            torch.empty_like(p, device="meta"), requires_grad=p.requires_grad)
+            for p in model.parameters()})
+        gens = getattr(model, "dropout_generators", None)
+        if gens is not None:
+            memo[id(gens)] = None
+        own = copy.deepcopy(model, memo).to_empty(device=self.device)
+        linear = _linear_weights(own)
+        want = {f"params/{k}": (p, k in linear)
+                for k, p in own.named_parameters()}
+        want.update({f"buffers/{k}": (b, False)
+                     for k, b in own.named_buffers()})
+        arrays = _read_index(path)["arrays"]
+        missing = [k for k in want if k not in arrays]
+        if missing:
+            raise ValueError(
+                f"checkpoint {path!r} is missing model arrays "
+                f"{missing[:4]}{' ...' if len(missing) > 4 else ''} — was "
+                "it saved from this architecture (save_sharded_model)?")
+        for key, (t, transpose) in want.items():
+            shape = tuple(t.shape[::-1] if transpose else t.shape)
+            dtype = _dtype_name(t)
+            got = arrays[key]
+            if (tuple(got["shape"]) != shape or got["dtype"] != dtype):
+                kind, name = key.split("/", 1)
+                raise ValueError(
+                    f"checkpoint {path!r}: {kind[:-1]} {name!r} is "
+                    f"{got['dtype']}{tuple(got['shape'])} but the model "
+                    f"declares {dtype}{shape} — checkpoint and model "
+                    "config disagree")
+        report = StreamLoadReport()
+        t0 = time.monotonic()
+        with torch.no_grad(), self.device_scope():
+            for key, leaf in stream_leaves(path, device=self.device,
+                                           keys=set(want), report=report):
+                t, transpose = want[key]
+                t.copy_(leaf.t() if transpose else leaf)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        report.seconds = time.monotonic() - t0
+        own.eval()
+        self.load_report = report
+        self.metrics.set_gauge("ckpt_stream_peak_host_bytes",
+                               float(report.peak_host_bytes))
+        self.metrics.set_gauge("ckpt_stream_max_chip_bytes",
+                               float(report.max_chip_bytes))
+        self.metrics.set_gauge("ckpt_stream_seconds", report.seconds)
+        return own
+
+    def param_bytes_by_device(self, model=None):
+        """Resident parameter/buffer bytes per device: the engine's
+        module's PLUS those of `model` (the caller's, when it differs: an
+        eager model charged beside a streamed engine's copy, as the JAX
+        engine charges its full-tree source), deduped by storage. Meta
+        tensors (a skeleton's) hold no bytes. The `param_hbm_bytes`
+        budget checks the max of this."""
+        seen, out = set(), {}
+        for m in {id(m): m for m in (self.model, model)
+                  if m is not None}.values():
+            for t in list(m.parameters()) + list(m.buffers()):
+                if t.is_meta:
+                    continue
+                st = t.untyped_storage()
+                if (t.device, st.data_ptr()) in seen:
+                    continue
+                seen.add((t.device, st.data_ptr()))
+                out[t.device] = out.get(t.device, 0) + st.nbytes()
+        return out
 
     def warmup(self):
         """Build the engine's whole width-bucket program table by serving
@@ -1288,23 +1425,30 @@ class LLMEngine:
         engine's `import_kv_tier`, or None when the tier is off. With
         ``demote=True`` every device cached-free block is first saved into
         the host tier (it stays device-resident and matchable: demotion
-        copies), which needs a quiescent engine; ``demote=False`` reads
-        only settled host slabs under the tier's lock."""
+        copies), which needs a quiescent engine and runs its copies inside
+        this engine's `device_scope` (any thread may call it);
+        ``demote=False`` reads only settled host slabs under the tier's
+        lock and touches no device."""
         if self.tier is None:
             return None
         if demote:
-            for b, h in self.pool.cached_blocks():
-                self.tier.save(h, b)
-            self.tier.settle()
+            with self.device_scope():
+                for b, h in self.pool.cached_blocks():
+                    self.tier.save(h, b)
+                self.tier.settle()
         return self.tier.export()
 
     def import_kv_tier(self, payload):
         """Adopt another engine's exported host tier into ours (geometry
         must match: `KVTier.import_payload`). Returns blocks imported (0
-        when the tier is off or the payload is None)."""
+        when the tier is off or the payload is None). The import settles
+        the tier's saves, so on a live engine it must run on the thread
+        that drives it (an AsyncLLMEngine's: `AsyncLLMEngine.call`)."""
+        self._guard_thread("import_kv_tier()")
         if self.tier is None or payload is None:
             return 0
-        return self.tier.import_payload(payload)
+        with self.device_scope():
+            return self.tier.import_payload(payload)
 
     def close(self):
         """Release engine-owned background resources (the tier's drain
@@ -1374,6 +1518,12 @@ class LLMEngine:
         for r in rids:
             self.release(r)
         return outs
+
+
+# one CUDA-graph capture at a time in the process, each on its device's
+# one capture stream (`_StepProgram._capture`)
+_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_STREAMS = {}
 
 
 def _counted_wrappers():
@@ -1469,13 +1619,7 @@ class _StepProgram:
             return self.body()
         self.graph.replay()
         self.replays += 1
-        for (fn, name), d in self._launch_delta.items():
-            if isinstance(d, dict):
-                counts = getattr(fn, name)
-                for k, v in d.items():
-                    counts[k] = counts.get(k, 0) + v
-            else:
-                setattr(fn, name, getattr(fn, name) + d)
+        counts.add(self._launch_delta)
         return self.out
 
     def _capture(self):
@@ -1484,29 +1628,37 @@ class _StepProgram:
         One eager run on the capture stream first does what must not
         happen under capture (the kernels' lazy build, their shared-memory
         attributes, cuBLAS's workspace); the engine's generator is
-        registered so each replay draws new numbers."""
+        registered so each replay draws new numbers. Neither run launches
+        for the counters: this thread records their ticks (ops/counts.py)
+        and keeps the capture's to add at each replay.
+
+        Other replicas of a fleet keep stepping on their own threads while
+        a new one captures (a rolling restart, an autoscaler spawn). Their
+        steps allocate and copy back to the host, which CUDA forbids during
+        a capture in the default "global" error mode. So the capture runs
+        in "thread_local" mode, which forbids those calls on the capturing
+        thread alone, and one capture at a time in the process
+        (`_CAPTURE_LOCK`), on the one capture stream of the device: cuBLAS
+        keeps a workspace for each (thread's handle, stream) pair for the
+        life of the process, so a new stream a capture would leave ~33 MiB
+        behind each time a replica is built."""
         self.host_arrays()
         self.load_inputs()
-        before = _launch_counts()
-        stream = torch.cuda.Stream(self.engine.device)
-        stream.wait_stream(torch.cuda.current_stream(self.engine.device))
-        with torch.cuda.stream(stream):
-            self.body()
-        warm = _launch_counts()
+        dev = self.engine.device
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.engine._gen)
-        with torch.cuda.graph(graph, pool=self.engine._graph_pool,
-                              stream=stream):
-            self.out = self.body()
-        captured = _launch_counts()
-        torch.cuda.current_stream(self.engine.device).wait_stream(stream)
-        for key, v in captured.items():
-            if isinstance(v, dict):
-                self._launch_delta[key] = {k: n - warm[key].get(k, 0)
-                                           for k, n in v.items()
-                                           if n != warm[key].get(k, 0)}
-            else:
-                self._launch_delta[key] = v - warm[key]
-        for (fn, name), v in before.items():
-            setattr(fn, name, v)
+        with _CAPTURE_LOCK:
+            stream = _CAPTURE_STREAMS.get(dev)
+            if stream is None:
+                stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with counts.recording(), torch.cuda.stream(stream):
+                self.body()
+            with counts.recording() as captured:
+                with torch.cuda.graph(graph, pool=self.engine._graph_pool,
+                                      stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.out = self.body()
+            torch.cuda.current_stream(dev).wait_stream(stream)
+        self._launch_delta = captured
         self.graph = graph

@@ -9,8 +9,10 @@ thread, and the graphs `warmup()` captured on the constructing thread
 replay from this one. The two sides talk through
 
 - a thread-safe **command queue** into the engine thread (`add`, `abort`,
-  `stop`) drained between steps, so every scheduler mutation happens on the
-  engine thread — continuous batching needs no locks; and
+  `stop`, and `call`: any function to run there, such as a host-tier
+  import into a live replica) drained between steps, so every scheduler
+  mutation happens on the engine thread — continuous batching needs no
+  locks; and
 - `loop.call_soon_threadsafe` **event dispatch** out of it: each step's
   tokens fan out to per-request bounded `asyncio.Queue`s on the event loop.
 
@@ -52,6 +54,7 @@ Robustness contract (tested in tests/test_serving_frontend.py):
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import logging
 import queue
 import threading
@@ -385,6 +388,35 @@ class AsyncLLMEngine:
             # release engine-owned background resources (the host-tier
             # drain thread) now that the engine thread is gone
             await asyncio.get_running_loop().run_in_executor(None, close)
+
+    async def call(self, fn, timeout_s=None):
+        """Run ``fn()`` on the engine thread between two steps, inside the
+        engine's device scope, and return its result: the way to touch a
+        live engine's state from elsewhere (the fleet router's host-tier
+        imports). Without a live engine thread ``fn`` runs on a worker
+        thread instead. Past `timeout_s` (a wedged engine thread) a call
+        that has not started is cancelled and TimeoutError raised."""
+        if self._thread is None or not self._thread.is_alive():
+            return await asyncio.to_thread(fn)
+        fut = concurrent.futures.Future()
+        self._cmds.put(("call", fn, fut))
+        waiting = asyncio.wrap_future(fut)
+        waited = 0.0
+        while True:
+            done, _ = await asyncio.wait({waiting}, timeout=0.25)
+            if done:
+                return waiting.result()
+            waited += 0.25
+            if not self._thread.is_alive():
+                fut.cancel()
+                raise EngineClosedError(
+                    "engine thread exited before the call ran",
+                    reason="engine_dead", retry_after_s=None)
+            if timeout_s is not None and waited >= timeout_s \
+                    and fut.cancel():
+                raise TimeoutError(
+                    f"engine thread did not take the call within "
+                    f"{timeout_s}s")
 
     async def _await_stopped(self, timeout_s):
         """True once the engine thread signalled `_stopped` (bounded by
@@ -728,6 +760,13 @@ class AsyncLLMEngine:
                         deadlines.pop(rid, None)
                         self.metrics.inc("requests_cancelled")
                         events.append(("finish", rid, reason, None))
+                elif kind == "call":
+                    _, fn, fut = cmd
+                    if fut.set_running_or_notify_cancel():
+                        try:
+                            fut.set_result(fn())
+                        except Exception as e:  # noqa: BLE001 — the
+                            fut.set_exception(e)  # caller's to handle
                 elif kind == "stop":
                     draining = True
                     if not cmd[1]:  # hard stop: abort everything in flight

@@ -1,10 +1,12 @@
 """HTTP serving frontend: OpenAI-style completions over AsyncLLMEngine.
 
 Stdlib-only (asyncio + hand-rolled HTTP/1.1), one process, loopback-
-friendly for tests: the JAX package's single-engine server over the
-port's engine. `ServingServer` fronts ONE engine (an `AsyncLLMEngine`)
-through the HTTP base `_HTTPServerBase`.
-Endpoints:
+friendly for tests: the JAX package's servers over the port's engines.
+Two servers share one HTTP base (`_HTTPServerBase`): `ServingServer`
+fronts ONE engine (an `AsyncLLMEngine`), `RouterServer` fronts a replica
+fleet (`serving/router.py`'s `ReplicaRouter`: prefix-affinity routing,
+health-aware ejection, retry-elsewhere, rolling drain; with an optional
+`AutoScaler`). Endpoints:
 
 - ``POST /v1/completions`` — OpenAI-style body. ``prompt`` is a list of
   token ids (no tokenizer ships with the repo; ``token_ids`` come back in
@@ -41,13 +43,27 @@ Endpoints:
   404 unless ``PADDLE_TPU_POSTMORTEM_DIR`` / ``postmortem_dir=`` is set.
 - ``GET /debug/kvtier`` — the host KV tier's snapshot (stats, resident
   hashes, slab geometry); 404 with a hint unless the tier is on
-  (``LLMEngine(host_kv_blocks=N)`` / ``PADDLE_TPU_HOST_KV_BLOCKS=N``).
+  (``LLMEngine(host_kv_blocks=N)`` / ``PADDLE_TPU_HOST_KV_BLOCKS=N``). On
+  the RouterServer, one snapshot per replica keyed by its name.
+- ``GET /debug/router`` (RouterServer only) — every replica's state
+  machine and healthz word, recent lifecycle events (ejections, probes,
+  restarts, drains, migrations) and the routing knobs.
+- ``GET /debug/autoscale`` (RouterServer only) — the autoscaler's knobs,
+  streaks, cooldown and decision log; 404 with a hint unless an
+  `AutoScaler` is attached (``--autoscale-max N`` on the CLI).
+
+On the RouterServer, ``/healthz`` reports the fleet (200 while at least
+one replica is in rotation, every replica's state and healthz word),
+``/metrics`` the router's series (plus the autoscaler's) and
+``/debug/slo`` the fleet rollup (`SLOLedger.merged_rollup`).
 
 `ServingServer.shutdown(drain=True)` is the graceful path: the listener
 closes, the engine stops admitting and finishes or aborts in-flight work,
 open SSE streams run to their natural end, then the server exits.
 ``python -m paddle_tpu_torch.serving.server`` boots a server around a
-randomly initialized GPT on the card (``--device cpu`` for tests).
+randomly initialized GPT on the card (``--device cpu`` for tests);
+``--replicas N`` boots the fleet router instead, and ``--checkpoint DIR``
+streams every replica's weights from a checkpoint.
 """
 from __future__ import annotations
 
@@ -587,43 +603,249 @@ class ServingServer(_HTTPServerBase):
         await writer.drain()
 
 
+class RouterServer(_HTTPServerBase):
+    """The fleet surface: ``/v1/completions`` routes through a
+    `ReplicaRouter` (prefix affinity, ejection, retry-elsewhere),
+    ``/healthz`` reports every replica's state machine, ``/metrics``
+    exposes the router's own series, ``/debug/slo`` merges the replicas'
+    SLO ledgers into one fleet rollup, and ``/debug/router`` dumps the
+    routing table + lifecycle event log. Pass an `AutoScaler`
+    (serving/autoscale.py) and the server owns its control loop too:
+    started after the router, stopped before it drains, decisions at
+    ``/debug/autoscale``."""
+
+    def __init__(self, router, host="127.0.0.1", port=0,
+                 model_name="paddle-tpu-gpt", autoscaler=None):
+        super().__init__(host=host, port=port, model_name=model_name)
+        self.router = router
+        self.autoscaler = autoscaler
+
+    # -- backend hooks -----------------------------------------------------
+
+    async def _start_backend(self):
+        await self.router.start()
+        if self.autoscaler is not None:
+            await self.autoscaler.start()
+
+    async def _submit(self, kw):
+        return await self.router.submit(**kw)
+
+    def _abort_stream(self, st):
+        st.abort()
+
+    @property
+    def _backend_metrics(self):
+        return self.router.metrics
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def begin_drain(self):
+        """Stop admitting fleet-wide while in-flight streams finish (the
+        LB drain pattern, one level up). For a zero-downtime RESTART use
+        `router.rolling_drain()` instead — it never rejects anybody."""
+        self._draining = True
+        self.router.stop_admitting()
+
+    async def _shutdown_backend(self, drain, timeout_s):
+        # the control loop stops FIRST: a scale decision landing while
+        # the fleet drains would fight the shutdown
+        if self.autoscaler is not None:
+            await self.autoscaler.stop()
+        await self.router.shutdown(drain=drain, timeout_s=timeout_s)
+
+    # -- routes ------------------------------------------------------------
+
+    async def _route(self, method, path, body, reader, writer):
+        if path == "/healthz":
+            return await self._healthz(writer)
+        if path == "/metrics":
+            self.router.refresh_metrics()
+            text = self.router.metrics.prometheus_text()
+            if self.autoscaler is not None:
+                # autoscale_* series ride the same scrape (names are
+                # disjoint from the router_* families, so plain
+                # concatenation is a valid exposition)
+                text += self.autoscaler.metrics.prometheus_text()
+            writer.write(_http_response(
+                "200 OK", text,
+                content_type="text/plain; version=0.0.4; charset=utf-8",
+            ))
+            return await writer.drain()
+        if path == "/debug/autoscale":
+            if self.autoscaler is None:
+                writer.write(_http_response(
+                    "404 Not Found",
+                    _error_body(
+                        404,
+                        "the autoscaler is off — construct an AutoScaler "
+                        "(serving/autoscale.py) and pass it to "
+                        "RouterServer(autoscaler=...), or boot with "
+                        "--autoscale-max N, for the SLO-driven replica "
+                        "control loop and its decision log", "not_found"),
+                ))
+                return await writer.drain()
+            writer.write(_http_response(
+                "200 OK", self.autoscaler.snapshot()))
+            return await writer.drain()
+        if path == "/debug/router":
+            writer.write(_http_response("200 OK", self.router.snapshot()))
+            return await writer.drain()
+        if path == "/debug/slo":
+            from .slo import SLOLedger
+
+            ledgers = [r.engine.engine.slo for r in self.router.replicas
+                       if r.engine.engine.slo is not None]
+            if not ledgers:
+                writer.write(_http_response(
+                    "404 Not Found",
+                    _error_body(
+                        404,
+                        "no replica runs the SLO ledger — build the "
+                        "replica engines with PADDLE_TPU_SLO=1 (or "
+                        "LLMEngine(slo=True)) for the fleet rollup",
+                        "not_found"),
+                ))
+                return await writer.drain()
+            # merged rollup copies + sorts every replica's percentile
+            # windows — off the event loop (the /debug/slo discipline)
+            body = await asyncio.to_thread(
+                lambda: SLOLedger.merged_rollup(ledgers))
+            writer.write(_http_response("200 OK", body))
+            return await writer.drain()
+        if path == "/debug/kvtier":
+            pairs = [(r.name, getattr(r.engine.engine, "tier", None))
+                     for r in self.router.replicas]
+            if not any(t is not None for _, t in pairs):
+                writer.write(_http_response(
+                    "404 Not Found",
+                    _error_body(
+                        404,
+                        "no replica runs the host KV tier — build the "
+                        "replica engines with LLMEngine(host_kv_blocks=N) "
+                        "(or PADDLE_TPU_HOST_KV_BLOCKS=N) for the fleet "
+                        "view", "not_found"),
+                ))
+                return await writer.drain()
+            # each snapshot takes that replica's tier lock — off the
+            # event loop (the /debug/slo discipline)
+            body = await asyncio.to_thread(lambda: json.dumps({
+                name: (None if t is None else t.debug_snapshot())
+                for name, t in pairs}).encode())
+            writer.write(_http_response("200 OK", body))
+            return await writer.drain()
+        if path == "/v1/completions":
+            if method != "POST":
+                writer.write(_http_response(
+                    "405 Method Not Allowed",
+                    _error_body(405, "use POST", "bad_request"),
+                ))
+                return await writer.drain()
+            return await self._completions(body, reader, writer)
+        writer.write(_http_response(
+            "404 Not Found", _error_body(404, f"no route {path}", "not_found")
+        ))
+        await writer.drain()
+
+    async def _healthz(self, writer):
+        snap = self.router.snapshot()
+        active = sum(1 for r in snap["replicas"] if r["state"] == "active")
+        if self._draining:
+            status, state = "503 Service Unavailable", "draining"
+        elif active:
+            status, state = "200 OK", "ok"
+        else:
+            # the whole fleet is out of rotation: nothing can serve
+            status, state = "503 Service Unavailable", "unavailable"
+        self.router.refresh_metrics()
+        payload = {
+            "status": state,
+            "replicas_active": active,
+            "replicas": snap["replicas"],
+            "events": snap["events"][-16:],
+            "gauges": {
+                k: v for k, v in dict(self.router.metrics.gauges).items()
+                if isinstance(v, (int, float))
+            },
+        }
+        writer.write(_http_response(status, payload))
+        await writer.drain()
+
+
 def main(argv=None):
     """Demo entry point: ``python -m paddle_tpu_torch.serving.server``
-    boots a randomly initialized GPT (seed 0; no checkpoint ships with the
-    repo) on the card behind the HTTP frontend. ``--device cpu`` runs it
-    on the CPU; without it the engine needs a CUDA device and raises when
-    there is none. Multi-engine and multi-card options of the JAX server
-    raise `NotImplementedError`."""
+    boots a randomly initialized GPT (seed 0) on the card behind the HTTP
+    frontend, or, with ``--checkpoint DIR``, a skeleton whose weights each
+    replica streams from that checkpoint. ``--replicas N`` (or
+    ``--autoscale-max``) serves N replicas behind the fleet router.
+    ``--device cpu`` runs it on the CPU; without it the engines need a
+    CUDA device and raise when there is none. Tensor-parallel serving
+    (``--tp-degree`` above 1) raises `NotImplementedError`."""
     import argparse
+
+    import torch
 
     p = argparse.ArgumentParser(description=main.__doc__)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", default=None,
-                   help="device the model and engine run on (default: "
+                   help="device the model and engines run on (default: "
                         "the CUDA card, which must exist; cpu for tests)")
-    p.add_argument("--model", default="tiny", choices=("tiny", "small"))
+    p.add_argument("--model", default="tiny",
+                   choices=("tiny", "small", "1p3b"))
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "bfloat16"),
+                   help="the model's parameter dtype (a checkpoint must "
+                        "hold the same)")
     p.add_argument("--block-size", type=int, default=16)
     p.add_argument("--max-batch", type=int, default=4)
     p.add_argument("--max-seq-len", type=int, default=None)
     p.add_argument("--prefill-chunk", type=int, default=None)
     p.add_argument("--replicas", type=int, default=1,
-                   help="engine replicas; only 1 is in the port")
+                   help="serve N engine replicas behind the fleet router "
+                        "(serving/router.py): prefix-affinity routing, "
+                        "health-aware ejection, retry-elsewhere; 1 = the "
+                        "single-replica server")
+    p.add_argument("--retry-budget", type=int, default=3,
+                   help="router retry budget: backoff rounds + zero-token "
+                        "replays per request before the failure is final")
+    p.add_argument("--no-affinity", action="store_true",
+                   help="disable prefix-affinity routing (least-loaded "
+                        "spread only; for A/B benchmarks)")
     p.add_argument("--tp-degree", type=int, default=None,
                    help="tensor-parallel degree; only 1 is in the port")
     p.add_argument("--kv-hbm-bytes", type=int, default=None,
                    help="size the KV pool from a byte budget instead of "
                         "max_batch * max_seq_len")
     p.add_argument("--checkpoint", default=None, metavar="DIR",
-                   help="stream weights from a sharded checkpoint (not in "
-                        "the port)")
+                   help="stream every replica's weights leaf by leaf from "
+                        "a checkpoint directory (save_sharded_model); the "
+                        "model is a skeleton of shapes only")
     p.add_argument("--warmup", action="store_true",
                    help="capture every width-bucket program before "
                         "serving: the first real request builds nothing")
     p.add_argument("--param-hbm-bytes", type=int, default=None,
-                   help="per-card parameter budget (not in the port)")
+                   help="per-card parameter budget: engine construction "
+                        "fails if the device holds more than this many "
+                        "parameter bytes")
     p.add_argument("--autoscale-max", type=int, default=None, metavar="N",
-                   help="the SLO-driven autoscaler (not in the port)")
+                   help="enable the SLO-driven autoscaler "
+                        "(serving/autoscale.py) with at most N replicas; "
+                        "implies the fleet router even with --replicas 1")
+    p.add_argument("--autoscale-min", type=int, default=1,
+                   help="autoscaler floor: never drain below this many "
+                        "replicas (default 1)")
+    p.add_argument("--autoscale-target-attainment", type=float,
+                   default=0.99, metavar="FRAC",
+                   help="scale up when any (tenant, priority) class's "
+                        "windowed deadline attainment drops below this "
+                        "(default 0.99; needs --slo for the signal)")
+    p.add_argument("--autoscale-cooldown-s", type=float, default=3.0,
+                   help="seconds between scale decisions (hysteresis; "
+                        "default 3)")
+    p.add_argument("--spawn-ttft-budget-s", type=float, default=None,
+                   help="bound on time-to-first-token after a scale-up "
+                        "spawn; breaches are counted and flagged in the "
+                        "decision log")
     p.add_argument("--max-waiting", type=int, default=64,
                    help="wait-queue bound beyond max_batch lanes (429 past it)")
     p.add_argument("--stream-queue-size", type=int, default=64,
@@ -672,39 +894,43 @@ def main(argv=None):
                    help="bundles kept before oldest-first pruning "
                         "(default 16; same as PADDLE_TPU_POSTMORTEM_KEEP)")
     args = p.parse_args(argv)
-    later = (("--replicas > 1", args.replicas > 1, "the fleet router",
-              "item 7"),
-             ("--autoscale-max", args.autoscale_max is not None,
-              "the autoscaler", "item 7"),
-             ("--tp-degree > 1", (args.tp_degree or 1) > 1,
-              "tensor-parallel serving", "item 6"),
-             ("--checkpoint", args.checkpoint is not None,
-              "checkpoint streaming", "item 6"),
-             ("--param-hbm-bytes", args.param_hbm_bytes is not None,
-              "the parameter memory budget", "item 6"))
-    for flag, given, what, item in later:
-        if given:
-            raise NotImplementedError(
-                f"{flag}: {what} is not in the PyTorch port yet "
-                f"(ROADMAP.md, Queue 1 {item})")
+    if (args.tp_degree or 1) > 1:
+        raise NotImplementedError(
+            "--tp-degree > 1: tensor-parallel serving is not in the "
+            "PyTorch port yet (ROADMAP.md, Queue 1 item 6)")
 
-    from ..models.gpt import gpt_small, gpt_tiny
+    from .._device import resolve_device
+    from ..models.gpt import gpt_1p3b, gpt_small, gpt_tiny
     from .engine import LLMEngine
 
-    build_model = gpt_tiny if args.model == "tiny" else gpt_small
-    model = build_model(device=args.device, seed=0)
-    engine = LLMEngine(
-        model, device=args.device, block_size=args.block_size,
-        max_batch=args.max_batch, max_seq_len=args.max_seq_len,
-        prefill_chunk=args.prefill_chunk,
-        prefix_cache=False if args.no_prefix_cache else None,
-        spec_decoding=True if args.spec_decode else None,
-        num_spec_tokens=args.num_spec_tokens, trace=args.trace,
-        request_log=True if args.request_log else None,
-        slo=True if args.slo else None,
-        postmortem_dir=args.postmortem_dir,
-        postmortem_keep=args.postmortem_keep,
-        kv_hbm_bytes=args.kv_hbm_bytes, warmup=args.warmup)
+    build_model = {"tiny": gpt_tiny, "small": gpt_small,
+                   "1p3b": gpt_1p3b}[args.model]
+    dtype = getattr(torch, args.dtype)
+    if args.checkpoint:
+        # shapes only: every replica (and every autoscaler spawn) streams
+        # its weights from the checkpoint at construction
+        from ..nn.layer import skeleton_init
+
+        with skeleton_init():
+            model = build_model(dtype=dtype, seed=0)
+    else:
+        model = build_model(device=args.device, dtype=dtype, seed=0)
+
+    def build_engine():
+        return LLMEngine(
+            model, device=args.device, block_size=args.block_size,
+            max_batch=args.max_batch, max_seq_len=args.max_seq_len,
+            prefill_chunk=args.prefill_chunk,
+            prefix_cache=False if args.no_prefix_cache else None,
+            spec_decoding=True if args.spec_decode else None,
+            num_spec_tokens=args.num_spec_tokens, trace=args.trace,
+            request_log=True if args.request_log else None,
+            slo=True if args.slo else None,
+            postmortem_dir=args.postmortem_dir,
+            postmortem_keep=args.postmortem_keep,
+            kv_hbm_bytes=args.kv_hbm_bytes,
+            checkpoint_path=args.checkpoint or None,
+            param_hbm_bytes=args.param_hbm_bytes, warmup=args.warmup)
 
     if args.request_log:
         import logging
@@ -712,19 +938,64 @@ def main(argv=None):
         logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     async def run():
-        server = ServingServer(
-            engine, host=args.host, port=args.port,
-            max_waiting=args.max_waiting,
-            stream_queue_size=args.stream_queue_size,
-            default_timeout_s=args.timeout_s,
-            watchdog_step_timeout_s=args.watchdog_step_timeout_s,
-            max_step_retries=args.max_step_retries,
-            max_kv_commit_blocks=args.max_kv_commit_blocks,
-        )
+        if args.replicas > 1 or args.autoscale_max is not None:
+            from .router import ReplicaRouter
+
+            def wrap(engine):
+                return AsyncLLMEngine(
+                    engine, max_waiting=args.max_waiting,
+                    stream_queue_size=args.stream_queue_size,
+                    default_timeout_s=args.timeout_s,
+                    watchdog_step_timeout_s=args.watchdog_step_timeout_s,
+                    max_step_retries=args.max_step_retries,
+                    max_kv_commit_blocks=args.max_kv_commit_blocks,
+                )
+
+            router = ReplicaRouter(
+                [wrap(build_engine()) for _ in range(args.replicas)],
+                factory=lambda _i: wrap(build_engine()),
+                affinity=not args.no_affinity,
+                retry_budget=args.retry_budget,
+                default_timeout_s=args.timeout_s,
+            )
+            autoscaler = None
+            if args.autoscale_max is not None:
+                from .autoscale import AutoScaler
+
+                autoscaler = AutoScaler(
+                    router,
+                    min_replicas=args.autoscale_min,
+                    max_replicas=args.autoscale_max,
+                    target_attainment=args.autoscale_target_attainment,
+                    cooldown_s=args.autoscale_cooldown_s,
+                    spawn_ttft_budget_s=args.spawn_ttft_budget_s,
+                )
+            server = RouterServer(router, host=args.host, port=args.port,
+                                  autoscaler=autoscaler)
+        else:
+            server = ServingServer(
+                build_engine(), host=args.host, port=args.port,
+                max_waiting=args.max_waiting,
+                stream_queue_size=args.stream_queue_size,
+                default_timeout_s=args.timeout_s,
+                watchdog_step_timeout_s=args.watchdog_step_timeout_s,
+                max_step_retries=args.max_step_retries,
+                max_kv_commit_blocks=args.max_kv_commit_blocks,
+            )
         await server.start()
-        print(f"serving on http://{server.host}:{server.port} (single "
-              f"replica on {engine.device}; POST /v1/completions, GET "
-              "/healthz, GET /metrics)", flush=True)
+        if args.autoscale_max is not None:
+            mode = (f"{args.replicas}-replica router, autoscaling "
+                    f"{args.autoscale_min}..{args.autoscale_max}")
+        elif args.replicas > 1:
+            mode = f"{args.replicas}-replica router"
+        else:
+            mode = "single replica"
+        where = ("weights streamed from " + args.checkpoint
+                 if args.checkpoint else "random weights")
+        device = resolve_device(args.device)
+        print(f"serving on http://{server.host}:{server.port} ({mode} on "
+              f"{device}, {where}; POST /v1/completions, GET /healthz, GET "
+              "/metrics)", flush=True)
         try:
             await server.serve_forever()
         except asyncio.CancelledError:

@@ -278,7 +278,7 @@ class SLOLedger:
 
     def _snapshot_classes(self):
         """Deep-copied ``[(class_key, aggregates)]`` under the lock — the
-        one snapshot `rollup` builds from."""
+        one snapshot `rollup` and `merged_rollup` both build from."""
         with self._lock:
             return [(k, {
                 **{f: c[f] for f in ("requests", "finished", "aborted",
@@ -322,6 +322,37 @@ class SLOLedger:
         metrics.py convention); the histograms are cumulative — the two
         agree on quiesced traffic and the tests lock the bracket."""
         return self._rollup_from_snapshot(self._snapshot_classes())
+
+    @classmethod
+    def merged_rollup(cls, ledgers):
+        """One fleet rollup over several replicas' ledgers — the router's
+        ``GET /debug/slo``. Each ledger is snapshotted under its own lock;
+        same-class aggregates merge by summing counters and concatenating
+        the percentile windows (merged percentiles come from the pooled
+        observations: per-replica p95s cannot be averaged), and the result
+        has exactly `rollup`'s shape, so a dashboard reading one replica
+        reads the fleet unchanged."""
+        merged = {}
+        for ledger in ledgers:
+            for k, c in ledger._snapshot_classes():
+                t = merged.get(k)
+                if t is None:
+                    merged[k] = c
+                    continue
+                for f in ("requests", "finished", "aborted", "preemptions",
+                          "output_tokens", "e2e_total_s"):
+                    t[f] += c[f]
+                for p in PHASES:
+                    t["phase_s"][p] += c["phase_s"][p]
+                for v in ("met", "missed", "aborted"):
+                    t["deadline"][v] += c["deadline"][v]
+                for w in ("ttft", "tpot", "e2e"):
+                    t[w].extend(c[w])
+                for tk, pick in (("t_first", min), ("t_last", max)):
+                    if c[tk] is not None:
+                        t[tk] = (c[tk] if t[tk] is None
+                                 else pick(t[tk], c[tk]))
+        return cls._rollup_from_snapshot(sorted(merged.items()))
 
     def reset(self):
         """Drop the per-class aggregates (e.g. after a bench warmup) —

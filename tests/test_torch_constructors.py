@@ -15,6 +15,7 @@ import pytest
 from paddle_tpu.models.bert import BertConfig as JaxBertConfig
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu.serving import LLMEngine as JaxLLMEngine
+from paddle_tpu_torch.distributed.checkpoint import save_sharded_model
 from paddle_tpu_torch.models.bert import BertConfig
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.serving import LLMEngine
@@ -92,6 +93,9 @@ def test_every_jax_keyword_has_a_non_default_value():
 def test_engine_takes_jax_keyword(model, name, tmp_path, monkeypatch):
     # relative paths (postmortem_dir) land in a scratch directory
     monkeypatch.chdir(tmp_path)
+
+    if name == "checkpoint_path":   # a checkpoint of this model to stream
+        save_sharded_model(model, None, ENGINE_OTHER[name])
 
     def make(**kw):
         return LLMEngine(model, device="cpu", **kw)

@@ -948,3 +948,175 @@ def test_grad_scaler_skips_a_step_with_an_inf_on_the_card(dev):
     scaler.update()
     assert all(torch.equal(a, p) for a, p in zip(before, m.parameters()))
     assert scaler._scale == 2.0 ** 14 and opt._step_count == 0
+
+
+# -- the fleet on one card: captures beside stepping replicas, streamed
+# weights, memory back after a replica goes --------------------------------
+
+_CAPTURE_BESIDE = r"""
+import json, sys, threading, torch
+mode = sys.argv[1]
+dev = torch.device("cuda")
+x = torch.ones(1 << 16, device=dev)
+side = torch.cuda.Stream(dev)
+side.wait_stream(torch.cuda.current_stream(dev))
+with torch.cuda.stream(side):
+    y = x * 2                       # warm the kernel outside the capture
+torch.cuda.current_stream(dev).wait_stream(side)
+torch.cuda.synchronize()
+other = {}
+
+def replica_step():
+    # what another replica's step does: allocate, compute, copy back
+    try:
+        t = torch.arange(1 << 20, device=dev, dtype=torch.float32) + 1.0
+        other["sum"] = float(t.sum().cpu())
+    except Exception as e:
+        other["error"] = f"{type(e).__name__}: {e}"
+
+g = torch.cuda.CUDAGraph()
+res = {"mode": mode}
+try:
+    with torch.cuda.graph(g, stream=side, capture_error_mode=mode):
+        y = x * 2
+        th = threading.Thread(target=replica_step)
+        th.start()
+        th.join()
+    g.replay()
+    torch.cuda.synchronize()
+    res["replay_ok"] = bool((y == 2).all())
+except Exception as e:
+    res["capture_error"] = f"{type(e).__name__}: {e}"
+res.update(other)
+print(json.dumps(res))
+"""
+
+
+@pytest.mark.parametrize("mode", ["global", "thread_local"])
+def test_capture_beside_another_threads_step(dev, mode):
+    """What a replica's step on another thread does to a CUDA-graph
+    capture (run in a fresh process: a failed capture can leave the
+    caching allocator mid-capture). In "global" mode the other thread's
+    allocation and copy back are refused and the capture fails; in
+    "thread_local" mode, the engine's (`_StepProgram._capture`), both go
+    through and the graph replays."""
+    import json
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "-c", _CAPTURE_BESIDE, mode],
+                         capture_output=True, text=True, timeout=120)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    if mode == "global":
+        assert "error" in res or "capture_error" in res, res
+    else:
+        assert res.get("replay_ok") is True, res
+        assert res["sum"] == float(sum(range(1, (1 << 20) + 1))), res
+
+
+def test_replica_captures_while_another_serves(dev):
+    """A replica builds and captures its step programs on this thread
+    while another replica serves on its own thread: no capture and no
+    step fails, the serving replica's tokens are those of a quiet run,
+    and the launch counts equal one a layer per step of either (capture
+    ticks are recorded aside, ops/counts.py)."""
+    import threading
+
+    serving = _tiny_bf16_engine(dev, warmup=True)
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, 512, n).tolist() for n in (9, 40, 70, 12)]
+    quiet = serving.generate(prompts, max_new_tokens=12)
+    pa.ragged_paged_attention.launches = 0
+    steps0 = serving.step_count
+    done, outs, errors = threading.Event(), [], []
+
+    def serve():
+        try:
+            with serving.device_scope():
+                while not done.is_set():
+                    outs.append(serving.generate(prompts, max_new_tokens=12))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    th = threading.Thread(target=serve)
+    th.start()
+    built = []
+    try:
+        for _ in range(3):
+            built.append(_tiny_bf16_engine(dev, warmup=True))
+    finally:
+        done.set()
+        th.join()
+    assert not errors, errors
+    assert outs and all(o == quiet for o in outs)
+    steps = serving.step_count - steps0 + sum(e.step_count for e in built)
+    assert pa.ragged_paged_attention.launches == 2 * steps
+    for e in built:
+        assert e.generate(prompts, max_new_tokens=12) == quiet
+
+
+def test_streamed_engine_on_the_card(dev, tmp_path):
+    """A bf16 skeleton streamed from a checkpoint onto the card holds the
+    saved weights bit for bit and serves the eager engine's tokens."""
+    from paddle_tpu_torch.distributed.checkpoint import save_sharded_model
+    from paddle_tpu_torch.nn import is_skeleton, skeleton_init
+
+    eager = _tiny_bf16_engine(dev)
+    save_sharded_model(eager.model, None, str(tmp_path))
+    with skeleton_init():
+        skel = GPT(eager.model.cfg, dtype=torch.bfloat16)
+    streamed = LLMEngine(skel, device=dev, block_size=16, max_batch=4,
+                         prefill_chunk=32, spec_decoding=True,
+                         checkpoint_path=str(tmp_path))
+    assert is_skeleton(skel) and streamed.model.device.type == "cuda"
+    for a, b in zip(streamed.model.parameters(), eager.model.parameters()):
+        assert torch.equal(a, b)
+    rep = streamed.load_report
+    assert rep.max_chip_bytes == rep.total_bytes == sum(
+        p.numel() * p.element_size() for p in eager.model.parameters())
+    prompts = [[5, 6, 7] * 6, list(range(1, 40))]
+    assert streamed.generate(prompts, max_new_tokens=8) == \
+        eager.generate(prompts, max_new_tokens=8)
+
+
+def test_dropped_replica_gives_its_memory_back(dev, tmp_path):
+    """A streamed replica with captured graphs and a host tier, served
+    through its AsyncLLMEngine and shut down: once dropped, the card's
+    allocated bytes are back where they were before it was built. (The
+    first replica's life is not measured: it creates this thread's cuBLAS
+    workspace on the capture stream, which cuBLAS keeps for the process.
+    The second's must leave nothing.)"""
+    import asyncio
+    import gc
+
+    from paddle_tpu_torch.distributed.checkpoint import save_sharded_model
+    from paddle_tpu_torch.nn import skeleton_init
+    from paddle_tpu_torch.serving import AsyncLLMEngine
+
+    src = GPT(GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=2, max_seq_len=256), device=dev,
+              dtype=torch.bfloat16, seed=0)
+    save_sharded_model(src, None, str(tmp_path))
+    with skeleton_init():
+        skel = GPT(src.cfg, dtype=torch.bfloat16)
+    del src
+
+    async def life():
+        fe = AsyncLLMEngine(LLMEngine(
+            skel, device=dev, block_size=16, max_batch=4, prefill_chunk=32,
+            spec_decoding=True, warmup=True, host_kv_blocks=16,
+            checkpoint_path=str(tmp_path)))
+        await fe.start()
+        toks, reason = await fe.submit(list(range(1, 60)),
+                                       max_new_tokens=8).collect()
+        await fe.shutdown()
+        return len(toks), reason
+
+    assert asyncio.run(life()) == (8, "length")
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    assert asyncio.run(life()) == (8, "length")
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before

@@ -254,7 +254,7 @@ def test_engine_rejects_a_model_on_another_device(models):
 
 
 @pytest.mark.parametrize("option", [
-    {"mesh": 2}, {"param_hbm_bytes": 1 << 30}, {"checkpoint_path": "ckpt"},
+    {"mesh": 2}, {"mesh": 4}, {"quant_allreduce": ("attn_proj",)},
     {"quant_allreduce": True},
 ])
 def test_left_out_options_raise(models, option):
@@ -268,7 +268,7 @@ def test_left_out_options_raise(models, option):
 @pytest.mark.parametrize("option", [
     {"kv_dtype": "int8", "host_kv_blocks": 8}, {"quantize": "int8"},
     {"lora_slots": 2}, {"host_kv_blocks": 8}, {"lora_rank": 4},
-    {"calib_prompts": [[1, 2, 3]]},
+    {"calib_prompts": [[1, 2, 3]]}, {"param_hbm_bytes": 1 << 30},
 ])
 def test_ported_options_act_as_in_the_jax_engine(option):
     cfg = dict(block_size=4, max_batch=2, max_seq_len=64)
@@ -336,3 +336,53 @@ def test_width_buckets_keep_greedy_output(models):
     assert eng.generate(prompts, max_new_tokens=NEW_TOKENS) == base
     with pytest.raises(ValueError, match=">= 1"):
         LLMEngine(tm, device="cpu", width_buckets=[0], **ENGINE)
+
+
+def test_launch_counts_lose_no_tick_across_threads():
+    """The kernel wrappers' counters (ops/counts.py) under threads that
+    tick while others record a capture aside and add replays, with a
+    short switch interval: every launch tick and every replay lands, and
+    no recorded tick reaches the counters."""
+    import sys
+    import threading
+
+    from paddle_tpu_torch.ops import counts
+
+    def fn():
+        pass
+
+    fn.launches, fn.width_launches = 0, {}
+    n, threads = 2000, 8
+    replay = {(fn, "launches"): 3, (fn, "width_launches"): {5: 3}}
+    errors = []
+
+    def launcher():
+        for _ in range(n):
+            counts.tick(fn, "launches")
+            counts.tick(fn, "width_launches", 1)
+
+    def capturer():
+        for _ in range(n // 10):
+            with counts.recording() as rec:
+                counts.tick(fn, "launches")
+                counts.tick(fn, "width_launches", 5)
+            if rec != {(fn, "launches"): 1, (fn, "width_launches"): {5: 1}}:
+                errors.append(rec)
+            counts.add(replay)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ts = [threading.Thread(target=launcher if i % 2 else capturer)
+              for i in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in ts)
+    finally:
+        sys.setswitchinterval(old)
+    half = threads // 2
+    assert not errors
+    assert fn.launches == half * n + half * (n // 10) * 3
+    assert fn.width_launches == {1: half * n, 5: half * (n // 10) * 3}

@@ -381,16 +381,20 @@ def test_client_disconnect_aborts_like_jax(sides):
 
 
 def test_server_cli_refuses_fleet_options_and_needs_a_card(monkeypatch):
+    """The CLI refuses only tensor-parallel serving (Queue 1 item 6); the
+    fleet, the autoscaler, checkpoint streaming and the parameter budget
+    are in the port, and like the single replica they need a card unless
+    `--device` names another device."""
     from paddle_tpu_torch.serving.server import main
 
-    for argv in (["--replicas", "2"], ["--autoscale-max", "3"],
-                 ["--tp-degree", "2"], ["--checkpoint", "ckpt"],
-                 ["--param-hbm-bytes", "1000"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item"):
-            main(argv)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        main(["--tp-degree", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        main(["--port", "0"])
+    for argv in (["--port", "0"], ["--replicas", "2"],
+                 ["--autoscale-max", "3"], ["--checkpoint", "ckpt"],
+                 ["--param-hbm-bytes", "1000"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
 
 
 def test_server_cli_serves_on_the_cpu():
