@@ -19,7 +19,8 @@ Phases, in order; any failure exits nonzero:
    eager per-call time. Each case names the kernel design it ran (bf16 at
    this shape: the sm_90a design, its split-row and, at width 128,
    wide-row kernels with ptxas's registers and spill bytes; float32: the
-   SIMT design).
+   SIMT design). Then bf16 again at 8 heads, a tp=2 rank's share of
+   gpt_1p3b (phase 3h), over both arenas at the three widths.
    2b. The int8 append kernel (csrc/kv_quantize_scatter.cu) against its
    plain version (run on the CPU copy, bit-equal to the JAX function) at
    the serving shape (B 8, H 16, D 128, block 16; widths 1, 5 and 128;
@@ -140,6 +141,24 @@ Phases, in order; any failure exits nonzero:
    (spawn seconds, spawn TTFT), idle retires it; no failed request, and
    `torch.cuda.memory_allocated()` after the retire within 64 MiB of its
    value before the spawn.
+   3h. Tensor-parallel serving at tp=2 on the one card: two ranks on
+   cuda:0 over an explicit gloo backend (NCCL refuses two ranks on one
+   device), steps run eagerly, every collective staged through host
+   memory. (a) gpt_1p3b in float32 (TF32 off) under phase 3's build and
+   traffic at tp=1 (graphs) and at mesh=2: every request's greedy tokens
+   equal (at a divergence the one-card model's top-2 logit gap is printed
+   before the gate fails); on each rank one ragged launch a layer and
+   step and 49 all-reduces and 1 all-gather a step
+   (`serving_collective_budget`). (b) Phase 3's bf16 model saved with
+   `save_sharded_model` and streamed per rank (each rank's load report:
+   its slices only) into a tp=2 engine with kv_dtype="int8" and
+   quant_allreduce=True: on each rank 24 int8 ragged launches, 48 appends,
+   1 all-reduce and 97 all-gathers a step (gates); its tokens' agreement
+   with phase 3b's tp=1 int8 tokens, counted. Seconds and tok/s are
+   labelled "eager, gloo through the host, two ranks on one card - not a
+   tp speed", the card's name and power limit beside them. The NCCL path
+   with graphs needs two cards: the card test
+   `test_tp2_nccl_graphs_token_identical_to_tp1` (it skips on one).
 4. float32 parity: gpt_1p3b widths at 4 layers, greedy LLMEngine (the
    kernel, through captured graphs) against GPT.generate (contiguous
    cache, no kernel).
@@ -357,11 +376,11 @@ def rpa_kernels(design, dtype, int8, width):
                             f"rpa_{n}_sm90I{ta}E") for n in names}
 
 
-def _case(width, gen, n_blocks, dtype, dev):
-    """A mixed batch at step width `width`: decode rows, a prefill chunk
-    crossing block boundaries, partly filled last blocks, an idle lane
-    (null block only), null-block table padding. Contexts 64-1000 tokens
-    like the serving phase's prompts."""
+def _case(width, gen, n_blocks, dtype, dev, heads=H):
+    """A mixed batch at step width `width` over `heads` heads: decode rows,
+    a prefill chunk crossing block boundaries, partly filled last blocks,
+    an idle lane (null block only), null-block table padding. Contexts
+    64-1000 tokens like the serving phase's prompts."""
     nb = 2048 // BS
     rs = np.random.RandomState(width)
     ctx = rs.randint(64, 1001, B)
@@ -389,7 +408,8 @@ def _case(width, gen, n_blocks, dtype, dev):
     for i in range(B):
         qpos[i, :q_lens[i]] = np.arange(q_start[i], ctx[i])
     to = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa
-    q = torch.randn((B, width, H, D), generator=gen, device=dev).to(dtype)
+    q = torch.randn((B, width, heads, D), generator=gen,
+                    device=dev).to(dtype)
     return dict(q=q, tables=to(tables), qpos=to(qpos), q_start=to(q_start),
                 kv_live=to(kv_live), q_lens=to(q_lens), ctx=ctx,
                 q_lens_np=q_lens, kv_live_np=kv_live)
@@ -404,6 +424,7 @@ def _bound(c, dtype, int8=False):
     discarded, counts nothing."""
     isz = torch.tensor([], dtype=dtype).element_size()
     kv_isz = 1 if int8 else isz
+    H = c["q"].shape[2]                              # this case's heads
     n = B - 1                                        # live rows
     ql, live, ctx = c["q_lens_np"][:n], c["kv_live_np"][:n], c["ctx"][:n]
     nbytes = (2 * ql.sum() * H * D * isz             # q in, out
@@ -426,6 +447,7 @@ def _library_call(c, k_arena, v_arena, layer, scales=None):
     D] with a boolean causal/ragged mask: the timed yardstick only, never
     used by the port."""
     F = torch.nn.functional
+    H = c["q"].shape[2]
     L = int(c["kv_live_np"].max()) * BS
     bt = c["tables"][:, :L // BS].long()
     k, v = k_arena[layer][:, bt], v_arena[layer][:, bt]  # [H, B, nb, bs, D]
@@ -449,11 +471,15 @@ def kernel_cases():
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     n_layers, n_blocks, layer = 24, B * (2048 // BS) + 1, 17
-    # the serving arena's shape, random garbage in every slot
-    shape = (n_layers, H, n_blocks, BS, D)
     out = []
-    for arena, dtype in (("float", torch.float32), ("float", torch.bfloat16),
-                         ("int8", torch.float32), ("int8", torch.bfloat16)):
+    # gpt_1p3b's 16 heads, then 8: a rank's share at tp=2 (phase 3h)
+    for heads, arena, dtype in (
+            (H, "float", torch.float32), (H, "float", torch.bfloat16),
+            (H, "int8", torch.float32), (H, "int8", torch.bfloat16),
+            (H // 2, "float", torch.bfloat16),
+            (H // 2, "int8", torch.bfloat16)):
+        # the serving arena's shape, random garbage in every slot
+        shape = (n_layers, heads, n_blocks, BS, D)
         sc = {}
         if arena == "int8":
             k_arena, v_arena = (torch.randint(
@@ -466,7 +492,7 @@ def kernel_cases():
             k_arena, v_arena = (torch.randn(shape, generator=gen, device=dev)
                                 .to(dtype) for _ in "kv")
         for width in WIDTHS:
-            c = _case(width, gen, n_blocks, dtype, dev)
+            c = _case(width, gen, n_blocks, dtype, dev, heads)
             args = (c["q"], k_arena, v_arena, layer, c["tables"], c["qpos"])
             meta = dict(q_start=c["q_start"], kv_live=c["kv_live"],
                         q_lens=c["q_lens"], **sc)
@@ -491,7 +517,7 @@ def kernel_cases():
             bms, by = _bound(c, dtype, int8=bool(sc))
             design = pa.kernel_design(dtype, D, BS)
             rec = dict(arena=arena, dtype=str(dtype).replace("torch.", ""),
-                       width=width, design=RPA_DESIGNS[design],
+                       heads=heads, width=width, design=RPA_DESIGNS[design],
                        ptxas={k: dict(registers=r, spill_bytes=sp)
                               for k, (r, sp) in rpa_kernels(
                                   design, dtype, arena == "int8",
@@ -2297,6 +2323,188 @@ async def _fleet(model, graph_outs, smi):
     return res
 
 
+# -- phase 3h -----------------------------------------------------------------
+
+# every phase 3h time is of two ranks sharing one card over gloo, each
+# collective staged through host memory, steps run eagerly
+TP_LABEL = "eager, gloo through the host, two ranks on one card - not a tp speed"
+
+
+def _tp_mesh():
+    """Two ranks on cuda:0 over an explicit gloo backend: the one-card
+    departure of serving/sharded.py (NCCL refuses two ranks on a device)."""
+    from paddle_tpu_torch.serving import ServingMesh
+
+    return ServingMesh(["cuda:0", "cuda:0"], backend="gloo")
+
+
+def _tp_counts(engine, steps):
+    """Every rank's kernel launches and collective calls since its last
+    reset, with the step count they cover: [{rank, ragged, int8, append,
+    collectives}]."""
+    out = []
+    for rep in engine.rank_reports():
+        n = rep["launches"]
+        out.append(dict(
+            rank=rep["rank"], steps=steps,
+            ragged=n["ragged_paged_attention.launches"],
+            ragged_int8=n["ragged_paged_attention.int8_launches"],
+            append=n["kv_quantize_scatter.launches"],
+            collectives=rep["collectives"]))
+    return out
+
+
+def _top2_gap(model, prompt, ref, got):
+    """At the first token where `got` leaves `ref` (the one-card tokens),
+    the one-card model's top-2 logit gap there: how near a tie it was."""
+    j = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
+    with torch.no_grad():
+        lg = model(torch.tensor([prompt + ref[:j]], device="cuda"))[0, -1]
+    top2 = torch.topk(lg.float(), 2).values
+    return j, (top2[0] - top2[1]).item()
+
+
+def _tp_gate(engine, counts, kv_dtype):
+    """Each rank made one ragged launch a layer and step (all of them the
+    int8 variant on an int8 arena, with two appends), and exactly
+    `serving_collective_budget` collective calls a step."""
+    from paddle_tpu_torch.serving import serving_collective_budget
+
+    L = engine.model.cfg.num_layers
+    budget = serving_collective_budget(engine.model.cfg, 2,
+                                       engine.quant_collectives)
+    for c in counts:
+        steps = c["steps"]
+        assert c["ragged"] == L * steps, c
+        assert c["ragged_int8"] == (L * steps if kv_dtype else 0), c
+        assert c["append"] == (2 * L * steps if kv_dtype else 0), c
+        assert c["collectives"] == {
+            "all-reduce": budget["all-reduce"] * steps,
+            "all-gather": budget["all-gather"] * steps}, (c, budget)
+    return budget
+
+
+def _tp_wave(engine, prompts):
+    """Phase 3's traffic on a tp engine, counts zeroed on every rank just
+    before and read just after. Returns (outs, seconds, counts)."""
+    engine.rank_reports(zero=True)
+    steps0 = engine.step_count
+    t0 = time.perf_counter()
+    outs = serve_waves(engine, prompts)
+    dt = time.perf_counter() - t0
+    counts = _tp_counts(engine, engine.step_count - steps0)
+    return outs, dt, counts
+
+
+def tp_serving(model, graph_outs_int8, smi):
+    """Phase 3h: tensor-parallel serving of gpt_1p3b at tp=2 on one card,
+    two ranks over gloo (serving/sharded.py's one-card departure).
+
+    (a) gpt_1p3b in float32 (TF32 off), phase 3's prompts and traffic:
+    LLMEngine(block_size=16, max_batch=8, spec_decoding=True, warmup=True)
+    at tp=1 (graphs) against the same at mesh=2 (eager): every request's
+    greedy tokens equal (the gate; at a divergence the one-card model's
+    top-2 logit gap is printed first). (b) Phase 3's bf16 model saved with
+    `save_sharded_model` and streamed per rank into a tp=2 engine with the
+    int8 arena and quant_allreduce=True: each rank's load report; on every
+    rank 24 int8 ragged launches and 48 appends a step and exactly
+    `serving_collective_budget` collective calls a step (gates); its
+    tokens' agreement with phase 3b's tp=1 int8 tokens, counted. Seconds
+    and tok/s are labelled: eager steps through the host, not a tp
+    speed."""
+    import gc
+
+    from paddle_tpu_torch.distributed.checkpoint import save_sharded_model
+    from paddle_tpu_torch.models.gpt import gpt_1p3b
+    from paddle_tpu_torch.nn.layer import skeleton_init
+    from paddle_tpu_torch.serving import LLMEngine
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build = dict(block_size=16, max_batch=8, spec_decoding=True, warmup=True)
+    prompts = _prompts(np.random.RandomState(0), model.cfg.vocab_size)
+    res = dict(label=TP_LABEL, card=smi)
+
+    # (a) float32, tp=1 against tp=2
+    f32 = gpt_1p3b(device="cuda", dtype=torch.float32, seed=0)
+    one = LLMEngine(f32, **build)
+    t0 = time.perf_counter()
+    want = serve_waves(one, prompts)
+    one_s = time.perf_counter() - t0
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tp = LLMEngine(f32, mesh=_tp_mesh(), **build)
+    build_s = time.perf_counter() - t0
+    try:
+        got, dt, counts = _tp_wave(tp, prompts)
+        info = tp.mesh_info()
+        budget = _tp_gate(tp, counts, None)
+    finally:
+        tp.close()
+    toks = sum(map(len, got))
+    equal = sum(a == b for a, b in zip(got, want))
+    gaps = [dict(zip(("request", "token", "top2_gap"),
+                     (i,) + _top2_gap(f32, prompts[i], want[i], got[i])))
+            for i in range(len(want)) if got[i] != want[i]]
+    res["f32"] = dict(
+        mesh=info, requests=len(want), equal_requests=int(equal),
+        divergences=gaps, build_s=build_s, seconds=dt, tok_s=toks / dt,
+        one_card_graph_s=one_s, one_card_tok_s=sum(map(len, want)) / one_s,
+        steps=counts[0]["steps"], counts=counts, budget_a_step=budget)
+    log(f"[tp f32] {smi} | {TP_LABEL} | " + json.dumps(res["f32"]))
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert not gaps, f"tp=2 f32 tokens differ from tp=1: {gaps}"
+    assert info == {"tp_degree": 2, "device_count": 1,
+                    "backend": "cuda-gloo", "kv_dtype": "float32"}, info
+
+    # (b) bf16, int8 arena, EQuARX all-reduce, streamed per rank
+    ckpt = tempfile.mkdtemp(prefix="tp-ckpt-")
+    try:
+        t0 = time.perf_counter()
+        save_sharded_model(model, None, ckpt)
+        save_s = time.perf_counter() - t0
+        with skeleton_init():
+            skel = gpt_1p3b(dtype=torch.bfloat16, seed=0)
+        t0 = time.perf_counter()
+        tp = LLMEngine(skel, checkpoint_path=ckpt, mesh=_tp_mesh(),
+                       kv_dtype="int8", quant_allreduce=True, **build)
+        build_s = time.perf_counter() - t0
+        try:
+            loads = [r["load"] for r in tp.rank_reports()]
+            got, dt, counts = _tp_wave(tp, prompts)
+            budget = _tp_gate(tp, counts, "int8")
+            info = tp.mesh_info()
+        finally:
+            tp.close()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    pairs = [(a, b) for g, w in zip(got, graph_outs_int8)
+             for a, b in zip(g, w)]
+    res["int8_q"] = dict(
+        mesh=info, quant_collectives=["attn_proj", "ffn_fc2"],
+        save_s=save_s, build_s=build_s, loads=loads,
+        seconds=dt, tok_s=sum(map(len, got)) / dt,
+        steps=counts[0]["steps"], counts=counts, budget_a_step=budget,
+        tokens=len(pairs), tokens_equal_tp1=int(sum(a == b for a, b in pairs)),
+        requests_equal_tp1=int(sum(g == w for g, w in
+                                   zip(got, graph_outs_int8))))
+    log(f"[tp int8+q] {smi} | {TP_LABEL} | " + json.dumps(res["int8_q"]))
+    assert all(len(o) == 32 for o in got), "a request did not finish"
+    for rep in loads:
+        # a rank holds its shard: under half the model, plus the
+        # replicated norms and position embeddings
+        assert 0 < rep["max_chip_bytes"] < 0.55 * 2_631_639_040, rep
+        assert 0 < rep["peak_host_bytes"] <= 206_045_184 // 2, rep
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[tp] {smi} | phase 3h seconds {res['seconds']:.1f} ({TP_LABEL})")
+    return res
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def parity():
@@ -3361,6 +3569,7 @@ def main():
     http = front_door(model, served)
     feature = feature_waves(model, served, graph_outs)
     fleet_res = fleet(model, graph_outs, smi)
+    tp_res = tp_serving(model, graph_outs_int8, smi)
     del model
     torch.cuda.empty_cache()
     par = parity()
@@ -3381,9 +3590,12 @@ def main():
                             ("int8", served_int8["int8_launches"])):
         mine = [r for r in cases if r["arena"] == arena]
         head = next(r for r in mine if r["dtype"] == "bfloat16"
-                    and r["width"] == 1)
+                    and r["width"] == 1 and r["heads"] == H)
         wide = next(r for r in mine if r["dtype"] == "bfloat16"
-                    and r["width"] == 128)
+                    and r["width"] == 128 and r["heads"] == H)
+        # a tp=2 rank's share (8 heads), the launch shape of phase 3h
+        tp_head = next(r for r in mine if r["dtype"] == "bfloat16"
+                       and r["width"] == 1 and r["heads"] == H // 2)
         rpa.append({
             "name": "ragged_paged_attention"
                     + ("_int8" if arena == "int8" else ""),
@@ -3399,6 +3611,15 @@ def main():
                if arena == "float" else {}),
             "phase3f_launches": feature["launches"][
                 "ragged_int8" if arena == "int8" else "ragged"],
+            # phase 3h: each tp=2 rank's launches at its 8 heads (f32 on
+            # the float arena, bf16 on the int8 one), and the 8-head case
+            "tp2_rank_launches": [
+                c["ragged_int8" if arena == "int8" else "ragged"]
+                for c in tp_res["int8_q" if arena == "int8"
+                                else "f32"]["counts"]],
+            "tp2_shard_case": {k: tp_head[k] for k in (
+                "heads", "width", "max_err", "kernel_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")},
             "max_abs_err": max(r["max_err"] for r in mine
                                if r["dtype"] == "bfloat16"),
             "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
@@ -3423,6 +3644,8 @@ def main():
         "replaces": "paddle_tpu/serving/block_pool.py:185",
         "launches": served_int8["append_launches"],
         "phase3f_launches": feature["launches"]["append"],
+        "tp2_rank_launches": [c["append"]
+                              for c in tp_res["int8_q"]["counts"]],
         "max_abs_err": max(r["max_err"] for r in appends),
         "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3513,7 +3736,7 @@ def main():
                            appends=appends, graph_vs_eager=graph_eager,
                            serve=served, serve_int8=served_int8,
                            front_door=http, phase3f=feature,
-                           fleet=fleet_res,
+                           fleet=fleet_res, tp=tp_res,
                            overcap=overcap, parity=par, parity_int8=par_int8,
                            train=trained, train_parity=tpar, ernie=ernie,
                            train_dropout=gpt_drop, ernie_parity=epar,

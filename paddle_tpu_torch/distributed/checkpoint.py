@@ -25,6 +25,12 @@ its own, one at a time; the tree is never built on the host. The
 `StreamLoadReport` records the bounds (``peak_host_bytes``: the largest
 leaf; ``max_chip_bytes``: everything placed on the one device) that the
 engine's ``param_hbm_bytes`` budget and the tests hold.
+
+**Per-rank streaming** (`stream_model_into` with a serving mesh, and
+``load_sharded_model(mesh=...)``): a tensor-parallel rank reads only its
+own slice of each sharded leaf (serving/sharded.py `tp_dim`) out of the
+mapped member, so its host staging peaks at one slice and its device holds
+its shard alone; each rank keeps its own report.
 """
 from __future__ import annotations
 
@@ -320,20 +326,29 @@ def _gather_slice(reader, key, stored, shape, dtype_name, want):
     return _as_tensor(out, dtype_name)
 
 
-def stream_leaves(path, device=None, keys=None, report=None):
+def stream_leaves(path, device=None, keys=None, report=None, boxes=None):
     """Yield ``(key, tensor)`` for each array of the checkpoint (or of
     `keys`), one at a time: the leaf is read from its memory-mapped member
     into one host staging buffer and copied to `device` (None: stays on
-    the host). Nothing but the leaf being yielded is held, so a caller
-    that puts each leaf away before the next never holds the tree twice.
-    Bounds go into `report` (a `StreamLoadReport`) as they are met."""
+    the host). `boxes` ({key: [[start, stop], ...]}) restricts a leaf to
+    that box of its global shape, and only the box is read. Nothing but
+    the leaf being yielded is held, so a caller that puts each leaf away
+    before the next never holds the tree twice. Bounds go into `report`
+    (a `StreamLoadReport`) as they are met."""
     index = _read_index(path)
     reader = _ShardReader(path)
     dev = None if device is None else torch.device(device)
     for key, entry in index["arrays"].items():
         if keys is not None and key not in keys:
             continue
-        piece = _leaf(reader, key, entry)
+        box = None if boxes is None else boxes.get(key)
+        if box is None:
+            piece = _leaf(reader, key, entry)
+        else:
+            stored = [dict(s, index=[tuple(ab) for ab in s["index"]])
+                      for s in entry["shards"]]
+            piece = _gather_slice(reader, key, stored, tuple(entry["shape"]),
+                                  entry["dtype"], box)
         nbytes = piece.numel() * piece.element_size()
         if report is not None:
             report.note_host(nbytes)
@@ -348,13 +363,15 @@ def stream_leaves(path, device=None, keys=None, report=None):
         del piece
 
 
-def stream_load_state(path, device=None, keys=None):
+def stream_load_state(path, device=None, keys=None, boxes=None):
     """Stream a checkpoint to `device` one leaf at a time
-    (`stream_leaves`): the full tree is never staged on the host. Returns
+    (`stream_leaves`; `boxes` restricts leaves to a box each, a rank's
+    slices): the full tree is never staged on the host. Returns
     ``(nested_state_dict, StreamLoadReport)``."""
     report = StreamLoadReport()
     t0 = time.monotonic()
-    flat = dict(stream_leaves(path, device=device, keys=keys, report=report))
+    flat = dict(stream_leaves(path, device=device, keys=keys, report=report,
+                              boxes=boxes))
     if device is not None and torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     report.seconds = time.monotonic() - t0
@@ -383,34 +400,120 @@ def save_sharded_model(model, optimizer, path, opt_state=None, save_id=None):
     save_state(state, path, save_id=save_id)
 
 
+def _model_targets(model, mesh=None, param_specs=None):
+    """``(tp, rank, targets)``: the mesh's degree and this rank's index (1,
+    0 without a mesh) and {checkpoint key: (tensor, transposed, sharded
+    dim)} of a model's parameters and buffers. Under a mesh, `param_specs`
+    ({name: dim or None}, the ``[out, in]`` layout; default
+    `serving_param_specs`) marks the sharded ones of a rank's shard
+    module."""
+    from ..weights import _linear_weights
+
+    tp, rank, specs = 1, 0, {}
+    if mesh is not None:
+        tp, rank = mesh.tp_degree, mesh.rank
+        if param_specs is None:
+            from ..serving.sharded import serving_param_specs
+
+            param_specs = serving_param_specs(model)
+        specs = param_specs
+    linear = _linear_weights(model)
+    targets = {f"params/{k}": (p, k in linear, specs.get(k))
+               for k, p in model.named_parameters()}
+    targets.update({f"buffers/{k}": (b, False, None)
+                    for k, b in model.named_buffers()})
+    return tp, rank, targets
+
+
+def _global_shape(t, transpose, dim, tp):
+    """The checkpoint (JAX-layout) shape of a leaf whose model tensor is
+    `t`, `tp`-sharded along `dim` (None: whole)."""
+    shape = list(t.shape)
+    if dim is not None:
+        shape[dim] *= tp
+    return tuple(shape[::-1] if transpose else shape)
+
+
+def _rank_box(shape, transpose, dim, rank, tp):
+    """Rank `rank`'s box of a leaf of checkpoint `shape` sharded along the
+    model dim `dim` (the checkpoint's axes are reversed for a Linear)."""
+    box = [[0, n] for n in shape]
+    if dim is not None:
+        jdim = len(shape) - 1 - dim if transpose else dim
+        n = shape[jdim] // tp
+        box[jdim] = [rank * n, (rank + 1) * n]
+    return box
+
+
+def stream_model_into(model, path, device=None, report=None, mesh=None,
+                      param_specs=None):
+    """Fill `model`'s parameters and buffers in place from checkpoint
+    `path`, one leaf at a time (`stream_leaves`; Linear weights transposed
+    from the checkpoint's ``[in, out]``). With a serving `mesh`, `model` is
+    this rank's shard module (serving/sharded.py `shard_module`) and each
+    sharded parameter (`param_specs`, default `serving_param_specs`) reads
+    only the rank's slice. Every array must be in the checkpoint with the
+    (global) shape and dtype the model declares, else ValueError. Bounds go
+    into `report`."""
+    tp, rank, targets = _model_targets(model, mesh, param_specs)
+    arrays = _read_index(path)["arrays"]
+    missing = [k for k in targets if k not in arrays]
+    if missing:
+        raise ValueError(
+            f"checkpoint {path!r} is missing model arrays "
+            f"{missing[:4]}{' ...' if len(missing) > 4 else ''} — was "
+            "it saved from this architecture (save_sharded_model)?")
+    boxes = {}
+    for key, (t, transpose, dim) in targets.items():
+        shape = _global_shape(t, transpose, dim, tp)
+        dtype = _dtype_name(t)
+        got = arrays[key]
+        if tuple(got["shape"]) != shape or got["dtype"] != dtype:
+            kind, name = key.split("/", 1)
+            raise ValueError(
+                f"checkpoint {path!r}: {kind[:-1]} {name!r} is "
+                f"{got['dtype']}{tuple(got['shape'])} but the model "
+                f"declares {dtype}{shape} — checkpoint and model "
+                "config disagree")
+        if dim is not None:
+            boxes[key] = _rank_box(shape, transpose, dim, rank, tp)
+    with torch.no_grad():
+        for key, leaf in stream_leaves(path, device=device,
+                                       keys=set(targets), report=report,
+                                       boxes=boxes):
+            t, transpose, _ = targets[key]
+            t.copy_(leaf.t() if transpose else leaf)
+
+
 def load_sharded_model(model, optimizer, path, mesh=None, param_specs=None,
                        stream=False):
     """Load a checkpoint into `model` (and `optimizer`) in place: each
     parameter is copied into the model's own tensor on its device (Linear
     weights transposed back to ``[out, in]``), buffers likewise, and the
     optimizer's slots through `weights.from_jax_optimizer_state`.
-    ``stream=True`` reads leaf by leaf from the mapped members. A mesh is
-    tensor-parallel placement, which the port has not reached. Returns
-    the loaded state (tensors on the host)."""
-    from ..weights import _linear_weights, from_jax_optimizer_state
+    ``stream=True`` reads leaf by leaf from the mapped members. With a
+    serving `mesh` (serving/sharded.py), `model` is this rank's shard
+    module and each sharded parameter (`param_specs`, {name: dim}; default
+    `serving_param_specs`) loads only the rank's slice. Returns the loaded
+    state (tensors on the host; a rank's slices under a mesh)."""
+    from ..weights import from_jax_optimizer_state
 
-    if mesh is not None or param_specs is not None:
-        raise NotImplementedError(
-            "load_sharded_model: mesh placement waits for tensor-parallel "
-            "serving (ROADMAP Queue 1, item 6)")
     del stream   # one process, one device: every load reads leaf by leaf
-    linear = _linear_weights(model)
+    tp, rank, targets = _model_targets(model, mesh, param_specs)
+    boxes = {}
+    if mesh is not None:
+        arrays = _read_index(path)["arrays"]
+        boxes = {key: _rank_box(tuple(arrays[key]["shape"]), transpose, dim,
+                                rank, tp)
+                 for key, (_, transpose, dim) in targets.items()
+                 if dim is not None and key in arrays}
     state = {}
-    targets = {f"params/{k}": (p, k in linear)
-               for k, p in model.named_parameters()}
-    targets.update({f"buffers/{k}": (b, False)
-                    for k, b in model.named_buffers()})
     with torch.no_grad():
-        for key, t in stream_leaves(path):
+        for key, t in stream_leaves(path, boxes=boxes):
             state[key] = t
             dst = targets.get(key)
             if dst is not None:
-                tensor, transpose = dst
+                tensor, transpose, _ = dst
                 tensor.copy_(t.t() if transpose else t)
     state = _unflatten(state)
     opt = state.get("opt")

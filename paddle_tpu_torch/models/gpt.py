@@ -1,9 +1,12 @@
 """GPT: the decoder-only LM (BASELINE config 4: GPT-1.3B), in PyTorch.
 
 The counterpart of `paddle_tpu/models/gpt.py` for serving and training.
-Its tensor-parallel layers run at tp=1 here, so they are plain
-`nn.Linear` and `nn.Embedding`. Parameter names are the JAX package's
-(`weights.py` carries a JAX state dict over). Three attention paths:
+Its tensor-parallel layers are plain `nn.Linear` and `nn.Embedding`: on a
+tensor-parallel serving rank (serving/sharded.py `shard_module`) they hold
+the rank's shard, and the paged path's hooks add the collectives
+(`_vocab_parallel_embedding`, `_serving_row_parallel`). Parameter names
+are the JAX package's (`weights.py` carries a JAX state dict over). Three
+attention paths:
 
 - the paged path, when `caches` is a `PagedState` (`serving/block_pool.py`):
   new K/V go into the block arena and attention goes through
@@ -117,6 +120,51 @@ def _serving_column_parallel(linear, x, op_name, cache):
     return (y.float() + delta).to(y.dtype)
 
 
+def _serving_row_parallel(linear, x, op_name, cache):
+    """A row-parallel output projection (attn proj, ffn fc2) on the paged
+    serving path. On a tensor-parallel rank (the threaded-through
+    `PagedState` carries a mesh) `linear` holds the rank's ``[out, in /
+    tp]`` shard and `x` its slice of the input: the float32 partial sums
+    go through one all-reduce, or through the EQuARX int8 collective
+    (serving/sharded.py `quantized_row_parallel`, over the rows that carry
+    a token) when the state names `op_name` in its
+    ``quant_collectives``; the replicated bias adds after
+    the sum, and the result is rounded once to x's dtype. Anywhere else it
+    is the plain layer."""
+    st = getattr(cache, "state", None)
+    smesh = getattr(st, "mesh", None)
+    if smesh is None:
+        return linear(x)
+    from ..ops.fused_ce import mm_f32
+    from ..parallel.collectives import all_reduce
+    from ..serving.sharded import quantized_row_parallel
+
+    if op_name in st.quant_collectives:
+        y = quantized_row_parallel(x, linear.weight, linear.bias,
+                                   smesh.group, live=st.live)
+    else:
+        y = mm_f32(x.reshape(-1, x.shape[-1]), linear.weight.t())
+        y = all_reduce(y, smesh.group).reshape(*x.shape[:-1], -1)
+        if linear.bias is not None:
+            y = y + linear.bias.float()
+    return y.to(x.dtype)
+
+
+def _vocab_parallel_embedding(weight, ids, smesh):
+    """The token embedding on a tensor-parallel rank, whose `weight` holds
+    the vocab rows ``[rank * V/tp, (rank + 1) * V/tp)``: each rank looks
+    up the ids in its range, zeroes the rest, and one all-reduce sums the
+    ranks' rows (exact: one rank holds each id)."""
+    from ..parallel.collectives import all_reduce
+
+    n = weight.shape[0]
+    local = ids.long() - smesh.rank * n
+    mine = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), weight)
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return all_reduce(rows, smesh.group)
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
@@ -136,7 +184,8 @@ class CausalSelfAttention(nn.Module):
             from ..serving.block_pool import paged_attention
 
             o = paged_attention(q, k, v, cache)
-            return self.proj(o.reshape(b, s, width)), cache
+            return _serving_row_parallel(self.proj, o.reshape(b, s, width),
+                                         "attn_proj", cache), cache
         if cache is not None:
             # incremental decode over a fixed-size cache, updated in place
             k_buf, v_buf, cur = cache
@@ -168,7 +217,8 @@ class GPTBlock(nn.Module):
 
     def _mlp(self, x, cache=None):
         h = _serving_column_parallel(self.fc1, self.ln2(x), "ffn_fc1", cache)
-        return self.fc2(F.gelu(h, approximate="tanh"))
+        return _serving_row_parallel(self.fc2, F.gelu(h, approximate="tanh"),
+                                     "ffn_fc2", cache)
 
     def forward(self, x, cache=None, gens=None):
         if cache is not None:
@@ -277,8 +327,13 @@ class GPT(nn.Module):
         else:
             pos = pos_offset + torch.arange(s, device=input_ids.device)[None]
         gens = self.dropout_generators
-        x = dropout(self.wte(input_ids) + self.wpe(pos), self.cfg.dropout,
-                    self.training, gens.elem)
+        if paged and caches.mesh is not None:
+            tok = _vocab_parallel_embedding(self.wte.weight, input_ids,
+                                            caches.mesh)
+        else:
+            tok = self.wte(input_ids)
+        x = dropout(tok + self.wpe(pos), self.cfg.dropout, self.training,
+                    gens.elem)
         new_caches = [] if caches is not None and not paged else None
         for i, blk in enumerate(self.blocks):
             if paged:
@@ -292,7 +347,8 @@ class GPT(nn.Module):
         return x, (caches if paged else new_caches)
 
     def logits(self, h):
-        """The tied LM head: h @ wte.weight^T."""
+        """The tied LM head: h @ wte.weight^T (on a tensor-parallel rank,
+        the logits of its vocab rows; the engine gathers the full rows)."""
         return h @ self.wte.weight.t()
 
     def head_loss(self, h, labels):

@@ -7,9 +7,11 @@ ragged width bucket:
 - **Adapter weights are an extra ``[num_slots, ...]`` table next to the
   base parameters.** Each column-parallel target op (the fused QKV and the
   FFN up-projection) gets a pair of stacked float32 tables on the engine's
-  device: ``A [S, L, in, r]`` and ``B [S, L, r, out]``. Tensor-parallel
-  table layouts (`table_shardings`, the ``smesh`` argument) wait for
-  tensor-parallel serving.
+  device: ``A [S, L, in, r]`` and ``B [S, L, r, out]``. On a
+  tensor-parallel rank (the ``smesh`` argument, serving/sharded.py) A is
+  replicated and B holds the rank's columns of the out axis, the base
+  column weight's layout (`table_shardings`), so the delta lands in the
+  rank's own output columns with no collective.
 - **Slot 0 is the base model.** Both tables are all zeros there, so a lane
   whose request carries no adapter adds an exact zero: the engine with
   adapters enabled serves plain requests bit for bit as the base engine.
@@ -57,23 +59,22 @@ def target_dims(cfg, target):
                      f"(supported: {LORA_TARGETS})")
 
 
-def _no_mesh(smesh):
-    if smesh is not None:
-        raise NotImplementedError(
-            "LoRA tables on a serving mesh wait for tensor-parallel serving "
-            "(ROADMAP Queue 1, item 6)")
-
-
 def init_adapter_tables(cfg, num_slots, rank, targets=LORA_TARGETS,
                         smesh=None, device=None):
     """Zeroed stacked adapter tables for an engine with ``num_slots`` slots
     (slot 0 = the all-zeros base): {target: (A [S, L, in, r], B [S, L, r,
-    out])}, float32 on `device` (None = CUDA, which must exist)."""
-    _no_mesh(smesh)
+    out])}, float32 on `device` (None = CUDA, which must exist). On a
+    serving mesh `smesh`, B holds this rank's ``out / tp`` columns."""
     device = resolve_device(device)
     tables = {}
     for t in targets:
         d_in, d_out = target_dims(cfg, t)
+        if smesh is not None:
+            if d_out % smesh.tp_degree:
+                raise ValueError(
+                    f"LoRA target {t!r}: out dim {d_out} not divisible by "
+                    f"tp degree {smesh.tp_degree}")
+            d_out //= smesh.tp_degree
         tables[t] = (
             torch.zeros((num_slots, cfg.num_layers, d_in, rank),
                         dtype=torch.float32, device=device),
@@ -83,9 +84,26 @@ def init_adapter_tables(cfg, num_slots, rank, targets=LORA_TARGETS,
 
 
 def table_shardings(targets, smesh):
-    """The tables' layout on a serving mesh: waits for tensor-parallel
-    serving."""
-    _no_mesh(smesh)
+    """The tables' layout on a serving mesh, as sharded dimensions
+    ({target: (A's, B's)}, None = replicated): A replicated, B sharded on
+    its out axis (dim 3 of ``[S, L, r, out]``), as in the JAX function.
+    `smesh` is accepted for its signature (every degree shares the
+    layout)."""
+    del smesh
+    return {t: (None, 3) for t in targets}
+
+
+def shard_adapter(packed, smesh):
+    """`pack_adapter`'s output as a rank of `smesh` stores it: each B cut
+    to the rank's out columns (None: one card, unchanged)."""
+    if smesh is None:
+        return packed
+    tp, r = smesh.tp_degree, smesh.rank
+    out = {}
+    for t, (a, b) in packed.items():
+        n = b.shape[-1] // tp
+        out[t] = (a, b[..., r * n:(r + 1) * n])
+    return out
 
 
 def pack_adapter(cfg, weights, rank, targets, alpha=None):

@@ -22,6 +22,7 @@ open: build skeletons one at a time, not beside other model builds.
 from __future__ import annotations
 
 import contextlib
+import copy
 
 import torch
 
@@ -54,3 +55,20 @@ def is_skeleton(module):
     for p in module.parameters():
         return p.is_meta
     return False
+
+
+def meta_copy(model):
+    """A skeleton of `model`: a deep copy of its module tree whose
+    parameters and buffers are ``meta`` stand-ins of the same shapes and
+    dtypes (no tensor is copied) and whose dropout generators are dropped
+    (`to_empty` seeds them anew). It pickles, so a spawned process can
+    receive it whole."""
+    memo = {id(b): torch.empty_like(b, device="meta")
+            for b in model.buffers()}
+    memo.update({id(p): torch.nn.Parameter(
+        torch.empty_like(p, device="meta"), requires_grad=p.requires_grad)
+        for p in model.parameters()})
+    gens = getattr(model, "dropout_generators", None)
+    if gens is not None:
+        memo[id(gens)] = None
+    return copy.deepcopy(model, memo)

@@ -20,6 +20,10 @@ beside prefill-chunk and speculative-verify rows.
 - `paged_attention_arrays` chooses by the tensor's device alone: a CPU tensor
   takes the plain version, a CUDA tensor the kernel. There is no switch and
   no fallback: a CUDA call the kernel cannot take raises.
+- Under tensor parallelism (serving/sharded.py) each rank's arena and q hold
+  its own ``heads / tp`` heads, and each rank calls this same dispatch on
+  them: the counterpart of the JAX `ragged_paged_attention_sharded`, with
+  no collective. `kernel_design` does not depend on the head count.
 """
 from __future__ import annotations
 

@@ -12,7 +12,8 @@ prefix-affinity routing, ejection, retry-elsewhere and rolling drain,
 `AutoScaler` (autoscale.py) spawns and retires them on SLO signals, and
 `RouterServer` (server.py) exposes the fleet over HTTP. A replica built
 with ``LLMEngine(skeleton, checkpoint_path=...)`` streams its weights from
-disk (distributed/checkpoint.py).
+disk (distributed/checkpoint.py). ``LLMEngine(model, mesh=N)`` serves over
+N tensor-parallel ranks (sharded.py, tp_worker.py).
 """
 from . import faults  # noqa: F401
 from .autoscale import AutoScaler
@@ -30,18 +31,23 @@ from .postmortem import FlightRecorder
 from .router import Replica, ReplicaRouter, RoutedStream
 from .scheduler import Request, Scheduler
 from .server import RouterServer, ServingServer
+from .sharded import (ServingMesh, as_serving_mesh, build_serving_mesh,
+                      serving_collective_budget, serving_param_specs)
 from .slo import SLOLedger
 from .spec import NgramDrafter
 from .supervisor import EngineHealth, EngineSupervisor, StepWatchdog
+from .tp_worker import RankFailed
 from .trace import EngineTracer
 
 __all__ = ["AsyncLLMEngine", "AutoScaler", "BlockPool",
            "EngineClosedError", "EngineHealth", "EngineOverloadedError",
            "EngineSupervisor", "EngineTracer", "FaultInjected", "FaultPlan",
            "FaultPoint", "FlightRecorder", "KVTier", "LLMEngine",
-           "LifecycleError", "NgramDrafter", "PagedState", "Replica",
-           "ReplicaLifecycle", "ReplicaRouter", "Request", "RequestStream",
-           "RoutedStream", "RouterServer", "SLOLedger", "Scheduler",
-           "SchedulingPolicy", "ServingMetrics", "ServingServer",
-           "StepOutput", "StepWatchdog", "as_policy", "chain_block_hashes",
-           "kv_capacity_blocks"]
+           "LifecycleError", "NgramDrafter", "PagedState", "RankFailed",
+           "Replica", "ReplicaLifecycle", "ReplicaRouter", "Request",
+           "RequestStream", "RoutedStream", "RouterServer", "SLOLedger",
+           "Scheduler", "SchedulingPolicy", "ServingMesh", "ServingMetrics",
+           "ServingServer", "StepOutput", "StepWatchdog", "as_policy",
+           "as_serving_mesh", "build_serving_mesh", "chain_block_hashes",
+           "kv_capacity_blocks", "serving_collective_budget",
+           "serving_param_specs"]

@@ -40,6 +40,7 @@ injected ``alloc_fail`` faults (serving/faults.py) as instants on its
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 from collections import OrderedDict
 
@@ -56,17 +57,20 @@ def blocks_for(num_tokens, block_size):
 
 
 def kv_capacity_blocks(kv_bytes, num_layers, num_heads, block_size,
-                       head_dim, dtype_itemsize, scale_itemsize=0):
-    """KV blocks a byte budget buys on one card: K + V payloads of
+                       head_dim, dtype_itemsize, tp_degree=1,
+                       scale_itemsize=0):
+    """KV blocks a per-card byte budget buys: K + V payloads of
     `dtype_itemsize` bytes a value, plus, for an int8 arena, the two
     per-(layer, head) scale entries of `scale_itemsize` (4, float32) each
-    block carries. The JAX package's single-chip formula
-    (serving/sharded.py `kv_capacity_blocks` at tp_degree 1). Returns the
-    raw count (possibly 0 or 1); the engine rejects a budget too small to
-    serve."""
-    per_block = (2 * int(num_layers) * int(num_heads) * int(block_size)
+    block carries. The arena is head-sharded over tensor-parallel ranks, so
+    one card stores ``num_heads / tp_degree`` heads a block and the same
+    budget buys ``tp_degree`` times the blocks. The JAX package's formula
+    (serving/sharded.py `kv_capacity_blocks`). Returns the raw count
+    (possibly 0 or 1); the engine rejects a budget too small to serve."""
+    local_heads = -(-int(num_heads) // max(1, int(tp_degree)))
+    per_block = (2 * int(num_layers) * local_heads * int(block_size)
                  * int(head_dim) * int(dtype_itemsize)
-                 + 2 * int(num_layers) * int(num_heads) * int(scale_itemsize))
+                 + 2 * int(num_layers) * local_heads * int(scale_itemsize))
     return int(kv_bytes) // per_block
 
 
@@ -128,13 +132,20 @@ class PagedState:
     b_rows [B, L, r, out])}, the step's lanes' adapter rows
     (models/lora.py `gather_adapter_rows`), or None; models/gpt.py's
     column-parallel hook reads it per op.
+
+    A tensor-parallel engine adds ``mesh``, its `ServingMesh`
+    (serving/sharded.py; the arena then holds this rank's heads), and
+    ``quant_collectives``, the row-parallel ops whose all-reduce is
+    EQuARX-quantized; models/gpt.py's tp hooks read both. None on one
+    card.
     """
 
     is_paged = True
 
     def __init__(self, k, v, block_tables, slots, offs, qpos, q_start=None,
                  kv_live=None, q_lens=None, k_scale=None, v_scale=None,
-                 touched=None, touch_idx=None, lora=None):
+                 touched=None, touch_idx=None, lora=None, mesh=None,
+                 quant_collectives=()):
         self.k = k
         self.v = v
         self.block_tables = block_tables
@@ -149,6 +160,19 @@ class PagedState:
         self.touched = touched
         self.touch_idx = touch_idx
         self.lora = lora
+        self.mesh = mesh
+        self.quant_collectives = quant_collectives
+
+    @functools.cached_property
+    def live(self):
+        """[B, S] bool: the positions that carry a fed token (a lane's
+        first ``q_lens``), or None when every position does. Built at its
+        first read, once a step (the EQuARX projections read it)."""
+        if self.q_lens is None:
+            return None
+        s = self.qpos.shape[1]
+        return (torch.arange(s, device=self.qpos.device)[None, :]
+                < self.q_lens[:, None])
 
     def layer(self, i):
         return PagedLayerView(self, i)
@@ -251,11 +275,16 @@ class BlockPool:
     int8 payload with zeroed float32 scale sidecars ``k_scale``/``v_scale``
     ``[layers, heads, num_blocks]`` (``quantized`` is True); None keeps a
     `dtype` arena and no sidecars.
+
+    On a tensor-parallel rank `num_heads` is the rank's share of the
+    heads and ``tp_degree`` the mesh's degree (`bytes_per_block` reports
+    the logical block, every rank's heads); ``fanout`` (set by the engine)
+    replays `copy_blocks` on the other ranks.
     """
 
     def __init__(self, num_blocks, num_layers, block_size, num_heads,
                  head_dim, dtype=torch.float32, device=None, metrics=None,
-                 tracer=None, kv_dtype=None):
+                 tracer=None, kv_dtype=None, tp_degree=1):
         if num_blocks < 2:
             raise ValueError("BlockPool needs >= 2 blocks (block 0 is null)")
         if kv_dtype not in (None, "int8"):
@@ -286,6 +315,8 @@ class BlockPool:
         self.metrics = metrics
         self.tracer = tracer          # serving/trace.py EngineTracer or None
         self.tier = None              # host-memory tier (serving/kv_tier.py)
+        self.tp_degree = int(tp_degree)
+        self.fanout = None            # tp: replays copy_blocks on the ranks
 
     def attach_tier(self, tier):
         """Install the host-memory tier (serving/kv_tier.py): evicted
@@ -317,9 +348,11 @@ class BlockPool:
         return blocks_for(num_tokens, self.block_size)
 
     def bytes_per_block(self):
-        """Device bytes one block costs: K + V payloads over all layers,
-        plus an int8 arena's two scale-sidecar entries per (layer, head)."""
+        """Device bytes one logical block costs: K + V payloads over all
+        layers and heads (every rank's, under tensor parallelism), plus an
+        int8 arena's two scale-sidecar entries per (layer, head)."""
         L, H, _, bs, D = self.k.shape
+        H *= self.tp_degree
         per = 2 * L * H * bs * D * self.k.element_size()
         if self.quantized:
             per += 2 * L * H * self.k_scale.element_size()
@@ -455,6 +488,8 @@ class BlockPool:
             # arena-write ordering: buffered demotions copy their (still
             # valid) bytes out before this copy lands on them
             self.tier.flush_saves()
+        if self.fanout is not None:
+            self.fanout("copy_blocks", list(src), list(dst))
         s = torch.as_tensor(src, dtype=torch.long, device=self.device)
         d = torch.as_tensor(dst, dtype=torch.long, device=self.device)
         for t in (self.k, self.v, self.k_scale, self.v_scale):

@@ -36,6 +36,14 @@ tokens as they land, `generate` runs a batch to completion.
 - ``quantize="int8"`` rounds the blocks' Linear weights to an int8 grid
   with AdaRound (quantization/adaround.py) at construction, calibrated on
   ``calib_prompts``, and serves the dequantized values.
+- ``mesh=N`` (or a `ServingMesh`, serving/sharded.py) serves over N
+  tensor-parallel ranks: this engine stays the one controller and starts
+  N - 1 rank processes (serving/tp_worker.py), each holding its head shard
+  of the weights and of the arena; every device-mutating operation (a
+  step, a copy-on-write copy, an adapter write, a host-tier copy) runs on
+  every rank in order. ``quant_allreduce`` sends the row-parallel
+  all-reduces as EQuARX int8 (`sharded.quantized_row_parallel`). Greedy and
+  sampled tokens equal the one-card engine's.
 - ``checkpoint_path`` streams the weights from a checkpoint
   (distributed/checkpoint.py) into the engine's own module, a copy of the
   model's structure on the engine's device, so the model may be a
@@ -85,24 +93,22 @@ Every keyword left as None reads the JAX engine's environment switch
 (``PADDLE_TPU_PREFIX_CACHE``, ``_SPEC_DECODE``, ``_KV_DTYPE``,
 ``_WIDTH_BUCKETS``, ``_HOST_KV_BLOCKS``, ``_TRACE``, ``_TRACE_BUF``,
 ``_REQUEST_LOG``, ``_SLO``, ``_POSTMORTEM_DIR``, ``_POSTMORTEM_KEEP``,
-``_FAULTS``) exactly as that engine does. ``PADDLE_TPU_TP`` and
-``_QUANT_ALLREDUCE`` name parts the port has not reached: set to anything
-but their "off" value, they raise `NotImplementedError`.
+``_FAULTS``, ``_TP``, ``_QUANT_ALLREDUCE``) exactly as that engine does.
 
-The engine runs on CUDA unless `device` says otherwise; the model must
-live on the engine's device. Options of the JAX engine that this port does
-not have yet raise `NotImplementedError` at construction.
+The engine runs on CUDA unless `device` says otherwise (a mesh: on its
+rank 0's device); the model must live on the engine's device.
 """
 from __future__ import annotations
 
 import contextlib
-import copy
+import functools
 import json
 import logging
 import os
 import threading
 import time
 import warnings
+import weakref
 from collections import namedtuple
 
 import numpy as np
@@ -110,7 +116,7 @@ import torch
 
 from .._device import resolve_device
 from ..models import lora as lora_mod
-from ..nn.layer import is_skeleton
+from ..nn.layer import is_skeleton, meta_copy
 from ..ops import counts
 from ..profiler.tracing import trace_capacity_from_env, trace_sample_from_env
 from . import faults
@@ -122,6 +128,8 @@ from .metrics import ServingMetrics
 from .policy import as_policy
 from .postmortem import FlightRecorder
 from .scheduler import WAITING, Request, Scheduler
+from .sharded import as_serving_mesh, gather_vocab
+from .tp_worker import RankFailed, RankSet, rank_report
 from .slo import SLOLedger
 from .spec import NgramDrafter, spec_emit_arrays
 from .trace import EngineTracer
@@ -137,12 +145,6 @@ def _env_flag(name, default):
         return default
     return v.strip().lower() not in ("0", "false", "off", "no", "")
 
-# constructor options of the JAX engine that later slices of the port add
-# (ROADMAP.md), with the value that means "off"
-_LATER = {
-    "mesh": (None, "tensor-parallel serving"),
-    "quant_allreduce": (None, "the quantized tensor-parallel all-reduce"),
-}
 
 # host metadata packed into one int32 transfer per step: [B, W] fields,
 # then [B, max_blocks] tables, then the [B] fields, then (int8 arena)
@@ -151,14 +153,36 @@ _ROW_FIELDS = ("ids", "qpos", "slots", "offs")
 _LANE_FIELDS = ("q_start", "kv_live", "last_idx", "spec_lens", "top_ks",
                 "adapter_slots")
 
-# environment switches of the JAX engine that name a part the port has not
-# reached: (variable, what it turns on, its "off" test)
-_LATER_ENV = (
-    ("PADDLE_TPU_TP", "tensor-parallel serving",
-     lambda v: int(v or 1) <= 1),
-    ("PADDLE_TPU_QUANT_ALLREDUCE", "the quantized tensor-parallel all-reduce",
-     lambda v: v.strip().lower() in ("", "0", "false", "off", "no")),
-)
+# the row-parallel collectives EQuARX can quantize
+_QUANT_OPS = frozenset({"attn_proj", "ffn_fc2"})
+
+
+def _quant_ops(quant_allreduce):
+    """The JAX engine's reading of ``quant_allreduce``: True = both
+    row-parallel projections, an iterable names a subset; None reads
+    ``PADDLE_TPU_QUANT_ALLREDUCE`` ("1" or a comma list). Unknown names
+    raise."""
+    if quant_allreduce is None:
+        qa = os.environ.get("PADDLE_TPU_QUANT_ALLREDUCE", "").strip()
+        if qa.lower() in ("", "0", "false", "off", "no"):
+            quant_allreduce = None
+        elif qa.lower() in ("1", "true", "on", "yes"):
+            quant_allreduce = True
+        else:
+            quant_allreduce = [o.strip() for o in qa.split(",") if o.strip()]
+    if quant_allreduce is True:
+        quant_allreduce = tuple(_QUANT_OPS)
+    ops = frozenset(quant_allreduce or ())
+    if not ops <= _QUANT_OPS:
+        raise ValueError(
+            f"quant_allreduce names unknown ops {sorted(ops - _QUANT_OPS)}"
+            " — the quantizable RowParallel collectives are 'attn_proj' "
+            "and 'ffn_fc2'")
+    return ops
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
 
 
 def _adaround_model_int8(model, calib_prompts, iters=300):
@@ -216,15 +240,6 @@ def _adaround_model_int8(model, calib_prompts, iters=300):
             s.weight.copy_((q * scales).to(s.weight.dtype).t())
 
 
-def _refuse_later_env():
-    for name, what, off in _LATER_ENV:
-        v = os.environ.get(name)
-        if v is not None and not off(v):
-            raise NotImplementedError(
-                f"{name}={v!r}: {what} is not in the PyTorch port yet; "
-                "ROADMAP.md queues it for a later slice")
-
-
 class LLMEngine:
     def __init__(self, model, device=None, block_size=16, num_blocks=None,
                  max_batch=4, prefill_chunk=None, token_budget=None,
@@ -237,7 +252,25 @@ class LLMEngine:
                  host_kv_blocks=None, host_swap_chunk=4, quantize=None,
                  calib_prompts=None, quantize_iters=300, lora_slots=0,
                  lora_rank=8, lora_targets=None, warmup=False,
-                 checkpoint_path=None, param_hbm_bytes=None, **later):
+                 checkpoint_path=None, param_hbm_bytes=None, mesh=None,
+                 quant_allreduce=None):
+        # tensor-parallel serving (serving/sharded.py): an int degree or a
+        # ServingMesh; PADDLE_TPU_TP gives the degree when mesh is unset,
+        # and degree 1 keeps the one-card engine. A rank process builds its
+        # engine with its own mesh (rank >= 1, group joined).
+        if mesh is None:
+            env_tp = int(os.environ.get("PADDLE_TPU_TP", "1") or 1)
+            mesh = env_tp if env_tp > 1 else None
+        self._smesh = as_serving_mesh(mesh, device=device)
+        self._tp = None           # the rank processes (controller only)
+        self._rank_reports = []   # each rank's report once it is ready
+        self._is_rank = self._smesh is not None and self._smesh.rank > 0
+        if self._smesh is not None and not self._is_rank:
+            # this engine's own copy: its group is the engine's alone, so
+            # one ServingMesh may describe several engines
+            self._smesh = self._smesh.for_rank(0)
+        if self._smesh is not None:
+            self._smesh.validate_model(model.cfg)
         if quantize is not None and quantize is not False:
             if quantize != "int8":
                 raise ValueError(
@@ -250,22 +283,17 @@ class LLMEngine:
                     "single-chip engine, save_sharded_model its weights, "
                     "then serve THAT checkpoint (kv_dtype='int8' composes "
                     "with streaming as-is)")
-            if later.get("mesh") is not None:
+            if self._smesh is not None:
                 raise ValueError(
                     "quantize='int8' requires mesh=None: AdaRound "
                     "calibrates against the eager single-device model "
                     "before placement — quantize first, then build the "
                     "sharded engine from the quantized model")
-        for name, value in later.items():
-            if name not in _LATER:
-                raise TypeError(f"LLMEngine got an unexpected keyword "
-                                f"argument {name!r}")
-            off, what = _LATER[name]
-            if value is not None and value is not False and value != off:
-                raise NotImplementedError(
-                    f"{name}={value!r}: {what} is not in the PyTorch port "
-                    "yet; ROADMAP.md queues it for a later slice")
-        _refuse_later_env()
+        # EQuARX int8 row-parallel all-reduces, per op; meaningless (and
+        # dropped) on one card, which has no collective to quantize
+        self.quant_collectives = _quant_ops(quant_allreduce)
+        if self._smesh is None:
+            self.quant_collectives = frozenset()
         if kv_dtype is None:
             kv_dtype = os.environ.get("PADDLE_TPU_KV_DTYPE", "") or None
         if kv_dtype is not None and kv_dtype != "int8":
@@ -273,13 +301,23 @@ class LLMEngine:
                 f"kv_dtype {kv_dtype!r} not supported: pass 'int8' for the "
                 "quantized arena or None for the weight dtype")
         quantized = kv_dtype == "int8"
-        self.device = resolve_device(device)
-        if is_skeleton(model) and checkpoint_path is None:
+        if self._smesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = self._smesh.device
+            if (device is not None
+                    and resolve_device(device) != self.device):
+                raise ValueError(
+                    f"device {device!r} is not the mesh's rank-0 device "
+                    f"{self.device}")
+        if (is_skeleton(model) and checkpoint_path is None
+                and not self._is_rank):
             raise ValueError(
                 "model was built under skeleton_init() (no real weight "
                 "arrays) — pass checkpoint_path= so the engine can stream "
                 "weights from disk, or build the model eagerly")
-        if checkpoint_path is None and model.device != self.device:
+        if (checkpoint_path is None and not self._is_rank
+                and model.device != self.device):
             raise ValueError(
                 f"model lives on {model.device} but the engine runs on "
                 f"{self.device}: build the model on the engine's device")
@@ -300,6 +338,7 @@ class LLMEngine:
         self.max_blocks = -(-self.max_seq_len // self.block_size)
         self.max_batch = int(max_batch)
         head_dim = cfg.hidden_size // cfg.num_heads
+        tp = 1 if self._smesh is None else self._smesh.tp_degree
         if kv_hbm_bytes is not None:
             if num_blocks is not None:
                 raise ValueError(
@@ -310,13 +349,15 @@ class LLMEngine:
                 kv_hbm_bytes, cfg.num_layers, cfg.num_heads, self.block_size,
                 head_dim,
                 1 if quantized else model.wte.weight.element_size(),
-                scale_itemsize=4 if quantized else 0)
+                tp_degree=tp, scale_itemsize=4 if quantized else 0)
             worst = blocks_for(self.max_seq_len - 1, self.block_size)
             if num_blocks < 1 + worst:
                 raise ValueError(
                     f"kv_hbm_bytes {kv_hbm_bytes} buys only {num_blocks} KV "
-                    f"blocks but one max_seq_len={self.max_seq_len} "
-                    f"sequence needs {worst} (+ the null block)")
+                    f"blocks per shard but one max_seq_len="
+                    f"{self.max_seq_len} sequence needs {worst} (+ the "
+                    "null block) — raise the budget, lower max_seq_len, "
+                    "or raise tp_degree")
         if num_blocks is None:
             # a full decode batch of max-length sequences (+ the null block)
             num_blocks = self.max_batch * self.max_blocks + 1
@@ -417,6 +458,9 @@ class LLMEngine:
         if checkpoint_path is not None:
             self.model = self._stream_params_from_checkpoint(
                 model, checkpoint_path)
+        elif self._smesh is not None:
+            # tensor-parallel: this rank's shard of the caller's weights
+            self.model = self._place_shard(model)
         # per-card parameter budget: fail at construction, naming the
         # overage, when the device holds more parameter bytes than allowed
         # (`param_bytes_by_device` charges the caller's eager model too)
@@ -432,10 +476,12 @@ class LLMEngine:
                     "fit one chip. Serve it from a sharded checkpoint "
                     "(LLMEngine(skeleton, checkpoint_path=..., mesh=N)) "
                     "so no chip ever materializes the full tree")
+        # the arena holds this rank's heads under tensor parallelism
         self.pool = BlockPool(num_blocks, cfg.num_layers, self.block_size,
-                              cfg.num_heads, head_dim, dtype=model.dtype,
-                              device=self.device, metrics=self.metrics,
-                              tracer=self.tracer, kv_dtype=kv_dtype)
+                              cfg.num_heads // tp, head_dim,
+                              dtype=model.dtype, device=self.device,
+                              metrics=self.metrics, tracer=self.tracer,
+                              kv_dtype=kv_dtype, tp_degree=tp)
         # host-memory KV tier (serving/kv_tier.py): None/0 = off, one
         # pointer, every hook a single test
         if host_kv_blocks is None:
@@ -446,7 +492,7 @@ class LLMEngine:
             from .kv_tier import KVTier
 
             self.tier = KVTier(self.pool, host_kv_blocks,
-                               metrics=self.metrics,
+                               mesh=self._smesh, metrics=self.metrics,
                                swap_chunk=host_swap_chunk,
                                stream=self._stream)
             self.pool.attach_tier(self.tier)
@@ -484,7 +530,7 @@ class LLMEngine:
                                       or lora_mod.LORA_TARGETS)
             self._lora_tables = lora_mod.init_adapter_tables(
                 cfg, 1 + self.lora_slots, self.lora_rank,
-                self.lora_targets, device=self.device)
+                self.lora_targets, smesh=self._smesh, device=self.device)
         self._requests = {}
         self._phases = {}   # current step's {phase: (t0, t1)} when tracing
         # stamped by AsyncLLMEngine.start(): while that thread lives, the
@@ -504,6 +550,21 @@ class LLMEngine:
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.device.type == "cuda" else None)
         self._retrace_warned = False
+        if self._smesh is not None and not self._is_rank:
+            self._start_ranks(model, dict(
+                block_size=self.block_size, num_blocks=num_blocks,
+                max_batch=self.max_batch, prefill_chunk=self.prefill_chunk,
+                token_budget=int(token_budget), max_seq_len=self.max_seq_len,
+                seed=seed, prefix_cache=False,
+                spec_decoding=self.spec_decoding,
+                num_spec_tokens=self.num_spec_tokens,
+                width_buckets=list(self.width_buckets), kv_dtype=kv_dtype,
+                host_kv_blocks=host_kv_blocks,
+                host_swap_chunk=host_swap_chunk, lora_slots=self.lora_slots,
+                lora_rank=self.lora_rank,
+                lora_targets=self.lora_targets or None,
+                quant_allreduce=tuple(sorted(self.quant_collectives)),
+                checkpoint_path=checkpoint_path))
         if warmup:
             self.warmup()
         self.lifecycle.to("warm", "weights placed"
@@ -511,62 +572,61 @@ class LLMEngine:
 
     # -- construction helpers ----------------------------------------------
 
+    def _start_ranks(self, model, engine_kw):
+        """Start ranks 1 .. N-1 (serving/tp_worker.py), each building its
+        engine with `engine_kw` (every value resolved here, so no rank
+        reads the environment) over a skeleton of `model` (`meta_copy`,
+        pickled to the rank); send them their weight slices unless they
+        stream from the checkpoint; wait until each is ready; then route
+        the pool's and tier's device copies to them. CPU ranks run one
+        thread each (they share one host); every rank takes this process's
+        TF32 switches. A failure closes every rank and raises."""
+        spec = {"skeleton": meta_copy(model), "engine_kw": engine_kw,
+                "num_threads": 1 if self.device.type == "cpu" else None,
+                # float32 products as this process computes them
+                "tf32": (torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32)}
+        self._tp = RankSet.start(self._smesh, spec)
+        try:
+            if self.checkpoint_path is None:
+                self._send_shards(model)
+            self._rank_reports = self._tp.wait_ready()
+        except BaseException:
+            self._tp.close()
+            raise
+        weakref.finalize(self, self._tp.close, self._group_leaver())
+        self.pool.fanout = self._tp.send
+        if self.tier is not None:
+            self.tier.peers = self._tp
+        if self.param_hbm_bytes is not None:
+            peak = max(r["param_bytes"] for r in self._rank_reports)
+            if peak > self.param_hbm_bytes:
+                self._tp.close()
+                raise ValueError(
+                    f"param_hbm_bytes {self.param_hbm_bytes}: a rank "
+                    f"holds {peak} parameter bytes")
+
     def _stream_params_from_checkpoint(self, model, path):
         """The engine's own module with its weights streamed from a
-        checkpoint (distributed/checkpoint.py `stream_leaves`): a copy of
-        `model`'s structure (its tensors are never copied: a skeleton has
-        none, an eager model keeps its own) gets uninitialised storage on
-        the engine's device, and each leaf goes from its memory-mapped
-        member to the card and into its parameter on its own (Linear
-        weights transposed from the checkpoint's ``[in, out]``), so at
-        most one leaf is staged on the host and one beside the weights on
-        the card. The measured bounds land in `self.load_report` (a
-        StreamLoadReport) and the ``ckpt_stream_*`` gauges."""
-        from ..distributed.checkpoint import (StreamLoadReport, _dtype_name,
-                                              _read_index, stream_leaves)
-        from ..weights import _linear_weights
+        checkpoint (distributed/checkpoint.py `stream_model_into`): a copy
+        of `model`'s structure (its tensors are never copied: a skeleton
+        has none, an eager model keeps its own) gets uninitialised storage
+        on the engine's device (a tensor-parallel rank's: its shard,
+        `sharded.shard_module`), and each leaf (a rank's: its slice) goes
+        from its memory-mapped member to the device and into its parameter
+        on its own, so at most one leaf is staged on the host and one
+        beside the weights on the device. The measured bounds land in
+        `self.load_report` (a StreamLoadReport) and the ``ckpt_stream_*``
+        gauges."""
+        from ..distributed.checkpoint import (StreamLoadReport,
+                                              stream_model_into)
 
-        # deepcopy with every tensor (and the dropout generators, which
-        # to_empty seeds anew) swapped for a meta stand-in
-        memo = {id(b): torch.empty_like(b, device="meta")
-                for b in model.buffers()}
-        memo.update({id(p): torch.nn.Parameter(
-            torch.empty_like(p, device="meta"), requires_grad=p.requires_grad)
-            for p in model.parameters()})
-        gens = getattr(model, "dropout_generators", None)
-        if gens is not None:
-            memo[id(gens)] = None
-        own = copy.deepcopy(model, memo).to_empty(device=self.device)
-        linear = _linear_weights(own)
-        want = {f"params/{k}": (p, k in linear)
-                for k, p in own.named_parameters()}
-        want.update({f"buffers/{k}": (b, False)
-                     for k, b in own.named_buffers()})
-        arrays = _read_index(path)["arrays"]
-        missing = [k for k in want if k not in arrays]
-        if missing:
-            raise ValueError(
-                f"checkpoint {path!r} is missing model arrays "
-                f"{missing[:4]}{' ...' if len(missing) > 4 else ''} — was "
-                "it saved from this architecture (save_sharded_model)?")
-        for key, (t, transpose) in want.items():
-            shape = tuple(t.shape[::-1] if transpose else t.shape)
-            dtype = _dtype_name(t)
-            got = arrays[key]
-            if (tuple(got["shape"]) != shape or got["dtype"] != dtype):
-                kind, name = key.split("/", 1)
-                raise ValueError(
-                    f"checkpoint {path!r}: {kind[:-1]} {name!r} is "
-                    f"{got['dtype']}{tuple(got['shape'])} but the model "
-                    f"declares {dtype}{shape} — checkpoint and model "
-                    "config disagree")
+        own = self._empty_module(model)
         report = StreamLoadReport()
         t0 = time.monotonic()
-        with torch.no_grad(), self.device_scope():
-            for key, leaf in stream_leaves(path, device=self.device,
-                                           keys=set(want), report=report):
-                t, transpose = want[key]
-                t.copy_(leaf.t() if transpose else leaf)
+        with self.device_scope():
+            stream_model_into(own, path, device=self.device, report=report,
+                              mesh=self._smesh)
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
         report.seconds = time.monotonic() - t0
@@ -579,13 +639,67 @@ class LLMEngine:
         self.metrics.set_gauge("ckpt_stream_seconds", report.seconds)
         return own
 
+    def _empty_module(self, model):
+        """A copy of `model`'s structure with uninitialised storage on the
+        engine's device (its tensors are never copied): the whole model on
+        one card, this rank's shard (`sharded.shard_module`) on a mesh."""
+        if self._smesh is not None:
+            from .sharded import shard_module
+
+            return shard_module(model, self._smesh, self.device)
+        return meta_copy(model).to_empty(device=self.device)
+
+    def _place_shard(self, model):
+        """This rank's serving module, filled from the caller's eager model
+        (the caller's model is never mutated): rank 0 copies its slices
+        in place here; a rank process receives all of its own, packed in
+        one buffer, from rank 0 over the data plane (`_send_shards`)."""
+        from .sharded import shard_of, tp_dim
+
+        own = self._empty_module(model)
+        smesh = self._smesh
+        with torch.no_grad(), self.device_scope():
+            if self._is_rank:
+                params = list(own.parameters())
+                buf = torch.empty(sum(_nbytes(p) for p in params),
+                                  dtype=torch.uint8, device=self.device)
+                smesh.group.recv_(buf, 0)
+                o = 0
+                for p in params:
+                    n = _nbytes(p)
+                    p.copy_(buf[o:o + n].view(p.dtype).view(p.shape))
+                    o += n
+            else:
+                for (name, p), src in zip(own.named_parameters(),
+                                          model.parameters()):
+                    p.copy_(shard_of(src.detach(), tp_dim(name), 0,
+                                     smesh.tp_degree))
+        return own
+
+    def _send_shards(self, model):
+        """Rank 0's half of `_place_shard`: each rank's slices of every
+        parameter of the caller's model, packed in parameter order into
+        one byte buffer a rank."""
+        from .sharded import shard_of, tp_dim
+
+        smesh = self._smesh
+        with torch.no_grad(), self.device_scope():
+            for r in range(1, smesh.tp_degree):
+                buf = torch.cat([
+                    shard_of(src.detach(), tp_dim(name), r, smesh.tp_degree)
+                    .contiguous().view(-1).view(torch.uint8)
+                    for name, src in model.named_parameters()])
+                smesh.group.send(buf, r)
+                del buf
+
     def param_bytes_by_device(self, model=None):
         """Resident parameter/buffer bytes per device: the engine's
         module's PLUS those of `model` (the caller's, when it differs: an
         eager model charged beside a streamed engine's copy, as the JAX
         engine charges its full-tree source), deduped by storage. Meta
-        tensors (a skeleton's) hold no bytes. The `param_hbm_bytes`
-        budget checks the max of this."""
+        tensors (a skeleton's) hold no bytes. On a tensor-parallel engine
+        each rank's bytes are keyed ``"rank<r>:<device>"`` (ranks may share
+        a device). The `param_hbm_bytes` budget checks the max of this."""
         seen, out = set(), {}
         for m in {id(m): m for m in (self.model, model)
                   if m is not None}.values():
@@ -597,6 +711,11 @@ class LLMEngine:
                     continue
                 seen.add((t.device, st.data_ptr()))
                 out[t.device] = out.get(t.device, 0) + st.nbytes()
+        if self._smesh is None:
+            return out
+        out = {f"rank{self._smesh.rank}:{dev}": n for dev, n in out.items()}
+        for rep in self._rank_reports:
+            out[f"rank{rep['rank']}:{rep['device']}"] = rep["param_bytes"]
         return out
 
     def warmup(self):
@@ -699,9 +818,28 @@ class LLMEngine:
         """Topology of this replica — {tp_degree, device_count, backend,
         kv_dtype} — for /healthz and the ``mesh_*`` gauges. A one-card
         engine reports degree and count 1 on its device's backend
-        ("cuda" or "cpu"); `kv_dtype` is the arena's."""
-        return {"tp_degree": 1, "device_count": 1,
-                "backend": self.device.type, "kv_dtype": self.pool.kv_dtype}
+        ("cuda" or "cpu"); a tensor-parallel one its mesh's
+        (`ServingMesh.info`: "cpu", "cuda" for NCCL with graphs, or
+        "cuda-gloo" for eager steps through the host); `kv_dtype` is the
+        arena's."""
+        if self._smesh is not None:
+            info = self._smesh.info()
+        else:
+            info = {"tp_degree": 1, "device_count": 1,
+                    "backend": self.device.type}
+        info["kv_dtype"] = self.pool.kv_dtype
+        return info
+
+    def rank_reports(self, zero=False):
+        """Every rank's report, rank order (a tensor-parallel engine;
+        [] on one card): its launch counters by wrapper, its collective
+        calls, parameter bytes and weight load report. Rank 0's is read in
+        this process. ``zero=True`` resets each rank's counters after
+        reading them (rank 0's too)."""
+        if self._smesh is None:
+            return []
+        own = rank_report(self, zero=zero)
+        return [own] + self._tp.call("report", zero)
 
     # -- LoRA adapter registry (models/lora.py owns the math) --------------
 
@@ -757,8 +895,11 @@ class LLMEngine:
                                        self.lora_rank, self.lora_targets,
                                        alpha=alpha)
         slot = self._find_adapter_slot(name)
+        if self._tp is not None:
+            self._tp.send("lora_write", slot, packed)
         with self.device_scope():
-            lora_mod.write_slot(self._lora_tables, slot, packed)
+            lora_mod.write_slot(self._lora_tables, slot,
+                                lora_mod.shard_adapter(packed, self._smesh))
         self._adapters[name] = slot
         self._adapter_inflight.setdefault(name, 0)
         self._touch_adapter(name)
@@ -783,6 +924,8 @@ class LLMEngine:
         self._adapter_inflight.pop(name, None)
         if name in self._adapter_lru:
             self._adapter_lru.remove(name)
+        if self._tp is not None:
+            self._tp.send("lora_zero", slot)
         with self.device_scope():
             lora_mod.zero_slot(self._lora_tables, slot)
         self.metrics.set_gauge("lora_adapters_loaded", len(self._adapters))
@@ -920,10 +1063,26 @@ class LLMEngine:
         return {f"w{W}": (self.max_batch, W) for W in self.width_buckets}
 
     def _get_step_fn(self, B, W):
-        """The step program of width bucket `W`, built at its first use."""
+        """The step program of width bucket `W`, built at its first use.
+
+        A tensor-parallel controller tells every rank to build it first:
+        over NCCL the build runs the body's collectives and captures them,
+        which every rank must do in the same order (a rank idles in its
+        channel until told). A build that raises raises `RankFailed`."""
         prog = self._step_fns.get((B, W))
-        if prog is None:
-            prog = self._step_fns[(B, W)] = _StepProgram(self, W)
+        if prog is not None:
+            return prog
+        if self._tp is None:
+            prog = _StepProgram(self, W)
+        else:
+            try:
+                self._tp.send("build", W)
+                prog = _StepProgram(self, W)
+            except RankFailed:
+                raise
+            except Exception as e:
+                self._tp.failure(e)
+        self._step_fns[(B, W)] = prog
         return prog
 
     def _width_for(self, w):
@@ -978,7 +1137,9 @@ class LLMEngine:
                            # each lane's adapter rows, or None on a
                            # lora-off engine (no gather, no add)
                            lora=lora_mod.gather_adapter_rows(
-                               self._lora_tables, t["adapter_slots"]))
+                               self._lora_tables, t["adapter_slots"]),
+                           mesh=self._smesh,
+                           quant_collectives=self.quant_collectives)
         h, _ = self.model.hidden(t["ids"], caches=state)
         # the scored window: position last_idx + j scores the distribution
         # after fed token last_idx + j (j = 0 samples, j >= 1 verifies)
@@ -987,6 +1148,9 @@ class LLMEngine:
         win = win.clamp(0, W - 1)
         hw = torch.gather(h, 1, win[..., None].expand(-1, -1, h.shape[-1]))
         lg = self.model.logits(hw).float()
+        if self._smesh is not None:
+            # this rank's vocab rows -> the full rows, on every rank
+            lg = gather_vocab(lg, self._smesh.group)
         win_ids = torch.gather(t["ids"], 1, win)
         # non-finite containment over each row's LIVE window positions
         live = torch.arange(K + 1, device=self.device)[None, :] \
@@ -1100,6 +1264,8 @@ class LLMEngine:
         self.step_count += 1
         self.last_planned = [row.req.request_id for row in rows]
         if faults._PLAN is not None:
+            # before any tensor-parallel rank hears of the step: a step
+            # that raises here leaves no rank inside a collective
             self._fire_step_faults()
         W = self._width_for(max(r.count + len(r.draft) for r in rows))
         if any(r.count > 1 for r in rows):
@@ -1235,11 +1401,14 @@ class LLMEngine:
             self._fill_row(a, i, req, start, count + k, W)
         K = self._draft_capacity(W)
         t_disp = time.monotonic() if tr is not None else 0.0
-        with self._annotation(step_id):
-            packed_dev = prog()
-        t_sync = time.monotonic() if tr is not None else 0.0
-        # THE host sync of the step
-        packed = packed_dev.cpu().numpy()
+        if self._tp is None:
+            with self._annotation(step_id):
+                packed_dev = prog()
+            t_sync = time.monotonic() if tr is not None else 0.0
+            # THE host sync of the step
+            packed = packed_dev.cpu().numpy()
+        else:
+            packed, t_sync = self._run_tp(prog, W, step_id)
         self.metrics.inc("host_syncs")
         run, n_accs, row_ok = (packed[:, :K + 1], packed[:, K + 1],
                                packed[:, K + 2])
@@ -1289,6 +1458,26 @@ class LLMEngine:
                                 sync=(t_sync, t_emit),
                                 emit=(t_emit, time.monotonic()))
         return outs
+
+    def _run_tp(self, prog, W, step_id):
+        """A tensor-parallel step: hand the staged step to every rank,
+        run rank 0's program and read its packed result (the host sync),
+        then check that no rank reported a failure. Any exception here
+        raises as a `RankFailed`: the failed rank's (a collective that
+        lost its peer), else rank 0's. Returns ``(packed, t_sync)``."""
+        try:
+            self._tp.send("step", W, prog._host_ints.numpy(),
+                          prog._host_floats.numpy())
+            with self._annotation(step_id):
+                packed_dev = prog()
+            t_sync = time.monotonic() if self.tracer is not None else 0.0
+            packed = packed_dev.cpu().numpy()
+        except RankFailed:
+            raise
+        except Exception as e:
+            self._tp.failure(e)
+        self._tp.check()
+        return packed, t_sync
 
     def _poison(self, req, detail):
         """Abort one row with non-finite logits, never publishing the
@@ -1451,10 +1640,23 @@ class LLMEngine:
             return self.tier.import_payload(payload)
 
     def close(self):
-        """Release engine-owned background resources (the tier's drain
-        thread). Idempotent; a no-op without the tier."""
+        """Release engine-owned background resources: the tier's drain
+        thread and a tensor-parallel engine's rank processes (each ends
+        before this returns) and, over NCCL, every rank's communicators.
+        Idempotent; a no-op on a one-card engine without the tier."""
         if self.tier is not None:
             self.tier.close()
+        if self._tp is not None:
+            self._tp.close(self._group_leaver())
+        elif self._is_rank:
+            self._group_leaver()()
+
+    def _group_leaver(self):
+        """What this rank runs as a tensor-parallel engine closes, beside
+        every other rank (a callable that holds no reference to the
+        engine, for its finalizer): `_leave_group` over its mesh and its
+        step programs."""
+        return functools.partial(_leave_group, self._smesh, self._step_fns)
 
     # -- conveniences --------------------------------------------------------
 
@@ -1522,6 +1724,21 @@ class LLMEngine:
 
 # one CUDA-graph capture at a time in the process, each on its device's
 # one capture stream (`_StepProgram._capture`)
+def _leave_group(smesh, programs):
+    """Shut this rank's side of an NCCL group down, as every rank does at
+    the same time when a tensor-parallel engine closes: first the step
+    programs (their graphs hold the group's collectives), then the
+    communicators. A group left to its destructor aborts alone, after its
+    peers have gone, and can hang the process's exit. Gloo groups need
+    nothing. Idempotent."""
+    group = smesh.group
+    if group is None or group.backend != "nccl" or group.pg is None:
+        return
+    programs.clear()
+    torch.cuda.synchronize(smesh.device)
+    group.shutdown()
+
+
 _CAPTURE_LOCK = threading.Lock()
 _CAPTURE_STREAMS = {}
 
@@ -1587,7 +1804,10 @@ class _StepProgram:
         self.graph = self.out = None
         self._launch_delta = {}
         engine.metrics.inc("jit_traces")
-        if dev.type == "cuda":
+        # a tensor-parallel step over gloo runs eagerly: gloo cannot be
+        # captured in a CUDA graph
+        if dev.type == "cuda" and (engine._smesh is None
+                                   or engine._smesh.graphs):
             self._capture()
 
     def host_arrays(self):

@@ -32,8 +32,13 @@ The four rules of the JAX module, in PyTorch terms:
    Every copy into or out of a slab runs on that one stream, so a restore
    of a block whose save is still in flight, or a save into a slot that a
    restore is still reading, is ordered by the stream and needs no wait.
-3. **Per-shard slabs** wait for tensor-parallel serving: on one card the
-   slab covers every head.
+3. **Per-shard slabs.** Under tensor parallelism each rank's slab holds its
+   own heads (`ServingMesh.tp_head_ranges`): the controller keeps the
+   index and rank 0's slab, and every copy into or out of a slab runs on
+   every rank with the same (block, slot) lists, through the engine's
+   channel (``peers``, serving/tp_worker.py) in the controller's order, so
+   a save never gathers across ranks. On one card the slab covers every
+   head.
 4. **One lock.** All index, slab and pending state is guarded by
    ``KVTier._lock``; it never nests with another lock, no device sync runs
    on the engine thread (the one host sync a step stays the step's), and
@@ -46,7 +51,9 @@ through every path: save, restore, export and import.
 
 Migration (`export` / `import_payload`) hands the host-resident blocks to
 another engine as ``hash -> [L, H, bs, D]`` CPU tensors (plus ``[L, H]``
-scales for an int8 arena), oldest first.
+scales for an int8 arena), oldest first, every head whatever the
+topology: a tensor-parallel tier joins its ranks' slabs on export and
+cuts its ranks' heads on import, so a payload moves across tp degrees.
 """
 from __future__ import annotations
 
@@ -75,10 +82,6 @@ class KVTier:
 
     def __init__(self, pool, host_blocks, mesh=None, metrics=None,
                  swap_chunk=4, stream=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "per-shard host slabs wait for tensor-parallel serving "
-                "(ROADMAP Queue 1, item 6)")
         if host_blocks < 1:
             raise ValueError("host_kv_blocks must be >= 1")
         self.pool = pool
@@ -88,7 +91,12 @@ class KVTier:
         self.swap_chunk = max(1, int(swap_chunk))
         self.quantized = bool(pool.quantized)
         L, H, _, Bs, D = pool.k.shape
-        self._shape = (L, H, Bs, D)   # per-block logical shape
+        # this rank's head range; the payload's logical block has them all
+        self.shards = ([(0, H)] if mesh is None
+                       else mesh.tp_head_ranges(H * mesh.tp_degree))
+        self.heads = self.shards[0 if mesh is None else mesh.rank]
+        self.peers = None             # tp controller: the ranks' channel
+        self._shape = (L, H * len(self.shards), Bs, D)
         self._dtype = pool.k.dtype
         self._pin = pool.device.type == "cuda"
         self._slabs = tuple(
@@ -164,24 +172,36 @@ class KVTier:
                 plan.append((h, b, slot, self._slot_gen[slot]))
         if not plan:
             return
+        for i in range(0, len(plan), self.swap_chunk):
+            chunk = plan[i:i + self.swap_chunk]
+            pairs = [(b, slot) for _, b, slot, _ in chunk]
+            if self.peers is not None:
+                self.peers.send("tier_save", pairs)
+            event = self._copy_out(pairs)
+            entries = [(h, slot, gen) for h, _, slot, gen in chunk]
+            with self._lock:
+                for h, slot, gen in entries:
+                    self._pending[h] = (slot, gen)
+            self._queue.put((entries, event))
+
+    def _copy_out(self, pairs):
+        """Gather arena blocks into a device staging chunk and start their
+        copies into slab slots (`pairs`: ``(block, slot)``) on the
+        engine's stream; returns the chunk's CUDA event (None on the
+        CPU). A tensor-parallel rank runs this for the controller's
+        saves."""
         with self._on_stream():
-            for i in range(0, len(plan), self.swap_chunk):
-                chunk = plan[i:i + self.swap_chunk]
-                src = self._device_index([b for _, b, _, _ in chunk])
-                dev = tuple(a.index_select(2, src).movedim(2, 0).contiguous()
-                            for a in self._arenas())
-                for j, (_, _, slot, _) in enumerate(chunk):
-                    for slab, d in zip(self._slabs, dev):
-                        slab[slot].copy_(d[j], non_blocking=self._pin)
-                event = None
-                if self._pin:
-                    event = torch.cuda.Event()
-                    event.record()
-                entries = [(h, slot, gen) for h, _, slot, gen in chunk]
-                with self._lock:
-                    for h, slot, gen in entries:
-                        self._pending[h] = (slot, gen)
-                self._queue.put((entries, event))
+            src = self._device_index([b for b, _ in pairs])
+            dev = tuple(a.index_select(2, src).movedim(2, 0).contiguous()
+                        for a in self._arenas())
+            for j, (_, slot) in enumerate(pairs):
+                for slab, d in zip(self._slabs, dev):
+                    slab[slot].copy_(d[j], non_blocking=self._pin)
+            event = None
+            if self._pin:
+                event = torch.cuda.Event()
+                event.record()
+        return event
 
     def _take_slot_locked(self):
         """One host slot, evicting the host-LRU entry when full. Caller
@@ -269,20 +289,27 @@ class KVTier:
             self.swap_in_hit_tokens += n * self.pool.block_size
         if n == 0:
             return 0
-        # the copies need no lock: only this thread takes slots, and every
-        # copy into a slab is ordered on the stream (rule 2)
-        with self._on_stream():
-            dst = self._device_index(blocks[:n])
-            for arena, slab in zip(self._arenas(), self._slabs):
-                stage = torch.empty((n,) + slab.shape[1:], dtype=slab.dtype,
-                                    device=self.pool.device)
-                for r, slot in enumerate(slots):
-                    stage[r].copy_(slab[slot], non_blocking=self._pin)
-                arena.index_copy_(2, dst, stage.movedim(0, 2))
+        if self.peers is not None:
+            self.peers.send("tier_restore", slots, list(blocks[:n]))
+        self._copy_in(slots, blocks[:n])
         if self.metrics is not None:
             self.metrics.inc("swap_ins", n)
             self.metrics.inc("swap_in_hit_tokens", n * self.pool.block_size)
         return n
+
+    def _copy_in(self, slots, blocks):
+        """Copy slab `slots` into arena `blocks` on the engine's stream. The
+        copies need no lock: only the engine thread takes slots, and every
+        copy into a slab is ordered on the stream (rule 2). A
+        tensor-parallel rank runs this for the controller's restores."""
+        with self._on_stream():
+            dst = self._device_index(blocks)
+            for arena, slab in zip(self._arenas(), self._slabs):
+                stage = torch.empty((len(slots),) + slab.shape[1:],
+                                    dtype=slab.dtype, device=self.pool.device)
+                for r, slot in enumerate(slots):
+                    stage[r].copy_(slab[slot], non_blocking=self._pin)
+                arena.index_copy_(2, dst, stage.movedim(0, 2))
 
     # -- migration (quiescent engine, any thread) --------------------------
 
@@ -305,10 +332,16 @@ class KVTier:
         ours). Call `settle` (or `LLMEngine.export_kv_tier`) first so
         pending saves are included."""
         with self._lock:
-            entries = [(h,) + tuple(slab[slot].clone()
-                                    for slab in self._slabs)
-                       for h, slot in self._index.items()
-                       if h not in self._pending]
+            resident = [(h, slot) for h, slot in self._index.items()
+                        if h not in self._pending]
+            slots = [slot for _, slot in resident]
+            parts = [self._read_slots(slots)]
+            if self.peers is not None:
+                parts += self.peers.call("tier_read", slots)
+            # every rank's heads, in rank order (head axis 1 of [L, H, ...])
+            entries = [(h,) + tuple(torch.cat([p[i][k] for p in parts], 1)
+                                    for k in range(len(self._slabs)))
+                       for i, (h, _) in enumerate(resident)]
             self.migrated_blocks_out += len(entries)
         if self.metrics is not None and entries:
             self.metrics.inc("kv_migrated_blocks_out", len(entries))
@@ -331,20 +364,40 @@ class KVTier:
         self._quiesce()
         n = 0
         with self._lock:
+            slots, taken = [], []
             for entry in payload["entries"]:
                 h = entry[0]
                 if h in self._index:
                     self._index.move_to_end(h)
                     continue
                 slot = self._take_slot_locked()
-                for slab, t in zip(self._slabs, entry[1:]):
-                    slab[slot].copy_(torch.as_tensor(t))
                 self._index[h] = slot
+                slots.append(slot)
+                taken.append(tuple(torch.as_tensor(t) for t in entry[1:]))
                 n += 1
+            if self.peers is not None:
+                self.peers.send("tier_write", slots, taken)
+            self._write_slots(slots, taken)
             self.migrated_blocks_in += n
         if self.metrics is not None and n:
             self.metrics.inc("kv_migrated_blocks_in", n)
         return n
+
+    def _read_slots(self, slots):
+        """Copies of slab `slots` (this rank's heads): one tuple of
+        ``[L, h, bs, D]`` (scales ``[L, h]``) CPU tensors per slot. The
+        caller has let the slabs settle."""
+        return [tuple(slab[slot].clone() for slab in self._slabs)
+                for slot in slots]
+
+    def _write_slots(self, slots, entries):
+        """Write full-head payload `entries` (one tuple of tensors per
+        slot) into slab `slots`, keeping this rank's heads. The caller
+        has quiesced the slabs."""
+        h0, h1 = self.heads
+        for slot, arrays in zip(slots, entries):
+            for slab, t in zip(self._slabs, arrays):
+                slab[slot].copy_(t[:, h0:h1])
 
     # -- observability -----------------------------------------------------
 
@@ -372,7 +425,7 @@ class KVTier:
         s["block_shape"] = list(self._shape)
         s["dtype"] = _dtype_name(self._dtype)
         s["quantized"] = self.quantized
-        s["shards"] = [[0, self._shape[1]]]
+        s["shards"] = [list(r) for r in self.shards]
         return s
 
     def close(self):

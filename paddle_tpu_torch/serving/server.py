@@ -778,8 +778,10 @@ def main(argv=None):
     replica streams from that checkpoint. ``--replicas N`` (or
     ``--autoscale-max``) serves N replicas behind the fleet router.
     ``--device cpu`` runs it on the CPU; without it the engines need a
-    CUDA device and raise when there is none. Tensor-parallel serving
-    (``--tp-degree`` above 1) raises `NotImplementedError`."""
+    CUDA device and raise when there is none. ``--tp-degree N`` serves one
+    replica over N tensor-parallel ranks (cards ``cuda:0 .. N-1``, or CPU
+    ranks with ``--device cpu``); tensor-parallel replicas behind the
+    router are not in the port yet and raise `NotImplementedError`."""
     import argparse
 
     import torch
@@ -812,7 +814,8 @@ def main(argv=None):
                    help="disable prefix-affinity routing (least-loaded "
                         "spread only; for A/B benchmarks)")
     p.add_argument("--tp-degree", type=int, default=None,
-                   help="tensor-parallel degree; only 1 is in the port")
+                   help="tensor-parallel degree of the replica (1: one "
+                        "card, which beats PADDLE_TPU_TP)")
     p.add_argument("--kv-hbm-bytes", type=int, default=None,
                    help="size the KV pool from a byte budget instead of "
                         "max_batch * max_seq_len")
@@ -894,10 +897,12 @@ def main(argv=None):
                    help="bundles kept before oldest-first pruning "
                         "(default 16; same as PADDLE_TPU_POSTMORTEM_KEEP)")
     args = p.parse_args(argv)
-    if (args.tp_degree or 1) > 1:
+    if (args.tp_degree or 1) > 1 and (args.replicas > 1
+                                      or args.autoscale_max is not None):
         raise NotImplementedError(
-            "--tp-degree > 1: tensor-parallel serving is not in the "
-            "PyTorch port yet (ROADMAP.md, Queue 1 item 6)")
+            "--tp-degree > 1 with --replicas/--autoscale-max: "
+            "tensor-parallel replicas behind the router are not in the "
+            "PyTorch port yet (ROADMAP.md, Queue 1 item 6c)")
 
     from .._device import resolve_device
     from ..models.gpt import gpt_1p3b, gpt_small, gpt_tiny
@@ -928,7 +933,10 @@ def main(argv=None):
             slo=True if args.slo else None,
             postmortem_dir=args.postmortem_dir,
             postmortem_keep=args.postmortem_keep,
-            kv_hbm_bytes=args.kv_hbm_bytes,
+            # the degree passes through untouched: --tp-degree 1 is an
+            # explicit one-card request and beats a PADDLE_TPU_TP default
+            # (the engine reads the switch only when mesh is None)
+            mesh=args.tp_degree, kv_hbm_bytes=args.kv_hbm_bytes,
             checkpoint_path=args.checkpoint or None,
             param_hbm_bytes=args.param_hbm_bytes, warmup=args.warmup)
 
@@ -988,6 +996,8 @@ def main(argv=None):
                     f"{args.autoscale_min}..{args.autoscale_max}")
         elif args.replicas > 1:
             mode = f"{args.replicas}-replica router"
+        elif (args.tp_degree or 1) > 1:
+            mode = f"single replica over {args.tp_degree} tp ranks"
         else:
             mode = "single replica"
         where = ("weights streamed from " + args.checkpoint

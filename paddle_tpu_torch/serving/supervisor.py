@@ -34,6 +34,13 @@ three failures this module exists for:
   so those rows terminate their streams with ``error`` instead of
   sampling garbage.
 
+An exception marked ``fatal`` — a tensor-parallel rank that raised or died
+(serving/tp_worker.py `RankFailed`) — is no request's fault and leaves an
+engine that cannot step again: the supervisor does not bisect it but lets
+it escape, so it surfaces as the engine's exception (the async frontend's
+engine thread dies with it, fails every stream with its message and marks
+the replica unhealthy).
+
 `EngineHealth` is the shared, thread-safe health word the HTTP ``/healthz``
 endpoint renders: healthy (200) / unhealthy (503 + reason). Unhealthy is
 sticky — the first cause wins, and a replica that tripped its watchdog or
@@ -158,6 +165,8 @@ class EngineSupervisor:
         try:
             outs = self._timed_step()
         except Exception as e:  # noqa: BLE001 — ANY step escape goes
+            if getattr(e, "fatal", False):
+                raise             # a dead rank: no request to isolate
             return self._recover(e)   # through isolation, not the loop
         self._unattributable = 0
         return outs, list(eng.step_faults)

@@ -44,6 +44,7 @@ from paddle_tpu_torch.models.gpt import GPT, GPTConfig, gpt_tiny
 from paddle_tpu_torch.nn.layer import is_skeleton, skeleton_init
 from paddle_tpu_torch.serving import LLMEngine
 from paddle_tpu_torch.weights import from_jax_state_dict, to_jax_state_dict
+from test_torch_serving_sharded import cpu_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4,
@@ -220,6 +221,104 @@ def test_tree_helpers_match_jax():
                          ((slice(1, None),), (7,)), ((), ())):
         assert tckpt._shard_slices(index, shape) == \
             jckpt._shard_slices(index, shape)
+
+
+# -- tensor parallel: each rank streams its own slices -----------------------
+
+
+def test_stream_load_reshards_onto_ranks(tmp_path):
+    """A leaf saved whole streams back one box a rank: each rank gets
+    exactly its slice, and its host staging and device bytes are 1/tp of
+    the leaf, the JAX package's per-device numbers."""
+    import jax
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    w = np.arange(16 * 8, dtype=np.float32).reshape(16, 8)
+    tckpt.save_state({"params": {"w": torch.from_numpy(w)}},
+                     str(tmp_path / "c"))
+    mesh = Mesh(np.array(jax.devices()[:4]), ("tp",))
+    _, jrep = jckpt.stream_load_state(
+        str(tmp_path / "c"),
+        shardings={"params/w": NamedSharding(mesh, P("tp", None))})
+    for r in range(4):
+        tree, rep = tckpt.stream_load_state(
+            str(tmp_path / "c"), device="cpu",
+            boxes={"params/w": [[4 * r, 4 * r + 4], [0, 8]]})
+        np.testing.assert_array_equal(tree["params"]["w"].numpy(),
+                                      w[4 * r:4 * r + 4])
+        assert rep.max_chip_bytes == jrep.max_chip_bytes == w.nbytes // 4
+        assert rep.peak_host_bytes == jrep.peak_host_bytes == w.nbytes // 4
+
+
+def test_load_sharded_model_onto_a_rank(models, ckpts):
+    """``load_sharded_model(mesh=...)`` fills a rank's shard module with
+    its slices of each sharded parameter (Linear weights transposed back)
+    and every replicated one whole."""
+    from paddle_tpu_torch.serving.sharded import (ServingMesh, shard_module,
+                                                  shard_of, tp_dim)
+
+    _, tm = models
+    mesh = ServingMesh(["cpu", "cpu"]).for_rank(1)
+    own = shard_module(_skeleton("torch"), mesh, torch.device("cpu"))
+    tckpt.load_sharded_model(own, None, ckpts["jax"], mesh=mesh)
+    full = dict(tm.named_parameters())
+    for name, p in own.named_parameters():
+        want = shard_of(full[name].detach(), tp_dim(name), 1, 2)
+        assert torch.equal(p.detach(), want), name
+    assert own.blocks[0].attn.qkv.weight.shape == (48, 32)
+
+
+@pytest.fixture(scope="module")
+def streamed_tp4(ckpts):
+    eng = LLMEngine(_skeleton("torch"), device="cpu", mesh=cpu_mesh(4),
+                    checkpoint_path=ckpts["torch"], **ENGINE)
+    yield eng
+    eng.close()
+
+
+def test_streamed_engine_reports_the_bound(models, streamed_tp4):
+    """Per rank: its device holds its own shards, never the full tree,
+    and its host staging peaks at one slice."""
+    _, tm = models
+    full = sum(p.numel() * p.element_size() for p in tm.parameters())
+    reps = [r["load"] for r in streamed_tp4.rank_reports()]
+    assert len(reps) == 4
+    for rep in reps:
+        assert 0 < rep["max_chip_bytes"] < full
+        assert 0 < rep["peak_host_bytes"] < rep["total_bytes"]
+        assert rep["devices"] == 1
+    assert reps[0] == streamed_tp4.load_report.summary()
+    assert streamed_tp4.metrics.gauges["ckpt_stream_max_chip_bytes"] == \
+        streamed_tp4.load_report.max_chip_bytes
+    assert len(streamed_tp4.param_bytes_by_device()) == 4
+
+
+def test_too_big_for_eager_serves_streamed(models, ckpts, streamed_tp4):
+    """The per-rank budget the streamed tp=4 engine meets refuses the
+    eager path at construction (the caller's full model is charged to
+    rank 0's device), before any rank is started."""
+    _, tm = models
+    budget = max(streamed_tp4.param_bytes_by_device().values())
+    eng = LLMEngine(_skeleton("torch"), device="cpu", mesh=cpu_mesh(4),
+                    checkpoint_path=ckpts["torch"], param_hbm_bytes=budget,
+                    **ENGINE)
+    try:
+        assert max(eng.param_bytes_by_device().values()) <= budget
+    finally:
+        eng.close()
+    with pytest.raises(ValueError, match="param_hbm_bytes"):
+        LLMEngine(tm, device="cpu", mesh=cpu_mesh(4), param_hbm_bytes=budget,
+                  **ENGINE)
+
+
+def test_streamed_tp4_greedy_parity(models, ckpts, streamed_tp4):
+    """Greedy serve off the streamed tp=4 engine equals a one-card engine
+    streamed from the same checkpoint and the JAX streamed tp=4 engine."""
+    ref = _greedy(_engine("torch", _skeleton("torch"),
+                          checkpoint_path=ckpts["torch"]))
+    jax_tp4 = _greedy(_engine("jax", _skeleton("jax"), mesh=4,
+                              checkpoint_path=ckpts["torch"]))
+    assert _greedy(streamed_tp4) == ref == jax_tp4
 
 
 # -- crossings between the packages -----------------------------------------

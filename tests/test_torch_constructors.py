@@ -4,9 +4,10 @@ For `LLMEngine.__init__`, `GPTConfig.__init__` and `BertConfig.__init__`,
 each keyword of the JAX signature is one case: passed at its JAX default
 it is accepted; passed at another value it is accepted or raises
 `NotImplementedError` (a part the port has not reached yet), never
-`TypeError`. For the engine, which of the two is asserted: a keyword the
-port lists as a later slice's (`engine._LATER`) raises, every other one
-is accepted. A config that accepts a value stores it.
+`TypeError`. For the engine, which of the two is asserted: since the
+tensor-parallel slice every keyword is accepted (``mesh=2`` builds a
+two-rank engine on CPU ranks, closed after the case). A config that
+accepts a value stores it.
 """
 import inspect
 
@@ -19,7 +20,7 @@ from paddle_tpu_torch.distributed.checkpoint import save_sharded_model
 from paddle_tpu_torch.models.bert import BertConfig
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.serving import LLMEngine
-from paddle_tpu_torch.serving.engine import _LATER
+from test_torch_serving_sharded import tp_timeout  # noqa: F401
 
 
 def _keywords(fn, skip=("self", "model")):
@@ -90,7 +91,8 @@ def test_every_jax_keyword_has_a_non_default_value():
 
 
 @pytest.mark.parametrize("name", sorted(JAX_ENGINE))
-def test_engine_takes_jax_keyword(model, name, tmp_path, monkeypatch):
+def test_engine_takes_jax_keyword(model, name, tmp_path, monkeypatch,
+                                  tp_timeout):
     # relative paths (postmortem_dir) land in a scratch directory
     monkeypatch.chdir(tmp_path)
 
@@ -104,7 +106,10 @@ def test_engine_takes_jax_keyword(model, name, tmp_path, monkeypatch):
     assert ok, f"{name} at its JAX default {JAX_ENGINE[name]!r} must be " \
                "accepted"
     ok, eng = _accepted_or_not_implemented(make, name, ENGINE_OTHER[name])
-    assert ok == (name not in _LATER), name
+    assert ok, name
+    eng.close()      # a mesh=2 engine's rank processes end here
+    if name == "mesh":
+        assert eng.mesh_info()["tp_degree"] == 2 and not eng._tp.alive()
     if name == "warmup":    # warmup=True builds the whole program table
         assert eng.metrics.counters["jit_traces"] == len(eng._step_fns) \
             == eng.expected_program_count()

@@ -1120,3 +1120,89 @@ def test_dropped_replica_gives_its_memory_back(dev, tmp_path):
     gc.collect()
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() == before
+
+
+def _tp_wave(engine):
+    rs = np.random.RandomState(3)
+    shared = rs.randint(0, 512, 40).tolist()
+    prompts = [shared + rs.randint(0, 512, n).tolist() for n in (3, 30)]
+    prompts += [rs.randint(0, 512, n).tolist() for n in (7, 70)]
+    engine.generate(prompts[:1], max_new_tokens=2, temperature=0.0)
+    return engine.generate(prompts, max_new_tokens=12, temperature=0.0)
+
+
+def _tp_model():
+    return GPT(GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                         num_heads=2, max_seq_len=256), device="cuda")
+
+
+def _tp_budget_held(engine):
+    """Every rank made `serving_collective_budget` calls a step (through
+    graph replays as well as eager steps)."""
+    from paddle_tpu_torch.serving import serving_collective_budget
+
+    engine.rank_reports(zero=True)
+    steps0 = engine.step_count
+    engine.generate([[1, 2, 3, 4, 5]], max_new_tokens=6, temperature=0.0)
+    steps = engine.step_count - steps0
+    b = serving_collective_budget(engine.model.cfg, 2,
+                                  engine.quant_collectives)
+    for rep in engine.rank_reports():
+        assert rep["collectives"] == {"all-reduce": b["all-reduce"] * steps,
+                                      "all-gather": b["all-gather"] * steps}
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_tp2_nccl_graphs_token_identical_to_tp1(dev, quant):
+    """tp=2 over NCCL, one rank a card, the collectives captured in each
+    width bucket's CUDA graph: the one-card greedy tokens (f32, spec and
+    prefix hits on), and the collective budget a step on every rank. Needs
+    two cards; on one it skips (phase 3h runs the gloo path there)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs torch.cuda.device_count() >= 2: NCCL takes one "
+                    "rank a card")
+    from paddle_tpu_torch.serving import build_serving_mesh
+
+    kw = dict(block_size=16, max_batch=4, spec_decoding=True,
+              num_spec_tokens=3, prefill_chunk=32, warmup=True)
+    model = _tp_model()
+    want = _tp_wave(LLMEngine(model, **kw))
+    # cuda:0 and cuda:1, NCCL picked as for mesh=2; a missed collective
+    # fails in 120 s instead of the default's 30 minutes
+    eng = LLMEngine(model, mesh=build_serving_mesh(2, timeout=120),
+                    quant_allreduce=quant or None, **kw)
+    try:
+        assert eng.mesh_info()["backend"] == "cuda"
+        assert all(p.graph is not None for p in eng._step_fns.values())
+        got = _tp_wave(eng)
+        if not quant:
+            assert got == want
+        _tp_budget_held(eng)
+    finally:
+        eng.close()
+    # every rank shut its communicators down together: none is left for
+    # a destructor to abort alone at exit
+    assert eng._smesh.group.pg is None and not eng._tp.alive()
+
+
+def test_tp2_gloo_on_one_card_token_identical_to_tp1(dev):
+    """Two ranks on one card over an explicit gloo backend (the one-card
+    departure): eager steps, every collective staged through the host,
+    the one-card greedy tokens and the collective budget on every rank."""
+    from paddle_tpu_torch.serving import ServingMesh
+
+    kw = dict(block_size=16, max_batch=4, spec_decoding=True,
+              num_spec_tokens=3, prefill_chunk=32)
+    model = _tp_model()
+    want = _tp_wave(LLMEngine(model, **kw))
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        LLMEngine(model, mesh=ServingMesh(["cuda:0", "cuda:0"]), **kw)
+    eng = LLMEngine(model, mesh=ServingMesh(["cuda:0", "cuda:0"],
+                                            backend="gloo"), **kw)
+    try:
+        assert eng.mesh_info()["backend"] == "cuda-gloo"
+        assert _tp_wave(eng) == want
+        assert all(p.graph is None for p in eng._step_fns.values())
+        _tp_budget_held(eng)
+    finally:
+        eng.close()

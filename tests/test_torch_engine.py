@@ -19,6 +19,7 @@ from paddle_tpu.serving import LLMEngine as JaxLLMEngine
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.serving import BlockPool, LLMEngine
 from paddle_tpu_torch.weights import from_jax_state_dict
+from test_torch_serving_sharded import tp_timeout  # noqa: F401
 
 CFG = dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
            max_seq_len=64)
@@ -253,14 +254,24 @@ def test_engine_rejects_a_model_on_another_device(models):
         LLMEngine(tm, device="meta")
 
 
+# the tensor-parallel options, once refused: each now builds an engine
+# that reports the JAX engine's topology and quantized collectives (the
+# quantized all-reduce alone is dropped on one card, as in JAX)
 @pytest.mark.parametrize("option", [
     {"mesh": 2}, {"mesh": 4}, {"quant_allreduce": ("attn_proj",)},
     {"quant_allreduce": True},
 ])
-def test_left_out_options_raise(models, option):
-    _, tm = models
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LLMEngine(tm, device="cpu", **option)
+def test_left_out_options_raise(models, option, tp_timeout):
+    jm, tm = models
+    jeng = JaxLLMEngine(jm, **option)
+    eng = LLMEngine(tm, device="cpu", **option)
+    try:
+        assert eng.mesh_info() == jeng.mesh_info()
+        assert eng.quant_collectives == jeng.quant_collectives
+        assert eng.kv_capacity_blocks() == jeng.kv_capacity_blocks()
+    finally:
+        eng.close()
+    assert eng._tp is None or not eng._tp.alive()
 
 
 # the options the port took over from the left-out list: each builds an

@@ -3,6 +3,8 @@
 `torch_flash_bench.py` and `torch_paged_bench.py`, imports JAX, anything
 of the JAX package `paddle_tpu`, or ml_dtypes (the card's machine has no
 ml_dtypes: the port reads and writes bfloat16 checkpoints without it).
+A tensor-parallel engine's rank process, spawned from a test process that
+holds JAX, imports none of them either.
 
 Roots are compared exactly: ``"paddle_tpu_torch".startswith("paddle_tpu")``
 holds, so a prefix test would wrongly flag the port's own imports."""
@@ -58,6 +60,9 @@ def test_port_has_modules_and_a_smoke_script():
                  "paddle_tpu_torch/nn/layer.py",
                  "paddle_tpu_torch/serving/router.py",
                  "paddle_tpu_torch/serving/autoscale.py",
+                 "paddle_tpu_torch/serving/sharded.py",
+                 "paddle_tpu_torch/serving/tp_worker.py",
+                 "paddle_tpu_torch/parallel/collectives.py",
                  "chip_smoke.py"):
         assert want in names
 
@@ -77,3 +82,26 @@ def test_root_comparison_is_exact(tmp_path):
     roots = [r for _, r in _import_roots(f)]
     assert roots == ["paddle_tpu_torch", "paddle_tpu", "jax"]
     assert [r for r in roots if r in FORBIDDEN] == ["paddle_tpu", "jax"]
+
+
+def test_a_rank_process_imports_no_jax_or_paddle_tpu():
+    """Spawned from this process (which has imported JAX), a tensor-parallel
+    rank builds its engine from the port alone."""
+    import jax  # noqa: F401  (the parent holds JAX)
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.serving import LLMEngine, build_serving_mesh
+
+    model = GPT(GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                          num_heads=2, max_seq_len=32), device="cpu")
+    eng = LLMEngine(model, device="cpu", block_size=8,
+                    mesh=build_serving_mesh(2, device="cpu", timeout=60))
+    try:
+        assert eng.generate([[1, 2, 3]], max_new_tokens=2)
+        roots = eng.rank_reports()[1]["modules"]
+    finally:
+        eng.close()
+    assert "torch" in roots and "paddle_tpu_torch" in roots
+    assert not FORBIDDEN & set(roots), sorted(FORBIDDEN & set(roots))
+    assert torch is not None

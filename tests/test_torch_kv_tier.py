@@ -30,6 +30,7 @@ from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.serving import LLMEngine
 from paddle_tpu_torch.weights import from_jax_state_dict
 from test_torch_server import http
+from test_torch_serving_sharded import cpu_mesh
 
 CFG = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
            max_seq_len=64)
@@ -133,6 +134,88 @@ def test_host_warm_matches_cold_device_warm_and_jax(models, kv_dtype):
     _idle(engine)
     _tier_consistent(engine.tier)
     engine.close()
+
+
+# -- tensor parallel: per-shard slabs, cross-topology migration ---------------
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_tp2_per_shard_slabs_and_spec_on_parity(models, kv_dtype):
+    """tp=2 with speculative decoding: each rank's slab holds its own head
+    range (a save never gathers across ranks), and cold and host-warm
+    serves give the one-card tokens, the JAX engine's and the JAX tp=2
+    tier engine's."""
+    jm, tm = models
+    prompts = _doc_prompts()
+    spec = dict(spec_decoding=True, num_spec_tokens=3)
+    want = jserving.LLMEngine(jm, kv_dtype=kv_dtype, **ENGINE,
+                              **spec).generate(prompts, max_new_tokens=6,
+                                               temperature=0.0)
+    jtp2 = jserving.LLMEngine(jm, kv_dtype=kv_dtype, mesh=2, num_blocks=12,
+                              host_kv_blocks=24, **ENGINE, **spec)
+    engine = _engine(tm, num_blocks=12, mesh=cpu_mesh(2), kv_dtype=kv_dtype, **spec)
+    try:
+        tier = engine.tier
+        assert tier.shards == [(0, 1), (1, 2)]
+        assert [(h0, h1) for h0, h1, _, _ in jtp2.tier._slabs] \
+            == tier.shards
+        assert tier._slabs[0].shape[2] == 1            # rank 0's one head
+        for eng in (engine, jtp2):
+            assert eng.generate(prompts, max_new_tokens=6,
+                                temperature=0.0) == want
+            _churn(eng)
+            eng.tier.settle()
+            assert eng.tier.swap_outs > 0
+            assert eng.generate(prompts, max_new_tokens=6,
+                                temperature=0.0) == want   # host-warm
+            assert eng.tier.swap_ins > 0
+        assert tier.debug_snapshot()["shards"] == [[0, 1], [1, 2]]
+        _idle(engine)
+        _tier_consistent(tier)
+    finally:
+        engine.close()
+
+
+def test_cross_topology_migration_parity(models):
+    """Migration is topology-portable: a tp=2 engine's export (full-head
+    [L, H, bs, D] payloads, its ranks' slabs joined) imports into a
+    one-card engine, and that one's back into a tp=2 engine; each serves
+    host-warm tokens equal to the cold one-card serve."""
+    _, tm = models
+    prompts = _doc_prompts()[:1]
+    refs = _engine(tm, num_blocks=12).generate(prompts, max_new_tokens=6,
+                                               temperature=0.0)
+    src = _engine(tm, num_blocks=12, mesh=cpu_mesh(2))
+    back = _engine(tm, num_blocks=12, mesh=cpu_mesh(2))
+    try:
+        assert src.generate(prompts, max_new_tokens=6,
+                            temperature=0.0) == refs
+        payload = src.export_kv_tier(demote=True)
+        assert payload["entries"]
+        assert tuple(payload["entries"][0][1].shape) == (2, 2, 8, 16)
+        dst = _engine(tm, num_blocks=12)
+        n = dst.import_kv_tier(payload)
+        assert n == len(payload["entries"]) == dst.tier.migrated_blocks_in
+        assert dst.generate(prompts, max_new_tokens=6,
+                            temperature=0.0) == refs
+        assert dst.tier.swap_ins > 0                   # served FROM import
+        # the exported payloads are the one-card tier's bytes, head for head
+        mine = {e[0]: e for e in dst.export_kv_tier(demote=False)["entries"]}
+        for h, k, v in payload["entries"]:
+            if h in mine:
+                assert torch.equal(mine[h][1], k)
+                assert torch.equal(mine[h][2], v)
+        assert back.import_kv_tier(dst.export_kv_tier()) > 0
+        assert back.generate(prompts, max_new_tokens=6,
+                             temperature=0.0) == refs
+        assert back.tier.swap_ins > 0
+        with pytest.raises(ValueError, match="geometry mismatch"):
+            back.import_kv_tier(dict(payload,
+                                     block_size=payload["block_size"] + 1))
+        dst.close()
+    finally:
+        src.close()
+        back.close()
 
 
 # -- churn sweep: accounting across interleavings -----------------------------

@@ -26,12 +26,14 @@ from paddle_tpu.models import lora as jlora
 from paddle_tpu.models.gpt import GPT as JaxGPT
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu.serving import LLMEngine as JaxLLMEngine
+from paddle_tpu.serving import build_serving_mesh as jax_build_serving_mesh
 from paddle_tpu_torch.models import lora
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
-from paddle_tpu_torch.serving import AsyncLLMEngine, LLMEngine
+from paddle_tpu_torch.serving import AsyncLLMEngine, LLMEngine, ServingMesh
 from paddle_tpu_torch.serving.block_pool import chain_block_hashes
 from paddle_tpu_torch.serving.server import _parse_completion_spec
 from paddle_tpu_torch.weights import from_jax_state_dict
+from test_torch_serving_sharded import cpu_mesh
 
 CFG = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
            max_seq_len=64)
@@ -110,8 +112,20 @@ def test_adapter_tables_layout_matches_jax():
     assert not a[0].any()                       # slot 0 stays the base
     lora.zero_slot(tables, 1)
     assert not a[1].any()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        lora.init_adapter_tables(cfg, 3, 4, smesh=object(), device="cpu")
+    # on a serving mesh, A is replicated and B holds the rank's out
+    # columns: the JAX tables' shardings, rank 1 of 2 shown
+    smesh = ServingMesh(["cpu", "cpu"]).for_rank(1)
+    sharded = lora.init_adapter_tables(cfg, 3, 4, smesh=smesh, device="cpu")
+    jmesh = jax_build_serving_mesh(2)
+    jspecs = jlora.table_shardings(jlora.LORA_TARGETS, jmesh)
+    assert lora.table_shardings(lora.LORA_TARGETS, smesh) == {
+        t: tuple(list(s.spec).index("tp") if "tp" in s.spec else None
+                 for s in jspecs[t]) for t in jspecs}
+    for t, (ta, tb) in sharded.items():
+        assert tuple(ta.shape) == tuple(tables[t][0].shape)
+        assert tb.shape[-1] * 2 == tables[t][1].shape[-1]
+    pb_rank1 = lora.shard_adapter(packed, smesh)["attn_qkv"][1]
+    np.testing.assert_array_equal(pb_rank1, pb[..., pb.shape[-1] // 2:])
 
 
 @pytest.mark.parametrize("case,match", [
@@ -201,6 +215,39 @@ def test_adapters_token_identical_to_merged_and_jax_engines(arrays):
                      "inflight": {}}
     assert c["lora_requests"] == 4
     assert eng.pool.num_free == eng.pool.num_blocks - 1
+
+
+def test_tp2_adapters_token_identical_to_jax_tp2(arrays):
+    """The same interleaved wave on a two-rank engine (B tables cut to each
+    rank's columns, every adapter write sent to every rank): the JAX
+    engine's tokens at tp=2, and the one-card port engine's."""
+    cfg = GPTConfig(**CFG)
+    w_a = _adapter(cfg, seed=7, rank=4)
+    w_b = _adapter(cfg, seed=11, rank=2)
+    classes = [None, "alpha", "beta", "alpha"]
+    prompts = [PROMPT + [30 + i] for i in range(len(classes))]
+
+    def wave(eng):
+        eng.load_adapter("alpha", w_a, alpha=8)
+        eng.load_adapter("beta", w_b, alpha=4)
+        rids = [eng.add_request(p, max_new_tokens=8, adapter=ad)
+                for p, ad in zip(prompts, classes)]
+        _drain(eng)
+        out = [eng.get_request(r).output_ids for r in rids]
+        eng.unload_adapter("beta")
+        return out
+
+    eng = engine(arrays, lora_slots=2, lora_rank=4, mesh=cpu_mesh(2))
+    try:
+        got = wave(eng)
+        assert eng.pool_stats()["lora"]["loaded"] == ["alpha"]
+    finally:
+        eng.close()
+    want = wave(JaxLLMEngine(arrays[0], lora_slots=2, lora_rank=4,
+                             mesh=2, **ENG))
+    one = wave(engine(arrays, lora_slots=2, lora_rank=4))
+    assert got == want == one
+    assert got[0] != got[1]
 
 
 def test_lora_off_engine_is_untouched(arrays):

@@ -25,6 +25,7 @@ import paddle_tpu_torch.serving.policy as tpolicy
 from paddle_tpu.serving.scheduler import Request as JRequest
 from paddle_tpu_torch.serving.scheduler import Request as TRequest
 from test_torch_server import idle, make_sides, prompts, run_both
+from test_torch_serving_sharded import tp_timeout  # noqa: F401
 
 P = prompts((5, 9, 13, 7, 20), seed=5)
 
@@ -347,14 +348,30 @@ def test_env_switch_reads_like_jax(sides, monkeypatch, tmp_path, name, value,
         assert sides["torch"].engine(prefix_cache=True).prefix_cache
 
 
+# the tensor-parallel switches, once refused, act as in the JAX engine:
+# PADDLE_TPU_TP=2 builds a two-rank engine, the quantized all-reduce is
+# read and dropped on one card, and the "off" values keep one card
 @pytest.mark.parametrize("name,value", [
     ("PADDLE_TPU_TP", "2"), ("PADDLE_TPU_QUANT_ALLREDUCE", "attn_proj")])
-def test_later_env_switches_raise(sides, monkeypatch, name, value):
+def test_later_env_switches_raise(sides, monkeypatch, name, value,
+                                  tp_timeout):
+    def read(side):
+        eng = side.engine()
+        try:
+            return eng.mesh_info(), sorted(eng.quant_collectives)
+        finally:
+            if side.name == "torch":
+                eng.close()
+
     monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match=name):
-        sides["torch"].engine()
+    got = run_both(sides, read)
+    assert got["torch"] == got["jax"]
+    assert got["torch"][0]["tp_degree"] == (2 if name == "PADDLE_TPU_TP"
+                                            else 1)
     monkeypatch.setenv(name, {"PADDLE_TPU_TP": "1"}.get(name, "0"))
-    sides["torch"].engine()
+    got = run_both(sides, read)
+    assert got["torch"] == got["jax"]
+    assert got["torch"][0]["tp_degree"] == 1
 
 
 @pytest.mark.parametrize("option", [

@@ -19,6 +19,7 @@ import inspect
 import json
 import os
 import re
+import select
 import signal
 import subprocess
 import sys
@@ -381,20 +382,62 @@ def test_client_disconnect_aborts_like_jax(sides):
 
 
 def test_server_cli_refuses_fleet_options_and_needs_a_card(monkeypatch):
-    """The CLI refuses only tensor-parallel serving (Queue 1 item 6); the
-    fleet, the autoscaler, checkpoint streaming and the parameter budget
-    are in the port, and like the single replica they need a card unless
-    `--device` names another device."""
+    """The CLI refuses only tensor-parallel replicas behind the router
+    (Queue 1 item 6c); tensor-parallel serving, the fleet, the autoscaler,
+    checkpoint streaming and the parameter budget are in the port, and
+    like the single replica they need a card unless `--device` names
+    another device (`--tp-degree 2 --device cpu`: the next test)."""
     from paddle_tpu_torch.serving.server import main
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        main(["--tp-degree", "2"])
+    for argv in (["--tp-degree", "2", "--replicas", "2"],
+                 ["--tp-degree", "2", "--autoscale-max", "3"]):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6c"):
+            main(argv)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in (["--port", "0"], ["--replicas", "2"],
                  ["--autoscale-max", "3"], ["--checkpoint", "ckpt"],
-                 ["--param-hbm-bytes", "1000"]):
+                 ["--param-hbm-bytes", "1000"], ["--tp-degree", "2"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)
+
+
+def test_server_cli_serves_tp2_on_the_cpu():
+    """``--tp-degree 2 --device cpu`` boots one replica over two CPU ranks,
+    answers a completion with the one-card tokens, reports the mesh on
+    /healthz and ends its ranks on SIGINT."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PADDLE_TPU_")}
+    argv = [sys.executable, "-m", "paddle_tpu_torch.serving.server",
+            "--device", "cpu", "--port", "0", "--max-seq-len", "64"]
+    got = {}
+    for extra in ([], ["--tp-degree", "2"]):
+        proc = subprocess.Popen(argv + extra, cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            # bounded: the CLI's group keeps the mesh's default timeout
+            assert select.select([proc.stdout], [], [], 120)[0], \
+                "the server printed no address in 120 s"
+            line = proc.stdout.readline()
+            port = int(re.search(r":(\d+) \(", line).group(1))
+            status, _, body = asyncio.run(asyncio.wait_for(http(
+                port, "POST", "/v1/completions",
+                {"prompt": [1, 2, 3], "max_tokens": 3}), 120))
+            assert status == 200
+            _, _, health = asyncio.run(asyncio.wait_for(
+                http(port, "GET", "/healthz"), 60))
+            got[len(extra)] = (json.loads(body)["choices"][0]["token_ids"],
+                               json.loads(health)["mesh"]["tp_degree"])
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        assert proc.returncode == 0, proc.stderr.read()
+    assert "over 2 tp ranks" in line
+    assert got[2] == (got[0][0], 2) and got[0][1] == 1
 
 
 def test_server_cli_serves_on_the_cpu():
