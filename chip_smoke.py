@@ -234,6 +234,35 @@ Phases, in order; any failure exits nonzero:
    with an inf planted in a gradient: skipped (parameters and masters
    unchanged bit for bit), the scale halved; one host sync a scaler.step
    (unscale_'s, counted in set_sync_debug_mode("warn")).
+6d. ZeRO data-parallel training at dp=2 on the one card (run last, after
+   gc.collect() and torch.cuda.empty_cache()): two ranks on cuda:0 over an
+   explicit gloo backend (NCCL refuses two ranks on one device), eager,
+   every collective staged through host memory; every time is labelled
+   "eager, gloo through the host, two ranks on one card - not a dp speed"
+   beside the card's name and power limit. (a) float32 (TF32 off), the
+   flagship widths at 2 layers, batch 4 x 256, AdamW: zero stages 0, 2
+   and 3 for 3 steps give the same losses and gathered parameters bit for
+   bit; stage 0 equals one process on the whole batch within 1e-5;
+   gradient_merge_k=2 over 4 steps at stage 2 equals stage 0 with k=2;
+   each rank's collective calls a step equal train_collective_budget(28,
+   2). (b) The flagship at full width built in f32 through
+   amp.decorate(level="O2"), AdamW(1e-4, weight decay 0.01), 16 x 1024 (8
+   rows a rank): stage 2, then 3, one warm-up and 3 counted steps each
+   (counts set to 0 just before and read just after): finite, falling
+   losses; 12 + 12 flash launches a step on each rank; budget(148, 2) a
+   step; each rank's optimizer state <= 0.51x the unsharded figure
+   (computed from the same leaves), stage 3's resident parameters <=
+   0.51x the model's; each rank's peak memory, step seconds and the
+   step's phases (CUDA events). (c) (b)'s stage 2 with quant_grads=True:
+   296 all-to-alls and 0 reduce-scatters a step, finite falling losses,
+   the greatest drift from (b)'s stage-2 losses printed. (d) ERNIE-base
+   Sharding-2: phase 8's cell through group_sharded_parallel(level="os_g")
+   and make_sharded_train_step(zero_stage=2), 16 rows a rank, one warm-up
+   and 3 counted steps: 12 + 12 mask + dropout launches a step on each
+   rank, budget(157, 2), optimizer state <= 0.51x, the mean of the last 2
+   losses below the first, tokens/s all and real. (e) A rank that raises
+   (an operation it cannot run) makes the next step raise RankFailed
+   within the mesh's 60 s timeout; a new mesh then trains.
 
 Prints a `{"kernels": [...]}` line (the flash rows also name the bf16
 kernel's design and ptxas's registers and spill bytes for it; a spill in
@@ -2006,6 +2035,7 @@ def fleet(model, graph_outs, smi):
 
 async def _fleet(model, graph_outs, smi):
     import gc
+    import weakref
 
     from paddle_tpu_torch.distributed.checkpoint import save_sharded_model
     from paddle_tpu_torch.models.gpt import gpt_1p3b
@@ -2251,7 +2281,18 @@ async def _fleet(model, graph_outs, smi):
 
         # 5. autoscale: one replica, a burst scales up, idle scales down;
         # the card's memory comes back after the retire
-        await router.retire_replica()
+        engines = {r.name: weakref.ref(r.engine.engine)
+                   for r in router.replicas}
+        retired = engines[await router.retire_replica()]
+        # the baseline is read once the replica just retired has let its
+        # memory go (nothing holds its engine: its thread and last streams
+        # end after the retire returns), so that release is not counted
+        # against the cycle below
+        t_free = time.perf_counter()
+        while retired() is not None and time.perf_counter() - t_free < 60:
+            gc.collect()
+            await asyncio.sleep(0.1)
+        free_wait_s = time.perf_counter() - t_free
         gc.collect()
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated()
@@ -2305,6 +2346,8 @@ async def _fleet(model, graph_outs, smi):
             finished_by_replica=served_by,
             mem_before_spawn_mib=mem0 / 2**20,
             mem_after_retire_mib=mem1 / 2**20,
+            earlier_retire_freed=retired() is None,
+            earlier_retire_wait_s=free_wait_s,
             spawned_engine_freed=not holders, spawned_engine_holders=holders,
             endpoint=code, seconds=time.perf_counter() - t0)
         a = res["autoscale"]
@@ -2378,9 +2421,9 @@ def _tp_gate(engine, counts, kv_dtype):
         assert c["ragged"] == L * steps, c
         assert c["ragged_int8"] == (L * steps if kv_dtype else 0), c
         assert c["append"] == (2 * L * steps if kv_dtype else 0), c
-        assert c["collectives"] == {
-            "all-reduce": budget["all-reduce"] * steps,
-            "all-gather": budget["all-gather"] * steps}, (c, budget)
+        assert c["collectives"] == {k: budget[k] * steps for k in (
+            "all-reduce", "all-gather", "reduce-scatter", "all-to-all")}, (
+                c, budget)
     return budget
 
 
@@ -3542,6 +3585,312 @@ def training_surface(smi, trained, ernie):
     return res
 
 
+# -- phase 6d -----------------------------------------------------------------
+
+DP_LABEL = ("eager, gloo through the host, two ranks on one card - not a "
+            "dp speed")
+
+
+def _dp_mesh(timeout=300):
+    """Two ranks on cuda:0 over an explicit gloo backend: the one-card
+    departure of the rank meshes (NCCL refuses two ranks on a device)."""
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+
+    return build_mesh({"dp": 2}, devices=["cuda:0", "cuda:0"],
+                      backend="gloo", timeout=timeout)
+
+
+def _dp_run(step, batch, steps, warmup=1):
+    """`warmup` steps, then `steps` counted ones with every rank's counters
+    set to 0 just before and read just after: (losses, per-rank counts,
+    wall seconds a counted step, each rank's seconds a counted step). Each
+    rank's count entry carries its median ms a counted step in each phase
+    of the step (`ShardedTrainStep.last_step`: CUDA events on the rank's
+    stream, so host staging shows as the device waiting)."""
+    losses = [step(*batch) for _ in range(warmup)]
+    step.rank_reports(zero=True)
+    wall, ranks, phases = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(*batch))
+        wall.append(time.perf_counter() - t0)
+        ranks.append([r["seconds"] for r in step.last_step])
+        phases.append([r["phases_ms"] for r in step.last_step])
+    reports = step.rank_reports()
+    counts = [dict(rank=r["rank"], steps=steps, **r["launches"],
+                   collectives=r["collectives"],
+                   peak_gib=r["peak_bytes"] / 2**30,
+                   phase_ms_p50={k: float(np.median([p[i][k] for p in phases]))
+                                 for k in phases[0][i]})
+              for i, r in enumerate(reports)]
+    return losses, counts, wall, ranks
+
+
+def _dp_budget(counts, n_leaves, quant=False):
+    """Each rank made `train_collective_budget` calls a step."""
+    from paddle_tpu_torch.parallel.spmd import train_collective_budget
+
+    b = train_collective_budget(n_leaves, 2, quant)
+    for c in counts:
+        steps = c["steps"]
+        assert c["collectives"] == {k: b[k] * steps for k in (
+            "all-reduce", "all-gather", "reduce-scatter", "all-to-all")}, (
+                c, b)
+    return b
+
+
+def _dp_launches(counts, layers, variant):
+    """12 forward and 12 backward flash launches a layer and step on each
+    rank; with `variant` every one the mask + dropout variant."""
+    for c in counts:
+        n = layers * c["steps"]
+        for d in ("fwd", "bwd"):
+            assert c[f"{d}_launches"] == n, c
+            want = n if variant else 0
+            assert (c[f"{d}_mask_launches"], c[f"{d}_dropout_launches"]) == (
+                want, want), c
+
+
+def _zero_parity(mesh):
+    """6d (a): float32 (TF32 off), phase 7's widths at 2 layers, batch 4 x
+    256 (2 rows a rank), AdamW(1e-4): zero stages 0, 2 and 3 for 3 steps;
+    stages 2 and 3 give stage 0's losses and gathered parameters bit for
+    bit; stage 0 equals one process on the whole batch within 1e-5;
+    gradient_merge_k=2 over 4 steps at stage 2 equals stage 0 with k=2;
+    each rank's collective calls a step at stages 2 and 3 are
+    `train_collective_budget(28, 2)`'s."""
+    from paddle_tpu_torch.models.gpt import GPT, gpt_loss_fn
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = flagship_config(num_layers=2)
+    batch = train_batch(cfg, 4, 256, "cpu")
+
+    def build():
+        model = GPT(cfg, device="cuda", dtype=torch.float32, seed=0)
+        return model, AdamW(learning_rate=1e-4,
+                            parameters=model.named_parameters())
+
+    def run(zs, gm=1, steps=3):
+        model, opt = build()
+        step = make_sharded_train_step(model, gpt_loss_fn, opt, mesh,
+                                       zero_stage=zs, gradient_merge_k=gm)
+        try:
+            losses, counts, _, _ = _dp_run(step, batch, steps, warmup=0)
+            params = step.gather_params()
+            n = len(step.names)
+        finally:
+            step.close()
+        return losses, counts, params, n
+
+    runs = {zs: run(zs) for zs in (0, 2, 3)}
+    model, opt = build()
+    ids, labels = (b.cuda() for b in batch)
+    model.train()
+    one = []
+    for _ in range(3):
+        loss = gpt_loss_fn(model(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        one.append(loss.item())
+    gm0, gm2 = run(0, gm=2, steps=4), run(2, gm=2, steps=4)
+    losses = {zs: r[0] for zs, r in runs.items()}
+    res = dict(losses=losses, one_process=one, gm2_stage0=gm0[0],
+               gm2_stage2=gm2[0], leaves=runs[2][3],
+               counts={zs: runs[zs][1] for zs in (2, 3)})
+    log("[zero-parity] " + json.dumps(res))
+    for zs in (2, 3):
+        assert losses[zs] == losses[0], (zs, losses)
+        p0, p = runs[0][2], runs[zs][2]
+        same = [k for k in p0 if torch.equal(p0[k], p[k])]
+        assert len(same) == len(p0), (zs, set(p0) - set(same))
+        _dp_budget(runs[zs][1], runs[zs][3])
+    np.testing.assert_allclose(losses[0], one, rtol=1e-5)
+    assert gm2[0] == gm0[0], (gm0[0], gm2[0])
+    res["params_bit_equal"] = True
+    return res
+
+
+def _zero_flagship(mesh, smi):
+    """6d (b) and (c): the flagship at full width (bench_gpt: vocab 32768,
+    hidden 1024, 12 layers, 8 heads, seq 1024) built in float32 and put
+    through amp.decorate(level="O2"), AdamW(1e-4, weight decay 0.01), no
+    clip, batch 16 x 1024 from RandomState(0) (8 rows a rank): zero stage
+    2, then 3, one warm-up and 3 counted steps each, then stage 2 with
+    quant_grads=True the same way."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPT, gpt_loss_fn
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    cfg = flagship_config()
+    model = GPT(cfg, device="cuda", dtype=torch.float32, seed=0)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.named_parameters())
+    model, opt = amp.decorate(model, opt, level="O2")
+    batch = train_batch(cfg, 16, cfg.max_seq_len, "cpu")
+    model_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    res = dict(label=DP_LABEL, card=smi, model_bytes=model_bytes,
+               tokens_per_step=batch[0].numel())
+    for name, zs, quant in (("stage2", 2, False), ("stage3", 3, False),
+                            ("stage2_int8", 2, True)):
+        t0 = time.perf_counter()
+        step = make_sharded_train_step(model, gpt_loss_fn, opt, mesh,
+                                       zero_stage=zs, quant_grads=quant)
+        build_s = time.perf_counter() - t0
+        try:
+            losses, counts, wall, ranks = _dp_run(step, batch, 3)
+            opt_bytes = step.per_chip_opt_state_bytes()
+            unsharded = step.unsharded_opt_state_bytes()
+            param_bytes = step.param_bytes()
+            n = len(step.names)
+        finally:
+            step.close()
+        r = dict(zero_stage=zs, quant_grads=quant, leaves=n, losses=losses,
+                 counts=counts, build_s=build_s, step_s=wall,
+                 rank_step_s=ranks,
+                 tokens_per_s=batch[0].numel() * len(wall) / sum(wall),
+                 opt_state_bytes=opt_bytes, unsharded_opt_state_bytes=unsharded,
+                 opt_state_ratio=[b / unsharded for b in opt_bytes],
+                 param_bytes=param_bytes,
+                 param_ratio=[b / model_bytes for b in param_bytes])
+        res[name] = r
+        log(f"[zero-flagship] {name} ({DP_LABEL}; {smi}) " + json.dumps(r))
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+        _dp_launches(counts, cfg.num_layers, variant=False)
+        _dp_budget(counts, n, quant)
+        assert max(r["opt_state_ratio"]) <= 0.51, r["opt_state_ratio"]
+        if zs == 3:
+            assert max(r["param_ratio"]) <= 0.51, r["param_ratio"]
+    drift = max(abs(a - b) for a, b in zip(res["stage2_int8"]["losses"],
+                                           res["stage2"]["losses"]))
+    res["int8_loss_drift"] = drift
+    log(f"[zero-flagship] int8 gradients: greatest loss drift from the "
+        f"float stage-2 run {drift:.6f}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def _zero_ernie(mesh, smi):
+    """6d (d): phase 8's cell (ernie_base bf16, dropout 0.1, AdamW(1e-4,
+    weight decay 0.01), 32 x 512 with real lengths in 256-512, the padding
+    mask, MLM labels at 15 %) through group_sharded_parallel(level="os_g")
+    and make_sharded_train_step(..., zero_stage=2) at dp=2 (16 rows a
+    rank): one warm-up and 3 counted steps."""
+    from paddle_tpu_torch.distributed import group_sharded_parallel
+    from paddle_tpu_torch.models.bert import bert_pretrain_loss_fn
+    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    model, opt, batch, lens = ernie_trainer()
+    wrapped, wopt, _ = group_sharded_parallel(model, opt, level="os_g")
+    t0 = time.perf_counter()
+    step = make_sharded_train_step(wrapped, bert_pretrain_loss_fn, wopt,
+                                   mesh, zero_stage=2)
+    build_s = time.perf_counter() - t0
+    try:
+        losses, counts, wall, ranks = _dp_run(step, batch, 3)
+        opt_bytes = step.per_chip_opt_state_bytes()
+        unsharded = step.unsharded_opt_state_bytes()
+        n = len(step.names)
+    finally:
+        step.close()
+    secs = sum(wall)
+    tokens, real = batch[0].numel(), int(lens.sum())
+    res = dict(label=DP_LABEL, card=smi, leaves=n, losses=losses,
+               counts=counts, build_s=build_s, step_s=wall,
+               rank_step_s=ranks, tokens_per_s=tokens * len(wall) / secs,
+               real_tokens_per_s=real * len(wall) / secs,
+               opt_state_bytes=opt_bytes, unsharded_opt_state_bytes=unsharded,
+               opt_state_ratio=[b / unsharded for b in opt_bytes])
+    log(f"[zero-ernie] ({DP_LABEL}; {smi}) " + json.dumps(res))
+    assert all(np.isfinite(losses)), losses
+    assert np.mean(losses[-2:]) < losses[0], losses
+    _dp_launches(counts, model.cfg.num_layers, variant=True)
+    _dp_budget(counts, n)
+    assert max(res["opt_state_ratio"]) <= 0.51, res["opt_state_ratio"]
+    del model, opt, wrapped, wopt
+    torch.cuda.empty_cache()
+    return res
+
+
+def _zero_failure():
+    """6d (e): a rank that raises (an operation it cannot run, injected as
+    the CPU tests inject it) makes the controller's next step raise
+    RankFailed within the mesh's timeout; then a new mesh trains."""
+    from paddle_tpu_torch.distributed.ranks import RankFailed
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig, gpt_loss_fn
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                    num_heads=2, max_seq_len=256)
+    batch = train_batch(cfg, 4, 128, "cpu")
+
+    def step_on(mesh):
+        model = GPT(cfg, device="cuda", seed=0)
+        opt = AdamW(learning_rate=1e-3, parameters=model.named_parameters())
+        return make_sharded_train_step(model, gpt_loss_fn, opt, mesh,
+                                       zero_stage=2)
+
+    timeout = 60
+    mesh = _dp_mesh(timeout)
+    try:
+        step = step_on(mesh)
+        step(*batch)
+        mesh.ranks.send("no_such_operation")
+        t0 = time.perf_counter()
+        try:
+            step(*batch)
+        except RankFailed as e:
+            raised = (e.rank, e.detail.strip().splitlines()[-1])
+        else:
+            raise AssertionError("a failed rank went unnoticed")
+        secs = time.perf_counter() - t0
+    finally:
+        mesh.close()
+    assert raised[0] == 1 and "KeyError" in raised[1], raised
+    assert secs < timeout, secs
+    fresh = _dp_mesh(timeout)
+    try:
+        after = step_on(fresh)(*batch)
+    finally:
+        fresh.close()
+    assert np.isfinite(after)
+    res = dict(rank=raised[0], error=raised[1], seconds_to_raise=secs,
+               mesh_timeout_s=timeout, new_mesh_loss=after)
+    log("[zero-failure] " + json.dumps(res))
+    return res
+
+
+def zero_dp(smi):
+    """Phase 6d: ZeRO data-parallel training at dp=2 on the one card (two
+    ranks on cuda:0 over an explicit gloo backend, every collective staged
+    through host memory). Run last, after gc.collect() and
+    torch.cuda.empty_cache()."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated() / 2**30
+    log(f"[zero] phase 6d starts with {base:.2f} GiB allocated ({smi})")
+    mesh = _dp_mesh()
+    try:
+        res = dict(base_mem_gib=base, parity=_zero_parity(mesh),
+                   flagship=_zero_flagship(mesh, smi),
+                   ernie=_zero_ernie(mesh, smi))
+    finally:
+        mesh.close()
+    res["failure"] = _zero_failure()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[zero] phase 6d {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -3582,6 +3931,7 @@ def main():
     gpt_drop = gpt_dropout_train()
     epar = ernie_parity()
     surface = training_surface(smi, trained, ernie)
+    zero = zero_dp(smi)
     # the kernel line's headline numbers: the bf16 decode case (width 1),
     # the launch shape the serving path runs most, and the bf16 flash case
     # at the training shape
@@ -3674,6 +4024,11 @@ def main():
         return {"design": design[kname], "registers": regs,
                 "spill_bytes": spill}
 
+    def dp2(counts, key):
+        # phase 6d: each dp=2 rank's launches over its counted steps
+        return [c[key] for c in counts]
+
+    zf, ze = zero["flagship"], zero["ernie"]
     kernels = rpa + [{
         "name": "flash_attention_fwd", "route": "cuda", "source": src,
         "replaces": f"{tpu}:121", "launches": trained["fwd_launches"],
@@ -3685,6 +4040,8 @@ def main():
         "remat_launches": surface["remat"]["fwd_launches"],
         # AdaRound's calibration forwards (phase 3f) at S 24
         "calibration_launches": feature["launches"]["flash_fwd"],
+        "dp2_rank_launches": {k: dp2(zf[k]["counts"], "fwd_launches")
+                              for k in ("stage2", "stage3", "stage2_int8")},
         "calibration_case": feature["adaround"]["flash_s24"],
         "cases": flash,
     }, {
@@ -3694,6 +4051,8 @@ def main():
         "name": "flash_attention_dkv", "route": "cuda", "source": src,
         "replaces": f"{tpu}:238", "launches": trained["bwd_launches"],
         "remat_launches": surface["remat"]["bwd_launches"],
+        "dp2_rank_launches": {k: dp2(zf[k]["counts"], "bwd_launches")
+                              for k in ("stage2", "stage3", "stage2_int8")},
         "max_abs_err": max(fl["max_err"]["dk"], fl["max_err"]["dv"]),
         "ms": fl["dkv_ms"], "plain_ms": fl["plain_bwd_ms"],
         "bound_ms": fl["bound_dkv_ms"], "bound_by": fl["bound_dkv_by"],
@@ -3702,6 +4061,8 @@ def main():
         "name": "flash_attention_dq", "route": "cuda", "source": src,
         "replaces": f"{tpu}:295", "launches": trained["bwd_launches"],
         "remat_launches": surface["remat"]["bwd_launches"],
+        "dp2_rank_launches": {k: dp2(zf[k]["counts"], "bwd_launches")
+                              for k in ("stage2", "stage3", "stage2_int8")},
         "max_abs_err": fl["max_err"]["dq"],
         "ms": fl["dq_ms"], "plain_ms": fl["plain_bwd_ms"],
         "bound_ms": fl["bound_dq_ms"], "bound_by": fl["bound_dq_by"],
@@ -3721,6 +4082,9 @@ def main():
             "name": f"flash_attention_{kname}_mask_dropout", "route": "cuda",
             "source": src, "replaces": f"{tpu}:{site}",
             "launches": launches, "remat_launches": remat_launches,
+            "dp2_rank_launches": dp2(ze["counts"], "fwd_mask_launches"
+                                     if kname == "fwd" else
+                                     "bwd_mask_launches"),
             "max_abs_err": max(ev["max_err"][e] for e in errs),
             "ms": ev[f"{key}_ms"],
             "plain_ms": ev["plain_fwd_ms" if key == "fwd"
@@ -3740,7 +4104,7 @@ def main():
                            overcap=overcap, parity=par, parity_int8=par_int8,
                            train=trained, train_parity=tpar, ernie=ernie,
                            train_dropout=gpt_drop, ernie_parity=epar,
-                           training_surface=surface), f,
+                           training_surface=surface, zero_dp=zero), f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

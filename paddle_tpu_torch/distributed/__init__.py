@@ -1,9 +1,16 @@
 """Distributed helpers of the port (the JAX package's
-`paddle_tpu.distributed`): `fleet.utils.recompute` and the checkpoint
-(`checkpoint.py`: save, load and streamed load, one process)."""
+`paddle_tpu.distributed`): `fleet.utils.recompute`, the checkpoint
+(`checkpoint.py`: save, load and streamed load, one process), the rank
+processes (`ranks.py`), the data-parallel mesh (`mesh.py`) and the Group
+Sharded markers (`fleet.meta_parallel`)."""
 from . import checkpoint  # noqa: F401
 from .checkpoint import (load_sharded_model, load_state, save_sharded_model,
                          save_state)
+from .fleet.meta_parallel import (group_sharded_parallel,
+                                  save_group_sharded_model)
+from .mesh import build_mesh, get_mesh, init_mesh, set_mesh
 
-__all__ = ["checkpoint", "load_sharded_model", "load_state",
-           "save_sharded_model", "save_state"]
+__all__ = ["build_mesh", "checkpoint", "get_mesh", "group_sharded_parallel",
+           "init_mesh", "load_sharded_model", "load_state",
+           "save_group_sharded_model", "save_sharded_model", "save_state",
+           "set_mesh"]

@@ -22,7 +22,11 @@ per-parameter rule in the order of its compiled step
    parameter becomes ``master.to(param.dtype)``.
 
 Python scalars are rounded to the dtype they multiply, as JAX's weakly
-typed scalars are, so bfloat16 results carry JAX's bits.
+typed scalars are, so bfloat16 results carry JAX's bits. Every rule here is
+elementwise, so it runs unchanged on any slice of a parameter: data-parallel
+training (parallel/spmd.py) rebuilds the optimizer from its `settings()`
+over each rank's flat shards under the original names (`from_settings`),
+and slots, masters, decay and state keys come out as over whole tensors.
 `state_dict()`/`set_state_dict()` use the JAX package's key scheme:
 ``{name}_{slot}``, ``LR_Scheduler``, ``@step`` and ``@param_order``, with
 names from ``(name, parameter)`` pairs (``model.named_parameters()``) or,
@@ -30,6 +34,8 @@ for bare parameters, ``param_{i}`` by position.
 """
 from __future__ import annotations
 
+import functools
+import operator
 from collections import OrderedDict
 
 import numpy as np
@@ -53,6 +59,41 @@ def as_dtype(x, dtype):
     return torch.tensor(float(x), dtype=dtype).item()
 
 
+# attributes of an optimizer that are not its settings
+_NOT_SETTINGS = frozenset(("_torch_keys", "_names", "_step_count",
+                           "_last_lr"))
+
+
+def from_settings(settings, named_params):
+    """An optimizer of `settings` (`Optimizer.settings()`) over
+    `named_params` (``(name, tensor)`` pairs), with no state and step
+    count 0: the same rule, decay and master-weight choice as the one the
+    settings came from."""
+    cls, own = settings
+    named = list(named_params)
+    opt = cls.__new__(cls)
+    opt.__dict__.update(own)
+    opt._names = {id(p): n for n, p in named}
+    opt._step_count = 0
+    opt._last_lr = None
+    before = set(vars(opt))
+    torch.optim.Optimizer.__init__(opt, [p for _, p in named], {})
+    opt._torch_keys = frozenset(set(vars(opt)) - before)
+    return opt
+
+
+def state_bytes(optimizer):
+    """Bytes of optimizer state this process holds: each slot tensor's
+    elements times their size, and four for each host slot (a float32
+    scalar)."""
+    total = 0
+    for st in optimizer.state.values():
+        for v in st.values():
+            total += (v.numel() * v.element_size() if torch.is_tensor(v)
+                      else 4)
+    return total
+
+
 class Optimizer(torch.optim.Optimizer):
     """The base of the port's optimizers. Subclasses define `_init_slots`
     (the state of one parameter) and `_update` (the rule on lists)."""
@@ -63,6 +104,9 @@ class Optimizer(torch.optim.Optimizer):
     _decoupled_wd = False
     # slots held on the host as float32 scalars (the beta powers)
     _host_slots = ()
+    # whether the rule is elementwise (no reduction over a tensor), so a
+    # shard of a parameter updates as the whole would
+    _elementwise_update = True
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False,
@@ -86,7 +130,9 @@ class Optimizer(torch.optim.Optimizer):
         self._apply_decay_param_fun = apply_decay_param_fun
         self._step_count = 0
         self._last_lr = None
+        before = set(vars(self))
         super().__init__(params, {})
+        self._torch_keys = frozenset(set(vars(self)) - before)
 
     # ---- lr ---------------------------------------------------------------
     def get_lr(self):
@@ -96,6 +142,25 @@ class Optimizer(torch.optim.Optimizer):
 
     def set_lr(self, value):
         self._learning_rate = float(value)
+
+    # ---- rebuilding elsewhere ---------------------------------------------
+    def settings(self):
+        """``(class, settings)``: what `from_settings` rebuilds this
+        optimizer from over other tensors, in another process too: every
+        setting but the parameters, their names, the state and the step
+        count. The learning rate is its value now (a scheduler stays with
+        the caller, who hands each step its lr) and
+        `apply_decay_param_fun` becomes the set of names it decays, so the
+        settings pickle."""
+        own = {k: v for k, v in vars(self).items()
+               if k not in self._torch_keys and k not in _NOT_SETTINGS}
+        own["_learning_rate"] = self.get_lr()
+        fn = self._apply_decay_param_fun
+        if fn is not None:
+            decayed = frozenset(n for n in self._names.values() if fn(n))
+            own["_apply_decay_param_fun"] = functools.partial(
+                operator.contains, decayed)
+        return type(self), own
 
     # ---- state ------------------------------------------------------------
     @property

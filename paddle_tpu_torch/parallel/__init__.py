@@ -1,8 +1,11 @@
-"""Cross-rank collectives of the port (the JAX package's
-`paddle_tpu.parallel.collectives`): the counted all-reduce and all-gather
-of tensor-parallel serving and the EQuARX int8 all-reduce."""
-from .collectives import (TPGroup, absmax_quantize, all_gather, all_reduce,
-                          quantized_allgather_sum)
+"""Cross-rank collectives and data-parallel training of the port (the JAX
+package's `paddle_tpu.parallel`): the counted collectives and EQuARX int8
+collectives (`collectives.py`), the ZeRO train step and LocalSGD
+(`spmd.py`)."""
+from .collectives import (RankGroup, TPGroup, absmax_quantize, all_gather,
+                          all_reduce, all_to_all, quantized_allgather_sum,
+                          quantized_psum_scatter, reduce_scatter)
 
-__all__ = ["TPGroup", "absmax_quantize", "all_gather", "all_reduce",
-           "quantized_allgather_sum"]
+__all__ = ["RankGroup", "TPGroup", "absmax_quantize", "all_gather",
+           "all_reduce", "all_to_all", "quantized_allgather_sum",
+           "quantized_psum_scatter", "reduce_scatter"]

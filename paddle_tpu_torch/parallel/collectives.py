@@ -1,27 +1,31 @@
-"""Cross-rank collectives of tensor-parallel serving, counted, and the
-EQuARX int8 all-reduce (the JAX package's `parallel/collectives.py`, in
-PyTorch's idiom: one rank a process over `torch.distributed`).
+"""Cross-rank collectives of the port, counted, and the EQuARX int8
+collectives (the JAX package's `parallel/collectives.py`, in PyTorch's
+idiom: one rank a process over `torch.distributed`).
 
-`TPGroup` is one rank's handle on the data plane: a c10d process group
+`RankGroup` is one rank's handle on the data plane: a c10d process group
 built straight on a store (never the default group, so one process can
-hold the groups of several engines), this rank's index and the group's
-size. NCCL runs on CUDA tensors as they are; gloo takes host tensors, so
-on a CUDA tensor its calls stage through host memory, which also makes
-them synchronous (gloo cannot be captured in a CUDA graph).
+hold the groups of several engines or training steps), this rank's index
+and the group's size. NCCL runs on CUDA tensors as they are; gloo takes
+host tensors, so on a CUDA tensor its calls stage through host memory,
+which also makes them synchronous (gloo cannot be captured in a CUDA
+graph).
 
-`all_reduce` and `all_gather` are the only collectives a serving step
-makes. Each call adds one to its counter (``all_reduce.calls``,
-``all_gather.calls``) through `ops/counts.py`, so a captured graph's
-replays count as its launches do and a step's calls can be held against
-`serving/sharded.serving_collective_budget`.
+A serving step makes `all_reduce` and `all_gather` calls; a data-parallel
+training step (parallel/spmd.py) adds `reduce_scatter` and `all_to_all`.
+Each call adds one to its counter (``all_reduce.calls`` and so on)
+through `ops/counts.py`, so a captured graph's replays count as its
+launches do and a step's calls can be held against
+`serving/sharded.serving_collective_budget` or
+`parallel/spmd.train_collective_budget`.
 
-EQuARX (arXiv:2506.17615): the payload of a dense-activation collective
-tolerates int8 when each shard's contribution is quantized once with its
-own scale and the reduction accumulates in float32, so error never
-compounds across shards. `quantized_allgather_sum` moves the int8 payload
-and the float32 scale through two all-gathers in place of one float32
-all-reduce. (`quantized_psum_scatter`, the training half, is not ported
-yet.)
+EQuARX (arXiv:2506.17615): the payload of a dense-activation or gradient
+collective tolerates int8 when each shard's contribution is quantized
+once with its own scale and the reduction accumulates in float32, so
+error never compounds across shards. `quantized_allgather_sum` moves the
+int8 payload and the float32 scale through two all-gathers in place of
+one float32 all-reduce (serving's row-parallel projection);
+`quantized_psum_scatter` moves them through two all-to-alls in place of
+one float32 reduce-scatter (training's gradient reduction).
 """
 from __future__ import annotations
 
@@ -30,8 +34,8 @@ import torch
 from ..ops import counts
 
 
-class TPGroup:
-    """This rank's view of a tensor-parallel process group.
+class RankGroup:
+    """This rank's view of a process group (tensor- or data-parallel).
 
     ``pg`` is a ``ProcessGroupGloo`` or ``ProcessGroupNCCL`` over ``size``
     ranks; ``backend`` names it ("gloo" or "nccl")."""
@@ -75,6 +79,29 @@ class TPGroup:
         out = out.view((self.size,) + tuple(t.shape))
         return out.to(t.device) if out.device != t.device else out
 
+    def reduce_scatter(self, flat):
+        """This rank's ``[n / size]`` chunk of the sum over the ranks of
+        the flat ``[n]`` tensor `flat` (n divisible by the size), in its
+        own dtype."""
+        src = flat.contiguous()
+        if self._staged(src):
+            src = src.cpu()
+        out = torch.empty(src.numel() // self.size, dtype=src.dtype,
+                          device=src.device)
+        self.pg._reduce_scatter_base(out, src).wait()
+        return out.to(flat.device) if out.device != flat.device else out
+
+    def all_to_all(self, t):
+        """`t`'s rows ``t[j]`` (``t`` is ``[size, ...]``) sent to rank j;
+        returns the ``[size, ...]`` rows every rank sent here, in rank
+        order."""
+        src = t.contiguous()
+        if self._staged(src):
+            src = src.cpu()
+        out = torch.empty_like(src)
+        self.pg.alltoall_base(out, src, [], []).wait()
+        return out.to(t.device) if out.device != t.device else out
+
     def send(self, t, dst):
         """Point-to-point `t` to rank `dst` (weight placement)."""
         buf = t.contiguous().cpu() if self._staged(t) else t.contiguous()
@@ -108,15 +135,39 @@ def all_gather(t, group):
 all_gather.calls = 0
 
 
+def reduce_scatter(flat, group):
+    """This rank's chunk of the sum of the flat `flat` over `group`'s ranks
+    (one counted call)."""
+    counts.tick(reduce_scatter, "calls")
+    return group.reduce_scatter(flat)
+
+
+reduce_scatter.calls = 0
+
+
+def all_to_all(t, group):
+    """Row j of ``[size, ...]`` `t` to rank j; the rows every rank sent
+    here, in rank order (one counted call)."""
+    counts.tick(all_to_all, "calls")
+    return group.all_to_all(t)
+
+
+all_to_all.calls = 0
+
+_COUNTED = {"all-reduce": all_reduce, "all-gather": all_gather,
+            "reduce-scatter": reduce_scatter, "all-to-all": all_to_all}
+
+
 def collective_counts():
-    """{"all-reduce": n, "all-gather": n}: the calls counted so far, in
-    `serving_collective_budget`'s names."""
-    return {"all-reduce": all_reduce.calls, "all-gather": all_gather.calls}
+    """{"all-reduce": n, "all-gather": n, "reduce-scatter": n,
+    "all-to-all": n}: the calls counted so far, in the collective budgets'
+    names."""
+    return {name: fn.calls for name, fn in _COUNTED.items()}
 
 
 def reset_collective_counts():
-    all_reduce.calls = 0
-    all_gather.calls = 0
+    for fn in _COUNTED.values():
+        fn.calls = 0
 
 
 def absmax_quantize(x, axis=None):
@@ -147,3 +198,30 @@ def quantized_allgather_sum(part, group):
     qg = all_gather(q, group)                  # [size, ...] int8
     sg = all_gather(sc.reshape(1), group)      # [size, 1] float32
     return torch.tensordot(sg[:, 0], qg.float(), dims=([0], [0]))
+
+
+def quantized_psum_scatter(flat, group):
+    """Reduce-scatter the flat float32 ``[n]`` `flat` over `group` (n
+    divisible by the size) with an int8 wire: the gradient-reduction half
+    of ZeRO weight-update sharding with EQuARX's recipe.
+
+    Each rank cuts its contribution into ``size`` destination chunks,
+    quantizes each chunk with its own absmax scale, and trades chunks
+    through two all-to-alls (int8 payload, float32 scales: the pair
+    `train_collective_budget` counts in place of the leaf's
+    reduce-scatter). The receiving rank dequantizes the ``size``
+    contributions and sums them in float32 in rank order, so each is
+    rounded once whatever the degree. Returns this rank's reduced ``[n /
+    size]`` chunk."""
+    ch = flat.reshape(group.size, -1)              # [ranks, chunk]
+    q, sc = absmax_quantize(ch, axis=1)            # int8, float32 [ranks]
+    qx = all_to_all(q, group)
+    sx = all_to_all(sc, group)
+    out = qx[0].float() * sx[0]
+    for j in range(1, group.size):
+        out = out + qx[j].float() * sx[j]
+    return out
+
+
+# the name serving and its tests use
+TPGroup = RankGroup

@@ -1,0 +1,1094 @@
+"""Data-parallel training over ranks: the explicit ZeRO weight-update path,
+the plain data-parallel path, gradient merge and LocalSGD (the JAX
+package's `paddle_tpu/parallel/spmd.py`, in PyTorch's idiom: one rank a
+device over `torch.distributed`).
+
+**One controller.** The JAX step is one compiled program called from one
+process over a mesh. The port keeps that contract: the caller's process
+is rank 0, and a mesh of dp ranks (distributed/mesh.py) runs dp - 1 rank
+processes, spawned by the first step built over it
+(`distributed.ranks.RankSet`) and kept for every later one until
+``mesh.close()``. Building a step sends every rank a pickled `meta_copy`
+of the model, the optimizer's `settings()`, and rank 0's weights and
+optimizer state over the data plane; each rank (rank 0 too) builds its
+own replica from them, so the caller's model and optimizer are the
+template and stay as they were. Each step the channel carries the rank's
+batch rows, the learning rate and a seed; gradients and parameters move
+over the data plane only.
+
+**The explicit path** (``explicit_update``, on by default for
+``zero_stage >= 2`` on a pure-dp mesh) is "Automatic Cross-Replica
+Sharding of Weight Update in Data-Parallel Training" (arXiv:2004.13336):
+each gradient leaf is flattened in the port's own ``[out, in]`` layout,
+padded to a dp multiple, divided by dp and reduce-scattered in its own
+dtype (with ``quant_grads``: through `quantized_psum_scatter` in float32,
+int8 on the wire); the optimizer updates 1/dp of each leaf, shard by
+shard, as an optimizer of the same settings over the flat shards under
+the original names (optimizer/optimizer.py `from_settings`, the rule
+unchanged); stage 2 all-gathers the updated shards back into the natural
+parameters; stage 3 keeps the parameters resident as flat dp-sharded
+leaves, all-gathers them, one call a leaf, at the start of each step and
+frees the full copies after the update. The loss is all-reduced and
+divided by dp; buffers are averaged over the ranks. The collective shape
+is exact: `train_collective_budget` states it, and the counted wrappers
+of parallel/collectives.py let a step's calls be held against it.
+
+**The plain path** (``zero_stage`` 0 or 1, or ``explicit_update=False``)
+all-reduces each leaf's local gradient divided by dp and updates every
+parameter on every rank. As in the JAX package, stage 1 on a pure-dp mesh
+shards nothing: the JAX layout rule keys on a ``sharding`` axis that such
+a mesh does not carry (its module docstring), and the port mirrors that
+for parity (ROADMAP Queue 3).
+
+**Gradient merge** (``gradient_merge_k``, ``gradient_merge_avg``): a
+float32 accumulator in the update's layout, applied every k-th step. The
+port's control flow is eager, so a Python ``if`` takes the place of JAX's
+``where``; the numbers are the same. A stage-2 step that applies no
+update gathers nothing (the parameters did not change).
+
+**Dropout**: JAX folds the replica's index into the step's key; here each
+rank reseeds its model's `DropoutGenerators` from the step's seed and its
+rank. A model without dropout draws nothing, so the stages stay
+bit-comparable. **Remat**: each rank's forward goes through
+`distributed/fleet/utils.recompute` with the model's generators.
+
+**Departures from the JAX signature.** The JAX step threads ``(params,
+buffers, opt_state)`` through each call (``init_state()``, then
+``step(params, buffers, opt_state, lr, key, *batch)``). PyTorch keeps
+state in modules and optimizers, and here the state lives on the ranks,
+in other processes, so the port's step holds it itself: ``step(*batch,
+lr=None, seed=None)`` returns the mean loss over the ranks as a float
+(``lr`` defaults to the caller's optimizer's learning rate or scheduler
+value, read as its own `step()` reads it); `shard_batch` gives each
+rank's rows; `gather_params`, `state_dict` and `set_state_dict` give and
+take natural-shape state under the JAX package's optimizer keys;
+`per_chip_opt_state_bytes` and `collective_counts` report each rank's.
+`mesh_donate_argnums` has no counterpart: an eager step updates its
+tensors in place, so there is no buffer to donate.
+
+A mesh with an axis other than ``dp`` of degree > 1 takes the JAX
+package's GSPMD path, which the port does not have (ROADMAP Queue 1, item
+6d); Lamb and Lars need sharded norms and are not ported yet (item 8).
+"""
+from __future__ import annotations
+
+import itertools
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..distributed.ranks import (RankFailed, RankSet, leave_group,
+                                 rank_loop, rank_spec)
+from ..nn.layer import meta_copy
+from ..optimizer.lr import LRScheduler
+from ..optimizer.optimizer import from_settings, state_bytes
+from ..profiler.tracing import InstrumentedStep
+from .collectives import (all_gather, all_reduce, collective_counts,
+                          quantized_psum_scatter, reduce_scatter,
+                          reset_collective_counts)
+
+_JOB_IDS = itertools.count(1)
+
+
+# -- the JAX module's pure functions -------------------------------------------
+
+
+def explicit_update_eligible(mesh):
+    """True when the mesh is pure-dp — dp degree > 1 and every other axis
+    degree 1 — the topology the explicit weight-update path runs on."""
+    dp = int(mesh.shape.get("dp", 1))
+    return dp > 1 and all(
+        int(d) == 1 for ax, d in mesh.shape.items() if ax != "dp")
+
+
+def train_collective_budget(n_param_leaves, dp_degree, quant_grads=False,
+                            n_buffer_leaves=0):
+    """EXACT collective counts of ONE explicit-path train step — the
+    layout stated as arithmetic (the train-side sibling of
+    `serving_collective_budget`):
+
+    - ``reduce-scatter``: one per param leaf (the dp grad reduction,
+      arXiv:2004.13336) — ZERO when `quant_grads`, because the int8 wire
+      replaces each with...
+    - ``all-to-all``: TWO per param leaf when `quant_grads` (int8 payload
+      + f32 per-chunk scales — `collectives.quantized_psum_scatter`),
+      zero otherwise;
+    - ``all-gather``: one per param leaf — stage 2 gathers the UPDATED
+      shards after the update, stage 3 gathers the resident flat shards
+      before the forward; either way exactly one per leaf and never a
+      full-size grad;
+    - ``all-reduce``: one scalar loss psum, plus one per mutated-buffer
+      leaf (BN running stats average over dp). A full-size grad
+      all-reduce sneaking back in moves this count.
+
+    dp_degree <= 1 (or the plain path) has no layout-derived budget."""
+    if int(dp_degree) <= 1:
+        return {k: 0 for k in ("all-reduce", "all-gather", "all-to-all",
+                               "reduce-scatter", "collective-permute",
+                               "collective-broadcast")}
+    n = int(n_param_leaves)
+    return {
+        "all-reduce": 1 + int(n_buffer_leaves),
+        "all-gather": n,
+        "all-to-all": 2 * n if quant_grads else 0,
+        "reduce-scatter": 0 if quant_grads else n,
+        "collective-permute": 0,
+        "collective-broadcast": 0,
+    }
+
+
+# -- the models' wrappers ------------------------------------------------------
+
+
+def _unwrap(model, optimizer):
+    """The inner model and optimizer of the Group Sharded markers
+    (distributed/fleet/meta_parallel/sharding.py): the step takes them as
+    the JAX step takes any layer and optimizer, so parameter names and
+    state keys are the inner model's."""
+    model = getattr(model, "_layers", model)
+    while hasattr(optimizer, "_inner_opt"):
+        optimizer = optimizer._inner_opt
+    return model, optimizer
+
+
+def _rank_seed(seed, rank):
+    """A rank's dropout seed for a step's `seed`: each replica draws its
+    own masks (JAX folds the replica's index into the key)."""
+    ss = np.random.SeedSequence([int(seed), int(rank)])
+    return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def _launch_counts(zero=False):
+    """The flash kernels' launch counters of this process (reset after
+    reading with `zero`)."""
+    from ..ops import flash_attention as fa
+
+    out = {}
+    for d, f in (("fwd", fa.flash_attention_fwd),
+                 ("bwd", fa.flash_attention_bwd)):
+        for n in ("launches", "mask_launches", "dropout_launches"):
+            out[f"{d}_{n}"] = getattr(f, n)
+            if zero:
+                setattr(f, n, 0)
+    return out
+
+
+def _report(device, zero=False):
+    """A rank's report: its kernel launches and collective calls since the
+    last reset (reset after reading with `zero`), its peak device memory,
+    its pid and the top-level modules its process has imported."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    out = {"pid": os.getpid(), "launches": _launch_counts(zero),
+           "collectives": collective_counts(),
+           "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                          if device.type == "cuda" else None),
+           "modules": sorted({m.split(".")[0] for m in sys.modules})}
+    if zero:
+        reset_collective_counts()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+    return out
+
+
+# -- the state's layout --------------------------------------------------------
+#
+# A step's state travels and is gathered as entries: ("p", name) a trainable
+# parameter, ("f", name) a frozen one, ("b", name) a buffer, ("o", name,
+# slot) an optimizer slot, ("g", name) a gradient-merge accumulator. On the
+# explicit path an entry that is sharded lives and travels as each rank's
+# slice of the leaf's padded flat layout.
+
+
+def _sharded(spec, kind, param_shaped):
+    """Whether a state entry of `kind` lives as each rank's flat slice
+    (`param_shaped`: an optimizer slot with the parameter's elements)."""
+    if not spec["explicit"]:
+        return False
+    if kind == "p":
+        return spec["stage3"]
+    if kind == "o":
+        return param_shaped
+    return kind == "g"
+
+
+def _flat_shard(t, meta, dp, rank):
+    """Rank `rank`'s slice of `t` in the padded flat layout of a leaf whose
+    layout is `meta` (natural shape, element count, pad)."""
+    _, num, pad = meta
+    flat = t.reshape(-1)
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    slen = (num + pad) // dp
+    return flat[rank * slen:(rank + 1) * slen]
+
+
+# -- one rank's replica --------------------------------------------------------
+
+
+class _Replica:
+    """One rank's share of a train step: its model replica, its optimizer
+    (over the flat shards on the explicit path, over the natural
+    parameters otherwise), the gradient-merge accumulators, and the step
+    body every rank runs in the same order of collectives."""
+
+    def __init__(self, spec, mesh):
+        self.spec = spec
+        self.kind = spec["kind"]
+        self.group = mesh.group
+        self.rank = mesh.rank
+        self.dp = mesh.size
+        self.device = mesh.device
+        self.loss_fn = spec["loss_fn"]
+        self.names = spec["names"]
+        self.meta = spec["meta"]
+        self.stage3 = spec["stage3"]
+        self.explicit = spec["explicit"]
+        self.quant = spec["quant"]
+        self.gm_k = spec["gm_k"]
+        self.gm_avg = spec["gm_avg"]
+        self.remat = spec["remat"]
+        self.k_steps = spec["k_steps"]
+        model = spec["skeleton"]
+        model.to_empty(device=self.device)
+        model.train()
+        self.model = model
+        self.params = dict(model.named_parameters())
+        self.buffers = dict(model.named_buffers())
+        self.shards = {}
+        if self.explicit:
+            for n in self.names:
+                p = self.params[n]
+                slen = self._slen(n)
+                if self.stage3 or self.meta[n][2]:
+                    shard = torch.zeros(slen, dtype=p.dtype,
+                                        device=self.device)
+                else:
+                    # stage 2, no padding: this rank's slice of the
+                    # parameter itself, so the update lands in place
+                    shard = p.data.view(-1)[self.rank * slen:
+                                            (self.rank + 1) * slen]
+                self.shards[n] = torch.nn.Parameter(shard)
+        self.target = self.shards if self.explicit else {
+            n: self.params[n] for n in self.names}
+        self.opt = from_settings(spec["opt"], [(n, self.target[n])
+                                               for n in self.names])
+        self.accum = {}
+        if self.gm_k > 1:
+            self.accum = {n: torch.zeros_like(t, dtype=torch.float32)
+                          for n, t in self.target.items()}
+        self.gm_count = 0
+        self.count = 0
+        self._marks = []
+
+    def _slen(self, n):
+        _, num, pad = self.meta[n]
+        return (num + pad) // self.dp
+
+    def _natural(self, flat_full, n):
+        shape, num, _ = self.meta[n]
+        return flat_full.reshape(-1)[:num].view(shape)
+
+    # -- state ---------------------------------------------------------------
+
+    @torch.no_grad()
+    def load(self, values, scalars):
+        """Take `values` ({entry key: tensor}; a sharded entry holds this
+        rank's flat slice, any other the natural tensor) and `scalars`
+        (host slots, the step count, the merge count); the keys are the
+        state's entries (above)."""
+        slots = {}
+        for key, v in values.items():
+            kind, n = key[0], key[1]
+            if kind == "p":
+                if self.stage3:
+                    self.shards[n].copy_(v)
+                else:
+                    self.params[n].copy_(v.view(self.params[n].shape))
+                    if self.explicit:
+                        self.shards[n].copy_(_flat_shard(
+                            v, self.meta[n], self.dp, self.rank))
+            elif kind == "f":
+                self.params[n].copy_(v.view(self.params[n].shape))
+            elif kind == "b":
+                self.buffers[n].copy_(v.view(self.buffers[n].shape))
+            elif kind == "o":
+                t = self.target[n]
+                v = v.to(torch.float32, copy=True)
+                slots.setdefault(n, {})[key[2]] = (
+                    v.reshape(t.shape) if v.numel() == t.numel() else v)
+            elif kind == "g":
+                self.accum[n].copy_(v.view(self.accum[n].shape))
+        for key, v in scalars.items():
+            if isinstance(key, tuple) and key[0] == "o":
+                slots.setdefault(key[1], {})[key[2]] = np.float32(v)
+        for n, st in slots.items():
+            t = self.target[n]
+            self.opt.state[t] = {}
+            self.opt._state_of(t).update(st)
+        self.opt._step_count = int(scalars.get("@step", 0))
+        self.gm_count = int(scalars.get("gm_count", 0))
+        self.count = int(scalars.get("count", 0))
+        if self.stage3:
+            self._free_params()
+
+    def entries(self):
+        """This rank's state as ``[(key, tensor, sharded)]`` and scalars, in
+        the order every rank lists them (`collect`)."""
+        out, scalars = [], {"@step": self.opt._step_count,
+                            "gm_count": self.gm_count, "count": self.count}
+        for n in self.names:
+            out.append((("p", n), (self.shards if self.stage3 else
+                                   self.params)[n].detach(), self.stage3))
+        for n, p in self.params.items():
+            if n not in self.meta:
+                out.append((("f", n), p.detach(), False))
+        for n, b in self.buffers.items():
+            out.append((("b", n), b, False))
+        for n in self.names:
+            t = self.target[n]
+            for slot, v in self.opt.state.get(t, {}).items():
+                if torch.is_tensor(v):
+                    out.append((("o", n, slot), v, _sharded(
+                        self.spec, "o", v.numel() == t.numel())))
+                else:
+                    scalars[("o", n, slot)] = float(v)
+        for n, a in self.accum.items():
+            out.append((("g", n), a, self.explicit))
+        return out, scalars
+
+    def collect(self):
+        """Gather this step's state to natural shapes (every rank takes part
+        in one uncounted all-gather a sharded entry). Returns ``({key:
+        natural tensor}, scalars)`` on rank 0, None elsewhere."""
+        entries, scalars = self.entries()
+        vals = {key: (self._natural(self.group.all_gather(t), key[1])
+                      if sharded else t) for key, t, sharded in entries}
+        return (vals, scalars) if self.rank == 0 else None
+
+    def gather(self):
+        """Natural-shape parameters on rank 0 (stage 3 gathers the resident
+        shards, one uncounted all-gather a leaf); None elsewhere."""
+        out = {}
+        for n in self.names:
+            if self.stage3:
+                full = self.group.all_gather(self.shards[n].detach())
+                out[n] = self._natural(full, n).clone()
+            else:
+                out[n] = self.params[n].detach().clone()
+        return out if self.rank == 0 else None
+
+    def gather_replicas(self):
+        """Every rank's natural parameters stacked in rank order, ``{name:
+        [dp, *shape]}`` on rank 0 (one uncounted all-gather a leaf); None
+        elsewhere. The LocalSGD replicas differ between averaging steps."""
+        out = {n: self.group.all_gather(self.params[n].detach())
+               for n in self.names}
+        return out if self.rank == 0 else None
+
+    def opt_bytes(self):
+        """The optimizer-state bytes this rank holds (the gradient-merge
+        accumulators and count included, as the JAX state carries them)."""
+        total = state_bytes(self.opt)
+        if self.accum:
+            total += sum(a.numel() * a.element_size()
+                         for a in self.accum.values()) + 4
+        return total
+
+    def unsharded_opt_bytes(self):
+        """What one rank would hold with every leaf unsharded: the same
+        slots and dtypes over each leaf's natural element count."""
+        total = 0
+        for n in self.names:
+            num = self.meta[n][1]
+            for v in self.opt.state.get(self.target[n], {}).values():
+                total += num * v.element_size() if torch.is_tensor(v) else 4
+        if self.accum:
+            total += sum(self.meta[n][1] * 4 for n in self.accum) + 4
+        return total
+
+    def param_bytes(self):
+        """Bytes of parameter storage this rank holds between steps (natural
+        parameters and flat shards)."""
+        seen, total = set(), 0
+        for t in list(self.params.values()) + list(self.shards.values()):
+            key = t.untyped_storage().data_ptr()
+            if t.numel() and key not in seen:
+                seen.add(key)
+                total += t.untyped_storage().nbytes()
+        return total
+
+    # -- the step ------------------------------------------------------------
+
+    def _free_params(self):
+        for n in self.names:
+            p = self.params[n]
+            p.data = torch.empty(0, dtype=p.dtype, device=self.device)
+            p.grad = None
+
+    def _gather_params(self):
+        for n in self.names:
+            full = all_gather(self.shards[n].detach(), self.group)
+            self.params[n].data = self._natural(full, n)
+
+    def _forward(self, batch):
+        inputs, labels = batch[:-1], batch[-1]
+        if self.remat:
+            from ..distributed.fleet.utils import recompute
+
+            gens = getattr(self.model, "dropout_generators", None)
+            out = recompute(self.model, *inputs, generators=(
+                () if gens is None else (gens.attn, gens.elem)))
+        else:
+            out = self.model(*inputs)
+        return self.loss_fn(out, labels)
+
+    def _mark(self, name):
+        """End the step's phase `name` here: a CUDA event on the current
+        stream (the device's clock, no wait), or the host clock on the
+        CPU."""
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self._marks.append((name, ev))
+        else:
+            self._marks.append((name, time.perf_counter()))
+
+    def _phase_ms(self):
+        """{phase: ms} between consecutive marks of the last step (read
+        after the step's final host sync)."""
+        out = {}
+        for (_, a), (name, b) in zip(self._marks, self._marks[1:]):
+            out[name] = (a.elapsed_time(b) if self.device.type == "cuda"
+                         else (b - a) * 1e3)
+        return out
+
+    def step(self, lr, seed, rows):
+        """One step on this rank's `rows`: forward, backward, the gradient
+        reduction and the update. Returns ``(mean loss over the ranks,
+        seconds, peak device bytes, {phase: ms})``: the phases ``gather``
+        (stage 3's parameters), ``forward_backward``, ``loss_reduce``
+        (loss and buffers), ``grad_reduce``, ``update`` and
+        ``param_gather`` (stage 2's updated shards; LocalSGD's average),
+        on the device's clock on CUDA."""
+        t0 = time.perf_counter()
+        self._marks = []
+        self._mark("start")
+        batch = [torch.as_tensor(a).to(self.device) for a in rows]
+        if self.stage3:
+            self._gather_params()
+        self._mark("gather")
+        if hasattr(self.model, "seed_dropout"):
+            self.model.seed_dropout(_rank_seed(seed, self.rank))
+        loss = self._forward(batch)
+        loss.backward()
+        self._mark("forward_backward")
+        loss = loss.detach().reshape(1).clone()
+        with torch.no_grad():
+            if self.dp > 1:
+                all_reduce(loss, self.group)
+                for b in self.buffers.values():
+                    t = b.float()
+                    all_reduce(t, self.group)
+                    b.copy_((t / self.dp).to(b.dtype))
+            loss = loss / self.dp
+            self._mark("loss_reduce")
+            if self.kind == "localsgd":
+                self._local_update(lr)
+            elif self.explicit:
+                self._explicit_update(lr)
+            else:
+                self._plain_update(lr)
+        out = float(loss[0])
+        peak = (torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == "cuda" else None)
+        return out, time.perf_counter() - t0, peak, self._phase_ms()
+
+    def _grad(self, n):
+        p = self.params[n]
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        p.grad = None
+        return g
+
+    def _apply(self, grads, lr):
+        """Gradient merge, then the optimizer's update of `self.target` with
+        `grads` (in the target's layout). Returns whether it updated."""
+        if self.gm_k > 1:
+            for n, g in grads.items():
+                self.accum[n] += g.float()
+            self.gm_count += 1
+            if self.gm_count % self.gm_k:
+                return False
+            scale = (1.0 / self.gm_k) if self.gm_avg else 1.0
+            grads = {n: (a * scale).to(grads[n].dtype)
+                     for n, a in self.accum.items()}
+            for a in self.accum.values():
+                a.zero_()
+        for n, g in grads.items():
+            self.target[n].grad = g
+        self.opt.set_lr(float(lr))
+        self.opt.step()
+        for t in self.target.values():
+            t.grad = None
+        return True
+
+    def _plain_update(self, lr):
+        grads = {}
+        for n in self.names:
+            g = self._grad(n)
+            if self.dp > 1:
+                g = g / self.dp
+                all_reduce(g, self.group)
+            grads[n] = g
+        self._mark("grad_reduce")
+        self._apply(grads, lr)
+        self._mark("update")
+
+    def _explicit_update(self, lr):
+        grads = {}
+        for n in self.names:
+            _, _, pad = self.meta[n]
+            flat = self._grad(n).reshape(-1) / self.dp
+            if pad:
+                flat = F.pad(flat, (0, pad))
+            if self.quant:
+                gs = quantized_psum_scatter(flat.float(), self.group).to(
+                    flat.dtype)
+            else:
+                gs = reduce_scatter(flat, self.group)
+            grads[n] = gs
+        self._mark("grad_reduce")
+        applied = self._apply(grads, lr)
+        self._mark("update")
+        if self.stage3:
+            self._free_params()
+        elif applied:
+            for n in self.names:
+                full = all_gather(self.shards[n].detach(), self.group)
+                self.params[n].copy_(self._natural(full, n))
+        self._mark("param_gather")
+
+    def _local_update(self, lr):
+        self._apply({n: self._grad(n) for n in self.names}, lr)
+        self._mark("update")
+        self.count += 1
+        if self.count % self.k_steps == 0 and self.dp > 1:
+            for n in self.names:
+                p = self.params[n]
+                t = p.detach().float()
+                all_reduce(t, self.group)
+                p.copy_((t / self.dp).to(p.dtype))
+        self._mark("param_gather")
+
+
+# -- the rank processes --------------------------------------------------------
+
+
+class _RankJobs:
+    """A rank process's replicas, one a step built over its mesh."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.jobs = {}
+
+    def close(self):
+        self.jobs.clear()
+        leave_group(self.mesh)
+
+
+def rank_main(mesh, store, spec, conn):
+    """A data-parallel rank process's entry point: serve the channel's
+    operations (`_OPS`) over this rank's replicas until ``close``."""
+    rank_loop(mesh, store, spec, conn,
+              build=lambda: (_RankJobs(mesh), {"rank": mesh.rank,
+                                               "pid": os.getpid()}),
+              ops=_OPS, finish=lambda jobs: jobs.close())
+
+
+def _unpack(group, layout, device):
+    """Receive from rank 0 the tensors of `layout` (``[(key, shape, dtype)]``),
+    one buffer a dtype in order of first appearance (`_pack`)."""
+    out, by_dtype = {}, {}
+    for key, shape, dtype in layout:
+        by_dtype.setdefault(dtype, []).append((key, shape))
+    for dtype, items in by_dtype.items():
+        sizes = [int(np.prod(shape)) for _, shape in items]
+        buf = torch.empty(sum(sizes), dtype=dtype, device=device)
+        group.recv_(buf, 0)
+        for (key, shape), part in zip(items, torch.split(buf, sizes)):
+            out[key] = part.view(shape)
+    return out
+
+
+def _pack(group, tensors, dst):
+    """Send `tensors` (``[(key, tensor)]``) to rank `dst`: one buffer a
+    dtype, in order of first appearance."""
+    by_dtype = {}
+    for _, t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t.reshape(-1))
+    for parts in by_dtype.values():
+        group.send(torch.cat(parts), dst)
+
+
+def _op_open(jobs, job_id, spec, payload):
+    """Build this rank's replica of a step from `spec`, then load it."""
+    jobs.jobs[job_id] = _Replica(spec, jobs.mesh)
+    _op_load(jobs, job_id, payload)
+
+
+def _op_load(jobs, job_id, payload):
+    """Receive this rank's values of a state (``payload``: their layout
+    and the scalars) from rank 0 and load them."""
+    layout, scalars = payload
+    jobs.jobs[job_id].load(_unpack(jobs.mesh.group, layout, jobs.mesh.device),
+                           scalars)
+
+
+def _op_job(jobs, job_id, op, *args):
+    if op not in _JOB_OPS:
+        raise KeyError(op)
+    return getattr(jobs.jobs[job_id], op)(*args)
+
+
+def _op_drop(jobs, job_id):
+    jobs.jobs.pop(job_id, None)
+
+
+def _op_report(jobs, zero=False):
+    return dict(_report(jobs.mesh.device, zero), rank=jobs.mesh.rank)
+
+
+_OPS = {"open": _op_open, "load": _op_load, "job": _op_job,
+        "drop": _op_drop, "report": _op_report}
+_JOB_OPS = frozenset(("step", "collect", "gather", "gather_replicas",
+                      "opt_bytes", "param_bytes"))
+
+
+def _ranks_of(mesh):
+    """The mesh's rank processes, started by the first step over it."""
+    if mesh.size <= 1:
+        return None
+    if mesh.ranks is None:
+        import weakref
+
+        ranks = RankSet.start(mesh, rank_main, rank_spec(mesh.device_type),
+                              name="dp-rank")
+        try:
+            ranks.wait_ready()
+        except BaseException:
+            ranks.close()
+            raise
+        mesh.ranks = ranks
+        weakref.finalize(mesh, ranks.close)
+    return mesh.ranks
+
+
+# -- the controller ------------------------------------------------------------
+
+
+def job_spec(kind, model, loss_fn, optimizer, dp, **opts):
+    """What every rank builds its replica of a step from, but the model's
+    skeleton: the trainable parameters' names, each leaf's flat layout
+    (natural shape, element count, pad to the next dp multiple: one
+    derivation, used by every rank), the loss, the optimizer's settings
+    and the step's options."""
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    meta = {}
+    for n, p in model.named_parameters():
+        if p.requires_grad:
+            shape = tuple(p.shape)
+            num = int(np.prod(shape)) if shape else 1
+            meta[n] = (shape, num, (-num) % dp)
+    return dict(kind=kind, loss_fn=loss_fn, names=names, meta=meta,
+                opt=optimizer.settings(), **opts)
+
+
+class _TrainStep:
+    """What `ShardedTrainStep` and `LocalSGDTrainStep` share: the replicas
+    on every rank, the channel, the state carry and the reports."""
+
+    _kind = None
+
+    def _open(self, model, loss_fn, optimizer, mesh, batch_specs, **opts):
+        if batch_specs is not None and any(sp != "dp" for sp in batch_specs):
+            raise ValueError(
+                f"batch_specs {batch_specs}: every batch array is split "
+                "over the dp ranks along its first axis ('dp', JAX's "
+                "P('dp')); no other split is ported")
+        if mesh.device_type == "cuda" and torch.cuda.is_available():
+            torch.cuda.set_device(mesh.devices[0])
+        self.model = model
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.mesh = mesh
+        self.dp = mesh.size
+        self._seed_gen = torch.Generator().manual_seed(
+            int(getattr(model, "_seed", 0)))
+        params = dict(model.named_parameters())
+        self._spec = job_spec(self._kind, model, loss_fn, optimizer, self.dp,
+                              **opts)
+        self.names = self._spec["names"]
+        self._flat_meta = self._spec["meta"]
+        self._job = next(_JOB_IDS)
+        # each rank's seconds, peak device bytes and phases of the last step
+        self.last_step = None
+        self._ranks = _ranks_of(mesh)
+        self._replica = None
+        opt_sd = {f"{n}_{slot}": v for n in self.names
+                  for slot, v in optimizer.state.get(params[n], {}).items()}
+        opt_sd["@step"] = optimizer._step_count
+        self._send_state({"params": {n: p.detach()
+                                     for n, p in params.items()},
+                          "buffers": dict(model.named_buffers()),
+                          "optimizer": opt_sd}, opening=model)
+        self._traced = InstrumentedStep(self._step, {
+            "source": type(self).__name__})
+
+    # -- state carry ----------------------------------------------------------
+
+    def _sharded(self, key, t):
+        """Whether entry `key` (a tensor `t` of natural shape) travels as
+        each rank's flat slice."""
+        return _sharded(self._spec, key[0], key[0] == "o" and
+                        t.numel() == self._flat_meta[key[1]][1])
+
+    def _entries(self, state):
+        """``([(key, natural tensor)], scalars)`` of a natural-shape state
+        (`state_dict`'s form), keyed as the state's entries (above)."""
+        entries, scalars = [], {}
+        for n, t in state.get("params", {}).items():
+            entries.append((("p" if n in self._flat_meta else "f", n), t))
+        for n, t in state.get("buffers", {}).items():
+            entries.append((("b", n), t))
+        opt_sd = state.get("optimizer", {})
+        slot_names = tuple(self.optimizer._slot_names) + ("master_weight",)
+        for n in self.names:
+            for slot in slot_names:
+                v = opt_sd.get(f"{n}_{slot}")
+                if v is None:
+                    continue
+                if torch.is_tensor(v):
+                    entries.append((("o", n, slot), v))
+                else:
+                    scalars[("o", n, slot)] = float(v)
+        for n, t in state.get("gm_accum", {}).items():
+            entries.append((("g", n), t))
+        scalars["@step"] = int(opt_sd.get("@step", 0))
+        for k in ("gm_count", "count"):
+            if k in state:
+                scalars[k] = int(state[k])
+        return entries, scalars
+
+    def _rank_shape(self, key, t):
+        """The shape of a rank's value of entry `key`."""
+        if not self._sharded(key, t):
+            return tuple(t.shape)
+        _, num, pad = self._flat_meta[key[1]]
+        return ((num + pad) // self.dp,)
+
+    def _rank_value(self, key, t, r):
+        """Rank `r`'s value of entry `key`: its flat slice or `t`."""
+        t = t.detach()
+        if not self._sharded(key, t):
+            return t
+        return _flat_shard(t, self._flat_meta[key[1]], self.dp, r)
+
+    def _send_state(self, state, opening=None):
+        """Give every rank its part of a natural-shape `state`: on opening
+        (`opening` is the model the replicas copy), build the replicas
+        first. Rank 0 packs each rank's values and sends them over the
+        data plane; the channel carries the layout and the scalars."""
+        dev = self.mesh.devices[0]
+        entries, scalars = self._entries(state)
+        entries = [(k, torch.as_tensor(t).to(dev)) for k, t in entries]
+        payload = ([(k, self._rank_shape(k, t), t.dtype) for k, t in entries],
+                   scalars)
+        skeleton = None if opening is None else meta_copy(opening)
+
+        def local():
+            for r in range(1, self.dp):
+                _pack(self.mesh.group, [
+                    (k, self._rank_value(k, t, r)) for k, t in entries], r)
+            if skeleton is not None:
+                # the ranks have their pickled copy of the skeleton
+                self._replica = _Replica(dict(self._spec, skeleton=skeleton),
+                                         self.mesh)
+            self._replica.load({k: self._rank_value(k, t, 0)
+                                for k, t in entries}, scalars)
+
+        if skeleton is not None:
+            self._everywhere(local, "open", self._job,
+                             dict(self._spec, skeleton=skeleton), payload)
+        else:
+            self._everywhere(local, "load", self._job, payload)
+
+    def _everywhere(self, local, op, *args, per_rank=None):
+        """``local()`` here and operation `op` on every other rank (its
+        `per_rank` value, when given, last among its arguments): ``[local's
+        result, rank 1's, ...]``. Anything that escapes while the ranks
+        were told raises as a `RankFailed` (`RankSet.failure`)."""
+        ranks = self._ranks
+        if ranks is not self.mesh.ranks:
+            raise RuntimeError(f"{type(self).__name__}: its mesh's ranks "
+                               "were closed; build a new step")
+        if ranks is None:
+            return [local()]
+        try:
+            ranks.post(op, *args, per_rank=per_rank, reply=True)
+            out = local()
+            rest = ranks.collect()
+        except RankFailed:
+            raise
+        except Exception as e:
+            ranks.failure(e)
+        ranks.check()
+        return [out] + rest
+
+    def _call(self, op, *args, per_rank=None):
+        """Run replica op `op` on every rank (rank 0 here, the others over
+        the channel). Returns ``[rank 0's result, rank 1's, ...]``."""
+        mine = (per_rank[0],) if per_rank is not None else ()
+        return self._everywhere(
+            lambda: getattr(self._replica, op)(*args, *mine), "job",
+            self._job, op, *args,
+            per_rank=None if per_rank is None else per_rank[1:])
+
+    # -- the user's surface ---------------------------------------------------
+
+    def shard_batch(self, *arrays):
+        """Each rank's rows of `arrays`, in rank order: ``[(rank 0's arrays),
+        (rank 1's), ...]`` as numpy arrays, each array split along its first
+        axis as ``P("dp")`` splits it."""
+        out = [[] for _ in range(self.dp)]
+        for a in arrays:
+            a = a.detach().cpu().numpy() if torch.is_tensor(a) else \
+                np.asarray(a)
+            if a.shape[0] % self.dp:
+                raise ValueError(f"batch of {a.shape[0]} rows does not split "
+                                 f"over dp={self.dp}")
+            for r, rows in enumerate(np.split(a, self.dp)):
+                out[r].append(rows)
+        return [tuple(rows) for rows in out]
+
+    def step(self, *batch, lr=None, seed=None):
+        """One train step on the global `batch` (inputs..., labels): every
+        rank runs its rows. `lr` defaults to the caller's optimizer's
+        learning rate or scheduler value; `seed` (the dropout masks' root;
+        default: drawn from a generator seeded with the model's seed).
+        Returns the mean loss over the ranks."""
+        return self._traced(*batch, lr=lr, seed=seed)
+
+    __call__ = step
+
+    def _step(self, *batch, lr=None, seed=None):
+        lr = np.float32(self.optimizer.get_lr() if lr is None else lr)
+        if seed is None:
+            seed = int(torch.randint(0, 2**62, (1,),
+                                     generator=self._seed_gen))
+        rows = self.shard_batch(*batch)
+        results = self._call("step", lr, seed, per_rank=rows)
+        self.last_step = [{"seconds": s, "peak_bytes": pk, "phases_ms": ph}
+                          for _, s, pk, ph in results]
+        return results[0][0]
+
+    def gather_params(self):
+        """Natural-shape parameters ({name: tensor} on rank 0's device):
+        stage 3 gathers the resident shards; every other path's parameters
+        are replicated and come from rank 0."""
+        return self._call("gather")[0]
+
+    def state_dict(self):
+        """The step's state at natural shapes: ``{"params": {name: tensor},
+        "buffers": {...}, "optimizer": {...}}`` (and with gradient merge
+        ``"gm_accum"`` and ``"gm_count"``; LocalSGD adds ``"count"``). The
+        optimizer part uses the JAX package's keys (``{name}_{slot}``,
+        ``@step``, ``@param_order``, and ``LR_Scheduler`` from the caller's
+        optimizer), so a one-process optimizer over the same model takes it
+        too."""
+        vals, scalars = self._call("collect")[0]
+        out = {"params": {}, "buffers": {}, "optimizer": {}}
+        for key, t in vals.items():
+            t = t.detach().cpu().clone()
+            if key[0] in ("p", "f"):
+                out["params"][key[1]] = t
+            elif key[0] == "b":
+                out["buffers"][key[1]] = t
+            elif key[0] == "o":
+                out["optimizer"][f"{key[1]}_{key[2]}"] = t
+            elif key[0] == "g":
+                out.setdefault("gm_accum", {})[key[1]] = t
+        for key, v in scalars.items():
+            if isinstance(key, tuple):
+                out["optimizer"][f"{key[1]}_{key[2]}"] = np.float32(v)
+        opt = out["optimizer"]
+        opt["@step"] = scalars["@step"]
+        opt["@param_order"] = list(self.names)
+        sched = self.optimizer._learning_rate
+        if isinstance(sched, LRScheduler):
+            opt["LR_Scheduler"] = sched.state_dict()
+        if self._spec["gm_k"] > 1:
+            out["gm_count"] = scalars["gm_count"]
+        if self._kind == "localsgd":
+            out["count"] = scalars["count"]
+        return out
+
+    def set_state_dict(self, state):
+        """Load a natural-shape state (`state_dict`'s form, saved at any dp
+        degree) and re-shard it over this step's ranks. The optimizer's
+        ``LR_Scheduler`` goes to the caller's optimizer's scheduler."""
+        opt = state.get("optimizer", {})
+        sched = self.optimizer._learning_rate
+        if "LR_Scheduler" in opt and isinstance(sched, LRScheduler):
+            sched.set_state_dict(opt["LR_Scheduler"])
+        self._send_state(state)
+
+    load_state_dict = set_state_dict
+
+    def per_chip_opt_state_bytes(self):
+        """Bytes of optimizer state each rank holds, rank order (the
+        gradient-merge accumulators included)."""
+        return self._call("opt_bytes")
+
+    def unsharded_opt_state_bytes(self):
+        """The bytes one rank would hold with every leaf unsharded: rank 0's
+        slots and dtypes over each leaf's natural element count (computed,
+        not built)."""
+        return self._replica.unsharded_opt_bytes()
+
+    def param_bytes(self):
+        """Bytes of parameter storage each rank holds between steps, rank
+        order."""
+        return self._call("param_bytes")
+
+    def rank_reports(self, zero=False):
+        """Each rank's report (rank order): its flash launches and
+        collective calls since the last reset (reset after reading with
+        `zero`), its peak device memory, pid and imported top-level
+        modules. The counters are each process's own: everything the
+        process ran since the last reset."""
+        return self._everywhere(
+            lambda: dict(_report(self.mesh.devices[0], zero), rank=0),
+            "report", zero)
+
+    def collective_counts(self, zero=False):
+        """Each rank's collective calls since the last reset (rank
+        order)."""
+        return [r["collectives"] for r in self.rank_reports(zero)]
+
+    def close(self):
+        """Drop this step's replicas on every rank (the mesh's ranks stay up
+        for other steps). Idempotent."""
+        ranks = self._ranks
+        if ranks is not None and ranks.failed is None and ranks.conns:
+            ranks.send("drop", self._job)
+        self._replica = None
+
+
+class ShardedTrainStep(_TrainStep):
+    """Data-parallel training over `mesh`'s ranks (the module docstring):
+    forward, loss, backward, the gradient reduction and the optimizer's
+    update a step, on the explicit ZeRO path or the plain one."""
+
+    _kind = "sharded"
+
+    def __init__(self, model, loss_fn, optimizer, mesh, batch_specs=None,
+                 zero_stage=0, remat=False, gradient_merge_k=1,
+                 gradient_merge_avg=True, explicit_update=None,
+                 quant_grads=False):
+        model, optimizer = _unwrap(model, optimizer)
+        self.zero_stage = int(zero_stage)
+        self.remat = bool(remat)
+        self.gm_k = int(gradient_merge_k)
+        self.gm_avg = bool(gradient_merge_avg)
+        eligible = explicit_update_eligible(mesh)
+        if explicit_update is None:
+            self.explicit_update = self.zero_stage >= 2 and eligible
+        elif explicit_update:
+            if self.zero_stage < 2:
+                raise ValueError(
+                    "explicit_update needs zero_stage >= 2 (the path IS "
+                    "the stage-2/3 grad reduce-scatter + sharded update)")
+            if not eligible:
+                raise ValueError(
+                    "explicit_update needs a pure-dp mesh (dp > 1, every "
+                    f"other axis degree 1); got {dict(mesh.shape)} — "
+                    "dp x mp / 'sharding'-axis meshes take the GSPMD path")
+            self.explicit_update = True
+        else:
+            self.explicit_update = False
+        self.quant_grads = bool(quant_grads)
+        if self.quant_grads and not self.explicit_update:
+            raise ValueError(
+                "quant_grads rides the explicit weight-update path "
+                "(int8 reduce-scatter) — it needs zero_stage >= 2 on a "
+                "pure-dp mesh, or explicit_update=True")
+        if self.explicit_update:
+            if optimizer._grad_clip is not None:
+                raise ValueError(
+                    "explicit_update cannot honor grad_clip: the global "
+                    "grad norm needs every leaf while the update only "
+                    "holds 1/dp shards — clip eagerly or use the GSPMD "
+                    "path (explicit_update=False)")
+            if type(optimizer).__name__ in ("Lamb", "Lars"):
+                raise NotImplementedError(
+                    f"{type(optimizer).__name__} on the explicit update: "
+                    "its per-tensor trust ratio needs sharded norms (a "
+                    "psum of shard-local squared sums), which are not "
+                    "ported yet (ROADMAP Queue 1, item 8)")
+            if not getattr(optimizer, "_elementwise_update", True):
+                raise ValueError(
+                    f"{type(optimizer).__name__} computes per-tensor "
+                    "reductions in its update rule; the shard-local "
+                    "explicit update would change its semantics — use "
+                    "the GSPMD path (explicit_update=False)")
+        self._open(model, loss_fn, optimizer, mesh, batch_specs,
+                   stage3=self.explicit_update and self.zero_stage >= 3,
+                   explicit=self.explicit_update, quant=self.quant_grads,
+                   gm_k=self.gm_k, gm_avg=self.gm_avg, remat=self.remat,
+                   k_steps=1)
+
+
+def make_sharded_train_step(model, loss_fn, optimizer, mesh, batch_specs=None,
+                            zero_stage=0, remat=False, gradient_merge_k=1,
+                            gradient_merge_avg=True, explicit_update=None,
+                            quant_grads=False):
+    """``loss_fn(model_outputs, labels) -> scalar tensor``; the batch is
+    ``(inputs..., labels)``, each array split over the dp ranks along its
+    first axis (`batch_specs`: None, or "dp" for every array)."""
+    return ShardedTrainStep(model, loss_fn, optimizer, mesh, batch_specs,
+                            zero_stage, remat, gradient_merge_k,
+                            gradient_merge_avg,
+                            explicit_update=explicit_update,
+                            quant_grads=quant_grads)
+
+
+class LocalSGDTrainStep(_TrainStep):
+    """LocalSGD over the dp ranks (reference
+    fleet/meta_optimizers/localsgd_optimizer.py:28). Each rank keeps its
+    own replica and optimizer state and steps on its rows with no
+    gradient sync; every `k_steps`-th step one all-reduce a leaf averages
+    the parameters. Buffers are averaged every step; the loss is the mean
+    over the ranks."""
+
+    _kind = "localsgd"
+
+    def __init__(self, model, loss_fn, optimizer, mesh, k_steps=1,
+                 batch_specs=None):
+        model, optimizer = _unwrap(model, optimizer)
+        self.k = int(k_steps)
+        self._open(model, loss_fn, optimizer, mesh, batch_specs,
+                   stage3=False, explicit=False, quant=False, gm_k=1,
+                   gm_avg=True, remat=False, k_steps=self.k)
+
+    def replica_params(self):
+        """Every rank's natural parameters (rank order): the replicas
+        diverge between averaging steps."""
+        return self._call("gather_replicas")[0]
+
+
+__all__ = ["LocalSGDTrainStep", "ShardedTrainStep", "explicit_update_eligible",
+           "make_sharded_train_step", "train_collective_budget"]

@@ -15,6 +15,7 @@ with ``LLMEngine(skeleton, checkpoint_path=...)`` streams its weights from
 disk (distributed/checkpoint.py). ``LLMEngine(model, mesh=N)`` serves over
 N tensor-parallel ranks (sharded.py, tp_worker.py).
 """
+from ..distributed.ranks import RankFailed
 from . import faults  # noqa: F401
 from .autoscale import AutoScaler
 from .block_pool import (BlockPool, PagedState, chain_block_hashes,
@@ -36,7 +37,6 @@ from .sharded import (ServingMesh, as_serving_mesh, build_serving_mesh,
 from .slo import SLOLedger
 from .spec import NgramDrafter
 from .supervisor import EngineHealth, EngineSupervisor, StepWatchdog
-from .tp_worker import RankFailed
 from .trace import EngineTracer
 
 __all__ = ["AsyncLLMEngine", "AutoScaler", "BlockPool",

@@ -115,6 +115,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..distributed.ranks import RankFailed, RankSet, leave_group, rank_spec
 from ..models import lora as lora_mod
 from ..nn.layer import is_skeleton, meta_copy
 from ..ops import counts
@@ -129,9 +130,9 @@ from .policy import as_policy
 from .postmortem import FlightRecorder
 from .scheduler import WAITING, Request, Scheduler
 from .sharded import as_serving_mesh, gather_vocab
-from .tp_worker import RankFailed, RankSet, rank_report
 from .slo import SLOLedger
 from .spec import NgramDrafter, spec_emit_arrays
+from .tp_worker import rank_main, rank_report
 from .trace import EngineTracer
 
 _request_log = logging.getLogger("paddle_tpu_torch.serving.request")
@@ -582,11 +583,8 @@ class LLMEngine:
         thread each (they share one host); every rank takes this process's
         TF32 switches. A failure closes every rank and raises."""
         spec = {"skeleton": meta_copy(model), "engine_kw": engine_kw,
-                "num_threads": 1 if self.device.type == "cpu" else None,
-                # float32 products as this process computes them
-                "tf32": (torch.backends.cuda.matmul.allow_tf32,
-                         torch.backends.cudnn.allow_tf32)}
-        self._tp = RankSet.start(self._smesh, spec)
+                **rank_spec(self.device.type)}
+        self._tp = RankSet.start(self._smesh, rank_main, spec, name="tp-rank")
         try:
             if self.checkpoint_path is None:
                 self._send_shards(model)
@@ -1732,11 +1730,9 @@ def _leave_group(smesh, programs):
     peers have gone, and can hang the process's exit. Gloo groups need
     nothing. Idempotent."""
     group = smesh.group
-    if group is None or group.backend != "nccl" or group.pg is None:
-        return
-    programs.clear()
-    torch.cuda.synchronize(smesh.device)
-    group.shutdown()
+    if group is not None and group.backend == "nccl":
+        programs.clear()
+    leave_group(smesh)
 
 
 _CAPTURE_LOCK = threading.Lock()

@@ -52,12 +52,10 @@ in ``backend``.
 """
 from __future__ import annotations
 
-import copy
-import datetime
-
 import torch
 from torch import nn
 
+from ..distributed.ranks import RankMesh
 from ..nn.layer import meta_copy
 from ..parallel.collectives import all_gather, quantized_allgather_sum
 from .block_pool import kv_capacity_blocks  # noqa: F401  (re-export)
@@ -73,47 +71,16 @@ _TP_DIMS = (
 )
 
 
-class ServingMesh:
-    """The serving topology: one rank a device, over ``tp`` ranks.
-
-    `devices` lists each rank's device in rank order. `backend` is the
-    data plane ("nccl" or "gloo"); None picks NCCL for distinct CUDA
-    devices and gloo for CPU ranks. A CUDA device named twice needs an
-    explicit ``backend="gloo"`` (the one-card departure, module
-    docstring). `timeout` bounds each collective. `group` is this
-    process's `parallel.collectives.TPGroup` once the engine has started
-    the ranks, and `rank` its index (0 in the controller's process)."""
-
-    def __init__(self, devices, backend=None, timeout=1800.0):
-        self.devices = [torch.device(d) for d in devices]
-        kinds = {d.type for d in self.devices}
-        if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
-            raise ValueError(
-                f"a serving mesh runs on CPU ranks or CUDA devices, one "
-                f"kind; got {[str(d) for d in self.devices]}")
-        self.device_type = kinds.pop()
-        cuda = self.device_type == "cuda"
-        self.devices = [torch.device("cuda", d.index or 0) if cuda else d
-                        for d in self.devices]
-        repeated = cuda and len(set(self.devices)) < len(self.devices)
-        if backend is None and not repeated:
-            backend = "nccl" if cuda else "gloo"
-        if backend not in ("nccl", "gloo"):
-            if backend is not None:
-                raise ValueError(f"backend {backend!r}: 'nccl' or 'gloo'")
-        if backend != "gloo" and (not cuda or repeated):
-            raise ValueError(
-                "NCCL needs one distinct CUDA device a rank; a device list "
-                f"{[str(d) for d in self.devices]} that names a device "
-                "twice runs only over an explicit backend='gloo'")
-        self.backend = backend
-        self.timeout = float(timeout)
-        self.group = None
-        self.rank = 0
+class ServingMesh(RankMesh):
+    """The serving topology: one rank a device, over ``tp`` ranks
+    (`distributed.ranks.RankMesh`'s device and backend rules: a CUDA
+    device named twice needs an explicit ``backend="gloo"``, the one-card
+    departure of the module docstring). `timeout` bounds each
+    collective."""
 
     @property
     def tp_degree(self):
-        return len(self.devices)
+        return self.size
 
     @property
     def device_count(self):
@@ -138,21 +105,6 @@ class ServingMesh:
         if self.device_type == "cpu":
             return "cpu"
         return "cuda" if self.backend == "nccl" else "cuda-gloo"
-
-    @property
-    def device(self):
-        """This rank's device."""
-        return self.devices[self.rank]
-
-    def for_rank(self, rank):
-        """A copy of this mesh description as rank `rank` sees it (no
-        group yet)."""
-        other = copy.copy(self)
-        other.rank, other.group = int(rank), None
-        return other
-
-    def timedelta(self):
-        return datetime.timedelta(seconds=self.timeout)
 
     def tp_head_ranges(self, num_heads):
         """The arena head axis cut into per-rank ``(h0, h1)`` ranges, in

@@ -35,7 +35,7 @@ three failures this module exists for:
   sampling garbage.
 
 An exception marked ``fatal`` — a tensor-parallel rank that raised or died
-(serving/tp_worker.py `RankFailed`) — is no request's fault and leaves an
+(`distributed.ranks.RankFailed`) — is no request's fault and leaves an
 engine that cannot step again: the supervisor does not bisect it but lets
 it escape, so it surfaces as the engine's exception (the async frontend's
 engine thread dies with it, fails every stream with its message and marks

@@ -8,7 +8,10 @@ package's ``[in, out]`` and torch's ``[out, in]``. The optimizer's state
 crosses the same way (`from_jax_optimizer_state`,
 `to_jax_optimizer_state`): the JAX compiled step's state, ``{name: {slot:
 array}}`` from `init_state_arrays` / `apply_gradients_arrays`, beside its
-scheduler's `state_dict()`.
+scheduler's `state_dict()`. A data-parallel train step's state
+(parallel/spmd.py) crosses at natural shapes (`to_jax_train_state`,
+`from_jax_train_state`), whatever flat, padded layout the JAX explicit
+ZeRO step keeps it in.
 """
 from __future__ import annotations
 
@@ -125,3 +128,81 @@ def to_jax_optimizer_state(optimizer, model):
     lr_state = (sched.state_dict() if isinstance(sched, LRScheduler)
                 else None)
     return state, lr_state
+
+
+def _jax_natural(a, shape, linear):
+    """A JAX train state's array `a` of a leaf whose port shape is `shape`,
+    in the port's layout: a flat padded leaf of the JAX explicit ZeRO step
+    (``[n + pad]``, the JAX natural layout flattened) is cut and reshaped
+    first; a Linear weight's ``[in, out]`` is transposed."""
+    a = np.asarray(a)
+    jshape = tuple(shape[::-1]) if linear else tuple(shape)
+    if a.shape != jshape:
+        n = int(np.prod(jshape)) if jshape else 1
+        a = a.reshape(-1)[:n].reshape(jshape)
+    return a.T if linear else a
+
+
+def from_jax_train_state(step, params, opt_state, lr_state=None):
+    """Load the JAX package's train state into `step` (a port
+    `ShardedTrainStep` or `LocalSGDTrainStep` over the same model) and
+    re-shard it over the step's ranks: `params` ``{name: array}`` and
+    `opt_state` ``{name: {slot: array}}`` as the JAX step carries them
+    (natural, or the explicit ZeRO path's flat padded leaves: stage-3
+    parameters and every parameter-shaped slot), `lr_state` the JAX
+    scheduler's `state_dict()`. A run resumed from it takes the JAX run's
+    next steps."""
+    linear = _linear_weights(step.model)
+    shapes = {n: tuple(p.shape) for n, p in step.model.named_parameters()}
+    state = {"params": {}, "optimizer": {}}
+    for name, a in params.items():
+        state["params"][name] = torch.from_numpy(np.array(
+            _jax_natural(a, shapes[name], name in linear)))
+    host = step.optimizer._host_slots
+    for name, slots in opt_state.items():
+        for slot, a in slots.items():
+            key = f"{name}_{slot}"
+            if slot in host:
+                state["optimizer"][key] = np.float32(np.asarray(a))
+            else:
+                state["optimizer"][key] = torch.from_numpy(np.array(
+                    _jax_natural(a, shapes[name], name in linear),
+                    np.float32))
+    for name, p in step.model.named_parameters():
+        if name not in state["params"]:
+            raise KeyError(f"train state has no parameter {name!r}")
+        state["params"][name] = state["params"][name].to(p.dtype)
+    if lr_state is not None:
+        state["optimizer"]["LR_Scheduler"] = lr_state
+    step.set_state_dict(state)
+    return step
+
+
+def to_jax_train_state(step):
+    """``(params, opt_state, lr_state)`` of `step` at natural shapes in the
+    JAX package's layout (Linear weights and their slots ``[in, out]``,
+    host slots float32 0-d arrays): what the JAX step's `gather_params`
+    and a natural optimizer state hold."""
+    sd = step.state_dict()
+    linear = _linear_weights(step.model)
+
+    def jax_layout(name, t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        a = t.numpy()
+        return np.ascontiguousarray(a.T) if name in linear else a.copy()
+
+    params = {n: jax_layout(n, t) for n, t in sd["params"].items()}
+    opt_state = {}
+    slot_names = tuple(step.optimizer._slot_names) + ("master_weight",)
+    for name in params:
+        slots = {}
+        for slot in slot_names:
+            v = sd["optimizer"].get(f"{name}_{slot}")
+            if v is None:
+                continue
+            slots[slot] = (np.asarray(v, np.float32) if not torch.is_tensor(v)
+                           else jax_layout(name, v))
+        opt_state[name] = slots
+    return params, opt_state, sd["optimizer"].get("LR_Scheduler")

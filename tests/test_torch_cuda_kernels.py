@@ -1148,8 +1148,8 @@ def _tp_budget_held(engine):
     b = serving_collective_budget(engine.model.cfg, 2,
                                   engine.quant_collectives)
     for rep in engine.rank_reports():
-        assert rep["collectives"] == {"all-reduce": b["all-reduce"] * steps,
-                                      "all-gather": b["all-gather"] * steps}
+        assert rep["collectives"] == {k: b[k] * steps for k in (
+            "all-reduce", "all-gather", "reduce-scatter", "all-to-all")}
 
 
 @pytest.mark.parametrize("quant", [False, True])
@@ -1183,6 +1183,59 @@ def test_tp2_nccl_graphs_token_identical_to_tp1(dev, quant):
     # every rank shut its communicators down together: none is left for
     # a destructor to abort alone at exit
     assert eng._smesh.group.pg is None and not eng._tp.alive()
+
+
+def _zero_losses(mesh, zero_stage, steps=3):
+    """f32 losses of `steps` AdamW steps of `_tp_model` at `zero_stage`
+    over `mesh` (batch 4 x 128 from RandomState(0), 2 rows a rank); the
+    step's collective calls on every rank."""
+    from paddle_tpu_torch.models.gpt import gpt_loss_fn
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    model = _tp_model()
+    opt = AdamW(learning_rate=1e-3, parameters=model.named_parameters())
+    step = make_sharded_train_step(model, gpt_loss_fn, opt, mesh,
+                                   zero_stage=zero_stage)
+    rs = np.random.RandomState(0)
+    ids, labels = (rs.randint(0, 512, (4, 128)) for _ in range(2))
+    try:
+        step.rank_reports(zero=True)
+        losses = [step(ids, labels) for _ in range(steps)]
+        counts = step.collective_counts()
+        n = len(step.names)
+    finally:
+        step.close()
+    return losses, counts, n
+
+
+def test_zero2_nccl_dp2_equals_zero0(dev):
+    """ZeRO stages 2 and 3 over NCCL, one rank a card (cuda:0, cuda:1), in
+    float32 (TF32 off): the losses equal stage 0's bit for bit (two-term
+    sums have one order), and each rank's collective calls a step are
+    `train_collective_budget`'s. Every rank shuts its communicators down
+    together at close. Needs two cards; on one it skips (chip_smoke phase
+    6d runs the gloo path there)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs torch.cuda.device_count() >= 2: NCCL takes one "
+                    "rank a card")
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.parallel.spmd import train_collective_budget
+
+    mesh = build_mesh({"dp": 2}, timeout=120)
+    assert mesh.backend == "nccl"
+    try:
+        got = {zs: _zero_losses(mesh, zs) for zs in (0, 2, 3)}
+        group, ranks = mesh.group, mesh.ranks
+    finally:
+        mesh.close()
+    assert got[2][0] == got[0][0] and got[3][0] == got[0][0], got
+    for zs in (2, 3):
+        _, counts, n = got[zs]
+        b = train_collective_budget(n, 2)
+        for c in counts:
+            assert c == {k: 3 * b[k] for k in c}, (zs, c, b)
+    assert group.pg is None and not ranks.alive()
 
 
 def test_tp2_gloo_on_one_card_token_identical_to_tp1(dev):

@@ -3,8 +3,9 @@
 `torch_flash_bench.py` and `torch_paged_bench.py`, imports JAX, anything
 of the JAX package `paddle_tpu`, or ml_dtypes (the card's machine has no
 ml_dtypes: the port reads and writes bfloat16 checkpoints without it).
-A tensor-parallel engine's rank process, spawned from a test process that
-holds JAX, imports none of them either.
+A tensor-parallel engine's rank process and a data-parallel training
+rank, spawned from a test process that holds JAX, import none of them
+either.
 
 Roots are compared exactly: ``"paddle_tpu_torch".startswith("paddle_tpu")``
 holds, so a prefix test would wrongly flag the port's own imports."""
@@ -63,6 +64,11 @@ def test_port_has_modules_and_a_smoke_script():
                  "paddle_tpu_torch/serving/sharded.py",
                  "paddle_tpu_torch/serving/tp_worker.py",
                  "paddle_tpu_torch/parallel/collectives.py",
+                 "paddle_tpu_torch/parallel/spmd.py",
+                 "paddle_tpu_torch/distributed/ranks.py",
+                 "paddle_tpu_torch/distributed/mesh.py",
+                 "paddle_tpu_torch/distributed/fleet/meta_parallel/"
+                 "sharding.py",
                  "chip_smoke.py"):
         assert want in names
 
@@ -105,3 +111,30 @@ def test_a_rank_process_imports_no_jax_or_paddle_tpu():
     assert "torch" in roots and "paddle_tpu_torch" in roots
     assert not FORBIDDEN & set(roots), sorted(FORBIDDEN & set(roots))
     assert torch is not None
+
+
+def test_a_training_rank_imports_no_jax_or_paddle_tpu():
+    """Spawned from this process (which has imported JAX), a data-parallel
+    training rank builds its replica and steps from the port alone."""
+    import jax  # noqa: F401  (the parent holds JAX)
+    import numpy as np
+
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig, gpt_loss_fn
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    model = GPT(GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                          num_heads=2, max_seq_len=32), device="cpu")
+    opt = AdamW(learning_rate=0.01, parameters=model.named_parameters())
+    mesh = build_mesh({"dp": 2}, device="cpu", timeout=60)
+    try:
+        step = make_sharded_train_step(model, gpt_loss_fn, opt, mesh,
+                                       zero_stage=2)
+        ids = np.arange(32).reshape(2, 16) % 64
+        assert np.isfinite(step(ids, ids))
+        roots = step.rank_reports()[1]["modules"]
+    finally:
+        mesh.close()
+    assert "torch" in roots and "paddle_tpu_torch" in roots
+    assert not FORBIDDEN & set(roots), sorted(FORBIDDEN & set(roots))

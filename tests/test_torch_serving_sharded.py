@@ -441,8 +441,9 @@ def test_collective_calls_per_step_equal_budget(models, tp2, tp4, int8q,
     assert [r["rank"] for r in reports] == list(range(len(reports)))
     for rep in reports:
         assert rep["collectives"] == {
-            "all-reduce": budget["all-reduce"] * steps,
-            "all-gather": budget["all-gather"] * steps}, rep["rank"]
+            k: budget[k] * steps for k in rep["collectives"]}, rep["rank"]
+        assert set(rep["collectives"]) == {"all-reduce", "all-gather",
+                                           "reduce-scatter", "all-to-all"}
 
 
 # -- supervision, the front door, failure and shutdown -------------------------
