@@ -159,6 +159,21 @@ Phases, in order; any failure exits nonzero:
    tp speed", the card's name and power limit beside them. The NCCL path
    with graphs needs two cards: the card test
    `test_tp2_nccl_graphs_token_identical_to_tp1` (it skips on one).
+   3i. Tensor-parallel replicas behind the fleet router: gpt_1p3b in
+   float32 (TF32 off) cut to 4 layers (widths full), two replicas at tp=2
+   (four ranks on cuda:0 over gloo, phase 3h's build) behind
+   `RouterServer`. Phase 3's 8 prompts over HTTP one at a time equal a
+   one-card engine's greedy tokens (each request alone on both sides);
+   every rank of both replicas makes one ragged launch a layer and step
+   and `serving_collective_budget`'s calls a step (counts zeroed just
+   before the wave and read just after; both replicas' rank 0 is this
+   process). The second replica joins the router while the first serves
+   (`add_replica`); then it is retired: its rank process ends (and with
+   it that rank's card memory), this process's allocated memory returns
+   within 64 MiB of its figure before that replica was built (a serving
+   thread's cuBLAS workspace, ~33 MiB, outlives it; the card's free
+   memory beside it), and the other replica serves phase 3's first prompt
+   with the same tokens. Seconds labelled as phase 3h's.
 4. float32 parity: gpt_1p3b widths at 4 layers, greedy LLMEngine (the
    kernel, through captured graphs) against GPT.generate (contiguous
    cache, no kernel).
@@ -179,7 +194,12 @@ Phases, in order; any failure exits nonzero:
    mask alone, dropout alone and neither; causal dropout at the flagship
    shape; float32 mask + dropout at B 2 (TF32 off). Times beside SDPA
    with the same mask and dropout_p and the least time the card could
-   take.
+   take. Then an mp=2 rank's share (phase 6e): the flagship step's rank
+   (4 x 1024, heads 4-7 of 8, causal, without and with dropout), ERNIE's
+   (32 x 512, heads 6-11 of 12, mask + dropout) and float32 (2 x 512, 6 of
+   12): the kernels' dropout bits at the heads' model coordinate
+   (`head_offset`), against the plain version at the same offset and
+   against the same heads of one call over all of the model's heads.
 6. Train: the flagship GPT (vocab 32768, hidden 1024, 12 layers, 8 heads,
    seq 1024; bench.py's bench_gpt) in bf16 with AdamW(1e-4), batch 16 x
    1024 from np.random.RandomState(0): one warm-up step, then 10 timed
@@ -263,6 +283,27 @@ Phases, in order; any failure exits nonzero:
    losses below the first, tokens/s all and real. (e) A rank that raises
    (an operation it cannot run) makes the next step raise RankFailed
    within the mesh's 60 s timeout; a new mesh then trains.
+6e. dp x mp hybrid training on the one card (run last): ranks on cuda:0
+   over an explicit gloo backend, eager, every collective staged through
+   host memory; every time is labelled "eager, gloo through the host,
+   ranks sharing one card - not an mp speed" beside the card's name and
+   power limit. (a) float32 (TF32 off), 3 AdamW(1e-4) steps from one set
+   of weights: the flagship widths at 2 layers (batch 4 x 256) over
+   {"mp": 2} and {"dp": 2, "mp": 2} against one process on the whole
+   batch (losses within 1e-5 relative, every parameter entry within
+   Adam's 2 * steps * lr); dropout 0.1 over {"mp": 2} against one process
+   at the same seeds (through the kernels' head offset); ERNIE's widths at
+   2 layers (12 heads, 6 a rank; batch 4 x 128, padding mask, dropout
+   0.1) likewise. (b) The flagship at full width built in float32 through
+   amp.decorate(level="O2"), AdamW(1e-4, weight decay 0.01) with
+   ClipGradByGlobalNorm(1.0), over {"mp": 2}, batch 4 x 1024 on both
+   ranks: one warm-up and 3 counted steps; finite, falling losses, 12 +
+   12 flash launches a step on each rank at 4 heads, each rank's
+   collective calls a step against the arithmetic (`_mp_budget`: 54
+   all-reduces), parameter and optimizer bytes a rank <= 0.55x the
+   model's and the unsharded figure, peak memory, step seconds. NCCL
+   across cards is the card test `test_mp2_nccl_equals_one_process` (it
+   skips on one).
 
 Prints a `{"kernels": [...]}` line (the flash rows also name the bf16
 kernel's design and ptxas's registers and spill bytes for it; a spill in
@@ -2548,6 +2589,148 @@ def tp_serving(model, graph_outs_int8, smi):
     return res
 
 
+# -- phase 3i -----------------------------------------------------------------
+
+# the tp fleet's depth (gpt_1p3b's widths, cut from 24 layers to stay in
+# the run's time: every step of its four ranks runs eagerly through gloo)
+TP_FLEET_LAYERS = 4
+
+
+def _card_free_bytes():
+    """The card's free bytes (every process's allocations count), after
+    this process's cache is emptied."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
+def tp_fleet(smi):
+    """Phase 3i: two tensor-parallel replicas behind the fleet router.
+
+    gpt_1p3b in float32 (TF32 off) at TP_FLEET_LAYERS layers, every width
+    full: two replicas LLMEngine(block_size=16, max_batch=8,
+    spec_decoding=True, warmup=True, mesh=2 ranks on cuda:0 over gloo),
+    four ranks sharing the card, behind `RouterServer` over
+    `ReplicaRouter`. Phase 3's 8 prompts over HTTP one at a time (SSE and
+    full responses in turn; every request alone in its steps, as phase 3g
+    gates tokens) give a one-card engine's greedy tokens exactly (graphs,
+    each request alone too). Then one replica is retired: its rank process
+    ends, the card's free memory comes back within 64 MiB of its figure
+    before that replica was built, and the other replica serves a request
+    with the same tokens. Seconds are labelled as phase 3h's."""
+    import gc
+    import weakref
+
+    from paddle_tpu_torch.models.gpt import gpt_1p3b
+    from paddle_tpu_torch.serving import (AsyncLLMEngine, LLMEngine,
+                                          ReplicaRouter, RouterServer)
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build = dict(block_size=16, max_batch=8, spec_decoding=True, warmup=True)
+    model = gpt_1p3b(num_layers=TP_FLEET_LAYERS, device="cuda",
+                     dtype=torch.float32, seed=0)
+    prompts = _prompts(np.random.RandomState(0), model.cfg.vocab_size)
+    one = LLMEngine(model, **build)
+    want = [one.generate([p], max_new_tokens=32)[0] for p in prompts]
+    del one
+    res = dict(label=TP_LABEL, card=smi, layers=TP_FLEET_LAYERS)
+    first = LLMEngine(model, mesh=_tp_mesh(), **build)
+
+    async def run():
+        router = ReplicaRouter([AsyncLLMEngine(first)])
+        server = RouterServer(router, host="127.0.0.1", port=0)
+        await server.start()
+        out = {}
+        try:
+            # the baseline: r0 serving (its thread's cuBLAS workspace, kept
+            # for the process's life, allocated), r1 not built yet
+            await _post(server.port, {"prompt": prompts[0], "max_tokens": 2})
+            out["free0"] = _card_free_bytes()
+            out["mem0"] = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            second = LLMEngine(model, mesh=_tp_mesh(), **build)
+            out["replica_build_s"] = time.perf_counter() - t0
+            second_ranks = list(second._tp.procs)
+            await router.add_replica(AsyncLLMEngine(second))
+            del second      # the router holds the only reference
+            engines = [r.engine.engine for r in router.replicas]
+            steps0 = [e.step_count for e in engines]
+            for e in engines:
+                e.rank_reports(zero=True)
+            t0 = time.perf_counter()
+            got = []
+            for i, p in enumerate(prompts):
+                got.append(await _post(server.port, {
+                    "prompt": p, "max_tokens": 32, "stream": i % 2 == 0}))
+            out["wave_s"] = time.perf_counter() - t0
+            out["got"] = got
+            # every rank of both replicas: one ragged launch a layer and
+            # step at its 8 heads, the tp budget a step. Both replicas'
+            # rank 0 is this process, whose counters hold both
+            # controllers' steps; each rank 1 is a process of its own
+            steps = [e.step_count - s0 for e, s0 in zip(engines, steps0)]
+            out["counts"] = [_tp_counts(e, n) for e, n in zip(engines, steps)]
+            for c in out["counts"]:
+                c[0]["steps"] = sum(steps)
+            out["budget_a_step"] = [_tp_gate(e, c, None) for e, c in
+                                    zip(engines, out["counts"])][0]
+            del engines     # the retired replica's memory must come back
+            out["debug_router_status"] = (
+                await _get(server.port, "/debug/router"))[0]
+            out["served_by"] = {
+                r.name: r.engine.engine.metrics.counters.get(
+                    "requests_finished", 0) for r in router.replicas}
+            retired = weakref.ref(router.replicas[1].engine.engine)
+            t0 = time.perf_counter()
+            out["retired"] = await router.retire_replica("r1")
+            out["retire_s"] = time.perf_counter() - t0
+            out["alive"] = [p.pid for p in second_ranks if p.is_alive()]
+            out["card_free1"] = _card_free_bytes()
+            out["mem1"] = torch.cuda.memory_allocated()
+            out["retired_engine_collected"] = retired() is None
+            out["after"] = await _post(server.port, {"prompt": prompts[0],
+                                                     "max_tokens": 32})
+        finally:
+            await server.shutdown(drain=True)
+        return out
+
+    out = asyncio.run(run())
+    alive, free0, free1, mem0, mem1 = (out.pop(k) for k in (
+        "alive", "free0", "card_free1", "mem0", "mem1"))
+    first_alive = [p.pid for p in (first._tp.procs if first._tp else [])
+                   if p.is_alive()]
+    got, after = out.pop("got"), out.pop("after")
+    equal = sum(t == w for (_, t, _, _), w in zip(got, want))
+    toks = sum(len(t) for _, t, _, _ in got)
+    res.update(out, requests=len(got), equal_requests=int(equal),
+               tok_s=toks / out["wave_s"],
+               statuses=sorted({st for st, _, _, _ in got}),
+               retired_rank_pids_alive=alive,
+               mem_mib_before_second=mem0 / 2**20,
+               mem_mib_after_retire=mem1 / 2**20,
+               card_free_mib_before_second=free0 / 2**20,
+               card_free_mib_after_retire=free1 / 2**20,
+               after_retire_status=after[0],
+               after_retire_equal=after[1] == want[0],
+               rank_pids_alive_after_shutdown=first_alive,
+               seconds=time.perf_counter() - t_phase)
+    log(f"[tp fleet] {smi} | {TP_LABEL} | " + json.dumps(res))
+    del model, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert res["statuses"] == [200] and equal == len(want), res
+    assert out["retired"] == "r1" and not alive, res
+    assert res["after_retire_equal"], res
+    assert abs(mem1 - mem0) <= 64 * 2**20, res
+    assert not first_alive, res
+    return res
+
+
 # -- phase 4 ------------------------------------------------------------------
 
 def parity():
@@ -2741,6 +2924,17 @@ VARIANT_CASES = [
     ("flagship_causal_dropout", torch.bfloat16, (16, 1024, 8, 128), True,
      False, 0.1),
     ("f32_mask_dropout", torch.float32, (2, 512, 12, 64), False, True, 0.1),
+    # an mp=2 rank's share (phase 6e): its heads and their offset in the
+    # model's (the keep bits' head coordinate), at the flagship step's
+    # shape (4 rows, 4 of 8 heads) and at ERNIE's (6 of 12 heads)
+    ("flagship_mp2_rank", torch.bfloat16, (4, 1024, 4, 128), True, False,
+     0.0, (4, 8)),
+    ("flagship_mp2_rank_dropout", torch.bfloat16, (4, 1024, 4, 128), True,
+     False, 0.1, (4, 8)),
+    ("ernie_mp2_rank_mask_dropout", torch.bfloat16, (32, 512, 6, 64), False,
+     True, 0.1, (6, 12)),
+    ("f32_mp2_rank_mask_dropout", torch.float32, (2, 512, 6, 64), False,
+     True, 0.1, (6, 12)),
 ]
 DROPOUT_SEED = 20261016
 
@@ -2773,13 +2967,17 @@ def _qkv_views(shape, dtype, causal, gen):
     return (_split_fused_qkv if causal else split_qkv)(qkv, B, S, H, D)
 
 
-def _variant_case(name, dtype, shape, causal, with_mask, p, gen):
+def _variant_case(name, dtype, shape, causal, with_mask, p, heads, gen):
     """Phase 5b: the three kernels with the additive mask and/or dropout
     against the plain version in float32 on the same values, mask and
     seed (so the same Philox bits: exact up to rounding), with the
     kernels', the plain version's and SDPA's times (the same mask and
     dropout_p) beside the least time the card could take. q, k and v are
-    the strided views of a fused projection (`_qkv_views`)."""
+    the strided views of a fused projection (`_qkv_views`). With `heads`
+    ``(offset, total)`` the call holds heads ``[offset, offset + H)`` of
+    the model's `total` (an mp rank's share): kernels and plain version
+    draw those heads' keep bits, and the kernels' O must equal those
+    heads of one call over all `total` heads."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     B, S, H, D = shape
@@ -2788,15 +2986,31 @@ def _variant_case(name, dtype, shape, causal, with_mask, p, gen):
     mask = (padding_mask(padding_lengths(B, S, np.random.RandomState(0)),
                          S, "cuda") if with_mask else None)
     seed = DROPOUT_SEED if p > 0 else None
+    off, total = heads or (0, H)
     var = (causal, mask, p, seed)
+    hk = dict(head_offset=off, heads_total=total)
     # with dropout the forward also writes O in f32 for the backward's
     # delta, as FlashAttention does
     o_f32 = torch.empty(q.shape, device="cuda") if p > 0 else None
-    o, lse = fa.flash_attention_fwd(q, k, v, *var, o_f32)
+    o, lse = fa.flash_attention_fwd(q, k, v, *var, o_f32, **hk)
     o_bwd = o if o_f32 is None else o_f32
-    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o_bwd, do, lse, *var)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o_bwd, do, lse, *var,
+                                        **hk)
+    whole_err = None
+    if heads is not None:
+        # the same heads inside one call over all of the model's heads
+        full = [torch.zeros((B, S, total, D), dtype=dtype, device="cuda")
+                for _ in range(3)]
+        for f, t in zip(full, (q, k, v)):
+            f[:, :, off:off + H] = t
+        o_full, _ = fa.flash_attention_fwd(
+            *full, causal, mask, p, seed,
+            torch.empty(full[0].shape, device="cuda") if p > 0 else None)
+        whole_err = (o_full[:, :, off:off + H].float()
+                     - o.float()).abs().max().item()
+        del full, o_full
     q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
-    o32 = fa.attention_ref(q32, k32, v32, *var)
+    o32 = fa.attention_ref(q32, k32, v32, *var, **hk)
     o32.backward(do.float())
     lse32 = fa.attention_lse_ref(q32.detach(), k32.detach(), causal, mask)
     torch.cuda.synchronize()
@@ -2806,7 +3020,7 @@ def _variant_case(name, dtype, shape, causal, with_mask, p, gen):
     del o32, q32, k32, v32, lse32
     delta = fa._delta(o_bwd, do)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    og = fa.attention_ref(qg, kg, vg, *var)
+    og = fa.attention_ref(qg, kg, vg, *var, **hk)
 
     def plain_bwd():
         torch.autograd.grad(og, (qg, kg, vg), do, retain_graph=True)
@@ -2823,13 +3037,14 @@ def _variant_case(name, dtype, shape, causal, with_mask, p, gen):
             ql, kl, vl, **lib_kw), (ql, kl, vl), dol)
 
     times = dict(
-        fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, *var, o_f32),
-                       20),
+        fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, *var, o_f32,
+                                                      **hk), 20),
         dkv_ms=time_ms(lambda: fa._launch_bwd(q, k, v, do, lse, delta,
-                                              causal, 1, *var[1:]), 10),
+                                              causal, 1, *var[1:], **hk), 10),
         dq_ms=time_ms(lambda: fa._launch_bwd(q, k, v, do, lse, delta,
-                                             causal, 2, *var[1:]), 10),
-        plain_fwd_ms=event_ms(lambda: fa.attention_ref(q, k, v, *var), 3),
+                                             causal, 2, *var[1:], **hk), 10),
+        plain_fwd_ms=event_ms(lambda: fa.attention_ref(q, k, v, *var, **hk),
+                              3),
         plain_bwd_ms=event_ms(plain_bwd, 3),
         library_fwd_ms=event_ms(lambda: F.scaled_dot_product_attention(
             ql, kl, vl, **lib_kw), 10),
@@ -2842,11 +3057,13 @@ def _variant_case(name, dtype, shape, causal, with_mask, p, gen):
     rec = dict(case=name, dtype=str(dtype).replace("torch.", ""),
                shape=[B, S, H, D], causal=causal,
                mask=None if mask is None else list(mask.shape),
-               dropout_p=p, max_err=err, tol=TOL[dtype], **times,
+               dropout_p=p, head_offset=off, heads_total=total,
+               whole_call_o_err=whole_err, max_err=err, tol=TOL[dtype],
+               **times,
                **{f"bound_{n}_ms": b[0] for n, b in bounds.items()},
                **{f"bound_{n}_by": b[1] for n, b in bounds.items()})
     log("[flash-variant] " + json.dumps(rec))
-    if max(err.values()) > TOL[dtype]:
+    if max(err.values()) > TOL[dtype] or (whole_err or 0.0) > TOL[dtype]:
         raise SystemExit(f"a flash kernel variant disagrees with the plain "
                          f"version: {rec}")
     return rec
@@ -2859,7 +3076,9 @@ def variant_cases():
     gen.manual_seed(1)
     out = []
     for case in VARIANT_CASES:
-        out.append(_variant_case(*case, gen))
+        name, dtype, shape, causal, with_mask, p, *heads = case
+        out.append(_variant_case(name, dtype, shape, causal, with_mask, p,
+                                 heads[0] if heads else None, gen))
         torch.cuda.empty_cache()
     return out
 
@@ -3891,6 +4110,215 @@ def zero_dp(smi):
     return res
 
 
+# -- phase 6e -----------------------------------------------------------------
+
+MP_LABEL = ("eager, gloo through the host, ranks sharing one card - not an "
+            "mp speed")
+
+
+def _hybrid_mesh(degrees, timeout=300):
+    """``prod(degrees)`` ranks on cuda:0 over an explicit gloo backend (the
+    one-card departure: NCCL refuses two ranks on a device)."""
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+
+    n = int(np.prod(list(degrees.values())))
+    return build_mesh(degrees, devices=["cuda:0"] * n, backend="gloo",
+                      timeout=timeout)
+
+
+def _mp_budget(kind, layers, mp, dp, n_leaves, clip=False):
+    """A hybrid step's collective calls on every rank, as arithmetic
+    (tests/test_torch_hybrid.py states GPT's). At mp > 1, all-reduces:
+    GPT's forward makes the vocab-parallel embedding's 1, proj's and
+    fc2's 2 a layer and the vocab-parallel head loss's 3, its backward
+    the column-parallel inputs' 2 a layer and the head's hidden state's
+    1; ERNIE's the same but for the head: its MLM logits are gathered (1
+    all-gather) and the transform's output summed in the backward (1);
+    the clip 1. At dp > 1: the loss 1, ERNIE's labelled-position count 1,
+    and one a gradient leaf."""
+    ar = ag = 0
+    if mp > 1:
+        if kind == "gpt":
+            ar += (1 + 2 * layers + 3) + (2 * layers + 1)
+        else:
+            ar += (1 + 2 * layers) + (2 * layers + 1)
+            ag += 1
+        ar += 1 if clip else 0
+    if dp > 1:
+        ar += 1 + (kind == "ernie") + n_leaves
+    return {"all-reduce": ar, "all-gather": ag, "reduce-scatter": 0,
+            "all-to-all": 0}
+
+
+def _mp_gate(counts, kind, layers, mp, dp, n_leaves, clip=False,
+             mask=False, dropout=False):
+    """Each rank: `_mp_budget`'s calls a step, and one flash forward and
+    one backward launch a layer and step (every one the mask variant with
+    `mask`, the dropout variant with `dropout`)."""
+    b = _mp_budget(kind, layers, mp, dp, n_leaves, clip)
+    for c in counts:
+        assert c["collectives"] == {k: v * c["steps"] for k, v in b.items()
+                                    }, (c, b)
+        n = layers * c["steps"]
+        for d in ("fwd", "bwd"):
+            assert (c[f"{d}_launches"], c[f"{d}_mask_launches"],
+                    c[f"{d}_dropout_launches"]) == (
+                        n, n * mask, n * dropout), c
+    return b
+
+
+def _hybrid_parity(meshes):
+    """6e (a): float32 (TF32 off), 3 AdamW(1e-4) steps from one set of
+    weights: the flagship widths at 2 layers, batch 4 x 256, over
+    {"mp": 2} and {"dp": 2, "mp": 2} against one process on the whole
+    batch (losses within 1e-5 relative, every gathered parameter entry
+    within Adam's 2 * steps * lr of it); with dropout 0.1 over {"mp": 2}
+    against one process at the same seeds (losses within 1e-5: the ranks'
+    flash kernels draw their heads' model bits, `head_offset`); ERNIE's
+    widths at 2 layers (12 heads, 6 a rank), batch 4 x 128, padding mask
+    and dropout 0.1, over {"mp": 2} likewise. Each rank's collectives
+    and flash launches a step against the arithmetic (`_mp_budget`)."""
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models.bert import (Bert, BertConfig,
+                                              bert_pretrain_loss_fn)
+    from paddle_tpu_torch.models.gpt import GPT, gpt_loss_fn
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lr, steps = 1e-4, 3
+    gbatch = train_batch(flagship_config(), 4, 256, "cpu")
+    ebatch = ernie_batch(40000, 4, 128, "cpu")[:4]
+    one = build_mesh({"dp": 1}, device="cuda")
+
+    def run(kind, mesh, dropout=0.0, n=steps):
+        if kind == "gpt":
+            model = GPT(flagship_config(num_layers=2, dropout=dropout),
+                        device="cuda", dtype=torch.float32, seed=0)
+            loss_fn, batch = gpt_loss_fn, gbatch
+        else:
+            model = Bert(BertConfig(vocab_size=40000, num_layers=2,
+                                    dropout=dropout), device="cuda",
+                         dtype=torch.float32, seed=0)
+            loss_fn, batch = bert_pretrain_loss_fn, ebatch
+        opt = AdamW(learning_rate=lr, parameters=model.named_parameters())
+        step = make_sharded_train_step(model, loss_fn, opt, mesh)
+        try:
+            losses, counts, _, _ = _dp_run(step, batch, n, warmup=0)
+            params = step.gather_params()
+            leaves = len(step.names)
+        finally:
+            step.close()
+        return losses, counts, params, leaves
+
+    res = {}
+    for name, kind, dropout, keys in (
+            ("gpt", "gpt", 0.0, ("mp2", "dp2mp2")),
+            ("gpt_dropout", "gpt", 0.1, ("mp2",)),
+            ("ernie_mask_dropout", "ernie", 0.1, ("mp2",))):
+        n = steps if dropout == 0.0 else 2
+        want, _, wparams, _ = run(kind, one, dropout, n)
+        rec = dict(one_process=want)
+        for key in keys:
+            losses, counts, params, leaves = run(kind, meshes[key], dropout,
+                                                 n)
+            deg = {"mp2": (2, 1), "dp2mp2": (2, 2)}[key]
+            budget = _mp_gate(counts, kind, 2, *deg, leaves,
+                              mask=kind == "ernie", dropout=dropout > 0)
+            worst = max((params[k] - w).abs().max().item()
+                        for k, w in wparams.items())
+            rel = max(((params[k] - w).norm() / w.norm()).item()
+                      for k, w in wparams.items())
+            rec[key] = dict(losses=losses, budget_a_step=budget,
+                            counts=counts, param_max_abs_diff=worst,
+                            param_max_rel_norm_diff=rel)
+            np.testing.assert_allclose(losses, want, rtol=1e-5)
+            assert worst <= 2 * n * lr, (name, key, worst)
+        res[name] = rec
+        log(f"[hybrid-parity] {name} " + json.dumps(rec))
+    return res
+
+
+def _hybrid_flagship(mesh, smi):
+    """6e (b): the flagship at full width (bench_gpt) built in float32 and
+    put through amp.decorate(level="O2"), AdamW(1e-4, weight decay 0.01)
+    with ClipGradByGlobalNorm(1.0), over {"mp": 2} (two ranks on cuda:0,
+    each holding 4 of 8 heads and half of every Megatron layer), batch 4 x
+    1024 (the 4 rows on both ranks): one warm-up and 3 counted steps."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPT, gpt_loss_fn
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    cfg = flagship_config()
+    model = GPT(cfg, device="cuda", dtype=torch.float32, seed=0)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0),
+                parameters=model.named_parameters())
+    model, opt = amp.decorate(model, opt, level="O2")
+    batch = train_batch(cfg, 4, cfg.max_seq_len, "cpu")
+    model_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    t0 = time.perf_counter()
+    step = make_sharded_train_step(model, gpt_loss_fn, opt, mesh)
+    build_s = time.perf_counter() - t0
+    try:
+        losses, counts, wall, ranks = _dp_run(step, batch, 3)
+        opt_bytes = step.per_chip_opt_state_bytes()
+        unsharded = step.unsharded_opt_state_bytes()
+        param_bytes = step.param_bytes()
+        n = len(step.names)
+    finally:
+        step.close()
+    res = dict(label=MP_LABEL, card=smi, model_bytes=model_bytes,
+               heads_a_rank=cfg.num_heads // 2, leaves=n, losses=losses,
+               counts=counts, build_s=build_s, step_s=wall,
+               rank_step_s=ranks,
+               tokens_per_s=batch[0].numel() * len(wall) / sum(wall),
+               opt_state_bytes=opt_bytes,
+               unsharded_opt_state_bytes=unsharded,
+               opt_state_ratio=[b / unsharded for b in opt_bytes],
+               param_bytes=param_bytes,
+               param_ratio=[b / model_bytes for b in param_bytes],
+               peak_gib=[c["peak_gib"] for c in counts])
+    res["budget_a_step"] = _mp_gate(counts, "gpt", cfg.num_layers, 2, 1, n,
+                                    clip=True)
+    log(f"[hybrid-flagship] ({MP_LABEL}; {smi}) " + json.dumps(res))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    # each rank holds half of every Megatron leaf and all of the rest
+    assert max(res["opt_state_ratio"]) <= 0.55, res["opt_state_ratio"]
+    assert max(res["param_ratio"]) <= 0.55, res["param_ratio"]
+    del model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def hybrid_train(smi):
+    """Phase 6e: dp x mp hybrid training on the one card (ranks on cuda:0
+    over an explicit gloo backend, every collective staged through host
+    memory). Run last, after gc.collect() and torch.cuda.empty_cache()."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated() / 2**30
+    log(f"[hybrid] phase 6e starts with {base:.2f} GiB allocated ({smi})")
+    meshes = {"mp2": _hybrid_mesh({"mp": 2}),
+              "dp2mp2": _hybrid_mesh({"dp": 2, "mp": 2})}
+    try:
+        res = dict(base_mem_gib=base, parity=_hybrid_parity(meshes))
+        meshes.pop("dp2mp2").close()
+        res["flagship"] = _hybrid_flagship(meshes["mp2"], smi)
+    finally:
+        for m in meshes.values():
+            m.close()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[hybrid] phase 6e {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -3920,6 +4348,7 @@ def main():
     fleet_res = fleet(model, graph_outs, smi)
     tp_res = tp_serving(model, graph_outs_int8, smi)
     del model
+    tp_fleet_res = tp_fleet(smi)
     torch.cuda.empty_cache()
     par = parity()
     par_int8 = parity_int8()
@@ -3932,6 +4361,7 @@ def main():
     epar = ernie_parity()
     surface = training_surface(smi, trained, ernie)
     zero = zero_dp(smi)
+    hybrid = hybrid_train(smi)
     # the kernel line's headline numbers: the bf16 decode case (width 1),
     # the launch shape the serving path runs most, and the bf16 flash case
     # at the training shape
@@ -3970,6 +4400,11 @@ def main():
             "tp2_shard_case": {k: tp_head[k] for k in (
                 "heads", "width", "max_err", "kernel_ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")},
+            # phase 3i: every rank of the two tp replicas behind the
+            # router (f32, float arena)
+            **({"tp_fleet_rank_launches": [
+                c["ragged"] for rep_counts in tp_fleet_res["counts"]
+                for c in rep_counts]} if arena == "float" else {}),
             "max_abs_err": max(r["max_err"] for r in mine
                                if r["dtype"] == "bfloat16"),
             "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
@@ -4029,6 +4464,18 @@ def main():
         return [c[key] for c in counts]
 
     zf, ze = zero["flagship"], zero["ernie"]
+    hf = hybrid["flagship"]
+    he = hybrid["parity"]["ernie_mask_dropout"]["mp2"]
+
+    def mp2_case(name):
+        # phase 5b's case at an mp=2 rank's shape and head offset
+        c = next(r for r in variants if r["case"] == name)
+        return {k: c[k] for k in (
+            "shape", "head_offset", "heads_total", "dropout_p",
+            "whole_call_o_err", "max_err", "fwd_ms", "dkv_ms", "dq_ms",
+            "plain_fwd_ms", "plain_bwd_ms", "library_fwd_ms",
+            "library_bwd_ms", "bound_fwd_ms", "bound_fwd_by",
+            "bound_dkv_ms", "bound_dkv_by", "bound_dq_ms", "bound_dq_by")}
     kernels = rpa + [{
         "name": "flash_attention_fwd", "route": "cuda", "source": src,
         "replaces": f"{tpu}:121", "launches": trained["fwd_launches"],
@@ -4042,6 +4489,10 @@ def main():
         "calibration_launches": feature["launches"]["flash_fwd"],
         "dp2_rank_launches": {k: dp2(zf[k]["counts"], "fwd_launches")
                               for k in ("stage2", "stage3", "stage2_int8")},
+        # phase 6e (b): each mp=2 rank's launches at its 4 heads, and the
+        # kernels at that shape (5b)
+        "mp2_rank_launches": dp2(hf["counts"], "fwd_launches"),
+        "mp2_shard_case": mp2_case("flagship_mp2_rank"),
         "calibration_case": feature["adaround"]["flash_s24"],
         "cases": flash,
     }, {
@@ -4053,6 +4504,8 @@ def main():
         "remat_launches": surface["remat"]["bwd_launches"],
         "dp2_rank_launches": {k: dp2(zf[k]["counts"], "bwd_launches")
                               for k in ("stage2", "stage3", "stage2_int8")},
+        "mp2_rank_launches": dp2(hf["counts"], "bwd_launches"),
+        "mp2_shard_case": mp2_case("flagship_mp2_rank"),
         "max_abs_err": max(fl["max_err"]["dk"], fl["max_err"]["dv"]),
         "ms": fl["dkv_ms"], "plain_ms": fl["plain_bwd_ms"],
         "bound_ms": fl["bound_dkv_ms"], "bound_by": fl["bound_dkv_by"],
@@ -4063,6 +4516,8 @@ def main():
         "remat_launches": surface["remat"]["bwd_launches"],
         "dp2_rank_launches": {k: dp2(zf[k]["counts"], "bwd_launches")
                               for k in ("stage2", "stage3", "stage2_int8")},
+        "mp2_rank_launches": dp2(hf["counts"], "bwd_launches"),
+        "mp2_shard_case": mp2_case("flagship_mp2_rank"),
         "max_abs_err": fl["max_err"]["dq"],
         "ms": fl["dq_ms"], "plain_ms": fl["plain_bwd_ms"],
         "bound_ms": fl["bound_dq_ms"], "bound_by": fl["bound_dq_by"],
@@ -4085,6 +4540,12 @@ def main():
             "dp2_rank_launches": dp2(ze["counts"], "fwd_mask_launches"
                                      if kname == "fwd" else
                                      "bwd_mask_launches"),
+            # phase 6e (a): each mp=2 rank's ERNIE launches at 6 of 12
+            # heads, and the kernels at the ERNIE step's rank shape (5b)
+            "mp2_rank_launches": dp2(he["counts"], "fwd_mask_launches"
+                                     if kname == "fwd" else
+                                     "bwd_mask_launches"),
+            "mp2_shard_case": mp2_case("ernie_mp2_rank_mask_dropout"),
             "max_abs_err": max(ev["max_err"][e] for e in errs),
             "ms": ev[f"{key}_ms"],
             "plain_ms": ev["plain_fwd_ms" if key == "fwd"
@@ -4100,11 +4561,12 @@ def main():
                            appends=appends, graph_vs_eager=graph_eager,
                            serve=served, serve_int8=served_int8,
                            front_door=http, phase3f=feature,
-                           fleet=fleet_res, tp=tp_res,
+                           fleet=fleet_res, tp=tp_res, tp_fleet=tp_fleet_res,
                            overcap=overcap, parity=par, parity_int8=par_int8,
                            train=trained, train_parity=tpar, ernie=ernie,
                            train_dropout=gpt_drop, ernie_parity=epar,
-                           training_surface=surface, zero_dp=zero), f,
+                           training_surface=surface, zero_dp=zero,
+                           hybrid=hybrid), f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

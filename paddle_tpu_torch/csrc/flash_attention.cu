@@ -24,7 +24,10 @@
 //   bits(seed, bh, i, j) = philox4x32_10(counter (j >> 2, i, bh, 0),
 //                                        key (seed lo, seed hi))[j & 3],
 //   keep = bits >= threshold(p)   (the JAX kernel's threshold rule),
-// for query i, key j and bh = b * H + h. Forward, dK/dV and dQ each draw
+// for query i, key j and bh = b * heads_total + head_offset + h: the
+// model's head coordinate, so a tensor-parallel rank holding heads
+// [head_offset, head_offset + H) draws the bits the whole model draws for
+// them (heads_total = H and head_offset 0 without tensor parallelism). Forward, dK/dV and dQ each draw
 // them anew. Both variants are runtime flags, uniform over a launch; each
 // kernel holds two bodies, the plain one (no variant code at all, so the
 // path without mask and dropout runs what it ran before) and the variant
@@ -192,6 +195,11 @@ struct FlashArgs {
   uint64_t seed;            // Philox key: (low word, high word)
   MaskView mask;
   View o32;  // optional f32 copy of O (p null: none), for an exact delta
+  // the dropout keep bits' head coordinate (a tensor-parallel rank holds
+  // heads [head_offset, head_offset + H) of heads_total): bh = b *
+  // heads_total + head_offset + h; heads_total = H, head_offset 0 alone
+  int64_t heads_total;
+  int64_t head_offset;
 };
 
 // The TMA descriptors of the bf16 sm_90a kernels over q, k, v and dout,
@@ -498,6 +506,8 @@ __device__ __forceinline__ void fwd_body(const FlashArgs& a) {
   T* ps = kvs + 4 * kTileElems;           // [kTile][kT], P of this tile
 
   const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  // the keep bits' head coordinate: the model's head, not this launch's
+  const int64_t dbh = b * a.heads_total + a.head_offset + h;
   const int64_t q0 = (int64_t)blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -571,7 +581,7 @@ __device__ __forceinline__ void fwd_body(const FlashArgs& a) {
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
       float f[4] = {1.f, 1.f, 1.f, 1.f};
-      if (has_drop) drop_rows(a, bh, qrow, k0 + 8 * j + 2 * t, f);
+      if (has_drop) drop_rows(a, dbh, qrow, k0 + 8 * j + 2 * t, f);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const float p0 = exp2f(s[j][2 * i] - m[i]);
@@ -640,6 +650,8 @@ __device__ __forceinline__ void dkv_body(const FlashArgs& a) {
   float* rows = reinterpret_cast<float*>(pt + kTile * L::kT);
 
   const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  // the keep bits' head coordinate: the model's head, not this launch's
+  const int64_t dbh = b * a.heads_total + a.head_offset + h;
   const int64_t k0 = (int64_t)blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -704,7 +716,7 @@ __device__ __forceinline__ void dkv_body(const FlashArgs& a) {
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
       float f[4] = {1.f, 1.f, 1.f, 1.f};
-      if (has_drop) drop_cols(a, bh, krow, q0 + 8 * j + 2 * t, f);
+      if (has_drop) drop_cols(a, dbh, krow, q0 + 8 * j + 2 * t, f);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int64_t qpos = q0 + 8 * j + 2 * t + (e & 1);
@@ -779,6 +791,8 @@ __device__ __forceinline__ void dq_body(const FlashArgs& a) {
   T* dss = kvs + 4 * kTileElems;          // [kTile][kT], dS of this tile
 
   const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  // the keep bits' head coordinate: the model's head, not this launch's
+  const int64_t dbh = b * a.heads_total + a.head_offset + h;
   const int64_t q0 = (int64_t)blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -838,7 +852,7 @@ __device__ __forceinline__ void dq_body(const FlashArgs& a) {
     for (int j = 0; j < kTile / 8; ++j) {
       float f[4] = {1.f, 1.f, 1.f, 1.f};
       if (has_drop) {
-        drop_rows(a, bh, qrow, k0 + 8 * j + 2 * t, f);
+        drop_rows(a, dbh, qrow, k0 + 8 * j + 2 * t, f);
 #pragma unroll
         for (int e = 0; e < 4; ++e) f[e] *= a.drop_scale;
       }
@@ -954,6 +968,8 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
   constexpr bool has_mask = kMask != 0, key_mask = kMask == 1;
   constexpr bool has_drop = kDrop;
   const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  // the keep bits' head coordinate: the model's head, not this launch's
+  const int64_t dbh = b * a.heads_total + a.head_offset + h;
   // causal: the query tiles with the most key tiles start first
   const int qt = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int64_t q0 = (int64_t)qt * 128;
@@ -1093,7 +1109,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       float f[4] = {1.f, 1.f, 1.f, 1.f};
-      if (has_drop) drop_rows(a, bh, qrow, k0 + 8 * j + 2 * t, f);
+      if (has_drop) drop_rows(a, dbh, qrow, k0 + 8 * j + 2 * t, f);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float pe = sm90::exp2_approx(s[j][e] - m[e >> 1]);
@@ -1205,6 +1221,8 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
   constexpr bool has_mask = kMask != 0, key_mask = kMask == 1;
   constexpr bool has_drop = kDrop;
   const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  // the keep bits' head coordinate: the model's head, not this launch's
+  const int64_t dbh = b * a.heads_total + a.head_offset + h;
   const int64_t k0 = (int64_t)blockIdx.x * 128;
   const int64_t off = a.Sk - a.Sq;
   // first query tile holding a query that sees key k0
@@ -1334,7 +1352,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float f[4] = {1.f, 1.f, 1.f, 1.f};
-      if (has_drop) drop_cols_sm90(a, bh, krow, q0 + 8 * j + 2 * t, f);
+      if (has_drop) drop_cols_sm90(a, dbh, krow, q0 + 8 * j + 2 * t, f);
       float pk[4], ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -1447,6 +1465,8 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
   constexpr bool has_mask = kMask != 0, key_mask = kMask == 1;
   constexpr bool has_drop = kDrop;
   const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  // the keep bits' head coordinate: the model's head, not this launch's
+  const int64_t dbh = b * a.heads_total + a.head_offset + h;
   // causal: the query tiles with the most key tiles start first
   const int qt = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int64_t q0 = (int64_t)qt * 128;
@@ -1588,7 +1608,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 #pragma unroll
     for (int j = 0; j < KT / 8; ++j) {
       float f[4] = {1.f, 1.f, 1.f, 1.f};
-      if (has_drop) drop_rows(a, bh, qrow, k0 + 8 * j + 2 * t, f);
+      if (has_drop) drop_rows(a, dbh, qrow, k0 + 8 * j + 2 * t, f);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + 2 * t + (e & 1);

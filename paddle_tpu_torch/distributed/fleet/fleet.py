@@ -1,0 +1,96 @@
+"""The fleet facade (the JAX package's
+`paddle_tpu/distributed/fleet/fleet.py`: reference fleet/fleet.py:100,
+init:168, distributed_optimizer:1044).
+
+`init` builds the `CommunicateTopology` of the strategy's hybrid degrees
+and the `HybridCommunicateGroup` over it, whose mesh (distributed/mesh.py)
+it installs as the process's: the mesh a train step is then built over
+(`parallel.spmd.make_sharded_train_step(..., mesh=hcg.mesh)`). In the
+port's idiom the caller's process is rank 0 of that mesh, and the step
+starts the other ranks. `init` takes one argument the JAX function has
+not: `device`, where the ranks run (None: CUDA, which must exist; the
+tests pass ``"cpu"``). `distributed_model` and `distributed_optimizer`
+return the thin wrappers of `meta_parallel.parallel_wrappers`, which the
+train step unwraps.
+"""
+from __future__ import annotations
+
+from ..mesh import (CommunicateTopology, HybridCommunicateGroup,
+                    set_hybrid_communicate_group)
+from .strategy import DistributedStrategy
+
+
+class Fleet:
+    def __init__(self):
+        self._strategy = None
+        self._hcg = None
+        self._is_initialized = False
+
+    def init(self, role_maker=None, is_collective=True, strategy=None,
+             log_level="INFO", device=None):
+        self._strategy = strategy or DistributedStrategy()
+        hc = self._strategy.hybrid_configs
+        topo = CommunicateTopology(
+            hybrid_group_names=("data", "pipe", "sharding", "model"),
+            dims=(hc["dp_degree"], hc["pp_degree"], hc["sharding_degree"],
+                  hc["mp_degree"]))
+        self._hcg = HybridCommunicateGroup(topo, self._strategy,
+                                           device=device)
+        set_hybrid_communicate_group(self._hcg)
+        self._is_initialized = True
+        return self
+
+    def get_hybrid_communicate_group(self):
+        return self._hcg
+
+    @property
+    def worker_num(self):
+        return 1 if self._hcg is None else self._hcg.mesh.size
+
+    def worker_index(self):
+        return 0
+
+    def is_first_worker(self):
+        return True
+
+    def distributed_model(self, model):
+        from .meta_parallel import DataParallel, TensorParallel
+
+        if self._hcg is None:
+            self.init()
+        if self._hcg.get_model_parallel_world_size() > 1:
+            return TensorParallel(model, self._hcg, self._strategy)
+        return DataParallel(model)
+
+    def distributed_optimizer(self, optimizer, strategy=None):
+        from .meta_parallel import HybridParallelOptimizer
+
+        return HybridParallelOptimizer(optimizer, self._hcg,
+                                       strategy or self._strategy)
+
+    def state_dict(self):
+        return {}
+
+
+fleet = Fleet()
+
+
+def init(role_maker=None, is_collective=True, strategy=None,
+         log_level="INFO", device=None):
+    return fleet.init(role_maker, is_collective, strategy, log_level, device)
+
+
+def distributed_model(model):
+    return fleet.distributed_model(model)
+
+
+def distributed_optimizer(optimizer, strategy=None):
+    return fleet.distributed_optimizer(optimizer, strategy)
+
+
+def get_hybrid_communicate_group():
+    return fleet.get_hybrid_communicate_group()
+
+
+__all__ = ["Fleet", "distributed_model", "distributed_optimizer", "fleet",
+           "get_hybrid_communicate_group", "init"]

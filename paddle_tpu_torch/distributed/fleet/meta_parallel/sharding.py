@@ -6,8 +6,10 @@ group_sharded_stage2.py:46 + group_sharded_optimizer_stage2.py:53 (stage
 2), group_sharded_stage3.py:59 (stage 3), public API group_sharded.py:37.
 
 As in the JAX package these classes are markers carrying ``zero_stage``:
-the data-parallel train step (`parallel.spmd.make_sharded_train_step`)
-does the sharding. It takes a wrapped model and optimizer as it takes any
+the train step (`parallel.spmd.make_sharded_train_step`) does the
+sharding: over the dp ranks on a pure-dp mesh (the explicit path), over
+the ``sharding`` axis of a hybrid mesh otherwise, where a parameter that
+`shard_parameters_over` annotated lives as its slice over that axis. It takes a wrapped model and optimizer as it takes any
 other, through their inner model and optimizer, so parameter names and
 state keys are the inner model's. A wrapped model's eager forward runs
 the inner model unsharded and warns once that it does.
@@ -152,8 +154,7 @@ class GroupShardedStage3(nn.Module):
     @staticmethod
     def _degree(group):
         """The group's size (``nranks`` or ``size``), else the process
-        mesh's 'sharding' degree (1: the port's meshes have no sharding
-        axis above 1)."""
+        mesh's 'sharding' degree (distributed/mesh.py)."""
         for attr in ("nranks", "size"):
             if group is not None and hasattr(group, attr):
                 return int(getattr(group, attr))

@@ -124,22 +124,41 @@ def join_group(mesh, store_path):
     it returns once the group is connected (gloo connects in its
     constructor; NCCL builds its communicator at its first collective, so
     one all-reduce of one element is made here, while every rank is in
-    this call)."""
+    this call). A training mesh with axes (distributed/mesh.py) also gets
+    this rank's group along each axis in ``mesh.groups``."""
     import torch.distributed as dist
 
     from ..parallel.collectives import RankGroup
 
     store = dist.FileStore(store_path, mesh.size)
+    world = RankGroup(_process_group(mesh, store, mesh.rank, mesh.size),
+                      mesh.rank, mesh.size, mesh.backend)
+    # a hybrid mesh's axis groups (distributed/mesh.py): every rank walks
+    # every group in one order and joins its own, on its own store prefix
+    for axis in getattr(mesh, "group_axes", lambda: ())():
+        for i, members in enumerate(mesh.comm_lists(axis)):
+            if mesh.rank in members:
+                sub = dist.PrefixStore(f"{axis}/{i}", store)
+                r = members.index(mesh.rank)
+                mesh.groups[axis] = RankGroup(
+                    _process_group(mesh, sub, r, len(members)), r,
+                    len(members), mesh.backend)
+    return world
+
+
+def _process_group(mesh, store, rank, size):
+    """A gloo or NCCL process group of `size` ranks on `store`, with the
+    mesh's timeout (NCCL's communicator built here by one all-reduce)."""
+    import torch.distributed as dist
+
     if mesh.backend == "nccl":
         opts = dist.ProcessGroupNCCL.Options()
         opts._timeout = mesh.timedelta()
-        pg = dist.ProcessGroupNCCL(store, mesh.rank, mesh.size, opts)
+        pg = dist.ProcessGroupNCCL(store, rank, size, opts)
         pg.allreduce([torch.ones(1, device=mesh.device)]).wait()
         torch.cuda.synchronize(mesh.device)
-    else:
-        pg = dist.ProcessGroupGloo(store, mesh.rank, mesh.size,
-                                   mesh.timedelta())
-    return RankGroup(pg, mesh.rank, mesh.size, mesh.backend)
+        return pg
+    return dist.ProcessGroupGloo(store, rank, size, mesh.timedelta())
 
 
 def leave_group(mesh):
@@ -151,6 +170,8 @@ def leave_group(mesh):
     if group is None or group.backend != "nccl" or group.pg is None:
         return
     torch.cuda.synchronize(mesh.device)
+    for sub in getattr(mesh, "groups", {}).values():
+        sub.shutdown()
     group.shutdown()
 
 

@@ -2,9 +2,17 @@
 pretraining), in PyTorch.
 
 The counterpart of `paddle_tpu/models/bert.py`, with its parameter names
-(`weights.py` carries a JAX state dict over). Its tensor-parallel layers
-run at tp=1 here, so they are plain `nn.Linear` and `nn.Embedding`. What
-the model computes, as in the JAX package:
+(`weights.py` carries a JAX state dict over) and its Megatron layers
+(`distributed/fleet/meta_parallel/mp_layers.py`: dense until a training
+mesh with ``mp`` > 1 shards them). On an mp rank the word embedding is
+vocab-parallel, fc1 and the fused QKV column-parallel, the attention
+output and fc2 row-parallel, and attention runs the rank's ``heads / mp``
+heads with their offset. The QKV columns are ``[3, heads, head_dim]``,
+so a rank's QKV rows are three strided head groups (``out_groups=3``:
+the rank's heads of q, of k and of v). The MLM head's logits are
+gathered over the group (one all-gather), since the loss is the caller's
+function of the full logits. What the model computes, as in the JAX
+package:
 
 - embeddings: word + position (+ token type, only when `token_type_ids`
   is given), LayerNorm, dropout;
@@ -36,6 +44,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from .._device import resolve_device
+from ..distributed.fleet.meta_parallel.mp_layers import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    copy_to_mp, gather_from_mp)
 from ..distributed.fleet.utils import recompute
 from ..ops.common_nn import (DropoutGenerators, dropout,
                              scaled_dot_product_attention)
@@ -73,16 +84,28 @@ class BertSelfAttention(nn.Module):
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
         self.dropout = cfg.dropout
+        # the model's heads this module holds: [head_offset, + num_heads)
+        self.head_offset, self.heads_total = 0, cfg.num_heads
         kw = {"device": device, "dtype": dtype}
-        self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size, **kw)
-        self.out = nn.Linear(cfg.hidden_size, cfg.hidden_size, **kw)
+        self.qkv = ColumnParallelLinear(cfg.hidden_size, 3 * cfg.hidden_size,
+                                        gather_output=False, out_groups=3,
+                                        **kw)
+        self.out = RowParallelLinear(cfg.hidden_size, cfg.hidden_size,
+                                     input_is_parallel=True, **kw)
+
+    def shard_heads(self, mp):
+        """Hold mp rank ``mp.rank``'s share of the heads (its QKV rows are
+        those heads' q, k and v rows)."""
+        self.num_heads = self.heads_total // mp.size
+        self.head_offset = mp.rank * self.num_heads
 
     def forward(self, x, attn_mask=None, generator=None):
         b, s, _ = x.shape
         q, k, v = split_qkv(self.qkv(x), b, s, self.num_heads, self.head_dim)
         o = scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
-            training=self.training, generator=generator)
+            training=self.training, generator=generator,
+            head_offset=self.head_offset, heads_total=self.heads_total)
         return self.out(o.reshape(b, s, self.num_heads * self.head_dim))
 
 
@@ -92,8 +115,10 @@ class BertLayer(nn.Module):
         kw = {"device": device, "dtype": dtype}
         self.attn = BertSelfAttention(cfg, **kw)
         self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+        self.fc1 = ColumnParallelLinear(cfg.hidden_size, cfg.intermediate_size,
+                                        gather_output=False, **kw)
+        self.fc2 = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size,
+                                     input_is_parallel=True, **kw)
         self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
         self.p = cfg.dropout
         self.remat = cfg.remat
@@ -131,7 +156,7 @@ class Bert(nn.Module):
         self.cfg = cfg
         h = cfg.hidden_size
         kw = {"device": device, "dtype": dtype}
-        self.word_emb = nn.Embedding(cfg.vocab_size, h, **kw)
+        self.word_emb = VocabParallelEmbedding(cfg.vocab_size, h, **kw)
         self.pos_emb = nn.Embedding(cfg.max_position_embeddings, h, **kw)
         self.type_emb = nn.Embedding(cfg.type_vocab_size, h, **kw)
         self.ln = nn.LayerNorm(h, eps=1e-5, **kw)
@@ -190,7 +215,9 @@ class Bert(nn.Module):
             x = layer(x, attention_mask, gens)
         pooled = torch.tanh(self.pooler(x[:, 0]))
         mlm = self.mlm_ln(F.gelu(self.mlm_transform(x)))
-        logits = mlm @ self.word_emb.weight.t()
+        mp = self.word_emb.mp
+        logits = gather_from_mp(copy_to_mp(mlm, mp) @ self.word_emb.weight.t(),
+                                mp)
         return logits, self.nsp(pooled)
 
 
@@ -208,7 +235,11 @@ def ernie_base(device=None, dtype=torch.float32, seed=0, **kw):
 def bert_pretrain_loss_fn(outputs, labels):
     """Mean MLM cross-entropy in float32 over the labelled positions
     (label -100 is ignored); `outputs` is the model's (logits, nsp) or the
-    logits alone. The JAX package's function."""
+    logits alone. The JAX package's function. Its `loss_weight` (the
+    labelled positions of a batch) lets a train step whose rows split
+    over ranks take the mean over the whole batch's labelled positions,
+    as the JAX package's GSPMD step does, rather than the mean of the
+    ranks' means (parallel/spmd.py)."""
     logits = outputs[0] if isinstance(outputs, (tuple, list)) else outputs
     labels = torch.as_tensor(labels, device=logits.device).long()
     valid = labels != -100
@@ -217,3 +248,10 @@ def bert_pretrain_loss_fn(outputs, labels):
     picked = logp.gather(-1, safe[..., None])[..., 0]
     picked = torch.where(valid, picked, torch.zeros_like(picked))
     return -picked.sum() / valid.sum().clamp(min=1)
+
+
+def _labelled_positions(labels):
+    return (torch.as_tensor(labels) != -100).sum()
+
+
+bert_pretrain_loss_fn.loss_weight = _labelled_positions

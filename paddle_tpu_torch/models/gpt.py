@@ -1,12 +1,22 @@
 """GPT: the decoder-only LM (BASELINE config 4: GPT-1.3B), in PyTorch.
 
 The counterpart of `paddle_tpu/models/gpt.py` for serving and training.
-Its tensor-parallel layers are plain `nn.Linear` and `nn.Embedding`: on a
+Its tensor-parallel layers are the Megatron layers of
+`distributed/fleet/meta_parallel/mp_layers.py` (`nn.Linear` and
+`nn.Embedding` subclasses, dense until sharded), as in the JAX model. On a
 tensor-parallel serving rank (serving/sharded.py `shard_module`) they hold
 the rank's shard, and the paged path's hooks add the collectives
-(`_vocab_parallel_embedding`, `_serving_row_parallel`). Parameter names
-are the JAX package's (`weights.py` carries a JAX state dict over). Three
-attention paths:
+(`_vocab_parallel_embedding`, `_serving_row_parallel`). On an ``mp`` rank
+of a training mesh (parallel/spmd.py, `mp_layers.shard_for_mp`) the
+layers make their own: the vocab-parallel embedding, the fused QKV and
+fc1 column-parallel (a contiguous shard of the per-head-grouped QKV is a
+head group), proj and fc2 row-parallel with the replicated bias added
+after the sum, attention over the rank's ``heads / mp`` heads with their
+offset (so attention dropout draws the whole model's bits), and the tied
+head through the vocab-parallel loss (`ops/fused_ce.py`). The mp peers
+hold the same replicated activations and draw the same elementwise
+dropout masks. Parameter names are the JAX package's (`weights.py`
+carries a JAX state dict over). Three attention paths:
 
 - the paged path, when `caches` is a `PagedState` (`serving/block_pool.py`):
   new K/V go into the block arena and attention goes through
@@ -40,10 +50,14 @@ from torch import nn
 from torch.nn import functional as F
 
 from .._device import resolve_device
+from ..distributed.fleet.meta_parallel.mp_layers import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding, active,
+    copy_to_mp, gather_from_mp)
 from ..distributed.fleet.utils import recompute
 from ..ops.common_nn import (DropoutGenerators, dropout,
                              scaled_dot_product_attention)
-from ..ops.fused_ce import fused_linear_cross_entropy, linear_cross_entropy
+from ..ops.fused_ce import (fused_linear_cross_entropy, linear_cross_entropy,
+                            vocab_parallel_linear_cross_entropy)
 
 _NEG_INF = -1e30
 
@@ -171,9 +185,19 @@ class CausalSelfAttention(nn.Module):
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
         self.dropout = cfg.dropout
+        # the model's heads this module holds: [head_offset, + num_heads)
+        self.head_offset, self.heads_total = 0, cfg.num_heads
         kw = {"device": device, "dtype": dtype}
-        self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size, **kw)
-        self.proj = nn.Linear(cfg.hidden_size, cfg.hidden_size, **kw)
+        self.qkv = ColumnParallelLinear(cfg.hidden_size, 3 * cfg.hidden_size,
+                                        gather_output=False, **kw)
+        self.proj = RowParallelLinear(cfg.hidden_size, cfg.hidden_size,
+                                      input_is_parallel=True, **kw)
+
+    def shard_heads(self, mp):
+        """Hold mp rank ``mp.rank``'s share of the heads (its QKV rows are
+        that head group)."""
+        self.num_heads = self.heads_total // mp.size
+        self.head_offset = mp.rank * self.num_heads
 
     def forward(self, x, cache=None, generator=None):
         b, s, _ = x.shape
@@ -199,7 +223,9 @@ class CausalSelfAttention(nn.Module):
         o = scaled_dot_product_attention(q, k, v, is_causal=True,
                                          dropout_p=self.dropout,
                                          training=self.training,
-                                         generator=generator)
+                                         generator=generator,
+                                         head_offset=self.head_offset,
+                                         heads_total=self.heads_total)
         return self.proj(o.reshape(b, s, width))
 
 
@@ -210,8 +236,10 @@ class GPTBlock(nn.Module):
         self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
         self.attn = CausalSelfAttention(cfg, **kw)
         self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
-        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+        self.fc1 = ColumnParallelLinear(cfg.hidden_size, cfg.intermediate_size,
+                                        gather_output=False, **kw)
+        self.fc2 = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size,
+                                     input_is_parallel=True, **kw)
         self.p = cfg.dropout
         self.remat = cfg.remat
 
@@ -258,7 +286,8 @@ class GPT(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         kw = {"device": device, "dtype": dtype}
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.wte = VocabParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
+                                          **kw)
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size, **kw)
         self.blocks = nn.ModuleList(
             [GPTBlock(cfg, **kw) for _ in range(cfg.num_layers)])
@@ -347,8 +376,13 @@ class GPT(nn.Module):
         return x, (caches if paged else new_caches)
 
     def logits(self, h):
-        """The tied LM head: h @ wte.weight^T (on a tensor-parallel rank,
-        the logits of its vocab rows; the engine gathers the full rows)."""
+        """The tied LM head: h @ wte.weight^T (on a tensor-parallel serving
+        rank, the logits of its vocab rows; the engine gathers the full
+        rows; on an mp training rank, gathered over the group)."""
+        mp = self.wte.mp
+        if active(mp):
+            return gather_from_mp(copy_to_mp(h, mp) @ self.wte.weight.t(),
+                                  mp)
         return h @ self.wte.weight.t()
 
     def head_loss(self, h, labels):
@@ -356,13 +390,19 @@ class GPT(nn.Module):
         `labels` (the targets themselves: no shift). The chunked fused
         head runs when `fused_head_chunks` asks for it, or when bf16
         logits would pass 1.5e9 bytes; otherwise one product whose logits
-        are kept for the backward (the JAX model's switch)."""
+        are kept for the backward (the JAX model's switch). On an mp rank
+        both run vocab-parallel over the rank's rows of `wte`."""
         b, s, _ = h.shape
         labels = torch.as_tensor(labels, device=h.device)
         n_chunks = self.cfg.fused_head_chunks
         logits_bytes = 2 * b * s * self.cfg.vocab_size
-        if (n_chunks or 0) != 1 and (n_chunks is not None
-                                     or logits_bytes > 1.5e9):
+        fused = (n_chunks or 0) != 1 and (n_chunks is not None
+                                          or logits_bytes > 1.5e9)
+        mp = self.wte.mp
+        if active(mp):
+            return vocab_parallel_linear_cross_entropy(
+                h, self.wte.weight, labels, mp, n_chunks if fused else 1)
+        if fused:
             return fused_linear_cross_entropy(h, self.wte.weight, labels,
                                               n_chunks)
         return linear_cross_entropy(h, self.wte.weight, labels)
@@ -429,11 +469,18 @@ class GPT(nn.Module):
 
 def gpt_loss_fn(logits, labels):
     """Mean next-token cross-entropy of logits [b, s, vocab] against
-    labels [b, s], in float32 (the JAX package's functional loss)."""
+    labels [b, s], in float32 (the JAX package's functional loss). It is
+    the loss `GPT.forward(ids, labels=labels)` computes from the hidden
+    states (`head_loss`): a train step over a mesh with mp > 1
+    (parallel/spmd.py) takes that path, the vocab-parallel head, rather
+    than gathering the logits (``tied_head``)."""
     lg = logits.float()
     lse = torch.logsumexp(lg, dim=-1)
     picked = lg.gather(-1, labels.long()[..., None])[..., 0]
     return (lse - picked).mean()
+
+
+gpt_loss_fn.tied_head = True
 
 
 def gpt_tiny(**kw):

@@ -11,10 +11,36 @@ scalars meet a tensor in its own dtype, as JAX's weakly typed scalars do,
 and the global-norm clip multiplies in float32 before rounding back, as
 the JAX ``(g * scale).astype(g.dtype)`` does for a float32 `scale`, so
 bfloat16 gradients come out with the JAX package's bits.
+
+Over sharded gradients (a tensor-parallel or ZeRO rank's slices:
+parallel/spmd.py), `clip_arrays` takes ``groups``, one entry a gradient:
+the `parallel.collectives.RankGroup` its tensor is sharded over, or None
+for a replicated one. A norm then sums each sharded leaf's squared norm
+over its group (one all-reduce a group for the global norm, one a leaf
+for the per-tensor norm), and counts each replicated leaf once.
 """
 from __future__ import annotations
 
 import torch
+
+
+def _sq_sums(grads, groups):
+    """{group key: (group, f32 sum of the squared norms of the gradients
+    sharded over it)}; key None for the replicated ones."""
+    out = {}
+    for g, grp in zip(grads, groups):
+        sq = torch.sum(torch.square(g.float()))
+        key = None if grp is None else id(grp)
+        have = out.get(key)
+        out[key] = (grp, sq if have is None else have[1] + sq)
+    return out
+
+
+def _group_sum(sq, group):
+    """`sq` summed over `group`'s ranks (one counted all-reduce)."""
+    from ..parallel.collectives import all_reduce
+
+    return all_reduce(sq.reshape(1).clone(), group)[0]
 
 
 class ClipGradBase:
@@ -38,7 +64,7 @@ class ClipGradByValue(ClipGradBase):
         self.max = float(max)
         self.min = float(min) if min is not None else -self.max
 
-    def clip_arrays(self, grads):
+    def clip_arrays(self, grads, groups=None):
         return [None if g is None else torch.clamp(g, self.min, self.max)
                 for g in grads]
 
@@ -50,13 +76,18 @@ class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
-    def clip_arrays(self, grads):
+    def clip_arrays(self, grads, groups=None):
         out = []
-        for g in grads:
+        for i, g in enumerate(grads):
             if g is None:
                 out.append(None)
                 continue
-            norm = torch.sqrt(torch.sum(torch.square(g)))
+            grp = None if groups is None else groups[i]
+            if grp is None:
+                norm = torch.sqrt(torch.sum(torch.square(g)))
+            else:
+                sq = torch.sum(torch.square(g.float()))
+                norm = torch.sqrt(_group_sum(sq, grp)).to(g.dtype)
             scale = torch.clamp(torch.full_like(norm, self.clip_norm)
                                 / torch.clamp(norm, min=1e-12), max=1.0)
             out.append(g * scale)
@@ -75,12 +106,21 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.group_name = group_name
         self.global_norm = None
 
-    def clip_arrays(self, grads):
+    def clip_arrays(self, grads, groups=None):
         live = [g for g in grads if g is not None]
         if not live:
             return grads
-        norms = torch._foreach_norm(live, 2, dtype=torch.float32)
-        self.global_norm = torch.linalg.vector_norm(torch.stack(norms))
+        if groups is not None and any(x is not None for x in groups):
+            sums = _sq_sums(live, [x for g, x in zip(grads, groups)
+                                   if g is not None])
+            total = None
+            for key, (grp, sq) in sums.items():
+                sq = sq if key is None else _group_sum(sq, grp)
+                total = sq if total is None else total + sq
+            self.global_norm = torch.sqrt(total)
+        else:
+            norms = torch._foreach_norm(live, 2, dtype=torch.float32)
+            self.global_norm = torch.linalg.vector_norm(torch.stack(norms))
         scale = (torch.full_like(self.global_norm, self.clip_norm)
                  / torch.clamp(self.global_norm, min=self.clip_norm))
         clipped = iter(torch._foreach_mul([g.float() for g in live], scale))

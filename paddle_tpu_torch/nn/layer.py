@@ -65,9 +65,11 @@ def meta_copy(model):
     receive it whole."""
     memo = {id(b): torch.empty_like(b, device="meta")
             for b in model.buffers()}
-    memo.update({id(p): torch.nn.Parameter(
-        torch.empty_like(p, device="meta"), requires_grad=p.requires_grad)
-        for p in model.parameters()})
+    for p in model.parameters():
+        q = torch.nn.Parameter(torch.empty_like(p, device="meta"),
+                               requires_grad=p.requires_grad)
+        q.__dict__.update(p.__dict__)      # annotations (sharding_axes)
+        memo[id(p)] = q
     gens = getattr(model, "dropout_generators", None)
     if gens is not None:
         memo[id(gens)] = None

@@ -30,17 +30,21 @@ def draw_seed(generator=None):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, name=None, generator=None):
+                                 training=True, name=None, generator=None,
+                                 head_offset=0, heads_total=None):
     """Attention on [batch, seq, heads, head_dim] through `flash_attention`
     (the CUDA kernels on the card, the plain version on the CPU), with an
     additive float or a bool `attn_mask` broadcastable to [batch, heads,
     seq_q, seq_k]. While `training`, `dropout_p` > 0 drops attention
     probabilities under a seed drawn from `generator` (a CPU
-    `torch.Generator`; None: torch's default one)."""
+    `torch.Generator`; None: torch's default one). A tensor-parallel rank
+    holding heads ``[head_offset, head_offset + heads)`` of the model's
+    `heads_total` passes both, so its keep bits are the whole model's."""
     p = dropout_p if training else 0.0
     seed = draw_seed(generator) if p > 0.0 else None
     return flash_attention(query, key, value, causal=is_causal,
-                           mask=attn_mask, dropout_p=p, seed=seed)
+                           mask=attn_mask, dropout_p=p, seed=seed,
+                           head_offset=head_offset, heads_total=heads_total)
 
 
 def dropout(x, p=0.5, training=True, generator=None, name=None):

@@ -11,7 +11,11 @@ with `_attention_xla`'s optional mask and dropout:
 - dropout with probability `dropout_p` scales the kept probabilities by
   1/(1 - p); the keep bits are `ops/philox.py`'s, a pure function of
   (seed, batch*head, query, key), so the kernels and the plain version
-  drop the same entries.
+  drop the same entries. The head coordinate is the model's: a
+  tensor-parallel rank that holds heads ``[head_offset, head_offset + H)``
+  of ``heads_total`` passes both, and its bits are ``b * heads_total +
+  head_offset + h``, the ones the whole model draws for those heads
+  (defaults: ``heads_total = H``, offset 0).
 
 - `attention_ref` is the plain PyTorch version, with the kernels' rounding
   points: f32 scores, P (zeroed where dropout drops it) cast to v's dtype
@@ -86,26 +90,44 @@ def _check_dropout(dropout_p, seed):
                          "philox(seed, batch*head, query, key))")
 
 
-def dropout_factors(seed, dropout_p, b, h, sq, sk, device=None):
+def drop_heads(b, h, head_offset=0, heads_total=None, device=None):
+    """The keep bits' batch*head coordinates of a [b, ., h, .] call, in
+    (batch, head) order: ``b * heads_total + head_offset + h`` (the
+    model's head numbering; ``heads_total`` defaults to `h`)."""
+    total = h if heads_total is None else int(heads_total)
+    if head_offset < 0 or head_offset + h > total:
+        raise ValueError(f"heads [{head_offset}, {head_offset + h}) do not "
+                         f"lie in the model's {total}")
+    bi = torch.arange(b, dtype=torch.int64, device=device)[:, None]
+    hi = torch.arange(h, dtype=torch.int64, device=device)[None, :]
+    return (bi * total + head_offset + hi).reshape(-1)
+
+
+def dropout_factors(seed, dropout_p, b, h, sq, sk, device=None,
+                    head_offset=0, heads_total=None):
     """The dropout factors D [b, h, sq, sk] f32: 1/(1 - p) where
-    `philox.keep_mask` keeps, 0 where it drops."""
-    keep = philox.keep_mask(seed, dropout_p, b * h, sq, sk, device)
+    `philox.keep_mask` keeps, 0 where it drops (heads numbered as
+    `drop_heads` numbers them)."""
+    keep = philox.keep_mask(seed, dropout_p, drop_heads(
+        b, h, head_offset, heads_total, device), sq, sk, device)
     return keep.view(b, h, sq, sk).float() * (1.0 / (1.0 - dropout_p))
 
 
 def attention_ref(q, k, v, causal=False, mask=None, dropout_p=0.0,
-                  seed=None):
+                  seed=None, head_offset=0, heads_total=None):
     """Plain attention on [B, S, H, D]: softmax of the f32 scores (with the
     mask), P cast to v's dtype before P V. With `dropout_p` > 0, P is
-    zeroed where `philox.keep_mask` of `seed` drops it before the cast,
-    and the f32 product is scaled by 1/(1 - p), as the kernels do.
-    Returns [B, Sq, H, D] in v's dtype."""
+    zeroed where `philox.keep_mask` of `seed` drops it before the cast
+    (heads numbered from `head_offset` of `heads_total`), and the f32
+    product is scaled by 1/(1 - p), as the kernels do. Returns [B, Sq, H,
+    D] in v's dtype."""
     _check_dropout(dropout_p, seed)
     p = torch.softmax(_scores(q, k, causal, mask), dim=-1)
     if dropout_p == 0.0:
         return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
     B, Sq, H, _ = q.shape
-    keep = philox.keep_mask(seed, dropout_p, B * H, Sq, k.shape[1], q.device)
+    keep = philox.keep_mask(seed, dropout_p, drop_heads(
+        B, H, head_offset, heads_total, q.device), Sq, k.shape[1], q.device)
     p = p.masked_fill(~keep.view(p.shape), 0.0).to(v.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
     return (o * (1.0 / (1.0 - dropout_p))).to(v.dtype)
@@ -142,7 +164,8 @@ class _Args(ctypes.Structure):
                    ("keep_threshold", ctypes.c_uint32),
                    ("drop_scale", ctypes.c_float),
                    ("seed", ctypes.c_uint64), ("mask", _MaskView),
-                   ("o32", _View)])
+                   ("o32", _View), ("heads_total", ctypes.c_int64),
+                   ("head_offset", ctypes.c_int64)])
 
 
 def _library():
@@ -223,10 +246,16 @@ def _mask_view(mask, B, H, Sq, Sk, device):
                          f"{[B, H, Sq, Sk]}") from None
 
 
-def _args(q, k, v, causal, mask=None, dropout_p=0.0, seed=None, **views):
+def _args(q, k, v, causal, mask=None, dropout_p=0.0, seed=None,
+          head_offset=0, heads_total=None, **views):
     B, Sq, H, D = q.shape
+    total = H if heads_total is None else int(heads_total)
+    if head_offset < 0 or head_offset + H > total:
+        raise ValueError(f"heads [{head_offset}, {head_offset + H}) do not "
+                         f"lie in the model's {total}")
     a = _Args(B=B, H=H, Sq=Sq, Sk=k.shape[1], q=_view(q), k=_view(k),
-              v=_view(v), scale=1.0 / math.sqrt(D), causal=int(bool(causal)))
+              v=_view(v), scale=1.0 / math.sqrt(D), causal=int(bool(causal)),
+              heads_total=total, head_offset=int(head_offset))
     if mask is not None:
         a.has_mask = 1
         a.mask = _MaskView(mask.data_ptr(), *mask.stride())
@@ -256,7 +285,7 @@ def _count(fn, mask, dropout_p):
 
 
 def flash_attention_fwd(q, k, v, causal=False, mask=None, dropout_p=0.0,
-                        seed=None, o32=None):
+                        seed=None, o32=None, head_offset=0, heads_total=None):
     """The forward kernel. q: [B, Sq, H, D], k and v: [B, Sk, H, D] on the
     card, float32 or bfloat16, D 64 or 128, unit stride on D; `mask`
     (float or bool, broadcastable to [B, H, Sq, Sk]) and dropout as in
@@ -264,7 +293,9 @@ def flash_attention_fwd(q, k, v, causal=False, mask=None, dropout_p=0.0,
     f32). With dropout, an `o32` [B, Sq, H, D] f32 tensor is also filled
     with O unrounded: the backward's delta = rowsum(dO * O) from it is
     exact, where a bf16 O is not (1/(1 - p) makes O unrepresentable where
-    attention sits on one key). Launches on the current stream without
+    attention sits on one key). `head_offset` and `heads_total` number
+    the heads for the keep bits (a tensor-parallel rank's share of the
+    model's heads). Launches on the current stream without
     synchronising. Counts launches in ``flash_attention_fwd.launches``
     (and `.mask_launches`, `.dropout_launches`)."""
     B, Sq, Sk, H, D = _check_qkv(q, k, v)
@@ -277,7 +308,8 @@ def flash_attention_fwd(q, k, v, causal=False, mask=None, dropout_p=0.0,
             raise ValueError("o32 is written by the dropout variant only")
         _check("o32", o32, q.shape, torch.float32, q.device)
         views["o32"] = o32
-    a = _args(q, k, v, causal, mv, dropout_p, seed, **views)
+    a = _args(q, k, v, causal, mv, dropout_p, seed, head_offset,
+              heads_total, **views)
     with torch.cuda.device(q.device):
         err = _library().flash_attention_fwd_launch(
             _DTYPES[q.dtype], D, ctypes.byref(a),
@@ -293,7 +325,7 @@ flash_attention_fwd.dropout_launches = 0
 
 
 def _launch_bwd(q, k, v, do, lse, delta, causal, which, mask=None,
-                dropout_p=0.0, seed=None):
+                dropout_p=0.0, seed=None, head_offset=0, heads_total=None):
     """Launch the dK/dV kernel (`which` 1), the dQ kernel (2) or both (3);
     returns (dq, dk, dv), None for what was not computed. Counts nothing:
     `flash_attention_bwd` is the counted entry."""
@@ -312,8 +344,8 @@ def _launch_bwd(q, k, v, do, lse, delta, causal, which, mask=None,
     dv = torch.empty_like(dk) if which & 1 else None
     views = {n: t for n, t in (("dq", dq), ("dk", dk), ("dv", dv))
              if t is not None}
-    a = _args(q, k, v, causal, mv, dropout_p, seed, dout=do, lse=lse,
-              delta=delta, **views)
+    a = _args(q, k, v, causal, mv, dropout_p, seed, head_offset, heads_total,
+              dout=do, lse=lse, delta=delta, **views)
     with torch.cuda.device(q.device):
         err = _library().flash_attention_bwd_launch(
             _DTYPES[q.dtype], D, which, ctypes.byref(a),
@@ -331,7 +363,8 @@ def _delta(o, do):
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, causal=False, mask=None,
-                        dropout_p=0.0, seed=None):
+                        dropout_p=0.0, seed=None, head_offset=0,
+                        heads_total=None):
     """The backward: delta = rowsum(dO * O) in f32 (plain torch), then the
     dK/dV kernel and the dQ kernel. q, k, v, o, lse, the mask and the
     dropout arguments as the forward took and gave them (o may be the
@@ -340,7 +373,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal=False, mask=None,
     `.mask_launches`, `.dropout_launches`) is the pair of CUDA kernels,
     dK/dV then dQ."""
     out = _launch_bwd(q, k, v, do, lse, _delta(o, do), causal, 3, mask,
-                      dropout_p, seed)
+                      dropout_p, seed, head_offset, heads_total)
     _count(flash_attention_bwd, mask, dropout_p)
     return out
 
@@ -360,7 +393,7 @@ def _sum_to(g, shape):
 
 
 def mask_grad(q, k, v, o, do, lse, mask, causal=False, dropout_p=0.0,
-              seed=None):
+              seed=None, head_offset=0, heads_total=None):
     """dL/dmask = P * (dP D - delta), in plain torch from the saved LSE
     (`_flash_custom`'s recompute, plus the dropout factors D), summed over
     the mask's broadcast dims; in the mask's dtype and shape."""
@@ -369,7 +402,7 @@ def mask_grad(q, k, v, o, do, lse, mask, causal=False, dropout_p=0.0,
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     if dropout_p > 0.0:
         dp = dp * dropout_factors(seed, dropout_p, B, H, Sq, k.shape[1],
-                                  q.device)
+                                  q.device, head_offset, heads_total)
     ds = p * (dp - _delta(o, do).view(B, H, Sq, 1))
     return _sum_to(ds, mask.shape).to(mask.dtype)
 
@@ -381,39 +414,45 @@ class FlashAttention(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, causal, dropout_p, seed):
+    def forward(ctx, q, k, v, mask, causal, dropout_p, seed, head_offset=0,
+                heads_total=None):
         # with dropout in bf16, the backward's delta takes the f32 O
         o32 = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
                if dropout_p > 0.0 and q.dtype != torch.float32 else None)
         o, lse = flash_attention_fwd(q, k, v, causal, mask, dropout_p, seed,
-                                     o32)
+                                     o32, head_offset, heads_total)
         ctx.save_for_backward(q, k, v, o if o32 is None else o32, lse, mask)
         ctx.causal, ctx.dropout_p, ctx.seed = causal, dropout_p, seed
+        ctx.heads = (head_offset, heads_total)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, mask = ctx.saved_tensors
         do = do.contiguous()
-        drop = dict(dropout_p=ctx.dropout_p, seed=ctx.seed)
+        drop = dict(dropout_p=ctx.dropout_p, seed=ctx.seed,
+                    head_offset=ctx.heads[0], heads_total=ctx.heads[1])
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, ctx.causal,
                                          mask, **drop)
         dmask = None
         if ctx.needs_input_grad[3]:
             dmask = mask_grad(q, k, v, o, do, lse, mask, ctx.causal, **drop)
-        return dq, dk, dv, dmask, None, None, None
+        return dq, dk, dv, dmask, None, None, None, None, None
 
 
 def flash_attention(q, k, v, causal=False, mask=None, dropout_p=0.0,
-                    seed=None):
+                    seed=None, head_offset=0, heads_total=None):
     """Attention on [B, S, H, D], differentiable (in q, k, v and a float
     mask), chosen by q's device: a CPU tensor takes autograd through
     `attention_ref`, a CUDA tensor the kernels. Dropout (`dropout_p` > 0)
-    needs `seed`, a uint64."""
+    needs `seed`, a uint64; its keep bits number the heads from
+    `head_offset` of `heads_total` (a tensor-parallel rank's share)."""
     _check_dropout(dropout_p, seed)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal, mask, dropout_p, seed)
+        return attention_ref(q, k, v, causal, mask, dropout_p, seed,
+                             head_offset, heads_total)
     if q.device.type == "cuda":
         return FlashAttention.apply(q, k, v, mask, bool(causal),
-                                    float(dropout_p), seed)
+                                    float(dropout_p), seed, int(head_offset),
+                                    heads_total)
     raise ValueError(f"no flash attention for device {q.device}")

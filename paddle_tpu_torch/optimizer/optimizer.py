@@ -61,7 +61,7 @@ def as_dtype(x, dtype):
 
 # attributes of an optimizer that are not its settings
 _NOT_SETTINGS = frozenset(("_torch_keys", "_names", "_step_count",
-                           "_last_lr"))
+                           "_last_lr", "_shard_groups"))
 
 
 def from_settings(settings, named_params):
@@ -215,7 +215,13 @@ class Optimizer(torch.optim.Optimizer):
         grads = [p.grad for p in params]
         if self._grad_clip is not None:
             live = [i for i, g in enumerate(grads) if g is not None]
-            clipped = self._grad_clip.clip_arrays([grads[i] for i in live])
+            # a sharded rank's optimizer knows the group of each shard
+            # (parallel/spmd.py); the clip's norms sum over it
+            shard_groups = getattr(self, "_shard_groups", None)
+            kw = {} if shard_groups is None else {"groups": [
+                shard_groups.get(id(params[i])) for i in live]}
+            clipped = self._grad_clip.clip_arrays([grads[i] for i in live],
+                                                  **kw)
             for i, g in zip(live, clipped):
                 grads[i] = g
         lr = np.float32(self.get_lr())

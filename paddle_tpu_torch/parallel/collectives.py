@@ -11,7 +11,11 @@ which also makes them synchronous (gloo cannot be captured in a CUDA
 graph).
 
 A serving step makes `all_reduce` and `all_gather` calls; a data-parallel
-training step (parallel/spmd.py) adds `reduce_scatter` and `all_to_all`.
+training step (parallel/spmd.py) adds `reduce_scatter` and `all_to_all`;
+a tensor-parallel (``mp``) training step all-reduces with SUM and MAX (the
+vocab-parallel softmax) over its mp group. Any of them takes any group:
+the world of a mesh's ranks, or one of its axis groups (`mp`, `dp`,
+`sharding`; distributed/mesh.py).
 Each call adds one to its counter (``all_reduce.calls`` and so on)
 through `ops/counts.py`, so a captured graph's replays count as its
 launches do and a step's calls can be held against
@@ -58,10 +62,16 @@ class RankGroup:
         """Whether `t` must pass through host memory (gloo on CUDA)."""
         return self.backend == "gloo" and t.device.type != "cpu"
 
-    def all_reduce_(self, t):
-        """Sum `t` over the ranks, in place."""
+    def all_reduce_(self, t, op="sum"):
+        """Reduce `t` over the ranks in place: the sum, or with ``op="max"``
+        the elementwise maximum."""
+        import torch.distributed as dist
+
         buf = t.cpu() if self._staged(t) else t
-        self.pg.allreduce([buf]).wait()
+        opts = dist.AllreduceOptions()
+        opts.reduceOp = {"sum": dist.ReduceOp.SUM,
+                         "max": dist.ReduceOp.MAX}[op]
+        self.pg.allreduce([buf], opts).wait()
         if buf is not t:
             t.copy_(buf)
         return t
@@ -116,10 +126,11 @@ class RankGroup:
         return t
 
 
-def all_reduce(t, group):
-    """Sum `t` over `group`'s ranks in place (one counted call)."""
+def all_reduce(t, group, op="sum"):
+    """Sum (or with ``op="max"`` the maximum of) `t` over `group`'s ranks,
+    in place (one counted call)."""
     counts.tick(all_reduce, "calls")
-    return group.all_reduce_(t)
+    return group.all_reduce_(t, op)
 
 
 all_reduce.calls = 0

@@ -1,7 +1,7 @@
-"""Data-parallel training over ranks: the explicit ZeRO weight-update path,
-the plain data-parallel path, gradient merge and LocalSGD (the JAX
-package's `paddle_tpu/parallel/spmd.py`, in PyTorch's idiom: one rank a
-device over `torch.distributed`).
+"""Training over ranks: the explicit ZeRO weight-update path, the GSPMD
+path's counterpart over dp x sharding x mp meshes, gradient merge and
+LocalSGD (the JAX package's `paddle_tpu/parallel/spmd.py`, in PyTorch's
+idiom: one rank a device over `torch.distributed`).
 
 **One controller.** The JAX step is one compiled program called from one
 process over a mesh. The port keeps that contract: the caller's process
@@ -33,12 +33,39 @@ divided by dp; buffers are averaged over the ranks. The collective shape
 is exact: `train_collective_budget` states it, and the counted wrappers
 of parallel/collectives.py let a step's calls be held against it.
 
-**The plain path** (``zero_stage`` 0 or 1, or ``explicit_update=False``)
-all-reduces each leaf's local gradient divided by dp and updates every
-parameter on every rank. As in the JAX package, stage 1 on a pure-dp mesh
+**The hybrid path** (the JAX GSPMD path: ``zero_stage`` 0 or 1, or
+``explicit_update=False``, or any mesh with a ``sharding`` or ``mp`` axis
+above 1). Where JAX partitions one program from sharding annotations, each
+rank here holds its shards and makes the collectives:
+
+- ``mp``: the Megatron layers (distributed/fleet/meta_parallel/
+  mp_layers.py) hold their slices (`module_param_specs`: the ``mp`` axis
+  of each mp layer's ``sharding_axes``) and make their collectives over
+  the rank's mp group; the mp peers of a dp replica see the same rows and
+  draw the same dropout masks (the step's seed keys on the data index);
+- ``dp``: each rank's rows are its dp index's share of the batch
+  (`batch_specs`: ``"dp"``, JAX's ``P("dp")``, replicates rows over the
+  ``sharding`` and ``mp`` ranks; ``("dp", "sharding")`` splits them over
+  both); each gradient leaf is divided by the degree and all-reduced over
+  the rank's dp group (and sharding group, when rows split over it);
+- ``sharding``: the legacy ZeRO 1/2/3 with `_zero_shard_spec`'s layout
+  (the largest divisible dim, at least ``degree * 128`` elements; never a
+  leaf that mp already shards): each sharding rank updates its slice of
+  the optimizer state (stage 1), of the gradient (stage 2) and at stage 3
+  of the parameter, which stays resident as that slice and is gathered at
+  the step's start; stages 1 and 2 all-gather the updated slice over the
+  sharding group after the update.
+
+The global-norm clip sums each leaf's squared norm over the group that
+shards it (nn/clip.py), so a replicated leaf counts once; AMP O2 masters
+are kept per shard. As in the JAX package, stage 1 on a pure-dp mesh
 shards nothing: the JAX layout rule keys on a ``sharding`` axis that such
 a mesh does not carry (its module docstring), and the port mirrors that
-for parity (ROADMAP Queue 3).
+for parity (ROADMAP Queue 3). **Stated departure:** JAX partitions any
+parameter whose ``sharding_axes`` name ``mp``; here only the mp layers'
+(and the models built on them) shard over ``mp``, since a per-rank shard
+needs the layer's collectives. A parameter of any other module carrying an
+``mp`` annotation stays replicated: the same numbers, more bytes.
 
 **Gradient merge** (``gradient_merge_k``, ``gradient_merge_avg``): a
 float32 accumulator in the update's layout, applied every k-th step. The
@@ -48,9 +75,16 @@ update gathers nothing (the parameters did not change).
 
 **Dropout**: JAX folds the replica's index into the step's key; here each
 rank reseeds its model's `DropoutGenerators` from the step's seed and its
-rank. A model without dropout draws nothing, so the stages stay
-bit-comparable. **Remat**: each rank's forward goes through
-`distributed/fleet/utils.recompute` with the model's generators.
+data index (its dp index, or its row share's index), so the mp and
+sharding peers of one replica draw one set of masks. A model without
+dropout draws nothing, so the stages stay bit-comparable. **Remat**: each
+rank's forward goes through `distributed/fleet/utils.recompute` with the
+model's generators. **Losses**: a loss whose mean runs over a count that
+differs between row shares names it (`loss_weight`, the MLM loss's
+labelled positions), and the hybrid path weights each share's mean by its
+count, the whole batch's mean that JAX's GSPMD step takes; a loss the
+model's own head computes (`tied_head`, GPT's `gpt_loss_fn`) runs there at
+mp > 1, vocab-parallel, instead of on gathered logits.
 
 **Departures from the JAX signature.** The JAX step threads ``(params,
 buffers, opt_state)`` through each call (``init_state()``, then
@@ -66,12 +100,12 @@ take natural-shape state under the JAX package's optimizer keys;
 `mesh_donate_argnums` has no counterpart: an eager step updates its
 tensors in place, so there is no buffer to donate.
 
-A mesh with an axis other than ``dp`` of degree > 1 takes the JAX
-package's GSPMD path, which the port does not have (ROADMAP Queue 1, item
-6d); Lamb and Lars need sharded norms and are not ported yet (item 8).
+Lamb and Lars need sharded norms and are not ported yet (ROADMAP item
+8), nor are ``pp`` and ``sp`` meshes (distributed/mesh.py).
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import os
 import sys
@@ -81,6 +115,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed.fleet.meta_parallel.mp_layers import (MPGroup, mp_cut,
+                                                         mp_join, mp_layout,
+                                                         shard_for_mp)
+from ..distributed.mesh import coords_of, rank_at
 from ..distributed.ranks import (RankFailed, RankSet, leave_group,
                                  rank_loop, rank_spec)
 from ..nn.layer import meta_copy
@@ -139,6 +177,144 @@ def train_collective_budget(n_param_leaves, dp_degree, quant_grads=False,
         "collective-permute": 0,
         "collective-broadcast": 0,
     }
+
+
+def _largest_divisible_dim(shape, degree):
+    best = None
+    for i, s in enumerate(shape):
+        if degree > 0 and s % degree == 0 and (best is None or s > shape[best]):
+            best = i
+    return best
+
+
+def _zero_shard_spec(shape, mesh):
+    """The one place the ZeRO 'sharding'-axis layout is derived: shard the
+    largest divisible dim when the tensor is big enough to be worth it
+    (>= degree*128 elements). Param (stage 3), grad (stage 2) and optimizer
+    slot (stage 1) layouts all come from here so they can never diverge.
+    Returns a spec (a tuple of axis names and None, the JAX
+    ``PartitionSpec``'s entries) or None."""
+    if mesh.shape.get("sharding", 1) <= 1:
+        return None
+    deg = mesh.shape["sharding"]
+    dim = _largest_divisible_dim(tuple(shape), deg)
+    if dim is None or int(np.prod(shape)) < deg * 128:
+        return None
+    spec = [None] * len(shape)
+    spec[dim] = "sharding"
+    return tuple(spec)
+
+
+def param_pspec(param, mesh, zero3=False, linear=False):
+    """A parameter's spec: its ``sharding_axes`` over the mesh's live axes,
+    else at stage 3 the ZeRO layout, else replicated ``()``. In the port's
+    layout; `linear` (an `nn.Linear` weight, ``[out, in]``) takes the ZeRO
+    layout of the JAX ``[in, out]`` shape, so the spec is JAX's
+    transposed."""
+    axes = getattr(param, "sharding_axes", None)
+    if axes:
+        spec = [a if (a and mesh.shape.get(a, 1) > 1) else None for a in axes]
+        if any(spec):
+            return tuple(spec)
+    if zero3:
+        spec = _zero_shard_spec(_jax_shape(param.shape, linear), mesh)
+        if spec is not None:
+            return _jax_shape(spec, linear)
+    return ()
+
+
+def _jax_shape(shape, linear):
+    """A shape or spec in the other package's order (reversed for a
+    Linear weight)."""
+    return tuple(shape)[::-1] if linear else tuple(shape)
+
+
+def _linear_names(layer):
+    return {f"{name}.weight" if name else "weight"
+            for name, m in layer.named_modules()
+            if isinstance(m, torch.nn.Linear)}
+
+
+def module_param_specs(layer, mesh, zero_stage=0):
+    """{name: spec} of `layer`'s parameters (`param_pspec`)."""
+    linear = _linear_names(layer)
+    return {name: param_pspec(p, mesh, zero3=(zero_stage >= 3),
+                              linear=name in linear)
+            for name, p in layer.named_parameters()}
+
+
+def _state_spec_like(pspec, param_shape, slot_arr, mesh, zero_stage,
+                     linear=False):
+    """Optimizer slot sharding: follow the param's sharding; for ZeRO>=1 also
+    shard unsharded slots over 'sharding' when divisible."""
+    if slot_arr.ndim == 0 or tuple(slot_arr.shape) != tuple(param_shape):
+        return ()
+    if any(pspec):
+        return pspec
+    if zero_stage >= 1:
+        spec = _zero_shard_spec(_jax_shape(slot_arr.shape, linear), mesh)
+        if spec is not None:
+            return _jax_shape(spec, linear)
+    return ()
+
+
+def grad_pspec(pspec, param_shape, mesh, zero_stage, linear=False):
+    """Gradient sharding for ZeRO stage >= 2: over the 'sharding' axis
+    (the reference's GroupShardedStage2 reduce-scatter); a tp-sharded
+    gradient keeps its parameter's spec."""
+    if any(pspec):
+        return pspec
+    if zero_stage >= 2:
+        spec = _zero_shard_spec(_jax_shape(param_shape, linear), mesh)
+        if spec is not None:
+            return _jax_shape(spec, linear)
+    return pspec
+
+
+def per_chip_opt_state_bytes(opt_state):
+    """Bytes of optimizer state one rank holds: the tensors of a nested
+    ``{name: {slot: tensor or scalar}}`` state at their (shard's) size,
+    four bytes a host scalar (a float32)."""
+    total = 0
+    stack = [opt_state]
+    while stack:
+        v = stack.pop()
+        if isinstance(v, dict):
+            stack.extend(v.values())
+        elif torch.is_tensor(v):
+            total += v.numel() * v.element_size()
+        elif v is not None:
+            total += int(getattr(v, "nbytes", 4))
+    return total
+
+
+def leaf_layouts(model, mesh, zero_stage=0):
+    """How every parameter of `model` lies over `mesh`: {name: (mp, zp,
+    zs)} with ``mp`` ``(dim, blocks)`` of an mp layer's parameter sharded
+    over ``mp`` (None otherwise), ``zp`` the dim of a parameter that lives
+    sharded over ``sharding`` (stage 3, or annotated by
+    `shard_parameters_over`), ``zs`` the dim its optimizer state (and
+    update) is sharded on. One derivation, on the controller; every rank
+    takes it in the step's spec."""
+    modules = dict(model.named_modules())
+    specs = module_param_specs(model, mesh, zero_stage)
+    linear = _linear_names(model)
+    out = {}
+    for name, p in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        spec = specs[name]
+        if "mp" in spec:
+            # only the mp layers shard over mp (the stated departure)
+            out[name] = (mp_layout(modules[owner], leaf), None, None)
+        elif "sharding" in spec:
+            out[name] = (None, spec.index("sharding"),
+                         spec.index("sharding"))
+        else:
+            st = _state_spec_like(spec, p.shape, p, mesh, zero_stage,
+                                  name in linear)
+            out[name] = (None, None,
+                         st.index("sharding") if "sharding" in st else None)
+    return out
 
 
 # -- the models' wrappers ------------------------------------------------------
@@ -201,19 +377,9 @@ def _report(device, zero=False):
 # parameter, ("f", name) a frozen one, ("b", name) a buffer, ("o", name,
 # slot) an optimizer slot, ("g", name) a gradient-merge accumulator. On the
 # explicit path an entry that is sharded lives and travels as each rank's
-# slice of the leaf's padded flat layout.
-
-
-def _sharded(spec, kind, param_shaped):
-    """Whether a state entry of `kind` lives as each rank's flat slice
-    (`param_shaped`: an optimizer slot with the parameter's elements)."""
-    if not spec["explicit"]:
-        return False
-    if kind == "p":
-        return spec["stage3"]
-    if kind == "o":
-        return param_shaped
-    return kind == "g"
+# slice of the leaf's padded flat layout; on the hybrid path as the rank's
+# slice over mp (an mp layer's parameter-shaped entries) or over sharding
+# (`leaf_layouts`).
 
 
 def _flat_shard(t, meta, dp, rank):
@@ -227,21 +393,100 @@ def _flat_shard(t, meta, dp, rank):
     return flat[rank * slen:(rank + 1) * slen]
 
 
+class _Placement:
+    """Where each entry of a step's state lives on each rank, and how a
+    natural tensor is cut into a rank's value and joined back: the one
+    rule the controller and every rank share (it travels in the step's
+    spec)."""
+
+    def __init__(self, mesh_shape, explicit, stage3, meta, layouts,
+                 data_axes):
+        self.shape = dict(mesh_shape)
+        self.explicit = explicit
+        self.stage3 = stage3
+        self.meta = meta               # explicit path: flat layouts
+        self.layouts = layouts         # hybrid path: leaf_layouts
+        self.data_axes = tuple(data_axes)
+
+    def coords(self, rank):
+        return coords_of(self.shape, rank)
+
+    def rank_of(self, **c):
+        return rank_at(self.shape, **c)
+
+    def data_index(self, rank):
+        """The index of rank `rank`'s share of the batch's rows."""
+        c, idx = self.coords(rank), 0
+        for a in self.data_axes:
+            idx = idx * self.shape[a] + c[a]
+        return idx
+
+    @property
+    def data_degree(self):
+        return int(np.prod([self.shape[a] for a in self.data_axes]))
+
+    def _dims(self, kind, name):
+        """(mp, sharding dim) of entry kind `kind` of leaf `name`."""
+        mp, zp, zs = self.layouts.get(name, (None, None, None))
+        if kind in ("p", "f"):
+            return mp, zp
+        return mp, zs
+
+    def varies(self, kind, name, param_shaped=True):
+        """Whether ranks hold different values of the entry."""
+        if kind == "b" or (kind == "o" and not param_shaped):
+            return False
+        if self.explicit:
+            return (self.stage3 if kind == "p" else kind in ("o", "g"))
+        mp, z = self._dims(kind, name)
+        return mp is not None or z is not None
+
+    def cut(self, kind, name, t, rank, param_shaped=True):
+        """Rank `rank`'s value of entry (`kind`, `name`) whose natural
+        value is `t`."""
+        if not self.varies(kind, name, param_shaped):
+            return t
+        if self.explicit:
+            return _flat_shard(t, self.meta[name], self.shape["dp"], rank)
+        c = self.coords(rank)
+        mp, z = self._dims(kind, name)
+        if mp is not None:
+            return mp_cut(t, mp[0], c["mp"], self.shape["mp"], mp[1])
+        n = t.shape[z] // self.shape["sharding"]
+        return t.narrow(z, c["sharding"] * n, n)
+
+    def join(self, kind, name, stack):
+        """The natural value from ``[world, *rank's shape]`` `stack` of
+        every rank's value (rank order)."""
+        if self.explicit:
+            shape, num, _ = self.meta[name]
+            return stack.reshape(-1)[:num].view(shape)
+        mp, z = self._dims(kind, name)
+        if mp is not None:
+            return mp_join([stack[self.rank_of(mp=m)]
+                            for m in range(self.shape["mp"])], mp[0], mp[1])
+        return torch.cat([stack[self.rank_of(sharding=s)]
+                          for s in range(self.shape["sharding"])], z)
+
+
 # -- one rank's replica --------------------------------------------------------
 
 
 class _Replica:
-    """One rank's share of a train step: its model replica, its optimizer
-    (over the flat shards on the explicit path, over the natural
-    parameters otherwise), the gradient-merge accumulators, and the step
-    body every rank runs in the same order of collectives."""
+    """One rank's share of a train step: its model replica (its mp shard on
+    a mesh with mp > 1), its optimizer (over flat shards on the explicit
+    path, over its parameters or their sharding slices otherwise), the
+    gradient-merge accumulators, and the step body every rank runs in the
+    same order of collectives."""
 
     def __init__(self, spec, mesh):
         self.spec = spec
         self.kind = spec["kind"]
+        self.place = spec["place"]
         self.group = mesh.group
         self.rank = mesh.rank
-        self.dp = mesh.size
+        self.dp = mesh.size if self.place.explicit else \
+            self.place.data_degree
         self.device = mesh.device
         self.loss_fn = spec["loss_fn"]
         self.names = spec["names"]
@@ -253,16 +498,26 @@ class _Replica:
         self.gm_avg = spec["gm_avg"]
         self.remat = spec["remat"]
         self.k_steps = spec["k_steps"]
+        coords = self.place.coords(self.rank)
+        self.coords = coords
+        # the data groups (rows differ across them) and the model groups
+        self.data_groups = [mesh.axis_group(a) for a in self.place.data_axes
+                            if mesh.shape[a] > 1]
+        self.mp_group = mesh.axis_group("mp")
+        self.zgroup = mesh.axis_group("sharding")
         model = spec["skeleton"]
+        if self.mp_group is not None:
+            shard_for_mp(model, MPGroup(self.mp_group, coords["mp"],
+                                        mesh.shape["mp"]))
         model.to_empty(device=self.device)
         model.train()
         self.model = model
         self.params = dict(model.named_parameters())
         self.buffers = dict(model.named_buffers())
         self.shards = {}
-        if self.explicit:
-            for n in self.names:
-                p = self.params[n]
+        for n in self.names:
+            p = self.params[n]
+            if self.explicit:
                 slen = self._slen(n)
                 if self.stage3 or self.meta[n][2]:
                     shard = torch.zeros(slen, dtype=p.dtype,
@@ -273,10 +528,28 @@ class _Replica:
                     shard = p.data.view(-1)[self.rank * slen:
                                             (self.rank + 1) * slen]
                 self.shards[n] = torch.nn.Parameter(shard)
-        self.target = self.shards if self.explicit else {
-            n: self.params[n] for n in self.names}
+            elif self._resident(n):
+                shard = self.place.cut("p", n, torch.empty(
+                    p.shape, dtype=p.dtype, device="meta"), self.rank)
+                self.shards[n] = torch.nn.Parameter(torch.zeros(
+                    shard.shape, dtype=p.dtype, device=self.device))
+            elif self._zdim(n) is not None:
+                # stages 1 and 2: this rank's slice of the parameter
+                # itself (a view), so the update lands in place
+                self.shards[n] = torch.nn.Parameter(
+                    self.place.cut("o", n, p.data, self.rank))
+        self.target = {n: self.shards.get(n, self.params[n])
+                       for n in self.names}
         self.opt = from_settings(spec["opt"], [(n, self.target[n])
                                                for n in self.names])
+        if not self.explicit:
+            # the clip's groups: the one that shards each leaf
+            self.opt._shard_groups = {
+                id(self.target[n]): (self.mp_group
+                                     if self.place.layouts[n][0] else
+                                     self.zgroup if self._zdim(n) is not None
+                                     else None)
+                for n in self.names}
         self.accum = {}
         if self.gm_k > 1:
             self.accum = {n: torch.zeros_like(t, dtype=torch.float32)
@@ -287,31 +560,42 @@ class _Replica:
 
     def _slen(self, n):
         _, num, pad = self.meta[n]
-        return (num + pad) // self.dp
+        return (num + pad) // self.place.shape["dp"]
 
-    def _natural(self, flat_full, n):
-        shape, num, _ = self.meta[n]
-        return flat_full.reshape(-1)[:num].view(shape)
+    def _zdim(self, n):
+        """The dim leaf `n`'s update is sharded on over ``sharding`` (the
+        hybrid path), or None."""
+        return None if self.explicit else self.place.layouts[n][2]
+
+    def _resident(self, n):
+        """Whether leaf `n`'s parameter lives as its sharding slice between
+        steps (stage 3: explicit flat shards, or hybrid ZeRO-3 leaves)."""
+        if self.explicit:
+            return self.stage3
+        return self.place.layouts[n][1] is not None
 
     # -- state ---------------------------------------------------------------
 
     @torch.no_grad()
     def load(self, values, scalars):
         """Take `values` ({entry key: tensor}; a sharded entry holds this
-        rank's flat slice, any other the natural tensor) and `scalars`
-        (host slots, the step count, the merge count); the keys are the
-        state's entries (above)."""
+        rank's slice, any other the natural tensor) and `scalars` (host
+        slots, the step count, the merge count); the keys are the state's
+        entries (above)."""
         slots = {}
         for key, v in values.items():
             kind, n = key[0], key[1]
             if kind == "p":
-                if self.stage3:
-                    self.shards[n].copy_(v)
+                if self._resident(n):
+                    self.shards[n].copy_(v.view(self.shards[n].shape))
                 else:
                     self.params[n].copy_(v.view(self.params[n].shape))
-                    if self.explicit:
-                        self.shards[n].copy_(_flat_shard(
-                            v, self.meta[n], self.dp, self.rank))
+                    if n in self.shards:
+                        cut = (_flat_shard(v, self.meta[n], self.dp,
+                                           self.rank) if self.explicit else
+                               self.place.cut("o", n, v, self.rank))
+                        self.shards[n].copy_(cut.reshape(
+                            self.shards[n].shape))
             elif kind == "f":
                 self.params[n].copy_(v.view(self.params[n].shape))
             elif kind == "b":
@@ -333,53 +617,59 @@ class _Replica:
         self.opt._step_count = int(scalars.get("@step", 0))
         self.gm_count = int(scalars.get("gm_count", 0))
         self.count = int(scalars.get("count", 0))
-        if self.stage3:
-            self._free_params()
+        self._free_params()
 
     def entries(self):
-        """This rank's state as ``[(key, tensor, sharded)]`` and scalars, in
-        the order every rank lists them (`collect`)."""
+        """This rank's state as ``[(key, tensor, varies)]`` and scalars, in
+        the order every rank lists them (`collect`); `varies`: ranks hold
+        different values of it."""
+        place = self.place
         out, scalars = [], {"@step": self.opt._step_count,
                             "gm_count": self.gm_count, "count": self.count}
         for n in self.names:
-            out.append((("p", n), (self.shards if self.stage3 else
-                                   self.params)[n].detach(), self.stage3))
+            out.append((("p", n), (self.shards if self._resident(n) else
+                                   self.params)[n].detach(),
+                        place.varies("p", n)))
         for n, p in self.params.items():
             if n not in self.meta:
-                out.append((("f", n), p.detach(), False))
+                out.append((("f", n), p.detach(), place.varies("f", n)))
         for n, b in self.buffers.items():
             out.append((("b", n), b, False))
         for n in self.names:
             t = self.target[n]
             for slot, v in self.opt.state.get(t, {}).items():
                 if torch.is_tensor(v):
-                    out.append((("o", n, slot), v, _sharded(
-                        self.spec, "o", v.numel() == t.numel())))
+                    out.append((("o", n, slot), v, place.varies(
+                        "o", n, v.numel() == t.numel())))
                 else:
                     scalars[("o", n, slot)] = float(v)
         for n, a in self.accum.items():
-            out.append((("g", n), a, self.explicit))
+            out.append((("g", n), a, place.varies("g", n)))
         return out, scalars
+
+    def _natural(self, key, t):
+        """Every rank's value of entry `key` (this rank's `t`) joined to
+        the natural tensor (one uncounted all-gather over the world)."""
+        stack = self.group.all_gather(t.contiguous())
+        return self.place.join(key[0], key[1], stack)
 
     def collect(self):
         """Gather this step's state to natural shapes (every rank takes part
-        in one uncounted all-gather a sharded entry). Returns ``({key:
+        in one uncounted all-gather a varying entry). Returns ``({key:
         natural tensor}, scalars)`` on rank 0, None elsewhere."""
         entries, scalars = self.entries()
-        vals = {key: (self._natural(self.group.all_gather(t), key[1])
-                      if sharded else t) for key, t, sharded in entries}
+        vals = {key: (self._natural(key, t) if varies else t)
+                for key, t, varies in entries}
         return (vals, scalars) if self.rank == 0 else None
 
     def gather(self):
-        """Natural-shape parameters on rank 0 (stage 3 gathers the resident
-        shards, one uncounted all-gather a leaf); None elsewhere."""
+        """Natural-shape parameters on rank 0 (every rank takes part in one
+        uncounted all-gather a sharded leaf); None elsewhere."""
         out = {}
-        for n in self.names:
-            if self.stage3:
-                full = self.group.all_gather(self.shards[n].detach())
-                out[n] = self._natural(full, n).clone()
-            else:
-                out[n] = self.params[n].detach().clone()
+        for key, t, varies in self.entries()[0]:
+            if key[0] == "p":
+                out[key[1]] = (self._natural(key, t) if varies
+                               else t).clone()
         return out if self.rank == 0 else None
 
     def gather_replicas(self):
@@ -413,7 +703,7 @@ class _Replica:
 
     def param_bytes(self):
         """Bytes of parameter storage this rank holds between steps (natural
-        parameters and flat shards)."""
+        parameters and shards)."""
         seen, total = set(), 0
         for t in list(self.params.values()) + list(self.shards.values()):
             key = t.untyped_storage().data_ptr()
@@ -425,27 +715,48 @@ class _Replica:
     # -- the step ------------------------------------------------------------
 
     def _free_params(self):
+        """Drop the full copies of the leaves that live as slices."""
         for n in self.names:
-            p = self.params[n]
-            p.data = torch.empty(0, dtype=p.dtype, device=self.device)
-            p.grad = None
+            if self._resident(n):
+                p = self.params[n]
+                p.data = torch.empty(0, dtype=p.dtype, device=self.device)
+                p.grad = None
+
+    def _joined(self, n, shard):
+        """Leaf `n`'s full value from every sharding rank's `shard` (one
+        counted all-gather over the explicit path's dp ranks, or over the
+        sharding group)."""
+        if self.explicit:
+            full = all_gather(shard.detach(), self.group)
+            shape, num, _ = self.meta[n]
+            return full.reshape(-1)[:num].view(shape)
+        full = all_gather(shard.detach(), self.zgroup)
+        return torch.cat(list(full), self._zdim(n))
 
     def _gather_params(self):
         for n in self.names:
-            full = all_gather(self.shards[n].detach(), self.group)
-            self.params[n].data = self._natural(full, n)
+            if self._resident(n):
+                self.params[n].data = self._joined(n, self.shards[n])
 
     def _forward(self, batch):
         inputs, labels = batch[:-1], batch[-1]
+        if self.mp_group is not None and getattr(self.loss_fn, "tied_head",
+                                                 False):
+            # the model's own head computes this loss (models/gpt.py
+            # `gpt_loss_fn`): vocab-parallel, no gathered logits
+            kw = {"labels": labels}
+        else:
+            kw = {}
         if self.remat:
             from ..distributed.fleet.utils import recompute
 
             gens = getattr(self.model, "dropout_generators", None)
-            out = recompute(self.model, *inputs, generators=(
-                () if gens is None else (gens.attn, gens.elem)))
+            out = recompute(functools.partial(self.model, **kw), *inputs,
+                            generators=(() if gens is None else
+                                        (gens.attn, gens.elem)))
         else:
-            out = self.model(*inputs)
-        return self.loss_fn(out, labels)
+            out = self.model(*inputs, **kw)
+        return out if kw else self.loss_fn(out, labels)
 
     def _mark(self, name):
         """End the step's phase `name` here: a CUDA event on the current
@@ -473,27 +784,42 @@ class _Replica:
         seconds, peak device bytes, {phase: ms})``: the phases ``gather``
         (stage 3's parameters), ``forward_backward``, ``loss_reduce``
         (loss and buffers), ``grad_reduce``, ``update`` and
-        ``param_gather`` (stage 2's updated shards; LocalSGD's average),
-        on the device's clock on CUDA."""
+        ``param_gather`` (the updated shards; LocalSGD's average), on the
+        device's clock on CUDA."""
         t0 = time.perf_counter()
         self._marks = []
         self._mark("start")
         batch = [torch.as_tensor(a).to(self.device) for a in rows]
-        if self.stage3:
-            self._gather_params()
+        self._gather_params()
         self._mark("gather")
         if hasattr(self.model, "seed_dropout"):
-            self.model.seed_dropout(_rank_seed(seed, self.rank))
+            self.model.seed_dropout(_rank_seed(
+                seed, self.place.data_index(self.rank)))
         loss = self._forward(batch)
+        weigh = getattr(self.loss_fn, "loss_weight", None)
+        if weigh is not None and not self.explicit and self.data_groups:
+            # a mean over a count that differs between row shares (the
+            # MLM loss's labelled positions): weight this share's mean by
+            # its count over the mean count, so the dp average below is
+            # the whole batch's mean (JAX's GSPMD step computes it whole)
+            w = torch.as_tensor(weigh(batch[-1]), dtype=torch.float32,
+                                device=self.device).reshape(1)
+            total = w.clone()
+            for g in self.data_groups:
+                all_reduce(total, g)
+            loss = loss * (w * self.dp / total)[0]
         loss.backward()
         self._mark("forward_backward")
         loss = loss.detach().reshape(1).clone()
         with torch.no_grad():
+            groups = [self.group] if self.explicit else self.data_groups
+            for g in groups:
+                all_reduce(loss, g)
             if self.dp > 1:
-                all_reduce(loss, self.group)
                 for b in self.buffers.values():
                     t = b.float()
-                    all_reduce(t, self.group)
+                    for g in groups:
+                        all_reduce(t, g)
                     b.copy_((t / self.dp).to(b.dtype))
             loss = loss / self.dp
             self._mark("loss_reduce")
@@ -502,7 +828,7 @@ class _Replica:
             elif self.explicit:
                 self._explicit_update(lr)
             else:
-                self._plain_update(lr)
+                self._hybrid_update(lr)
         out = float(loss[0])
         peak = (torch.cuda.max_memory_allocated(self.device)
                 if self.device.type == "cuda" else None)
@@ -536,17 +862,31 @@ class _Replica:
             t.grad = None
         return True
 
-    def _plain_update(self, lr):
+    def _hybrid_update(self, lr):
+        """The GSPMD path's update: each leaf's gradient divided by the
+        data degree and all-reduced over the data groups, cut to the
+        rank's sharding slice where the update is sharded; the update;
+        then the updated slices gathered over the sharding group (stages
+        1 and 2; stage 3 keeps them resident)."""
         grads = {}
         for n in self.names:
             g = self._grad(n)
             if self.dp > 1:
                 g = g / self.dp
-                all_reduce(g, self.group)
+                for grp in self.data_groups:
+                    all_reduce(g, grp)
+            if n in self.shards:
+                g = self.place.cut("o", n, g, self.rank).contiguous()
             grads[n] = g
         self._mark("grad_reduce")
-        self._apply(grads, lr)
+        applied = self._apply(grads, lr)
         self._mark("update")
+        self._free_params()
+        if applied:
+            for n, shard in self.shards.items():
+                if not self._resident(n):
+                    self.params[n].copy_(self._joined(n, shard))
+        self._mark("param_gather")
 
     def _explicit_update(self, lr):
         grads = {}
@@ -568,8 +908,7 @@ class _Replica:
             self._free_params()
         elif applied:
             for n in self.names:
-                full = all_gather(self.shards[n].detach(), self.group)
-                self.params[n].copy_(self._natural(full, n))
+                self.params[n].copy_(self._joined(n, self.shards[n]))
         self._mark("param_gather")
 
     def _local_update(self, lr):
@@ -690,12 +1029,38 @@ def _ranks_of(mesh):
 # -- the controller ------------------------------------------------------------
 
 
-def job_spec(kind, model, loss_fn, optimizer, dp, **opts):
+def _data_axes(batch_specs):
+    """The mesh axes the batch's rows split over, from `batch_specs` (one
+    spec an array: None or ``"dp"`` -- JAX's ``P("dp")`` -- or a tuple of
+    axis names; every array alike)."""
+    axes = set()
+    for sp in batch_specs or ("dp",):
+        sp = (sp,) if sp is None or isinstance(sp, str) else tuple(sp)
+        if sp and isinstance(sp[0], (tuple, list)):
+            sp = tuple(sp[0])         # a JAX-style spec of the rows' axes
+        axes.add(tuple(a for a in sp if a is not None) or ("dp",))
+    if len(axes) != 1:
+        raise ValueError(f"batch_specs {batch_specs}: every batch array "
+                         "splits its rows over the same axes")
+    (got,) = axes
+    if got[0] != "dp" or not set(got) <= {"dp", "sharding"} \
+            or len(set(got)) != len(got):
+        raise ValueError(
+            f"batch_specs {batch_specs}: the rows split over 'dp' (JAX's "
+            "P('dp')), or over ('dp', 'sharding'); mp peers must hold the "
+            "same rows")
+    return got
+
+
+def job_spec(kind, model, loss_fn, optimizer, mesh, zero_stage=0,
+             explicit=False, stage3=False, data_axes=("dp",), **opts):
     """What every rank builds its replica of a step from, but the model's
     skeleton: the trainable parameters' names, each leaf's flat layout
-    (natural shape, element count, pad to the next dp multiple: one
-    derivation, used by every rank), the loss, the optimizer's settings
-    and the step's options."""
+    (natural shape, element count, pad to the next dp multiple), the
+    state's placement over `mesh` (`_Placement`: one derivation, used by
+    every rank), the loss, the optimizer's settings and the step's
+    options."""
+    dp = mesh.shape["dp"]
     names = [n for n, p in model.named_parameters() if p.requires_grad]
     meta = {}
     for n, p in model.named_parameters():
@@ -703,8 +1068,12 @@ def job_spec(kind, model, loss_fn, optimizer, dp, **opts):
             shape = tuple(p.shape)
             num = int(np.prod(shape)) if shape else 1
             meta[n] = (shape, num, (-num) % dp)
+    layouts = {} if explicit else leaf_layouts(model, mesh, zero_stage)
+    place = _Placement(mesh.shape, explicit, stage3, meta, layouts,
+                       data_axes)
     return dict(kind=kind, loss_fn=loss_fn, names=names, meta=meta,
-                opt=optimizer.settings(), **opts)
+                place=place, opt=optimizer.settings(), explicit=explicit,
+                stage3=stage3, **opts)
 
 
 class _TrainStep:
@@ -713,26 +1082,28 @@ class _TrainStep:
 
     _kind = None
 
-    def _open(self, model, loss_fn, optimizer, mesh, batch_specs, **opts):
-        if batch_specs is not None and any(sp != "dp" for sp in batch_specs):
-            raise ValueError(
-                f"batch_specs {batch_specs}: every batch array is split "
-                "over the dp ranks along its first axis ('dp', JAX's "
-                "P('dp')); no other split is ported")
+    def _open(self, model, loss_fn, optimizer, mesh, batch_specs,
+              zero_stage=0, **opts):
+        data_axes = _data_axes(batch_specs)
         if mesh.device_type == "cuda" and torch.cuda.is_available():
             torch.cuda.set_device(mesh.devices[0])
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.mesh = mesh
-        self.dp = mesh.size
         self._seed_gen = torch.Generator().manual_seed(
             int(getattr(model, "_seed", 0)))
         params = dict(model.named_parameters())
-        self._spec = job_spec(self._kind, model, loss_fn, optimizer, self.dp,
-                              **opts)
+        self._shapes = {n: tuple(p.shape) for n, p in params.items()}
+        self._spec = job_spec(self._kind, model, loss_fn, optimizer, mesh,
+                              zero_stage, data_axes=data_axes, **opts)
         self.names = self._spec["names"]
         self._flat_meta = self._spec["meta"]
+        self._place = self._spec["place"]
+        # the batch's row shares: dp on the explicit path, else the data
+        # axes' degree
+        self.dp = mesh.size if self._place.explicit else \
+            self._place.data_degree
         self._job = next(_JOB_IDS)
         # each rank's seconds, peak device bytes and phases of the last step
         self.last_step = None
@@ -750,11 +1121,11 @@ class _TrainStep:
 
     # -- state carry ----------------------------------------------------------
 
-    def _sharded(self, key, t):
-        """Whether entry `key` (a tensor `t` of natural shape) travels as
-        each rank's flat slice."""
-        return _sharded(self._spec, key[0], key[0] == "o" and
-                        t.numel() == self._flat_meta[key[1]][1])
+    def _param_shaped(self, key, t):
+        """Whether entry `key` (a tensor `t` of natural shape) has its
+        leaf's elements (an optimizer slot may be a scalar)."""
+        return key[0] != "o" or t.numel() == int(np.prod(
+            self._shapes[key[1]]))
 
     def _entries(self, state):
         """``([(key, natural tensor)], scalars)`` of a natural-shape state
@@ -784,18 +1155,18 @@ class _TrainStep:
         return entries, scalars
 
     def _rank_shape(self, key, t):
-        """The shape of a rank's value of entry `key`."""
-        if not self._sharded(key, t):
-            return tuple(t.shape)
-        _, num, pad = self._flat_meta[key[1]]
-        return ((num + pad) // self.dp,)
+        """The shape of a rank's value of entry `key` (the same on every
+        rank)."""
+        return tuple(self._rank_value(
+            key, torch.empty(t.shape, dtype=t.dtype, device="meta"),
+            0).shape)
 
     def _rank_value(self, key, t, r):
-        """Rank `r`'s value of entry `key`: its flat slice or `t`."""
-        t = t.detach()
-        if not self._sharded(key, t):
-            return t
-        return _flat_shard(t, self._flat_meta[key[1]], self.dp, r)
+        """Rank `r`'s value of entry `key`: its slice or `t`."""
+        if key[0] == "b":
+            return t.detach()
+        return self._place.cut(key[0], key[1], t.detach(), r,
+                               self._param_shaped(key, t))
 
     def _send_state(self, state, opening=None):
         """Give every rank its part of a natural-shape `state`: on opening
@@ -810,7 +1181,7 @@ class _TrainStep:
         skeleton = None if opening is None else meta_copy(opening)
 
         def local():
-            for r in range(1, self.dp):
+            for r in range(1, self.mesh.size):
                 _pack(self.mesh.group, [
                     (k, self._rank_value(k, t, r)) for k, t in entries], r)
             if skeleton is not None:
@@ -862,16 +1233,20 @@ class _TrainStep:
     def shard_batch(self, *arrays):
         """Each rank's rows of `arrays`, in rank order: ``[(rank 0's arrays),
         (rank 1's), ...]`` as numpy arrays, each array split along its first
-        axis as ``P("dp")`` splits it."""
-        out = [[] for _ in range(self.dp)]
+        axis as its spec splits it (``P("dp")``: the dp index's share, the
+        same on the sharding and mp peers)."""
+        place = self._place
+        out = [[] for _ in range(self.mesh.size)]
         for a in arrays:
             a = a.detach().cpu().numpy() if torch.is_tensor(a) else \
                 np.asarray(a)
             if a.shape[0] % self.dp:
                 raise ValueError(f"batch of {a.shape[0]} rows does not split "
-                                 f"over dp={self.dp}")
-            for r, rows in enumerate(np.split(a, self.dp)):
-                out[r].append(rows)
+                                 f"over {self.dp} row shares")
+            parts = np.split(a, self.dp)
+            for r in range(self.mesh.size):
+                out[r].append(parts[r if place.explicit
+                                    else place.data_index(r)])
         return [tuple(rows) for rows in out]
 
     def step(self, *batch, lr=None, seed=None):
@@ -1046,6 +1421,7 @@ class ShardedTrainStep(_TrainStep):
                     "explicit update would change its semantics — use "
                     "the GSPMD path (explicit_update=False)")
         self._open(model, loss_fn, optimizer, mesh, batch_specs,
+                   zero_stage=self.zero_stage,
                    stage3=self.explicit_update and self.zero_stage >= 3,
                    explicit=self.explicit_update, quant=self.quant_grads,
                    gm_k=self.gm_k, gm_avg=self.gm_avg, remat=self.remat,
@@ -1057,8 +1433,9 @@ def make_sharded_train_step(model, loss_fn, optimizer, mesh, batch_specs=None,
                             gradient_merge_avg=True, explicit_update=None,
                             quant_grads=False):
     """``loss_fn(model_outputs, labels) -> scalar tensor``; the batch is
-    ``(inputs..., labels)``, each array split over the dp ranks along its
-    first axis (`batch_specs`: None, or "dp" for every array)."""
+    ``(inputs..., labels)``, each array split along its first axis over
+    the axes `batch_specs` names (None: ``"dp"`` for every array, JAX's
+    ``P("dp")``; or ``("dp", "sharding")``)."""
     return ShardedTrainStep(model, loss_fn, optimizer, mesh, batch_specs,
                             zero_stage, remat, gradient_merge_k,
                             gradient_merge_avg,
@@ -1079,6 +1456,10 @@ class LocalSGDTrainStep(_TrainStep):
     def __init__(self, model, loss_fn, optimizer, mesh, k_steps=1,
                  batch_specs=None):
         model, optimizer = _unwrap(model, optimizer)
+        if any(d > 1 for a, d in mesh.shape.items() if a != "dp"):
+            raise NotImplementedError(
+                f"LocalSGDTrainStep over {dict(mesh.shape)}: LocalSGD runs "
+                "over a pure-dp mesh in the port (each replica a rank)")
         self.k = int(k_steps)
         self._open(model, loss_fn, optimizer, mesh, batch_specs,
                    stage3=False, explicit=False, quant=False, gm_k=1,

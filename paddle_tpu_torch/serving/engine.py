@@ -264,6 +264,7 @@ class LLMEngine:
             mesh = env_tp if env_tp > 1 else None
         self._smesh = as_serving_mesh(mesh, device=device)
         self._tp = None           # the rank processes (controller only)
+        self._tp_finalizer = None  # ends them if the engine is dropped
         self._rank_reports = []   # each rank's report once it is ready
         self._is_rank = self._smesh is not None and self._smesh.rank > 0
         if self._smesh is not None and not self._is_rank:
@@ -592,7 +593,8 @@ class LLMEngine:
         except BaseException:
             self._tp.close()
             raise
-        weakref.finalize(self, self._tp.close, self._group_leaver())
+        self._tp_finalizer = weakref.finalize(self, self._tp.close,
+                                              self._group_leaver())
         self.pool.fanout = self._tp.send
         if self.tier is not None:
             self.tier.peers = self._tp
@@ -1646,8 +1648,26 @@ class LLMEngine:
             self.tier.close()
         if self._tp is not None:
             self._tp.close(self._group_leaver())
+            # the finalizer's arguments hold the step programs, which hold
+            # the engine: left registered, it would keep a closed engine
+            # alive for the process's life
+            self._tp_finalizer.detach()
+            self._release_device_memory()
         elif self._is_rank:
             self._group_leaver()()
+
+    def _release_device_memory(self):
+        """Give a closed tensor-parallel controller's card memory back at
+        once: its step programs, its own shard of the weights (moved to
+        the meta device), its arena and its adapter tables. Without its
+        ranks it cannot step again, and on the card a retired replica's
+        engine object was seen to outlive its last reference Python's gc
+        can see, with everything it held."""
+        self._step_fns.clear()
+        self.model.to("meta")
+        self.pool.k = self.pool.v = None
+        self.pool.k_scale = self.pool.v_scale = None
+        self._lora_tables = {}
 
     def _group_leaver(self):
         """What this rank runs as a tensor-parallel engine closes, beside

@@ -684,6 +684,17 @@ class AsyncLLMEngine:
                 rec.record("engine_thread_died",
                            detail=f"{type(e).__name__}: {e}",
                            health=self.health.snapshot())
+            if getattr(e, "fatal", False):
+                # a tensor-parallel rank failed (distributed/ranks.py
+                # RankFailed): nothing can run on this engine's ranks
+                # again, so end them now (their card memory comes back)
+                # rather than when the replica is restarted or retired
+                close = getattr(self.engine, "close", None)
+                if close is not None:
+                    try:
+                        close()
+                    except Exception:  # noqa: BLE001 — last rites
+                        pass
         finally:
             self._closed = True
             # terminal lifecycle stamp: exactly one, from the one thread

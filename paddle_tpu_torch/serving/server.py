@@ -778,10 +778,15 @@ def main(argv=None):
     replica streams from that checkpoint. ``--replicas N`` (or
     ``--autoscale-max``) serves N replicas behind the fleet router.
     ``--device cpu`` runs it on the CPU; without it the engines need a
-    CUDA device and raise when there is none. ``--tp-degree N`` serves one
-    replica over N tensor-parallel ranks (cards ``cuda:0 .. N-1``, or CPU
-    ranks with ``--device cpu``); tensor-parallel replicas behind the
-    router are not in the port yet and raise `NotImplementedError`."""
+    CUDA device and raise when there is none. ``--tp-degree N`` serves each
+    replica over N tensor-parallel ranks placed as the JAX CLI places them,
+    over the first N devices (cards ``cuda:0 .. N-1``, or CPU ranks with
+    ``--device cpu``); with ``--replicas`` or ``--autoscale-max`` every
+    replica spawns its own N - 1 ranks, and a retired, restarted or failed
+    replica's ranks end with it. Ranks sharing one card run only over an
+    explicit gloo backend, which this CLI does not offer (the JAX CLI has
+    no such switch): build such a fleet through the Python API
+    (`ServingMesh(devices, backend="gloo")`)."""
     import argparse
 
     import torch
@@ -897,12 +902,6 @@ def main(argv=None):
                    help="bundles kept before oldest-first pruning "
                         "(default 16; same as PADDLE_TPU_POSTMORTEM_KEEP)")
     args = p.parse_args(argv)
-    if (args.tp_degree or 1) > 1 and (args.replicas > 1
-                                      or args.autoscale_max is not None):
-        raise NotImplementedError(
-            "--tp-degree > 1 with --replicas/--autoscale-max: "
-            "tensor-parallel replicas behind the router are not in the "
-            "PyTorch port yet (ROADMAP.md, Queue 1 item 6c)")
 
     from .._device import resolve_device
     from ..models.gpt import gpt_1p3b, gpt_small, gpt_tiny
@@ -996,10 +995,12 @@ def main(argv=None):
                     f"{args.autoscale_min}..{args.autoscale_max}")
         elif args.replicas > 1:
             mode = f"{args.replicas}-replica router"
-        elif (args.tp_degree or 1) > 1:
-            mode = f"single replica over {args.tp_degree} tp ranks"
         else:
             mode = "single replica"
+        if (args.tp_degree or 1) > 1:
+            mode += f" over {args.tp_degree} tp ranks"
+            if args.replicas > 1 or args.autoscale_max is not None:
+                mode += " each"
         where = ("weights streamed from " + args.checkpoint
                  if args.checkpoint else "random weights")
         device = resolve_device(args.device)

@@ -8,10 +8,13 @@ package's ``[in, out]`` and torch's ``[out, in]``. The optimizer's state
 crosses the same way (`from_jax_optimizer_state`,
 `to_jax_optimizer_state`): the JAX compiled step's state, ``{name: {slot:
 array}}`` from `init_state_arrays` / `apply_gradients_arrays`, beside its
-scheduler's `state_dict()`. A data-parallel train step's state
-(parallel/spmd.py) crosses at natural shapes (`to_jax_train_state`,
-`from_jax_train_state`), whatever flat, padded layout the JAX explicit
-ZeRO step keeps it in.
+scheduler's `state_dict()`. A train step's state (parallel/spmd.py)
+crosses at natural shapes (`to_jax_train_state`, `from_jax_train_state`),
+whatever flat, padded layout the JAX explicit ZeRO step keeps it in; on a
+hybrid step the natural arrays become each rank's mp and sharding slices
+(the step's own placement: a column-parallel weight's rows, a
+row-parallel weight's columns, ERNIE's QKV as three strided head groups),
+and come back joined.
 """
 from __future__ import annotations
 

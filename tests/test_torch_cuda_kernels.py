@@ -1259,3 +1259,87 @@ def test_tp2_gloo_on_one_card_token_identical_to_tp1(dev):
         _tp_budget_held(eng)
     finally:
         eng.close()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,with_mask", [(True, False), (False, True)])
+def test_flash_head_offset_matches_plain_version(dev, dtype, causal,
+                                                 with_mask):
+    """An mp rank's share of the heads (heads [4, 8) of 8, `head_offset`):
+    the forward, dK/dV and dQ kernels with dropout against the plain
+    version at the same offset (the same keep bits), and the rank's O
+    against those heads of one call over all 8; offset 0 of the call's
+    own heads draws the bits it always drew, bit for bit."""
+    B, S, H, D = 2, 256, 4, 128 if causal else 64
+    g = torch.Generator(device="cuda").manual_seed(0)
+    full = [torch.randn((B, S, 2 * H, D), generator=g, device="cuda")
+            .to(dtype) for _ in range(4)]
+    q, k, v, do = (t[:, :, H:].contiguous() for t in full)
+    mask = None
+    if with_mask:
+        lens = torch.tensor([S, S // 2], device="cuda")
+        real = torch.arange(S, device="cuda")[None] < lens[:, None]
+        mask = torch.where(real, 0.0, -1e4)[:, None, None, :]
+    var = (causal, mask, 0.2, 4242)
+    hk = dict(head_offset=H, heads_total=2 * H)
+    o32 = torch.empty(q.shape, device="cuda")
+    o, lse = fa.flash_attention_fwd(q, k, v, *var, o32, **hk)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o32, do, lse, *var, **hk)
+    qr, kr, vr = (t.float().requires_grad_() for t in (q, k, v))
+    ref = fa.attention_ref(qr, kr, vr, *var, **hk)
+    ref.backward(do.float())
+    tol = TOL[dtype]
+    for got, want in ((o, ref), (dq, qr.grad), (dk, kr.grad),
+                      (dv, vr.grad)):
+        assert (got.float() - want).abs().max().item() <= tol
+    whole, _ = fa.flash_attention_fwd(*full[:3], *var,
+                                      torch.empty(full[0].shape,
+                                                  device="cuda"))
+    assert (whole[:, :, H:].float() - o.float()).abs().max().item() <= tol
+    plain, _ = fa.flash_attention_fwd(q, k, v, *var, None)
+    same, _ = fa.flash_attention_fwd(q, k, v, *var, None, head_offset=0,
+                                     heads_total=H)
+    assert torch.equal(plain, same)
+    assert not torch.equal(plain, o)
+
+
+def test_mp2_nccl_equals_one_process(dev):
+    """{"mp": 2} over NCCL, one rank a card (cuda:0, cuda:1), float32 (TF32
+    off): 3 AdamW steps of `_tp_model` give one process's losses within
+    1e-5, and with dropout 0.1 too (the rank's kernels draw their heads'
+    model bits); every rank shuts its communicators down together at
+    close. Needs two cards; on one it skips (chip_smoke phase 6e runs the
+    gloo path there)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs torch.cuda.device_count() >= 2: NCCL takes one "
+                    "rank a card")
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models.gpt import gpt_loss_fn
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    rs = np.random.RandomState(0)
+    ids, labels = (rs.randint(0, 512, (4, 128)) for _ in range(2))
+
+    def losses(mesh, dropout):
+        model = GPT(GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                              num_heads=2, max_seq_len=256, dropout=dropout),
+                    device="cuda")
+        opt = AdamW(learning_rate=1e-3, parameters=model.named_parameters())
+        step = make_sharded_train_step(model, gpt_loss_fn, opt, mesh)
+        try:
+            return [step(ids, labels, seed=7) for _ in range(3)]
+        finally:
+            step.close()
+
+    one = build_mesh({"dp": 1})
+    mesh = build_mesh({"mp": 2}, timeout=120)
+    assert mesh.backend == "nccl"
+    try:
+        got = {p: losses(mesh, p) for p in (0.0, 0.1)}
+        group, ranks = mesh.group, mesh.ranks
+    finally:
+        mesh.close()
+    for p in (0.0, 0.1):
+        np.testing.assert_allclose(got[p], losses(one, p), rtol=1e-5)
+    assert group.pg is None and not ranks.alive()

@@ -69,6 +69,12 @@ def test_port_has_modules_and_a_smoke_script():
                  "paddle_tpu_torch/distributed/mesh.py",
                  "paddle_tpu_torch/distributed/fleet/meta_parallel/"
                  "sharding.py",
+                 "paddle_tpu_torch/distributed/fleet/meta_parallel/"
+                 "mp_layers.py",
+                 "paddle_tpu_torch/distributed/fleet/meta_parallel/"
+                 "parallel_wrappers.py",
+                 "paddle_tpu_torch/distributed/fleet/fleet.py",
+                 "paddle_tpu_torch/distributed/fleet/strategy.py",
                  "chip_smoke.py"):
         assert want in names
 
@@ -131,6 +137,33 @@ def test_a_training_rank_imports_no_jax_or_paddle_tpu():
     try:
         step = make_sharded_train_step(model, gpt_loss_fn, opt, mesh,
                                        zero_stage=2)
+        ids = np.arange(32).reshape(2, 16) % 64
+        assert np.isfinite(step(ids, ids))
+        roots = step.rank_reports()[1]["modules"]
+    finally:
+        mesh.close()
+    assert "torch" in roots and "paddle_tpu_torch" in roots
+    assert not FORBIDDEN & set(roots), sorted(FORBIDDEN & set(roots))
+
+
+def test_an_mp_training_rank_imports_no_jax_or_paddle_tpu():
+    """Spawned from this process (which has imported JAX), a rank of a dp
+    x mp mesh builds its shard of the replica and steps (its Megatron
+    layers' collectives included) from the port alone."""
+    import jax  # noqa: F401  (the parent holds JAX)
+    import numpy as np
+
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig, gpt_loss_fn
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    model = GPT(GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                          num_heads=2, max_seq_len=32), device="cpu")
+    opt = AdamW(learning_rate=0.01, parameters=model.named_parameters())
+    mesh = build_mesh({"mp": 2}, device="cpu", timeout=60)
+    try:
+        step = make_sharded_train_step(model, gpt_loss_fn, opt, mesh)
         ids = np.arange(32).reshape(2, 16) % 64
         assert np.isfinite(step(ids, ids))
         roots = step.rank_reports()[1]["modules"]

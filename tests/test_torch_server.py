@@ -382,21 +382,20 @@ def test_client_disconnect_aborts_like_jax(sides):
 
 
 def test_server_cli_refuses_fleet_options_and_needs_a_card(monkeypatch):
-    """The CLI refuses only tensor-parallel replicas behind the router
-    (Queue 1 item 6c); tensor-parallel serving, the fleet, the autoscaler,
-    checkpoint streaming and the parameter budget are in the port, and
-    like the single replica they need a card unless `--device` names
-    another device (`--tp-degree 2 --device cpu`: the next test)."""
+    """The CLI refuses no fleet option any more: tensor-parallel serving,
+    tensor-parallel replicas behind the router (test_torch_router_tp.py
+    serves them on CPU ranks), the fleet, the autoscaler, checkpoint
+    streaming and the parameter budget are in the port, and like the
+    single replica they need a card unless `--device` names another
+    device (`--tp-degree 2 --device cpu`: the next test)."""
     from paddle_tpu_torch.serving.server import main
 
-    for argv in (["--tp-degree", "2", "--replicas", "2"],
-                 ["--tp-degree", "2", "--autoscale-max", "3"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6c"):
-            main(argv)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for argv in (["--port", "0"], ["--replicas", "2"],
                  ["--autoscale-max", "3"], ["--checkpoint", "ckpt"],
-                 ["--param-hbm-bytes", "1000"], ["--tp-degree", "2"]):
+                 ["--param-hbm-bytes", "1000"], ["--tp-degree", "2"],
+                 ["--tp-degree", "2", "--replicas", "2"],
+                 ["--tp-degree", "2", "--autoscale-max", "3"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)
 

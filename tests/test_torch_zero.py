@@ -342,13 +342,13 @@ def test_a_lost_reduce_scatter_breaks_the_budget(tmp_path, monkeypatch):
     on both sides: a surplus all-reduce and a missing reduce-scatter."""
     model = _model()
     opt = AdamW(learning_rate=LR, parameters=model.named_parameters())
-    spec = spmd.job_spec("sharded", model, gpt_loss_fn, opt, DP,
+    base = DeviceMesh({"dp": DP}, ["cpu"] * DP, timeout=TIMEOUT)
+    spec = spmd.job_spec("sharded", model, gpt_loss_fn, opt, base,
                          stage3=False, explicit=True, quant=False, gm_k=1,
                          gm_avg=True, remat=False, k_steps=1)
     ids, labels = _batch()
     rows = [(ids[r * 4:(r + 1) * 4], labels[r * 4:(r + 1) * 4])
             for r in range(DP)]
-    base = DeviceMesh({"dp": DP}, ["cpu"] * DP, timeout=TIMEOUT)
 
     def run():
         coll.reset_collective_counts()
@@ -518,8 +518,9 @@ def test_guards_raise_with_the_jax_words(mesh):
     """The JAX step's guards, in its words: quant_grads off the explicit
     path, grad_clip and a rule with per-tensor reductions on it,
     explicit_update below stage 2 or off a pure-dp mesh. Lamb and Lars
-    and a mesh with an 'mp' axis are not ported: NotImplementedError
-    naming their ROADMAP items."""
+    and a mesh with a 'pp' or 'sp' axis are not ported: NotImplementedError
+    naming their ROADMAP item; 'mp' and 'sharding' meshes build
+    (test_torch_hybrid.py trains on them)."""
     model = _model()
     jmesh = jax_init_mesh({"dp": DP})
     paddle.seed(0)
@@ -575,10 +576,10 @@ def test_guards_raise_with_the_jax_words(mesh):
     with pytest.raises(NotImplementedError, match="item 8"):
         port(Lamb(learning_rate=0.01, parameters=model.named_parameters()),
              zero_stage=2)
-    with pytest.raises(NotImplementedError, match="item 6d"):
-        build_mesh({"dp": 2, "mp": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6d"):
-        build_mesh({"dp": 1, "sharding": 2}, device="cpu")
+    assert build_mesh({"dp": 2, "mp": 2}, device="cpu").size == 4
+    assert build_mesh({"dp": 1, "sharding": 2}, device="cpu").size == 2
+    with pytest.raises(NotImplementedError, match="item 8"):
+        build_mesh({"dp": 2, "pp": 2}, device="cpu")
     with pytest.raises(ValueError, match="unknown mesh axes"):
         build_mesh({"tp": 2}, device="cpu")
 
