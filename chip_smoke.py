@@ -172,8 +172,9 @@ Phases, in order; any failure exits nonzero:
    it that rank's card memory), this process's allocated memory returns
    within 64 MiB of its figure before that replica was built (a serving
    thread's cuBLAS workspace, ~33 MiB, outlives it; the card's free
-   memory beside it), and the other replica serves phase 3's first prompt
-   with the same tokens. Seconds labelled as phase 3h's.
+   memory beside it), the retired engine object is collected after a gc
+   pass, and the other replica serves phase 3's first prompt with the
+   same tokens. Seconds labelled as phase 3h's.
 4. float32 parity: gpt_1p3b widths at 4 layers, greedy LLMEngine (the
    kernel, through captured graphs) against GPT.generate (contiguous
    cache, no kernel).
@@ -200,6 +201,8 @@ Phases, in order; any failure exits nonzero:
    12): the kernels' dropout bits at the heads' model coordinate
    (`head_offset`), against the plain version at the same offset and
    against the same heads of one call over all of the model's heads.
+   And a pipelined gpt_1p3b stage's share at pp2 x mp2 (phase 6f (b)):
+   float32, 2 x 1024, heads 0-7 and 8-15 of 16, D 128, causal.
 6. Train: the flagship GPT (vocab 32768, hidden 1024, 12 layers, 8 heads,
    seq 1024; bench.py's bench_gpt) in bf16 with AdamW(1e-4), batch 16 x
    1024 from np.random.RandomState(0): one warm-up step, then 10 timed
@@ -304,6 +307,42 @@ Phases, in order; any failure exits nonzero:
    model's and the unsharded figure, peak memory, step seconds. NCCL
    across cards is the card test `test_mp2_nccl_equals_one_process` (it
    skips on one).
+6f. Pipeline-parallel training and the rest of the optimizer surface on
+   the one card (run last, after gc.collect() and
+   torch.cuda.empty_cache()): ranks on cuda:0 over an explicit gloo
+   backend, eager, every collective and stage-to-stage hand-off staged
+   through host memory; every time is labelled "eager, gloo through the
+   host, ranks sharing one card - not a pp speed" beside the card's name
+   and power limit. (a) float32 (TF32 off), the flagship widths at 4
+   layers, batch 8 x 256 in M 4 microbatches, SGD lr 0.1, 3 steps from one
+   set of weights (`models/gpt_pipeline.py`): {"pp": 2} GPipe, 1F1B and
+   interleaved (V 2), {"pp": 2, "mp": 2} 1F1B, each against the
+   one-process model (losses within 1e-5 relative, every parameter within
+   1e-5 relative to its norm), each rank's sends, receives and
+   all-reduces a step against the arithmetic (`_pp_budget`) and 2 x M
+   flash launches each way. Then `HybridParallelGradScaler` over {"pp":
+   2}: an inf planted in stage 1's gradient makes both stages skip
+   (weights unchanged bit for bit, the scale halved). (b) BASELINE config
+   3 at full width: gpt_1p3b's widths (vocab 50304, hidden 2048, 24
+   layers, 16 heads, FFN 8192) in float32 over {"pp": 2, "mp": 2} (12
+   layers and 8 heads a rank), 1F1B, batch 8 x 1024 in 4 microbatches of
+   2 rows (a cut from a production batch), SGD lr 0.05: one warm-up and 3
+   counted steps on the same batch; finite, falling losses, 48 + 48 flash
+   launches a step on every rank, `_pp_budget` a step, each rank's
+   parameter bytes exactly its share; each rank's peak memory, step
+   seconds and phases (forward, backward, p2p, mp all-reduce, dp
+   reduction, tied-embedding sum, update; CUDA events). Then one step each
+   at M 8 with GPipe and with 1F1B: stage 0's peak memory under 1F1B
+   below GPipe's. (c) Adamax, Adagrad, Adadelta, RMSProp, DGCMomentum,
+   Lars and Lamb, one step each on the flagship widths at 2 layers from
+   the same weights and gradients on the card and on a CPU copy, each
+   tensor's gap within 1e-5 of the rule's own step (1e-3 for Lars and
+   Lamb); Lamb on the explicit ZeRO stage-2 path at dp=2, its first step
+   within 1e-3 of Lamb's own step against whole-tensor Lamb with dp's
+   gradient and against one process (float-noise gradients aside), while
+   the update without its norm all-reduce is at least 0.1 away; losses
+   within 1e-5. NCCL across cards is the card
+   test `test_pp2_nccl_equals_one_process` (it skips on one).
 
 Prints a `{"kernels": [...]}` line (the flash rows also name the bf16
 kernel's design and ptxas's registers and spill bytes for it; a spill in
@@ -2462,8 +2501,9 @@ def _tp_gate(engine, counts, kv_dtype):
         assert c["ragged"] == L * steps, c
         assert c["ragged_int8"] == (L * steps if kv_dtype else 0), c
         assert c["append"] == (2 * L * steps if kv_dtype else 0), c
-        assert c["collectives"] == {k: budget[k] * steps for k in (
-            "all-reduce", "all-gather", "reduce-scatter", "all-to-all")}, (
+        assert c["collectives"] == {k: budget.get(k, 0) * steps for k in (
+            "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+            "send", "recv")}, (
                 c, budget)
     return budget
 
@@ -2619,9 +2659,13 @@ def tp_fleet(smi):
     gates tokens) give a one-card engine's greedy tokens exactly (graphs,
     each request alone too). Then one replica is retired: its rank process
     ends, the card's free memory comes back within 64 MiB of its figure
-    before that replica was built, and the other replica serves a request
-    with the same tokens. Seconds are labelled as phase 3h's."""
+    before that replica was built, the retired engine object is collected
+    (after a gc pass; otherwise its holders are recorded), and the other
+    replica serves a request with the same tokens. Seconds are labelled
+    as phase 3h's."""
     import gc
+    import threading
+    import types
     import weakref
 
     from paddle_tpu_torch.models.gpt import gpt_1p3b
@@ -2660,8 +2704,9 @@ def tp_fleet(smi):
             del second      # the router holds the only reference
             engines = [r.engine.engine for r in router.replicas]
             steps0 = [e.step_count for e in engines]
-            for e in engines:
-                e.rank_reports(zero=True)
+            # (a comprehension: a for loop's variable would keep the last
+            # engine, the one retired below, alive in this frame)
+            [e.rank_reports(zero=True) for e in engines]
             t0 = time.perf_counter()
             got = []
             for i, p in enumerate(prompts):
@@ -2693,6 +2738,45 @@ def tp_fleet(smi):
             out["card_free1"] = _card_free_bytes()
             out["mem1"] = torch.cuda.memory_allocated()
             out["retired_engine_collected"] = retired() is None
+            # after a collection: what a reference cycle held is gone, and
+            # whatever still holds the engine is counted (gc-visible or
+            # not)
+            gc.collect()
+            held = retired()
+            out["retired_engine_collected_after_gc"] = held is None
+            if held is not None:
+                here = sys._getframe()
+                # a running thread's frames are no objects until asked
+                # for: materialise every thread's stack, so a frame that
+                # holds the engine shows (with its thread)
+                stacks = {}
+                for tid, f in sys._current_frames().items():
+                    name = next((t.name for t in threading.enumerate()
+                                 if t.ident == tid), str(tid))
+                    while f is not None:
+                        stacks[id(f)] = name
+                        f = f.f_back
+                refs = []
+                for r in gc.get_referrers(held):
+                    if r is here:
+                        continue
+                    if isinstance(r, types.FrameType):
+                        # a frame: whose, and what keeps it (a
+                        # traceback, a generator, a coroutine)
+                        refs.append(dict(
+                            frame=f"{r.f_code.co_name} "
+                                  f"{os.path.basename(r.f_code.co_filename)}"
+                                  f":{r.f_lineno}",
+                            thread=stacks.get(id(r)),
+                            held_by=[type(x).__name__ for x in
+                                     gc.get_referrers(r)][:6]))
+                    else:
+                        refs.append(type(r).__name__)
+                out["retired_engine_holders"] = dict(
+                    refcount=sys.getrefcount(held) - 2, gc_visible=refs,
+                    this_frame=[k for k, v in here.f_locals.items()
+                                if v is held and k != "held"])
+            del held
             out["after"] = await _post(server.port, {"prompt": prompts[0],
                                                      "max_tokens": 32})
         finally:
@@ -2727,6 +2811,8 @@ def tp_fleet(smi):
     assert out["retired"] == "r1" and not alive, res
     assert res["after_retire_equal"], res
     assert abs(mem1 - mem0) <= 64 * 2**20, res
+    # nothing holds the retired engine once a collection has run
+    assert res["retired_engine_collected_after_gc"], res
     assert not first_alive, res
     return res
 
@@ -2935,6 +3021,13 @@ VARIANT_CASES = [
      True, 0.1, (6, 12)),
     ("f32_mp2_rank_mask_dropout", torch.float32, (2, 512, 6, 64), False,
      True, 0.1, (6, 12)),
+    # a pipelined gpt_1p3b stage's attention at pp2 x mp2 (phase 6f (b)):
+    # float32, 2 rows a microbatch, 8 of 16 heads a rank (heads 0-7 and
+    # 8-15), head_dim 128, causal
+    ("pp_stage_f32_heads0", torch.float32, (2, 1024, 8, 128), True, False,
+     0.0, (0, 16)),
+    ("pp_stage_f32_heads8", torch.float32, (2, 1024, 8, 128), True, False,
+     0.0, (8, 16)),
 ]
 DROPOUT_SEED = 20261016
 
@@ -3852,8 +3945,9 @@ def _dp_budget(counts, n_leaves, quant=False):
     b = train_collective_budget(n_leaves, 2, quant)
     for c in counts:
         steps = c["steps"]
-        assert c["collectives"] == {k: b[k] * steps for k in (
-            "all-reduce", "all-gather", "reduce-scatter", "all-to-all")}, (
+        assert c["collectives"] == {k: b.get(k, 0) * steps for k in (
+            "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+            "send", "recv")}, (
                 c, b)
     return b
 
@@ -4147,7 +4241,7 @@ def _mp_budget(kind, layers, mp, dp, n_leaves, clip=False):
     if dp > 1:
         ar += 1 + (kind == "ernie") + n_leaves
     return {"all-reduce": ar, "all-gather": ag, "reduce-scatter": 0,
-            "all-to-all": 0}
+            "all-to-all": 0, "send": 0, "recv": 0}
 
 
 def _mp_gate(counts, kind, layers, mp, dp, n_leaves, clip=False,
@@ -4319,6 +4413,548 @@ def hybrid_train(smi):
     return res
 
 
+# -- phase 6f -----------------------------------------------------------------
+
+PP_LABEL = ("eager, gloo through the host, ranks sharing one card - not a "
+            "pp speed")
+
+
+def _pp_budget(cfg, shape, M, stage, n_chunks=1, n_leaves=0):
+    """A pipelined GPT step's counted calls on a rank of stage `stage`, as
+    arithmetic (independent of the port's `pipeline_collective_budget`):
+    each of the rank's V chunks that has a next virtual stage posts one
+    send a microbatch forward and receives one gradient back, and each
+    that has a previous one receives one input and posts one gradient: M
+    (forward + backward hand-offs). All-reduces: the loss over the stage
+    line (pp > 1), the tied embedding's sum on the first and last stage
+    (pp > 1), at mp > 1 four a layer and microbatch (the two
+    column-parallel inputs' gradients, the two row-parallel sums), and at
+    dp > 1 the loss and one a weight (`n_leaves`)."""
+    P, V = shape["pp"], n_chunks
+    virt = [c * P + stage for c in range(V)]
+    hand = sum(g < V * P - 1 for g in virt) + sum(g > 0 for g in virt)
+    ar = 0
+    if P > 1:
+        ar += 1 + (stage in (0, P - 1))
+    if shape["mp"] > 1:
+        ar += 4 * (cfg.num_layers // P) * M
+    if shape["dp"] > 1:
+        ar += 1 + n_leaves
+    return {"all-reduce": ar, "all-gather": 0, "reduce-scatter": 0,
+            "all-to-all": 0, "send": M * hand, "recv": M * hand}
+
+
+def _pp_gate(mesh, reports, cfg, M, steps, n_chunks=1):
+    """Each rank: `_pp_budget`'s calls a step, and one flash forward and
+    one backward launch for each of its layers and microbatches."""
+    out = []
+    for r, rep in enumerate(reports):
+        stage = mesh.coords(r)["pp"]
+        b = _pp_budget(cfg, mesh.shape, M, stage, n_chunks)
+        assert rep["collectives"] == {k: v * steps for k, v in b.items()}, (
+            r, rep["collectives"], b)
+        n = cfg.num_layers // mesh.shape["pp"] * M * steps
+        lc = rep["launches"]
+        assert (lc["fwd_launches"], lc["bwd_launches"]) == (n, n), (r, lc)
+        assert lc["fwd_mask_launches"] == lc["fwd_dropout_launches"] == 0
+        out.append(dict(rank=r, stage=stage, budget_a_step=b,
+                        collectives=rep["collectives"],
+                        fwd_launches=lc["fwd_launches"],
+                        bwd_launches=lc["bwd_launches"],
+                        peak_gib=rep["peak_bytes"] / 2**30))
+    return out
+
+
+def _pp_flat(params):
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    out.update({f"blocks.{k}": v for k, v in params["blocks"].items()})
+    return out
+
+
+def _pp_parity(meshes):
+    """6f (a): float32 (TF32 off), the flagship widths at 4 layers (seq
+    256), batch 8 x 256 in M 4, SGD lr 0.1, 3 steps from one set of
+    weights: {"pp": 2} GPipe, 1F1B and interleaved (V 2), {"pp": 2,
+    "mp": 2} 1F1B, each against the one-process model (one rank, every
+    layer, the same microbatches): losses within 1e-5 relative, every
+    parameter within 1e-5 of it relative to its norm; each rank's calls
+    a step against `_pp_budget` and 2 x M flash launches each way."""
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models.gpt_pipeline import (init_params,
+                                                      layer_stack,
+                                                      make_pipelined_gpt,
+                                                      stage_stack)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = flagship_config(num_layers=4, max_seq_len=256)
+    ids, labels = train_batch(cfg, 8, 256, "cpu")
+    M, steps, lr = 4, 3, 0.1
+    one = init_params(cfg, 1, seed=0, device="cuda")
+    layers = layer_stack(one["blocks"])
+
+    def run(mesh, sched, n_chunks):
+        params = dict(one, blocks=stage_stack(layers, mesh.shape["pp"],
+                                              n_chunks))
+        _, step = make_pipelined_gpt(cfg, mesh, M, sched, n_chunks,
+                                     params=params)
+        try:
+            step.rank_reports(zero=True)
+            losses = [step(ids, labels, lr) for _ in range(steps)]
+            reports = step.rank_reports()
+            got = step.gather_params()
+        finally:
+            step.close()
+        got["blocks"] = stage_stack(layer_stack(got["blocks"], n_chunks), 1)
+        return losses, reports, _pp_flat(got)
+
+    want, _, wparams = run(build_mesh({"dp": 1}, device="cuda"), "gpipe",
+                           1)
+    res = {"one_process": want}
+    for name, key, sched, V in (("pp2_gpipe", "pp2", "gpipe", 1),
+                                ("pp2_1f1b", "pp2", "1f1b", 1),
+                                ("pp2_interleaved_v2", "pp2", "interleaved",
+                                 2),
+                                ("pp2mp2_1f1b", "pp2mp2", "1f1b", 1)):
+        losses, reports, got = run(meshes[key], sched, V)
+        rel = max(float((got[k] - w).norm() / w.norm())
+                  for k, w in wparams.items())
+        rec = dict(losses=losses, param_max_rel_norm_diff=rel,
+                   ranks=_pp_gate(meshes[key], reports, cfg, M, steps, V))
+        res[name] = rec
+        log(f"[pp-parity] {name} " + json.dumps(rec))
+        np.testing.assert_allclose(losses, want, rtol=1e-5)
+        assert rel < 1e-5, (name, rel)
+    torch.cuda.empty_cache()
+    return res
+
+
+def _pp_1p3b(mesh, smi):
+    """6f (b): BASELINE config 3 at full width: gpt_1p3b's widths (vocab
+    50304, hidden 2048, 24 layers, 16 heads, FFN 8192) in float32 over
+    {"pp": 2, "mp": 2} (four ranks on cuda:0: 12 layers and 8 heads a
+    rank), 1F1B, batch 8 x 1024 in 4 microbatches of 2 rows, SGD lr 0.05:
+    one warm-up and 3 counted steps on the same batch. Then one step each
+    at M 8 (one row a microbatch) with GPipe and with 1F1B, every rank's
+    peak memory set to 0 just before: stage 0's peak under 1F1B below
+    GPipe's."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.models.gpt_pipeline import (init_params,
+                                                      make_pipelined_gpt,
+                                                      rank_entries)
+
+    cfg = GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=24,
+                    num_heads=16, max_seq_len=1024, intermediate_size=8192)
+    M, lr = 4, 0.05
+    params = init_params(cfg, 2, seed=0, device="cuda")
+    model_bytes = sum(t.numel() * 4 for t in _pp_flat(params).values())
+    blocks_bytes = sum(t.numel() * 4 for t in params["blocks"].values())
+    shares = [rank_entries(params, mesh.shape, mesh.coords(r))
+              for r in range(mesh.size)]
+    want_bytes = [sum(t.numel() * 4 for _, t in sh) for sh in shares]
+    blocks_share = [sum(t.numel() * 4 for k, t in sh if k[0] == "blocks")
+                    / blocks_bytes for sh in shares]
+    del shares
+    t0 = time.perf_counter()
+    _, step = make_pipelined_gpt(cfg, mesh, M, "1f1b", params=params)
+    build_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    ids, labels = train_batch(cfg, 8, 1024, "cpu")
+    try:
+        losses = [step(ids, labels, lr)]
+        step.rank_reports(zero=True)
+        wall, ranks = [], []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            losses.append(step(ids, labels, lr))
+            wall.append(time.perf_counter() - t1)
+            ranks.append(step.last_step)
+        reports = step.rank_reports()
+        param_bytes = step.param_bytes()
+        peaks = {}
+        for sched in ("1f1b", "gpipe"):
+            step.rank_reports(zero=True)
+            step(ids, labels, lr, schedule=sched, n_microbatches=8)
+            peaks[sched] = [r["peak_bytes"] for r in step.last_step]
+            peaks[sched + "_in_flight"] = [r["peak_in_flight"]
+                                           for r in step.last_step]
+    finally:
+        step.close()
+    per_rank = []
+    for r in range(mesh.size):
+        ph = [s[r]["phases_ms"] for s in ranks]
+        per_rank.append(dict(
+            rank=r, stage=mesh.coords(r)["pp"],
+            step_s=[s[r]["seconds"] for s in ranks],
+            peak_gib=[s[r]["peak_bytes"] / 2**30 for s in ranks],
+            peak_in_flight=ranks[-1][r]["peak_in_flight"],
+            phase_ms_p50={k: float(np.median([p[k] for p in ph]))
+                          for k in ph[0]}))
+    res = dict(label=PP_LABEL, card=smi, config="gpt_1p3b widths, f32",
+               mesh=dict(mesh.shape), schedule="1f1b", batch=[8, 1024],
+               microbatches=M, heads_a_rank=cfg.num_heads // 2,
+               layers_a_rank=cfg.num_layers // 2, lr=lr, losses=losses,
+               build_s=build_s, step_s=wall,
+               tokens_per_s=ids.numel() * len(wall) / sum(wall),
+               model_bytes=model_bytes, param_bytes=param_bytes,
+               want_param_bytes=want_bytes,
+               blocks_share=blocks_share,
+               ranks=_pp_gate(mesh, reports, cfg, M, 3), per_rank=per_rank,
+               m8_peak_gib={k: [v / 2**30 for v in peaks[k]]
+                            for k in ("1f1b", "gpipe")},
+               m8_in_flight={k: peaks[k + "_in_flight"]
+                             for k in ("1f1b", "gpipe")})
+    log(f"[pp-1p3b] ({PP_LABEL}; {smi}) " + json.dumps(res))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert param_bytes == want_bytes, (param_bytes, want_bytes)
+    stage0 = [r for r in range(mesh.size) if mesh.coords(r)["pp"] == 0]
+    for r in stage0:
+        assert peaks["1f1b"][r] < peaks["gpipe"][r], (r, peaks)
+    torch.cuda.empty_cache()
+    return res
+
+
+class _ScalerStage:
+    """Phase 6f (c): one stage's share of the hybrid scaler's check, a
+    rank job of the port's parallel/spmd.py: a weight of its own (its
+    stage's), SGD through `HybridParallelOptimizer`, and
+    `HybridParallelGradScaler` over the mesh."""
+
+    JOB_OPS = frozenset(("step",))
+
+    def __init__(self, spec, mesh):
+        self.mesh = mesh
+        self.stage = mesh.coords()["pp"]
+        self.w = torch.nn.Parameter(torch.full((1024,), 1.0 + self.stage,
+                                               device=mesh.device))
+
+    def load(self, values, scalars):
+        pass
+
+    def step(self, plant):
+        from paddle_tpu_torch.amp import GradScaler
+        from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+            HybridParallelGradScaler, HybridParallelOptimizer)
+        from paddle_tpu_torch.optimizer import SGD
+
+        opt = HybridParallelOptimizer(SGD(learning_rate=0.1,
+                                          parameters=[self.w]), self.mesh)
+        scaler = HybridParallelGradScaler(GradScaler(
+            init_loss_scaling=2.0 ** 15), self.mesh)
+        scaler.scale((self.w * 3.0).sum()).backward()
+        if self.stage == plant:
+            with torch.no_grad():
+                self.w.grad[7] = float("inf")
+        before = self.w.detach().clone()
+        scaler.step(opt)
+        scaler.update()
+        self.w.grad = None
+        return dict(stage=self.stage, plant=plant,
+                    unchanged=bool(torch.equal(before, self.w.detach())),
+                    scale=float(scaler._scale))
+
+
+def _pp_scaler(mesh):
+    """6f (c): `HybridParallelGradScaler` over {"pp": 2} on the card: with
+    an inf planted in stage 1's gradient both stages skip (weights
+    unchanged bit for bit, the scale halved); with none both step."""
+    from paddle_tpu_torch.parallel import spmd
+
+    class Job(spmd.RankJob):
+        def __init__(self):
+            self.mesh = mesh
+            self._ranks = spmd._ranks_of(mesh)
+            self._job = next(spmd._JOB_IDS)
+            self._replica = None
+            spec = {"factory": _ScalerStage}
+
+            def local():
+                self._replica = _ScalerStage(spec, mesh)
+
+            self._everywhere(local, "open", self._job, spec,
+                             per_rank=[([], {})] * (mesh.size - 1))
+
+    job = Job()
+    try:
+        skipped = job._call("step", 1)
+        stepped = job._call("step", None)
+    finally:
+        job.close()
+    res = dict(planted_in_stage_1=skipped, clean=stepped)
+    log("[pp-scaler] " + json.dumps(res))
+    assert all(r["unchanged"] and r["scale"] == 2.0 ** 14 for r in skipped)
+    assert all(not r["unchanged"] and r["scale"] == 2.0 ** 15
+               for r in stepped)
+    return res
+
+
+# a rule's update, held against another computation of it: the gap's norm
+# relative to the norm of the reference's own step. An elementwise rule's
+# gap is each device's rounding of its arithmetic. Lars and Lamb take
+# more: Lars' step at lr 1e-4 is ~1e-7, some 40 float32 ulps of the
+# weight it moves, so a last-bit difference in its intermediates flips
+# the final rounding of an entry by 2.5 % of its step; Lamb's epsilon
+# makes its update of a small gradient follow that gradient's rounding
+# (a zero-initialised bias, whose trust ratio is 1, shows it most)
+RULE_STEP_TOL = 1e-5
+TRUST_STEP_TOL = 1e-3
+
+
+def _step_gap(before, got, want, noise=None):
+    """One tensor's two updates from `before`: ``(gap, flip)``. `gap` is
+    the norm of ``got - want`` over the entries that are not `noise` (a
+    bool mask; None: every entry counts), relative to the norm of
+    `want`'s own step there (0 when both are 0). `flip` is the largest
+    gap on a noise entry relative to the tensor's largest step entry: at
+    most 2 when such an entry's step reverses (a gradient of float noise
+    can take either sign)."""
+    if noise is None:
+        noise = torch.zeros(before.shape, dtype=torch.bool)
+    step, d = want - before, got - want
+    keep = ~noise
+    num, den = float(d[keep].norm()), float(step[keep].norm())
+    gap = num / den if den > 0 else (0.0 if num == 0 else float("inf"))
+    top = float(step.abs().max())
+    nz = float(d[noise].abs().max()) if bool(noise.any()) else 0.0
+    flip = nz / top if top > 0 else (0.0 if nz == 0 else float("inf"))
+    return gap, flip
+
+
+def _noise(g_want, g_got):
+    """Float-noise entries of a gradient: below 1e-6 of the largest in its
+    tensor (phase 7's test), or where the two computations of it disagree
+    by more than half of it."""
+    gg = g_want.abs()
+    return (gg < 1e-6 * gg.max()) | ((g_got - g_want).abs() > 0.5 * gg)
+
+
+def _norm_errs(t):
+    """The float32 norm of `t` summed on the card and on the CPU, each
+    relative to its float64 norm."""
+    ref = float(t.double().norm())
+    return {dev: abs(float(torch.sqrt(torch.sum(torch.square(
+        t.to(dev).float())))) - ref) / ref for dev in ("cuda", "cpu")}
+
+
+def _pp_rules():
+    """6f (c): each of the seven new rules (Adamax, Adagrad, Adadelta,
+    RMSProp, DGCMomentum, Lars, Lamb) one step at lr 1e-4 on the flagship
+    widths at 2 layers (f32, TF32 off), on the card and on a CPU copy
+    from the same weights and the same gradients (the card's backward of
+    one batch), tensor by tensor against the rule's own step
+    (`_step_gap` over every entry, within `RULE_STEP_TOL`, Lars and
+    Lamb within `TRUST_STEP_TOL`). The tolerance scales with each rule's
+    own step, however small (Lars', Adadelta's); with one set of
+    gradients, what is left is each device's rounding of the rule's
+    arithmetic. For Lars and Lamb the worst tensor's float32 norms (its
+    weights' and gradient's), summed on each device, are printed against
+    float64."""
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.models.gpt import GPT
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, lr = flagship_config(num_layers=2), 1e-4
+    model = GPT(cfg, device="cuda", seed=3)
+    ids, labels = train_batch(cfg, 2, 256, "cuda")
+    model.train()
+    model(ids, labels=labels).backward()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    del model
+    names = ("Adamax", "Adagrad", "Adadelta", "RMSProp", "DGCMomentum",
+             "Lars", "Lamb")
+    res = {}
+    for name in names:
+        after = []
+        for dev in ("cuda", "cpu"):
+            params = {n: torch.nn.Parameter(w.to(dev).clone())
+                      for n, w in before.items()}
+            opt = getattr(optim, name)(learning_rate=lr,
+                                       parameters=list(params.items()))
+            for n, p in params.items():
+                p.grad = grads[n].to(dev).clone()
+            opt.step()
+            after.append({n: p.detach().cpu() for n, p in params.items()})
+        gaps = {n: _step_gap(before[n].cpu(), after[0][n], want)[0]
+                for n, want in after[1].items()}
+        worst = max(gaps, key=gaps.get)
+        res[name] = dict(
+            step_gap=gaps[worst], worst_leaf=worst,
+            step_rms=float(np.sqrt(np.mean([
+                float(((after[1][n] - before[n].cpu()) ** 2).mean())
+                for n in before]))),
+            tol=TRUST_STEP_TOL if name in _TRUST else RULE_STEP_TOL)
+        if name in _TRUST:
+            res[name]["norm_errs"] = dict(w=_norm_errs(before[worst]),
+                                          g=_norm_errs(grads[worst]))
+    log("[pp-rules] " + json.dumps(res))
+    for name in names:
+        assert res[name]["step_gap"] <= res[name]["tol"], (name, res[name])
+    torch.cuda.empty_cache()
+    return res
+
+
+_TRUST = ("Lars", "Lamb")
+
+
+def _lamb_whole(params, grads, lr, shards=1):
+    """Lamb's first step of each tensor of `params` with `grads`, each cut
+    into `shards` flat pieces whose norms are their own (with 2, the
+    explicit path's update without its norm all-reduce)."""
+    from paddle_tpu_torch.optimizer import Lamb
+
+    out = {}
+    for n, w in params.items():
+        flat, g = w.reshape(-1), grads[n].reshape(-1)
+        pad = (-flat.numel()) % shards
+        fw, fg = (torch.nn.functional.pad(t, (0, pad)) for t in (flat, g))
+        k = fw.numel() // shards
+        parts = []
+        for i in range(shards):
+            p = torch.nn.Parameter(fw[i * k:(i + 1) * k].clone())
+            opt = Lamb(learning_rate=lr, parameters=[("w", p)])
+            p.grad = fg[i * k:(i + 1) * k].clone()
+            opt.step()
+            parts.append(p.detach())
+        out[n] = torch.cat(parts)[:flat.numel()].view(w.shape).cpu()
+    return out
+
+
+def _pp_lamb_zero():
+    """6f (c): Lamb on the explicit ZeRO stage-2 path at dp=2 (two ranks on
+    cuda:0, gloo; each norm an all-reduce of the shards' squared sums),
+    the flagship widths at 2 layers (f32), batch 4 x 256, lr 1e-3. Its
+    first step, tensor by tensor against Lamb's own step (`_step_gap`):
+    (1) against Lamb on whole tensors here with dp's own gradient (the
+    mean of the two ranks' gradients over 2 rows each): within
+    `TRUST_STEP_TOL` on every entry; (2) against one process (the
+    gradient over all 4 rows): within it over the entries whose gradient
+    is not float noise between the two (`_noise`), a noise entry at most
+    2 of the tensor's largest step. The same metric shows what it
+    catches: Lamb on the shards with their own norms (the update without
+    its all-reduce) must be at least 100 `TRUST_STEP_TOL` from (1)'s
+    reference. Losses of 2 steps within 1e-5 of one process's. The
+    largest relative difference to one process's weights is printed with
+    its leaf (`param_max_rel_norm_diff`)."""
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models.gpt import GPT, gpt_loss_fn
+    from paddle_tpu_torch.optimizer import Lamb
+    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    cfg, lr = flagship_config(num_layers=2), 1e-3
+    batch = train_batch(cfg, 4, 256, "cpu")
+
+    def run(mesh, zs):
+        model = GPT(cfg, device="cuda", dtype=torch.float32, seed=0)
+        opt = Lamb(learning_rate=lr, parameters=model.named_parameters())
+        step = make_sharded_train_step(model, gpt_loss_fn, opt, mesh,
+                                       zero_stage=zs)
+        try:
+            losses = [step(*batch)]
+            first = step.gather_params()
+            losses.append(step(*batch))
+            return losses, step.explicit_update, first
+        finally:
+            step.close()
+
+    want, _, one = run(build_mesh({"dp": 1}, device="cuda"), 0)
+    mesh = _dp_mesh()
+    try:
+        got, explicit, zero = run(mesh, 2)
+    finally:
+        mesh.close()
+    model = GPT(cfg, device="cuda", dtype=torch.float32, seed=0)
+    model.train()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ids, labels = (t.cuda() for t in batch)
+
+    def grads(rows):
+        model.zero_grad(set_to_none=True)
+        model(ids[rows], labels=labels[rows]).backward()
+        return {n: p.grad.detach().clone()
+                for n, p in model.named_parameters()}
+
+    g_one = grads(slice(0, 4))
+    g0, g1 = grads(slice(0, 2)), grads(slice(2, 4))
+    g_dp = {n: (g0[n] + g1[n]) / 2 for n in g0}
+    whole = _lamb_whole(before, g_dp, lr)
+    local = _lamb_whole(before, g_dp, lr, shards=2)
+    before = {n: t.cpu() for n, t in before.items()}
+    zero = {n: t.cpu() for n, t in zero.items()}
+    one = {n: t.cpu() for n, t in one.items()}
+    noise = {n: _noise(g_one[n].cpu(), g_dp[n].cpu()) for n in before}
+    own = {n: _step_gap(before[n], zero[n], whole[n])[0]
+           for n in before}
+    vs_one = {n: _step_gap(before[n], zero[n], one[n], noise[n])
+              for n in before}
+    unmasked = {n: _step_gap(before[n], zero[n], one[n])[0]
+                for n in before}
+    rel_norm = {n: float((zero[n] - one[n]).norm() / one[n].norm())
+                for n in before}
+    mutant = {n: _step_gap(before[n], local[n], whole[n])[0]
+              for n in before}
+    top = lambda d: max(d, key=d.get)  # noqa: E731
+    res = dict(
+        one_process=want, zero2_dp2=got, explicit=explicit,
+        own_gradient_gap=own[top(own)], own_worst_leaf=top(own),
+        one_process_gap=max(g for g, _ in vs_one.values()),
+        one_process_noise_flip=max(f for _, f in vs_one.values()),
+        one_process_unmasked_gap=unmasked[top(unmasked)],
+        unmasked_worst_leaf=top(unmasked),
+        unmasked_worst_noise_entries=int(noise[top(unmasked)].sum()),
+        param_max_rel_norm_diff=rel_norm[top(rel_norm)],
+        rel_norm_worst_leaf=top(rel_norm),
+        rel_norm_worst_noise_entries=int(noise[top(rel_norm)].sum()),
+        rel_norm_worst_numel=int(before[top(rel_norm)].numel()),
+        noise_entries=int(sum(int(x.sum()) for x in noise.values())),
+        grad_gap={n: float((g_dp[n] - g_one[n]).norm() / g_one[n].norm())
+                  for n in before},
+        one_process_gaps={n: g for n, (g, _) in vs_one.items()},
+        shard_local_norms_gap=mutant[top(mutant)],
+        shard_local_worst_leaf=top(mutant), tol=TRUST_STEP_TOL)
+    log("[pp-lamb-zero2] " + json.dumps(res))
+    assert explicit
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert res["own_gradient_gap"] <= TRUST_STEP_TOL, res
+    assert res["one_process_gap"] <= TRUST_STEP_TOL, res
+    assert res["one_process_noise_flip"] <= 2.0 + 1e-3, res
+    assert res["shard_local_norms_gap"] >= 100 * TRUST_STEP_TOL, res
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def pipeline_train(smi):
+    """Phase 6f: pipeline-parallel training and the rest of the optimizer
+    surface on the one card (ranks on cuda:0 over an explicit gloo
+    backend, every collective and hand-off staged through host memory).
+    Run last, after gc.collect() and torch.cuda.empty_cache()."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated() / 2**30
+    log(f"[pp] phase 6f starts with {base:.2f} GiB allocated ({smi})")
+    meshes = {"pp2": _hybrid_mesh({"pp": 2}),
+              "pp2mp2": _hybrid_mesh({"pp": 2, "mp": 2})}
+    try:
+        res = dict(base_mem_gib=base, parity=_pp_parity(meshes))
+        res["scaler"] = _pp_scaler(meshes["pp2"])
+        meshes.pop("pp2").close()
+        res["gpt_1p3b"] = _pp_1p3b(meshes["pp2mp2"], smi)
+    finally:
+        for m in meshes.values():
+            m.close()
+    res["rules"] = _pp_rules()
+    res["lamb_zero2"] = _pp_lamb_zero()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[pp] phase 6f {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -4362,6 +4998,7 @@ def main():
     surface = training_surface(smi, trained, ernie)
     zero = zero_dp(smi)
     hybrid = hybrid_train(smi)
+    pipeline = pipeline_train(smi)
     # the kernel line's headline numbers: the bf16 decode case (width 1),
     # the launch shape the serving path runs most, and the bf16 flash case
     # at the training shape
@@ -4555,6 +5192,35 @@ def main():
             **report(kname, ev["shape"][3], 1, True),
             **({"cases": variants} if key == "fwd" else {}),
         })
+    # phase 6f (b): each pp2 x mp2 rank's launches over the counted steps
+    # of the pipelined gpt_1p3b, at the stage's shape (5b's cases)
+    pr = pipeline["gpt_1p3b"]["ranks"]
+    for kname, site, key, errs in (("fwd", 121, "fwd", ("o", "lse")),
+                                   ("dkv", 238, "dkv", ("dk", "dv")),
+                                   ("dq", 295, "dq", ("dq",))):
+        cases = [r for r in variants if r["case"].startswith("pp_stage")]
+        head = cases[0]
+        kernels.append({
+            "name": f"flash_attention_{kname}_pp_stage", "route": "cuda",
+            "source": src, "replaces": f"{tpu}:{site}",
+            "launches": pr[0]["fwd_launches" if kname == "fwd"
+                              else "bwd_launches"],
+            "pp_rank_launches": [r["fwd_launches" if kname == "fwd"
+                                   else "bwd_launches"] for r in pr],
+            "shape": head["shape"], "dtype": head["dtype"],
+            "heads": [[c["head_offset"], c["head_offset"] + c["shape"][2]]
+                      for c in cases], "heads_total": head["heads_total"],
+            "max_abs_err": max(c["max_err"][e] for c in cases for e in errs),
+            "tol": head["tol"],
+            "ms": head[f"{key}_ms"], "kernel_ms": head[f"{key}_ms"],
+            "kernel_ms_heads8": cases[1][f"{key}_ms"],
+            "plain_ms": head["plain_fwd_ms" if key == "fwd"
+                             else "plain_bwd_ms"],
+            "bound_ms": head[f"bound_{key}_ms"],
+            "bound_by": head[f"bound_{key}_by"],
+            "library_ms": head["library_fwd_ms"] if key == "fwd" else None,
+            "library_bwd_ms": head["library_bwd_ms"],
+        })
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=smi, kind=kind, kernels=kernels,
@@ -4566,7 +5232,7 @@ def main():
                            train=trained, train_parity=tpar, ernie=ernie,
                            train_dropout=gpt_drop, ernie_parity=epar,
                            training_surface=surface, zero_dp=zero,
-                           hybrid=hybrid), f,
+                           hybrid=hybrid, pipeline=pipeline), f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -10,8 +10,12 @@ port's idiom the caller's process is rank 0 of that mesh, and the step
 starts the other ranks. `init` takes one argument the JAX function has
 not: `device`, where the ranks run (None: CUDA, which must exist; the
 tests pass ``"cpu"``). `distributed_model` and `distributed_optimizer`
-return the thin wrappers of `meta_parallel.parallel_wrappers`, which the
-train step unwraps.
+return the wrappers of `meta_parallel.parallel_wrappers` (a pipeline
+mesh's model its `PipelineParallel`), which the train step unwraps;
+`distributed_scaler` the `HybridParallelGradScaler`. `barrier_worker`
+waits for every rank of a running mesh (nothing to wait for before the
+ranks start), `minimize` is the optimizer's eager one, and
+`stop_worker` and `save_persistables` do nothing, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -53,11 +57,23 @@ class Fleet:
     def is_first_worker(self):
         return True
 
+    def barrier_worker(self):
+        """Wait until every rank of the running mesh gets here
+        (`parallel.spmd.barrier`: in the controller between steps, the
+        ranks take it as an operation of their channel)."""
+        if self._hcg is not None:
+            from ...parallel.spmd import barrier
+
+            barrier(self._hcg.mesh)
+
     def distributed_model(self, model):
-        from .meta_parallel import DataParallel, TensorParallel
+        from .meta_parallel import (DataParallel, PipelineParallel,
+                                    TensorParallel)
 
         if self._hcg is None:
             self.init()
+        if self._hcg.get_pipe_parallel_world_size() > 1:
+            return PipelineParallel(model, self._hcg, self._strategy)
         if self._hcg.get_model_parallel_world_size() > 1:
             return TensorParallel(model, self._hcg, self._strategy)
         return DataParallel(model)
@@ -68,8 +84,24 @@ class Fleet:
         return HybridParallelOptimizer(optimizer, self._hcg,
                                        strategy or self._strategy)
 
+    def distributed_scaler(self, scaler):
+        from .meta_parallel import HybridParallelGradScaler
+
+        return HybridParallelGradScaler(scaler, self._hcg)
+
     def state_dict(self):
         return {}
+
+    def minimize(self, optimizer, loss, startup_program=None,
+                 parameter_list=None, no_grad_set=None):
+        return optimizer.minimize(loss)
+
+    def stop_worker(self):
+        pass
+
+    def save_persistables(self, executor=None, dirname=None,
+                          main_program=None):
+        pass
 
 
 fleet = Fleet()
@@ -88,9 +120,14 @@ def distributed_optimizer(optimizer, strategy=None):
     return fleet.distributed_optimizer(optimizer, strategy)
 
 
+def distributed_scaler(scaler):
+    return fleet.distributed_scaler(scaler)
+
+
 def get_hybrid_communicate_group():
     return fleet.get_hybrid_communicate_group()
 
 
-__all__ = ["Fleet", "distributed_model", "distributed_optimizer", "fleet",
-           "get_hybrid_communicate_group", "init"]
+__all__ = ["Fleet", "distributed_model", "distributed_optimizer",
+           "distributed_scaler", "fleet", "get_hybrid_communicate_group",
+           "init"]

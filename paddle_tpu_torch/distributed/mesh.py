@@ -22,8 +22,13 @@ group index, and joins the one it is in; each group is built straight on
 a prefix of the mesh's file store (``{axis}/{index}``, no default group,
 so no rank waits on a group it is not in) with the mesh's timeout.
 
-`pp` and `sp` above 1 are not ported (pipeline parallelism and ring
-attention wait with ROADMAP item 8): `build_mesh` refuses them.
+A ``pp`` axis above 1 holds pipeline stages (parallel/pipeline.py,
+models/gpt_pipeline.py): its groups are the stage lines, and above two
+stages each line's first and last stage also share a group of their own
+(``"pp_ends"``, `axis_group`), where a tied weight's two uses (the
+embedding and the head) sum their gradients. ``sp`` above 1 is not
+ported (ring attention and the sequence split wait with ROADMAP Queue 1,
+item 8b's ``sp`` half): `build_mesh` refuses it.
 
 **Topology** (JAX `:87-262`): `CommunicateTopology` (coordinates and
 ranks over named dims), `HybridCommunicateGroup` (a rank's degrees,
@@ -61,6 +66,7 @@ class DeviceMesh(RankMesh):
         self.shape = shape
         self.ranks = None
         self.groups = {}
+        self.in_job = 0      # > 0 while the controller runs its job share
 
     def for_rank(self, rank):
         other = super().for_rank(rank)
@@ -91,22 +97,52 @@ class DeviceMesh(RankMesh):
         group)."""
         return [a for a in AXES if 1 < self.shape[a] < self.size]
 
+    def group_lists(self):
+        """{name: lists of ranks}: every group a rank joins besides the
+        world, in the order every rank walks them (`group_axes`, then
+        ``"pp_ends"`` above two stages: each stage line's first and last
+        rank)."""
+        out = {a: self.comm_lists(a) for a in self.group_axes()}
+        if self.shape["pp"] > 2:
+            out["pp_ends"] = [[line[0], line[-1]]
+                              for line in self.comm_lists("pp")]
+        return out
+
     def axis_group(self, axis):
         """This rank's `RankGroup` along `axis`: its own group, the world
-        group when the axis spans every rank, None at degree 1."""
+        group when the axis spans every rank, None at degree 1.
+        ``"pp_ends"`` is the group of its stage line's first and last
+        rank (the ``pp`` group itself at two stages; None elsewhere in
+        the line)."""
+        if axis == "pp_ends":
+            if self.shape["pp"] <= 2:
+                return self.axis_group("pp")
+            return self.groups.get("pp_ends")
         if self.shape[axis] <= 1:
             return None
         if self.shape[axis] == self.size:
             return self.group
         return self.groups[axis]
 
+    def in_step(self):
+        """Whether every rank of the mesh runs the caller's code now, so a
+        collective over its groups meets its peers: in a rank of a running
+        mesh other than the controller (a rank runs only what the
+        controller asks of it), in a mesh of threads (no rank set), and in
+        the controller inside its share of a job (`parallel.spmd.RankJob`);
+        never in the controller between jobs, where the ranks wait on the
+        channel for its next operation."""
+        return self.group is not None and (self.ranks is None
+                                           or self.in_job > 0)
+
     def close(self):
         """End the mesh's rank processes (and, over NCCL, every rank's
-        communicators together). Idempotent; the next step built over the
-        mesh starts new ones."""
+        communicators together); this process's groups go with them.
+        Idempotent; the next step built over the mesh starts new ones."""
         ranks, self.ranks = self.ranks, None
         if ranks is not None:
             ranks.close(leave=lambda: leave_group(self))
+            self.group, self.groups = None, {}
 
 
 def coords_of(shape, rank):
@@ -125,20 +161,19 @@ def rank_at(shape, **coords):
 
 def _degrees(degrees):
     """Every axis's degree from `degrees` (missing axes are 1); raises for
-    an unknown axis and for ``pp`` or ``sp`` above 1."""
+    an unknown axis and for ``sp`` above 1."""
     unknown = sorted(set(degrees) - set(AXES))
     if unknown:
         raise ValueError(f"unknown mesh axes {unknown}; the axes are {AXES}")
     shape = {a: int(degrees.get(a, 1)) for a in AXES}
     if any(d < 1 for d in shape.values()):
         raise ValueError(f"mesh degrees must be >= 1; got {degrees}")
-    other = {a: shape[a] for a in ("pp", "sp") if shape[a] > 1}
-    if other:
+    if shape["sp"] > 1:
         raise NotImplementedError(
-            f"mesh axes {other}: pipeline ('pp') and sequence ('sp') "
-            "parallelism are not ported yet (ROADMAP Queue 1, item 8: "
-            "parallel/pipeline.py, models/gpt_pipeline.py, "
-            "parallel/ring_attention.py); 'dp', 'sharding' and 'mp' are")
+            f"mesh axis sp={shape['sp']}: sequence parallelism is not "
+            "ported yet (ROADMAP Queue 1, item 8b, its 'sp' half: "
+            "parallel/ring_attention.py and the sequence split); 'dp', "
+            "'pp', 'sharding' and 'mp' are")
     return shape
 
 

@@ -135,8 +135,8 @@ def join_group(mesh, store_path):
                       mesh.rank, mesh.size, mesh.backend)
     # a hybrid mesh's axis groups (distributed/mesh.py): every rank walks
     # every group in one order and joins its own, on its own store prefix
-    for axis in getattr(mesh, "group_axes", lambda: ())():
-        for i, members in enumerate(mesh.comm_lists(axis)):
+    for axis, lists in getattr(mesh, "group_lists", dict)().items():
+        for i, members in enumerate(lists):
             if mesh.rank in members:
                 sub = dist.PrefixStore(f"{axis}/{i}", store)
                 r = members.index(mesh.rank)

@@ -76,7 +76,7 @@ class GPTConfig:
         if attn_impl not in ("flash", "xla"):
             raise NotImplementedError(
                 f"GPTConfig: attn_impl={attn_impl!r} is not ported "
-                "(ROADMAP Queue 1, item 8: ring attention)")
+                "(ROADMAP Queue 1, item 8b: ring attention)")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers

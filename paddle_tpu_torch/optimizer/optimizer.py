@@ -22,11 +22,17 @@ per-parameter rule in the order of its compiled step
    parameter becomes ``master.to(param.dtype)``.
 
 Python scalars are rounded to the dtype they multiply, as JAX's weakly
-typed scalars are, so bfloat16 results carry JAX's bits. Every rule here is
-elementwise, so it runs unchanged on any slice of a parameter: data-parallel
-training (parallel/spmd.py) rebuilds the optimizer from its `settings()`
-over each rank's flat shards under the original names (`from_settings`),
-and slots, masters, decay and state keys come out as over whole tensors.
+typed scalars are, so bfloat16 results carry JAX's bits. An elementwise
+rule runs unchanged on any slice of a parameter: data-parallel training
+(parallel/spmd.py) rebuilds the optimizer from its `settings()` over each
+rank's flat shards under the original names (`from_settings`), and slots,
+masters, decay and state keys come out as over whole tensors. A rule with
+per-tensor reductions (`_elementwise_update` False: Lars, Lamb, DGC) sees
+each bucket's names (`_leaf_names`) and the group each leaf is sharded
+over (`_leaf_groups`: ``_norm_group`` for every leaf while
+`optimizers.sharded_norms` sets it, else from ``_shard_groups``), and
+takes its norms through `optimizers._tensor_norm`, which sums a sharded
+leaf's squared norm over its group.
 `state_dict()`/`set_state_dict()` use the JAX package's key scheme:
 ``{name}_{slot}``, ``LR_Scheduler``, ``@step`` and ``@param_order``, with
 names from ``(name, parameter)`` pairs (``model.named_parameters()``) or,
@@ -61,7 +67,8 @@ def as_dtype(x, dtype):
 
 # attributes of an optimizer that are not its settings
 _NOT_SETTINGS = frozenset(("_torch_keys", "_names", "_step_count",
-                           "_last_lr", "_shard_groups"))
+                           "_last_lr", "_shard_groups", "_leaf_names",
+                           "_leaf_groups", "_norm_group"))
 
 
 def from_settings(settings, named_params):
@@ -243,6 +250,12 @@ class Optimizer(torch.optim.Optimizer):
         wdt = works[0].dtype
         grads = [torch.zeros_like(w) if g is None else g.to(wdt)
                  for w, (_, g, _) in zip(works, items)]
+        # what a rule with per-tensor reductions reads about each leaf
+        self._leaf_names = [self._names[id(p)] for p in ps]
+        shard_groups = getattr(self, "_shard_groups", None) or {}
+        norm_group = getattr(self, "_norm_group", None)
+        self._leaf_groups = [shard_groups.get(id(p)) if norm_group is None
+                             else norm_group for p in ps]
         wd = self._wd_coeff()
         decay = [i for i, p in enumerate(ps) if wd and self._decays(p)]
         works32 = [w.float() for w in works]
@@ -265,6 +278,14 @@ class Optimizer(torch.optim.Optimizer):
             for st, n in zip(states, new):
                 st["master_weight"] = n
         torch._foreach_copy_(ps, new)
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """The JAX package's eager `minimize`: ``loss.backward()``, then
+        `step`. Returns ``(None, None)``."""
+        loss.backward()
+        self.step()
+        return None, None
 
     # ---- gradients ----------------------------------------------------------
     def clear_grad(self, set_to_zero=False):

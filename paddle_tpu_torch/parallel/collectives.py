@@ -12,6 +12,10 @@ graph).
 
 A serving step makes `all_reduce` and `all_gather` calls; a data-parallel
 training step (parallel/spmd.py) adds `reduce_scatter` and `all_to_all`;
+a pipeline (parallel/pipeline.py) hands activations and their gradients
+from stage to stage with `send` and `recv_`, point to point (posted sends,
+so a stage can post one and go on to its next receive; through the host
+under gloo, card to card under NCCL);
 a tensor-parallel (``mp``) training step all-reduces with SUM and MAX (the
 vocab-parallel softmax) over its mp group. Any of them takes any group:
 the world of a mesh's ranks, or one of its axis groups (`mp`, `dp`,
@@ -57,6 +61,11 @@ class RankGroup:
         pg, self.pg = self.pg, None
         if pg is not None:
             pg.shutdown()
+
+    def barrier(self, device):
+        """Return once every rank of the group has called it: one
+        uncounted all-reduce of one element on `device`."""
+        self.all_reduce_(torch.zeros(1, device=device))
 
     def _staged(self, t):
         """Whether `t` must pass through host memory (gloo on CUDA)."""
@@ -112,18 +121,39 @@ class RankGroup:
         self.pg.alltoall_base(out, src, [], []).wait()
         return out.to(t.device) if out.device != t.device else out
 
-    def send(self, t, dst):
-        """Point-to-point `t` to rank `dst` (weight placement)."""
+    def send(self, t, dst, tag=0, wait=True):
+        """Point-to-point `t` to rank `dst` under `tag`. With `wait` False
+        the send is posted and a `Pending` is returned: its ``wait()``
+        ends it (the staged copy lives until then), so a rank can post a
+        send and go on to its next receive."""
         buf = t.contiguous().cpu() if self._staged(t) else t.contiguous()
-        self.pg.send([buf], int(dst), 0).wait()
+        work = self.pg.send([buf], int(dst), int(tag))
+        if not wait:
+            return Pending(work, buf)
+        work.wait()
+        return None
 
-    def recv_(self, t, src):
-        """Receive into `t` from rank `src`, in place."""
+    def recv_(self, t, src, tag=0):
+        """Receive into `t` from rank `src` under `tag`, in place."""
         buf = torch.empty(t.shape, dtype=t.dtype) if self._staged(t) else t
-        self.pg.recv([buf], int(src), 0).wait()
+        self.pg.recv([buf], int(src), int(tag)).wait()
         if buf is not t:
             t.copy_(buf)
         return t
+
+
+class Pending:
+    """A posted send: ``wait()`` blocks until it has gone (and holds its
+    buffer until then)."""
+
+    def __init__(self, work, buf):
+        self.work = work
+        self.buf = buf
+
+    def wait(self):
+        if self.work is not None:
+            self.work.wait()
+            self.work = self.buf = None
 
 
 def all_reduce(t, group, op="sum"):
@@ -165,14 +195,34 @@ def all_to_all(t, group):
 
 all_to_all.calls = 0
 
+def send(t, dst, group, tag=0):
+    """Post `t` to rank `dst` of `group` (one counted call; a pipeline's
+    stage-to-stage hand-off). Returns the `Pending` send: the caller
+    waits on it before the step ends."""
+    counts.tick(send, "calls")
+    return group.send(t, dst, tag, wait=False)
+
+
+send.calls = 0
+
+
+def recv_(t, src, group, tag=0):
+    """Receive into `t` from rank `src` of `group` (one counted call)."""
+    counts.tick(recv_, "calls")
+    return group.recv_(t, src, tag)
+
+
+recv_.calls = 0
+
 _COUNTED = {"all-reduce": all_reduce, "all-gather": all_gather,
-            "reduce-scatter": reduce_scatter, "all-to-all": all_to_all}
+            "reduce-scatter": reduce_scatter, "all-to-all": all_to_all,
+            "send": send, "recv": recv_}
 
 
 def collective_counts():
     """{"all-reduce": n, "all-gather": n, "reduce-scatter": n,
-    "all-to-all": n}: the calls counted so far, in the collective budgets'
-    names."""
+    "all-to-all": n, "send": n, "recv": n}: the calls counted so far, in
+    the collective budgets' names."""
     return {name: fn.calls for name, fn in _COUNTED.items()}
 
 

@@ -100,8 +100,23 @@ take natural-shape state under the JAX package's optimizer keys;
 `mesh_donate_argnums` has no counterpart: an eager step updates its
 tensors in place, so there is no buffer to donate.
 
-Lamb and Lars need sharded norms and are not ported yet (ROADMAP item
-8), nor are ``pp`` and ``sp`` meshes (distributed/mesh.py).
+**Trust-ratio rules.** Lamb and Lars take their per-tensor norms through
+`optimizer.optimizers._tensor_norm`: on the explicit path each rank's
+update runs inside `sharded_norms` over the dp ranks (each norm one
+counted all-reduce of the shard-local squared sum: the whole leaf's
+norm), and on the hybrid path each mp or sharding slice's norm sums over
+the group that slices it. A rule with another per-tensor reduction (DGC's
+top-k) runs on neither kind of shard.
+
+**LocalSGD** runs over any mesh, as the JAX step does: the replicas lie
+on ``dp`` (each dp index its own parameters and optimizer state), and
+every other axis holds them as the hybrid path does (an mp group shards
+each replica's Megatron layers); every k-th step averages each rank's
+values over its dp group.
+
+``pp`` meshes train through `models/gpt_pipeline.py` (the pipelined GPT's
+step, built on this module's rank jobs); ``sp`` is not ported
+(distributed/mesh.py).
 """
 from __future__ import annotations
 
@@ -124,6 +139,7 @@ from ..distributed.ranks import (RankFailed, RankSet, leave_group,
 from ..nn.layer import meta_copy
 from ..optimizer.lr import LRScheduler
 from ..optimizer.optimizer import from_settings, state_bytes
+from ..optimizer.optimizers import sharded_norms
 from ..profiler.tracing import InstrumentedStep
 from .collectives import (all_gather, all_reduce, collective_counts,
                           quantized_psum_scatter, reduce_scatter,
@@ -673,11 +689,23 @@ class _Replica:
         return out if self.rank == 0 else None
 
     def gather_replicas(self):
-        """Every rank's natural parameters stacked in rank order, ``{name:
-        [dp, *shape]}`` on rank 0 (one uncounted all-gather a leaf); None
-        elsewhere. The LocalSGD replicas differ between averaging steps."""
-        out = {n: self.group.all_gather(self.params[n].detach())
-               for n in self.names}
+        """Every dp replica's natural parameters stacked in dp order,
+        ``{name: [dp, *shape]}`` on rank 0 (one uncounted all-gather a
+        leaf; an mp layer's slices joined); None elsewhere. The LocalSGD
+        replicas differ between averaging steps."""
+        place, out = self.place, {}
+        for n in self.names:
+            stack = self.group.all_gather(self.params[n].detach())
+            mp = None if self.explicit else place.layouts[n][0]
+            reps = []
+            for d in range(place.shape["dp"]):
+                if mp is None:
+                    reps.append(stack[place.rank_of(dp=d)])
+                else:
+                    reps.append(mp_join([
+                        stack[place.rank_of(dp=d, mp=m)]
+                        for m in range(place.shape["mp"])], mp[0], mp[1]))
+            out[n] = torch.stack(reps)
         return out if self.rank == 0 else None
 
     def opt_bytes(self):
@@ -857,7 +885,13 @@ class _Replica:
         for n, g in grads.items():
             self.target[n].grad = g
         self.opt.set_lr(float(lr))
-        self.opt.step()
+        if self.explicit and not self.opt._elementwise_update:
+            # a trust-ratio rule on flat 1/dp shards: each per-tensor norm
+            # sums the shards' squares over the dp ranks
+            with sharded_norms(self.group, self.opt):
+                self.opt.step()
+        else:
+            self.opt.step()
         for t in self.target.values():
             t.grad = None
         return True
@@ -916,10 +950,12 @@ class _Replica:
         self._mark("update")
         self.count += 1
         if self.count % self.k_steps == 0 and self.dp > 1:
+            # each rank's values averaged over the replicas (its dp group)
             for n in self.names:
                 p = self.params[n]
                 t = p.detach().float()
-                all_reduce(t, self.group)
+                for g in self.data_groups:
+                    all_reduce(t, g)
                 p.copy_((t / self.dp).to(p.dtype))
         self._mark("param_gather")
 
@@ -948,16 +984,17 @@ def rank_main(mesh, store, spec, conn):
               ops=_OPS, finish=lambda jobs: jobs.close())
 
 
-def _unpack(group, layout, device):
-    """Receive from rank 0 the tensors of `layout` (``[(key, shape, dtype)]``),
-    one buffer a dtype in order of first appearance (`_pack`)."""
+def _unpack(group, layout, device, src=0):
+    """Receive from rank `src` the tensors of `layout` (``[(key, shape,
+    dtype)]``), one buffer a dtype in order of first appearance
+    (`_pack`)."""
     out, by_dtype = {}, {}
     for key, shape, dtype in layout:
         by_dtype.setdefault(dtype, []).append((key, shape))
     for dtype, items in by_dtype.items():
         sizes = [int(np.prod(shape)) for _, shape in items]
         buf = torch.empty(sum(sizes), dtype=dtype, device=device)
-        group.recv_(buf, 0)
+        group.recv_(buf, src)
         for (key, shape), part in zip(items, torch.split(buf, sizes)):
             out[key] = part.view(shape)
     return out
@@ -973,9 +1010,25 @@ def _pack(group, tensors, dst):
         group.send(torch.cat(parts), dst)
 
 
+def gather_shares(mesh, mine, layouts):
+    """Every rank's `mine` (``[(key, tensor)]``, in the order of its entry
+    of `layouts`: ``[(key, shape, dtype)]`` a rank) to rank 0, uncounted
+    over the world group: ``{rank: {key: CPU tensor}}`` on rank 0, None
+    elsewhere. Every rank calls it in its share of one job operation."""
+    if mesh.rank != 0:
+        _pack(mesh.group, mine, 0)
+        return None
+    out = {0: {k: t.detach().cpu().clone() for k, t in mine}}
+    for r in range(1, mesh.size):
+        got = _unpack(mesh.group, layouts[r], mesh.device, src=r)
+        out[r] = {k: t.cpu() for k, t in got.items()}
+    return out
+
+
 def _op_open(jobs, job_id, spec, payload):
-    """Build this rank's replica of a step from `spec`, then load it."""
-    jobs.jobs[job_id] = _Replica(spec, jobs.mesh)
+    """Build this rank's share of a job from `spec` (its ``factory``, a
+    class taking ``(spec, mesh)``; default `_Replica`), then load it."""
+    jobs.jobs[job_id] = spec.get("factory", _Replica)(spec, jobs.mesh)
     _op_load(jobs, job_id, payload)
 
 
@@ -988,9 +1041,10 @@ def _op_load(jobs, job_id, payload):
 
 
 def _op_job(jobs, job_id, op, *args):
-    if op not in _JOB_OPS:
+    job = jobs.jobs[job_id]
+    if op not in getattr(job, "JOB_OPS", _JOB_OPS):
         raise KeyError(op)
-    return getattr(jobs.jobs[job_id], op)(*args)
+    return getattr(job, op)(*args)
 
 
 def _op_drop(jobs, job_id):
@@ -1001,8 +1055,12 @@ def _op_report(jobs, zero=False):
     return dict(_report(jobs.mesh.device, zero), rank=jobs.mesh.rank)
 
 
+def _op_barrier(jobs):
+    jobs.mesh.group.barrier(jobs.mesh.device)
+
+
 _OPS = {"open": _op_open, "load": _op_load, "job": _op_job,
-        "drop": _op_drop, "report": _op_report}
+        "drop": _op_drop, "report": _op_report, "barrier": _op_barrier}
 _JOB_OPS = frozenset(("step", "collect", "gather", "gather_replicas",
                       "opt_bytes", "param_bytes"))
 
@@ -1076,7 +1134,114 @@ def job_spec(kind, model, loss_fn, optimizer, mesh, zero_stage=0,
                 stage3=stage3, **opts)
 
 
-class _TrainStep:
+class RankJob:
+    """A job over a mesh's ranks, driven from rank 0 (this process): its
+    share on every rank (``_replica`` here, the same job id on the
+    others), run by `_everywhere` and `_call`. Subclasses set ``mesh``,
+    ``_ranks`` (`_ranks_of(mesh)`), ``_job`` and ``_replica``."""
+
+    def _everywhere(self, local, op, *args, per_rank=None):
+        """``local()`` here and operation `op` on every other rank (its
+        `per_rank` value, when given, last among its arguments): ``[local's
+        result, rank 1's, ...]``. Anything that escapes while the ranks
+        were told raises as a `RankFailed` (`RankSet.failure`)."""
+        ranks = self._ranks
+        if ranks is not self.mesh.ranks:
+            raise RuntimeError(f"{type(self).__name__}: its mesh's ranks "
+                               "were closed; build a new step")
+        if ranks is None:
+            return [local()]
+        try:
+            ranks.post(op, *args, per_rank=per_rank, reply=True)
+            self.mesh.in_job += 1
+            try:
+                out = local()
+            finally:
+                self.mesh.in_job -= 1
+            rest = ranks.collect()
+        except RankFailed:
+            raise
+        except Exception as e:
+            ranks.failure(e)
+        ranks.check()
+        return [out] + rest
+
+    def _call(self, op, *args, per_rank=None):
+        """Run job op `op` on every rank (rank 0 here, the others over the
+        channel). Returns ``[rank 0's result, rank 1's, ...]``."""
+        mine = (per_rank[0],) if per_rank is not None else ()
+        return self._everywhere(
+            lambda: getattr(self._replica, op)(*args, *mine), "job",
+            self._job, op, *args,
+            per_rank=None if per_rank is None else per_rank[1:])
+
+    def _give(self, shares, spec=None):
+        """Send each rank its share (``shares[r]``: ``[(key, tensor)]`` on
+        rank 0's device) over the data plane and load it into the job's
+        share there; with `spec`, first build the job on every rank from
+        it (its ``factory``, taking ``(spec, mesh)``)."""
+        def local():
+            for r in range(1, self.mesh.size):
+                _pack(self.mesh.group, shares[r], r)
+            if spec is not None:
+                self._replica = spec["factory"](spec, self.mesh)
+            self._replica.load(dict(shares[0]), {})
+
+        layouts = [([(k, tuple(t.shape), t.dtype) for k, t in sh], {})
+                   for sh in shares[1:]]
+        if spec is not None:
+            self._everywhere(local, "open", self._job, spec,
+                             per_rank=layouts)
+        else:
+            self._everywhere(local, "load", self._job, per_rank=layouts)
+
+    def rank_reports(self, zero=False):
+        """Each rank's report (rank order): its flash launches and
+        collective calls since the last reset (reset after reading with
+        `zero`), its peak device memory, pid and imported top-level
+        modules. The counters are each process's own: everything the
+        process ran since the last reset."""
+        return self._everywhere(
+            lambda: dict(_report(self.mesh.devices[0], zero), rank=0),
+            "report", zero)
+
+    def collective_counts(self, zero=False):
+        """Each rank's collective calls since the last reset (rank
+        order)."""
+        return [r["collectives"] for r in self.rank_reports(zero)]
+
+    def close(self):
+        """Drop this job on every rank (the mesh's ranks stay up for other
+        jobs). Idempotent."""
+        ranks = self._ranks
+        if ranks is not None and ranks.failed is None and ranks.conns:
+            ranks.send("drop", self._job)
+        self._replica = None
+
+
+class _MeshOps(RankJob):
+    """A running mesh's operations that belong to no job."""
+
+    def __init__(self, mesh):
+        self.mesh, self._ranks = mesh, mesh.ranks
+
+
+def barrier(mesh):
+    """Return once every rank of `mesh` has reached it; nothing to wait for
+    without running ranks. Where every rank runs this code (`DeviceMesh.
+    in_step`) it is one uncounted all-reduce over the world group; in the
+    controller between jobs, where the ranks wait on the channel, each
+    rank runs it as an operation beside the controller."""
+    if mesh.group is None:
+        return
+    if mesh.in_step():
+        mesh.group.barrier(mesh.device)
+    else:
+        _MeshOps(mesh)._everywhere(lambda: mesh.group.barrier(mesh.device),
+                                   "barrier")
+
+
+class _TrainStep(RankJob):
     """What `ShardedTrainStep` and `LocalSGDTrainStep` share: the replicas
     on every rank, the channel, the state carry and the reports."""
 
@@ -1197,37 +1362,6 @@ class _TrainStep:
         else:
             self._everywhere(local, "load", self._job, payload)
 
-    def _everywhere(self, local, op, *args, per_rank=None):
-        """``local()`` here and operation `op` on every other rank (its
-        `per_rank` value, when given, last among its arguments): ``[local's
-        result, rank 1's, ...]``. Anything that escapes while the ranks
-        were told raises as a `RankFailed` (`RankSet.failure`)."""
-        ranks = self._ranks
-        if ranks is not self.mesh.ranks:
-            raise RuntimeError(f"{type(self).__name__}: its mesh's ranks "
-                               "were closed; build a new step")
-        if ranks is None:
-            return [local()]
-        try:
-            ranks.post(op, *args, per_rank=per_rank, reply=True)
-            out = local()
-            rest = ranks.collect()
-        except RankFailed:
-            raise
-        except Exception as e:
-            ranks.failure(e)
-        ranks.check()
-        return [out] + rest
-
-    def _call(self, op, *args, per_rank=None):
-        """Run replica op `op` on every rank (rank 0 here, the others over
-        the channel). Returns ``[rank 0's result, rank 1's, ...]``."""
-        mine = (per_rank[0],) if per_rank is not None else ()
-        return self._everywhere(
-            lambda: getattr(self._replica, op)(*args, *mine), "job",
-            self._job, op, *args,
-            per_rank=None if per_rank is None else per_rank[1:])
-
     # -- the user's surface ---------------------------------------------------
 
     def shard_batch(self, *arrays):
@@ -1339,30 +1473,6 @@ class _TrainStep:
         order."""
         return self._call("param_bytes")
 
-    def rank_reports(self, zero=False):
-        """Each rank's report (rank order): its flash launches and
-        collective calls since the last reset (reset after reading with
-        `zero`), its peak device memory, pid and imported top-level
-        modules. The counters are each process's own: everything the
-        process ran since the last reset."""
-        return self._everywhere(
-            lambda: dict(_report(self.mesh.devices[0], zero), rank=0),
-            "report", zero)
-
-    def collective_counts(self, zero=False):
-        """Each rank's collective calls since the last reset (rank
-        order)."""
-        return [r["collectives"] for r in self.rank_reports(zero)]
-
-    def close(self):
-        """Drop this step's replicas on every rank (the mesh's ranks stay up
-        for other steps). Idempotent."""
-        ranks = self._ranks
-        if ranks is not None and ranks.failed is None and ranks.conns:
-            ranks.send("drop", self._job)
-        self._replica = None
-
-
 class ShardedTrainStep(_TrainStep):
     """Data-parallel training over `mesh`'s ranks (the module docstring):
     forward, loss, backward, the gradient reduction and the optimizer's
@@ -1408,18 +1518,24 @@ class ShardedTrainStep(_TrainStep):
                     "grad norm needs every leaf while the update only "
                     "holds 1/dp shards — clip eagerly or use the GSPMD "
                     "path (explicit_update=False)")
-            if type(optimizer).__name__ in ("Lamb", "Lars"):
-                raise NotImplementedError(
-                    f"{type(optimizer).__name__} on the explicit update: "
-                    "its per-tensor trust ratio needs sharded norms (a "
-                    "psum of shard-local squared sums), which are not "
-                    "ported yet (ROADMAP Queue 1, item 8)")
-            if not getattr(optimizer, "_elementwise_update", True):
+            if (not getattr(optimizer, "_elementwise_update", True)
+                    and not getattr(optimizer, "_sharded_norm_ready",
+                                    False)):
                 raise ValueError(
                     f"{type(optimizer).__name__} computes per-tensor "
                     "reductions in its update rule; the shard-local "
                     "explicit update would change its semantics — use "
                     "the GSPMD path (explicit_update=False)")
+        if (not self.explicit_update
+                and not getattr(optimizer, "_elementwise_update", True)
+                and not getattr(optimizer, "_sharded_norm_ready", False)
+                and any(mp is not None or zs is not None for mp, _, zs in
+                        leaf_layouts(model, mesh, self.zero_stage).values())):
+            raise ValueError(
+                f"{type(optimizer).__name__} computes per-tensor "
+                "reductions in its update rule, and this mesh slices "
+                "leaves over 'mp' or 'sharding': the slice-local update "
+                "would change its semantics")
         self._open(model, loss_fn, optimizer, mesh, batch_specs,
                    zero_stage=self.zero_stage,
                    stage3=self.explicit_update and self.zero_stage >= 3,
@@ -1445,21 +1561,23 @@ def make_sharded_train_step(model, loss_fn, optimizer, mesh, batch_specs=None,
 
 class LocalSGDTrainStep(_TrainStep):
     """LocalSGD over the dp ranks (reference
-    fleet/meta_optimizers/localsgd_optimizer.py:28). Each rank keeps its
-    own replica and optimizer state and steps on its rows with no
-    gradient sync; every `k_steps`-th step one all-reduce a leaf averages
-    the parameters. Buffers are averaged every step; the loss is the mean
-    over the ranks."""
+    fleet/meta_optimizers/localsgd_optimizer.py:28). Each dp replica keeps
+    its own parameters and optimizer state and steps on its rows with no
+    gradient sync; every `k_steps`-th step one all-reduce a leaf over the
+    dp group averages the parameters. On a hybrid mesh the other axes
+    hold each replica as the hybrid path does (mp shards its Megatron
+    layers). Buffers are averaged every step; the loss is the mean over
+    the replicas."""
 
     _kind = "localsgd"
 
     def __init__(self, model, loss_fn, optimizer, mesh, k_steps=1,
                  batch_specs=None):
         model, optimizer = _unwrap(model, optimizer)
-        if any(d > 1 for a, d in mesh.shape.items() if a != "dp"):
-            raise NotImplementedError(
-                f"LocalSGDTrainStep over {dict(mesh.shape)}: LocalSGD runs "
-                "over a pure-dp mesh in the port (each replica a rank)")
+        if mesh.shape.get("pp", 1) > 1:
+            raise ValueError(
+                f"LocalSGDTrainStep over {dict(mesh.shape)}: a 'pp' mesh "
+                "trains through models/gpt_pipeline.py")
         self.k = int(k_steps)
         self._open(model, loss_fn, optimizer, mesh, batch_specs,
                    stage3=False, explicit=False, quant=False, gm_k=1,
@@ -1471,5 +1589,6 @@ class LocalSGDTrainStep(_TrainStep):
         return self._call("gather_replicas")[0]
 
 
-__all__ = ["LocalSGDTrainStep", "ShardedTrainStep", "explicit_update_eligible",
+__all__ = ["LocalSGDTrainStep", "RankJob", "ShardedTrainStep",
+           "explicit_update_eligible",
            "make_sharded_train_step", "train_collective_budget"]

@@ -1652,22 +1652,8 @@ class LLMEngine:
             # the engine: left registered, it would keep a closed engine
             # alive for the process's life
             self._tp_finalizer.detach()
-            self._release_device_memory()
         elif self._is_rank:
             self._group_leaver()()
-
-    def _release_device_memory(self):
-        """Give a closed tensor-parallel controller's card memory back at
-        once: its step programs, its own shard of the weights (moved to
-        the meta device), its arena and its adapter tables. Without its
-        ranks it cannot step again, and on the card a retired replica's
-        engine object was seen to outlive its last reference Python's gc
-        can see, with everything it held."""
-        self._step_fns.clear()
-        self.model.to("meta")
-        self.pool.k = self.pool.v = None
-        self.pool.k_scale = self.pool.v_scale = None
-        self._lora_tables = {}
 
     def _group_leaver(self):
         """What this rank runs as a tensor-parallel engine closes, beside

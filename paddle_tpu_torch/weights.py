@@ -209,3 +209,27 @@ def to_jax_train_state(step):
                            else jax_layout(name, v))
         opt_state[name] = slots
     return params, opt_state, sd["optimizer"].get("LR_Scheduler")
+
+
+# -- the pipelined GPT ---------------------------------------------------------
+
+
+def from_jax_pipeline_params(step, params):
+    """Load the JAX `make_pipelined_gpt` parameters (numpy or JAX arrays:
+    ``blocks`` leaves ``[pp, K, ...]``, or ``[pp, V, K, ...]`` for an
+    interleaved step, and ``wte``, ``wpe``, ``lnf_g``, ``lnf_b``) onto the
+    port's pipelined step (`models.gpt_pipeline.PipelinedGPTStep`): each
+    rank takes its stage's blocks (its mp slice of them) and the
+    embedding, head and norm its stage holds. Returns `step`."""
+    step.set_params({k: ({n: np.asarray(a) for n, a in v.items()}
+                         if k == "blocks" else np.asarray(v))
+                     for k, v in params.items()})
+    return step
+
+
+def to_jax_pipeline_params(step):
+    """The inverse of `from_jax_pipeline_params`: the step's parameters
+    gathered from its ranks, as the JAX pytree of numpy arrays."""
+    natural = step.gather_params()
+    return {k: ({n: a.numpy() for n, a in v.items()} if k == "blocks"
+                else v.numpy()) for k, v in natural.items()}

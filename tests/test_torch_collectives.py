@@ -141,10 +141,12 @@ def test_collectives_count_one_call_per_rank(tmp_path):
     got = run_ranks(tmp_path, 2, rank)
     assert got == [([3.0] * 3, [0, 1])] * 2
     assert coll.collective_counts() == {"all-reduce": 2, "all-gather": 2,
-                                        "reduce-scatter": 0, "all-to-all": 0}
+                                        "reduce-scatter": 0, "all-to-all": 0,
+                                        "send": 0, "recv": 0}
     coll.reset_collective_counts()
     assert coll.collective_counts() == {"all-reduce": 0, "all-gather": 0,
-                                        "reduce-scatter": 0, "all-to-all": 0}
+                                        "reduce-scatter": 0, "all-to-all": 0,
+                                        "send": 0, "recv": 0}
 
 
 def test_gathered_scales_are_per_rank(tmp_path):

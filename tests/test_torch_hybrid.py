@@ -450,9 +450,15 @@ def test_fleet_wrappers_train_through_the_step(meshes):
         port_mesh_mod.set_mesh(None)
     want = _jax_run("gpt", "mp2")[1][:2]
     np.testing.assert_allclose(got, want, rtol=1e-5)
+    # the strategy's lars switch now swaps a Momentum for Lars (and
+    # passes any other rule through), as the JAX wrapper does
+    from paddle_tpu_torch.optimizer import Lars, Momentum
+
     strategy.lars = True
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fleet.distributed_optimizer(opt, strategy)
+    assert fleet.distributed_optimizer(opt, strategy)._inner_opt is opt
+    mom = Momentum(learning_rate=LR, parameters=model.named_parameters())
+    assert isinstance(fleet.distributed_optimizer(mom, strategy)._inner_opt,
+                      Lars)
 
 
 def test_explicit_update_on_a_hybrid_mesh_raises_the_jax_error(meshes):
@@ -482,8 +488,16 @@ def test_explicit_update_on_a_hybrid_mesh_raises_the_jax_error(meshes):
 
 @pytest.mark.parametrize("deg", [{"pp": 2}, {"sp": 2}, {"dp": 2, "pp": 2}])
 def test_pipeline_and_sequence_axes_are_refused_naming_item_8(deg):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_mesh(deg, device="cpu")
+    """A 'pp' axis builds (the pipeline's stage lines, models/
+    gpt_pipeline.py); 'sp' is still refused, naming its ROADMAP item."""
+    if "sp" in deg:
+        with pytest.raises(NotImplementedError, match="item 8b"):
+            build_mesh(deg, device="cpu")
+        return
+    mesh = build_mesh(deg, device="cpu")
+    assert mesh.size == 2 * deg.get("dp", 1)
+    assert mesh.comm_lists("pp") == ([[0, 1]] if "dp" not in deg
+                                     else [[0, 1], [2, 3]])
 
 
 def test_rows_split_only_over_dp_and_sharding():

@@ -337,9 +337,24 @@ def test_rows_split_over_dp_and_sharding(mesh):
 
 
 def test_localsgd_over_a_hybrid_mesh_is_refused(mesh):
+    """LocalSGD over a hybrid mesh is no longer refused: it runs as the
+    JAX step does over any mesh, the replicas on dp (each replica's
+    Megatron layers sharded over its mp group, the sharding peers holding
+    it whole). At k=2 the two replicas differ after the first step and
+    agree after the second (test_torch_meta_optimizers.py holds it
+    against the pure-dp trajectory)."""
     from paddle_tpu_torch.parallel.spmd import LocalSGDTrainStep
 
     model = _port_gpt()
     opt = AdamW(learning_rate=LR, parameters=model.named_parameters())
-    with pytest.raises(NotImplementedError, match="pure-dp"):
-        LocalSGDTrainStep(model, gpt_loss_fn, opt, mesh, k_steps=2)
+    step = LocalSGDTrainStep(model, gpt_loss_fn, opt, mesh, k_steps=2)
+    try:
+        spreads = []
+        for _ in range(2):
+            assert np.isfinite(step(*_gpt_batch()))
+            w = step.replica_params()["blocks.0.fc1.weight"].numpy()
+            assert w.shape[0] == DEG["dp"]
+            spreads.append(np.abs(w - w.mean(0, keepdims=True)).max())
+    finally:
+        step.close()
+    assert spreads[0] > 1e-6 and spreads[1] < 1e-6, spreads

@@ -75,6 +75,10 @@ def test_port_has_modules_and_a_smoke_script():
                  "parallel_wrappers.py",
                  "paddle_tpu_torch/distributed/fleet/fleet.py",
                  "paddle_tpu_torch/distributed/fleet/strategy.py",
+                 "paddle_tpu_torch/distributed/fleet/meta_parallel/"
+                 "pp_layers.py",
+                 "paddle_tpu_torch/parallel/pipeline.py",
+                 "paddle_tpu_torch/models/gpt_pipeline.py",
                  "chip_smoke.py"):
         assert want in names
 
@@ -166,6 +170,31 @@ def test_an_mp_training_rank_imports_no_jax_or_paddle_tpu():
         step = make_sharded_train_step(model, gpt_loss_fn, opt, mesh)
         ids = np.arange(32).reshape(2, 16) % 64
         assert np.isfinite(step(ids, ids))
+        roots = step.rank_reports()[1]["modules"]
+    finally:
+        mesh.close()
+    assert "torch" in roots and "paddle_tpu_torch" in roots
+    assert not FORBIDDEN & set(roots), sorted(FORBIDDEN & set(roots))
+
+
+def test_a_pipeline_stage_rank_imports_no_jax_or_paddle_tpu():
+    """Spawned from this process (which has imported JAX), the second
+    stage of a pipelined GPT over {"pp": 2} builds its stage and trains
+    (its sends and receives included) from the port alone."""
+    import jax  # noqa: F401  (the parent holds JAX)
+    import numpy as np
+
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.models.gpt_pipeline import make_pipelined_gpt
+
+    cfg = GPTConfig(vocab_size=64, hidden_size=32, num_layers=2,
+                    num_heads=2, max_seq_len=16)
+    mesh = build_mesh({"pp": 2}, device="cpu", timeout=60)
+    try:
+        _, step = make_pipelined_gpt(cfg, mesh, 2, "1f1b")
+        ids = np.arange(64).reshape(4, 16) % 64
+        assert np.isfinite(step(ids, ids, 0.1))
         roots = step.rank_reports()[1]["modules"]
     finally:
         mesh.close()

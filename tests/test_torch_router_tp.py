@@ -153,22 +153,21 @@ def test_router_over_tp_replicas_retires_and_survives_a_dead_rank():
 
 
 def test_a_closed_tp_engine_is_freed():
-    """Once closed, a tensor-parallel engine gives its memory back: its
-    shard of the weights moves to the meta device, its arena and step
-    programs are dropped, and the engine itself is garbage like any other
-    (its rank-ending finalizer, whose arguments hold the step programs and
-    so the engine, is detached)."""
+    """Once closed, a tensor-parallel engine gives its memory back when
+    its last reference goes: the engine, its shard of the weights and its
+    arena are garbage like any other object (its rank-ending finalizer,
+    whose arguments hold the step programs and so the engine, is
+    detached), and the caller's model is untouched."""
     import gc
     import weakref
 
     model = gpt_tiny(device="cpu", seed=0)
     engine = _tp_engine(model)
     engine.generate([PROMPT], max_new_tokens=2)
-    ref = weakref.ref(engine)
+    refs = [weakref.ref(x) for x in (engine, engine.model, engine.pool.k)]
     engine.close()
-    assert all(p.is_meta for p in engine.model.parameters())
-    assert engine.pool.k is None and not engine._step_fns
-    assert all(not p.is_meta for p in model.parameters())
+    assert engine._tp.alive() == []
     del engine
     gc.collect()
-    assert ref() is None
+    assert [r() for r in refs] == [None] * 3
+    assert all(not p.is_meta for p in model.parameters())

@@ -215,7 +215,8 @@ def test_reduce_scatter_and_all_to_all_count_one_call(tmp_path):
     assert got[0] == ([0.0, 3.0, 6.0], [[0, 0], [1, 0]])
     assert got[1] == ([9.0, 12.0, 15.0], [[0, 1], [1, 1]])
     assert coll.collective_counts() == {"all-reduce": 0, "all-gather": 0,
-                                        "reduce-scatter": 2, "all-to-all": 2}
+                                        "reduce-scatter": 2, "all-to-all": 2,
+                                        "send": 0, "recv": 0}
 
 
 @pytest.mark.parametrize("n,dp,quant,nbuf", [
@@ -327,7 +328,9 @@ def test_step_counts_equal_the_budget_on_every_rank(mesh, zs, quant):
         step.close()
     assert len(counts) == DP
     for c in counts:
-        assert c == {k: 2 * budget[k] for k in KEYS}, (c, budget)
+        # the budget's four collectives, and no point-to-point call
+        assert c == {**{k: 2 * budget[k] for k in KEYS}, "send": 0,
+                     "recv": 0}, (c, budget)
     for ph in phases:      # each rank's step, phase by phase
         assert set(ph) == {"gather", "forward_backward", "loss_reduce",
                            "grad_reduce", "update", "param_gather"}, ph
@@ -366,7 +369,8 @@ def test_a_lost_reduce_scatter_breaks_the_budget(tmp_path, monkeypatch):
 
     budget = train_collective_budget(len(spec["names"]), DP)
     losses, counts = run()
-    assert counts == {k: DP * budget[k] for k in KEYS}
+    assert counts == {**{k: DP * budget[k] for k in KEYS}, "send": 0,
+                      "recv": 0}
 
     def all_reduce_then_slice(flat, group):
         full = flat.clone()
@@ -516,11 +520,11 @@ def _jax_message(fn):
 
 def test_guards_raise_with_the_jax_words(mesh):
     """The JAX step's guards, in its words: quant_grads off the explicit
-    path, grad_clip and a rule with per-tensor reductions on it,
-    explicit_update below stage 2 or off a pure-dp mesh. Lamb and Lars
-    and a mesh with a 'pp' or 'sp' axis are not ported: NotImplementedError
-    naming their ROADMAP item; 'mp' and 'sharding' meshes build
-    (test_torch_hybrid.py trains on them)."""
+    path, grad_clip and a rule with per-tensor reductions other than
+    sharded norms on it, explicit_update below stage 2 or off a pure-dp
+    mesh. Lamb and Lars build on the explicit path, as in the JAX step;
+    'mp', 'sharding' and 'pp' meshes build, and an 'sp' axis is refused
+    naming its ROADMAP item."""
     model = _model()
     jmesh = jax_init_mesh({"dp": DP})
     paddle.seed(0)
@@ -570,16 +574,21 @@ def test_guards_raise_with_the_jax_words(mesh):
         port(sgd(), m=one, zero_stage=2, explicit_update=True)
     assert not port(sgd(), m=one, zero_stage=2).explicit_update
 
-    class Lamb(AdamW):
-        pass
+    # Lamb and Lars now build on the explicit path (their norms sum the
+    # shards over dp: test_torch_meta_optimizers.py trains them), as in
+    # the JAX step; a 'pp' mesh builds, 'sp' is still refused
+    from paddle_tpu_torch.optimizer import Lamb, Lars
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port(Lamb(learning_rate=0.01, parameters=model.named_parameters()),
-             zero_stage=2)
+    for rule in (Lamb, Lars):
+        step = port(rule(learning_rate=0.01,
+                         parameters=model.named_parameters()), zero_stage=2)
+        assert step.explicit_update
+        step.close()
     assert build_mesh({"dp": 2, "mp": 2}, device="cpu").size == 4
     assert build_mesh({"dp": 1, "sharding": 2}, device="cpu").size == 2
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_mesh({"dp": 2, "pp": 2}, device="cpu")
+    assert build_mesh({"dp": 2, "pp": 2}, device="cpu").size == 4
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        build_mesh({"dp": 2, "sp": 2}, device="cpu")
     with pytest.raises(ValueError, match="unknown mesh axes"):
         build_mesh({"tp": 2}, device="cpu")
 
