@@ -183,10 +183,16 @@ Phases, in order; any failure exits nonzero:
 5. The flash-attention kernels (forward; dK/dV and dQ) against the plain
    version (`attention_ref` in float32 on the same values, and autograd's
    gradients) at the training shape (B 16, H 8, S 1024, D 128, causal) in
-   bfloat16 (tolerance 2e-2) and in float32 at B 2 (TF32 off, 1e-3),
-   comparing O, LSE, dQ, dK and dV; with the kernels', the plain
-   version's and scaled_dot_product_attention's device times beside the
-   least time the card could take.
+   bfloat16 (tolerance 2e-2) and in float32 at B 2 (TF32 off, 1e-3, and
+   every float32 error also within 2e-5: the 3xTF32 dK/dV and dQ must
+   keep f32 accuracy), comparing O, LSE, dQ, dK and dV; with the kernels',
+   the plain version's and scaled_dot_product_attention's device times
+   beside the least time the card could take (the float32 backward's
+   bound is its 3xTF32 design's, three TF32 passes a product on the
+   tensor cores, with the FMA units' bound beside it). The float32 record
+   names each kernel's design, as the comment above the kernel in
+   flash_attention.cu states it, and ptxas's registers and spill bytes
+   for the four f32 backward instantiations.
    5b. The flash kernels' additive-mask and dropout variants against the
    plain version on the same values, mask and seed (the same Philox keep
    bits), q/k/v being strided views of a fused projection as in the
@@ -367,8 +373,10 @@ import torch
 H, D, BS, B = 16, 128, 16, 8             # gpt_1p3b heads/head_dim, serving
 WIDTHS = (1, 5, 128)                      # decode, 1 + num_spec, chunk
 TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+F32_FLASH_TOL = 2e-5      # phases 5 / 5b: the f32 flash kernels' accuracy
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12        # dense TF32 on the tensor cores
 
 
 def log(*a):
@@ -2409,6 +2417,16 @@ async def _fleet(model, graph_outs, smi):
         snap = json.loads(body)
         up = next(x for x in snap["decisions"] if x["action"] == "up")
         down = next(x for x in snap["decisions"] if x["action"] == "down")
+        # as for the first retire: the scaled-down replica's engine thread
+        # and last streams end after the retire returns, so its memory is
+        # read once its engine is gone (or after 60 s, when the gate below
+        # fails on what still holds it)
+        t_free = time.perf_counter()
+        while (births.refs[born0]() is not None
+               and time.perf_counter() - t_free < 60):
+            gc.collect()
+            await asyncio.sleep(0.1)
+        spawned_free_wait_s = time.perf_counter() - t_free
         gc.collect()
         torch.cuda.synchronize()
         mem1 = torch.cuda.memory_allocated()
@@ -2429,6 +2447,7 @@ async def _fleet(model, graph_outs, smi):
             earlier_retire_freed=retired() is None,
             earlier_retire_wait_s=free_wait_s,
             spawned_engine_freed=not holders, spawned_engine_holders=holders,
+            spawned_engine_wait_s=spawned_free_wait_s,
             endpoint=code, seconds=time.perf_counter() - t0)
         a = res["autoscale"]
         log("[fleet] autoscale " + json.dumps(a))
@@ -2905,7 +2924,11 @@ def _flash_bounds(B, S, H, D, dtype, causal=True, mask_bytes=0):
     it must move (each [B, S, H, D] input read once, each output written
     once, the f32 LSE / delta rows, and the mask's own bytes once where
     there is one). The dropout bits are computed, not moved, and no
-    product: they add nothing to the bound."""
+    product: they add nothing to the bound. Products count at the dtype's
+    peak, but the float32 backward's: it runs in 3xTF32, three TF32 passes
+    a product on the tensor cores (165 TFLOP/s), so its bound ("dkv", ...)
+    is taken at that rate, and the FMA units' 67 TFLOP/s give its
+    "dkv_fma", ... beside it."""
     isz = torch.tensor([], dtype=dtype).element_size()
     # visible (query, key) pairs
     pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
@@ -2915,10 +2938,45 @@ def _flash_bounds(B, S, H, D, dtype, causal=True, mask_bytes=0):
             "dq": (3, 5 * t + 2 * rows), "bwd": (5, 8 * t + rows)}
     out = {}
     for name, (products, nbytes) in work.items():
-        t_ops = products * 2 * D * pairs / PEAK_FLOPS[dtype]
         t_bytes = (nbytes + mask_bytes) / HBM_BYTES_PER_S
-        out[name] = (max(t_ops, t_bytes) * 1e3,
-                     "operations" if t_ops >= t_bytes else "bytes")
+        peaks = {name: PEAK_FLOPS[dtype]}
+        if dtype == torch.float32 and name != "fwd":
+            peaks = {name: PEAK_TF32 / 3, f"{name}_fma": PEAK_FLOPS[dtype]}
+        for key, peak in peaks.items():
+            t_ops = products * 2 * D * pairs / peak
+            out[key] = (max(t_ops, t_bytes) * 1e3,
+                        "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def f32_designs():
+    """The float32 kernels' designs, as the comment above each kernel in
+    flash_attention.cu states them (`// design: ...`), so the record names
+    the design that is built."""
+    from paddle_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    out = {}
+    for key, kernel in (("fwd", "flash_fwd"), ("dkv", "flash_dkv_f32"),
+                        ("dq", "flash_dq_f32")):
+        m = re.search(r"// design: (.*(?:\n//   .*)*)\ntemplate <[^>]*>\n"
+                      r"__global__[^\n]*(?:\n\s*)?" + kernel + r"\(", src)
+        if m is None:
+            raise SystemExit(f"no design comment above {kernel}")
+        out[key] = re.sub(r"\n//  ", "", m.group(1))
+    return out
+
+
+def f32_ptxas():
+    """ptxas's (registers, spill bytes) for the f32 dK/dV and dQ kernels
+    at head_dim 64 and 128 (one entry each: the plain and the mask /
+    dropout bodies are one kernel, chosen at its top)."""
+    out = {}
+    for kname in ("dkv", "dq"):
+        for d in (64, 128):
+            regs, spill = ptxas_report("flash_attention.cu",
+                                       f"flash_{kname}_f32ILi{d}EE")
+            out[f"{kname}_{d}"] = dict(registers=regs, spill_bytes=spill)
     return out
 
 
@@ -2980,7 +3038,13 @@ def _flash_case(dtype, gen):
                causal=True, max_err=err, tol=TOL[dtype], **times,
                **{f"bound_{n}_ms": b[0] for n, b in bounds.items()},
                **{f"bound_{n}_by": b[1] for n, b in bounds.items()})
+    if dtype == torch.float32:
+        rec.update(f32_tol=F32_FLASH_TOL, design=f32_designs(),
+                   ptxas=f32_ptxas())
     log("[flash] " + json.dumps(rec))
+    if dtype == torch.float32 and max(err.values()) > F32_FLASH_TOL:
+        raise SystemExit(f"a float32 flash kernel misses {F32_FLASH_TOL}: "
+                         f"{rec}")
     if max(err.values()) > TOL[dtype]:
         raise SystemExit(f"a flash kernel disagrees with the plain version: "
                          f"{rec}")
@@ -3155,7 +3219,13 @@ def _variant_case(name, dtype, shape, causal, with_mask, p, heads, gen):
                **times,
                **{f"bound_{n}_ms": b[0] for n, b in bounds.items()},
                **{f"bound_{n}_by": b[1] for n, b in bounds.items()})
+    if dtype == torch.float32:
+        rec["f32_tol"] = F32_FLASH_TOL
     log("[flash-variant] " + json.dumps(rec))
+    if dtype == torch.float32 and max(*err.values(), whole_err or 0.0) > \
+            F32_FLASH_TOL:
+        raise SystemExit(f"a float32 flash kernel variant misses "
+                         f"{F32_FLASH_TOL}: {rec}")
     if max(err.values()) > TOL[dtype] or (whole_err or 0.0) > TOL[dtype]:
         raise SystemExit(f"a flash kernel variant disagrees with the plain "
                          f"version: {rec}")
@@ -5218,6 +5288,12 @@ def main():
                              else "plain_bwd_ms"],
             "bound_ms": head[f"bound_{key}_ms"],
             "bound_by": head[f"bound_{key}_by"],
+            # the pair's bound is 3xTF32's; the FMA units' beside it
+            **({"bound_fma_ms": head[f"bound_{key}_fma_ms"],
+                "bound_fma_by": head[f"bound_{key}_fma_by"],
+                **flash[1]["ptxas"][f"{kname}_128"]} if key != "fwd"
+               else {}),
+            "design": flash[1]["design"][kname],
             "library_ms": head["library_fwd_ms"] if key == "fwd" else None,
             "library_bwd_ms": head["library_bwd_ms"],
         })

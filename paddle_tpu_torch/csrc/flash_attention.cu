@@ -63,9 +63,11 @@
 //
 // Which design runs: every bf16 kernel runs the sm_90a design
 // (`flash_fwd_sm90`, `flash_dkv_sm90`, `flash_dq_sm90`: TMA, wgmma,
-// warp-specialised warpgroups); the three float32 kernels run the float32
-// design below (wgmma has no f32 form, and the f32 kernels are the
-// card-vs-CPU parity path).
+// warp-specialised warpgroups); the float32 dK/dV and dQ run the 3xTF32
+// design (`flash_dkv_f32`, `flash_dq_f32`: split-precision products on the
+// tensor cores through mma.sync); the float32 forward (`flash_fwd`) runs
+// the f32 FMA design. The f32 kernels are the card-vs-CPU parity path and
+// the pipelined GPT-3 1.3B's (it trains in f32, as the JAX model does).
 //
 // The sm_90a design. What bounded the mma.sync kernels on bf16: Ampere's
 // mma.sync cannot reach the tensor cores' full rate, each warp's ldmatrix
@@ -122,30 +124,83 @@
 //   against per-row limits, and only on the tiles that need it; exp2 runs
 //   on the special function unit directly.
 //
-// The float32 design (forward, dK/dV and dQ; a simple design, fourth
-// version of what began as the bf16 mma.sync kernels):
-// - Products in f32 FMAs (no TF32, for the parity checks) on the fragment
-//   layout of mma.sync.m16n8k16, read from shared memory, where the
-//   right-hand operand is stored [depth][columns] as V is for P V, so no
-//   tile is ever stored transposed.
+// The float32 forward (a simple design, fourth version of what began as
+// the bf16 mma.sync kernels):
+// - Products in f32 FMAs on the fragment layout of mma.sync.m16n8k16,
+//   read from shared memory, where the right-hand operand is stored
+//   [depth][columns] as V is for P V, so no tile is ever stored
+//   transposed.
 // - Tiles of 64 queries x 64 keys; four warps per block, each owning 16
-//   rows of the tile, so the softmax and the P / dS round trip through
-//   shared memory stay inside one warp (no block barrier between the two
-//   products of a tile).
-// - Forward: one block per (query tile, batch*head), looping over key
-//   tiles. dK/dV: one block per (key tile, batch*head), looping over query
-//   tiles. dQ: one block per (query tile, batch*head), looping over key
-//   tiles.
+//   rows of the tile, so the softmax and the P round trip through shared
+//   memory stay inside one warp. One block per (query tile, batch*head),
+//   looping over key tiles.
 // - The softmax runs in base 2 (exp2f on scores pre-scaled by log2(e)),
 //   and the per-element causal / edge test only on the tiles that need it.
 // - A two-stage cp.async pipeline: while a tile's products run, the next
-//   tile's operands (K and V; Q, dO, LSE and delta for dK/dV) are already
-//   on their way to the other half of a double buffer, and no register
-//   holds them in transit.
+//   K and V are already on their way to the other half of a double buffer.
 // - Mask values are read from global memory (L1-cached) at the score's
 //   fragment position.
 //
-// Both designs: the backward is split in two kernels with no atomics (the
+// The float32 dK/dV and dQ (3xTF32). The FMA design they replace ran at
+// 4.8-7.2x its FMA bound at a pipeline stage's shape on the H100: scalar
+// FMAs (67 TFLOP/s at best) fed by shared-memory loads on every k-step,
+// 221 KB of shared memory a block of four warps (one block an SM), and a
+// copy that nothing overlapped. So:
+// - Products on the tensor cores in split precision: each f32 operand x is
+//   hi + lo with hi = x rounded to TF32 (to nearest, ties away from zero,
+//   in two integer instructions) and lo = x - hi (exact), and each product
+//   is lo_a hi_b + hi_a lo_b + hi_a hi_b, three mma.sync.m16n8k8.tf32. The
+//   tensor core reads lo's top 19 bits, and lo_a lo_b is left out:
+//   together about 2^-21 of each product, the order of f32's rounding.
+//   3xTF32 runs at a third of the dense TF32 rate, 165 TFLOP/s, against 67
+//   for FMAs, and leaves the FMA and load pipes to the softmax recompute,
+//   the mask and Philox.
+// - The tensor core adds a product into its accumulator rounding toward
+//   zero: one chain of 192 mma into a dV accumulator (1024 queries, two
+//   warps) drifted 4.5e-5 from float64 on the H100, where plain f32
+//   products stay within 1.0e-5, and an emulation of that rounding on the
+//   CPU drifts alike (2.3e-5 at 256 queries, 5.1e-5 at 512). So no chain
+//   is long: each product sums four k-steps (32 of its depth) into a fresh
+//   accumulator and adds that into its sums in f32. Then every error
+//   stays within 4.4e-6 of float64 and within 2e-5 of the plain f32
+//   version (tests/test_torch_flash_split_f32.py emulates the roundings
+//   and the chains on the CPU against float64; one TF32 pass misses the
+//   same gate by two orders of magnitude).
+// - mma.sync, not wgmma: wgmma's tf32 form reads both shared-memory
+//   operands K-major only (the transpose is for 16-bit types), and dV +=
+//   (P D)^T dO, dK += dS^T Q and dQ += dS K all read their right-hand
+//   operand MN-major, as stored; wgmma would need [D][rows] copies of dO,
+//   Q and K. mma.sync's fragments are loaded by the threads from any
+//   layout: rows are padded by 16 bytes (stride = 4 mod 32 words), which
+//   makes both the row-major reads (A, and B of S and dP) and the column
+//   reads (B of dV, dK, dQ: rows 2t and 2t + 1, column g) free of bank
+//   conflicts, so no tile is stored transposed.
+// - The accumulator of S^T (or S) and dP^T (or dP) is the m16n8 layout,
+//   and a lane's two columns 2t, 2t + 1 serve as depth t and t + 4 of the
+//   next product's A fragment (the B operand reads rows in the same
+//   order): P and dS stay in registers. The softmax recompute, add_mask,
+//   drop_rows / drop_cols and store_rows keep the FMA design's fragment
+//   positions.
+// - Operands are split at each fragment load, not once per tile into hi /
+//   lo planes: planes would double the tiles' shared memory (405 KB at D
+//   128 for dK/dV's six tiles), which does not fit one block of eight
+//   warps. Each A fragment is split once per k-step and reused over a row
+//   of n-tiles; each B value once per warp that reads it.
+// - Eight warps a block (one block an SM at D 128): 64 keys (dK/dV) or 64
+//   queries (dQ) a block in four row groups of 16. In dK/dV the two warps
+//   of a row group split the products: one computes S^T, P and dV, the
+//   other dP^T, dS^T (P handed over through shared memory, a dropped
+//   entry negated, a named barrier a pair) and dK, so a warp holds one
+//   [16][D] accumulator (two would take 128 of its 255 registers and
+//   spill). In dQ the two warps of a row group take the two halves of each
+//   64-key tile, each with its own dQ sums, added half 0 then half 1
+//   through shared memory at the end: one fixed order. A warp whose rows
+//   see none of its columns skips the tile.
+// - Q / dO (dK/dV) or K / V (dQ) tiles come through a two-stage cp.async
+//   ring, the next tile in flight while this one's products run; the
+//   grid is (B*H, tiles), heaviest causal tiles first.
+//
+// Every design: the backward is split in two kernels with no atomics (the
 // JAX design): each gradient is summed in one fixed order, so the result
 // is the same on every run, at the price of recomputing S and dP twice.
 // Dropout draws each Philox output once: in the forward and dQ layout
@@ -154,7 +209,7 @@
 // (rows = keys) the four lanes that hold a group's keys each draw one of
 // their four (key group, query) counters and trade words through four
 // shuffles (the wgmma accumulator is the m16n8 layout repeated along N, so
-// both kinds of kernel share these helpers).
+// every kind of kernel shares these helpers).
 // Not yet: a persistent grid (one block an SM walking over tiles, so one
 // tile's epilogue overlaps the next's loads); TMA stores of the outputs;
 // overlap inside a dK/dV consumer (the next tile's S^T product beside this
@@ -292,18 +347,18 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Starts copying rows [r0, r0 + kTile) of a [n_rows, D] slab (row stride
-// `rs` elements) into shared memory `dst` (row stride ld); rows past
-// n_rows (>= 1) read nothing and come out zero.
-template <typename T, int D>
+// The block's kN threads start copying rows [r0, r0 + kTile) of a
+// [n_rows, D] slab (row stride `rs` elements) into shared memory `dst`
+// (row stride ld); rows past n_rows (>= 1) read nothing and come out zero.
+template <typename T, int D, int kN = kThreads>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
                                           int64_t rs, int64_t r0,
                                           int64_t n_rows) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kVpr = D / kVec;  // 16-byte vectors per row
-  static_assert(kTile * kVpr % kThreads == 0, "tile must split evenly");
+  static_assert(kTile * kVpr % kN == 0, "tile must split evenly");
 #pragma unroll
-  for (int i = threadIdx.x; i < kTile * kVpr; i += kThreads) {
+  for (int i = threadIdx.x; i < kTile * kVpr; i += kN) {
     const int r = i / kVpr, c = (i % kVpr) * kVec;
     const bool in = r0 + r < n_rows;
     cp_async16(dst + r * ld + c, src + (in ? r0 + r : 0) * rs + c,
@@ -312,9 +367,10 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
 }
 
 // The same for kTile f32 values of a row of n (>= 1) values.
+template <int kN = kThreads>
 __device__ __forceinline__ void load_row(float* dst, const float* src,
                                          int64_t r0, int64_t n) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+  for (int i = threadIdx.x; i < kTile; i += kN) {
     const bool in = r0 + i < n;
     cp_async4(dst + i, src + (in ? r0 + i : 0), in ? 4 : 0);
   }
@@ -436,10 +492,6 @@ __device__ __forceinline__ uint4 philox(uint32_t c0, uint32_t c1, uint32_t c2,
   return make_uint4(c0, c1, c2, c3);
 }
 
-__device__ __forceinline__ uint32_t pick(const uint4& r, int i) {
-  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
-}
-
 // 1 where the keep bits keep, else 0. The 1 / (1 - p) is applied in f32
 // where the kept value meets the accumulator, so a kept P is rounded to
 // V's dtype exactly as without dropout.
@@ -466,28 +518,6 @@ __device__ __forceinline__ void drop_rows(const FlashArgs& a, int64_t bh,
   f[1] = keep_flag(a, odd ? x1 : r.y);
   f[2] = keep_flag(a, odd ? r.z : x0);
   f[3] = keep_flag(a, odd ? r.w : x1);
-}
-
-// The same for the dK/dV layout (rows = keys): element e is key krow + 8 *
-// (e / 2), query qcol + e % 2, where krow = k0 + 16 * warp + g and qcol =
-// q0 + 8j + 2t. The four lanes g & 3 = u of a quad (same t) hold one key
-// group's four keys at both key rows and both queries: lane u draws the
-// counter of element u (key group of row u / 2, query qcol + u % 2), and
-// in round k sends word u ^ k of it to lane u ^ k, which takes it as its
-// element u ^ k. Every lane of the warp must call this together.
-__device__ __forceinline__ void drop_cols(const FlashArgs& a, int64_t bh,
-                                          int64_t krow, int64_t qcol,
-                                          float (&f)[4]) {
-  const int u = (threadIdx.x >> 2) & 3;
-  const uint4 r = philox((uint32_t)(((krow - u) >> 2) + 2 * (u >> 1)),
-                         (uint32_t)(qcol + (u & 1)), (uint32_t)bh, a.seed);
-  uint4 got;  // word k: element u ^ k
-  got.x = pick(r, u);
-  got.y = __shfl_xor_sync(0xffffffffu, pick(r, u ^ 1), 4);
-  got.z = __shfl_xor_sync(0xffffffffu, pick(r, u ^ 2), 8);
-  got.w = __shfl_xor_sync(0xffffffffu, pick(r, u ^ 3), 12);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) f[e] = keep_flag(a, pick(got, u ^ e));
 }
 
 // ---------------------------------------------------------------------------
@@ -624,6 +654,8 @@ __device__ __forceinline__ void fwd_body(const FlashArgs& a) {
   if (kVar && a.o32.p) store_rows<float, D>(a.o32, b, h, qrow, a.Sq, o, inv);
 }
 
+// design: f32 FMA on mma.sync's fragment layout, 64x64 tiles, 4 warps,
+//   2-stage cp.async
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd(const FlashArgs a) {
   if (a.has_mask || a.has_dropout)
@@ -632,272 +664,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(const FlashArgs a) {
     fwd_body<T, D, false>(a);
 }
 
-// ---------------------------------------------------------------------------
-// dK/dV: grid (key tiles, B*H). Warps own 16 keys; the products run on the
-// transposed tiles (rows = keys, columns = queries).
-// ---------------------------------------------------------------------------
-
-template <typename T, int D, bool kVar>
-__device__ __forceinline__ void dkv_body(const FlashArgs& a) {
-  using L = Ld<T, D>;
-  extern __shared__ uint4 smem_u4[];
-  constexpr int kTileElems = kTile * L::kD;
-  T* ks = reinterpret_cast<T*>(smem_u4);  // [kTile][kD]
-  T* vs = ks + kTileElems;                // [kTile][kD]
-  T* qds = vs + kTileElems;               // [2 stages][Q, dO][kTile][kD]
-  T* pt = qds + 4 * kTileElems;           // [kTile][kT], P^T then dS^T
-  // [2 stages][LSE, delta][kTile]
-  float* rows = reinterpret_cast<float*>(pt + kTile * L::kT);
-
-  const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  // the keep bits' head coordinate: the model's head, not this launch's
-  const int64_t dbh = b * a.heads_total + a.head_offset + h;
-  const int64_t k0 = (int64_t)blockIdx.x * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t off = a.Sk - a.Sq;
-  const T* qg = slab<T>(a.q, b, h);
-  const T* dog = slab<T>(a.dout, b, h);
-  // Q, dO, LSE and delta of query tile qi into its stage
-  auto fetch = [&](int qi) {
-    const int64_t q0 = (int64_t)qi * kTile;
-    T* dst = qds + (qi & 1) * 2 * kTileElems;
-    float* r = rows + (qi & 1) * 2 * kTile;
-    load_tile<T, D>(dst, L::kD, qg, a.q.ss, q0, a.Sq);
-    load_tile<T, D>(dst + kTileElems, L::kD, dog, a.dout.ss, q0, a.Sq);
-    load_row(r, a.lse + bh * a.Sq, q0, a.Sq);
-    load_row(r + kTile, a.delta + bh * a.Sq, q0, a.Sq);
-  };
-  // first query tile holding a query that sees key k0
-  int qt_begin = 0;
-  if (a.causal && k0 - off > 0) qt_begin = (int)((k0 - off) / kTile);
-  const int n_qt = (int)((a.Sq + kTile - 1) / kTile);
-  load_tile<T, D>(ks, L::kD, slab<T>(a.k, b, h), a.k.ss, k0, a.Sk);
-  load_tile<T, D>(vs, L::kD, slab<T>(a.v, b, h), a.v.ss, k0, a.Sk);
-  fetch(qt_begin);
-  cp_async_commit();
-
-  float dk[D / 8][4], dv[D / 8][4];
-  zero(dk);
-  zero(dv);
-  const float sl2 = a.scale * kLog2e;
-  T* pw = pt + warp * 16 * L::kT;
-  const bool has_mask = kVar && a.has_mask;
-  const bool has_drop = kVar && a.has_dropout;
-  const float* mb = mask_slab(a, bh);
-  const int64_t krow = k0 + warp * 16 + g;
-
-  for (int qi = qt_begin; qi < n_qt; ++qi) {
-    const int64_t q0 = (int64_t)qi * kTile;
-    const T* qs = qds + (qi & 1) * 2 * kTileElems;
-    const T* dos = qs + kTileElems;
-    const float* lse_s = rows + (qi & 1) * 2 * kTile;
-    const float* delta_s = lse_s + kTile;
-    if (qi + 1 < n_qt) {
-      fetch(qi + 1);  // into the stage the previous tile freed
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // this tile (and K, V) has landed for every thread
-
-    float st[kTile / 8][4], dpt[kTile / 8][4];
-    zero(st);
-    zero(dpt);
-    warp_gemm<kTile / 8, D, false>(st, ks + warp * 16 * L::kD, L::kD, qs,
-                                   L::kD);
-    warp_gemm<kTile / 8, D, false>(dpt, vs + warp * 16 * L::kD, L::kD, dos,
-                                   L::kD);
-
-    // P^T (times the keep flags), rounded into shared memory for
-    // dV += (P keep)^T dO; st keeps P, dpt becomes dP D
-    const bool full = all_visible(a, q0, k0);
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      float f[4] = {1.f, 1.f, 1.f, 1.f};
-      if (has_drop) drop_cols(a, dbh, krow, q0 + 8 * j + 2 * t, f);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int64_t qpos = q0 + 8 * j + 2 * t + (e & 1);
-        const int64_t kpos = krow + 8 * (e >> 1);
-        const float lse2 = lse_s[qpos - q0] * kLog2e;
-        float p = 0.f;
-        if (full || visible(a, qpos, kpos))
-          p = has_mask
-                  ? exp2f(add_mask(a, mb, qpos, kpos, st[j][e] * sl2) - lse2)
-                  : exp2f(fmaf(st[j][e], sl2, -lse2));
-        // with dropout, a dropped P is kept negated: |st| is P for dS,
-        // max(st, 0) is P keep for dV
-        st[j][e] = has_drop && f[e] == 0.f ? -p : p;
-        if (has_drop) dpt[j][e] *= f[e] * a.drop_scale;
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        T* dst = pw + (g + 8 * i) * L::kT + 8 * j + 2 * t;
-        if (has_drop)
-          store2(dst, fmaxf(st[j][2 * i], 0.f), fmaxf(st[j][2 * i + 1], 0.f));
-        else
-          store2(dst, st[j][2 * i], st[j][2 * i + 1]);
-      }
-    }
-    __syncwarp();
-    warp_gemm<D / 8, kTile, true>(dv, pw, L::kT, dos, L::kD);
-    __syncwarp();
-    // dS^T over the same buffer, for dK += dS^T Q
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int c = 8 * j + 2 * t;
-        const float p0 = has_drop ? fabsf(st[j][2 * i]) : st[j][2 * i];
-        const float p1 =
-            has_drop ? fabsf(st[j][2 * i + 1]) : st[j][2 * i + 1];
-        store2(pw + (g + 8 * i) * L::kT + c,
-               p0 * (dpt[j][2 * i] - delta_s[c]) * a.scale,
-               p1 * (dpt[j][2 * i + 1] - delta_s[c + 1]) * a.scale);
-      }
-    __syncwarp();
-    warp_gemm<D / 8, kTile, true>(dk, pw, L::kT, qs, L::kD);
-    __syncthreads();  // every warp is done with this stage before its refill
-  }
-
-  const float one[2] = {1.f, 1.f};
-  const float ds = has_drop ? a.drop_scale : 1.f, dscale[2] = {ds, ds};
-  store_rows<T, D>(a.dk, b, h, krow, a.Sk, dk, one);
-  store_rows<T, D>(a.dv, b, h, krow, a.Sk, dv, dscale);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv(const FlashArgs a) {
-  if (a.has_mask || a.has_dropout)
-    dkv_body<T, D, true>(a);
-  else
-    dkv_body<T, D, false>(a);
-}
-
-// ---------------------------------------------------------------------------
-// dQ: grid (query tiles, B*H)
-// ---------------------------------------------------------------------------
-
-template <typename T, int D, bool kVar>
-__device__ __forceinline__ void dq_body(const FlashArgs& a) {
-  using L = Ld<T, D>;
-  extern __shared__ uint4 smem_u4[];
-  constexpr int kTileElems = kTile * L::kD;
-  T* qs = reinterpret_cast<T*>(smem_u4);  // [kTile][kD]
-  T* dos = qs + kTileElems;               // [kTile][kD]
-  T* kvs = dos + kTileElems;              // [2 stages][K, V][kTile][kD]
-  T* dss = kvs + 4 * kTileElems;          // [kTile][kT], dS of this tile
-
-  const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  // the keep bits' head coordinate: the model's head, not this launch's
-  const int64_t dbh = b * a.heads_total + a.head_offset + h;
-  const int64_t q0 = (int64_t)blockIdx.x * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const T* kg = slab<T>(a.k, b, h);
-  const T* vg = slab<T>(a.v, b, h);
-  // K and V of key tile kj into its stage
-  auto fetch = [&](int kj) {
-    T* dst = kvs + (kj & 1) * 2 * kTileElems;
-    load_tile<T, D>(dst, L::kD, kg, a.k.ss, (int64_t)kj * kTile, a.Sk);
-    load_tile<T, D>(dst + kTileElems, L::kD, vg, a.v.ss,
-                    (int64_t)kj * kTile, a.Sk);
-  };
-  const int n_kt = key_tiles(a, q0);
-  load_tile<T, D>(qs, L::kD, slab<T>(a.q, b, h), a.q.ss, q0, a.Sq);
-  load_tile<T, D>(dos, L::kD, slab<T>(a.dout, b, h), a.dout.ss, q0, a.Sq);
-  if (n_kt > 0) fetch(0);
-  cp_async_commit();
-  float lse2[2], delta[2];  // lse2: the row's LSE in base 2
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int64_t qpos = q0 + warp * 16 + g + 8 * i;
-    lse2[i] = qpos < a.Sq ? a.lse[bh * a.Sq + qpos] * kLog2e : 0.f;
-    delta[i] = qpos < a.Sq ? a.delta[bh * a.Sq + qpos] : 0.f;
-  }
-  const float sl2 = a.scale * kLog2e;
-
-  float dq[D / 8][4];
-  zero(dq);
-  T* dw = dss + warp * 16 * L::kT;
-  const bool has_mask = kVar && a.has_mask;
-  const bool has_drop = kVar && a.has_dropout;
-  const float* mb = mask_slab(a, bh);
-  const int64_t qrow = q0 + warp * 16 + g;
-
-  for (int kj = 0; kj < n_kt; ++kj) {
-    const int64_t k0 = (int64_t)kj * kTile;
-    const T* ks = kvs + (kj & 1) * 2 * kTileElems;
-    const T* vs = ks + kTileElems;
-    if (kj + 1 < n_kt) {
-      fetch(kj + 1);  // into the stage the previous tile freed
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // this tile (and Q, dO) has landed for every thread
-
-    float s[kTile / 8][4], dp[kTile / 8][4];
-    zero(s);
-    zero(dp);
-    warp_gemm<kTile / 8, D, false>(s, qs + warp * 16 * L::kD, L::kD, ks,
-                                   L::kD);
-    warp_gemm<kTile / 8, D, false>(dp, dos + warp * 16 * L::kD, L::kD, vs,
-                                   L::kD);
-    const bool full = all_visible(a, q0, k0);
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      float f[4] = {1.f, 1.f, 1.f, 1.f};
-      if (has_drop) {
-        drop_rows(a, dbh, qrow, k0 + 8 * j + 2 * t, f);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) f[e] *= a.drop_scale;
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float ds[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int e = 2 * i + u;
-          const int64_t qpos = qrow + 8 * i, kpos = k0 + 8 * j + 2 * t + u;
-          float p = 0.f;
-          if (full || visible(a, qpos, kpos))
-            p = has_mask
-                    ? exp2f(add_mask(a, mb, qpos, kpos, s[j][e] * sl2) -
-                            lse2[i])
-                    : exp2f(fmaf(s[j][e], sl2, -lse2[i]));
-          const float dpe = has_drop ? dp[j][e] * f[e] : dp[j][e];
-          ds[u] = p * (dpe - delta[i]) * a.scale;
-        }
-        store2(dw + (g + 8 * i) * L::kT + 8 * j + 2 * t, ds[0], ds[1]);
-      }
-    }
-    __syncwarp();
-    warp_gemm<D / 8, kTile, true>(dq, dw, L::kT, ks, L::kD);
-    __syncthreads();  // every warp is done with this stage before its refill
-  }
-  cp_async_wait<0>();
-
-  const float one[2] = {1.f, 1.f};
-  store_rows<T, D>(a.dq, b, h, qrow, a.Sq, dq, one);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_dq(const FlashArgs a) {
-  if (a.has_mask || a.has_dropout)
-    dq_body<T, D, true>(a);
-  else
-    dq_body<T, D, false>(a);
-}
-
-// `drop_cols` with the words traded by a 4 x 4 transpose over the quad's
-// lanes (two rounds of two shuffles, each lane choosing by its own bits)
-// in place of picks by a lane-dependent index: the same flags. With the
-// picks, the sm_90a dK/dV kernel's dropout variants took 0.16-0.19 ms a
-// call more on the H100 (torch_flash_bench.py, PERF.md).
+// The same for the dK/dV layout (rows = keys), used by the bf16 and the
+// f32 dK/dV kernels: element e is key krow + 8 * (e / 2), query qcol + e %
+// 2, where krow is the lane's key row (g of a 16-key row group) and qcol =
+// q0 + 8j + 2t. The four lanes g & 3 = u of a quad (same t) hold one key
+// group's four keys at both key rows and both queries: lane u draws the
+// counter of element u (key group of row u / 2, query qcol + u % 2), and
+// the words are traded by a 4 x 4 transpose over the quad's lanes (two
+// rounds of two shuffles, each lane choosing by its own bits). With picks
+// by a lane-dependent index in place of the transpose, the sm_90a dK/dV
+// kernel's dropout variants took 0.16-0.19 ms a call more on the H100
+// (torch_flash_bench.py, PERF.md). Every lane of the warp must call this
+// together.
 __device__ __forceinline__ void drop_cols_sm90(const FlashArgs& a, int64_t bh,
                                                int64_t krow, int64_t qcol,
                                                float (&f)[4]) {
@@ -918,6 +696,442 @@ __device__ __forceinline__ void drop_cols_sm90(const FlashArgs& a, int64_t bh,
   f[1] = keep_flag(a, o2 ? t1 : a1);
   f[2] = keep_flag(a, o2 ? a2 : t0);
   f[3] = keep_flag(a, o2 ? a3 : t1);
+}
+
+// ---------------------------------------------------------------------------
+// float32 dK/dV and dQ: 3xTF32 products on mma.sync, eight warps a block
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;  // eight warps: four row groups x two
+
+// x = hi + lo with hi = x rounded to TF32 (to nearest, ties away from zero:
+// half a TF32 ulp added to the bit pattern, the 13 low bits cleared) and lo
+// = x - hi, exact in f32. lo goes to the tensor core as it is, which reads
+// a TF32 operand's top 19 bits: lo loses at most 2^-21 |x|. Three integer
+// and FP instructions (cvt.rna.tf32.f32 compiles to a longer sequence with
+// a NaN test; the operands here are finite).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One m16n8k8 step of c += A B in 3xTF32: A's hi and lo fragments (split
+// once, reused over a row of n-tiles), B's two values split here. The
+// small products go first; lo * lo (about 2^-22 of the product) is dropped.
+// The tensor core adds into c rounding toward zero, so a long chain into
+// one accumulator drifts (4.5e-5 on dV at 1024 queries): every caller
+// keeps its chains short and adds them into its sums in f32.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4], float b0,
+                                     float b1) {
+  uint32_t h0, l0, h1, l1;
+  split_tf32(b0, h0, l0);
+  split_tf32(b1, h1, l1);
+  mma_tf32(c, alo, h0, h1);
+  mma_tf32(c, ahi, l0, l1);
+  mma_tf32(c, ahi, h0, h1);
+}
+
+template <int N>
+__device__ __forceinline__ void add_into(float (&acc)[N][4],
+                                         const float (&c)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += c[j][e];
+}
+
+// The A fragment of rows [16][k .. k+7] of a tile stored [row][depth]
+// (stride ld) at `w`: element i is row g + 8 * (i & 1), depth k + t + 4 *
+// (i >> 1), split into hi and lo.
+__device__ __forceinline__ void load_a(const float* w, int ld, int k,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* p = w + g * ld + k + t;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[8 * ld], hi[1], lo[1]);
+  split_tf32(p[4], hi[2], lo[2]);
+  split_tf32(p[8 * ld + 4], hi[3], lo[3]);
+}
+
+// The A fragment of an m16n8 accumulator tile used as the left operand of
+// the next product, whose depth runs over the tile's 8 columns: depth t is
+// column 2t and depth t + 4 column 2t + 1 (the B operand reads its rows in
+// the same order), so the values never leave the thread.
+__device__ __forceinline__ void acc_as_a(const float (&c)[4], uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// s = X Y^T for the warp's 16 rows of X (at `xw`) against N * 8 rows of Y
+// (at `yw`), both stored [row][depth] with stride L::kD, over depth D: the
+// scores of S = Q K^T (or S^T = K Q^T) and of dP = dO V^T (dP^T). Chains
+// of four k-steps (32 of the depth), each added into s in f32.
+template <int D, int N>
+__device__ __forceinline__ void rows_product(float (&s)[N][4], const float* xw,
+                                             const float* yw) {
+  using L = Ld<float, D>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  zero(s);
+  // not unrolled: unrolled, the hoisted loads took dQ at D 128 to 255
+  // registers and 0.168 ms a call against 0.158 on the H100
+#pragma unroll 1
+  for (int kc = 0; kc < D; kc += 32) {
+    float c[N][4];
+    zero(c);
+#pragma unroll
+    for (int kk = kc; kk < kc + 32; kk += 8) {
+      uint32_t ahi[4], alo[4];
+      load_a(xw, L::kD, kk, ahi, alo);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float* yr = yw + (8 * j + g) * L::kD + kk + t;
+        mma3(c[j], ahi, alo, yr[0], yr[4]);
+      }
+    }
+    add_into(s, c);
+  }
+}
+
+// acc[16][D] += C^T-as-A B: the warp's m16 x (N * 8) accumulator tiles c
+// (P^T, dS^T or dS) times rows [N * 8][D] of a tile stored [row][depth] at
+// `bw` (dO, Q or K). Chains of four k-steps (32 rows) for each n-tile of
+// acc, each added into acc in f32.
+template <int D, int N>
+__device__ __forceinline__ void cols_product(float (&acc)[D / 8][4],
+                                             const float (&c)[N][4],
+                                             const float* bw) {
+  using L = Ld<float, D>;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t ahi[N][4], alo[N][4];
+#pragma unroll
+  for (int j = 0; j < N; ++j) acc_as_a(c[j], ahi[j], alo[j]);
+  static_assert(N % 4 == 0, "chains of four k-steps");
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int j0 = 0; j0 < N; j0 += 4) {
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = j0; j < j0 + 4; ++j) {
+        const float* br = bw + (8 * j + 2 * t) * L::kD + 8 * n + g;
+        mma3(d, ahi[j], alo[j], br[0], br[L::kD]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += d[e];
+    }
+}
+
+// Adds half 1's accumulators into half 0's (warp w + 4 into warp w, one
+// fixed order), through shared memory `red` laid out by fragment position
+// (conflict-free), after every warp is done with the tiles.
+template <int N>
+__device__ __forceinline__ void sum_halves(float* red, float (&acc)[N][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* mine = red + (warp & 3) * N * 4 * 32 + lane;
+  if (warp >= 4) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[(4 * j + e) * 32] = acc[j][e];
+  }
+  __syncthreads();
+  if (warp < 4) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += mine[(4 * j + e) * 32];
+  }
+}
+
+// dK/dV: grid (B*H, key tiles). A block owns 64 keys (K and V loaded
+// once) and walks the query tiles of 64 through a two-stage cp.async
+// ring; every product has keys as its rows. Warp w owns keys 16 * (w & 3)
+// of the block; warps 0-3 compute S^T = K Q^T, P and dV += (P keep)^T dO,
+// warps 4-7 dP^T = V dO^T, dS^T (with the P their partner hands over
+// through shared memory) and dK += dS^T Q: two products each, one
+// [16][D] accumulator a warp. Key tile 0 sees the most queries under
+// causal masking and starts first.
+template <int D, bool kVar>
+__device__ __forceinline__ void dkv_f32_body(const FlashArgs& a) {
+  using L = Ld<float, D>;
+  extern __shared__ uint4 smem_u4[];
+  constexpr int kTileElems = kTile * L::kD;
+  float* ks = reinterpret_cast<float*>(smem_u4);  // [kTile][kD]
+  float* vs = ks + kTileElems;                    // [kTile][kD]
+  float* qds = vs + kTileElems;  // [2 stages][Q, dO][kTile][kD]
+  float* rows = qds + 4 * kTileElems;  // [2 stages][LSE, delta][kTile]
+  float* pbuf = rows + 4 * kTile;  // [4 row groups][16 * kTile], P^T
+
+  const int64_t bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  // the keep bits' head coordinate: the model's head, not this launch's
+  const int64_t dbh = b * a.heads_total + a.head_offset + h;
+  const int64_t k0 = (int64_t)blockIdx.y * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp & 3;
+  const bool is_p = warp < 4;  // the S^T / P / dV warp of its row group
+  const int64_t off = a.Sk - a.Sq;
+  const float* qg = slab<float>(a.q, b, h);
+  const float* dog = slab<float>(a.dout, b, h);
+  // Q, dO, LSE and delta of query tile qi into its stage
+  auto fetch = [&](int qi) {
+    const int64_t q0 = (int64_t)qi * kTile;
+    float* dst = qds + (qi & 1) * 2 * kTileElems;
+    float* r = rows + (qi & 1) * 2 * kTile;
+    load_tile<float, D, kBwdThreads>(dst, L::kD, qg, a.q.ss, q0, a.Sq);
+    load_tile<float, D, kBwdThreads>(dst + kTileElems, L::kD, dog, a.dout.ss,
+                                     q0, a.Sq);
+    load_row<kBwdThreads>(r, a.lse + bh * a.Sq, q0, a.Sq);
+    load_row<kBwdThreads>(r + kTile, a.delta + bh * a.Sq, q0, a.Sq);
+  };
+  // first query tile holding a query that sees key k0
+  int qt_begin = 0;
+  if (a.causal && k0 - off > 0) qt_begin = (int)((k0 - off) / kTile);
+  const int n_qt = (int)((a.Sq + kTile - 1) / kTile);
+  load_tile<float, D, kBwdThreads>(ks, L::kD, slab<float>(a.k, b, h), a.k.ss,
+                                   k0, a.Sk);
+  load_tile<float, D, kBwdThreads>(vs, L::kD, slab<float>(a.v, b, h), a.v.ss,
+                                   k0, a.Sk);
+  fetch(qt_begin);
+  cp_async_commit();
+
+  float acc[D / 8][4];  // dV (warps 0-3) or dK (warps 4-7)
+  zero(acc);
+  const float sl2 = a.scale * kLog2e;
+  const bool has_mask = kVar && a.has_mask;
+  const bool has_drop = kVar && a.has_dropout;
+  const float* mb = mask_slab(a, bh);
+  const int64_t kfirst = k0 + 16 * wr, krow = kfirst + g;
+  const float* xw = (is_p ? ks : vs) + 16 * wr * L::kD;
+  float* pw = pbuf + wr * 16 * kTile + lane;
+
+  for (int qi = qt_begin; qi < n_qt; ++qi) {
+    const int64_t q0 = (int64_t)qi * kTile;
+    const float* qs = qds + (qi & 1) * 2 * kTileElems;
+    const float* dos = qs + kTileElems;
+    const float* lse_s = rows + (qi & 1) * 2 * kTile;
+    const float* delta_s = lse_s + kTile;
+    if (qi + 1 < n_qt) {
+      fetch(qi + 1);  // into the stage the previous tile freed
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile (and K, V) has landed for every thread
+
+    // the row group's 16 keys, skipped where no query of the tile sees them
+    const bool live =
+        kfirst < a.Sk &&
+        (!a.causal || min64(q0 + kTile - 1, a.Sq - 1) + off >= kfirst);
+    if (live) {
+      // S^T = K Q^T (warps 0-3) or dP^T = V dO^T (4-7): [16 keys][64]
+      float s[kTile / 8][4];
+      rows_product<D>(s, xw, is_p ? qs : dos);
+      const bool full = all_visible<kTile, 16>(a, q0, kfirst);
+      if (is_p) {
+        // s becomes P^T times the keep flags; its partner gets P^T, a
+        // dropped entry negated
+#pragma unroll
+        for (int j = 0; j < kTile / 8; ++j) {
+          float f[4] = {1.f, 1.f, 1.f, 1.f};
+          const int c = 8 * j + 2 * t;
+          if (has_drop) drop_cols_sm90(a, dbh, krow, q0 + c, f);
+          const float lse2[2] = {lse_s[c] * kLog2e, lse_s[c + 1] * kLog2e};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int64_t qpos = q0 + c + (e & 1), kpos = krow + 8 * (e >> 1);
+            float p = 0.f;
+            if (full || visible(a, qpos, kpos))
+              p = has_mask
+                      ? exp2f(add_mask(a, mb, qpos, kpos, s[j][e] * sl2) -
+                              lse2[e & 1])
+                      : exp2f(fmaf(s[j][e], sl2, -lse2[e & 1]));
+            pw[(4 * j + e) * 32] = f[e] == 0.f ? -p : p;
+            s[j][e] = p * f[e];
+          }
+        }
+        sm90::bar_arrive(1 + wr, 64);
+      } else {
+        sm90::bar_sync(1 + wr, 64);  // the partner's P^T has landed
+        // s becomes dS^T = P (dP keep / (1 - p) - delta) * scale
+#pragma unroll
+        for (int j = 0; j < kTile / 8; ++j) {
+          const int c = 8 * j + 2 * t;
+          const float del[2] = {delta_s[c], delta_s[c + 1]};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float ps = pw[(4 * j + e) * 32];
+            const float dpe =
+                has_drop ? (signbit(ps) ? 0.f : s[j][e] * a.drop_scale)
+                         : s[j][e];
+            s[j][e] = fabsf(ps) * (dpe - del[e & 1]) * a.scale;
+          }
+        }
+      }
+      // dV += (P keep)^T dO or dK += dS^T Q over the tile's 64 queries
+      cols_product<D>(acc, s, is_p ? dos : qs);
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  cp_async_wait<0>();
+
+  const float ds = is_p && has_drop ? a.drop_scale : 1.f, mul[2] = {ds, ds};
+  store_rows<float, D>(is_p ? a.dv : a.dk, b, h, krow, a.Sk, acc, mul);
+}
+
+// design: f32 3xTF32 mma.sync.m16n8k8, 64 keys x 64-query tiles, 8 warps:
+//   a row group's two warps split S^T/P/dV and dP^T/dS^T/dK, P handed
+//   over through shared memory; 2-stage cp.async
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dkv_f32(const FlashArgs a) {
+  if (a.has_mask || a.has_dropout)
+    dkv_f32_body<D, true>(a);
+  else
+    dkv_f32_body<D, false>(a);
+}
+
+// dQ: grid (B*H, query tiles). A block owns 64 queries (Q and dO loaded
+// once, LSE and delta in registers) and walks the key tiles of 64 through
+// a two-stage cp.async ring. Warp w owns queries 16 * (w & 3) of the
+// block and keys 32 * (w >> 2) of each tile, with its own dQ sums; the
+// two halves are added at the end. Under causal masking the last query
+// tile sees the most keys and starts first.
+template <int D, bool kVar>
+__device__ __forceinline__ void dq_f32_body(const FlashArgs& a) {
+  using L = Ld<float, D>;
+  extern __shared__ uint4 smem_u4[];
+  constexpr int kTileElems = kTile * L::kD;
+  float* qs = reinterpret_cast<float*>(smem_u4);  // [kTile][kD]
+  float* dos = qs + kTileElems;                   // [kTile][kD]
+  float* kvs = dos + kTileElems;  // [2 stages][K, V][kTile][kD]
+
+  const int64_t bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  // the keep bits' head coordinate: the model's head, not this launch's
+  const int64_t dbh = b * a.heads_total + a.head_offset + h;
+  const int64_t q0 = (int64_t)(gridDim.y - 1 - blockIdx.y) * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp & 3, half = warp >> 2;
+  const int64_t off = a.Sk - a.Sq;
+  const float* kg = slab<float>(a.k, b, h);
+  const float* vg = slab<float>(a.v, b, h);
+  // K and V of key tile kj into its stage
+  auto fetch = [&](int kj) {
+    float* dst = kvs + (kj & 1) * 2 * kTileElems;
+    load_tile<float, D, kBwdThreads>(dst, L::kD, kg, a.k.ss,
+                                     (int64_t)kj * kTile, a.Sk);
+    load_tile<float, D, kBwdThreads>(dst + kTileElems, L::kD, vg, a.v.ss,
+                                     (int64_t)kj * kTile, a.Sk);
+  };
+  const int n_kt = key_tiles(a, q0);
+  load_tile<float, D, kBwdThreads>(qs, L::kD, slab<float>(a.q, b, h), a.q.ss,
+                                   q0, a.Sq);
+  load_tile<float, D, kBwdThreads>(dos, L::kD, slab<float>(a.dout, b, h),
+                                   a.dout.ss, q0, a.Sq);
+  if (n_kt > 0) fetch(0);
+  cp_async_commit();
+  const int64_t qfirst = q0 + 16 * wr, qrow = qfirst + g;
+  float lse2[2], delta[2];  // lse2: the row's LSE in base 2
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t qpos = qrow + 8 * i;
+    lse2[i] = qpos < a.Sq ? a.lse[bh * a.Sq + qpos] * kLog2e : 0.f;
+    delta[i] = qpos < a.Sq ? a.delta[bh * a.Sq + qpos] : 0.f;
+  }
+  const float sl2 = a.scale * kLog2e;
+
+  float dq[D / 8][4];
+  zero(dq);
+  const bool has_mask = kVar && a.has_mask;
+  const bool has_drop = kVar && a.has_dropout;
+  const float* mb = mask_slab(a, bh);
+  const float* qw = qs + 16 * wr * L::kD;
+  const float* dow = dos + 16 * wr * L::kD;
+
+  for (int kj = 0; kj < n_kt; ++kj) {
+    const int64_t k0 = (int64_t)kj * kTile;
+    const float* ks = kvs + (kj & 1) * 2 * kTileElems;
+    const float* vs = ks + kTileElems;
+    if (kj + 1 < n_kt) {
+      fetch(kj + 1);  // into the stage the previous tile freed
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile (and Q, dO) has landed for every thread
+
+    // this warp's 32 keys, skipped whole where its 16 queries see none
+    const int64_t kh = k0 + 32 * half;
+    const bool live = qfirst < a.Sq && kh < a.Sk &&
+                      (!a.causal || min64(qfirst + 15, a.Sq - 1) + off >= kh);
+    if (live) {
+      const float* kw = ks + 32 * half * L::kD;
+      // S = Q K^T and dP = dO V^T: [16 queries][32 keys] each
+      float s[4][4], dp[4][4];
+      rows_product<D>(s, qw, kw);
+      rows_product<D>(dp, dow, vs + 32 * half * L::kD);
+      // s becomes dS
+      const bool full = all_visible<16, 32>(a, qfirst, kh);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float f[4] = {1.f, 1.f, 1.f, 1.f};
+        const int64_t kcol = kh + 8 * j + 2 * t;
+        if (has_drop) drop_rows(a, dbh, qrow, kcol, f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int64_t qpos = qrow + 8 * i, kpos = kcol + (e & 1);
+          float p = 0.f;
+          if (full || visible(a, qpos, kpos))
+            p = has_mask ? exp2f(add_mask(a, mb, qpos, kpos, s[j][e] * sl2) -
+                                 lse2[i])
+                         : exp2f(fmaf(s[j][e], sl2, -lse2[i]));
+          const float dpe = has_drop ? dp[j][e] * (f[e] * a.drop_scale)
+                                     : dp[j][e];
+          s[j][e] = p * (dpe - delta[i]) * a.scale;
+        }
+      }
+      // dQ += dS K over the 32 keys
+      cols_product<D>(dq, s, kw);
+    }
+    __syncthreads();  // every warp is done with this stage before its refill
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the tiles' memory now holds the halves' sums
+
+  sum_halves(reinterpret_cast<float*>(smem_u4), dq);
+  if (half == 0) {
+    const float one[2] = {1.f, 1.f};
+    store_rows<float, D>(a.dq, b, h, qrow, a.Sq, dq, one);
+  }
+}
+
+// design: f32 3xTF32 mma.sync.m16n8k8, 64 queries x 64-key tiles, 8
+//   warps: a row group's two warps take the two key halves of each tile,
+//   their dQ sums added half 0 then half 1; 2-stage cp.async
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dq_f32(const FlashArgs a) {
+  if (a.has_mask || a.has_dropout)
+    dq_f32_body<D, true>(a);
+  else
+    dq_f32_body<D, false>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -1701,21 +1915,25 @@ template <typename T, int D> constexpr size_t fwd_smem() {
   using L = Ld<T, D>;  // Q, two stages of K and V, P
   return sizeof(T) * (5 * kTile * L::kD + kTile * L::kT);
 }
-template <typename T, int D> constexpr size_t dkv_smem() {
-  using L = Ld<T, D>;  // K, V, two stages of Q, dO, LSE and delta, P
-  return sizeof(T) * (6 * kTile * L::kD + kTile * L::kT) +
-         4 * kTile * sizeof(float);
+template <int D> constexpr size_t dkv_f32_smem() {
+  using L = Ld<float, D>;  // K, V, two stages of Q, dO, LSE and delta, P^T
+  return sizeof(float) * (6 * kTile * L::kD + 4 * kTile + 4 * 16 * kTile);
 }
-template <typename T, int D> constexpr size_t dq_smem() {
-  using L = Ld<T, D>;  // Q, dO, two stages of K and V, dS
-  return sizeof(T) * (6 * kTile * L::kD + kTile * L::kT);
+template <int D> constexpr size_t dq_f32_smem() {
+  using L = Ld<float, D>;  // Q, dO, two stages of K and V
+  return sizeof(float) * 6 * kTile * L::kD;
 }
+// (220,160 / 202,752 bytes at D 128: one block of eight warps an SM;
+// 121,856 / 104,448 at D 64. dQ's halves' sums reuse the tiles' memory:
+// 4 * 16 * D floats.)
+static_assert(dq_f32_smem<128>() <= 232448 && dkv_f32_smem<128>() <= 232448,
+              "one block must fit an SM");
 
 // Raises a kernel's dynamic shared-memory cap once (not a stream
 // operation, so it stays out of captured graphs after the first call),
-// then launches it on grid (tiles, B*H).
+// then launches it.
 template <typename Kernel>
-int launch(Kernel kernel, size_t smem, bool& ready, int64_t tiles,
+int launch(Kernel kernel, size_t smem, bool& ready, dim3 grid, int threads,
            const FlashArgs& a, cudaStream_t stream) {
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1723,9 +1941,15 @@ int launch(Kernel kernel, size_t smem, bool& ready, int64_t tiles,
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
-  kernel<<<dim3((unsigned)tiles, (unsigned)(a.B * a.H)), kThreads, smem,
-           stream>>>(a);
+  if (grid.y > 65535) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The f32 dK/dV and dQ grid: (B*H, tiles), so the blocks of every
+// batch*head's heaviest tile are dispatched first.
+dim3 bwd_grid(const FlashArgs& a, int64_t rows) {
+  return dim3((unsigned)(a.B * a.H), (unsigned)((rows + kTile - 1) / kTile));
 }
 
 // The bf16 kernels' launches: tensor maps over the [B, S, H, D] views
@@ -1828,7 +2052,9 @@ int fwd(const FlashArgs& a, cudaStream_t stream) {
   } else {
     static bool ready = false;
     return launch(flash_fwd<T, D>, fwd_smem<T, D>(), ready,
-                  (a.Sq + kTile - 1) / kTile, a, stream);
+                  dim3((unsigned)((a.Sq + kTile - 1) / kTile),
+                       (unsigned)(a.B * a.H)),
+                  kThreads, a, stream);
   }
 }
 
@@ -1841,16 +2067,16 @@ int bwd(const FlashArgs& a, int which, cudaStream_t stream) {
     if constexpr (kBf16<T>)
       err = dispatch_sm90<D, RunDkv>(a, stream);
     else
-      err = launch(flash_dkv<T, D>, dkv_smem<T, D>(), ready_dkv,
-                   (a.Sk + kTile - 1) / kTile, a, stream);
+      err = launch(flash_dkv_f32<D>, dkv_f32_smem<D>(), ready_dkv,
+                   bwd_grid(a, a.Sk), kBwdThreads, a, stream);
     if (err) return err;
   }
   if (which & 2) {
     if constexpr (kBf16<T>)
       return dispatch_sm90<D, RunDq>(a, stream);
     else
-      return launch(flash_dq<T, D>, dq_smem<T, D>(), ready_dq,
-                    (a.Sq + kTile - 1) / kTile, a, stream);
+      return launch(flash_dq_f32<D>, dq_f32_smem<D>(), ready_dq,
+                    bwd_grid(a, a.Sq), kBwdThreads, a, stream);
   }
   return 0;
 }

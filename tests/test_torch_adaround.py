@@ -33,6 +33,7 @@ from paddle_tpu_torch.quantization.adaround import (adaround_linear,
                                                     learn_rounding)
 from paddle_tpu_torch.serving import LLMEngine
 from paddle_tpu_torch.weights import from_jax_state_dict
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 VOCAB = 128
 PARITY_RATE = 0.9     # tests/test_int8_kv.py's gates

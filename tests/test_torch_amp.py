@@ -32,6 +32,7 @@ from paddle_tpu_torch.distributed.fleet.utils import recompute
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.weights import (from_jax_optimizer_state,
                                       from_jax_state_dict, to_jax_state_dict)
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 STEPS = 300
 EXPECTED = 1.0 - STEPS * 1.0 * 1e-4  # SGD lr=1.0: w -= 1e-4 each step

@@ -23,6 +23,7 @@ from paddle_tpu.serving import router as jrouter
 from paddle_tpu_torch.serving import lifecycle as tlifecycle
 from paddle_tpu_torch.serving import router as trouter
 from test_torch_router import SIDES, http, make_fleets
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 ACTIVE = {"jax": jrouter.ACTIVE, "torch": trouter.ACTIVE}
 LEGAL = {"jax": jlifecycle.LEGAL, "torch": tlifecycle.LEGAL}

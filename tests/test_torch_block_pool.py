@@ -7,6 +7,7 @@ import torch
 
 from paddle_tpu.serving import block_pool as jbp
 from paddle_tpu_torch.serving import block_pool as tbp
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 L, H, N, BS, D = 2, 3, 10, 4, 8
 

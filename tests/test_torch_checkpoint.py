@@ -45,6 +45,7 @@ from paddle_tpu_torch.nn.layer import is_skeleton, skeleton_init
 from paddle_tpu_torch.serving import LLMEngine
 from paddle_tpu_torch.weights import from_jax_state_dict, to_jax_state_dict
 from test_torch_serving_sharded import cpu_mesh
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=4,

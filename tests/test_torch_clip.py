@@ -25,6 +25,7 @@ from paddle_tpu.nn import clip as jclip
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import optimizer as toptim
 from paddle_tpu_torch.nn import clip as tclip
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 SHAPES = [(8, 6), (6,), (16, 5), (3,)]
 DTYPES = {"float32": (jnp.float32, torch.float32),

@@ -9,6 +9,7 @@ runs `quantized_allgather_sum` and `quantized_row_parallel` under
 `shard_map` on the 8-fake-device CPU mesh with the same numpy inputs.
 """
 import datetime
+import os
 import threading
 import uuid
 
@@ -26,6 +27,23 @@ from paddle_tpu.serving.sharded import \
     quantized_row_parallel as jax_quantized_row_parallel
 from paddle_tpu_torch.parallel import collectives as coll
 from paddle_tpu_torch.serving.sharded import quantized_row_parallel
+
+
+@pytest.fixture(scope="module", autouse=True)
+def shared_cores():
+    """Share the machine's cores among pytest-xdist's workers while a
+    module runs. torch's default, one intra-op thread a core in every
+    worker (and in every rank thread a test starts), puts several threads
+    on each core, and small products then wait on each other far longer
+    than they compute. The port's test modules import this fixture from
+    here (it is autouse); the count goes back when the module ends.
+    Spawned rank processes take one thread of their own
+    (`distributed.ranks.rank_spec`)."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // workers))
+    yield
+    torch.set_num_threads(before)
 
 
 def run_ranks(tmp_path, tp, fn):

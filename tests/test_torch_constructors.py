@@ -21,6 +21,7 @@ from paddle_tpu_torch.models.bert import BertConfig
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.serving import LLMEngine
 from test_torch_serving_sharded import tp_timeout  # noqa: F401
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 
 def _keywords(fn, skip=("self", "model")):

@@ -583,16 +583,18 @@ def test_flash_autograd_through_strided_views(dev, dtype, head_dim, split):
     assert _max_err(got_in.grad, ref_in.grad) < TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("which", [1, 2], ids=["dkv", "dq"])
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("variant", ["plain", "padding+dropout"])
-def test_flash_backward_is_deterministic(dev, which, head_dim, variant):
+def test_flash_backward_is_deterministic(dev, dtype, which, head_dim,
+                                         variant):
     """The dK/dV kernel (`which` 1) and the dQ kernel (2) each sum a
-    gradient in one fixed order (no atomics): two launches on the same
-    inputs give bit-identical results."""
+    gradient in one fixed order (no atomics; the f32 kernels add their two
+    halves' sums in one order too): two launches on the same inputs give
+    bit-identical results."""
     b, sq, h = 2, 300, 3
-    q, k, v, do = _flash_inputs(b, sq, sq, h, head_dim, torch.bfloat16, dev,
-                                seed=6)
+    q, k, v, do = _flash_inputs(b, sq, sq, h, head_dim, dtype, dev, seed=6)
     mask, p, seed = None, 0.0, None
     if variant != "plain":
         mask, p, seed = _padding_mask(b, sq, dev), 0.1, 99
@@ -608,6 +610,38 @@ def test_flash_backward_is_deterministic(dev, which, head_dim, variant):
         assert (x is not None, y is not None) == (want, want)
         if want:
             assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+def test_f32_backward_at_the_pipeline_stage_shape(dev, dropout_p):
+    """The f32 dK/dV and dQ kernels (3xTF32) at a pipelined gpt_1p3b
+    stage's attention (2 x 1024, heads 8-15 of 16, head_dim 128, causal):
+    within 2e-5 of the plain f32 version (TF32 off), and heads 8-15 equal
+    the same heads of one 16-head call bit for bit."""
+    b, s, h, total, d = 2, 1024, 8, 16, 128
+    q, k, v, do = _flash_inputs(b, s, s, total, d, torch.float32, dev,
+                                seed=11)
+    seed = 2024 if dropout_p > 0 else None
+    var = (True, None, dropout_p, seed)
+    mine = [t[:, :, h:].contiguous() for t in (q, k, v, do)]
+    hk = dict(head_offset=h, heads_total=total)
+    o32 = torch.empty(mine[0].shape, device=dev) if dropout_p else None
+    o, lse = fa.flash_attention_fwd(*mine[:3], *var, o32, **hk)
+    o_b = o if o32 is None else o32
+    got = fa.flash_attention_bwd(*mine[:3], o_b, mine[3], lse, *var, **hk)
+    o32_all = torch.empty(q.shape, device=dev) if dropout_p else None
+    o_all, lse_all = fa.flash_attention_fwd(q, k, v, *var, o32_all)
+    whole = fa.flash_attention_bwd(q, k, v, o_all if o32_all is None
+                                   else o32_all, do, lse_all, *var)
+    torch.cuda.synchronize()
+    for x, y in zip(got, whole):
+        assert torch.equal(x, y[:, :, h:])
+    q32, k32, v32 = (t.clone().requires_grad_() for t in mine[:3])
+    fa.attention_ref(q32, k32, v32, *var, **hk).backward(mine[3])
+    for name, x, y in zip(("dq", "dk", "dv"), got,
+                          (q32.grad, k32.grad, v32.grad)):
+        err = _max_err(x, y)
+        assert err < 2e-5, f"{name}: max err {err}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

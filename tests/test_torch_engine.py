@@ -20,6 +20,7 @@ from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.serving import BlockPool, LLMEngine
 from paddle_tpu_torch.weights import from_jax_state_dict
 from test_torch_serving_sharded import tp_timeout  # noqa: F401
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 CFG = dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
            max_seq_len=64)

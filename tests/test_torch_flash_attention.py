@@ -22,6 +22,7 @@ from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import philox
 from paddle_tpu_torch.ops.common_nn import (draw_seed, dropout,
                                             scaled_dot_product_attention)
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 ATOL = 1e-5   # float32, two frameworks' summation orders
 

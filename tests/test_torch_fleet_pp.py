@@ -24,6 +24,7 @@ from paddle_tpu_torch.distributed.fleet.meta_parallel import (
     LayerDesc, PipelineLayer, PipelineParallel, SharedLayerDesc)
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import SGD
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 
 class Block(torch.nn.Module):

@@ -14,6 +14,7 @@ import threading
 import pytest
 
 from test_torch_server import idle, make_sides, prompts, run_both, wait_for
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 P = prompts((7, 12, 4, 20), seed=3)
 

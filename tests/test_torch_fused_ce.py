@@ -12,6 +12,7 @@ from paddle_tpu.ops.fused_ce import fused_linear_cross_entropy as jax_fused
 from paddle_tpu_torch.ops.fused_ce import (_pick_chunks,
                                            fused_linear_cross_entropy,
                                            linear_cross_entropy)
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 B, S, H, V = 2, 32, 16, 96
 TOL = dict(atol=1e-6, rtol=1e-5)   # float32, different summation orders

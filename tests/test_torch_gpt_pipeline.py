@@ -30,6 +30,7 @@ from paddle_tpu_torch.models.gpt_pipeline import (layer_stack,
                                                   stage_stack)
 from paddle_tpu_torch.weights import (from_jax_pipeline_params,
                                       to_jax_pipeline_params)
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 CFG = dict(vocab_size=128, hidden_size=32, num_layers=4, num_heads=2,
            max_seq_len=32)

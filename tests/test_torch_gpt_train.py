@@ -24,6 +24,7 @@ from paddle_tpu.optimizer import AdamW as JaxAdamW
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig, gpt_loss_fn
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.weights import from_jax_state_dict, to_jax_state_dict
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 CFG = dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
            max_seq_len=64)

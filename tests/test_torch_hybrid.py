@@ -56,6 +56,7 @@ from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
 from paddle_tpu_torch.weights import (from_jax_state_dict,
                                       from_jax_train_state,
                                       to_jax_train_state)
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 STEPS, TIMEOUT, LR = 3, 60, 0.01
 CFG = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,

@@ -45,6 +45,7 @@ from paddle_tpu_torch.optimizer import Adam, AdamW
 from paddle_tpu_torch.parallel import spmd
 from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
 from paddle_tpu_torch.weights import from_jax_state_dict
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 TIMEOUT, LR = 60, 0.01
 DEG = {"dp": 2, "sharding": 2, "mp": 2}

@@ -40,6 +40,7 @@ from paddle_tpu_torch.serving import LLMEngine, kv_capacity_blocks
 from paddle_tpu_torch.serving import block_pool as tbp
 from paddle_tpu_torch.weights import from_jax_state_dict
 from test_torch_paged_attention import KERNEL_TOL, RAGGED, REF_TOL, _case
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 VOCAB = 128
 CFG = dict(vocab_size=VOCAB, hidden_size=32, num_layers=2, num_heads=2,

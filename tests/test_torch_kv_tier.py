@@ -31,6 +31,7 @@ from paddle_tpu_torch.serving import LLMEngine
 from paddle_tpu_torch.weights import from_jax_state_dict
 from test_torch_server import http
 from test_torch_serving_sharded import cpu_mesh
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 CFG = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,
            max_seq_len=64)

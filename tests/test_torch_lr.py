@@ -11,6 +11,7 @@ import pytest
 
 from paddle_tpu.optimizer import lr as jlr
 from paddle_tpu_torch.optimizer import lr as tlr
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 STEPS = 30
 RTOL = 1e-12

@@ -41,6 +41,7 @@ from paddle_tpu_torch.parallel import collectives as coll
 from paddle_tpu_torch.parallel.spmd import (LocalSGDTrainStep,
                                             make_sharded_train_step)
 from paddle_tpu_torch.weights import from_jax_state_dict
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 TIMEOUT = 60
 CFG = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,

@@ -29,7 +29,7 @@ from paddle_tpu_torch.nn import ClipGradByGlobalNorm, ClipGradByNorm
 from paddle_tpu_torch.ops import fused_ce
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.parallel import collectives as coll
-from test_torch_collectives import run_ranks
+from test_torch_collectives import run_ranks, shared_cores  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

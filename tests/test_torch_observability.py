@@ -26,6 +26,7 @@ from paddle_tpu.serving.scheduler import Request as JRequest
 from paddle_tpu_torch.serving.scheduler import Request as TRequest
 from test_torch_server import idle, make_sides, prompts, run_both
 from test_torch_serving_sharded import tp_timeout  # noqa: F401
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 P = prompts((5, 9, 13, 7, 20), seed=5)
 

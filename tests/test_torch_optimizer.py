@@ -8,6 +8,7 @@ import torch
 
 from paddle_tpu.optimizer import AdamW as JaxAdamW
 from paddle_tpu_torch.optimizer import AdamW
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 SHAPES = {"fc.weight": (8, 6), "fc.bias": (6,), "ln.weight": (6,)}
 LR = 1e-3

@@ -24,7 +24,7 @@ from paddle_tpu_torch.optimizer.optimizers import _tensor_norm
 from paddle_tpu_torch.parallel import collectives as coll
 from paddle_tpu_torch.weights import (from_jax_optimizer_state,
                                       to_jax_optimizer_state)
-from test_torch_collectives import run_ranks
+from test_torch_collectives import run_ranks, shared_cores  # noqa: F401
 
 SHAPES = {"w": (8, 6), "b": (6,), "ln": (6,)}
 LR = 0.01

@@ -19,6 +19,7 @@ from paddle_tpu.ops.pallas.paged_attention import (
     ragged_paged_attention as jax_ragged_paged_attention,
 )
 from paddle_tpu_torch.ops import paged_attention as pa
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 REF_TOL = 1e-5      # float32 gather reference vs gather reference
 KERNEL_TOL = 1e-3   # the TPU kernel's own acceptance bar vs its reference

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import philox
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("counter,key,want", [

@@ -36,6 +36,7 @@ from paddle_tpu_torch.parallel.pipeline import (Pipe, gpipe, gpipe_forward,
                                                 interleaved_one_f_one_b,
                                                 make_pipeline_loss,
                                                 one_f_one_b)
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 M, MB, D = 6, 4, 8
 

@@ -34,6 +34,7 @@ from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.weights import from_jax_state_dict, to_jax_state_dict
 from test_torch_gpt_train import (ATOL, CFG, LOSS_RTOL, LR, NOISE, STEPS,
                                   _batch, _grads_in_jax_layout)
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 BERT_CFG = dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
                 intermediate_size=256, max_position_embeddings=64)

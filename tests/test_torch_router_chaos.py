@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 from test_torch_router import SIDES, make_fleets
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

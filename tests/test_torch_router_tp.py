@@ -31,6 +31,7 @@ from paddle_tpu_torch.models.gpt import GPT, GPTConfig, gpt_tiny
 from paddle_tpu_torch.serving import AsyncLLMEngine, LLMEngine, ReplicaRouter
 from paddle_tpu_torch.serving.sharded import build_serving_mesh
 from test_torch_router import http
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPT = [1, 2, 3]

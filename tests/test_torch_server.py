@@ -38,6 +38,7 @@ from paddle_tpu.models.gpt import GPT as JaxGPT
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.weights import from_jax_state_dict
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = dict(vocab_size=128, hidden_size=32, num_layers=2, num_heads=2,

@@ -45,6 +45,7 @@ from paddle_tpu_torch.serving import (EngineSupervisor, LLMEngine,
 from paddle_tpu_torch.serving.faults import FaultPlan
 from paddle_tpu_torch.serving.scheduler import Request
 from paddle_tpu_torch.weights import _linear_weights, from_jax_state_dict
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 # every process group a test starts gives up a collective after this many
 # seconds: a rank that misses one fails its test instead of hanging the run

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.serving import spec as jspec
 from paddle_tpu_torch.serving import spec as tspec
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 
 def _histories():

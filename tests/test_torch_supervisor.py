@@ -22,6 +22,7 @@ import pytest
 
 from test_torch_server import (completion, http, idle, make_sides, prompts,
                                run_both, wait_for)
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 P = prompts((5, 9, 13, 7), seed=0)
 IDS = ["r0", "r1", "r2", "r3"]

@@ -37,6 +37,7 @@ from paddle_tpu_torch.weights import (from_jax_optimizer_state,
                                       to_jax_state_dict)
 from test_torch_gpt_train import (ATOL, CFG, LOSS_RTOL, NOISE, _batch,
                                   _grads_in_jax_layout)
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 PEAK, CLIP, STEPS = 1e-3, 0.5, 3
 

@@ -27,6 +27,7 @@ from paddle_tpu_torch.models.gpt import GPT, GPTConfig
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.profiler import tracing
 from paddle_tpu_torch.profiler.tracing import InstrumentedStep, TrainTracer
+from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 _PH = {"X", "i", "M"}
 _PHASES = {"data", "shard", "dispatch", "sync", "callback"}

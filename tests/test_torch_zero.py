@@ -66,7 +66,7 @@ from paddle_tpu_torch.parallel.spmd import (LocalSGDTrainStep,
 from paddle_tpu_torch.weights import (from_jax_state_dict,
                                       from_jax_train_state,
                                       to_jax_train_state)
-from test_torch_collectives import run_ranks
+from test_torch_collectives import run_ranks, shared_cores  # noqa: F401
 
 DP, STEPS, TIMEOUT, LR = 2, 4, 60, 0.01
 CFG = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,
