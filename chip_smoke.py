@@ -139,8 +139,9 @@ Phases, in order; any failure exits nonzero:
    max_replicas=2, cooldown_s=1, wait_high_s=0.2)`: a 64-client burst
    spawns a replica
    (spawn seconds, spawn TTFT), idle retires it; no failed request, and
-   `torch.cuda.memory_allocated()` after the retire within 64 MiB of its
-   value before the spawn.
+   `torch.cuda.memory_allocated()` read right after the scale-down (one
+   gc.collect(), no wait) within 64 MiB of its value before the spawn,
+   itself read right after an earlier retire.
    3h. Tensor-parallel serving at tp=2 on the one card: two ranks on
    cuda:0 over an explicit gloo backend (NCCL refuses two ranks on one
    device), steps run eagerly, every collective staged through host
@@ -184,15 +185,17 @@ Phases, in order; any failure exits nonzero:
    version (`attention_ref` in float32 on the same values, and autograd's
    gradients) at the training shape (B 16, H 8, S 1024, D 128, causal) in
    bfloat16 (tolerance 2e-2) and in float32 at B 2 (TF32 off, 1e-3, and
-   every float32 error also within 2e-5: the 3xTF32 dK/dV and dQ must
-   keep f32 accuracy), comparing O, LSE, dQ, dK and dV; with the kernels',
-   the plain version's and scaled_dot_product_attention's device times
-   beside the least time the card could take (the float32 backward's
-   bound is its 3xTF32 design's, three TF32 passes a product on the
-   tensor cores, with the FMA units' bound beside it). The float32 record
-   names each kernel's design, as the comment above the kernel in
+   every float32 error also within 2e-5: the 3xTF32 kernels must keep f32
+   accuracy), comparing O, LSE, dQ, dK and dV; with the kernels', the
+   plain version's and scaled_dot_product_attention's device times (its
+   forward and its forward + backward graph-replayed like the kernels)
+   beside the least time the card could take (the float32 kernels' bound
+   is their 3xTF32 design's, three TF32 passes a product on the tensor
+   cores, with the FMA units' bound beside it). The float32 record names
+   each kernel's design, as the comment above the kernel in
    flash_attention.cu states it, and ptxas's registers and spill bytes
-   for the four f32 backward instantiations.
+   for the eight f32 instantiations; a spill in the forward's fails the
+   run.
    5b. The flash kernels' additive-mask and dropout variants against the
    plain version on the same values, mask and seed (the same Philox keep
    bits), q/k/v being strided views of a fused projection as in the
@@ -200,8 +203,9 @@ Phases, in order; any failure exits nonzero:
    [B, 1, 1, S] padding mask, p 0.1) in bfloat16 with mask and dropout,
    mask alone, dropout alone and neither; causal dropout at the flagship
    shape; float32 mask + dropout at B 2 (TF32 off). Times beside SDPA
-   with the same mask and dropout_p and the least time the card could
-   take. Then an mp=2 rank's share (phase 6e): the flagship step's rank
+   with the same mask and dropout_p (graph-replayed) and the least time
+   the card could take (float32's: 3xTF32, the FMA units' beside it).
+   Then an mp=2 rank's share (phase 6e): the flagship step's rank
    (4 x 1024, heads 4-7 of 8, causal, without and with dropout), ERNIE's
    (32 x 512, heads 6-11 of 12, mask + dropout) and float32 (2 x 512, 6 of
    12): the kernels' dropout bits at the heads' model coordinate
@@ -352,7 +356,8 @@ Phases, in order; any failure exits nonzero:
 
 Prints a `{"kernels": [...]}` line (the flash rows also name the bf16
 kernel's design and ptxas's registers and spill bytes for it; a spill in
-either dQ row's instantiation fails the run), the
+either dQ row's instantiation fails the run; the pp_stage rows the f32
+kernel's, with the FMA units' bound beside the 3xTF32 one), the
 nvidia-smi name/power-limit line, and last `{"ok": true, "device":
 {...}}`.
 """
@@ -387,8 +392,13 @@ def time_ms(fn, iters):
     """Device time of one `fn` call: `iters` calls captured in a CUDA
     graph, the graph replayed between two CUDA events. Host launch cost
     stays out (an eager call of a small kernel waits on its Python
-    wrapper, not on the card)."""
-    fn()
+    wrapper, not on the card). The warm-up call runs on a side stream, as
+    a graph that runs autograd (SDPA's backward) needs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -2372,16 +2382,11 @@ async def _fleet(model, graph_outs, smi):
         engines = {r.name: weakref.ref(r.engine.engine)
                    for r in router.replicas}
         retired = engines[await router.retire_replica()]
-        # the baseline is read once the replica just retired has let its
-        # memory go (nothing holds its engine: its thread and last streams
-        # end after the retire returns), so that release is not counted
-        # against the cycle below
-        t_free = time.perf_counter()
-        while retired() is not None and time.perf_counter() - t_free < 60:
-            gc.collect()
-            await asyncio.sleep(0.1)
-        free_wait_s = time.perf_counter() - t_free
+        # the retire has let the replica's memory go when it returns
+        # (nothing holds its engine); the baseline is read right after, with
+        # one gc.collect() and no wait
         gc.collect()
+        earlier_freed = retired() is None
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated()
         scaler = AutoScaler(router, min_replicas=1, max_replicas=2,
@@ -2417,20 +2422,13 @@ async def _fleet(model, graph_outs, smi):
         snap = json.loads(body)
         up = next(x for x in snap["decisions"] if x["action"] == "up")
         down = next(x for x in snap["decisions"] if x["action"] == "down")
-        # as for the first retire: the scaled-down replica's engine thread
-        # and last streams end after the retire returns, so its memory is
-        # read once its engine is gone (or after 60 s, when the gate below
-        # fails on what still holds it)
-        t_free = time.perf_counter()
-        while (births.refs[born0]() is not None
-               and time.perf_counter() - t_free < 60):
-            gc.collect()
-            await asyncio.sleep(0.1)
-        spawned_free_wait_s = time.perf_counter() - t_free
+        # as for the first retire: read right after the scale-down, with
+        # one gc.collect() and no wait
         gc.collect()
         torch.cuda.synchronize()
         mem1 = torch.cuda.memory_allocated()
         spawned = births.refs[born0]()
+        spawned_freed = spawned is None
         holders = ([type(r).__name__ for r in gc.get_referrers(spawned)]
                    if spawned is not None else [])
         del spawned
@@ -2444,15 +2442,16 @@ async def _fleet(model, graph_outs, smi):
             finished_by_replica=served_by,
             mem_before_spawn_mib=mem0 / 2**20,
             mem_after_retire_mib=mem1 / 2**20,
-            earlier_retire_freed=retired() is None,
-            earlier_retire_wait_s=free_wait_s,
-            spawned_engine_freed=not holders, spawned_engine_holders=holders,
-            spawned_engine_wait_s=spawned_free_wait_s,
+            earlier_retire_freed=earlier_freed,
+            spawned_engine_freed=spawned_freed,
+            spawned_engine_holders=holders,
             endpoint=code, seconds=time.perf_counter() - t0)
         a = res["autoscale"]
         log("[fleet] autoscale " + json.dumps(a))
         assert a["failed"] == 0 and code == 200, a
         assert a["retired"] == a["spawned"], a
+        # nothing holds a retired engine when its retire returns
+        assert a["earlier_retire_freed"] and a["spawned_engine_freed"], a
         assert abs(mem1 - mem0) <= 64 * 2**20, a
         await server.shutdown(drain=True)
         del router, server, scaler
@@ -2925,10 +2924,10 @@ def _flash_bounds(B, S, H, D, dtype, causal=True, mask_bytes=0):
     once, the f32 LSE / delta rows, and the mask's own bytes once where
     there is one). The dropout bits are computed, not moved, and no
     product: they add nothing to the bound. Products count at the dtype's
-    peak, but the float32 backward's: it runs in 3xTF32, three TF32 passes
-    a product on the tensor cores (165 TFLOP/s), so its bound ("dkv", ...)
-    is taken at that rate, and the FMA units' 67 TFLOP/s give its
-    "dkv_fma", ... beside it."""
+    peak, but float32's: its kernels run in 3xTF32, three TF32 passes a
+    product on the tensor cores (165 TFLOP/s), so their bounds ("fwd",
+    "dkv", ...) are taken at that rate, and the FMA units' 67 TFLOP/s give
+    "fwd_fma", "dkv_fma", ... beside them."""
     isz = torch.tensor([], dtype=dtype).element_size()
     # visible (query, key) pairs
     pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
@@ -2940,7 +2939,7 @@ def _flash_bounds(B, S, H, D, dtype, causal=True, mask_bytes=0):
     for name, (products, nbytes) in work.items():
         t_bytes = (nbytes + mask_bytes) / HBM_BYTES_PER_S
         peaks = {name: PEAK_FLOPS[dtype]}
-        if dtype == torch.float32 and name != "fwd":
+        if dtype == torch.float32:
             peaks = {name: PEAK_TF32 / 3, f"{name}_fma": PEAK_FLOPS[dtype]}
         for key, peak in peaks.items():
             t_ops = products * 2 * D * pairs / peak
@@ -2957,7 +2956,7 @@ def f32_designs():
 
     src = (_build.CSRC / "flash_attention.cu").read_text()
     out = {}
-    for key, kernel in (("fwd", "flash_fwd"), ("dkv", "flash_dkv_f32"),
+    for key, kernel in (("fwd", "flash_fwd_f32"), ("dkv", "flash_dkv_f32"),
                         ("dq", "flash_dq_f32")):
         m = re.search(r"// design: (.*(?:\n//   .*)*)\ntemplate <[^>]*>\n"
                       r"__global__[^\n]*(?:\n\s*)?" + kernel + r"\(", src)
@@ -2968,15 +2967,23 @@ def f32_designs():
 
 
 def f32_ptxas():
-    """ptxas's (registers, spill bytes) for the f32 dK/dV and dQ kernels
-    at head_dim 64 and 128 (one entry each: the plain and the mask /
-    dropout bodies are one kernel, chosen at its top)."""
+    """ptxas's (registers, spill bytes) for the f32 forward, dK/dV and dQ
+    kernels at head_dim 64 and 128: one entry each for dK/dV and dQ (the
+    plain and the mask / dropout bodies are one kernel, chosen at its
+    top), two for the forward (`fwd_*` without the mask / dropout code,
+    the main path's; `fwd_var_*` with it). The forward keeps its O sums,
+    scores and P fragments in registers: a spill there fails the run."""
+    entries = {f"{k}_{d}": f"flash_{k}_f32ILi{d}EE"
+               for k in ("dkv", "dq") for d in (64, 128)}
+    entries.update({f"fwd{'_var' if v else ''}_{d}":
+                    f"flash_fwd_f32ILi{d}ELb{v}EE"
+                    for v in (0, 1) for d in (64, 128)})
     out = {}
-    for kname in ("dkv", "dq"):
-        for d in (64, 128):
-            regs, spill = ptxas_report("flash_attention.cu",
-                                       f"flash_{kname}_f32ILi{d}EE")
-            out[f"{kname}_{d}"] = dict(registers=regs, spill_bytes=spill)
+    for key, entry in sorted(entries.items()):
+        regs, spill = ptxas_report("flash_attention.cu", entry)
+        if key.startswith("fwd") and spill:
+            raise SystemExit(f"ptxas: {entry} spills {spill} bytes")
+        out[key] = dict(registers=regs, spill_bytes=spill)
     return out
 
 
@@ -2989,7 +2996,10 @@ def _flash_case(dtype, gen):
     o, lse = fa.flash_attention_fwd(q, k, v, True)
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, do, lse, True)
     # the plain version in float32 on the same values
-    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    # detached first: in float32 .float() is the tensor itself, which
+    # must not turn into an autograd leaf for the timings below
+    q32, k32, v32 = (t.detach().float().requires_grad_()
+                     for t in (q, k, v))
     o32 = fa.attention_ref(q32, k32, v32, True)
     o32.backward(do.float())
     lse32 = fa.attention_lse_ref(q32.detach(), k32.detach(), True)
@@ -3010,7 +3020,7 @@ def _flash_case(dtype, gen):
         torch.autograd.grad(og, (qg, kg, vg), do, retain_graph=True)
 
     F = torch.nn.functional
-    ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_()
+    ql, kl, vl = (t.detach().transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     dol = do.transpose(1, 2).contiguous()
 
@@ -3030,7 +3040,7 @@ def _flash_case(dtype, gen):
         plain_bwd_ms=event_ms(plain_bwd, 3),
         library_fwd_ms=time_ms(lambda: F.scaled_dot_product_attention(
             ql, kl, vl, is_causal=True), 20),
-        library_fwd_bwd_ms=event_ms(library_fwd_bwd, 10))
+        library_fwd_bwd_ms=time_ms(library_fwd_bwd, 10))
     times["library_bwd_ms"] = (times["library_fwd_bwd_ms"]
                                - times["library_fwd_ms"])
     bounds = _flash_bounds(B, S, H, D, dtype)
@@ -3166,7 +3176,10 @@ def _variant_case(name, dtype, shape, causal, with_mask, p, heads, gen):
         whole_err = (o_full[:, :, off:off + H].float()
                      - o.float()).abs().max().item()
         del full, o_full
-    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    # detached first: in float32 .float() is the tensor itself, which
+    # must not turn into an autograd leaf for the timings below
+    q32, k32, v32 = (t.detach().float().requires_grad_()
+                     for t in (q, k, v))
     o32 = fa.attention_ref(q32, k32, v32, *var, **hk)
     o32.backward(do.float())
     lse32 = fa.attention_lse_ref(q32.detach(), k32.detach(), causal, mask)
@@ -3183,7 +3196,7 @@ def _variant_case(name, dtype, shape, causal, with_mask, p, heads, gen):
         torch.autograd.grad(og, (qg, kg, vg), do, retain_graph=True)
 
     F = torch.nn.functional
-    ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_()
+    ql, kl, vl = (t.detach().transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     dol = do.transpose(1, 2).contiguous()
     lib_kw = dict(attn_mask=None if mask is None else mask.to(dtype),
@@ -3203,9 +3216,9 @@ def _variant_case(name, dtype, shape, causal, with_mask, p, heads, gen):
         plain_fwd_ms=event_ms(lambda: fa.attention_ref(q, k, v, *var, **hk),
                               3),
         plain_bwd_ms=event_ms(plain_bwd, 3),
-        library_fwd_ms=event_ms(lambda: F.scaled_dot_product_attention(
+        library_fwd_ms=time_ms(lambda: F.scaled_dot_product_attention(
             ql, kl, vl, **lib_kw), 10),
-        library_fwd_bwd_ms=event_ms(library_fwd_bwd, 10))
+        library_fwd_bwd_ms=time_ms(library_fwd_bwd, 10))
     times["bwd_ms"] = times["dkv_ms"] + times["dq_ms"]
     times["library_bwd_ms"] = (times["library_fwd_bwd_ms"]
                                - times["library_fwd_ms"])
@@ -5288,11 +5301,10 @@ def main():
                              else "plain_bwd_ms"],
             "bound_ms": head[f"bound_{key}_ms"],
             "bound_by": head[f"bound_{key}_by"],
-            # the pair's bound is 3xTF32's; the FMA units' beside it
-            **({"bound_fma_ms": head[f"bound_{key}_fma_ms"],
-                "bound_fma_by": head[f"bound_{key}_fma_by"],
-                **flash[1]["ptxas"][f"{kname}_128"]} if key != "fwd"
-               else {}),
+            # the bound is 3xTF32's; the FMA units' beside it
+            "bound_fma_ms": head[f"bound_{key}_fma_ms"],
+            "bound_fma_by": head[f"bound_{key}_fma_by"],
+            **flash[1]["ptxas"][f"{kname}_128"],
             "design": flash[1]["design"][kname],
             "library_ms": head["library_fwd_ms"] if key == "fwd" else None,
             "library_bwd_ms": head["library_bwd_ms"],

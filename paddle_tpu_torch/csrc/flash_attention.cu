@@ -63,11 +63,11 @@
 //
 // Which design runs: every bf16 kernel runs the sm_90a design
 // (`flash_fwd_sm90`, `flash_dkv_sm90`, `flash_dq_sm90`: TMA, wgmma,
-// warp-specialised warpgroups); the float32 dK/dV and dQ run the 3xTF32
-// design (`flash_dkv_f32`, `flash_dq_f32`: split-precision products on the
-// tensor cores through mma.sync); the float32 forward (`flash_fwd`) runs
-// the f32 FMA design. The f32 kernels are the card-vs-CPU parity path and
-// the pipelined GPT-3 1.3B's (it trains in f32, as the JAX model does).
+// warp-specialised warpgroups); every float32 kernel runs the 3xTF32
+// design (`flash_fwd_f32`, `flash_dkv_f32`, `flash_dq_f32`:
+// split-precision products on the tensor cores through mma.sync). The f32
+// kernels are the card-vs-CPU parity path and the pipelined GPT-3 1.3B's
+// (it trains in f32, as the JAX model does).
 //
 // The sm_90a design. What bounded the mma.sync kernels on bf16: Ampere's
 // mma.sync cannot reach the tensor cores' full rate, each warp's ldmatrix
@@ -124,28 +124,12 @@
 //   against per-row limits, and only on the tiles that need it; exp2 runs
 //   on the special function unit directly.
 //
-// The float32 forward (a simple design, fourth version of what began as
-// the bf16 mma.sync kernels):
-// - Products in f32 FMAs on the fragment layout of mma.sync.m16n8k16,
-//   read from shared memory, where the right-hand operand is stored
-//   [depth][columns] as V is for P V, so no tile is ever stored
-//   transposed.
-// - Tiles of 64 queries x 64 keys; four warps per block, each owning 16
-//   rows of the tile, so the softmax and the P round trip through shared
-//   memory stay inside one warp. One block per (query tile, batch*head),
-//   looping over key tiles.
-// - The softmax runs in base 2 (exp2f on scores pre-scaled by log2(e)),
-//   and the per-element causal / edge test only on the tiles that need it.
-// - A two-stage cp.async pipeline: while a tile's products run, the next
-//   K and V are already on their way to the other half of a double buffer.
-// - Mask values are read from global memory (L1-cached) at the score's
-//   fragment position.
-//
-// The float32 dK/dV and dQ (3xTF32). The FMA design they replace ran at
-// 4.8-7.2x its FMA bound at a pipeline stage's shape on the H100: scalar
-// FMAs (67 TFLOP/s at best) fed by shared-memory loads on every k-step,
-// 221 KB of shared memory a block of four warps (one block an SM), and a
-// copy that nothing overlapped. So:
+// The float32 forward, dK/dV and dQ (3xTF32). The FMA designs they
+// replace ran at 4.8-7.2x their FMA bound at a pipeline stage's shape on
+// the H100 (the forward at 5.3x, 1.9x behind PyTorch's f32 attention):
+// scalar FMAs (67 TFLOP/s at best) fed by shared-memory loads on every
+// k-step, 182-221 KB of shared memory a block of four warps (one block an
+// SM), P through shared memory, and a copy that nothing overlapped. So:
 // - Products on the tensor cores in split precision: each f32 operand x is
 //   hi + lo with hi = x rounded to TF32 (to nearest, ties away from zero,
 //   in two integer instructions) and lo = x - hi (exact), and each product
@@ -167,38 +151,43 @@
 //   and the chains on the CPU against float64; one TF32 pass misses the
 //   same gate by two orders of magnitude).
 // - mma.sync, not wgmma: wgmma's tf32 form reads both shared-memory
-//   operands K-major only (the transpose is for 16-bit types), and dV +=
-//   (P D)^T dO, dK += dS^T Q and dQ += dS K all read their right-hand
-//   operand MN-major, as stored; wgmma would need [D][rows] copies of dO,
-//   Q and K. mma.sync's fragments are loaded by the threads from any
+//   operands K-major only (the transpose is for 16-bit types), and O += P
+//   V, dV += (P D)^T dO, dK += dS^T Q and dQ += dS K all read their
+//   right-hand operand MN-major, as stored; wgmma would need [D][rows]
+//   copies of V, dO, Q and K. mma.sync's fragments are loaded by the threads from any
 //   layout: rows are padded by 16 bytes (stride = 4 mod 32 words), which
 //   makes both the row-major reads (A, and B of S and dP) and the column
-//   reads (B of dV, dK, dQ: rows 2t and 2t + 1, column g) free of bank
+//   reads (B of O, dV, dK, dQ: rows 2t and 2t + 1, column g) free of bank
 //   conflicts, so no tile is stored transposed.
 // - The accumulator of S^T (or S) and dP^T (or dP) is the m16n8 layout,
 //   and a lane's two columns 2t, 2t + 1 serve as depth t and t + 4 of the
 //   next product's A fragment (the B operand reads rows in the same
-//   order): P and dS stay in registers. The softmax recompute, add_mask,
-//   drop_rows / drop_cols and store_rows keep the FMA design's fragment
-//   positions.
+//   order): P and dS stay in registers. The softmax, add_mask, drop_rows /
+//   drop_cols and store_rows keep the FMA design's fragment positions.
 // - Operands are split at each fragment load, not once per tile into hi /
 //   lo planes: planes would double the tiles' shared memory (405 KB at D
 //   128 for dK/dV's six tiles), which does not fit one block of eight
 //   warps. Each A fragment is split once per k-step and reused over a row
 //   of n-tiles; each B value once per warp that reads it.
 // - Eight warps a block (one block an SM at D 128): 64 keys (dK/dV) or 64
-//   queries (dQ) a block in four row groups of 16. In dK/dV the two warps
+//   queries (forward, dQ) a block in four row groups of 16. In dK/dV the two warps
 //   of a row group split the products: one computes S^T, P and dV, the
 //   other dP^T, dS^T (P handed over through shared memory, a dropped
 //   entry negated, a named barrier a pair) and dK, so a warp holds one
 //   [16][D] accumulator (two would take 128 of its 255 registers and
-//   spill). In dQ the two warps of a row group take the two halves of each
-//   64-key tile, each with its own dQ sums, added half 0 then half 1
-//   through shared memory at the end: one fixed order. A warp whose rows
-//   see none of its columns skips the tile.
-// - Q / dO (dK/dV) or K / V (dQ) tiles come through a two-stage cp.async
-//   ring, the next tile in flight while this one's products run; the
-//   grid is (B*H, tiles), heaviest causal tiles first.
+//   spill). In the forward and dQ the two warps of a row group take the
+//   two halves of each 64-key tile, each with its own sums (the forward's
+//   with its own online softmax), merged half 0 then half 1 through shared
+//   memory at the end: one fixed order. A warp whose rows see none of its
+//   columns skips the tile.
+// - Q / dO (dK/dV) or K / V (forward, dQ) tiles come through a two-stage
+//   cp.async ring, the next tile in flight while this one's products run;
+//   the backward's grid is (B*H, tiles), heaviest causal tiles first.
+//   Under causal masking a forward block takes query tiles n - 1 - p and p
+//   in turn, so every block visits n + 1 key tiles: at a pipeline stage's
+//   shape (16 tiles, 16 batch*heads) 128 equal blocks fill 128 of the 132
+//   SMs in one wave, where one block a tile made 256 blocks of 1 to 16
+//   visits.
 //
 // Every design: the backward is split in two kernels with no atomics (the
 // JAX design): each gradient is summed in one fixed order, so the result
@@ -266,7 +255,7 @@ struct TmaMaps {
 
 namespace {
 
-constexpr int kThreads = 128;  // four warps
+constexpr int kF32Threads = 256;  // the f32 kernels: eight warps
 constexpr int kTile = 64;      // queries per query tile, keys per key tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x * kLog2e)
@@ -277,51 +266,6 @@ __device__ __forceinline__ void store2(float* p, float x, float y) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-// One warp: acc[j] += A[16][K] * B[K][8j .. 8j+7] for j < NT, in float32
-// FMAs. A's rows are at `a` (stride lda, [row][depth]); B is stored
-// [column][depth] (stride ldb) or, with kBKN, [depth][column]. Both live in
-// shared memory. acc[j] is the m16n8 accumulator fragment of mma.sync:
-// element e of lane (g = lane / 4, t = lane % 4) is row g + 8 * (e / 2),
-// column 8j + 2t + e % 2.
-template <int NT, int K, bool kBKN>
-__device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], const float* a,
-                                          int lda, const float* b, int ldb) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll 2
-  for (int k = 0; k < K; k += 4) {
-    const float4 a0 = *reinterpret_cast<const float4*>(a + g * lda + k);
-    const float4 a1 = *reinterpret_cast<const float4*>(a + (g + 8) * lda + k);
-    const float x0[4] = {a0.x, a0.y, a0.z, a0.w};
-    const float x1[4] = {a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = 8 * j + 2 * t;
-      float y0[4], y1[4];  // B[k .. k+3][n] and B[k .. k+3][n + 1]
-      if (kBKN) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 u = *reinterpret_cast<const float2*>(b + (k + i) * ldb + n);
-          y0[i] = u.x;
-          y1[i] = u.y;
-        }
-      } else {
-        const float4 u0 = *reinterpret_cast<const float4*>(b + n * ldb + k);
-        const float4 u1 = *reinterpret_cast<const float4*>(b + (n + 1) * ldb + k);
-        y0[0] = u0.x, y0[1] = u0.y, y0[2] = u0.z, y0[3] = u0.w;
-        y1[0] = u1.x, y1[1] = u1.y, y1[2] = u1.z, y1[3] = u1.w;
-      }
-      float* c = acc[j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        c[0] = fmaf(x0[i], y0[i], c[0]);
-        c[1] = fmaf(x0[i], y1[i], c[1]);
-        c[2] = fmaf(x1[i], y0[i], c[2]);
-        c[3] = fmaf(x1[i], y1[i], c[3]);
-      }
-    }
-  }
 }
 
 // Asynchronous copies to shared memory: `bytes` of 16 (or of 4) are read
@@ -350,7 +294,7 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // The block's kN threads start copying rows [r0, r0 + kTile) of a
 // [n_rows, D] slab (row stride `rs` elements) into shared memory `dst`
 // (row stride ld); rows past n_rows (>= 1) read nothing and come out zero.
-template <typename T, int D, int kN = kThreads>
+template <typename T, int D, int kN = kF32Threads>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
                                           int64_t rs, int64_t r0,
                                           int64_t n_rows) {
@@ -367,7 +311,7 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
 }
 
 // The same for kTile f32 values of a row of n (>= 1) values.
-template <int kN = kThreads>
+template <int kN = kF32Threads>
 __device__ __forceinline__ void load_row(float* dst, const float* src,
                                          int64_t r0, int64_t n) {
   for (int i = threadIdx.x; i < kTile; i += kN) {
@@ -380,8 +324,7 @@ __device__ __forceinline__ void load_row(float* dst, const float* src,
 // eight rows of an 8x8 matrix on distinct banks.
 template <typename T, int D> struct Ld {
   static constexpr int kPad = 16 / sizeof(T);
-  static constexpr int kD = D + kPad;      // rows of depth D
-  static constexpr int kT = kTile + kPad;  // rows of depth kTile
+  static constexpr int kD = D + kPad;  // rows of depth D
 };
 
 __device__ __forceinline__ int64_t min64(int64_t x, int64_t y) {
@@ -466,11 +409,13 @@ __device__ __forceinline__ const float* mask_slab(const FlashArgs& a,
 
 // The base-2 score x (s * scale * log2(e)) of a live (query, key) pair plus
 // its mask value, clamped at kNegInf like a hidden pair.
+__device__ __forceinline__ float add_mask_at(const float* m, float x) {
+  return fmaxf(fmaf(__ldg(m), kLog2e, x), kNegInf);
+}
 __device__ __forceinline__ float add_mask(const FlashArgs& a, const float* mb,
                                           int64_t qpos, int64_t kpos,
                                           float x) {
-  const float m = __ldg(mb + qpos * a.mask.sq + kpos * a.mask.sk);
-  return fmaxf(fmaf(m, kLog2e, x), kNegInf);
+  return add_mask_at(mb + qpos * a.mask.sq + kpos * a.mask.sk, x);
 }
 
 // Philox4x32-10 (Random123's philox4x32) at counter (c0, c1, c2, 0) under
@@ -520,150 +465,6 @@ __device__ __forceinline__ void drop_rows(const FlashArgs& a, int64_t bh,
   f[3] = keep_flag(a, odd ? r.w : x1);
 }
 
-// ---------------------------------------------------------------------------
-// forward: grid (query tiles, B*H)
-// ---------------------------------------------------------------------------
-
-// kVar: the mask / dropout variant (runtime flags inside); without it the
-// body compiles to the plain kernel, untouched by the variants' code.
-template <typename T, int D, bool kVar>
-__device__ __forceinline__ void fwd_body(const FlashArgs& a) {
-  using L = Ld<T, D>;
-  extern __shared__ uint4 smem_u4[];
-  constexpr int kTileElems = kTile * L::kD;
-  T* qs = reinterpret_cast<T*>(smem_u4);  // [kTile][kD]
-  T* kvs = qs + kTileElems;               // [2 stages][K, V][kTile][kD]
-  T* ps = kvs + 4 * kTileElems;           // [kTile][kT], P of this tile
-
-  const int64_t bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  // the keep bits' head coordinate: the model's head, not this launch's
-  const int64_t dbh = b * a.heads_total + a.head_offset + h;
-  const int64_t q0 = (int64_t)blockIdx.x * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const T* kg = slab<T>(a.k, b, h);
-  const T* vg = slab<T>(a.v, b, h);
-  // K and V of key tile kt into its stage
-  auto fetch = [&](int kt) {
-    T* dst = kvs + (kt & 1) * 2 * kTileElems;
-    load_tile<T, D>(dst, L::kD, kg, a.k.ss, (int64_t)kt * kTile, a.Sk);
-    load_tile<T, D>(dst + kTileElems, L::kD, vg, a.v.ss,
-                    (int64_t)kt * kTile, a.Sk);
-  };
-  const int n_kt = key_tiles(a, q0);
-  load_tile<T, D>(qs, L::kD, slab<T>(a.q, b, h), a.q.ss, q0, a.Sq);
-  if (n_kt > 0) fetch(0);
-  cp_async_commit();
-
-  float o[D / 8][4];
-  zero(o);
-  // m is the running row max of the base-2 scores s * scale * log2(e)
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const float sl2 = a.scale * kLog2e;
-  T* pw = ps + warp * 16 * L::kT;  // this warp's rows of P
-  const bool has_mask = kVar && a.has_mask;
-  const bool has_drop = kVar && a.has_dropout;
-  const float* mb = mask_slab(a, bh);
-  const int64_t qrow = q0 + warp * 16 + g;
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int64_t k0 = (int64_t)kt * kTile;
-    const T* ks = kvs + (kt & 1) * 2 * kTileElems;
-    const T* vs = ks + kTileElems;
-    if (kt + 1 < n_kt) {
-      fetch(kt + 1);  // into the stage the previous tile freed
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // this tile (and Q) has landed for every thread
-
-    float s[kTile / 8][4];
-    zero(s);
-    warp_gemm<kTile / 8, D, false>(s, qs + warp * 16 * L::kD, L::kD, ks,
-                                   L::kD);
-
-    // rows past Sq are masked whole: finite garbage, never stored
-    const bool full = all_visible(a, q0, k0);
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int64_t qpos = qrow + 8 * (e >> 1);
-        const int64_t kpos = k0 + 8 * j + 2 * t + (e & 1);
-        const bool live = full || visible(a, qpos, kpos);
-        float x = live ? s[j][e] * sl2 : kNegInf;
-        if (has_mask && live) x = add_mask(a, mb, qpos, kpos, x);
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      float f[4] = {1.f, 1.f, 1.f, 1.f};
-      if (has_drop) drop_rows(a, dbh, qrow, k0 + 8 * j + 2 * t, f);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float p0 = exp2f(s[j][2 * i] - m[i]);
-        const float p1 = exp2f(s[j][2 * i + 1] - m[i]);
-        // l takes the unrounded p before dropout, as on the TPU
-        sum[i] += p0 + p1;
-        if (has_drop)
-          store2(pw + (g + 8 * i) * L::kT + 8 * j + 2 * t, p0 * f[2 * i],
-                 p1 * f[2 * i + 1]);
-        else
-          store2(pw + (g + 8 * i) * L::kT + 8 * j + 2 * t, p0, p1);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-      l[i] = l[i] * alpha[i] + sum[i];
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
-    __syncwarp();
-    warp_gemm<D / 8, kTile, true>(o, pw, L::kT, vs, L::kD);
-    __syncthreads();  // every warp is done with this stage before its refill
-  }
-  cp_async_wait<0>();
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float lc = fmaxf(l[i], 1e-30f);
-    inv[i] = (has_drop ? a.drop_scale : 1.f) / lc;
-    const int64_t qpos = q0 + warp * 16 + g + 8 * i;
-    if (t == 0 && qpos < a.Sq)
-      a.lse[bh * a.Sq + qpos] = m[i] * kLn2 + logf(lc);
-  }
-  store_rows<T, D>(a.o, b, h, qrow, a.Sq, o, inv);
-  if (kVar && a.o32.p) store_rows<float, D>(a.o32, b, h, qrow, a.Sq, o, inv);
-}
-
-// design: f32 FMA on mma.sync's fragment layout, 64x64 tiles, 4 warps,
-//   2-stage cp.async
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd(const FlashArgs a) {
-  if (a.has_mask || a.has_dropout)
-    fwd_body<T, D, true>(a);
-  else
-    fwd_body<T, D, false>(a);
-}
-
 // The same for the dK/dV layout (rows = keys), used by the bf16 and the
 // f32 dK/dV kernels: element e is key krow + 8 * (e / 2), query qcol + e %
 // 2, where krow is the lane's key row (g of a 16-key row group) and qcol =
@@ -701,8 +502,6 @@ __device__ __forceinline__ void drop_cols_sm90(const FlashArgs& a, int64_t bh,
 // ---------------------------------------------------------------------------
 // float32 dK/dV and dQ: 3xTF32 products on mma.sync, eight warps a block
 // ---------------------------------------------------------------------------
-
-constexpr int kBwdThreads = 256;  // eight warps: four row groups x two
 
 // x = hi + lo with hi = x rounded to TF32 (to nearest, ties away from zero:
 // half a TF32 ulp added to the bit pattern, the 13 low bits cleared) and lo
@@ -891,19 +690,19 @@ __device__ __forceinline__ void dkv_f32_body(const FlashArgs& a) {
     const int64_t q0 = (int64_t)qi * kTile;
     float* dst = qds + (qi & 1) * 2 * kTileElems;
     float* r = rows + (qi & 1) * 2 * kTile;
-    load_tile<float, D, kBwdThreads>(dst, L::kD, qg, a.q.ss, q0, a.Sq);
-    load_tile<float, D, kBwdThreads>(dst + kTileElems, L::kD, dog, a.dout.ss,
+    load_tile<float, D, kF32Threads>(dst, L::kD, qg, a.q.ss, q0, a.Sq);
+    load_tile<float, D, kF32Threads>(dst + kTileElems, L::kD, dog, a.dout.ss,
                                      q0, a.Sq);
-    load_row<kBwdThreads>(r, a.lse + bh * a.Sq, q0, a.Sq);
-    load_row<kBwdThreads>(r + kTile, a.delta + bh * a.Sq, q0, a.Sq);
+    load_row<kF32Threads>(r, a.lse + bh * a.Sq, q0, a.Sq);
+    load_row<kF32Threads>(r + kTile, a.delta + bh * a.Sq, q0, a.Sq);
   };
   // first query tile holding a query that sees key k0
   int qt_begin = 0;
   if (a.causal && k0 - off > 0) qt_begin = (int)((k0 - off) / kTile);
   const int n_qt = (int)((a.Sq + kTile - 1) / kTile);
-  load_tile<float, D, kBwdThreads>(ks, L::kD, slab<float>(a.k, b, h), a.k.ss,
+  load_tile<float, D, kF32Threads>(ks, L::kD, slab<float>(a.k, b, h), a.k.ss,
                                    k0, a.Sk);
-  load_tile<float, D, kBwdThreads>(vs, L::kD, slab<float>(a.v, b, h), a.v.ss,
+  load_tile<float, D, kF32Threads>(vs, L::kD, slab<float>(a.v, b, h), a.v.ss,
                                    k0, a.Sk);
   fetch(qt_begin);
   cp_async_commit();
@@ -997,7 +796,7 @@ __device__ __forceinline__ void dkv_f32_body(const FlashArgs& a) {
 //   a row group's two warps split S^T/P/dV and dP^T/dS^T/dK, P handed
 //   over through shared memory; 2-stage cp.async
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kF32Threads, 1)
     flash_dkv_f32(const FlashArgs a) {
   if (a.has_mask || a.has_dropout)
     dkv_f32_body<D, true>(a);
@@ -1033,15 +832,15 @@ __device__ __forceinline__ void dq_f32_body(const FlashArgs& a) {
   // K and V of key tile kj into its stage
   auto fetch = [&](int kj) {
     float* dst = kvs + (kj & 1) * 2 * kTileElems;
-    load_tile<float, D, kBwdThreads>(dst, L::kD, kg, a.k.ss,
+    load_tile<float, D, kF32Threads>(dst, L::kD, kg, a.k.ss,
                                      (int64_t)kj * kTile, a.Sk);
-    load_tile<float, D, kBwdThreads>(dst + kTileElems, L::kD, vg, a.v.ss,
+    load_tile<float, D, kF32Threads>(dst + kTileElems, L::kD, vg, a.v.ss,
                                      (int64_t)kj * kTile, a.Sk);
   };
   const int n_kt = key_tiles(a, q0);
-  load_tile<float, D, kBwdThreads>(qs, L::kD, slab<float>(a.q, b, h), a.q.ss,
+  load_tile<float, D, kF32Threads>(qs, L::kD, slab<float>(a.q, b, h), a.q.ss,
                                    q0, a.Sq);
-  load_tile<float, D, kBwdThreads>(dos, L::kD, slab<float>(a.dout, b, h),
+  load_tile<float, D, kF32Threads>(dos, L::kD, slab<float>(a.dout, b, h),
                                    a.dout.ss, q0, a.Sq);
   if (n_kt > 0) fetch(0);
   cp_async_commit();
@@ -1126,12 +925,215 @@ __device__ __forceinline__ void dq_f32_body(const FlashArgs& a) {
 //   warps: a row group's two warps take the two key halves of each tile,
 //   their dQ sums added half 0 then half 1; 2-stage cp.async
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__global__ void __launch_bounds__(kF32Threads, 1)
     flash_dq_f32(const FlashArgs a) {
   if (a.has_mask || a.has_dropout)
     dq_f32_body<D, true>(a);
   else
     dq_f32_body<D, false>(a);
+}
+
+// Forward: grid (B*H, query-tile slots). A block owns 64 queries at a time
+// (Q in shared memory) and walks the key tiles of 64 through a two-stage
+// cp.async ring. Warp w owns queries 16 * (w & 3) of the tile and keys 32 *
+// (w >> 2) of each key tile, with its own online softmax (m, l) and O
+// sums: S = Q K^T over its 32 keys, P = exp2(S - m) kept in registers as
+// the A operand of O += P V (one chain of four k-steps into each n-tile of
+// O, added after the alpha rescale). At the end the two key halves are
+// merged through shared memory in one order: m = max(m0, m1), each half's
+// O and l scaled by exp2(m_h - m), half 1 added into half 0. Under causal
+// masking a block takes query tiles n - 1 - p and p, the heaviest first,
+// so every block of a batch*head visits n + 1 key tiles.
+template <int D, bool kVar>
+__device__ __forceinline__ void fwd_f32_body(const FlashArgs& a) {
+  using L = Ld<float, D>;
+  extern __shared__ uint4 smem_u4[];
+  constexpr int kTileElems = kTile * L::kD;
+  float* qs = reinterpret_cast<float*>(smem_u4);  // [kTile][kD]
+  float* kvs = qs + kTileElems;  // [2 stages][K, V][kTile][kD]
+  // the halves' merge, over the tiles' memory once they are done with:
+  float* red = qs;                           // O, as sum_halves lays it out
+  float* mrow = red + 4 * (D / 8) * 4 * 32;  // [half][row group][lane][2]
+  float* lrow = mrow + 2 * 4 * 32 * 2;       // [row group][lane][2]
+
+  const int64_t bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  // the keep bits' head coordinate: the model's head, not this launch's
+  const int64_t dbh = b * a.heads_total + a.head_offset + h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp & 3, half = warp >> 2;
+  const int64_t off = a.Sk - a.Sq;
+  const float* kg = slab<float>(a.k, b, h);
+  const float* vg = slab<float>(a.v, b, h);
+  // K and V of key tile kj into its stage
+  auto fetch = [&](int kj) {
+    float* dst = kvs + (kj & 1) * 2 * kTileElems;
+    load_tile<float, D>(dst, L::kD, kg, a.k.ss, (int64_t)kj * kTile, a.Sk);
+    load_tile<float, D>(dst + kTileElems, L::kD, vg, a.v.ss,
+                        (int64_t)kj * kTile, a.Sk);
+  };
+  const float sl2 = a.scale * kLog2e;
+  const bool has_mask = kVar && a.has_mask;
+  const bool has_drop = kVar && a.has_dropout;
+  const float* mb = mask_slab(a, bh);
+  // causal: query tile n - 1 - p (the heavier) then tile p; otherwise p
+  const int n_qt = (int)((a.Sq + kTile - 1) / kTile), p = blockIdx.y;
+  const int first = a.causal ? n_qt - 1 - p : p;
+  const int n_tiles = a.causal && p < first ? 2 : 1;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int64_t q0 = (int64_t)(it == 0 ? first : p) * kTile;
+    const int n_kt = key_tiles(a, q0);
+    __syncthreads();  // the previous tile's merge is done with this memory
+    load_tile<float, D>(qs, L::kD, slab<float>(a.q, b, h), a.q.ss, q0, a.Sq);
+    if (n_kt > 0) fetch(0);
+    cp_async_commit();
+
+    float o[D / 8][4];
+    zero(o);
+    // m is the running row max of the base-2 scores s * scale * log2(e)
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    const int64_t qfirst = q0 + 16 * wr, qrow = qfirst + g;
+    const float* qw = qs + 16 * wr * L::kD;
+
+    for (int kj = 0; kj < n_kt; ++kj) {
+      const int64_t k0 = (int64_t)kj * kTile;
+      const float* ks = kvs + (kj & 1) * 2 * kTileElems;
+      const float* vs = ks + kTileElems;
+      if (kj + 1 < n_kt) {
+        fetch(kj + 1);  // into the stage the previous tile freed
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // this tile (and Q) has landed for every thread
+
+      // this warp's 32 keys, skipped whole where its 16 queries see none
+      const int64_t kh = k0 + 32 * half;
+      const bool live =
+          qfirst < a.Sq && kh < a.Sk &&
+          (!a.causal || min64(qfirst + 15, a.Sq - 1) + off >= kh);
+      if (live) {
+        // S = Q K^T: [16 queries][32 keys]
+        float s[4][4];
+        rows_product<D>(s, qw, ks + 32 * half * L::kD);
+        // rows past Sq are masked whole: finite garbage, never stored
+        const bool full = all_visible<16, 32>(a, qfirst, kh);
+        // the mask's values of the lane's two rows start at mrow[i] + kcol
+        // (taken once a tile: 64-bit addresses per score made the D 128
+        // variant spill)
+        const float* mrow[2] = {mb, mb};
+        int64_t kcol = 0;
+        if (has_mask) {
+          mrow[0] = mb + qrow * a.mask.sq;
+          mrow[1] = mrow[0] + 8 * a.mask.sq;
+          kcol = (kh + 2 * t) * a.mask.sk;
+        }
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int64_t qpos = qrow + 8 * (e >> 1);
+            const int64_t kpos = kh + 8 * j + 2 * t + (e & 1);
+            const bool seen = full || visible(a, qpos, kpos);
+            float x = seen ? s[j][e] * sl2 : kNegInf;
+            if (has_mask && seen)
+              x = add_mask_at(
+                  mrow[e >> 1] + kcol + (8 * j + (e & 1)) * a.mask.sk, x);
+            s[j][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+        float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          const float m_new = fmaxf(m[i], mx[i]);
+          alpha[i] = exp2f(m[i] - m_new);
+          m[i] = m_new;
+        }
+        // s becomes P times the keep flags
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float f[4] = {1.f, 1.f, 1.f, 1.f};
+          if (has_drop) drop_rows(a, dbh, qrow, kh + 8 * j + 2 * t, f);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pe = exp2f(s[j][e] - m[e >> 1]);
+            // l takes the unrounded p before dropout, as on the TPU
+            sum[e >> 1] += pe;
+            s[j][e] = pe * f[e];
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+          sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+          l[i] = l[i] * alpha[i] + sum[i];
+        }
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+        // O += P V over the 32 keys: one chain of four k-steps an n-tile
+        cols_product<D>(o, s, vs + 32 * half * L::kD);
+      }
+      __syncthreads();  // every warp is done with this stage before its refill
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the tiles' memory now holds the halves' merge
+
+    // each half rescales to the joint max; half 1 is added into half 0
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      mrow[((half * 4 + wr) * 32 + lane) * 2 + i] = m[i];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float other = mrow[(((half ^ 1) * 4 + wr) * 32 + lane) * 2 + i];
+      const float mm = fmaxf(m[i], other);
+      const float f = exp2f(m[i] - mm);
+      l[i] *= f;
+      m[i] = mm;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[j][2 * i] *= f;
+        o[j][2 * i + 1] *= f;
+      }
+    }
+    if (half == 1) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) lrow[(wr * 32 + lane) * 2 + i] = l[i];
+    }
+    sum_halves(red, o);  // (its barrier also lands half 1's l)
+    if (half == 0) {
+      float inv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float lc = fmaxf(l[i] + lrow[(wr * 32 + lane) * 2 + i], 1e-30f);
+        inv[i] = (has_drop ? a.drop_scale : 1.f) / lc;
+        const int64_t qpos = qrow + 8 * i;
+        if (t == 0 && qpos < a.Sq)
+          a.lse[bh * a.Sq + qpos] = m[i] * kLn2 + logf(lc);
+      }
+      store_rows<float, D>(a.o, b, h, qrow, a.Sq, o, inv);
+      if (kVar && a.o32.p)
+        store_rows<float, D>(a.o32, b, h, qrow, a.Sq, o, inv);
+    }
+  }
+}
+
+// design: f32 3xTF32 mma.sync.m16n8k8, 64 queries x 64-key tiles, 8
+//   warps: a row group's two warps take the two key halves of each tile,
+//   each with its own online softmax, merged half 0 then half 1; P in
+//   registers; causal blocks pair query tiles n-1-p and p; 2-stage
+//   cp.async; a kernel without and one with the mask / dropout code
+template <int D, bool kVar>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_fwd_f32(const FlashArgs a) {
+  fwd_f32_body<D, kVar>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -1911,9 +1913,9 @@ __global__ void __launch_bounds__(kSm90Threads, 1)
 // launches
 // ---------------------------------------------------------------------------
 
-template <typename T, int D> constexpr size_t fwd_smem() {
-  using L = Ld<T, D>;  // Q, two stages of K and V, P
-  return sizeof(T) * (5 * kTile * L::kD + kTile * L::kT);
+template <int D> constexpr size_t fwd_f32_smem() {
+  using L = Ld<float, D>;  // Q, two stages of K and V
+  return sizeof(float) * 5 * kTile * L::kD;
 }
 template <int D> constexpr size_t dkv_f32_smem() {
   using L = Ld<float, D>;  // K, V, two stages of Q, dO, LSE and delta, P^T
@@ -1923,9 +1925,10 @@ template <int D> constexpr size_t dq_f32_smem() {
   using L = Ld<float, D>;  // Q, dO, two stages of K and V
   return sizeof(float) * 6 * kTile * L::kD;
 }
-// (220,160 / 202,752 bytes at D 128: one block of eight warps an SM;
-// 121,856 / 104,448 at D 64. dQ's halves' sums reuse the tiles' memory:
-// 4 * 16 * D floats.)
+// (168,960 / 220,160 / 202,752 bytes at D 128: one block of eight warps
+// an SM; 87,040 / 121,856 / 104,448 at D 64. The forward's merge and dQ's
+// halves' sums reuse the tiles' memory: 4 * 16 * D floats, and the
+// forward's m and l rows.)
 static_assert(dq_f32_smem<128>() <= 232448 && dkv_f32_smem<128>() <= 232448,
               "one block must fit an SM");
 
@@ -1950,6 +1953,13 @@ int launch(Kernel kernel, size_t smem, bool& ready, dim3 grid, int threads,
 // batch*head's heaviest tile are dispatched first.
 dim3 bwd_grid(const FlashArgs& a, int64_t rows) {
   return dim3((unsigned)(a.B * a.H), (unsigned)((rows + kTile - 1) / kTile));
+}
+
+// The f32 forward's grid: (B*H, query tiles), or under causal masking (B*H,
+// pairs of query tiles n - 1 - p and p).
+dim3 fwd_f32_grid(const FlashArgs& a) {
+  const int64_t n = (a.Sq + kTile - 1) / kTile;
+  return dim3((unsigned)(a.B * a.H), (unsigned)(a.causal ? (n + 1) / 2 : n));
 }
 
 // The bf16 kernels' launches: tensor maps over the [B, S, H, D] views
@@ -2050,11 +2060,12 @@ int fwd(const FlashArgs& a, cudaStream_t stream) {
   if constexpr (kBf16<T>) {
     return dispatch_sm90<D, RunFwd>(a, stream);
   } else {
-    static bool ready = false;
-    return launch(flash_fwd<T, D>, fwd_smem<T, D>(), ready,
-                  dim3((unsigned)((a.Sq + kTile - 1) / kTile),
-                       (unsigned)(a.B * a.H)),
-                  kThreads, a, stream);
+    static bool ready = false, ready_var = false;
+    if (a.has_mask || a.has_dropout)
+      return launch(flash_fwd_f32<D, true>, fwd_f32_smem<D>(), ready_var,
+                    fwd_f32_grid(a), kF32Threads, a, stream);
+    return launch(flash_fwd_f32<D, false>, fwd_f32_smem<D>(), ready,
+                  fwd_f32_grid(a), kF32Threads, a, stream);
   }
 }
 
@@ -2068,7 +2079,7 @@ int bwd(const FlashArgs& a, int which, cudaStream_t stream) {
       err = dispatch_sm90<D, RunDkv>(a, stream);
     else
       err = launch(flash_dkv_f32<D>, dkv_f32_smem<D>(), ready_dkv,
-                   bwd_grid(a, a.Sk), kBwdThreads, a, stream);
+                   bwd_grid(a, a.Sk), kF32Threads, a, stream);
     if (err) return err;
   }
   if (which & 2) {
@@ -2076,7 +2087,7 @@ int bwd(const FlashArgs& a, int which, cudaStream_t stream) {
       return dispatch_sm90<D, RunDq>(a, stream);
     else
       return launch(flash_dq_f32<D>, dq_f32_smem<D>(), ready_dq,
-                    bwd_grid(a, a.Sq), kBwdThreads, a, stream);
+                    bwd_grid(a, a.Sq), kF32Threads, a, stream);
   }
   return 0;
 }

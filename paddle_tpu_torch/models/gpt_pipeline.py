@@ -65,6 +65,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._device import resolve_device
 from ..distributed.fleet.meta_parallel.mp_layers import (MPGroup,
                                                          copy_to_mp,
                                                          reduce_from_mp)
@@ -137,17 +138,18 @@ def _block_shapes(cfg):
             "w2": (Fd, H), "b2": (H,)}
 
 
-def init_params(cfg, pp, n_chunks=1, seed=0, device="cpu",
+def init_params(cfg, pp, n_chunks=1, seed=0, device=None,
                 dtype=torch.float32):
     """Natural parameters from a torch generator seeded with `seed`: the
     JAX module's initialisation (normal times 0.02 for the matrices and
     the embeddings, ones for the norms' gains, zeros for the biases), in
-    its layout for `pp` stages (and `n_chunks` chunks a stage)."""
+    its layout for `pp` stages (and `n_chunks` chunks a stage), on
+    `device` (None: the card, as `_device.resolve_device` says)."""
     L = cfg.num_layers
     if L % (pp * n_chunks):
         raise ValueError(f"{L} layers do not split into {pp} stages x "
                          f"{n_chunks} chunks")
-    device = torch.device(device)
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     kw = dict(dtype=dtype, device=device)
 

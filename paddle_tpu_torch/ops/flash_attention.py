@@ -31,9 +31,8 @@ with `_attention_xla`'s optional mask and dropout:
   and those with a mask or dropout also in `.mask_launches` /
   `.dropout_launches`. In bfloat16 all three kernels are the sm_90a
   designs (TMA tile loads through tensor maps over the views' strides,
-  wgmma); in float32 the forward runs FMA products on mma.sync's
-  fragment layout, and dK/dV and dQ run split-precision (3xTF32)
-  products on the tensor cores through mma.sync, to f32 accuracy.
+  wgmma); in float32 all three run split-precision (3xTF32) products on
+  the tensor cores through mma.sync, to f32 accuracy.
 - `FlashAttention` is the autograd function around the two directions
   (the counterpart of `_flash_custom`). With dropout on bfloat16 inputs
   the forward kernel also writes O in f32, and the backward's delta is

@@ -74,6 +74,22 @@ _END = "__end__"
 _SYNC = "__sync__"
 
 
+async def _off_loop(fn):
+    """``fn()`` on a worker thread, so the event loop never blocks on it.
+    The worker lets go of the callable it ran only once it holds the GIL
+    again, and the result can wake this loop before that (the wake-up
+    write releases the GIL): a retire would return with the worker still
+    holding whatever `fn` holds, an engine and its card memory. So the
+    worker gets `fn` in a box it empties, and `fn` goes when it returns."""
+    box = [fn]
+    del fn
+
+    def run():
+        return box.pop()()
+
+    return await asyncio.to_thread(run)
+
+
 class EngineOverloadedError(RuntimeError):
     """Admission rejected on a FULL resource — retry later (HTTP 429).
     ``reason`` says which resource: ``queue_full`` (the bounded wait
@@ -383,11 +399,14 @@ class AsyncLLMEngine:
         # executor worker, never the event loop (JL007)
         await asyncio.get_running_loop().run_in_executor(
             None, self._thread.join, 5.0)
+        if self._watchdog is not None:
+            # its thread holds the engine's supervisor until its poll wakes
+            await _off_loop(self._watchdog.stop)
         close = getattr(self.engine, "close", None)
         if close is not None:
             # release engine-owned background resources (the host-tier
             # drain thread) now that the engine thread is gone
-            await asyncio.get_running_loop().run_in_executor(None, close)
+            await _off_loop(close)
 
     async def call(self, fn, timeout_s=None):
         """Run ``fn()`` on the engine thread between two steps, inside the
@@ -397,7 +416,7 @@ class AsyncLLMEngine:
         thread instead. Past `timeout_s` (a wedged engine thread) a call
         that has not started is cancelled and TimeoutError raised."""
         if self._thread is None or not self._thread.is_alive():
-            return await asyncio.to_thread(fn)
+            return await _off_loop(fn)
         fut = concurrent.futures.Future()
         self._cmds.put(("call", fn, fut))
         waiting = asyncio.wrap_future(fut)

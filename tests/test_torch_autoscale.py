@@ -9,12 +9,17 @@ and `RouterServer` (a spawn through the factory on a worker thread, its
 first-token time measured; the retired replica drains to exactly one
 terminal lifecycle state), plus ``/debug/autoscale``'s 404 hint when the
 autoscaler is off. The ramp soak is the reference's `slow` case and is
-not repeated here.
+not repeated here. On the port's side alone: a retired replica's engine is
+gone when the retire returns (its thread ended, nothing left holding it),
+so a card's memory comes back with it.
 """
 import asyncio
+import concurrent.futures
+import gc
 import json
 import time
 import types
+import weakref
 
 import pytest
 
@@ -22,7 +27,7 @@ from paddle_tpu.serving import lifecycle as jlifecycle
 from paddle_tpu.serving import router as jrouter
 from paddle_tpu_torch.serving import lifecycle as tlifecycle
 from paddle_tpu_torch.serving import router as trouter
-from test_torch_router import SIDES, http, make_fleets
+from test_torch_router import SIDES, homed_prompt, http, make_fleets
 from test_torch_collectives import shared_cores  # noqa: F401 (autouse)
 
 ACTIVE = {"jax": jrouter.ACTIVE, "torch": trouter.ACTIVE}
@@ -210,3 +215,84 @@ def test_autoscale_endpoint_404_when_off(side, fleets):
         await server.shutdown()
 
     asyncio.run(run())
+
+
+class _LateWorkers(concurrent.futures.ThreadPoolExecutor):
+    """Workers that let go of what they ran only late (here: never), as a
+    worker does that waits for the GIL after its result has already woken
+    the event loop."""
+
+    def __init__(self):
+        super().__init__(max_workers=4)
+        self.ran = []
+
+    def submit(self, fn, /, *args, **kwargs):
+        self.ran.append((fn, args, kwargs))
+        return super().submit(fn, *args, **kwargs)
+
+
+@pytest.mark.parametrize("how", ["retire", "scale_down"])
+def test_a_retired_engine_is_gone_when_the_retire_returns(fleets, how):
+    """The port's scale-down frees the replica it retires before it
+    returns: right after `retire_replica` (or the autoscaler's scale-down
+    of a spawned replica that streamed over HTTP), the retired
+    AsyncLLMEngine's thread is not alive, and after one gc.collect(), with
+    no wait, weak references to it and to its LLMEngine are dead, even
+    with executor workers that hold on to what they ran."""
+    f = fleets["torch"]
+
+    def factory(i):
+        return f.front(f.engine(max_batch=2, warmup=True,
+                                host_kv_blocks=8))
+
+    async def run():
+        workers = _LateWorkers()
+        asyncio.get_running_loop().set_default_executor(workers)
+        router = f.router([factory(0), factory(1)], factory=factory,
+                          sweep_interval_s=0.05)
+        sc = f.serving.AutoScaler(router, factory=factory, min_replicas=1,
+                                  max_replicas=3, up_streak=1,
+                                  down_streak=1, cooldown_s=0.0)
+        server = f.serving.RouterServer(router, port=0, autoscaler=sc)
+        await server.start()
+        await sc.stop()            # this test drives the loop by hand
+        if how == "scale_down":
+            sc.signals = lambda: {
+                "active": len(router.replicas),
+                "replicas": len(router.replicas), "worst_attainment": None,
+                "window_events": 0, "min_wait_s": 9.9, "max_wait_s": 9.9,
+                "inflight": 0}
+            await sc.tick()
+            assert len(router.replicas) == 3
+        home = router.replicas[-1].name
+        for i in range(3):
+            code, body = await http(server.port, "POST", "/v1/completions", {
+                "prompt": homed_prompt(router, home, seed0=100 * i),
+                "max_tokens": 3, "stream": i % 2 == 0})
+            assert code == 200, body
+        fe = router.replicas[-1].engine
+        thread, front, engine = fe._thread, weakref.ref(fe), weakref.ref(
+            fe.engine)
+        del fe
+        if how == "scale_down":
+            sc.signals = lambda: {
+                "active": len(router.replicas),
+                "replicas": len(router.replicas), "worst_attainment": None,
+                "window_events": 0, "min_wait_s": 0.0, "max_wait_s": 0.0,
+                "inflight": 0}
+            sc._cooldown_until = 0.0
+            await sc.tick()
+            assert sc.decisions[-1]["action"] == "down"
+        else:
+            assert await router.retire_replica() == home
+        alive = thread.is_alive()
+        del thread
+        gc.collect()
+        gone = front() is None, engine() is None
+        await server.shutdown()
+        workers.ran.clear()
+        return alive, gone
+
+    alive, gone = asyncio.run(run())
+    assert not alive
+    assert gone == (True, True)

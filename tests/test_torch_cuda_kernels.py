@@ -7,6 +7,8 @@ tests/conftest.py, which sets JAX up):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -642,6 +644,81 @@ def test_f32_backward_at_the_pipeline_stage_shape(dev, dropout_p):
                           (q32.grad, k32.grad, v32.grad)):
         err = _max_err(x, y)
         assert err < 2e-5, f"{name}: max err {err}"
+
+
+F32_GATE = 2e-5  # the f32 kernels (3xTF32) against the plain f32 version
+
+
+def _f32_forward_case(case, head_dim, dev):
+    """(q, k, v, causal, mask, dropout_p, seed, heads) of a float32 forward
+    card case: causal with Sq < Sk and with S off the 64-row tile, q/k/v
+    as strided views of GPT's fused projection, a key-only [B, 1, 1, Sk]
+    and a full [B, H, Sq, Sk] mask, and dropout on heads 3-5 of 8."""
+    b, h, d = 2, 3, head_dim
+    if case == "fused_qkv":
+        g = torch.Generator().manual_seed(12)
+        qkv = torch.randn((b, 200, 3 * h * d), generator=g).to(dev)
+        return (*_split_views(qkv, "fused_gpt", b, 200, h, d), True, None,
+                0.0, None, {})
+    sq, sk = {"causal_sq_lt_sk": (77, 200), "causal_ragged": (200, 200)
+              }.get(case, (130, 130))
+    q, k, v, _ = _flash_inputs(b, sq, sk, h, d, torch.float32, dev, seed=13)
+    if case == "key_mask":
+        return q, k, v, False, _padding_mask(b, sk, dev), 0.0, None, {}
+    if case == "full_mask":
+        g = torch.Generator().manual_seed(14)
+        return (q, k, v, True, torch.randn((b, h, sq, sk), generator=g).to(
+            dev), 0.0, None, {})
+    if case == "dropout_heads":
+        return (q, k, v, False, _padding_mask(b, sk, dev), 0.1, 31,
+                dict(head_offset=3, heads_total=8))
+    return q, k, v, True, None, 0.0, None, {}
+
+
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("case", ["causal_sq_lt_sk", "causal_ragged",
+                                  "fused_qkv", "key_mask", "full_mask",
+                                  "dropout_heads"])
+def test_flash_f32_forward_holds_the_f32_gate(dev, head_dim, case):
+    """The f32 forward (`flash_fwd_f32`, 3xTF32): O and LSE within 2e-5 of
+    the plain f32 version (TF32 off), with the f32 copy of O equal to O
+    under dropout, and a second launch bit-identical to the first."""
+    q, k, v, causal, mask, p, seed, hk = _f32_forward_case(case, head_dim,
+                                                           dev)
+    runs = []
+    for _ in range(2):
+        o32 = torch.empty(q.shape, device=dev) if p > 0 else None
+        runs.append((*fa.flash_attention_fwd(q, k, v, causal, mask, p, seed,
+                                             o32, **hk), o32))
+    torch.cuda.synchronize()
+    (o, lse, o32), (o_b, lse_b, _) = runs
+    assert torch.equal(o, o_b) and torch.equal(lse, lse_b)
+    if o32 is not None:
+        assert torch.equal(o, o32)
+    want = fa.attention_ref(q, k, v, causal, mask, p, seed, **hk)
+    want_lse = fa.attention_lse_ref(q, k, causal, mask)
+    for name, got, ref in (("o", o, want), ("lse", lse, want_lse)):
+        err = _max_err(got, ref)
+        assert err < F32_GATE, f"{name}: max err {err}"
+
+
+def test_flash_f32_forward_does_not_spill(dev):
+    """ptxas's report on the f32 forward at head_dim 64 and 128, without
+    and with the mask / dropout code: no spill stores (its O accumulator,
+    scores and P fragments live in registers)."""
+    from paddle_tpu_torch.ops import _build
+
+    _build.load_library("flash_attention.cu")
+    lines = _build.build_log("flash_attention.cu").splitlines()
+    for entry in (f"flash_fwd_f32ILi{d}ELb{v}EE" for d in (64, 128)
+                  for v in (0, 1)):
+        at = [i for i, line in enumerate(lines)
+              if "Compiling entry function" in line and entry in line]
+        assert at, f"no ptxas report for {entry}"
+        spill = next(re.search(r"(\d+) bytes spill stores", line)
+                     for line in lines[at[0] + 1:]
+                     if "spill stores" in line)
+        assert spill.group(1) == "0", spill.string
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

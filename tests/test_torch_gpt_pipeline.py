@@ -187,7 +187,7 @@ def test_three_stages_tie_the_embedding_over_the_end_ranks(meshes):
     cfg = GPTConfig(**dict(CFG, num_layers=6))
     from paddle_tpu_torch.models.gpt_pipeline import init_params
 
-    one = init_params(cfg, 1, seed=3)
+    one = init_params(cfg, 1, seed=3, device="cpu")
     layers = layer_stack(one["blocks"])
 
     def run(mesh, pp):

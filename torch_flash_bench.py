@@ -20,8 +20,9 @@ shape with causal dropout. float32 cases (`--dtype float32`, TF32 off):
 a pipelined gpt_1p3b stage's attention (B 2, S 1024, 8 heads, D 128,
 causal, strided views of GPT's fused projection) and the ERNIE-shaped
 mask + dropout case of chip_smoke.py's phase 5b (B 2, S 512, H 12, D 64);
-each also gives `sdpa_bwd`, scaled_dot_product_attention's whole backward
-on the same values (its forward + backward less its forward, each
+each also gives `sdpa_fwd` and `sdpa_bwd`, scaled_dot_product_attention's
+forward and whole backward on the same values with the same mask and
+dropout_p (its forward, and its forward + backward less its forward, each
 captured in a CUDA graph and replayed as the kernels are), which no tree
 changes.
 """
@@ -73,9 +74,9 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def sdpa_bwd_ms(q, k, v, do, causal, mask, p):
-    """scaled_dot_product_attention's whole backward on the same values:
-    forward + backward less the forward."""
+def sdpa_ms(q, k, v, do, causal, mask, p):
+    """scaled_dot_product_attention's forward and whole backward on the
+    same values: (forward, forward + backward less the forward)."""
     F = torch.nn.functional
     ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
@@ -87,9 +88,9 @@ def sdpa_bwd_ms(q, k, v, do, causal, mask, p):
         torch.autograd.grad(F.scaled_dot_product_attention(ql, kl, vl, **kw),
                             (ql, kl, vl), dol)
 
-    return (time_ms(fwd_bwd, 10)
-            - time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl,
-                                                             **kw), 10))
+    fwd = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, **kw),
+                  10)
+    return fwd, time_ms(fwd_bwd, 10) - fwd
 
 
 def main():
@@ -145,7 +146,8 @@ def main():
             dq=time_ms(lambda: fa._launch_bwd(q, k, v, do, lse, delta,
                                               causal, 2, *var), 10))
         if dtype == torch.float32:
-            out[name]["sdpa_bwd"] = sdpa_bwd_ms(q, k, v, do, causal, mask, p)
+            out[name]["sdpa_fwd"], out[name]["sdpa_bwd"] = sdpa_ms(
+                q, k, v, do, causal, mask, p)
     print(f"[time {args.tag}] " + json.dumps(out), flush=True)
     if args.out:
         with open(args.out, "w") as f:
