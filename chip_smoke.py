@@ -353,6 +353,29 @@ Phases, in order; any failure exits nonzero:
    the update without its norm all-reduce is at least 0.1 away; losses
    within 1e-5. NCCL across cards is the card
    test `test_pp2_nccl_equals_one_process` (it skips on one).
+6g. Sequence-parallel training on the one card (run last): ranks on
+   cuda:0 over an explicit gloo backend, eager, every ring hop and
+   all-reduce staged through host memory; every time is labelled "eager,
+   gloo through the host, ranks sharing one card - not an sp speed"
+   beside the card's name and power limit. (a) The ring's steps
+   (parallel/ring_attention.py) for every rank of a ring of 2 and of 4 in
+   one process at gpt_1p3b's attention shape (1 x 2048, 16 heads, D 128,
+   causal), float32 and bfloat16, against one flash call over the whole
+   sequence: O, dQ, dK, dV within 2e-5 / 2e-2, i + 1 forward and backward
+   launches on rank i, no host sync in the steps. (b) gpt_1p3b (vocab
+   50304, hidden 2048, 24 layers, 16 heads, FFN 8192) at its 2048 context
+   in float32 with ring attention, 2 rows, over {"sp": 2}, SGD 0.1, 3
+   steps against the same model in one process: losses within 1e-5
+   relative; each rank's sends, receives and all-reduces a step equal
+   `sp_collective_budget`, 24 x (i + 1) flash launches of each direction
+   a step on sp rank i, no host sync beyond the budget's and the step's
+   own three; the card's free memory back within 64 MiB once the ranks
+   are gone; each rank's step phases (forward and backward with their
+   ring hops, the gradient all-reduce, the update), peak memory and
+   seconds. (c) The flagship widths at 2 layers, float32, ring attention,
+   4 rows over {"dp": 2, "sp": 2} (four ranks) against one process:
+   losses within 1e-5, parameters within 1e-5 relative to their norm, the
+   same gates. `--only 6g` builds the kernels and runs this phase alone.
 
 Prints a `{"kernels": [...]}` line (the flash rows also name the bf16
 kernel's design and ptxas's registers and spill bytes for it; a spill in
@@ -4004,19 +4027,22 @@ def _dp_run(step, batch, steps, warmup=1):
     stream, so host staging shows as the device waiting)."""
     losses = [step(*batch) for _ in range(warmup)]
     step.rank_reports(zero=True)
-    wall, ranks, phases = [], [], []
+    wall, ranks, phases, syncs = [], [], [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         losses.append(step(*batch))
         wall.append(time.perf_counter() - t0)
         ranks.append([r["seconds"] for r in step.last_step])
         phases.append([r["phases_ms"] for r in step.last_step])
+        syncs.append([r.get("host_syncs") for r in step.last_step])
     reports = step.rank_reports()
     counts = [dict(rank=r["rank"], steps=steps, **r["launches"],
                    collectives=r["collectives"],
                    peak_gib=r["peak_bytes"] / 2**30,
                    phase_ms_p50={k: float(np.median([p[i][k] for p in phases]))
-                                 for k in phases[0][i]})
+                                 for k in phases[0][i]},
+                   **({"host_syncs": [s[i] for s in syncs]}
+                      if syncs[0][i] is not None else {}))
               for i, r in enumerate(reports)]
     return losses, counts, wall, ranks
 
@@ -5038,9 +5064,273 @@ def pipeline_train(smi):
     return res
 
 
+# -- phase 6g -----------------------------------------------------------------
+
+SP_LABEL = ("eager, gloo through the host, ranks sharing one card - not an "
+            "sp speed")
+RING_SHAPE = (1, 2048, 16, 128)    # gpt_1p3b's attention over its context
+RING_TOL = {torch.float32: F32_FLASH_TOL, torch.bfloat16: 2e-2}
+
+
+def _bf16_ulp(t):
+    """One bfloat16 ulp at each value of `t`: 2^(e - 8) for |t| = m 2^e
+    with m in [0.5, 1) (8 significant bits)."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def _ring_arithmetic():
+    """6g (a): the ring's steps (parallel/ring_attention.py `rank_forward`,
+    `rank_backward`) for every rank of a ring of n = 2 and 4 in one
+    process on cuda:0, at gpt_1p3b's attention shape (1 x 2048, 16 heads,
+    D 128, causal), float32 and bfloat16, against one flash forward and
+    backward over the whole sequence on the same values: O, dQ, dK and dV
+    within 2e-5 (float32), and in bfloat16 within 2e-2 plus one bf16 ulp
+    of the one call's value (its own rounding: two roundings of one value
+    differ by up to an ulp, 0.03 at |dV| = 4). Rank i launches the
+    forward and the backward pair i + 1 times (nothing above the
+    diagonal), and its steps make no host sync (under
+    set_sync_debug_mode("error")). Times: the busiest rank's (n - 1)
+    forward and backward beside the whole sequence's one call (CUDA
+    events, eager)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel.ring_attention import (rank_backward,
+                                                          rank_forward)
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    B, S, H, D = RING_SHAPE
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.randn((B, S, H, D), generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(4))
+        o, lse = fa.flash_attention_fwd(q, k, v, True)
+        want = dict(zip(("o", "dq", "dk", "dv"), (o,) + tuple(
+            fa.flash_attention_bwd(q, k, v, o, do, lse, True))))
+
+        def whole():
+            o, lse = fa.flash_attention_fwd(q, k, v, True)
+            fa.flash_attention_bwd(q, k, v, o, do, lse, True)
+
+        for n in (2, 4):
+            L = S // n
+
+            def cut(t, i):
+                return t[:, i * L:(i + 1) * L]
+
+            blocks = [(cut(k, j), cut(v, j)) for j in range(n)]
+            got = {"o": [], "dq": [],
+                   "dk": [torch.zeros((B, L, H, D), device="cuda")
+                          for _ in range(n)],
+                   "dv": [torch.zeros((B, L, H, D), device="cuda")
+                          for _ in range(n)]}
+            launches = []
+
+            def rank(i):
+                oi, lsei = rank_forward(cut(q, i), blocks, i, True)
+                dqi, parts = rank_backward(cut(q, i), blocks, oi, cut(do, i),
+                                           lsei, i, True)
+                return oi, dqi, parts
+
+            for i in range(n):
+                _zero_flash_counts()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    oi, dqi, parts = rank(i)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                c = _read_flash_counts()
+                launches.append([c["fwd_launches"], c["bwd_launches"]])
+                got["o"].append(oi)
+                got["dq"].append(dqi)
+                for j, (a, b) in parts.items():
+                    got["dk"][j] += a.float()
+                    got["dv"][j] += b.float()
+            diff = {name: (torch.cat(got[name], 1) - w.float()).abs()
+                    for name, w in want.items()}
+            err = {name: d.max().item() for name, d in diff.items()}
+            # the error beyond the one call's own rounding (bf16), and
+            # the largest magnitude each output reaches
+            excess = {name: (d - (_bf16_ulp(want[name])
+                                  if dtype == torch.bfloat16 else 0.0))
+                      .max().item() for name, d in diff.items()}
+            rec = dict(dtype=str(dtype).replace("torch.", ""), n=n,
+                       shape=[B, S, H, D], causal=True, max_err=err,
+                       max_err_beyond_ulp=excess,
+                       max_abs={name: w.float().abs().max().item()
+                                for name, w in want.items()},
+                       tol=RING_TOL[dtype], rank_launches=launches,
+                       last_rank_ms=event_ms(lambda: rank(n - 1), 3),
+                       whole_call_ms=event_ms(whole, 3))
+            log("[ring] " + json.dumps(rec))
+            out.append(rec)
+            assert launches == [[i + 1, i + 1] for i in range(n)], launches
+            if max(excess.values()) > RING_TOL[dtype]:
+                raise SystemExit(f"the ring misses {RING_TOL[dtype]} against "
+                                 f"one flash call: {rec}")
+        del q, k, v, do, o, lse, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_gate(mesh, counts, layers, n_leaves):
+    """Each rank: `sp_collective_budget`'s calls a step; `layers` x (i + 1)
+    flash forward and backward launches a step on sp rank i (nothing
+    above the diagonal); no host sync a step beyond the budget's (a
+    staged send or receive one, an all-reduce two: out and back) and the
+    step's own three (the batch in, the loss out)."""
+    from paddle_tpu_torch.parallel.spmd import sp_collective_budget
+
+    b = sp_collective_budget(layers, mesh.shape["sp"], mesh.shape["dp"],
+                             n_leaves)
+    allowed = 3 + b["send"] + b["recv"] + 2 * b["all-reduce"]
+    for c in counts:
+        steps, i = c["steps"], mesh.coords(c["rank"])["sp"]
+        assert c["collectives"] == {k: v * steps for k, v in b.items()}, (
+            c, b)
+        n = layers * (i + 1) * steps
+        assert (c["fwd_launches"], c["bwd_launches"]) == (n, n), (i, c)
+        assert max(c["host_syncs"]) <= allowed, (c["host_syncs"], allowed)
+    return dict(budget_a_step=b, host_syncs_allowed=allowed)
+
+
+def _sp_run(cfg, mesh, rows, steps, lr):
+    """`steps` SGD(lr) steps of a float32 ring GPT of `cfg` (seed 0) on one
+    batch of `rows` x ``cfg.max_seq_len``: in one process first (model
+    freed after), then over `mesh` with the sequence split
+    (``batch_specs=(("dp", "sp"),) * 2``), every rank's counters set to
+    0 just before and read just after and its host syncs counted. Returns
+    the record; the gates are the caller's."""
+    import gc
+
+    from paddle_tpu_torch.models.gpt import GPT, gpt_loss_fn
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = train_batch(cfg, rows, cfg.max_seq_len, "cpu")
+    model = GPT(cfg, device="cuda", dtype=torch.float32, seed=0)
+    opt = SGD(learning_rate=lr, parameters=model.named_parameters())
+    model.train()
+    ids, labels = (t.cuda() for t in batch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    want = [train_step(model, opt, ids, labels).item() for _ in range(steps)]
+    one_s = (time.perf_counter() - t0) / steps
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    wparams = {n: p.detach().clone() for n, p in model.named_parameters()} \
+        if cfg.num_layers <= 2 else None
+    del model, opt, ids, labels
+    free0 = _card_free_bytes()
+    alloc0 = torch.cuda.memory_allocated()
+    model = GPT(cfg, device="cuda", dtype=torch.float32, seed=0)
+    opt = SGD(learning_rate=lr, parameters=model.named_parameters())
+    t0 = time.perf_counter()
+    step = make_sharded_train_step(model, gpt_loss_fn, opt, mesh,
+                                   batch_specs=(("dp", "sp"),) * 2)
+    build_s = time.perf_counter() - t0
+    step.count_host_syncs()
+    try:
+        losses, counts, wall, ranks = _dp_run(step, batch, steps, warmup=0)
+        n_leaves = len(step.names)
+        params = step.gather_params() if wparams is not None else None
+    finally:
+        step.close()
+        mesh.close()
+    rel = None
+    if wparams is not None:
+        rel = max(float((params[k] - w).norm() / w.norm())
+                  for k, w in wparams.items())
+    del model, opt, step, params, wparams
+    gc.collect()
+    free1 = _card_free_bytes()
+    rec = dict(label=SP_LABEL, mesh=dict(mesh.shape),
+               batch=[rows, cfg.max_seq_len], layers=cfg.num_layers,
+               hidden=cfg.hidden_size, heads=cfg.num_heads, lr=lr,
+               one_process=want, one_process_step_s=one_s,
+               one_process_peak_gib=one_peak, losses=losses, build_s=build_s,
+               step_s=wall, rank_step_s=ranks, leaves=n_leaves,
+               counts=counts, peak_gib=[c["peak_gib"] for c in counts],
+               param_max_rel_norm_diff=rel,
+               card_free_gib_before=free0 / 2**30,
+               card_free_gib_after=free1 / 2**30,
+               allocated_mib_before=alloc0 / 2**20,
+               allocated_mib_after=torch.cuda.memory_allocated() / 2**20)
+    return rec
+
+
+def _sp_1p3b(smi):
+    """6g (b): gpt_1p3b (vocab 50304, hidden 2048, 24 layers, 16 heads,
+    FFN 8192) at its 2048 context in float32 with ring attention, 2 rows,
+    over {"sp": 2} (two ranks on cuda:0: 1024 positions of each row a
+    rank), SGD 0.1, 3 steps against the same model in one process (run
+    first and freed): losses within 1e-5 relative, `_sp_gate` on every
+    rank, the card's free memory back within 64 MiB once the job is
+    dropped and the ranks ended. Each rank's step phases (forward and
+    backward with their ring hops, the gradient all-reduce, the update),
+    peak memory and seconds."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=24,
+                    num_heads=16, max_seq_len=2048, intermediate_size=8192,
+                    attn_impl="ring")
+    mesh = _hybrid_mesh({"sp": 2})
+    rec = _sp_run(cfg, mesh, 2, 3, 0.1)
+    rec["card"] = smi
+    rec.update(_sp_gate(mesh, rec["counts"], 24, rec["leaves"]))
+    log(f"[sp-1p3b] ({SP_LABEL}; {smi}) " + json.dumps(rec))
+    np.testing.assert_allclose(rec["losses"], rec["one_process"], rtol=1e-5)
+    assert all(np.isfinite(rec["losses"])), rec["losses"]
+    back = rec["card_free_gib_after"] - rec["card_free_gib_before"]
+    assert back * 1024 >= -64, ("card memory not back", back)
+    return rec
+
+
+def _sp_flagship(smi):
+    """6g (c): the flagship widths (vocab 32768, hidden 1024, 8 heads,
+    seq 1024) at 2 layers with ring attention, float32, 4 rows, over
+    {"dp": 2, "sp": 2} (four ranks on cuda:0: 2 rows and 512 positions a
+    rank), SGD 0.1, 3 steps against one process: losses within 1e-5
+    relative, every parameter within 1e-5 of it relative to its norm (the
+    gradient's mean over dp x sp), `_sp_gate` on every rank."""
+    cfg = flagship_config(num_layers=2, attn_impl="ring")
+    mesh = _hybrid_mesh({"dp": 2, "sp": 2})
+    rec = _sp_run(cfg, mesh, 4, 3, 0.1)
+    rec["card"] = smi
+    rec.update(_sp_gate(mesh, rec["counts"], 2, rec["leaves"]))
+    log(f"[sp-dp2sp2] ({SP_LABEL}; {smi}) " + json.dumps(rec))
+    np.testing.assert_allclose(rec["losses"], rec["one_process"], rtol=1e-5)
+    assert rec["param_max_rel_norm_diff"] < 1e-5, rec
+    return rec
+
+
+def sequence_train(smi):
+    """Phase 6g: sequence-parallel training on the one card (ranks on
+    cuda:0 over an explicit gloo backend, every ring hop and all-reduce
+    staged through host memory). Run last, after gc.collect() and
+    torch.cuda.empty_cache()."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated() / 2**30
+    log(f"[sp] phase 6g starts with {base:.2f} GiB allocated ({smi})")
+    res = dict(base_mem_gib=base, ring=_ring_arithmetic())
+    res["gpt_1p3b"] = _sp_1p3b(smi)
+    res["dp2sp2"] = _sp_flagship(smi)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[sp] phase 6g {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
+    ap.add_argument("--only", choices=("6g",),
+                    help="build the kernels and run this phase alone (its "
+                         "results, the card line and the device line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5054,6 +5344,18 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"[env] {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
     build_kernels()
+    if args.only == "6g":
+        sequence = sequence_train(smi)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(dict(card=smi, kind=kind, sequence=sequence), f,
+                          indent=1)
+        print(json.dumps({"sequence": sequence}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     cases = kernel_cases()
     appends = append_cases()
     model = serving_model()
@@ -5082,6 +5384,7 @@ def main():
     zero = zero_dp(smi)
     hybrid = hybrid_train(smi)
     pipeline = pipeline_train(smi)
+    sequence = sequence_train(smi)
     # the kernel line's headline numbers: the bf16 decode case (width 1),
     # the launch shape the serving path runs most, and the bf16 flash case
     # at the training shape
@@ -5283,6 +5586,7 @@ def main():
                                    ("dq", 295, "dq", ("dq",))):
         cases = [r for r in variants if r["case"].startswith("pp_stage")]
         head = cases[0]
+        lk = "fwd_launches" if kname == "fwd" else "bwd_launches"
         kernels.append({
             "name": f"flash_attention_{kname}_pp_stage", "route": "cuda",
             "source": src, "replaces": f"{tpu}:{site}",
@@ -5308,6 +5612,19 @@ def main():
             "design": flash[1]["design"][kname],
             "library_ms": head["library_fwd_ms"] if key == "fwd" else None,
             "library_bwd_ms": head["library_bwd_ms"],
+            # phase 6g: each rank's launches over the counted steps of
+            # gpt_1p3b over {"sp": 2} (f32, 2 x 1024 a rank, 16 heads;
+            # i + 1 blocks a layer on sp rank i) and of the flagship
+            # widths over {"dp": 2, "sp": 2}; the ring's f32 error
+            # against one call over the whole sequence (6g (a))
+            "sp2_rank_launches": [
+                c[lk] for c in sequence["gpt_1p3b"]["counts"]],
+            "dp2sp2_rank_launches": [
+                c[lk] for c in sequence["dp2sp2"]["counts"]],
+            "ring_f32_max_abs_err": max(
+                r["max_err"][e] for r in sequence["ring"]
+                if r["dtype"] == "float32"
+                for e in (("o",) if key == "fwd" else errs)),
         })
     if args.out:
         with open(args.out, "w") as f:
@@ -5320,7 +5637,8 @@ def main():
                            train=trained, train_parity=tpar, ernie=ernie,
                            train_dropout=gpt_drop, ernie_parity=epar,
                            training_surface=surface, zero_dp=zero,
-                           hybrid=hybrid, pipeline=pipeline), f,
+                           hybrid=hybrid, pipeline=pipeline,
+                           sequence=sequence), f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

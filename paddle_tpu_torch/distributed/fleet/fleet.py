@@ -3,7 +3,9 @@
 init:168, distributed_optimizer:1044).
 
 `init` builds the `CommunicateTopology` of the strategy's hybrid degrees
-and the `HybridCommunicateGroup` over it, whose mesh (distributed/mesh.py)
+(``sep_degree`` above 1 adds a ``"sep"`` dim, the mesh's ``sp`` axis: a
+port addition, as the JAX `init` leaves it out of the topology) and the
+`HybridCommunicateGroup` over it, whose mesh (distributed/mesh.py)
 it installs as the process's: the mesh a train step is then built over
 (`parallel.spmd.make_sharded_train_step(..., mesh=hcg.mesh)`). In the
 port's idiom the caller's process is rank 0 of that mesh, and the step
@@ -34,10 +36,13 @@ class Fleet:
              log_level="INFO", device=None):
         self._strategy = strategy or DistributedStrategy()
         hc = self._strategy.hybrid_configs
-        topo = CommunicateTopology(
-            hybrid_group_names=("data", "pipe", "sharding", "model"),
-            dims=(hc["dp_degree"], hc["pp_degree"], hc["sharding_degree"],
-                  hc["mp_degree"]))
+        names = ("data", "pipe", "sharding", "model")
+        dims = (hc["dp_degree"], hc["pp_degree"], hc["sharding_degree"],
+                hc["mp_degree"])
+        if int(hc.get("sep_degree", 1)) > 1:
+            # the mesh's sp axis (distributed/mesh.py), last: fastest
+            names, dims = names + ("sep",), dims + (hc["sep_degree"],)
+        topo = CommunicateTopology(hybrid_group_names=names, dims=dims)
         self._hcg = HybridCommunicateGroup(topo, self._strategy,
                                            device=device)
         set_hybrid_communicate_group(self._hcg)

@@ -26,9 +26,11 @@ A ``pp`` axis above 1 holds pipeline stages (parallel/pipeline.py,
 models/gpt_pipeline.py): its groups are the stage lines, and above two
 stages each line's first and last stage also share a group of their own
 (``"pp_ends"``, `axis_group`), where a tied weight's two uses (the
-embedding and the head) sum their gradients. ``sp`` above 1 is not
-ported (ring attention and the sequence split wait with ROADMAP Queue 1,
-item 8b's ``sp`` half): `build_mesh` refuses it.
+embedding and the head) sum their gradients. An ``sp`` axis above 1
+splits the sequence (parallel/spmd.py with ``batch_specs=(("dp",
+"sp"),) * 2``): its groups are the rings of parallel/ring_attention.py.
+It runs alone or beside ``dp``; beside ``mp``, ``pp`` or ``sharding``
+`build_mesh` refuses it (ROADMAP Queue 1, item 8b.1).
 
 **Topology** (JAX `:87-262`): `CommunicateTopology` (coordinates and
 ranks over named dims), `HybridCommunicateGroup` (a rank's degrees,
@@ -161,19 +163,20 @@ def rank_at(shape, **coords):
 
 def _degrees(degrees):
     """Every axis's degree from `degrees` (missing axes are 1); raises for
-    an unknown axis and for ``sp`` above 1."""
+    an unknown axis, and for ``sp`` above 1 beside ``mp``, ``pp`` or
+    ``sharding`` above 1."""
     unknown = sorted(set(degrees) - set(AXES))
     if unknown:
         raise ValueError(f"unknown mesh axes {unknown}; the axes are {AXES}")
     shape = {a: int(degrees.get(a, 1)) for a in AXES}
     if any(d < 1 for d in shape.values()):
         raise ValueError(f"mesh degrees must be >= 1; got {degrees}")
-    if shape["sp"] > 1:
+    beside = [a for a in ("pp", "sharding", "mp") if shape[a] > 1]
+    if shape["sp"] > 1 and beside:
         raise NotImplementedError(
-            f"mesh axis sp={shape['sp']}: sequence parallelism is not "
-            "ported yet (ROADMAP Queue 1, item 8b, its 'sp' half: "
-            "parallel/ring_attention.py and the sequence split); 'dp', "
-            "'pp', 'sharding' and 'mp' are")
+            f"mesh degrees {degrees}: sp={shape['sp']} beside "
+            f"{beside} is not ported (ROADMAP Queue 1, item 8b.1); 'sp' "
+            "runs alone or beside 'dp'")
     return shape
 
 
@@ -321,6 +324,7 @@ class HybridCommunicateGroup:
         self._pp_rank = cmap.get("pipe", 0)
         self._sharding_rank = cmap.get("sharding", 0)
         self._mp_rank = cmap.get("model", 0)
+        self._sp_rank = cmap.get("sep", 0)
 
     def get_parallel_mode(self):
         if self._pp_degree > 1:
@@ -329,6 +333,8 @@ class HybridCommunicateGroup:
             return "sharding_parallel"
         if self._mp_degree > 1:
             return "model_parallel"
+        if self._sp_degree > 1:
+            return "segment_parallel"
         return "data_parallel"
 
     def topology(self):
@@ -381,6 +387,15 @@ class HybridCommunicateGroup:
 
     def get_sharding_parallel_group(self):
         return AxisGroup(self.mesh, "sharding", self._sharding_rank)
+
+    def get_sep_parallel_rank(self):
+        return self._sp_rank
+
+    def get_sep_parallel_world_size(self):
+        return self._sp_degree
+
+    def get_sep_parallel_group(self):
+        return AxisGroup(self.mesh, "sp", self._sp_rank)
 
 
 _HCG = None

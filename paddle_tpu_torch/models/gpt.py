@@ -27,14 +27,21 @@ carries a JAX state dict over). Three attention paths:
 - no cache (training, and a full forward): causal attention over the
   whole input through `ops/common_nn.py` `scaled_dot_product_attention`,
   i.e. the flash-attention kernels on the card and the plain version on
-  the CPU.
+  the CPU. With ``attn_impl="ring"`` it goes through
+  `parallel/ring_attention.py` instead, with no attention dropout (the
+  JAX ring branch takes none): on an ``sp`` rank of a training mesh
+  (`shard_sequence`, parallel/spmd.py) over the whole sequence split
+  across the ``sp`` group, the rank's positions starting at
+  `pos_offset`; with no group, flash attention over the input.
 
 With `labels`, `forward` returns the mean next-token cross-entropy from
 the hidden states through the tied head (`ops/fused_ce.py`). In train mode
 with `dropout` > 0, the JAX model's dropouts apply: on the embeddings, on
 each block's two residual branches (the full forward only) and on the
-attention probabilities (the flash kernels' dropout variant), drawn from
-the model's own `DropoutGenerators` (`seed_dropout`). With
+attention probabilities (the flash kernels' dropout variant; not under
+``"ring"``), drawn from the model's own `DropoutGenerators`
+(`seed_dropout`); on an ``sp`` rank an elementwise mask is the rank's
+slice of the mask one process draws for the whole sequence. With
 `GPTConfig(remat=True)` each block's full forward runs under
 `distributed/fleet/utils.recompute` while autograd records (the JAX
 model's `recompute(self._inner, x)`): its activations are recomputed in
@@ -63,9 +70,10 @@ _NEG_INF = -1e30
 
 
 class GPTConfig:
-    """The JAX package's GPTConfig fields. attn_impl 'ring' is not ported
-    and raises NotImplementedError. ('flash' and 'xla' both take
-    scaled_dot_product_attention, as in the JAX model.)
+    """The JAX package's GPTConfig fields. ('flash' and 'xla' both take
+    scaled_dot_product_attention, as in the JAX model; 'ring' takes
+    `parallel/ring_attention.py`, without attention dropout, as the JAX
+    model's ring branch does.)
     `dtype` is stored and never read, as in the JAX model: the parameter
     dtype is the `dtype` argument of `GPT` and `gpt_*`."""
 
@@ -73,10 +81,9 @@ class GPTConfig:
                  num_heads=12, max_seq_len=1024, intermediate_size=None,
                  dropout=0.0, attn_impl="flash", remat=False,
                  dtype="float32", fused_head_chunks=None):
-        if attn_impl not in ("flash", "xla"):
-            raise NotImplementedError(
-                f"GPTConfig: attn_impl={attn_impl!r} is not ported "
-                "(ROADMAP Queue 1, item 8b: ring attention)")
+        if attn_impl not in ("flash", "xla", "ring"):
+            raise ValueError(f"GPTConfig: attn_impl={attn_impl!r}; the "
+                             "impls are 'flash', 'xla' and 'ring'")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -179,12 +186,21 @@ def _vocab_parallel_embedding(weight, ids, smesh):
     return all_reduce(rows, smesh.group)
 
 
+def _seq_split(group):
+    """(rank, ranks) of an ``sp`` group for `dropout`'s `seq_split`, or
+    None."""
+    return None if group is None or group.size == 1 else (group.rank,
+                                                          group.size)
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
         self.num_heads = cfg.num_heads
         self.head_dim = cfg.hidden_size // cfg.num_heads
         self.dropout = cfg.dropout
+        self.ring = cfg.attn_impl == "ring"
+        self.sp = None       # the sp group of a sequence-split rank
         # the model's heads this module holds: [head_offset, + num_heads)
         self.head_offset, self.heads_total = 0, cfg.num_heads
         kw = {"device": device, "dtype": dtype}
@@ -220,6 +236,11 @@ class CausalSelfAttention(nn.Module):
             o = _attend(q, k_buf, v_buf, qpos, kpos,
                         1.0 / math.sqrt(self.head_dim))
             return self.proj(o.reshape(b, s, width)), (k_buf, v_buf, cur + s)
+        if self.ring:
+            from ..parallel.ring_attention import ring_attention
+
+            o = ring_attention(q, k, v, group=self.sp, causal=True)
+            return self.proj(o.reshape(b, s, width))
         o = scaled_dot_product_attention(q, k, v, is_causal=True,
                                          dropout_p=self.dropout,
                                          training=self.training,
@@ -242,6 +263,7 @@ class GPTBlock(nn.Module):
                                      input_is_parallel=True, **kw)
         self.p = cfg.dropout
         self.remat = cfg.remat
+        self.sp = None
 
     def _mlp(self, x, cache=None):
         h = _serving_column_parallel(self.fc1, self.ln2(x), "ffn_fc1", cache)
@@ -263,7 +285,8 @@ class GPTBlock(nn.Module):
         attn_gen, elem_gen = (gens.attn, gens.elem) if gens else (None, None)
 
         def drop(y):
-            return dropout(y, self.p, self.training, elem_gen)
+            return dropout(y, self.p, self.training, elem_gen,
+                           seq_split=_seq_split(self.sp))
 
         x = x + drop(self.attn(self.ln1(x), generator=attn_gen))
         return x + drop(self._mlp(x))
@@ -293,6 +316,7 @@ class GPT(nn.Module):
             [GPTBlock(cfg, **kw) for _ in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
         self._seed = seed
+        self.sp = None
         self.dropout_generators = None
         if device.type != "meta":
             # a skeleton (nn/layer.py skeleton_init) has no storage to
@@ -312,6 +336,26 @@ class GPT(nn.Module):
     @property
     def device(self):
         return self.wte.weight.device
+
+    def shard_sequence(self, group):
+        """Run as rank ``group.rank`` of an ``sp`` group (a
+        `parallel.collectives.RankGroup`; None: the whole sequence here):
+        the input is that rank's slice of the sequence (its positions
+        from `pos_offset`), ring attention spans the group, and each
+        elementwise dropout mask is the rank's slice of the whole
+        sequence's. Only ``attn_impl="ring"`` attends across the group:
+        any other attention over a slice would be local, so it raises."""
+        if group is not None and group.size > 1 and \
+                self.cfg.attn_impl != "ring":
+            raise NotImplementedError(
+                f"GPT with attn_impl={self.cfg.attn_impl!r} over an sp "
+                "group: attention over a sequence slice must span the "
+                "group, and only 'ring' does (ROADMAP Queue 1, item "
+                "8b.4)")
+        self.sp = group
+        for blk in self.blocks:
+            blk.sp = blk.attn.sp = group
+        return self
 
     def seed_dropout(self, seed):
         """Reseed the generators every dropout of the model draws from."""
@@ -362,7 +406,7 @@ class GPT(nn.Module):
         else:
             tok = self.wte(input_ids)
         x = dropout(tok + self.wpe(pos), self.cfg.dropout, self.training,
-                    gens.elem)
+                    gens.elem, seq_split=_seq_split(self.sp))
         new_caches = [] if caches is not None and not paged else None
         for i, blk in enumerate(self.blocks):
             if paged:

@@ -47,19 +47,31 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                            head_offset=head_offset, heads_total=heads_total)
 
 
-def dropout(x, p=0.5, training=True, generator=None, name=None):
+def dropout(x, p=0.5, training=True, generator=None, name=None,
+            seq_split=None):
     """Dropout in the ``upscale_in_train`` mode: while `training`, each
     entry is kept with probability 1 - p and scaled by 1/(1 - p), else
     zeroed; the identity otherwise. The draw is `torch.rand` on x's device
     from `generator` (a generator on that device; None: torch's default
     one). Plain torch: the JAX package's dropout is no Pallas kernel
-    either."""
+    either. `seq_split` ``(rank, ranks)``: `x` [b, s, ...] is rank `rank`'s
+    slice of a sequence split in `ranks` equal parts, and its mask is that
+    slice of the whole sequence's draw (one process's mask, drawn whole
+    and cut)."""
     if not 0.0 <= p <= 1.0:
         raise ValueError(f"dropout probability must lie in [0, 1]; got {p}")
     if not training or p == 0.0:
         return x
     if p == 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    if seq_split is None:
+        draw = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        rank, ranks = seq_split
+        s = x.shape[1]
+        whole = (x.shape[0], s * ranks) + tuple(x.shape[2:])
+        draw = torch.rand(whole, generator=generator,
+                          device=x.device).narrow(1, rank * s, s)
+    keep = draw >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))

@@ -141,6 +141,23 @@ def attention_lse_ref(q, k, causal=False, mask=None):
     return torch.logsumexp(s, dim=-1).reshape(-1, q.shape[1])
 
 
+def attention_bwd_ref(q, k, v, o, do, lse, causal=False):
+    """The plain version of `flash_attention_bwd` without mask or dropout:
+    (dq, dk, dv) in q's dtype from the saved `o` and `lse` ([B*H, Sq]
+    f32), with P = exp(S - lse) and delta = rowsum(dO * O), as the kernels
+    take them. Given the LSE and O of a longer row than `k` covers (ring
+    attention's merged ones), it is that block's share of the gradients."""
+    B, Sq, H, D = q.shape
+    p = torch.exp(_scores(q, k, causal) - lse.view(B, H, Sq, 1))
+    dof = do.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    ds = p * (dp - _delta(o, do).view(B, H, Sq, 1)) * (1.0 / math.sqrt(D))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 class _View(ctypes.Structure):
     _fields_ = [("p", ctypes.c_void_p), ("sb", ctypes.c_int64),
                 ("ss", ctypes.c_int64), ("sh", ctypes.c_int64)]

@@ -114,17 +114,35 @@ every other axis holds them as the hybrid path does (an mp group shards
 each replica's Megatron layers); every k-th step averages each rank's
 values over its dp group.
 
+**The sequence split** (``sp``, alone or beside ``dp``): with
+``batch_specs=(("dp", "sp"),) * 2`` (JAX's ``P("dp", "sp")``) each rank's
+rows are its dp index's share, and its slice of their sequence (dim 1)
+its sp index's: ``S / sp`` positions from ``sp_index * S / sp`` (GPT's
+`pos_offset`). The model runs as its rank of the ``sp`` group
+(`GPT.shard_sequence`): ring attention across the group
+(parallel/ring_attention.py), the dropout masks the slice of the whole
+row's draw (every sp peer of a row share takes its seed). The loss is the
+mean of the ranks' means, exact since every rank holds S / sp positions
+of each row (GPT's labels are the targets themselves, cut like the ids),
+and each gradient leaf is averaged over the dp and sp groups
+(`sp_collective_budget` states a step's calls). A model that the split
+does not cover raises `NotImplementedError`, naming its ROADMAP item,
+rather than compute attention over a slice alone: a GPT whose attention
+is not ``"ring"``, remat, ERNIE / BERT, and LocalSGD (distributed/
+mesh.py refuses ``sp`` beside ``mp``, ``pp`` or ``sharding``).
+
 ``pp`` meshes train through `models/gpt_pipeline.py` (the pipelined GPT's
-step, built on this module's rank jobs); ``sp`` is not ported
-(distributed/mesh.py).
+step, built on this module's rank jobs).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import os
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -144,6 +162,7 @@ from ..profiler.tracing import InstrumentedStep
 from .collectives import (all_gather, all_reduce, collective_counts,
                           quantized_psum_scatter, reduce_scatter,
                           reset_collective_counts)
+from .ring_attention import ring_hops
 
 _JOB_IDS = itertools.count(1)
 
@@ -193,6 +212,27 @@ def train_collective_budget(n_param_leaves, dp_degree, quant_grads=False,
         "collective-permute": 0,
         "collective-broadcast": 0,
     }
+
+
+def sp_collective_budget(num_layers, sp_degree, dp_degree=1,
+                         n_param_leaves=0):
+    """EXACT collective counts of ONE sequence-parallel train step on
+    every rank (a GPT of `num_layers` layers with ring attention, over a
+    mesh of ``dp`` x ``sp``):
+
+    - ``send`` and ``recv``: each layer's ring makes ``sp - 1`` hops in
+      the forward and ``sp`` in the backward (`ring_attention.ring_hops`),
+      each hop one posted send and one receive;
+    - ``all-reduce``: the loss, and one a gradient leaf, over each of the
+      dp and sp groups of degree above 1 (the gradient's mean over dp x
+      sp);
+    - nothing else: no gather of K/V, no reduction of activations."""
+    fwd, bwd = ring_hops(sp_degree)
+    hops = int(num_layers) * (fwd + bwd)
+    groups = int(int(dp_degree) > 1) + int(int(sp_degree) > 1)
+    return {"all-reduce": groups * (1 + int(n_param_leaves)),
+            "all-gather": 0, "reduce-scatter": 0, "all-to-all": 0,
+            "send": hops, "recv": hops}
 
 
 def _largest_divisible_dim(shape, degree):
@@ -416,13 +456,14 @@ class _Placement:
     spec)."""
 
     def __init__(self, mesh_shape, explicit, stage3, meta, layouts,
-                 data_axes):
+                 data_axes, seq_axis=None):
         self.shape = dict(mesh_shape)
         self.explicit = explicit
         self.stage3 = stage3
         self.meta = meta               # explicit path: flat layouts
         self.layouts = layouts         # hybrid path: leaf_layouts
-        self.data_axes = tuple(data_axes)
+        self.data_axes = tuple(data_axes)    # the rows split over these
+        self.seq_axis = seq_axis             # the sequence over this
 
     def coords(self, rank):
         return coords_of(self.shape, rank)
@@ -440,6 +481,21 @@ class _Placement:
     @property
     def data_degree(self):
         return int(np.prod([self.shape[a] for a in self.data_axes]))
+
+    def seq_index(self, rank):
+        """The index of rank `rank`'s slice of the sequence (0 without a
+        sequence split)."""
+        return self.coords(rank)[self.seq_axis] if self.seq_axis else 0
+
+    @property
+    def seq_degree(self):
+        return self.shape[self.seq_axis] if self.seq_axis else 1
+
+    @property
+    def mean_axes(self):
+        """The axes a step's loss and gradients average over: the rows'
+        and the sequence's."""
+        return self.data_axes + ((self.seq_axis,) if self.seq_axis else ())
 
     def _dims(self, kind, name):
         """(mp, sharding dim) of entry kind `kind` of leaf `name`."""
@@ -488,6 +544,26 @@ class _Placement:
 # -- one rank's replica --------------------------------------------------------
 
 
+@contextlib.contextmanager
+def _counted_syncs(device, on):
+    """Count the host syncs made inside: a one-entry list, filled on exit
+    with the number `torch.cuda.set_sync_debug_mode("warn")` reported on
+    a CUDA `device` when `on`, else left None."""
+    box = [None]
+    if not on or device.type != "cuda":
+        yield box
+        return
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield box
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    box[0] = sum("called a synchronizing CUDA operation" in str(w.message)
+                 for w in seen)
+
+
 class _Replica:
     """One rank's share of a train step: its model replica (its mp shard on
     a mesh with mp > 1), its optimizer (over flat shards on the explicit
@@ -501,8 +577,9 @@ class _Replica:
         self.place = spec["place"]
         self.group = mesh.group
         self.rank = mesh.rank
+        # the ranks the loss and each gradient average over
         self.dp = mesh.size if self.place.explicit else \
-            self.place.data_degree
+            self.place.data_degree * self.place.seq_degree
         self.device = mesh.device
         self.loss_fn = spec["loss_fn"]
         self.names = spec["names"]
@@ -516,15 +593,20 @@ class _Replica:
         self.k_steps = spec["k_steps"]
         coords = self.place.coords(self.rank)
         self.coords = coords
-        # the data groups (rows differ across them) and the model groups
-        self.data_groups = [mesh.axis_group(a) for a in self.place.data_axes
+        # the data groups (rows or sequence slices differ across them)
+        # and the model groups
+        self.data_groups = [mesh.axis_group(a) for a in self.place.mean_axes
                             if mesh.shape[a] > 1]
         self.mp_group = mesh.axis_group("mp")
         self.zgroup = mesh.axis_group("sharding")
+        self.sp_group = (mesh.axis_group(self.place.seq_axis)
+                         if self.place.seq_axis else None)
         model = spec["skeleton"]
         if self.mp_group is not None:
             shard_for_mp(model, MPGroup(self.mp_group, coords["mp"],
                                         mesh.shape["mp"]))
+        if self.sp_group is not None:
+            model.shard_sequence(self.sp_group)
         model.to_empty(device=self.device)
         model.train()
         self.model = model
@@ -573,6 +655,7 @@ class _Replica:
         self.gm_count = 0
         self.count = 0
         self._marks = []
+        self._count_syncs = False
 
     def _slen(self, n):
         _, num, pad = self.meta[n]
@@ -768,13 +851,17 @@ class _Replica:
 
     def _forward(self, batch):
         inputs, labels = batch[:-1], batch[-1]
-        if self.mp_group is not None and getattr(self.loss_fn, "tied_head",
-                                                 False):
+        kw = {}
+        if self.sp_group is not None:
+            # this rank's slice of the sequence starts here
+            kw["pos_offset"] = self.sp_group.rank * inputs[0].shape[1]
+        head = getattr(self.loss_fn, "tied_head", False) and (
+            self.mp_group is not None or self.sp_group is not None)
+        if head:
             # the model's own head computes this loss (models/gpt.py
-            # `gpt_loss_fn`): vocab-parallel, no gathered logits
-            kw = {"labels": labels}
-        else:
-            kw = {}
+            # `gpt_loss_fn`): vocab-parallel at mp > 1, no gathered
+            # logits; the slice's mean under sp
+            kw["labels"] = labels
         if self.remat:
             from ..distributed.fleet.utils import recompute
 
@@ -784,7 +871,7 @@ class _Replica:
                                         (gens.attn, gens.elem)))
         else:
             out = self.model(*inputs, **kw)
-        return out if kw else self.loss_fn(out, labels)
+        return out if head else self.loss_fn(out, labels)
 
     def _mark(self, name):
         """End the step's phase `name` here: a CUDA event on the current
@@ -806,14 +893,26 @@ class _Replica:
                          else (b - a) * 1e3)
         return out
 
+    def count_syncs(self, on):
+        """Count the host syncs of each later step (`step`)."""
+        self._count_syncs = bool(on)
+
     def step(self, lr, seed, rows):
         """One step on this rank's `rows`: forward, backward, the gradient
         reduction and the update. Returns ``(mean loss over the ranks,
-        seconds, peak device bytes, {phase: ms})``: the phases ``gather``
-        (stage 3's parameters), ``forward_backward``, ``loss_reduce``
-        (loss and buffers), ``grad_reduce``, ``update`` and
-        ``param_gather`` (the updated shards; LocalSGD's average), on the
-        device's clock on CUDA."""
+        seconds, peak device bytes, {phase: ms}, host syncs)``: the phases
+        ``gather`` (stage 3's parameters), ``forward_backward`` (under a
+        sequence split ``forward`` and ``backward``, the ring's two
+        halves), ``loss_reduce`` (loss and buffers), ``grad_reduce``,
+        ``update`` and ``param_gather`` (the updated shards; LocalSGD's
+        average), on the device's clock on CUDA. After `count_syncs` on a
+        CUDA rank, the host syncs the step made (each one
+        `torch.cuda.set_sync_debug_mode` reports), else None."""
+        with _counted_syncs(self.device, self._count_syncs) as syncs:
+            out = self._step(lr, seed, rows)
+        return out + (syncs[0],)
+
+    def _step(self, lr, seed, rows):
         t0 = time.perf_counter()
         self._marks = []
         self._mark("start")
@@ -836,8 +935,11 @@ class _Replica:
             for g in self.data_groups:
                 all_reduce(total, g)
             loss = loss * (w * self.dp / total)[0]
+        if self.sp_group is not None:
+            self._mark("forward")
         loss.backward()
-        self._mark("forward_backward")
+        self._mark("backward" if self.sp_group is not None
+                   else "forward_backward")
         loss = loss.detach().reshape(1).clone()
         with torch.no_grad():
             groups = [self.group] if self.explicit else self.data_groups
@@ -984,17 +1086,21 @@ def rank_main(mesh, store, spec, conn):
               ops=_OPS, finish=lambda jobs: jobs.close())
 
 
+_MESSAGE = 1 << 28      # elements a point-to-point message carries at most
+
+
 def _unpack(group, layout, device, src=0):
     """Receive from rank `src` the tensors of `layout` (``[(key, shape,
-    dtype)]``), one buffer a dtype in order of first appearance
-    (`_pack`)."""
+    dtype)]``), one buffer a dtype in order of first appearance, in
+    messages of at most `_MESSAGE` elements (`_pack`)."""
     out, by_dtype = {}, {}
     for key, shape, dtype in layout:
         by_dtype.setdefault(dtype, []).append((key, shape))
     for dtype, items in by_dtype.items():
         sizes = [int(np.prod(shape)) for _, shape in items]
         buf = torch.empty(sum(sizes), dtype=dtype, device=device)
-        group.recv_(buf, src)
+        for part in torch.split(buf, _MESSAGE):
+            group.recv_(part, src)
         for (key, shape), part in zip(items, torch.split(buf, sizes)):
             out[key] = part.view(shape)
     return out
@@ -1002,12 +1108,15 @@ def _unpack(group, layout, device, src=0):
 
 def _pack(group, tensors, dst):
     """Send `tensors` (``[(key, tensor)]``) to rank `dst`: one buffer a
-    dtype, in order of first appearance."""
+    dtype, in order of first appearance, in messages of at most
+    `_MESSAGE` elements (so a copy staged through the host holds at most
+    that much; a whole gpt_1p3b is 5.3 GB)."""
     by_dtype = {}
     for _, t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t.reshape(-1))
     for parts in by_dtype.values():
-        group.send(torch.cat(parts), dst)
+        for part in torch.split(torch.cat(parts), _MESSAGE):
+            group.send(part, dst)
 
 
 def gather_shares(mesh, mine, layouts):
@@ -1061,8 +1170,8 @@ def _op_barrier(jobs):
 
 _OPS = {"open": _op_open, "load": _op_load, "job": _op_job,
         "drop": _op_drop, "report": _op_report, "barrier": _op_barrier}
-_JOB_OPS = frozenset(("step", "collect", "gather", "gather_replicas",
-                      "opt_bytes", "param_bytes"))
+_JOB_OPS = frozenset(("step", "count_syncs", "collect", "gather",
+                      "gather_replicas", "opt_bytes", "param_bytes"))
 
 
 def _ranks_of(mesh):
@@ -1088,30 +1197,73 @@ def _ranks_of(mesh):
 
 
 def _data_axes(batch_specs):
-    """The mesh axes the batch's rows split over, from `batch_specs` (one
-    spec an array: None or ``"dp"`` -- JAX's ``P("dp")`` -- or a tuple of
-    axis names; every array alike)."""
+    """``(row axes, sequence axis)`` of the batch, from `batch_specs` (one
+    spec an array, every array alike): None or ``"dp"`` (JAX's
+    ``P("dp")``) or a tuple of the axes the rows split over (``("dp",
+    "sharding")``); ``("dp", "sp")``, or ``(rows, "sp")``, splits the rows
+    over dp and the sequence (dim 1) over ``sp`` (JAX's ``P("dp",
+    "sp")``). The sequence axis is None when no spec names ``"sp"``."""
     axes = set()
-    for sp in batch_specs or ("dp",):
-        sp = (sp,) if sp is None or isinstance(sp, str) else tuple(sp)
-        if sp and isinstance(sp[0], (tuple, list)):
-            sp = tuple(sp[0])         # a JAX-style spec of the rows' axes
-        axes.add(tuple(a for a in sp if a is not None) or ("dp",))
+    for spec in batch_specs or ("dp",):
+        spec = (spec,) if spec is None or isinstance(spec, str) \
+            else tuple(spec)
+        seq = None
+        if "sp" in spec:
+            if len(spec) != 2 or spec[1] != "sp":
+                raise ValueError(
+                    f"batch_specs {batch_specs}: 'sp' splits the "
+                    "sequence, a spec's second entry: ('dp', 'sp')")
+            spec, seq = spec[:1], "sp"
+        if spec and isinstance(spec[0], (tuple, list)):
+            spec = tuple(spec[0])     # a JAX-style spec of the rows' axes
+        axes.add((tuple(a for a in spec if a is not None) or ("dp",), seq))
     if len(axes) != 1:
         raise ValueError(f"batch_specs {batch_specs}: every batch array "
                          "splits its rows over the same axes")
-    (got,) = axes
+    ((got, seq),) = axes
     if got[0] != "dp" or not set(got) <= {"dp", "sharding"} \
             or len(set(got)) != len(got):
         raise ValueError(
             f"batch_specs {batch_specs}: the rows split over 'dp' (JAX's "
             "P('dp')), or over ('dp', 'sharding'); mp peers must hold the "
             "same rows")
-    return got
+    return got, seq
+
+
+def _sequence_guard(model, mesh, batch_specs, remat=False):
+    """Raise unless the sequence split covers this step (module
+    docstring): on a mesh with ``sp`` above 1, the batch must split its
+    sequence over ``sp`` and the model must be a GPT with ring attention
+    and no remat. Each refusal names its ROADMAP item."""
+    if mesh.shape.get("sp", 1) <= 1:
+        return
+    if _data_axes(batch_specs)[1] != "sp":
+        raise ValueError(
+            f"a mesh with sp={mesh.shape['sp']} splits each row's sequence "
+            "over its sp ranks: batch_specs=(('dp', 'sp'),) * 2")
+    from ..models.bert import Bert
+
+    if isinstance(model, Bert):
+        raise NotImplementedError(
+            "ERNIE / BERT under sp is not ported (ROADMAP Queue 1, item "
+            "8b.3): its attention is not a ring")
+    cfg = getattr(model, "cfg", None)
+    if not hasattr(model, "shard_sequence") or \
+            getattr(cfg, "attn_impl", None) != "ring":
+        raise NotImplementedError(
+            f"{type(model).__name__} at sp={mesh.shape['sp']} with "
+            f"attn_impl={getattr(cfg, 'attn_impl', None)!r}: attention "
+            "over a sequence slice must span the sp group, and only "
+            "GPTConfig(attn_impl='ring') does (ROADMAP Queue 1, item "
+            "8b.4)")
+    if remat or getattr(cfg, "remat", False):
+        raise NotImplementedError(
+            "remat under sp is not ported (ROADMAP Queue 1, item 8b.2)")
 
 
 def job_spec(kind, model, loss_fn, optimizer, mesh, zero_stage=0,
-             explicit=False, stage3=False, data_axes=("dp",), **opts):
+             explicit=False, stage3=False, data_axes=("dp",), seq_axis=None,
+             **opts):
     """What every rank builds its replica of a step from, but the model's
     skeleton: the trainable parameters' names, each leaf's flat layout
     (natural shape, element count, pad to the next dp multiple), the
@@ -1128,7 +1280,7 @@ def job_spec(kind, model, loss_fn, optimizer, mesh, zero_stage=0,
             meta[n] = (shape, num, (-num) % dp)
     layouts = {} if explicit else leaf_layouts(model, mesh, zero_stage)
     place = _Placement(mesh.shape, explicit, stage3, meta, layouts,
-                       data_axes)
+                       data_axes, seq_axis)
     return dict(kind=kind, loss_fn=loss_fn, names=names, meta=meta,
                 place=place, opt=optimizer.settings(), explicit=explicit,
                 stage3=stage3, **opts)
@@ -1249,7 +1401,7 @@ class _TrainStep(RankJob):
 
     def _open(self, model, loss_fn, optimizer, mesh, batch_specs,
               zero_stage=0, **opts):
-        data_axes = _data_axes(batch_specs)
+        data_axes, seq_axis = _data_axes(batch_specs)
         if mesh.device_type == "cuda" and torch.cuda.is_available():
             torch.cuda.set_device(mesh.devices[0])
         self.model = model
@@ -1261,7 +1413,8 @@ class _TrainStep(RankJob):
         params = dict(model.named_parameters())
         self._shapes = {n: tuple(p.shape) for n, p in params.items()}
         self._spec = job_spec(self._kind, model, loss_fn, optimizer, mesh,
-                              zero_stage, data_axes=data_axes, **opts)
+                              zero_stage, data_axes=data_axes,
+                              seq_axis=seq_axis, **opts)
         self.names = self._spec["names"]
         self._flat_meta = self._spec["meta"]
         self._place = self._spec["place"]
@@ -1270,7 +1423,8 @@ class _TrainStep(RankJob):
         self.dp = mesh.size if self._place.explicit else \
             self._place.data_degree
         self._job = next(_JOB_IDS)
-        # each rank's seconds, peak device bytes and phases of the last step
+        # each rank's seconds, peak device bytes, phases and (after
+        # `count_host_syncs`, on CUDA) host syncs of the last step
         self.last_step = None
         self._ranks = _ranks_of(mesh)
         self._replica = None
@@ -1368,8 +1522,10 @@ class _TrainStep(RankJob):
         """Each rank's rows of `arrays`, in rank order: ``[(rank 0's arrays),
         (rank 1's), ...]`` as numpy arrays, each array split along its first
         axis as its spec splits it (``P("dp")``: the dp index's share, the
-        same on the sharding and mp peers)."""
+        same on the sharding and mp peers), and under ``("dp", "sp")``
+        along its second too (the sp index's slice of the sequence)."""
         place = self._place
+        sp = place.seq_degree
         out = [[] for _ in range(self.mesh.size)]
         for a in arrays:
             a = a.detach().cpu().numpy() if torch.is_tensor(a) else \
@@ -1377,10 +1533,16 @@ class _TrainStep(RankJob):
             if a.shape[0] % self.dp:
                 raise ValueError(f"batch of {a.shape[0]} rows does not split "
                                  f"over {self.dp} row shares")
+            if sp > 1 and (a.ndim < 2 or a.shape[1] % sp):
+                raise ValueError(
+                    f"batch array of shape {a.shape}: its sequence (dim 1) "
+                    f"does not split over sp={sp} ranks")
             parts = np.split(a, self.dp)
             for r in range(self.mesh.size):
-                out[r].append(parts[r if place.explicit
-                                    else place.data_index(r)])
+                rows = parts[r if place.explicit else place.data_index(r)]
+                if sp > 1:
+                    rows = np.split(rows, sp, axis=1)[place.seq_index(r)]
+                out[r].append(rows)
         return [tuple(rows) for rows in out]
 
     def step(self, *batch, lr=None, seed=None):
@@ -1400,9 +1562,15 @@ class _TrainStep(RankJob):
                                      generator=self._seed_gen))
         rows = self.shard_batch(*batch)
         results = self._call("step", lr, seed, per_rank=rows)
-        self.last_step = [{"seconds": s, "peak_bytes": pk, "phases_ms": ph}
-                          for _, s, pk, ph in results]
+        self.last_step = [{"seconds": s, "peak_bytes": pk, "phases_ms": ph,
+                           "host_syncs": hs}
+                          for _, s, pk, ph, hs in results]
         return results[0][0]
+
+    def count_host_syncs(self, on=True):
+        """Count every rank's host syncs in each later step (CUDA ranks:
+        ``last_step[r]["host_syncs"]``)."""
+        self._call("count_syncs", bool(on))
 
     def gather_params(self):
         """Natural-shape parameters ({name: tensor} on rank 0's device):
@@ -1511,6 +1679,7 @@ class ShardedTrainStep(_TrainStep):
                 "quant_grads rides the explicit weight-update path "
                 "(int8 reduce-scatter) — it needs zero_stage >= 2 on a "
                 "pure-dp mesh, or explicit_update=True")
+        _sequence_guard(model, mesh, batch_specs, self.remat)
         if self.explicit_update:
             if optimizer._grad_clip is not None:
                 raise ValueError(
@@ -1551,7 +1720,8 @@ def make_sharded_train_step(model, loss_fn, optimizer, mesh, batch_specs=None,
     """``loss_fn(model_outputs, labels) -> scalar tensor``; the batch is
     ``(inputs..., labels)``, each array split along its first axis over
     the axes `batch_specs` names (None: ``"dp"`` for every array, JAX's
-    ``P("dp")``; or ``("dp", "sharding")``)."""
+    ``P("dp")``; or ``("dp", "sharding")``), and with ``("dp", "sp")``
+    along its second over ``sp`` (the sequence split)."""
     return ShardedTrainStep(model, loss_fn, optimizer, mesh, batch_specs,
                             zero_stage, remat, gradient_merge_k,
                             gradient_merge_avg,
@@ -1578,6 +1748,10 @@ class LocalSGDTrainStep(_TrainStep):
             raise ValueError(
                 f"LocalSGDTrainStep over {dict(mesh.shape)}: a 'pp' mesh "
                 "trains through models/gpt_pipeline.py")
+        if mesh.shape.get("sp", 1) > 1:
+            raise NotImplementedError(
+                f"LocalSGDTrainStep over {dict(mesh.shape)}: LocalSGD "
+                "under sp is not ported (ROADMAP Queue 1, item 8b.1)")
         self.k = int(k_steps)
         self._open(model, loss_fn, optimizer, mesh, batch_specs,
                    stage3=False, explicit=False, quant=False, gm_k=1,
@@ -1591,4 +1765,5 @@ class LocalSGDTrainStep(_TrainStep):
 
 __all__ = ["LocalSGDTrainStep", "RankJob", "ShardedTrainStep",
            "explicit_update_eligible",
-           "make_sharded_train_step", "train_collective_budget"]
+           "make_sharded_train_step", "sp_collective_budget",
+           "train_collective_budget"]

@@ -116,9 +116,10 @@ def test_engine_takes_jax_keyword(model, name, tmp_path, monkeypatch,
             == eng.expected_program_count()
 
 
-# the config values the port refuses (NotImplementedError): ring attention
-# waits for ROADMAP Queue 1, item 8; remat is ported in both configs
-GPT_REFUSED = {"attn_impl"}
+# the config values the port refuses (NotImplementedError): none since
+# ring attention was ported (parallel/ring_attention.py); remat is ported
+# in both configs
+GPT_REFUSED = set()
 
 
 @pytest.mark.parametrize("name", sorted(JAX_GPT))

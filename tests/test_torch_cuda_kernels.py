@@ -767,6 +767,131 @@ def test_flash_rejects_what_it_cannot_take(dev):
     assert fa.flash_attention_fwd.launches == before
 
 
+RING_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_steps_match_one_flash_call(dev, dtype, n):
+    """The n ranks' ring steps (`rank_forward`, `rank_backward`) in one
+    process at gpt_1p3b's attention shape (1 x 2048, 16 heads, D 128,
+    causal): O, dQ, dK and dV within 2e-5 (f32) of one flash call over
+    the whole sequence, in bf16 within 2e-2 plus one bf16 ulp of the one
+    call's value (its own rounding); rank i launches the forward and the
+    backward pair i + 1 times, and its steps make no host sync."""
+    from paddle_tpu_torch.parallel.ring_attention import (rank_backward,
+                                                          rank_forward)
+
+    B, S, H, D = 1, 2048, 16, 128
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    want = (o,) + tuple(fa.flash_attention_bwd(q, k, v, o, do, lse, True))
+    L = S // n
+    cut = [lambda t, i=i: t[:, i * L:(i + 1) * L] for i in range(n)]
+    blocks = [(cut[j](k), cut[j](v)) for j in range(n)]
+    outs, dqs = [], []
+    dks = [torch.zeros((B, L, H, D), device=dev) for _ in range(n)]
+    dvs = [torch.zeros((B, L, H, D), device=dev) for _ in range(n)]
+    for i in range(n):
+        f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            oi, lsei = rank_forward(cut[i](q), blocks, i, True)
+            dqi, parts = rank_backward(cut[i](q), blocks, oi, cut[i](do), lsei,
+                                       i, True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert (fa.flash_attention_fwd.launches - f0,
+                fa.flash_attention_bwd.launches - b0) == (i + 1, i + 1)
+        assert sorted(parts) == list(range(i + 1))
+        outs.append(oi)
+        dqs.append(dqi)
+        for j, (a, b) in parts.items():
+            dks[j] += a.float()
+            dvs[j] += b.float()
+    for name, got, w in zip(("o", "dq", "dk", "dv"), (outs, dqs, dks, dvs),
+                            want):
+        err = (torch.cat(got, 1) - w.float()).abs()
+        if dtype == torch.bfloat16:
+            _, e = torch.frexp(w.float())
+            err = err - torch.ldexp(torch.ones_like(err), e - 8)
+        assert err.max().item() <= RING_TOL[dtype], (name, err.max().item())
+
+
+def test_ring_on_the_card_never_takes_the_plain_path(dev, monkeypatch):
+    """On CUDA tensors the ring's steps launch the kernels and never call
+    the plain versions (made to raise here); a group of one is one flash
+    call."""
+    from paddle_tpu_torch.parallel import ring_attention as ra
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain path ran on a CUDA tensor")
+
+    for name in ("attention_ref", "attention_lse_ref", "attention_bwd_ref"):
+        monkeypatch.setattr(ra, name, refuse)
+    q, k, v, do = _flash_inputs(1, 256, 256, 2, 64, torch.float32, dev)
+    o, lse = ra.rank_forward(q, [(k, v)], 0, True)
+    ra.rank_backward(q, [(k, v)], o, do.contiguous(), lse, 0, True)
+    f0 = fa.flash_attention_fwd.launches
+    one = ra.ring_attention(q, k, v, None, causal=True)
+    assert fa.flash_attention_fwd.launches == f0 + 1
+    torch.testing.assert_close(one, fa.flash_attention_fwd(q, k, v, True)[0],
+                               rtol=0, atol=0)
+
+
+def test_sp2_gloo_ranks_on_the_card_equal_one_process(dev):
+    """A float32 ring GPT (2 layers, 2 heads of D 128, 2 x 512) over
+    {"sp": 2}: two rank processes on one card over gloo (every hop staged
+    through the host) give one process's losses within 1e-5 relative;
+    sp rank i launches the forward and the backward pair (i + 1) times a
+    layer and step, and its host syncs a step are counted."""
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.models.gpt import gpt_loss_fn
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    cfg = GPTConfig(vocab_size=1024, hidden_size=256, num_layers=2,
+                    num_heads=2, max_seq_len=512, attn_impl="ring")
+    rs = np.random.RandomState(0)
+    ids, labels = (torch.from_numpy(rs.randint(0, 1024, (2, 512)))
+                   for _ in range(2))
+    model = GPT(cfg, device=dev, seed=0)
+    opt = SGD(learning_rate=0.1, parameters=model.named_parameters())
+    model.train()
+    want = []
+    for _ in range(2):
+        loss = model(ids.to(dev), labels=labels.to(dev))
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        want.append(loss.item())
+    model = GPT(cfg, device=dev, seed=0)
+    opt = SGD(learning_rate=0.1, parameters=model.named_parameters())
+    mesh = build_mesh({"sp": 2}, devices=[str(dev)] * 2, backend="gloo",
+                      timeout=120)
+    try:
+        step = make_sharded_train_step(model, gpt_loss_fn, opt, mesh,
+                                       batch_specs=(("dp", "sp"),) * 2)
+        step.rank_reports(zero=True)
+        step.count_host_syncs()
+        got = [step(ids, labels) for _ in range(2)]
+        reports = step.rank_reports()
+        syncs = [r["host_syncs"] for r in step.last_step]
+        step.close()
+    finally:
+        mesh.close()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for i, rep in enumerate(reports):
+        n = cfg.num_layers * (i + 1) * 2
+        assert (rep["launches"]["fwd_launches"],
+                rep["launches"]["bwd_launches"]) == (n, n), (i, rep)
+        assert rep["collectives"]["send"] == rep["collectives"]["recv"] == \
+            2 * cfg.num_layers * 3
+    assert all(isinstance(n, int) and n > 0 for n in syncs), syncs
+
+
 def test_gpt_train_step_on_the_card_matches_the_cpu(dev):
     """Two AdamW steps of a small GPT in float32: the card (flash kernels)
     against a CPU copy (plain attention), same weights and batch."""

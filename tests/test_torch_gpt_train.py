@@ -174,12 +174,17 @@ def test_to_jax_state_dict_inverts_from_jax_state_dict():
 @pytest.mark.parametrize("kw,match", [(dict(remat=True), "remat"),
                                       (dict(attn_impl="ring"), "ring")])
 def test_unported_config_values_raise(batch, kw, match):
-    """Ring attention is not ported and raises. Remat, once refused here,
-    is ported: a remat model's training loss and gradients equal the
-    plain model's (`test_torch_remat.py` holds it against JAX)."""
+    """Both values, once refused here, are ported. Ring attention: at
+    dropout 0 the loss and gradients of ``GPTConfig(attn_impl="ring")``
+    with no mesh equal the JAX GPT's with ``attn_impl="ring"`` on one
+    device (its ring's fallback: causal attention, no dropout); at
+    dropout 0.1 they equal, under the same generators, the port's flash
+    model whose attention takes no dropout (the JAX ring branch drops
+    none; the JAX PRNG cannot match, so that check stays in the port).
+    Remat: a remat model's training loss and gradients equal the plain
+    model's (`test_torch_remat.py` holds it against JAX)."""
     if match == "ring":
-        with pytest.raises(NotImplementedError, match=match):
-            GPTConfig(**CFG, **kw)
+        _ring_matches_jax_and_drops_no_attention(batch)
         return
     ids, labels = map(torch.from_numpy, batch)
     runs = []
@@ -192,6 +197,48 @@ def test_unported_config_values_raise(batch, kw, match):
     assert runs[1][0] == runs[0][0]
     for a, b in zip(runs[0][1], runs[1][1]):
         torch.testing.assert_close(b, a, rtol=0, atol=0)
+
+
+def _ring_matches_jax_and_drops_no_attention(batch):
+    from paddle_tpu.distributed.mesh import set_mesh as jax_set_mesh
+
+    jax_set_mesh(None)             # one device: the JAX ring's fallback
+    paddle.seed(0)
+    jm = JaxGPT(JaxGPTConfig(**CFG, attn_impl="ring"))
+    params, buffers = state_dict_arrays(jm)
+    init = {k: np.asarray(v) for k, v in params.items()}
+
+    def loss_fn(p):
+        loss, _ = functional_call(jm, p, buffers, args=(
+            jnp.asarray(batch[0], jnp.int32),), kwargs={
+                "labels": jnp.asarray(batch[1], jnp.int32)}, training=True)
+        return loss
+
+    want, jgrads = jax.value_and_grad(loss_fn)(params)
+    ids, labels = map(torch.from_numpy, batch)
+    m = from_jax_state_dict(GPT(GPTConfig(**CFG, attn_impl="ring"),
+                                device="cpu"), init)
+    m.train()
+    loss = m(ids, labels=labels)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want), rtol=LOSS_RTOL)
+    grads = _grads_in_jax_layout(m)
+    for k, g in jgrads.items():
+        np.testing.assert_allclose(grads[k], np.asarray(g), atol=ATOL,
+                                   rtol=0, err_msg=k)
+    runs = []
+    for impl in ("ring", "flash"):
+        m = GPT(GPTConfig(**CFG, attn_impl=impl, dropout=0.1), device="cpu",
+                seed=1)
+        for blk in m.blocks:
+            blk.attn.dropout = 0.0      # the flash model's: none either
+        m.train()
+        loss = m(ids, labels=labels)
+        loss.backward()
+        runs.append((loss.item(), [p.grad for p in m.parameters()]))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_dropout_trains_and_eval_equals_no_dropout(batch):

@@ -490,10 +490,14 @@ def test_explicit_update_on_a_hybrid_mesh_raises_the_jax_error(meshes):
 @pytest.mark.parametrize("deg", [{"pp": 2}, {"sp": 2}, {"dp": 2, "pp": 2}])
 def test_pipeline_and_sequence_axes_are_refused_naming_item_8(deg):
     """A 'pp' axis builds (the pipeline's stage lines, models/
-    gpt_pipeline.py); 'sp' is still refused, naming its ROADMAP item."""
+    gpt_pipeline.py); so does 'sp' (the rings of parallel/
+    ring_attention.py), which beside 'mp' is still refused, naming its
+    ROADMAP item."""
     if "sp" in deg:
+        mesh = build_mesh(deg, device="cpu")
+        assert mesh.size == 2 and mesh.axis_group("sp") is mesh.group
         with pytest.raises(NotImplementedError, match="item 8b"):
-            build_mesh(deg, device="cpu")
+            build_mesh(dict(deg, mp=2), device="cpu")
         return
     mesh = build_mesh(deg, device="cpu")
     assert mesh.size == 2 * deg.get("dp", 1)
