@@ -376,6 +376,30 @@ Phases, in order; any failure exits nonzero:
    4 rows over {"dp": 2, "sp": 2} (four ranks) against one process:
    losses within 1e-5, parameters within 1e-5 relative to their norm, the
    same gates. `--only 6g` builds the kernels and runs this phase alone.
+6h. Expert parallelism and incubate's fused functionals (run last; `--only
+   6h` runs it alone). (a) MoELayer(2048, 8192, 8, "switch") (gpt_1p3b's
+   hidden and FFN widths) at x [8, 1024, 2048]: its indexed dispatch and
+   combine against the dense einsum form on the same weights, out, aux
+   and every gradient within 1e-5 relative in f32 (TF32 off) and 2e-2 in
+   bf16; at capacity factor 0.5 the dropped count equals the overflow and
+   dropped tokens output zero; forward and backward times split into
+   dispatch, expert products and combine, and peak memory. (b)
+   Linear(2048, 2048) -> that layer -> Linear(2048, 2048), MSE, f32, SGD
+   0.1, 3 steps on 4 x 1024 rows over {"mp": 2}, {"dp": 2, "mp": 2} and
+   {"sharding": 2, "mp": 2} at stage 2 (ranks on cuda:0 over gloo,
+   labelled "not an ep speed"), at capacity factors 1.25 and 0.5, against
+   one process: losses within 1e-5 relative, parameters within 1e-5 of
+   their norm, each rank's calls a step equal `moe_collective_budget`,
+   each rank 1/mp of the experts' bytes; each rank's peak and step
+   phases. (c) `moe_alltoall_block` on four ranks (E 8, two a rank, H
+   2048, F 8192, T 4096 a rank): O and the experts' gradients within 1e-5
+   relative of the dense form over every rank's tokens, two all-to-alls
+   each way a rank. (d) `fused_multi_head_attention` at ERNIE-base's
+   shape (32 x 512, 768, 12 heads, padding lengths 256-512, post-LN)
+   against flash's plain version on the card: 1e-5 (f32) and 2e-2 (bf16)
+   at dropout 0; at dropout 0.1 the same values under one seed and one
+   mask + dropout launch of each direction a call; bf16 times beside the
+   same function over torch's SDPA.
 
 Prints a `{"kernels": [...]}` line (the flash rows also name the bf16
 kernel's design and ptxas's registers and spill bytes for it; a spill in
@@ -386,6 +410,7 @@ nvidia-smi name/power-limit line, and last `{"ok": true, "device":
 """
 import argparse
 import asyncio
+import contextlib
 import json
 import os
 import re
@@ -4738,9 +4763,6 @@ class _ScalerStage:
         self.w = torch.nn.Parameter(torch.full((1024,), 1.0 + self.stage,
                                                device=mesh.device))
 
-    def load(self, values, scalars):
-        pass
-
     def step(self, plant):
         from paddle_tpu_torch.amp import GradScaler
         from paddle_tpu_torch.distributed.fleet.meta_parallel import (
@@ -4770,26 +4792,8 @@ def _pp_scaler(mesh):
     unchanged bit for bit, the scale halved); with none both step."""
     from paddle_tpu_torch.parallel import spmd
 
-    class Job(spmd.RankJob):
-        def __init__(self):
-            self.mesh = mesh
-            self._ranks = spmd._ranks_of(mesh)
-            self._job = next(spmd._JOB_IDS)
-            self._replica = None
-            spec = {"factory": _ScalerStage}
-
-            def local():
-                self._replica = _ScalerStage(spec, mesh)
-
-            self._everywhere(local, "open", self._job, spec,
-                             per_rank=[([], {})] * (mesh.size - 1))
-
-    job = Job()
-    try:
-        skipped = job._call("step", 1)
-        stepped = job._call("step", None)
-    finally:
-        job.close()
+    skipped, stepped = spmd.run_on_ranks(mesh, _ScalerStage, ("step", 1),
+                                         ("step", None))
     res = dict(planted_in_stage_1=skipped, clean=stepped)
     log("[pp-scaler] " + json.dumps(res))
     assert all(r["unchanged"] and r["scale"] == 2.0 ** 14 for r in skipped)
@@ -5325,10 +5329,553 @@ def sequence_train(smi):
     return res
 
 
+# -- phase 6h -----------------------------------------------------------------
+
+MOE_LABEL = ("eager, gloo through the host, ranks sharing one card - not an "
+             "ep speed")
+MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+MOE_SHAPE = (8, 1024, 2048)     # 6h (a): x [8, 1024, 2048], T 8192
+MOE_WIDTHS = (2048, 8192, 8)    # gpt_1p3b's hidden and FFN, 8 experts
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want|."""
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+def _moe_grads(layer, x, do, dense):
+    """One forward and backward of `layer` (``sum(out * dO) + aux``) in its
+    own indexed form, or with `dense` in the JAX package's dense einsum
+    form on the same weights: {"out", "aux", "x", and each parameter's
+    gradient}."""
+    from paddle_tpu_torch.distributed import moe
+
+    layer.zero_grad(set_to_none=True)
+    xg = x.detach().requires_grad_()
+    if dense:
+        flat = xg.reshape(-1, x.shape[-1])
+        gates = layer.gate.gate_fn(flat)
+        cap = moe.expert_capacity(layer.capacity_factor, flat.shape[0],
+                                  layer.num_experts)
+        out = moe.dense_moe(flat, gates, layer.w1, layer.b1, layer.w2,
+                            layer.b2, cap).reshape(x.shape)
+        aux = moe.switch_aux_loss(gates, gates.argmax(-1))
+    else:
+        out = layer(xg)
+        aux = layer.aux_loss
+    ((out * do).sum() + aux).backward()
+    res = dict(out=out.detach(), aux=aux.detach(), x=xg.grad)
+    res.update({n: p.grad for n, p in layer.named_parameters()})
+    return res
+
+
+def _moe_parts_ms(layer, x, do):
+    """6h (a)'s split of the layer's time (CUDA events, eager): the
+    router and dispatch, the expert products and the combine, forward and
+    backward each, and the whole layer's forward and forward + backward."""
+    from paddle_tpu_torch.distributed import moe
+
+    E = layer.num_experts
+    flat = x.reshape(-1, x.shape[-1]).detach().requires_grad_()
+    do2 = do.reshape(flat.shape)
+    cap = moe.expert_capacity(layer.capacity_factor, flat.shape[0], E)
+    ws = (layer.w1, layer.b1, layer.w2, layer.b2)
+
+    def route_dispatch():
+        gates = layer.gate.gate_fn(flat)
+        expert, slot, keep, prob = moe.route(gates, cap)
+        disp, dest = moe.dispatch(flat, expert, slot, keep, E, cap)
+        return disp, dest, prob
+
+    disp, dest, prob = route_dispatch()
+    g_disp = torch.randn_like(disp)
+    g_prob = torch.randn_like(prob)
+    disp_in = disp.detach().requires_grad_()
+    eout = moe.expert_mlp(disp_in, *ws)
+    g_eout = torch.randn_like(eout)
+    eout_in = eout.detach().requires_grad_()
+    prob_in = prob.detach().requires_grad_()
+    out = moe.combine(eout_in, dest, prob_in)
+
+    def whole():
+        layer(x).backward(do)
+
+    return dict(
+        dispatch_fwd_ms=event_ms(route_dispatch, 5),
+        dispatch_bwd_ms=event_ms(lambda: torch.autograd.grad(
+            (disp, prob), (flat, layer.gate.gate), (g_disp, g_prob),
+            retain_graph=True), 5),
+        experts_fwd_ms=event_ms(lambda: moe.expert_mlp(disp_in, *ws), 5),
+        experts_bwd_ms=event_ms(lambda: torch.autograd.grad(
+            eout, (disp_in,) + ws, g_eout, retain_graph=True), 5),
+        combine_fwd_ms=event_ms(lambda: moe.combine(eout_in, dest, prob_in),
+                                5),
+        combine_bwd_ms=event_ms(lambda: torch.autograd.grad(
+            out, (eout_in, prob_in), do2, retain_graph=True), 5),
+        layer_fwd_ms=event_ms(lambda: layer(x), 5),
+        layer_fwd_bwd_ms=event_ms(whole, 3))
+
+
+def _moe_peak_gib(layer, fn):
+    """Peak GiB `fn` allocates above what was allocated before it, with
+    `layer`'s gradients dropped first."""
+    layer.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def _moe_layer_card(smi):
+    """6h (a): MoELayer(2048, 8192, 8, "switch") at x [8, 1024, 2048] (T
+    8192, C 1280 at capacity factor 1.25; 640 at 0.5). f32 with TF32 off:
+    the indexed form against the dense einsum form on the same weights,
+    out, aux and every gradient within 1e-5 relative (max error over the
+    tensor's max); bf16 within 2e-2. At 0.5: the dropped count equals the
+    routed counts' overflow and the dropped tokens' output is zero. Times
+    (CUDA events) split into dispatch, experts and combine, each way, the
+    whole layer beside the dense form's, and peak memory of a forward and
+    backward in each form."""
+    from paddle_tpu_torch.distributed import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    d, f, E = MOE_WIDTHS
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x32 = torch.randn(MOE_SHAPE, generator=gen, device="cuda")
+    do32 = torch.randn(MOE_SHAPE, generator=gen, device="cuda")
+    out = []
+    for dtype, cf in ((torch.float32, 1.25), (torch.float32, 0.5),
+                      (torch.bfloat16, 1.25)):
+        layer = moe.MoELayer(d, f, E, gate="switch", capacity_factor=cf,
+                             device="cuda", seed=3).to(dtype)
+        x, do = x32.to(dtype), do32.to(dtype)
+        got = _moe_grads(layer, x, do, dense=False)
+        want = _moe_grads(layer, x, do, dense=True)
+        err = {k: _rel_err(got[k], want[k]) for k in want}
+        flat = x.reshape(-1, d)
+        gates = layer.gate.gate_fn(flat)
+        cap = moe.expert_capacity(cf, flat.shape[0], E)
+        _, _, keep, _ = moe.route(gates, cap)
+        counts = torch.bincount(gates.argmax(-1), minlength=E)
+        overflow = int((counts - cap).clamp(min=0).sum())
+        dropped = int((~keep).sum())
+        dropped_out_zero = bool(
+            (got["out"].reshape(-1, d)[~keep] == 0).all())
+        del got, want
+        rec = dict(dtype=str(dtype).replace("torch.", ""),
+                   capacity_factor=cf, shape=list(MOE_SHAPE),
+                   widths=list(MOE_WIDTHS), capacity=cap,
+                   routed=counts.tolist(), dropped=dropped,
+                   overflow=overflow, dropped_out_zero=dropped_out_zero,
+                   max_rel_err=err, tol=MOE_TOL[dtype], card=smi,
+                   expert_flop_a_step=3 * 2 * 2 * E * cap * d * f,
+                   dense_combine_flop_a_step=3 * 2 * flat.shape[0] * E
+                   * cap * d)
+        if cf == 1.25:
+            rec.update(_moe_parts_ms(layer, x, do))
+            layer.zero_grad(set_to_none=True)
+            rec["dense_fwd_bwd_ms"] = event_ms(
+                lambda: _moe_grads(layer, x, do, dense=True), 3)
+            rec["layer_peak_gib"] = _moe_peak_gib(
+                layer, lambda: _moe_grads(layer, x, do, dense=False))
+            rec["dense_peak_gib"] = _moe_peak_gib(
+                layer, lambda: _moe_grads(layer, x, do, dense=True))
+        log("[moe-layer] " + json.dumps(rec))
+        out.append(rec)
+        del layer
+        torch.cuda.empty_cache()
+        if max(err.values()) > MOE_TOL[dtype]:
+            raise SystemExit(f"the MoE layer's indexed form misses "
+                             f"{MOE_TOL[dtype]} against the dense form: "
+                             f"{rec}")
+        if dropped != overflow or not dropped_out_zero or \
+                (cf < 1 and not dropped):
+            raise SystemExit(f"the MoE layer's drops are wrong: {rec}")
+    return out
+
+
+def _moe_net(cf, seed=0):
+    """6h (b)'s model: Linear(2048, 2048) -> MoELayer(2048, 8192, 8,
+    "switch") -> Linear(2048, 2048), float32 on cuda:0 from `seed`."""
+    from paddle_tpu_torch.distributed import moe
+
+    d, f, E = MOE_WIDTHS
+    torch.manual_seed(seed)
+    return torch.nn.Sequential(
+        torch.nn.Linear(d, d, device="cuda"),
+        moe.MoELayer(d, f, E, gate="switch", capacity_factor=cf,
+                     device="cuda", seed=seed),
+        torch.nn.Linear(d, d, device="cuda"))
+
+
+def _moe_batch():
+    """4 x 1024 rows of 2048 in and out (CPU; each rank takes its rows)."""
+    g = torch.Generator().manual_seed(22)
+    return (torch.randn((4, 1024, MOE_WIDTHS[0]), generator=g),
+            torch.randn((4, 1024, MOE_WIDTHS[0]), generator=g))
+
+
+def _moe_one_process(cf, batch, steps, lr):
+    """The model's `steps` SGD steps in this process: (losses, params,
+    the largest norm of a leaf's change over its norm)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.optimizer import SGD
+
+    net = _moe_net(cf)
+    init = {n: p.detach().clone() for n, p in net.named_parameters()}
+    opt = SGD(learning_rate=lr, parameters=net.named_parameters())
+    x, y = (t.cuda() for t in batch)
+    losses = []
+    for _ in range(steps):
+        loss = F.mse_loss(net(x), y)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(loss.item())
+    params = {n: p.detach().clone() for n, p in net.named_parameters()}
+    moved = max(float((params[n] - w).norm() / w.norm())
+                for n, w in init.items() if w.norm() > 0)
+    return losses, params, moved
+
+
+class _A2AShare:
+    """6h (c): one rank's share of the all-to-all block, a rank job of
+    the port's parallel/spmd.py: its own 4096 tokens, its two experts of
+    eight (every rank draws the whole model from one seed), the block's
+    forward and backward of ``sum(out ** 2)`` through the counted
+    all-to-all, and the dense form over every rank's tokens as the
+    oracle (the sum of the ranks' losses)."""
+
+    JOB_OPS = frozenset(("run",))
+
+    def __init__(self, spec, mesh):
+        self.mesh = mesh
+
+    def run(self, T, seed):
+        from paddle_tpu_torch.distributed import moe
+        from paddle_tpu_torch.parallel import collectives
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        group, r = self.mesh.group, self.mesh.rank
+        n = group.size
+        H, F_, E = MOE_WIDTHS
+        e = E // n
+        dev = self.mesh.device
+        g = torch.Generator(device=dev).manual_seed(seed)
+        gw = torch.randn((H, E), generator=g, device=dev) * H ** -0.5
+        w1 = torch.randn((E, H, F_), generator=g, device=dev) * H ** -0.5
+        b1 = torch.randn((E, F_), generator=g, device=dev) * 0.1
+        w2 = torch.randn((E, F_, H), generator=g, device=dev) * F_ ** -0.5
+        b2 = torch.randn((E, H), generator=g, device=dev) * 0.1
+        xs = [torch.randn((T, H), generator=g, device=dev)
+              for _ in range(n)]
+        mine = [t[r * e:(r + 1) * e].clone().requires_grad_()
+                for t in (w1, b1, w2, b2)]
+        x = xs[r].clone().requires_grad_()
+        calls = collectives.all_to_all.calls
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = moe.moe_alltoall_block(x, gw, *mine, group)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        fwd_calls = collectives.all_to_all.calls - calls
+        (out ** 2).sum().backward()
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        bwd_calls = collectives.all_to_all.calls - calls - fwd_calls
+        cap = moe.expert_capacity(1.25, T, E)
+        full = [t.detach().requires_grad_() for t in (w1, b1, w2, b2)]
+        want_out = None
+        for j, x in enumerate(xs):
+            o = moe.dense_moe(x, torch.softmax(x @ gw, -1), *full, cap)
+            (o ** 2).sum().backward()
+            if j == r:
+                want_out = o.detach()
+        err = dict(o=_rel_err(out.detach(), want_out),
+                   **{k: _rel_err(m.grad, f.grad[r * e:(r + 1) * e])
+                      for k, m, f in zip(("w1", "b1", "w2", "b2"), mine,
+                                         full)})
+        return dict(rank=r, experts=[r * e, (r + 1) * e], capacity=cap,
+                    fwd_all_to_all=fwd_calls, bwd_all_to_all=bwd_calls,
+                    max_rel_err=err, fwd_s=t1 - t0, bwd_s=t2 - t1)
+
+
+def _moe_a2a(mesh, smi):
+    """6h (c): `moe_alltoall_block` on the four ranks of `mesh` (its world
+    group, on cuda:0 over gloo), E 8 (two a rank), H 2048, F 8192, T 4096
+    a rank, f32 with TF32 off: each rank's O and its experts' gradients
+    of w1, b1, w2 and b2 within 1e-5 relative of the dense form over every
+    rank's tokens; two all-to-alls a forward and two a backward a rank."""
+    from paddle_tpu_torch.parallel import spmd
+
+    ranks, = spmd.run_on_ranks(mesh, _A2AShare, ("run", 4096, 23))
+    res = dict(label=MOE_LABEL, card=smi, world=mesh.size,
+               widths=list(MOE_WIDTHS), tokens_a_rank=4096, ranks=ranks,
+               tol=MOE_TOL[torch.float32])
+    log("[moe-a2a] " + json.dumps(res))
+    for r in ranks:
+        assert (r["fwd_all_to_all"], r["bwd_all_to_all"]) == (2, 2), r
+        if max(r["max_rel_err"].values()) > MOE_TOL[torch.float32]:
+            raise SystemExit(f"the all-to-all block misses "
+                             f"{MOE_TOL[torch.float32]}: {r}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def _moe_hybrid(smi):
+    """6h (b) and (c): the model of `_moe_net`, float32 (TF32 off), SGD
+    0.1, 3 steps on `_moe_batch` over {"mp": 2}, {"dp": 2, "mp": 2} and
+    {"sharding": 2, "mp": 2} at ZeRO stage 2 (ranks on cuda:0 over gloo),
+    at capacity factors 1.25 and 0.5, each against one process: losses
+    within 1e-5 relative, every gathered parameter within 1e-5 of its
+    norm; each rank's calls a step equal `moe_collective_budget`, and
+    each holds 1/mp of the experts' bytes beside the rest whole. Each
+    rank's peak memory and step phases. (c) runs on the 4-rank dp x mp
+    mesh before it closes."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.parallel import spmd
+    from paddle_tpu_torch.parallel.spmd import (make_sharded_train_step,
+                                                moe_collective_budget)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    steps, lr = 3, 0.1
+    batch = _moe_batch()
+    want = {cf: _moe_one_process(cf, batch, steps, lr) for cf in (1.25, 0.5)}
+    out, a2a = [], None
+    for degrees, zs in (({"mp": 2}, 0), ({"dp": 2, "mp": 2}, 0),
+                        ({"sharding": 2, "mp": 2}, 2)):
+        mesh = _hybrid_mesh(degrees)
+        try:
+            for cf in (1.25, 0.5):
+                net = _moe_net(cf)
+                opt = SGD(learning_rate=lr,
+                          parameters=net.named_parameters())
+                t0 = time.perf_counter()
+                step = make_sharded_train_step(net, F.mse_loss, opt, mesh,
+                                               zero_stage=zs)
+                build_s = time.perf_counter() - t0
+                try:
+                    losses, counts, wall, rank_s = _dp_run(step, batch,
+                                                           steps, warmup=0)
+                    t1 = time.perf_counter()
+                    params = step.gather_params()
+                    gather_s = time.perf_counter() - t1
+                    held = step.param_bytes()
+                    n_leaves = len(step.names)
+                    zero = sum(z is not None for _, _, z in spmd.leaf_layouts(
+                        step.model, mesh, zs).values())
+                finally:
+                    step.close()
+                mp, dp = mesh.shape["mp"], mesh.shape["dp"]
+                budget = moe_collective_budget(1, mp, (dp,), n_leaves, zero)
+                experts = sum(p.numel() * 4 for n, p in net.named_parameters()
+                              if n.startswith("1.w") or n.startswith("1.b"))
+                whole = sum(p.numel() * 4 for p in net.parameters())
+                one, wparams, moved = want[cf]
+                rel = max(float((params[k].to(w.device) - w).norm()
+                                / w.norm()) for k, w in wparams.items())
+                rec = dict(label=MOE_LABEL, card=smi, mesh=degrees,
+                           zero_stage=zs, capacity_factor=cf,
+                           batch=[4, 1024], lr=lr, losses=losses,
+                           one_process=one, param_max_rel_norm_diff=rel,
+                           one_process_max_rel_update=moved,
+                           build_s=build_s, gather_s=gather_s,
+                           step_s=wall, rank_step_s=rank_s,
+                           budget_a_step=budget, zero_leaves=zero,
+                           param_bytes=held,
+                           want_param_bytes=whole - experts + experts // mp,
+                           counts=counts,
+                           peak_gib=[c["peak_gib"] for c in counts])
+                log(f"[moe-hybrid] ({MOE_LABEL}; {smi}) " + json.dumps(rec))
+                out.append(rec)
+                del net, opt, step, params
+                np.testing.assert_allclose(losses, one, rtol=1e-5)
+                assert rel < 1e-5, rec
+                for c in counts:
+                    assert c["collectives"] == {
+                        k: v * steps for k, v in budget.items()}, (c, budget)
+                assert held == [rec["want_param_bytes"]] * mesh.size, rec
+            if mesh.size == 4 and degrees.get("dp", 1) == 2:
+                a2a = _moe_a2a(mesh, smi)
+        finally:
+            mesh.close()
+        torch.cuda.empty_cache()
+    return out, a2a
+
+
+def _plain_flash(q, k, v, causal=False, mask=None, dropout_p=0.0, seed=None,
+                 head_offset=0, heads_total=None):
+    """Flash attention's plain version (autograd through `attention_ref`)
+    on any device: 6h (d)'s oracle."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    return fa.attention_ref(q, k, v, causal, mask, dropout_p, seed,
+                            head_offset, heads_total)
+
+
+def _sdpa_flash(q, k, v, causal=False, mask=None, dropout_p=0.0, seed=None,
+                head_offset=0, heads_total=None):
+    """torch's `scaled_dot_product_attention` on [B, S, H, D] with the
+    additive mask and dropout_p: 6h (d)'s yardstick (timing only)."""
+    o = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=None if mask is None else mask.to(q.dtype),
+        dropout_p=dropout_p, is_causal=causal)
+    return o.transpose(1, 2)
+
+
+@contextlib.contextmanager
+def _attention_through(fn):
+    """ops/common_nn's attention through `fn` inside (None: the kernels as
+    they are; the comparisons and the yardstick of 6h (d); the port's own
+    path has no switch)."""
+    from paddle_tpu_torch.ops import common_nn
+
+    kernels = common_nn.flash_attention
+    common_nn.flash_attention = fn or kernels
+    try:
+        yield
+    finally:
+        common_nn.flash_attention = kernels
+
+
+def _mha_call(inputs, grad_of, p, seed):
+    """`fused_multi_head_attention` (post-LN, a padding mask) on `inputs`
+    with dropout `p` (attention and output), after torch.manual_seed(seed)
+    unless `seed` is None: the output and, for a non-empty `grad_of`, the
+    gradients of ``sum(out * dO)`` for those inputs."""
+    from paddle_tpu_torch.incubate.nn.functional import \
+        fused_multi_head_attention
+
+    ts = {k: (t.detach().requires_grad_() if k in grad_of else t)
+          for k, t in inputs.items() if k != "do"}
+    if seed is not None:
+        torch.manual_seed(seed)
+    with torch.set_grad_enabled(bool(grad_of)):
+        out = fused_multi_head_attention(
+            **ts, dropout_rate=p, attn_dropout_rate=p, training=True)
+    if not grad_of:
+        return dict(out=out)
+    out.backward(inputs["do"])
+    return dict(out=out.detach(), **{k: ts[k].grad for k in grad_of})
+
+
+def _fused_mha(smi):
+    """6h (d): `fused_multi_head_attention` at ERNIE-base's shape (32 x
+    512, embed 768, 12 heads, a padding mask of real lengths 256-512,
+    post-LN). Dropout 0: the kernels against flash's plain version on the
+    card (the same function through `attention_ref`), out and the
+    gradients of x, the qkv and output weights within 1e-5 relative in
+    f32 (TF32 off) and 2e-2 in bf16. Dropout 0.1 (attention and output,
+    the same seed on both sides): one forward and one backward launch a
+    call, each the mask + dropout variant, and the kernels' values equal
+    the plain version's forward and backward (the same keep bits both
+    ways). bf16 times of the whole function (CUDA events) beside the same
+    function with torch's SDPA in its attention (timing only)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, S, E, Hn = 32, 512, 768, 12
+    g = torch.Generator(device="cuda").manual_seed(24)
+    lengths = padding_lengths(B, S, np.random.RandomState(24))
+    base = dict(
+        x=torch.randn((B, S, E), generator=g, device="cuda"),
+        qkv_weight=torch.randn((3, Hn, E // Hn, E), generator=g,
+                               device="cuda") * E ** -0.5,
+        qkv_bias=torch.randn((3, Hn, E // Hn), generator=g,
+                             device="cuda") * 0.1,
+        linear_weight=torch.randn((E, E), generator=g, device="cuda")
+        * E ** -0.5,
+        linear_bias=torch.randn((E,), generator=g, device="cuda") * 0.1,
+        ln_scale=1 + 0.1 * torch.randn((E,), generator=g, device="cuda"),
+        ln_bias=0.1 * torch.randn((E,), generator=g, device="cuda"),
+        do=torch.randn((B, S, E), generator=g, device="cuda"))
+    mask = padding_mask(lengths, S, "cuda")
+    grad_of = ("x", "qkv_weight", "linear_weight")
+    res = dict(card=smi, shape=[B, S, E], heads=Hn,
+               lengths=[int(lengths.min()), int(lengths.max())])
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs = {k: t.to(dtype) for k, t in base.items()}
+        inputs["attn_mask"] = mask
+        name = str(dtype).replace("torch.", "")
+        for p in (0.0, 0.1):
+            _zero_flash_counts()
+            got = _mha_call(inputs, grad_of, p, 25)
+            counts = _read_flash_counts()
+            with _attention_through(_plain_flash):
+                want = _mha_call(inputs, grad_of, p, 25)
+            err = {k: _rel_err(got[k], want[k]) for k in want}
+            rec = dict(max_rel_err=err, tol=MOE_TOL[dtype], **counts)
+            res[f"{name}_p{p}"] = rec
+            drop = int(p > 0)
+            assert counts == {"fwd_launches": 1, "fwd_mask_launches": 1,
+                              "fwd_dropout_launches": drop,
+                              "bwd_launches": 1, "bwd_mask_launches": 1,
+                              "bwd_dropout_launches": drop}, counts
+            if max(err.values()) > MOE_TOL[dtype]:
+                raise SystemExit(f"fused_multi_head_attention misses "
+                                 f"{MOE_TOL[dtype]} against the plain "
+                                 f"version: {dtype} p {p} {rec}")
+            del got, want
+        if dtype == torch.bfloat16:
+            def fwd():
+                _mha_call(inputs, (), 0.1, None)
+
+            def fwd_bwd():
+                _mha_call(inputs, grad_of, 0.1, None)
+
+            # kernels, SDPA, SDPA, kernels: the mean of each pair
+            times = {}
+            for name, fn in (("", _attention_through(None)),
+                             ("sdpa_", _attention_through(_sdpa_flash)),
+                             ("sdpa_", _attention_through(_sdpa_flash)),
+                             ("", _attention_through(None))):
+                with fn:
+                    for what, call in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+                        times.setdefault(f"bf16_p0.1_{name}{what}_ms",
+                                         []).append(event_ms(call, 10))
+            res.update({k: float(np.mean(v)) for k, v in times.items()})
+            res["bf16_p0.1_times_ms"] = times
+    log("[fused-mha] " + json.dumps(res))
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_train(smi):
+    """Phase 6h: expert parallelism and incubate's fused functionals on
+    the one card (run last): (a) the MoE layer at full width, (b) the
+    hybrid step with MoE over mp, dp x mp and sharding x mp, (c) the
+    all-to-all block over four ranks, (d) fused_multi_head_attention at
+    ERNIE-base's shape through the flash kernels."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[moe] phase 6h starts with "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated ({smi})")
+    res = dict(layer=_moe_layer_card(smi))
+    t1 = time.perf_counter()
+    res["fused_mha"] = _fused_mha(smi)
+    t2 = time.perf_counter()
+    res["hybrid"], res["alltoall"] = _moe_hybrid(smi)
+    res["seconds"] = time.perf_counter() - t0
+    res["part_seconds"] = {"a": t1 - t0, "d": t2 - t1,
+                           "b_c": res["seconds"] - (t2 - t0)}
+    log(f"[moe] phase 6h {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
-    ap.add_argument("--only", choices=("6g",),
+    ap.add_argument("--only", choices=("6g", "6h"),
                     help="build the kernels and run this phase alone (its "
                          "results, the card line and the device line)")
     args = ap.parse_args()
@@ -5344,13 +5891,14 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"[env] {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
     build_kernels()
-    if args.only == "6g":
-        sequence = sequence_train(smi)
+    if args.only:
+        name, phase = {"6g": ("sequence", sequence_train),
+                       "6h": ("moe", moe_train)}[args.only]
+        res = {name: phase(smi)}
         if args.out:
             with open(args.out, "w") as f:
-                json.dump(dict(card=smi, kind=kind, sequence=sequence), f,
-                          indent=1)
-        print(json.dumps({"sequence": sequence}))
+                json.dump(dict(card=smi, kind=kind, **res), f, indent=1)
+        print(json.dumps(res))
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -5385,6 +5933,7 @@ def main():
     hybrid = hybrid_train(smi)
     pipeline = pipeline_train(smi)
     sequence = sequence_train(smi)
+    moe = moe_train(smi)
     # the kernel line's headline numbers: the bf16 decode case (width 1),
     # the launch shape the serving path runs most, and the bf16 flash case
     # at the training shape
@@ -5569,6 +6118,11 @@ def main():
                                      if kname == "fwd" else
                                      "bwd_mask_launches"),
             "mp2_shard_case": mp2_case("ernie_mp2_rank_mask_dropout"),
+            # phase 6h (d): one fused_multi_head_attention call at ERNIE's
+            # shape with dropout 0.1 (bf16)
+            "fused_mha_launches": moe["fused_mha"]["bfloat16_p0.1"][
+                "fwd_mask_launches" if kname == "fwd"
+                else "bwd_mask_launches"],
             "max_abs_err": max(ev["max_err"][e] for e in errs),
             "ms": ev[f"{key}_ms"],
             "plain_ms": ev["plain_fwd_ms" if key == "fwd"
@@ -5638,7 +6192,7 @@ def main():
                            train_dropout=gpt_drop, ernie_parity=epar,
                            training_surface=surface, zero_dp=zero,
                            hybrid=hybrid, pipeline=pipeline,
-                           sequence=sequence), f,
+                           sequence=sequence, moe=moe), f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

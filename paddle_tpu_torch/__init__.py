@@ -5,7 +5,7 @@ module names (`models/gpt.py`, `serving/engine.py`, ...) and imports neither
 JAX nor anything of `paddle_tpu`. Its entry points run on CUDA unless the
 caller passes ``device="cpu"``, and raise when no CUDA device exists.
 """
-from . import amp, nn, optimizer  # noqa: F401
+from . import amp, incubate, nn, optimizer  # noqa: F401
 from .distributed.fleet.utils import recompute
 from .models.bert import (Bert, BertConfig, bert_base,
                           bert_pretrain_loss_fn, ernie_base)
@@ -23,6 +23,6 @@ __all__ = ["Adam", "AdamW", "AsyncLLMEngine", "Bert", "BertConfig", "GPT",
            "ServingServer", "amp", "bert_base", "bert_pretrain_loss_fn",
            "disable_train_tracing", "enable_train_tracing", "ernie_base",
            "from_jax_optimizer_state", "from_jax_state_dict", "gpt_1p3b",
-           "gpt_small", "gpt_tiny", "nn", "optimizer", "recompute",
-           "reset_train_tracing", "to_jax_optimizer_state",
+           "gpt_small", "gpt_tiny", "incubate", "nn", "optimizer",
+           "recompute", "reset_train_tracing", "to_jax_optimizer_state",
            "to_jax_state_dict", "train_tracer"]

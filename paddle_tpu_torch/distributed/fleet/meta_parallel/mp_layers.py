@@ -273,40 +273,47 @@ class ParallelCrossEntropy(nn.Module):
 _MP_DIMS = {VocabParallelEmbedding: {"weight": 0},
             ColumnParallelLinear: {"weight": 0, "bias": 0},
             RowParallelLinear: {"weight": 1}}
-_MP_LAYERS = tuple(_MP_DIMS)
+
+
+def _mp_dims(module):
+    """{leaf: dim} of `module`'s parameters sharded over ``mp``: an mp
+    layer's, or those a module that runs its own mp collectives names in
+    its ``mp_dims`` (distributed/moe.py `MoELayer`'s experts)."""
+    for cls, dims in _MP_DIMS.items():
+        if isinstance(module, cls):
+            return dims
+    return getattr(module, "mp_dims", None) or {}
 
 
 def mp_layout(module, leaf):
-    """How `module`'s parameter `leaf` ("weight"/"bias") is cut over
-    ``mp``: ``(dim, blocks)`` (the dim its ``sharding_axes`` names, and
-    the equal blocks that dim holds: a grouped column-parallel layer's
-    `out_groups`), or None. Only the mp layers shard: a parameter of any
-    other module stays replicated, whatever it is annotated with."""
-    for cls, dims in _MP_DIMS.items():
-        if isinstance(module, cls) and leaf in dims:
-            dim = dims[leaf]
-            return dim, getattr(module, "out_groups", 1) if dim == 0 else 1
-    return None
+    """How `module`'s parameter `leaf` is cut over ``mp``: ``(dim,
+    blocks)`` (the dim its ``sharding_axes`` names, and the equal blocks
+    that dim holds: a grouped column-parallel layer's `out_groups`), or
+    None. Only the modules that make their own mp collectives shard (the
+    mp layers, MoE's experts): a parameter of any other module stays
+    replicated, whatever it is annotated with."""
+    dims = _mp_dims(module)
+    if leaf not in dims:
+        return None
+    dim = dims[leaf]
+    return dim, getattr(module, "out_groups", 1) if dim == 0 else 1
 
 
 def shard_for_mp(model, mp):
     """Make `model` (a skeleton on the ``meta`` device, or any model whose
     tensors the caller fills next) rank ``mp.rank``'s shard of an ``mp``
-    group: each mp layer's sharded parameters take their slice's shape
-    (uninitialised ``meta`` stand-ins) and the layer its `MPGroup`; each
-    module with a ``shard_heads(mp)`` method (the models' attention) takes
-    its share of the heads. Returns `model`."""
+    group: each mp layer's (or MoE layer's) sharded parameters take their
+    slice's shape (uninitialised ``meta`` stand-ins) and the layer its
+    `MPGroup`; each module with a ``shard_heads(mp)`` method (the models'
+    attention) takes its share of the heads. Returns `model`."""
     for module in model.modules():
-        if isinstance(module, _MP_LAYERS + (ParallelCrossEntropy,)):
+        dims = _mp_dims(module)
+        if dims or isinstance(module, ParallelCrossEntropy):
             module.mp = mp
-        if not isinstance(module, _MP_LAYERS):
-            continue
-        for leaf in ("weight", "bias"):
-            layout = mp_layout(module, leaf)
+        for leaf, dim in dims.items():
             p = getattr(module, leaf, None)
-            if layout is None or p is None:
+            if p is None:
                 continue
-            dim = layout[0]
             shape = list(p.shape)
             if shape[dim] % mp.size:
                 raise ValueError(

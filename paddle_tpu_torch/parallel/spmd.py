@@ -62,10 +62,22 @@ are kept per shard. As in the JAX package, stage 1 on a pure-dp mesh
 shards nothing: the JAX layout rule keys on a ``sharding`` axis that such
 a mesh does not carry (its module docstring), and the port mirrors that
 for parity (ROADMAP Queue 3). **Stated departure:** JAX partitions any
-parameter whose ``sharding_axes`` name ``mp``; here only the mp layers'
-(and the models built on them) shard over ``mp``, since a per-rank shard
-needs the layer's collectives. A parameter of any other module carrying an
-``mp`` annotation stays replicated: the same numbers, more bytes.
+parameter whose ``sharding_axes`` name ``mp``; here only the modules that
+make their own mp collectives shard over ``mp`` (the mp layers and the
+models built on them, and `distributed/moe.py`'s `MoELayer`, whose experts
+each mp rank holds ``E / mp`` of), since a per-rank shard needs the
+layer's collectives. A parameter of any other module carrying an ``mp``
+annotation stays replicated: the same numbers, more bytes.
+
+**Experts** (`MoELayer`): on the hybrid path each MoE layer routes over
+the global batch, as JAX's one program does: it takes the step's row
+groups (`MoELayer.shard_rows`), so its capacity counts every row share's
+tokens and a share's slots follow the lower shares'
+(`hybrid_collective_budget` states a step's calls, beside the mp
+layers' and the ring's). The explicit path and LocalSGD route each
+replica's shard alone (capacity from the shard's tokens, slots from 0),
+as JAX's shard_map and vmap do. Experts on an axis other than ``mp`` above 1 raise
+`NotImplementedError` (ROADMAP Queue 1, item 8b.5).
 
 **Gradient merge** (``gradient_merge_k``, ``gradient_merge_avg``): a
 float32 accumulator in the update's layout, applied every k-th step. The
@@ -214,25 +226,67 @@ def train_collective_budget(n_param_leaves, dp_degree, quant_grads=False,
     }
 
 
+def hybrid_collective_budget(n_param_leaves=0, row_degrees=(), *,
+                             sp_degree=1, ring_layers=0, mp_degree=1,
+                             mp_calls=(0, 0), moe_layers=0,
+                             n_zero_leaves=0):
+    """EXACT collective counts of ONE hybrid-path train step on every
+    rank, the sum of each feature's term:
+
+    - the data groups (each row axis of `row_degrees` — ``dp``,
+      ``sharding`` — and ``sp``, of degree above 1): one ``all-reduce``
+      of the loss and one a gradient leaf over each (the mean over the
+      data ranks);
+    - ZeRO stages 1 and 2 over ``sharding``: one ``all-gather`` a leaf
+      whose update that axis slices (`n_zero_leaves`: the updated
+      slices);
+    - at mp above 1, the mp layers' own calls, ``mp_calls = (all-reduces,
+      all-gathers)`` a step as the model makes them (a column-parallel
+      input's gradient and a row-parallel output one all-reduce each);
+    - each of `moe_layers` `MoELayer`s: at mp above 1 one ``all-reduce``
+      forward (the sum of the ranks' experts' outputs) and one backward
+      (the partial gradients into its input and its router's
+      probabilities, one ``[T, H + 1]`` tensor); one ``all-gather`` a
+      row axis above 1 (the ``[E]`` routed counts that place a share's
+      slots after the lower shares');
+    - each of `ring_layers` ring attentions: its hops, each one ``send``
+      and one ``recv`` (`ring_attention.ring_hops`);
+    - nothing else: no gather of K/V, no reduction of activations."""
+    rows = sum(int(d) > 1 for d in row_degrees)
+    groups = rows + int(int(sp_degree) > 1)
+    mp = int(mp_degree) > 1
+    moe = int(moe_layers)
+    hops = int(ring_layers) * sum(ring_hops(sp_degree))
+    return {"all-reduce": groups * (1 + int(n_param_leaves))
+            + (int(mp_calls[0]) + 2 * moe if mp else 0),
+            "all-gather": rows * moe + int(n_zero_leaves)
+            + (int(mp_calls[1]) if mp else 0),
+            "reduce-scatter": 0, "all-to-all": 0,
+            "send": hops, "recv": hops}
+
+
 def sp_collective_budget(num_layers, sp_degree, dp_degree=1,
                          n_param_leaves=0):
-    """EXACT collective counts of ONE sequence-parallel train step on
-    every rank (a GPT of `num_layers` layers with ring attention, over a
-    mesh of ``dp`` x ``sp``):
+    """`hybrid_collective_budget` of a sequence-parallel GPT step of
+    `num_layers` layers with ring attention over a mesh of ``dp`` x
+    ``sp``: each layer's ring makes ``sp - 1`` hops forward and ``sp``
+    backward; the loss and one a gradient leaf are all-reduced over each
+    of the dp and sp groups of degree above 1."""
+    return hybrid_collective_budget(n_param_leaves, (dp_degree,),
+                                    sp_degree=sp_degree,
+                                    ring_layers=num_layers)
 
-    - ``send`` and ``recv``: each layer's ring makes ``sp - 1`` hops in
-      the forward and ``sp`` in the backward (`ring_attention.ring_hops`),
-      each hop one posted send and one receive;
-    - ``all-reduce``: the loss, and one a gradient leaf, over each of the
-      dp and sp groups of degree above 1 (the gradient's mean over dp x
-      sp);
-    - nothing else: no gather of K/V, no reduction of activations."""
-    fwd, bwd = ring_hops(sp_degree)
-    hops = int(num_layers) * (fwd + bwd)
-    groups = int(int(dp_degree) > 1) + int(int(sp_degree) > 1)
-    return {"all-reduce": groups * (1 + int(n_param_leaves)),
-            "all-gather": 0, "reduce-scatter": 0, "all-to-all": 0,
-            "send": hops, "recv": hops}
+
+def moe_collective_budget(num_moe_layers, mp_degree=1, row_degrees=(),
+                          n_param_leaves=0, n_zero_leaves=0):
+    """`hybrid_collective_budget` of a step of a model with
+    `num_moe_layers` `MoELayer`s (experts over ``mp``, nothing else
+    sharded over it), its rows split over axes of degrees `row_degrees`
+    (``("dp",)``'s or ``("dp", "sharding")``'s)."""
+    return hybrid_collective_budget(n_param_leaves, row_degrees,
+                                    mp_degree=mp_degree,
+                                    moe_layers=num_moe_layers,
+                                    n_zero_leaves=n_zero_leaves)
 
 
 def _largest_divisible_dim(shape, degree):
@@ -360,7 +414,8 @@ def leaf_layouts(model, mesh, zero_stage=0):
         owner, _, leaf = name.rpartition(".")
         spec = specs[name]
         if "mp" in spec:
-            # only the mp layers shard over mp (the stated departure)
+            # only the modules that make mp collectives shard over mp
+            # (the stated departure)
             out[name] = (mp_layout(modules[owner], leaf), None, None)
         elif "sharding" in spec:
             out[name] = (None, spec.index("sharding"),
@@ -605,6 +660,14 @@ class _Replica:
         if self.mp_group is not None:
             shard_for_mp(model, MPGroup(self.mp_group, coords["mp"],
                                         mesh.shape["mp"]))
+        if not self.explicit and self.kind != "localsgd":
+            # one program over the global batch (JAX's GSPMD step): the
+            # MoE layers route over every row share's tokens
+            rows = [mesh.axis_group(a) for a in self.place.data_axes
+                    if mesh.shape[a] > 1]
+            for module in model.modules():
+                if hasattr(module, "shard_rows"):
+                    module.shard_rows(rows)
         if self.sp_group is not None:
             model.shard_sequence(self.sp_group)
         model.to_empty(device=self.device)
@@ -1134,11 +1197,13 @@ def gather_shares(mesh, mine, layouts):
     return out
 
 
-def _op_open(jobs, job_id, spec, payload):
+def _op_open(jobs, job_id, spec, payload=None):
     """Build this rank's share of a job from `spec` (its ``factory``, a
-    class taking ``(spec, mesh)``; default `_Replica`), then load it."""
+    class taking ``(spec, mesh)``; default `_Replica`), then load it
+    (unless there is no `payload`)."""
     jobs.jobs[job_id] = spec.get("factory", _Replica)(spec, jobs.mesh)
-    _op_load(jobs, job_id, payload)
+    if payload is not None:
+        _op_load(jobs, job_id, payload)
 
 
 def _op_load(jobs, job_id, payload):
@@ -1261,6 +1326,18 @@ def _sequence_guard(model, mesh, batch_specs, remat=False):
             "remat under sp is not ported (ROADMAP Queue 1, item 8b.2)")
 
 
+def _expert_guard(model, mesh):
+    """Raise unless every MoE layer's experts lie on ``mp`` or on an axis
+    of degree 1 (ROADMAP Queue 1, item 8b.5)."""
+    for name, module in model.named_modules():
+        ep = getattr(module, "ep_axis", None)
+        if ep is not None and ep != "mp" and mesh.shape.get(ep, 1) > 1:
+            raise NotImplementedError(
+                f"{type(module).__name__} {name!r} with ep_axis={ep!r} "
+                f"over {dict(mesh.shape)}: experts on an axis other than "
+                "'mp' are not ported (ROADMAP Queue 1, item 8b.5)")
+
+
 def job_spec(kind, model, loss_fn, optimizer, mesh, zero_stage=0,
              explicit=False, stage3=False, data_axes=("dp",), seq_axis=None,
              **opts):
@@ -1378,6 +1455,34 @@ class _MeshOps(RankJob):
         self.mesh, self._ranks = mesh, mesh.ranks
 
 
+class _FactoryJob(RankJob):
+    """A job whose share on every rank is ``factory(spec, mesh)``, built
+    with nothing to load."""
+
+    def __init__(self, mesh, factory):
+        self.mesh, self._ranks = mesh, _ranks_of(mesh)
+        self._job = next(_JOB_IDS)
+        self._replica = None
+        spec = {"factory": factory}
+
+        def local():
+            self._replica = factory(spec, mesh)
+
+        self._everywhere(local, "open", self._job, spec)
+
+
+def run_on_ranks(mesh, factory, *calls):
+    """Build ``factory(spec, mesh)`` on every rank of `mesh` (this process
+    rank 0), run each of `calls` (``(op, *args)``: a method the share
+    names in its ``JOB_OPS``) on every rank in turn, then drop the
+    shares. Returns each call's ``[rank 0's result, rank 1's, ...]``."""
+    job = _FactoryJob(mesh, factory)
+    try:
+        return [job._call(op, *args) for op, *args in calls]
+    finally:
+        job.close()
+
+
 def barrier(mesh):
     """Return once every rank of `mesh` has reached it; nothing to wait for
     without running ranks. Where every rank runs this code (`DeviceMesh.
@@ -1402,6 +1507,7 @@ class _TrainStep(RankJob):
     def _open(self, model, loss_fn, optimizer, mesh, batch_specs,
               zero_stage=0, **opts):
         data_axes, seq_axis = _data_axes(batch_specs)
+        _expert_guard(model, mesh)
         if mesh.device_type == "cuda" and torch.cuda.is_available():
             torch.cuda.set_device(mesh.devices[0])
         self.model = model
@@ -1764,6 +1870,6 @@ class LocalSGDTrainStep(_TrainStep):
 
 
 __all__ = ["LocalSGDTrainStep", "RankJob", "ShardedTrainStep",
-           "explicit_update_eligible",
-           "make_sharded_train_step", "sp_collective_budget",
-           "train_collective_budget"]
+           "explicit_update_eligible", "hybrid_collective_budget",
+           "make_sharded_train_step", "moe_collective_budget", "run_on_ranks",
+           "sp_collective_budget", "train_collective_budget"]

@@ -1738,3 +1738,115 @@ def test_pp2_nccl_equals_one_process(dev):
         g = flat(params)[k]
         assert float((g - w).norm() / w.norm()) < 1e-5, k
     assert group.pg is None and not ranks.alive()
+
+
+# -- expert parallelism and incubate (chip_smoke phase 6h, small) ------------
+
+MOE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _rel(got, want):
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+def _moe_fwd_bwd(layer, x, do, dense):
+    """The layer's out, aux and gradients of ``sum(out * dO) + aux`` in
+    its indexed form, or (`dense`) in the dense einsum form."""
+    from paddle_tpu_torch.distributed import moe
+
+    layer.zero_grad(set_to_none=True)
+    xg = x.detach().requires_grad_()
+    if dense:
+        flat = xg.reshape(-1, x.shape[-1])
+        gates = layer.gate.gate_fn(flat)
+        cap = moe.expert_capacity(layer.capacity_factor, flat.shape[0],
+                                  layer.num_experts)
+        out = moe.dense_moe(flat, gates, layer.w1, layer.b1, layer.w2,
+                            layer.b2, cap).reshape(x.shape)
+        aux = moe.switch_aux_loss(gates, gates.argmax(-1))
+    else:
+        out = layer(xg)
+        aux = layer.aux_loss
+    ((out * do).sum() + aux).backward()
+    res = dict(out=out.detach(), aux=aux.detach(), x=xg.grad)
+    res.update({n: p.grad for n, p in layer.named_parameters()})
+    return res
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_indexed_form_matches_the_dense_form(dev, dtype, cf):
+    """Phase 6h (a) at a small size: MoELayer(256, 512, 8, "switch") on
+    x [4, 128, 256], its indexed dispatch and combine against the dense
+    einsum form on the same weights: out, aux and every gradient within
+    1e-5 relative (f32, TF32 off) or 2e-2 (bf16)."""
+    from paddle_tpu_torch.distributed import moe
+
+    layer = moe.MoELayer(256, 512, 8, gate="switch", capacity_factor=cf,
+                         device=dev, seed=3).to(dtype)
+    g = torch.Generator(device=dev).manual_seed(0)
+    x, do = (torch.randn((4, 128, 256), generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    got = _moe_fwd_bwd(layer, x, do, dense=False)
+    want = _moe_fwd_bwd(layer, x, do, dense=True)
+    err = {k: _rel(got[k], want[k]) for k in want}
+    assert max(err.values()) <= MOE_TOL[dtype], err
+
+
+def _plain_attention(q, k, v, causal=False, mask=None, dropout_p=0.0,
+                     seed=None, head_offset=0, heads_total=None):
+    return fa.attention_ref(q, k, v, causal, mask, dropout_p, seed,
+                            head_offset, heads_total)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_mha_through_the_flash_kernels_matches_plain(dev, dtype,
+                                                           monkeypatch):
+    """Phase 6h (d) at a small size: `fused_multi_head_attention` (4 x
+    128, embed 256, 4 heads of 64, a padding mask, post-LN) through the
+    kernels against the same function through flash's plain version on
+    the card, out and the gradients of x, the qkv and output weights
+    (1e-5 relative in f32, 2e-2 in bf16); at dropout 0.1 under one seed
+    the same values, from one mask + dropout launch each way."""
+    from paddle_tpu_torch.incubate.nn.functional import \
+        fused_multi_head_attention
+    from paddle_tpu_torch.ops import common_nn
+
+    B, S, E, Hn = 4, 128, 256, 4
+    g = torch.Generator(device=dev).manual_seed(1)
+    real = torch.arange(S, device=dev)[None] < torch.tensor(
+        [128, 100, 64, 77], device=dev)[:, None]
+    args = dict(
+        x=torch.randn((B, S, E), generator=g, device=dev),
+        qkv_weight=torch.randn((3, Hn, E // Hn, E), generator=g,
+                               device=dev) * E ** -0.5,
+        linear_weight=torch.randn((E, E), generator=g, device=dev)
+        * E ** -0.5,
+        qkv_bias=torch.randn((3, Hn, E // Hn), generator=g, device=dev)
+        * 0.1)
+    args = {k: t.to(dtype) for k, t in args.items()}
+    mask = torch.where(real, 0.0, -1e4)[:, None, None]
+    do = torch.randn((B, S, E), generator=g, device=dev).to(dtype)
+
+    def run(p):
+        ts = {k: t.detach().requires_grad_() for k, t in args.items()}
+        torch.manual_seed(5)
+        out = fused_multi_head_attention(
+            **ts, attn_mask=mask, dropout_rate=p, attn_dropout_rate=p)
+        out.backward(do)
+        return dict(out=out.detach(), **{k: t.grad for k, t in ts.items()})
+
+    for p in (0.0, 0.1):
+        for f in (fa.flash_attention_fwd, fa.flash_attention_bwd):
+            f.launches = f.mask_launches = f.dropout_launches = 0
+        got = run(p)
+        launches = [(f.launches, f.mask_launches, f.dropout_launches)
+                    for f in (fa.flash_attention_fwd,
+                              fa.flash_attention_bwd)]
+        assert launches == [(1, 1, int(p > 0))] * 2, launches
+        with monkeypatch.context() as m:
+            m.setattr(common_nn, "flash_attention", _plain_attention)
+            want = run(p)
+        err = {k: _rel(got[k], want[k]) for k in want}
+        assert max(err.values()) <= MOE_TOL[dtype], (p, err)
