@@ -400,6 +400,34 @@ Phases, in order; any failure exits nonzero:
    at dropout 0; at dropout 0.1 the same values under one seed and one
    mask + dropout launch of each direction a call; bf16 times beside the
    same function over torch's SDPA.
+6i. Sequence parallelism without a ring (run last; `--only 6i` builds the
+   kernels and runs it alone): ranks on cuda:0 over an explicit gloo
+   backend, every time labelled "eager, gloo through the host, ranks
+   sharing one card - not an sp speed" beside the card's name and power
+   limit. (a) Gathered attention's share of every rank of n = 2 and 4
+   (parallel/sequence_attention.py `rank_forward`, `rank_backward` on the
+   gathered K/V layout) in one process, against one flash call over the
+   whole sequence sliced to the rank (O, dQ; dK and dV after summing the
+   ranks' partials), at gpt_1p3b's attention shape (1 x 2048, 16 heads, D
+   128, causal, dropout 0 and 0.1) and ERNIE-base's (32 x 512, 12 heads,
+   D 64, padding lengths 256-512, dropout 0.1), f32 and bf16: within 2e-5
+   / 2e-2 beyond one bf16 ulp; each rank's O, LSE, dQ and dK/dV partials
+   against the f32 plain version at its q_row0, key prefix, mask and seed
+   within 2e-5 / 2e-2 (the rows' max_abs_err); at dropout 0.1 the plain
+   keep bits at the rank's q_row0 equal the whole call's rows bit for
+   bit; one forward and one dK/dV + dQ launch a rank, no host sync; each
+   call's bound, and at n = 2 its kernel times beside SDPA's on the same
+   call (an explicit mask). (b)
+   ERNIE-base at sequence 512, 8 rows, f32, over {"sp": 2}, SGD 0.1, 3
+   steps, at dropout 0 and 0.1, against one process: losses within 1e-5
+   relative, parameters within 1e-5 of their norm, each rank's calls a
+   step `sp_collective_budget(..., bert=True)`, 12 + 12 flash launches a
+   step a rank, host syncs within the budget's; each rank's phases, peak
+   and seconds. (c) gpt_1p3b's widths at its 2048 context with
+   attn_impl="flash", 4 layers, f32, 2 rows, over {"sp": 2}, the same
+   gates (4 + 4 launches a step on both ranks: rank 1's whole prefix in
+   one call). (b) and (c) share the two ranks; the card's free memory is
+   back within 64 MiB once they are gone.
 
 Prints a `{"kernels": [...]}` line (the flash rows also name the bf16
 kernel's design and ptxas's registers and spill bytes for it; a spill in
@@ -2179,6 +2207,54 @@ def fleet(model, graph_outs, smi):
     return asyncio.run(_fleet(model, graph_outs, smi))
 
 
+def _holder_chains(ref, depth=6, limit=6):
+    """What still holds the object of weakref `ref` (nothing when it is
+    gone): up to `limit` chains of `gc.get_referrers`, each link its type
+    (a frame its function, file and line), each chain ending at a frame,
+    a coroutine, a module or `depth` links. For the record of a retire
+    whose engine outlived it."""
+    import gc
+    import inspect
+
+    obj = ref()
+    if obj is None:
+        return []
+    # `mine`: this search's own frames and referrer lists, never a holder
+    chains, seen, mine = [], {id(obj)}, set()
+
+    def describe(o):
+        code, frame = ((o.f_code, o) if inspect.isframe(o) else
+                       (o.cr_code, o.cr_frame) if inspect.iscoroutine(o)
+                       else (None, None))
+        if code is None:
+            return type(o).__name__
+        line = frame.f_lineno if frame is not None else "done"
+        return (f"{type(o).__name__} {code.co_name} "
+                f"{os.path.basename(code.co_filename)}:{line}")
+
+    def walk(o, path):
+        mine.add(id(sys._getframe()))
+        refs = gc.get_referrers(o)
+        mine.add(id(refs))
+        for r in refs:
+            if len(chains) >= limit:
+                return
+            if id(r) in seen or id(r) in mine or r is chains:
+                continue
+            seen.add(id(r))
+            link = path + [describe(r)]
+            if inspect.isframe(r) or inspect.iscoroutine(r) or \
+                    inspect.ismodule(r) or len(link) >= depth:
+                chains.append(link)
+            else:
+                walk(r, link)
+
+    mine.add(id(sys._getframe()))
+    walk(obj, [])
+    del obj
+    return chains
+
+
 async def _fleet(model, graph_outs, smi):
     import gc
     import weakref
@@ -2435,6 +2511,7 @@ async def _fleet(model, graph_outs, smi):
         # one gc.collect() and no wait
         gc.collect()
         earlier_freed = retired() is None
+        earlier_holders = _holder_chains(retired)
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated()
         scaler = AutoScaler(router, min_replicas=1, max_replicas=2,
@@ -2491,6 +2568,7 @@ async def _fleet(model, graph_outs, smi):
             mem_before_spawn_mib=mem0 / 2**20,
             mem_after_retire_mib=mem1 / 2**20,
             earlier_retire_freed=earlier_freed,
+            earlier_retire_holders=earlier_holders,
             spawned_engine_freed=spawned_freed,
             spawned_engine_holders=holders,
             endpoint=code, seconds=time.perf_counter() - t0)
@@ -5872,10 +5950,427 @@ def moe_train(smi):
     return res
 
 
+# -- phase 6i -----------------------------------------------------------------
+
+# 6i (a)'s calls: name, (B, S, H, D), causal, padding mask, dropout ps
+GATHER_CASES = (
+    ("gpt_1p3b", (1, 2048, 16, 128), True, False, (0.0, 0.1)),
+    ("ernie_base", (32, 512, 12, 64), False, True, (0.1,)),
+)
+GATHER_TIMED = 2     # the n whose calls are timed (plain times: rank 1)
+# 6i (a): a rank's launches against the float32 plain version (phase 5's
+# gates: the f32 kernels' accuracy, bf16 against f32 as in the variants)
+GATHER_PLAIN_TOL = {torch.float32: F32_FLASH_TOL,
+                    torch.bfloat16: TOL[torch.bfloat16]}
+
+
+def _rank_bounds(B, Sq, Sk, H, D, dtype, causal, q_row0, mask_bytes=0):
+    """`_flash_bounds` of one rank's launch: its Sq queries from row
+    `q_row0` against Sk keys (the prefix ``q_row0 + Sq`` when causal).
+    Pairs: ``Sq * q_row0 + Sq (Sq + 1) / 2`` a batch*head when causal,
+    ``Sq * Sk`` otherwise; bytes: q, k, v in and O out (forward, plus the
+    f32 LSE), q, dO, k, v, LSE, delta in and dK, dV out (dK/dV), q, dO, k,
+    v, LSE, delta in and dQ out (dQ), the mask's own bytes once."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    pairs = B * H * (Sq * q_row0 + Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+    tq, tk = B * Sq * H * D * isz, B * Sk * H * D * isz
+    rows = B * H * Sq * 4
+    work = {"fwd": (2, 2 * tq + 2 * tk + rows),
+            "dkv": (4, 2 * tq + 4 * tk + 2 * rows),
+            "dq": (3, 3 * tq + 2 * tk + 2 * rows)}
+    peak = PEAK_TF32 / 3 if dtype == torch.float32 else PEAK_FLOPS[dtype]
+    out = {}
+    for name, (products, nbytes) in work.items():
+        t_ops = products * 2 * D * pairs / peak
+        t_bytes = (nbytes + mask_bytes) / HBM_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def _gathered_times(qr, kp, vp, dor, lse, o_bwd, r, causal, m, p, seed,
+                    o32, views, plain):
+    """One rank's call timed: the forward, dK/dV and dQ kernels (CUDA graph
+    replays) and SDPA's forward and forward + backward on the same call
+    (its mask explicit: a bottom-right causal bool mask, or the padding
+    mask; SDPA's `is_causal` is top-left aligned); with `plain`, the plain
+    version's forward and whole backward (CUDA events, eager)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    F = torch.nn.functional
+    L, keys = qr.shape[1], kp.shape[1]
+    var = dict(q_row0=r * L)
+    delta = fa._delta(o_bwd, dor)
+    t = dict(
+        fwd_ms=time_ms(lambda: fa.flash_attention_fwd(
+            qr, kp, vp, causal, m, p, seed, o32, **var), 5),
+        dkv_ms=time_ms(lambda: fa._launch_bwd(
+            qr, kp, vp, dor, lse, delta, causal, 1, m, p, seed, **var,
+            out=views), 5),
+        dq_ms=time_ms(lambda: fa._launch_bwd(
+            qr, kp, vp, dor, lse, delta, causal, 2, m, p, seed, **var), 5))
+    ql, kl, vl = (x.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for x in (qr, kp, vp))
+    dol = dor.transpose(1, 2).contiguous()
+    am = (torch.ones((L, keys), dtype=torch.bool, device="cuda").tril(r * L)
+          if causal else m.to(qr.dtype))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(ql, kl, vl, attn_mask=am,
+                                              dropout_p=p)
+
+    t["library_fwd_ms"] = time_ms(sdpa, 5)
+    t["library_bwd_ms"] = time_ms(
+        lambda: torch.autograd.grad(sdpa(), (ql, kl, vl), dol), 5) \
+        - t["library_fwd_ms"]
+    if plain:
+        qg, kg, vg = (x.detach().float().requires_grad_()
+                      for x in (qr, kp, vp))
+        og = fa.attention_ref(qg, kg, vg, causal, m, p, seed, **var)
+        t["plain_fwd_ms"] = event_ms(lambda: fa.attention_ref(
+            qg, kg, vg, causal, m, p, seed, **var), 2)
+        t["plain_bwd_ms"] = event_ms(lambda: torch.autograd.grad(
+            og, (qg, kg, vg), dor.float(), retain_graph=True), 2)
+    return t
+
+
+def _rank_plain_err(qr, kp, vp, dor, m, r, causal, p, seed, got):
+    """One rank's launches (`got`: its o, lse, dq and the dK / dV partials
+    over the keys it attended) against the float32 plain version on the
+    same inputs: `attention_ref`, `attention_lse_ref` and
+    `attention_bwd_ref` at the rank's `q_row0`, key prefix, mask and
+    dropout seed. The largest absolute error of each."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q32, k32, v32, do32 = (x.detach().float() for x in (qr, kp, vp, dor))
+    var = dict(q_row0=r * qr.shape[1])
+    o = fa.attention_ref(q32, k32, v32, causal, m, p, seed, **var)
+    lse = fa.attention_lse_ref(q32, k32, causal, m)
+    dq, dk, dv = fa.attention_bwd_ref(q32, k32, v32, o, do32, lse, causal,
+                                      m, p, seed, **var)
+    want = dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv)
+    return {x: (got[x].float() - w).abs().max().item()
+            for x, w in want.items()}
+
+
+def _gathered_arithmetic():
+    """6i (a): gathered sequence attention's share of every rank of n = 2
+    and 4 (parallel/sequence_attention.py `rank_forward`,
+    `rank_backward`, on K/V in the gathered [S, B, 2, H, D] layout, the
+    partials written into such a buffer) in one process on cuda:0,
+    against one flash forward and backward over the whole sequence sliced
+    to the rank: O and dQ, and dK and dV after summing the ranks'
+    partials, within 2e-5 (f32) or 2e-2 beyond one bf16 ulp (bf16); and
+    each rank's O, LSE, dQ and dK / dV partials against the float32 plain
+    version at its `q_row0`, key prefix, mask and seed (`_rank_plain_err`),
+    within 2e-5 (f32) or 2e-2 (bf16). At dropout 0.1 the plain
+    `dropout_factors` at the rank's `q_row0` equal the whole call's rows
+    bit for bit. Each rank launches one forward and
+    one dK/dV + dQ pair and makes no host sync (set_sync_debug_mode
+    "error"). Every call's bound; at n = 2 each call's kernel times beside
+    SDPA's on the same call, and at rank 1 the plain version's."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel.sequence_attention import (
+        attended_keys, rank_backward, rank_forward, rank_mask)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    out = []
+    for name, (B, S, H, D), causal, with_mask, ps in GATHER_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn((B, S, H, D), generator=gen,
+                                       device="cuda").to(dtype)
+                           for _ in range(4))
+            mask = (padding_mask(padding_lengths(
+                B, S, np.random.RandomState(0)), S, "cuda")
+                if with_mask else None)
+            whole = torch.empty((S, B, 2, H, D), dtype=dtype, device="cuda")
+            whole[:, :, 0] = k.transpose(0, 1)
+            whole[:, :, 1] = v.transpose(0, 1)
+            kw, vw = (whole.permute(1, 0, 2, 3, 4)[:, :, j] for j in (0, 1))
+            for p in ps:
+                seed = DROPOUT_SEED if p else None
+                o32 = torch.empty(q.shape, device="cuda") if p else None
+                o, lse = fa.flash_attention_fwd(q, k, v, causal, mask, p,
+                                                seed, o32)
+                want = dict(zip(("o", "dq", "dk", "dv"), (o,) + tuple(
+                    fa.flash_attention_bwd(q, k, v, o if o32 is None else
+                                           o32, do, lse, causal, mask, p,
+                                           seed))))
+                whole_f = (fa.dropout_factors(seed, p, B, H, S, S, "cuda")
+                           if p else None)
+                for n in (2, 4):
+                    L = S // n
+                    got = {"o": [], "dq": [],
+                           "dk": torch.zeros((B, S, H, D), device="cuda"),
+                           "dv": torch.zeros((B, S, H, D), device="cuda")}
+                    ranks = []
+                    for r in range(n):
+                        rows = slice(r * L, (r + 1) * L)
+                        qr, dor = q[:, rows], do[:, rows]
+                        keys = attended_keys(r, L, S, causal)
+                        parts = torch.zeros((S, B, 2, H, D), dtype=dtype,
+                                            device="cuda")
+                        views = [parts[:keys, :, j].transpose(0, 1)
+                                 for j in (0, 1)]
+                        or32 = (torch.empty((B, L, H, D), device="cuda")
+                                if p else None)
+                        _zero_flash_counts()
+                        torch.cuda.set_sync_debug_mode("error")
+                        try:
+                            orr, lser = rank_forward(qr, kw, vw, r, causal,
+                                                     mask, p, seed, o32=or32)
+                            o_bwd = orr if or32 is None else or32
+                            dqr, _, _ = rank_backward(
+                                qr, kw, vw, o_bwd, dor, lser, r, causal,
+                                mask, p, seed, out=views)
+                        finally:
+                            torch.cuda.set_sync_debug_mode(0)
+                        c = _read_flash_counts()
+                        got["o"].append(orr)
+                        got["dq"].append(dqr)
+                        got["dk"] += parts[:, :, 0].transpose(0, 1).float()
+                        got["dv"] += parts[:, :, 1].transpose(0, 1).float()
+                        m = rank_mask(mask, r, L, keys)
+                        plain_err = _rank_plain_err(
+                            qr, kw[:, :keys], vw[:, :keys], dor, m, r,
+                            causal, p, seed, dict(o=orr, lse=lser, dq=dqr,
+                                                  dk=views[0], dv=views[1]))
+                        rec_r = dict(
+                            rank=r, q_row0=r * L, keys=keys,
+                            launches=[c["fwd_launches"], c["bwd_launches"]],
+                            plain_err=plain_err,
+                            keep_bits_equal=None if not p else bool(
+                                torch.equal(fa.dropout_factors(
+                                    seed, p, B, H, L, S, "cuda",
+                                    q_row0=r * L), whole_f[:, :, rows])),
+                            **(_gathered_times(
+                                qr, kw[:, :keys], vw[:, :keys], dor, lser,
+                                o_bwd, r, causal, m, p, seed, or32, views,
+                                plain=r == 1) if n == GATHER_TIMED else {}))
+                        bounds = _rank_bounds(
+                            B, L, keys, H, D, dtype, causal, r * L,
+                            0 if mask is None else B * keys * 4)
+                        rec_r.update({f"bound_{k}_ms": b[0]
+                                      for k, b in bounds.items()})
+                        rec_r.update({f"bound_{k}_by": b[1]
+                                      for k, b in bounds.items()})
+                        ranks.append(rec_r)
+                    joined = {"o": torch.cat(got["o"], 1),
+                              "dq": torch.cat(got["dq"], 1),
+                              "dk": got["dk"], "dv": got["dv"]}
+                    diff = {x: (joined[x].float() - w.float()).abs()
+                            for x, w in want.items()}
+                    excess = {x: (d - (_bf16_ulp(want[x])
+                                       if dtype == torch.bfloat16 else 0.0))
+                              .max().item() for x, d in diff.items()}
+                    rec = dict(case=name, dtype=str(dtype)[6:], n=n,
+                               shape=[B, S, H, D], causal=causal,
+                               mask=None if mask is None
+                               else list(mask.shape), dropout_p=p,
+                               plain_max_err={
+                                   x: max(rr["plain_err"][x] for rr in ranks)
+                                   for x in ranks[0]["plain_err"]},
+                               plain_tol=GATHER_PLAIN_TOL[dtype],
+                               max_err={x: d.max().item()
+                                        for x, d in diff.items()},
+                               max_err_beyond_ulp=excess,
+                               tol=RING_TOL[dtype], ranks=ranks)
+                    log("[gathered] " + json.dumps(rec))
+                    out.append(rec)
+                    assert all(x["launches"] == [1, 1] for x in ranks), rec
+                    assert all(x["keep_bits_equal"] in (None, True)
+                               for x in ranks), rec
+                    if max(excess.values()) > RING_TOL[dtype]:
+                        raise SystemExit(
+                            f"gathered attention misses {RING_TOL[dtype]} "
+                            f"against one flash call: {rec}")
+                    if max(rec["plain_max_err"].values()) > \
+                            GATHER_PLAIN_TOL[dtype]:
+                        raise SystemExit(
+                            f"a rank's gathered launches miss "
+                            f"{GATHER_PLAIN_TOL[dtype]} against the plain "
+                            f"version: {rec}")
+                del o, lse, want, whole_f, o32
+            del q, k, v, do, whole, kw, vw
+            torch.cuda.empty_cache()
+    return out
+
+
+def _gathered_gate(mesh, counts, layers, n_leaves, n_arrays, bert, p):
+    """Each rank: `sp_collective_budget`'s calls a step (gathered
+    attention; BERT's terms with `bert`); `layers` flash forward and
+    backward launches a step on every sp rank (each rank's whole key
+    prefix in one call; ERNIE's all mask launches, and at `p` > 0 all
+    dropout launches); no host sync a step beyond the budget's (a staged
+    collective two: out and back) and the step's own (its `n_arrays`
+    batch arrays in, the loss out)."""
+    from paddle_tpu_torch.parallel.spmd import sp_collective_budget
+
+    b = sp_collective_budget(layers, mesh.shape["sp"], mesh.shape["dp"],
+                             n_leaves, ring=False, bert=bert)
+    allowed = n_arrays + 1 + 2 * (b["all-reduce"] + b["all-gather"]
+                                  + b["reduce-scatter"])
+    for c in counts:
+        steps = c["steps"]
+        assert c["collectives"] == {k: v * steps for k, v in b.items()}, (
+            c, b)
+        n = layers * steps
+        assert (c["fwd_launches"], c["bwd_launches"]) == (n, n), c
+        for d in ("fwd", "bwd"):
+            assert c[f"{d}_mask_launches"] == (n if bert else 0), c
+            assert c[f"{d}_dropout_launches"] == (n if p else 0), c
+        assert max(c["host_syncs"]) <= allowed, (c["host_syncs"], allowed)
+    return dict(budget_a_step=b, host_syncs_allowed=allowed)
+
+
+def _gathered_train(smi, mesh, make, loss_fn, batch, specs, layers, bert,
+                    steps=3, lr=0.1, drops=(0.0, 0.1)):
+    """`steps` SGD(lr) float32 steps of the model `make(p)` builds on one
+    batch, for each dropout p of `drops`: in one process first (a
+    ``{"dp": 1}`` mesh, the same step code and seeds), then over `mesh`
+    (``{"sp": 2}``) with `specs` (every rank's counters set to 0 just
+    before and read just after, its host syncs counted): losses within
+    1e-5 relative, every parameter within 1e-5 of the one process's
+    relative to its norm, `_gathered_gate` on every rank. Returns the
+    records by p (each rank's step phases, peak and seconds in
+    `counts`)."""
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    for p in drops:
+        model = make(p)
+        opt = SGD(learning_rate=lr, parameters=model.named_parameters())
+        mesh1 = _hybrid_mesh({"dp": 1})
+        step = make_sharded_train_step(model, loss_fn, opt, mesh1)
+        try:
+            t0 = time.perf_counter()
+            want = [step(*batch) for _ in range(steps)]
+            one_s = (time.perf_counter() - t0) / steps
+            wparams = step.gather_params()
+        finally:
+            step.close()
+            mesh1.close()
+        model = make(p)
+        opt = SGD(learning_rate=lr, parameters=model.named_parameters())
+        t0 = time.perf_counter()
+        step = make_sharded_train_step(model, loss_fn, opt, mesh,
+                                       batch_specs=specs)
+        build_s = time.perf_counter() - t0
+        step.count_host_syncs()
+        try:
+            losses, counts, wall, ranks = _dp_run(step, batch, steps,
+                                                  warmup=0)
+            n_leaves = len(step.names)
+            params = step.gather_params()
+        finally:
+            step.close()
+        rel = max(float((params[k] - w).norm()
+                        / max(float(w.norm()), 1e-12))
+                  for k, w in wparams.items())
+        rec = dict(label=SP_LABEL, card=smi, mesh=dict(mesh.shape),
+                   dropout=p, one_process=want, one_process_step_s=one_s,
+                   losses=losses, build_s=build_s, step_s=wall,
+                   rank_step_s=ranks, leaves=n_leaves, counts=counts,
+                   peak_gib=[c["peak_gib"] for c in counts],
+                   param_max_rel_norm_diff=rel)
+        rec.update(_gathered_gate(mesh, counts, layers, n_leaves,
+                                  len(batch), bert, p))
+        runs[f"p{p}"] = rec
+        del model, opt, step, params, wparams
+        np.testing.assert_allclose(losses, want, rtol=1e-5)
+        assert rel < 1e-5, rec
+    return dict(runs=runs)
+
+
+def _gathered_ernie(smi, mesh):
+    """6i (b): ERNIE-base (vocab 40000, hidden 768, 12 layers, 12 heads,
+    FFN 3072) at sequence 512, 8 rows of phase 8's batch (token types,
+    padding mask whole on both ranks, MLM labels), float32, over {"sp":
+    2}, SGD 0.1, 3 steps, at dropout 0 and 0.1, against one process."""
+    from paddle_tpu_torch.models.bert import (bert_pretrain_loss_fn,
+                                              ernie_base)
+
+    batch = tuple(ernie_batch(40000, 8, 512, "cpu")[:4])
+
+    def make(p):
+        return ernie_base(device="cuda", dtype=torch.float32, seed=0,
+                          dropout=p)
+
+    res = _gathered_train(smi, mesh, make, bert_pretrain_loss_fn, batch,
+                          (("dp", "sp"), ("dp", "sp"), "dp", ("dp", "sp")),
+                          12, bert=True)
+    log(f"[sp-ernie] ({SP_LABEL}; {smi}) " + json.dumps(res))
+    return res
+
+
+def _gathered_gpt(smi, mesh):
+    """6i (c): gpt_1p3b's widths (vocab 50304, hidden 2048, 16 heads, FFN
+    8192) at its 2048 context with attn_impl="flash", 4 layers, float32,
+    2 rows, over {"sp": 2}, SGD 0.1, 3 steps, at dropout 0 and 0.1,
+    against one process; each rank's 4 forward and 4 backward launches a
+    step cover its whole key prefix (rank 1: one call over 2048 keys)."""
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig, gpt_loss_fn
+
+    def cfg(p):
+        return GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=4,
+                         num_heads=16, max_seq_len=2048,
+                         intermediate_size=8192, attn_impl="flash",
+                         dropout=p)
+
+    batch = tuple(train_batch(cfg(0.0), 2, 2048, "cpu"))
+    res = _gathered_train(
+        smi, mesh, lambda p: GPT(cfg(p), device="cuda", dtype=torch.float32,
+                                 seed=0),
+        gpt_loss_fn, batch, (("dp", "sp"),) * 2, 4, bert=False)
+    log(f"[sp-gpt-flash] ({SP_LABEL}; {smi}) " + json.dumps(res))
+    return res
+
+
+def gathered_sequence_train(smi):
+    """Phase 6i: sequence parallelism without a ring on the one card
+    (ranks on cuda:0 over an explicit gloo backend, every collective
+    staged through host memory): (a) the gathered attention's arithmetic
+    per rank, (b) ERNIE-base over {"sp": 2}, (c) gpt_1p3b's widths with
+    flash attention over {"sp": 2}. Run last."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[sp-gathered] phase 6i starts with "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated ({smi})")
+    res = dict(label=SP_LABEL, card=smi, arithmetic=_gathered_arithmetic())
+    t1 = time.perf_counter()
+    # (b) and (c) share the two ranks; the card's free memory must come
+    # back within 64 MiB once they are gone
+    free0 = _card_free_bytes()
+    mesh = _hybrid_mesh({"sp": 2})
+    try:
+        res["ernie"] = _gathered_ernie(smi, mesh)
+        t2 = time.perf_counter()
+        res["gpt_1p3b"] = _gathered_gpt(smi, mesh)
+    finally:
+        mesh.close()
+    gc.collect()
+    free1 = _card_free_bytes()
+    res.update(card_free_gib_before=free0 / 2**30,
+               card_free_gib_after=free1 / 2**30)
+    assert (free1 - free0) / 2**20 >= -64, ("card memory not back", res)
+    res["seconds"] = time.perf_counter() - t0
+    res["part_seconds"] = {"a": t1 - t0, "b": t2 - t1,
+                           "c": res["seconds"] - (t2 - t0)}
+    log(f"[sp-gathered] phase 6i {res['seconds']:.1f} s")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
-    ap.add_argument("--only", choices=("6g", "6h"),
+    ap.add_argument("--only", choices=("6g", "6h", "6i"),
                     help="build the kernels and run this phase alone (its "
                          "results, the card line and the device line)")
     args = ap.parse_args()
@@ -5893,7 +6388,9 @@ def main():
     build_kernels()
     if args.only:
         name, phase = {"6g": ("sequence", sequence_train),
-                       "6h": ("moe", moe_train)}[args.only]
+                       "6h": ("moe", moe_train),
+                       "6i": ("gathered", gathered_sequence_train)}[
+                           args.only]
         res = {name: phase(smi)}
         if args.out:
             with open(args.out, "w") as f:
@@ -5934,6 +6431,7 @@ def main():
     pipeline = pipeline_train(smi)
     sequence = sequence_train(smi)
     moe = moe_train(smi)
+    gathered = gathered_sequence_train(smi)
     # the kernel line's headline numbers: the bf16 decode case (width 1),
     # the launch shape the serving path runs most, and the bf16 flash case
     # at the training shape
@@ -6180,6 +6678,64 @@ def main():
                 if r["dtype"] == "float32"
                 for e in (("o",) if key == "fwd" else errs)),
         })
+    # phase 6i (a): each kernel at a sequence-parallel rank's call (the
+    # gathered K/V, the rank's query rows from q_row0): the headline is
+    # gpt_1p3b sp2 rank 1 in float32 (1 x 1024 against 2048 keys, causal),
+    # ERNIE-base sp2 rank 1 beside it (32 x 256 against 512, padding mask,
+    # dropout 0.1); launches are 6i (b)'s and (c)'s, a step on each rank
+    ga = gathered["arithmetic"]
+
+    def headline(case, dtype, p):
+        rec = next(r for r in ga if r["case"] == case and r["dtype"] == dtype
+                   and r["dropout_p"] == p and r["n"] == GATHER_TIMED)
+        return rec["ranks"][1]
+
+    gh = headline("gpt_1p3b", "float32", 0.0)
+    for kname, site, errs in (("fwd", 121, ("o",)),
+                              ("dkv", 238, ("dk", "dv")),
+                              ("dq", 295, ("dq",))):
+        lk = "fwd_launches" if kname == "fwd" else "bwd_launches"
+        perrs = errs + ("lse",) if kname == "fwd" else errs
+        kernels.append({
+            "name": f"flash_attention_{kname}_sp_gathered", "route": "cuda",
+            "source": src, "replaces": f"{tpu}:{site}",
+            "launches": gathered["ernie"]["runs"]["p0.1"]["counts"][0][lk],
+            "sp2_rank_launches": {
+                f"{model}_p{p}": [c[lk] for c in gathered[model]["runs"][
+                    f"p{p}"]["counts"]]
+                for model in ("ernie", "gpt_1p3b") for p in (0.0, 0.1)},
+            # every rank's launches against the f32 plain version
+            "max_abs_err": max(r["plain_max_err"][e] for r in ga
+                               if r["dtype"] == "float32" for e in perrs),
+            "bf16_max_abs_err": max(r["plain_max_err"][e] for r in ga
+                                    if r["dtype"] == "bfloat16"
+                                    for e in perrs),
+            # the ranks joined against one whole-sequence flash call
+            "whole_call_max_abs_err": max(
+                r["max_err"][e] for r in ga
+                if r["dtype"] == "float32" for e in errs),
+            "bf16_whole_call_max_err_beyond_ulp": max(
+                r["max_err_beyond_ulp"][e] for r in ga
+                if r["dtype"] == "bfloat16" for e in errs),
+            "ms": gh[f"{kname}_ms"],
+            "plain_ms": gh["plain_fwd_ms" if kname == "fwd"
+                           else "plain_bwd_ms"],
+            "bound_ms": gh[f"bound_{kname}_ms"],
+            "bound_by": gh[f"bound_{kname}_by"],
+            "library_ms": gh["library_fwd_ms"] if kname == "fwd" else None,
+            "library_bwd_ms": gh["library_bwd_ms"],
+            "headline": "gpt_1p3b sp2 rank 1, float32, 1 x 1024 queries "
+                        "from row 1024 against 2048 keys, causal",
+            "rank_cases": {
+                f"{case}_{dtype}_p{p}": {
+                    k: headline(case, dtype, p)[k] for k in (
+                        f"{kname}_ms", f"bound_{kname}_ms",
+                        f"bound_{kname}_by", "library_fwd_ms",
+                        "library_bwd_ms")}
+                for case, p in (("gpt_1p3b", 0.0), ("gpt_1p3b", 0.1),
+                                ("ernie_base", 0.1))
+                for dtype in ("float32", "bfloat16")},
+        })
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=smi, kind=kind, kernels=kernels,
@@ -6192,7 +6748,8 @@ def main():
                            train_dropout=gpt_drop, ernie_parity=epar,
                            training_surface=surface, zero_dp=zero,
                            hybrid=hybrid, pipeline=pipeline,
-                           sequence=sequence, moe=moe), f,
+                           sequence=sequence, moe=moe, gathered=gathered),
+                      f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -27,8 +27,12 @@
 // for query i, key j and bh = b * heads_total + head_offset + h: the
 // model's head coordinate, so a tensor-parallel rank holding heads
 // [head_offset, head_offset + H) draws the bits the whole model draws for
-// them (heads_total = H and head_offset 0 without tensor parallelism). Forward, dK/dV and dQ each draw
-// them anew. Both variants are runtime flags, uniform over a launch; each
+// them (heads_total = H and head_offset 0 without tensor parallelism). The
+// query coordinate is absolute too: i = q_row0 + the row's index in the
+// call, so a sequence-parallel rank whose queries start at q_row0 of the
+// whole sequence draws the whole sequence's bits for its rows (q_row0 0
+// alone; the key coordinate is the row's index in k, which holds the
+// sequence from its start). Forward, dK/dV and dQ each draw them anew. Both variants are runtime flags, uniform over a launch; each
 // kernel holds two bodies, the plain one (no variant code at all, so the
 // path without mask and dropout runs what it ran before) and the variant
 // one, chosen once at the top, so the build stays at 12 instantiations.
@@ -244,6 +248,9 @@ struct FlashArgs {
   // heads_total + head_offset + h; heads_total = H, head_offset 0 alone
   int64_t heads_total;
   int64_t head_offset;
+  // the keep bits' query coordinate of the call's first query row (a
+  // sequence-parallel rank's offset in the whole sequence; 0 alone)
+  int64_t q_row0;
 };
 
 // The TMA descriptors of the bf16 sm_90a kernels over q, k, v and dout,
@@ -447,14 +454,16 @@ __device__ __forceinline__ float keep_flag(const FlashArgs& a, uint32_t bits) {
 // Keep flags of a lane's four elements of one m16n8 accumulator tile
 // with rows = queries (the forward and dQ layout): element 2i + u is query
 // qrow + 8i, key kcol + u, where qrow = q0 + 16 * warp + g and kcol = k0 +
-// 8j + 2t. Lanes t and t ^ 1 hold the same group of four keys (kcol >> 2);
-// each draws it for one of the two rows and passes its partner the half
-// the partner needs. Every lane of the warp must call this together.
+// 8j + 2t (the bits' query coordinate adds a.q_row0). Lanes t and t ^ 1
+// hold the same group of four keys (kcol >> 2); each draws it for one of
+// the two rows and passes its partner the half the partner needs. Every
+// lane of the warp must call this together.
 __device__ __forceinline__ void drop_rows(const FlashArgs& a, int64_t bh,
                                           int64_t qrow, int64_t kcol,
                                           float (&f)[4]) {
   const bool odd = threadIdx.x & 1;  // t & 1: words 2, 3 of the group
-  const uint4 r = philox((uint32_t)(kcol >> 2), (uint32_t)(qrow + (odd ? 8 : 0)),
+  const uint4 r = philox((uint32_t)(kcol >> 2),
+                         (uint32_t)(a.q_row0 + qrow + (odd ? 8 : 0)),
                          (uint32_t)bh, a.seed);
   // even lanes drew row g and keep words 0, 1; odd lanes row g + 8, words 2, 3
   const uint32_t x0 = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.z, 1);
@@ -468,7 +477,8 @@ __device__ __forceinline__ void drop_rows(const FlashArgs& a, int64_t bh,
 // The same for the dK/dV layout (rows = keys), used by the bf16 and the
 // f32 dK/dV kernels: element e is key krow + 8 * (e / 2), query qcol + e %
 // 2, where krow is the lane's key row (g of a 16-key row group) and qcol =
-// q0 + 8j + 2t. The four lanes g & 3 = u of a quad (same t) hold one key
+// q0 + 8j + 2t (the bits' query coordinate adds a.q_row0). The four
+// lanes g & 3 = u of a quad (same t) hold one key
 // group's four keys at both key rows and both queries: lane u draws the
 // counter of element u (key group of row u / 2, query qcol + u % 2), and
 // the words are traded by a 4 x 4 transpose over the quad's lanes (two
@@ -482,7 +492,8 @@ __device__ __forceinline__ void drop_cols_sm90(const FlashArgs& a, int64_t bh,
                                                float (&f)[4]) {
   const int u = (threadIdx.x >> 2) & 3;
   const uint4 r = philox((uint32_t)(((krow - u) >> 2) + 2 * (u >> 1)),
-                         (uint32_t)(qcol + (u & 1)), (uint32_t)bh, a.seed);
+                         (uint32_t)(a.q_row0 + qcol + (u & 1)), (uint32_t)bh,
+                         a.seed);
   // lane u holds word w of counter u; lane u needs word u of counter e as
   // its element e. Round 1 swaps with lane u ^ 1 the words w with
   // (u ^ w) & 1, round 2 with lane u ^ 2 those with (u ^ w) & 2.
@@ -2069,27 +2080,26 @@ int fwd(const FlashArgs& a, cudaStream_t stream) {
   }
 }
 
-// which: 1 = dK/dV, 2 = dQ, 3 = both (dK/dV first)
 template <typename T, int D>
-int bwd(const FlashArgs& a, int which, cudaStream_t stream) {
-  static bool ready_dkv = false, ready_dq = false;
-  if (which & 1) {
-    int err;
-    if constexpr (kBf16<T>)
-      err = dispatch_sm90<D, RunDkv>(a, stream);
-    else
-      err = launch(flash_dkv_f32<D>, dkv_f32_smem<D>(), ready_dkv,
-                   bwd_grid(a, a.Sk), kF32Threads, a, stream);
-    if (err) return err;
+int bwd_dkv(const FlashArgs& a, cudaStream_t stream) {
+  if constexpr (kBf16<T>) {
+    return dispatch_sm90<D, RunDkv>(a, stream);
+  } else {
+    static bool ready = false;
+    return launch(flash_dkv_f32<D>, dkv_f32_smem<D>(), ready,
+                  bwd_grid(a, a.Sk), kF32Threads, a, stream);
   }
-  if (which & 2) {
-    if constexpr (kBf16<T>)
-      return dispatch_sm90<D, RunDq>(a, stream);
-    else
-      return launch(flash_dq_f32<D>, dq_f32_smem<D>(), ready_dq,
-                    bwd_grid(a, a.Sq), kF32Threads, a, stream);
+}
+
+template <typename T, int D>
+int bwd_dq(const FlashArgs& a, cudaStream_t stream) {
+  if constexpr (kBf16<T>) {
+    return dispatch_sm90<D, RunDq>(a, stream);
+  } else {
+    static bool ready = false;
+    return launch(flash_dq_f32<D>, dq_f32_smem<D>(), ready,
+                  bwd_grid(a, a.Sq), kF32Threads, a, stream);
   }
-  return 0;
 }
 
 int check(const FlashArgs* a) {
@@ -2100,6 +2110,64 @@ int check(const FlashArgs* a) {
 
 }  // namespace
 
+// The library is this one translation unit, or seven of it compiled in
+// parallel and linked (ops/_build.py `PARTS`): with FLASH_KIND 1, 2 or 3
+// and FLASH_D 64 or 128, one family of kernels (forward, dK/dV, dQ) at one
+// head_dim, both dtypes; with FLASH_KIND 0, the two entry points alone.
+#ifdef FLASH_KIND
+#define FLASH_HAS(kind, d) (FLASH_KIND == (kind) && FLASH_D == (d))
+#define FLASH_ENTRY (FLASH_KIND == 0)
+#else
+#define FLASH_HAS(kind, d) 1
+#define FLASH_ENTRY 1
+#endif
+
+// One family's launch at one head_dim: dtype 0 = float32, 1 = bfloat16.
+extern "C" {
+int flash_fwd_64(int dtype, const FlashArgs* a, cudaStream_t st);
+int flash_fwd_128(int dtype, const FlashArgs* a, cudaStream_t st);
+int flash_dkv_64(int dtype, const FlashArgs* a, cudaStream_t st);
+int flash_dkv_128(int dtype, const FlashArgs* a, cudaStream_t st);
+int flash_dq_64(int dtype, const FlashArgs* a, cudaStream_t st);
+int flash_dq_128(int dtype, const FlashArgs* a, cudaStream_t st);
+
+#if FLASH_HAS(1, 64)
+int flash_fwd_64(int dtype, const FlashArgs* a, cudaStream_t st) {
+  return dtype ? fwd<__nv_bfloat16, 64>(*a, st) : fwd<float, 64>(*a, st);
+}
+#endif
+#if FLASH_HAS(1, 128)
+int flash_fwd_128(int dtype, const FlashArgs* a, cudaStream_t st) {
+  return dtype ? fwd<__nv_bfloat16, 128>(*a, st) : fwd<float, 128>(*a, st);
+}
+#endif
+#if FLASH_HAS(2, 64)
+int flash_dkv_64(int dtype, const FlashArgs* a, cudaStream_t st) {
+  return dtype ? bwd_dkv<__nv_bfloat16, 64>(*a, st)
+               : bwd_dkv<float, 64>(*a, st);
+}
+#endif
+#if FLASH_HAS(2, 128)
+int flash_dkv_128(int dtype, const FlashArgs* a, cudaStream_t st) {
+  return dtype ? bwd_dkv<__nv_bfloat16, 128>(*a, st)
+               : bwd_dkv<float, 128>(*a, st);
+}
+#endif
+#if FLASH_HAS(3, 64)
+int flash_dq_64(int dtype, const FlashArgs* a, cudaStream_t st) {
+  return dtype ? bwd_dq<__nv_bfloat16, 64>(*a, st)
+               : bwd_dq<float, 64>(*a, st);
+}
+#endif
+#if FLASH_HAS(3, 128)
+int flash_dq_128(int dtype, const FlashArgs* a, cudaStream_t st) {
+  return dtype ? bwd_dq<__nv_bfloat16, 128>(*a, st)
+               : bwd_dq<float, 128>(*a, st);
+}
+#endif
+}  // extern "C"
+
+#if FLASH_ENTRY
 // dtype: 0 = float32, 1 = bfloat16; head_dim 64 or 128. Writes a->o and
 // a->lse, adding a->mask when a->has_mask and dropping P when
 // a->has_dropout. Returns cudaGetLastError() after the launch (0 on
@@ -2109,26 +2177,32 @@ extern "C" int flash_attention_fwd_launch(int dtype, int64_t head_dim,
   if (a->B * a->H == 0 || a->Sq == 0) return 0;
   if (int err = check(a)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return fwd<float, 64>(*a, st);
-  if (dtype == 0 && head_dim == 128) return fwd<float, 128>(*a, st);
-  if (dtype == 1 && head_dim == 64) return fwd<__nv_bfloat16, 64>(*a, st);
-  if (dtype == 1 && head_dim == 128) return fwd<__nv_bfloat16, 128>(*a, st);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (head_dim == 64) return flash_fwd_64(dtype, a, st);
+  if (head_dim == 128) return flash_fwd_128(dtype, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward kernels (`which`: 1 = dK/dV, 2 = dQ, 3 = both). Reads q, k,
-// v, dout, lse, delta (and the mask); writes dk and dv (1), dq (2). The
-// mask and dropout flags and the seed must be the forward's. Same
-// conventions as the forward.
+// The backward kernels (`which`: 1 = dK/dV, 2 = dQ, 3 = both, dK/dV
+// first). Reads q, k, v, dout, lse, delta (and the mask); writes dk and dv
+// (1), dq (2). The mask and dropout flags and the seed must be the
+// forward's. Same conventions as the forward.
 extern "C" int flash_attention_bwd_launch(int dtype, int64_t head_dim,
                                           int which, const FlashArgs* a,
                                           void* stream) {
   if (a->B * a->H == 0 || a->Sq == 0 || a->Sk == 0) return 0;
   if (int err = check(a)) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return bwd<float, 64>(*a, which, st);
-  if (dtype == 0 && head_dim == 128) return bwd<float, 128>(*a, which, st);
-  if (dtype == 1 && head_dim == 64) return bwd<__nv_bfloat16, 64>(*a, which, st);
-  if (dtype == 1 && head_dim == 128) return bwd<__nv_bfloat16, 128>(*a, which, st);
-  return (int)cudaErrorInvalidValue;
+  if ((dtype != 0 && dtype != 1) || (head_dim != 64 && head_dim != 128))
+    return (int)cudaErrorInvalidValue;
+  const bool d64 = head_dim == 64;
+  if (which & 1) {
+    if (int err = d64 ? flash_dkv_64(dtype, a, st)
+                      : flash_dkv_128(dtype, a, st))
+      return err;
+  }
+  if (which & 2)
+    return d64 ? flash_dq_64(dtype, a, st) : flash_dq_128(dtype, a, st);
+  return 0;
 }
+#endif

@@ -28,7 +28,19 @@ package:
   `word_emb` with no bias.
 
 All LayerNorms use eps 1e-5. Dropout draws from the model's own
-`DropoutGenerators`, seeded explicitly (`seed_dropout`). With
+`DropoutGenerators`, seeded explicitly (`seed_dropout`).
+
+On an ``sp`` rank of a training mesh (`shard_sequence`,
+parallel/spmd.py) the input is the rank's slice of each row's sequence,
+its positions from `pos_offset`: each layer's attention spans the whole
+sequence through `parallel/sequence_attention.py` (K/V gathered over the
+group, the caller's mask whole on its key axis, attention dropout drawn
+at the rank's rows), each elementwise dropout mask is the rank's slice of
+the whole sequence's draw, and the pooler reads the sequence's first
+token, which sp rank 0 holds: one counted all-gather of ``x[:, 0]`` over
+the group hands rank 0's row to every rank (its gradient, when a loss
+reads the NSP head, comes home in one counted reduce-scatter), so every
+rank returns the whole sequence's ``nsp_logits``. With
 `BertConfig(remat=True)` each layer runs under
 `distributed/fleet/utils.recompute` while autograd records, with its
 attention mask and the dropout generators as the forward found them. The
@@ -48,8 +60,8 @@ from ..distributed.fleet.meta_parallel.mp_layers import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     copy_to_mp, gather_from_mp)
 from ..distributed.fleet.utils import recompute
-from ..ops.common_nn import (DropoutGenerators, dropout,
-                             scaled_dot_product_attention)
+from ..ops.common_nn import (DropoutGenerators, attention_dropout, dropout,
+                             scaled_dot_product_attention, seq_split)
 
 
 class BertConfig:
@@ -78,6 +90,31 @@ def split_qkv(qkv, b, s, num_heads, head_dim):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
+class _FirstToken(torch.autograd.Function):
+    """sp rank 0's rows `x0` [b, hidden] on every rank of `group` (the
+    sequence's first token): one counted all-gather forward; backward, one
+    counted reduce-scatter sums every rank's gradient into rank 0's (the
+    other ranks' own rows get none)."""
+
+    @staticmethod
+    def forward(ctx, x0, group):
+        from ..parallel.collectives import all_gather
+
+        ctx.group = group
+        return all_gather(x0.contiguous(), group)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..parallel.collectives import reduce_scatter
+
+        group = ctx.group
+        send = torch.zeros((group.size,) + tuple(g.shape), dtype=g.dtype,
+                           device=g.device)
+        send[0] = g
+        mine = reduce_scatter(send.view(-1), group)
+        return mine.view(g.shape), None
+
+
 class BertSelfAttention(nn.Module):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
@@ -86,6 +123,7 @@ class BertSelfAttention(nn.Module):
         self.dropout = cfg.dropout
         # the model's heads this module holds: [head_offset, + num_heads)
         self.head_offset, self.heads_total = 0, cfg.num_heads
+        self.sp = None       # the sp group of a sequence-split rank
         kw = {"device": device, "dtype": dtype}
         self.qkv = ColumnParallelLinear(cfg.hidden_size, 3 * cfg.hidden_size,
                                         gather_output=False, out_groups=3,
@@ -102,10 +140,18 @@ class BertSelfAttention(nn.Module):
     def forward(self, x, attn_mask=None, generator=None):
         b, s, _ = x.shape
         q, k, v = split_qkv(self.qkv(x), b, s, self.num_heads, self.head_dim)
-        o = scaled_dot_product_attention(
-            q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
-            training=self.training, generator=generator,
-            head_offset=self.head_offset, heads_total=self.heads_total)
+        if seq_split(self.sp) is not None:
+            from ..parallel.sequence_attention import gathered_attention
+
+            p, seed = attention_dropout(self.dropout, self.training,
+                                        generator)
+            o = gathered_attention(q, k, v, self.sp, False, attn_mask, p,
+                                   seed, self.head_offset, self.heads_total)
+        else:
+            o = scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
+                training=self.training, generator=generator,
+                head_offset=self.head_offset, heads_total=self.heads_total)
         return self.out(o.reshape(b, s, self.num_heads * self.head_dim))
 
 
@@ -122,6 +168,7 @@ class BertLayer(nn.Module):
         self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
         self.p = cfg.dropout
         self.remat = cfg.remat
+        self.sp = None
 
     def forward(self, x, attn_mask=None, gens=None):
         if self.remat and torch.is_grad_enabled():
@@ -134,7 +181,8 @@ class BertLayer(nn.Module):
         attn_gen, elem_gen = (gens.attn, gens.elem) if gens else (None, None)
 
         def drop(y):
-            return dropout(y, self.p, self.training, elem_gen)
+            return dropout(y, self.p, self.training, elem_gen,
+                           seq_split=seq_split(self.sp))
 
         x = self.ln1(x + drop(self.attn(x, attn_mask, attn_gen)))
         return self.ln2(x + drop(self.fc2(F.gelu(self.fc1(x)))))
@@ -166,6 +214,7 @@ class Bert(nn.Module):
         self.mlm_transform = nn.Linear(h, h, **kw)
         self.mlm_ln = nn.LayerNorm(h, eps=1e-5, **kw)
         self.nsp = nn.Linear(h, 2, **kw)
+        self.sp = None
         self._init_weights(seed)
         self.seed_dropout(seed)
         self.eval()
@@ -177,6 +226,18 @@ class Bert(nn.Module):
     def seed_dropout(self, seed):
         """Reseed the generators every dropout of the model draws from."""
         self.dropout_generators = DropoutGenerators(seed, self.device)
+
+    def shard_sequence(self, group):
+        """Run as rank ``group.rank`` of an ``sp`` group (a
+        `parallel.collectives.RankGroup`; None: the whole sequence here):
+        the input is that rank's slice of each row (its positions from
+        `pos_offset`), attention spans the group, each dropout mask is
+        the rank's slice of the whole sequence's, and the pooler reads the
+        sequence's first token (module docstring)."""
+        self.sp = group
+        for layer in self.layers:
+            layer.sp = layer.attn.sp = group
+        return self
 
     @torch.no_grad()
     def _init_weights(self, seed):
@@ -199,21 +260,28 @@ class Bert(nn.Module):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
 
-    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                pos_offset=0):
         """(MLM logits [b, s, vocab], NSP logits [b, 2]) in the model's
         dtype. `attention_mask` is added to every layer's attention scores
         (float) or keeps them where True (bool), broadcast to [b, heads, s,
-        s]: ERNIE's padding mask is ``(1 - mask)[:, None, None] * -1e4``."""
+        s]: ERNIE's padding mask is ``(1 - mask)[:, None, None] * -1e4``.
+        On an sp rank `input_ids` are positions ``pos_offset ..`` of each
+        row and the mask is the whole row's (`shard_sequence`)."""
         b, s = input_ids.shape
         gens = self.dropout_generators
-        pos = torch.arange(s, device=input_ids.device)[None]
+        pos = pos_offset + torch.arange(s, device=input_ids.device)[None]
         x = self.word_emb(input_ids) + self.pos_emb(pos)
         if token_type_ids is not None:
             x = x + self.type_emb(token_type_ids)
-        x = dropout(self.ln(x), self.cfg.dropout, self.training, gens.elem)
+        x = dropout(self.ln(x), self.cfg.dropout, self.training, gens.elem,
+                    seq_split=seq_split(self.sp))
         for layer in self.layers:
             x = layer(x, attention_mask, gens)
-        pooled = torch.tanh(self.pooler(x[:, 0]))
+        first = x[:, 0]
+        if seq_split(self.sp) is not None:
+            first = _FirstToken.apply(first, self.sp)
+        pooled = torch.tanh(self.pooler(first))
         mlm = self.mlm_ln(F.gelu(self.mlm_transform(x)))
         mp = self.word_emb.mp
         logits = gather_from_mp(copy_to_mp(mlm, mp) @ self.word_emb.weight.t(),

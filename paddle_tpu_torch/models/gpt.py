@@ -27,12 +27,15 @@ carries a JAX state dict over). Three attention paths:
 - no cache (training, and a full forward): causal attention over the
   whole input through `ops/common_nn.py` `scaled_dot_product_attention`,
   i.e. the flash-attention kernels on the card and the plain version on
-  the CPU. With ``attn_impl="ring"`` it goes through
-  `parallel/ring_attention.py` instead, with no attention dropout (the
-  JAX ring branch takes none): on an ``sp`` rank of a training mesh
-  (`shard_sequence`, parallel/spmd.py) over the whole sequence split
-  across the ``sp`` group, the rank's positions starting at
-  `pos_offset`; with no group, flash attention over the input.
+  the CPU. On an ``sp`` rank of a training mesh (`shard_sequence`,
+  parallel/spmd.py), whose input is its slice of the sequence (its
+  positions starting at `pos_offset`), attention spans the whole
+  sequence split across the ``sp`` group: ``"flash"`` and ``"xla"``
+  through `parallel/sequence_attention.py` (K/V gathered over the group,
+  the flash kernels on the rank's query rows, attention dropout drawn at
+  those rows), ``"ring"`` through `parallel/ring_attention.py`, with no
+  attention dropout (the JAX ring branch takes none; with no group, flash
+  attention over the input).
 
 With `labels`, `forward` returns the mean next-token cross-entropy from
 the hidden states through the tied head (`ops/fused_ce.py`). In train mode
@@ -41,7 +44,8 @@ each block's two residual branches (the full forward only) and on the
 attention probabilities (the flash kernels' dropout variant; not under
 ``"ring"``), drawn from the model's own `DropoutGenerators`
 (`seed_dropout`); on an ``sp`` rank an elementwise mask is the rank's
-slice of the mask one process draws for the whole sequence. With
+slice of the mask one process draws for the whole sequence, and the
+attention keep bits are the whole sequence's at the rank's rows. With
 `GPTConfig(remat=True)` each block's full forward runs under
 `distributed/fleet/utils.recompute` while autograd records (the JAX
 model's `recompute(self._inner, x)`): its activations are recomputed in
@@ -61,8 +65,8 @@ from ..distributed.fleet.meta_parallel.mp_layers import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding, active,
     copy_to_mp, gather_from_mp)
 from ..distributed.fleet.utils import recompute
-from ..ops.common_nn import (DropoutGenerators, dropout,
-                             scaled_dot_product_attention)
+from ..ops.common_nn import (DropoutGenerators, attention_dropout, dropout,
+                             scaled_dot_product_attention, seq_split)
 from ..ops.fused_ce import (fused_linear_cross_entropy, linear_cross_entropy,
                             vocab_parallel_linear_cross_entropy)
 
@@ -71,7 +75,8 @@ _NEG_INF = -1e30
 
 class GPTConfig:
     """The JAX package's GPTConfig fields. ('flash' and 'xla' both take
-    scaled_dot_product_attention, as in the JAX model; 'ring' takes
+    scaled_dot_product_attention, as in the JAX model (over an sp group,
+    `parallel/sequence_attention.py`); 'ring' takes
     `parallel/ring_attention.py`, without attention dropout, as the JAX
     model's ring branch does.)
     `dtype` is stored and never read, as in the JAX model: the parameter
@@ -186,13 +191,6 @@ def _vocab_parallel_embedding(weight, ids, smesh):
     return all_reduce(rows, smesh.group)
 
 
-def _seq_split(group):
-    """(rank, ranks) of an ``sp`` group for `dropout`'s `seq_split`, or
-    None."""
-    return None if group is None or group.size == 1 else (group.rank,
-                                                          group.size)
-
-
 class CausalSelfAttention(nn.Module):
     def __init__(self, cfg, device=None, dtype=None):
         super().__init__()
@@ -241,6 +239,14 @@ class CausalSelfAttention(nn.Module):
 
             o = ring_attention(q, k, v, group=self.sp, causal=True)
             return self.proj(o.reshape(b, s, width))
+        if seq_split(self.sp) is not None:
+            from ..parallel.sequence_attention import gathered_attention
+
+            p, seed = attention_dropout(self.dropout, self.training,
+                                        generator)
+            o = gathered_attention(q, k, v, self.sp, True, None, p, seed,
+                                   self.head_offset, self.heads_total)
+            return self.proj(o.reshape(b, s, width))
         o = scaled_dot_product_attention(q, k, v, is_causal=True,
                                          dropout_p=self.dropout,
                                          training=self.training,
@@ -286,7 +292,7 @@ class GPTBlock(nn.Module):
 
         def drop(y):
             return dropout(y, self.p, self.training, elem_gen,
-                           seq_split=_seq_split(self.sp))
+                           seq_split=seq_split(self.sp))
 
         x = x + drop(self.attn(self.ln1(x), generator=attn_gen))
         return x + drop(self._mlp(x))
@@ -341,17 +347,9 @@ class GPT(nn.Module):
         """Run as rank ``group.rank`` of an ``sp`` group (a
         `parallel.collectives.RankGroup`; None: the whole sequence here):
         the input is that rank's slice of the sequence (its positions
-        from `pos_offset`), ring attention spans the group, and each
-        elementwise dropout mask is the rank's slice of the whole
-        sequence's. Only ``attn_impl="ring"`` attends across the group:
-        any other attention over a slice would be local, so it raises."""
-        if group is not None and group.size > 1 and \
-                self.cfg.attn_impl != "ring":
-            raise NotImplementedError(
-                f"GPT with attn_impl={self.cfg.attn_impl!r} over an sp "
-                "group: attention over a sequence slice must span the "
-                "group, and only 'ring' does (ROADMAP Queue 1, item "
-                "8b.4)")
+        from `pos_offset`), attention spans the group (the ring under
+        ``attn_impl="ring"``, else K/V gathered over it), and each
+        dropout mask is the rank's slice of the whole sequence's."""
         self.sp = group
         for blk in self.blocks:
             blk.sp = blk.attn.sp = group
@@ -406,7 +404,7 @@ class GPT(nn.Module):
         else:
             tok = self.wte(input_ids)
         x = dropout(tok + self.wpe(pos), self.cfg.dropout, self.training,
-                    gens.elem, seq_split=_seq_split(self.sp))
+                    gens.elem, seq_split=seq_split(self.sp))
         new_caches = [] if caches is not None and not paged else None
         for i, blk in enumerate(self.blocks):
             if paged:

@@ -4,7 +4,9 @@ Each source under ``paddle_tpu_torch/csrc`` exposes a plain C function; it
 is compiled at first use into ``build/`` at the root of the checkout
 (``.gitignore`` lists it) and loaded with ``ctypes``. The library's file
 name carries a hash of the source, the headers beside it (``*.cuh``) and
-the flags, so an edited source or header never loads a stale build.
+the flags, so an edited source or header never loads a stale build. A
+source named in `PARTS` is compiled as several translation units at once
+(its -D flags select each unit's share) and linked into that one library.
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine without ``nvcc``.
 """
@@ -22,6 +24,15 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v")
+
+# Sources built as several translation units compiled in parallel and
+# linked into one library: the -D flags of each unit (the source says what
+# each holds). The flash kernels' one unit took about a minute of nvcc.
+PARTS = {
+    "flash_attention.cu": (("-DFLASH_KIND=0",),) + tuple(
+        (f"-DFLASH_KIND={kind}", f"-DFLASH_D={d}")
+        for kind in (1, 2, 3) for d in (64, 128)),
+}
 
 _LIBS = {}
 _LOCK = threading.Lock()
@@ -60,22 +71,53 @@ def load_library(source):
         if source in _LIBS:
             return _LIBS[source]
     src = CSRC / source
-    lib_path = BUILD_DIR / f"{src.stem}-{source_digest(src)}.so"
+    parts = PARTS.get(source)
+    flags = NVCC_FLAGS + sum(parts or (), ())
+    lib_path = BUILD_DIR / f"{src.stem}-{source_digest(src, flags)}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(
             f".{os.getpid()}-{threading.get_ident()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
-                f"{proc.stderr[-4000:]}")
+        if parts is None:
+            log = _nvcc(src.name, [*NVCC_FLAGS, "-o", str(tmp), str(src)])
+        else:
+            log = _build_parts(src, parts, tmp)
+        lib_path.with_suffix(".log").write_text(log)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     with _LOCK:
         return _LIBS.setdefault(source, lib)
+
+
+def _nvcc(name, args):
+    """Run nvcc with `args`; its output, or RuntimeError naming `name`."""
+    proc = subprocess.run([nvcc_path(), *args], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name} (exit {proc.returncode}):"
+                           f"\n{proc.stderr[-4000:]}")
+    return proc.stdout + proc.stderr
+
+
+def _build_parts(src, parts, out):
+    """Compile `src` once for each of `parts` (its -D flags), all at once,
+    and link the objects into the shared library `out`; nvcc's output."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    compile_flags = tuple(f for f in NVCC_FLAGS if f != "-shared")
+    objs = [out.with_suffix(f".{i}.o") for i in range(len(parts))]
+    try:
+        with ThreadPoolExecutor(len(parts)) as ex:
+            logs = list(ex.map(
+                lambda p, o: _nvcc(f"{src.name} {' '.join(p)}", [
+                    *compile_flags, *p, "-c", "-o", str(o), str(src)]),
+                parts, objs))
+        logs.append(_nvcc(src.name, [*NVCC_FLAGS, "-o", str(out),
+                                     *map(str, objs)]))
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    return "".join(logs)
 
 
 def build_log(source):

@@ -28,6 +28,14 @@ def draw_seed(generator=None):
     return int(torch.randint(0, _SEED_HIGH, (1,), generator=generator))
 
 
+def attention_dropout(dropout_p, training, generator=None):
+    """(p, seed) of an attention call: `dropout_p` while `training`, else
+    0, and a seed drawn from `generator` (`draw_seed`) when p > 0, else
+    None."""
+    p = dropout_p if training else 0.0
+    return p, (draw_seed(generator) if p > 0.0 else None)
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, name=None, generator=None,
@@ -40,11 +48,18 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     `torch.Generator`; None: torch's default one). A tensor-parallel rank
     holding heads ``[head_offset, head_offset + heads)`` of the model's
     `heads_total` passes both, so its keep bits are the whole model's."""
-    p = dropout_p if training else 0.0
-    seed = draw_seed(generator) if p > 0.0 else None
+    p, seed = attention_dropout(dropout_p, training, generator)
     return flash_attention(query, key, value, causal=is_causal,
                            mask=attn_mask, dropout_p=p, seed=seed,
                            head_offset=head_offset, heads_total=heads_total)
+
+
+def seq_split(group):
+    """`dropout`'s `seq_split` of a rank of an ``sp`` group (a
+    `parallel.collectives.RankGroup`): ``(rank, ranks)``, or None without
+    a group or for a group of one."""
+    return None if group is None or group.size == 1 else (group.rank,
+                                                          group.size)
 
 
 def dropout(x, p=0.5, training=True, generator=None, name=None,

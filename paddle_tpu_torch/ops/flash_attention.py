@@ -15,7 +15,12 @@ with `_attention_xla`'s optional mask and dropout:
   tensor-parallel rank that holds heads ``[head_offset, head_offset + H)``
   of ``heads_total`` passes both, and its bits are ``b * heads_total +
   head_offset + h``, the ones the whole model draws for those heads
-  (defaults: ``heads_total = H``, offset 0).
+  (defaults: ``heads_total = H``, offset 0). The query coordinate is the
+  whole sequence's too: a launch whose queries start at row ``q_row0`` of
+  it (a sequence-parallel rank's slice, parallel/sequence_attention.py;
+  `flash_attention_fwd` / `_bwd` and the plain versions take it) draws
+  rows ``q_row0 + i``; the key coordinate is k's own row, k holding the
+  sequence from its start (default ``q_row0 = 0``).
 
 - `attention_ref` is the plain PyTorch version, with the kernels' rounding
   points: f32 scores, P (zeroed where dropout drops it) cast to v's dtype
@@ -105,30 +110,31 @@ def drop_heads(b, h, head_offset=0, heads_total=None, device=None):
 
 
 def dropout_factors(seed, dropout_p, b, h, sq, sk, device=None,
-                    head_offset=0, heads_total=None):
+                    head_offset=0, heads_total=None, q_row0=0):
     """The dropout factors D [b, h, sq, sk] f32: 1/(1 - p) where
     `philox.keep_mask` keeps, 0 where it drops (heads numbered as
-    `drop_heads` numbers them)."""
+    `drop_heads` numbers them, queries from row `q_row0`)."""
     keep = philox.keep_mask(seed, dropout_p, drop_heads(
-        b, h, head_offset, heads_total, device), sq, sk, device)
+        b, h, head_offset, heads_total, device), sq, sk, device, q_row0)
     return keep.view(b, h, sq, sk).float() * (1.0 / (1.0 - dropout_p))
 
 
 def attention_ref(q, k, v, causal=False, mask=None, dropout_p=0.0,
-                  seed=None, head_offset=0, heads_total=None):
+                  seed=None, head_offset=0, heads_total=None, q_row0=0):
     """Plain attention on [B, S, H, D]: softmax of the f32 scores (with the
     mask), P cast to v's dtype before P V. With `dropout_p` > 0, P is
     zeroed where `philox.keep_mask` of `seed` drops it before the cast
-    (heads numbered from `head_offset` of `heads_total`), and the f32
-    product is scaled by 1/(1 - p), as the kernels do. Returns [B, Sq, H,
-    D] in v's dtype."""
+    (heads numbered from `head_offset` of `heads_total`, queries from row
+    `q_row0`), and the f32 product is scaled by 1/(1 - p), as the kernels
+    do. Returns [B, Sq, H, D] in v's dtype."""
     _check_dropout(dropout_p, seed)
     p = torch.softmax(_scores(q, k, causal, mask), dim=-1)
     if dropout_p == 0.0:
         return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
     B, Sq, H, _ = q.shape
     keep = philox.keep_mask(seed, dropout_p, drop_heads(
-        B, H, head_offset, heads_total, q.device), Sq, k.shape[1], q.device)
+        B, H, head_offset, heads_total, q.device), Sq, k.shape[1], q.device,
+        q_row0)
     p = p.masked_fill(~keep.view(p.shape), 0.0).to(v.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
     return (o * (1.0 / (1.0 - dropout_p))).to(v.dtype)
@@ -141,20 +147,29 @@ def attention_lse_ref(q, k, causal=False, mask=None):
     return torch.logsumexp(s, dim=-1).reshape(-1, q.shape[1])
 
 
-def attention_bwd_ref(q, k, v, o, do, lse, causal=False):
-    """The plain version of `flash_attention_bwd` without mask or dropout:
-    (dq, dk, dv) in q's dtype from the saved `o` and `lse` ([B*H, Sq]
-    f32), with P = exp(S - lse) and delta = rowsum(dO * O), as the kernels
-    take them. Given the LSE and O of a longer row than `k` covers (ring
-    attention's merged ones), it is that block's share of the gradients."""
+def attention_bwd_ref(q, k, v, o, do, lse, causal=False, mask=None,
+                      dropout_p=0.0, seed=None, head_offset=0,
+                      heads_total=None, q_row0=0):
+    """The plain version of `flash_attention_bwd`: (dq, dk, dv) in q's
+    dtype from the saved `o` and `lse` ([B*H, Sq] f32), with P = exp(S -
+    lse), delta = rowsum(dO * O) and the dropout factors D of
+    `dropout_factors` (1 without dropout): dV = (P D)^T dO, dS = P (dO V^T
+    D - delta) / sqrt(head_dim), as the kernels take them, all in f32.
+    Given the LSE and O of a longer row than `k` covers (ring attention's
+    merged ones), it is that block's share of the gradients."""
     B, Sq, H, D = q.shape
-    p = torch.exp(_scores(q, k, causal) - lse.view(B, H, Sq, 1))
+    p = torch.exp(_scores(q, k, causal, mask) - lse.view(B, H, Sq, 1))
     dof = do.float()
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    pd = p
+    if dropout_p > 0.0:
+        f = dropout_factors(seed, dropout_p, B, H, Sq, k.shape[1], q.device,
+                            head_offset, heads_total, q_row0)
+        dp, pd = dp * f, p * f
     ds = p * (dp - _delta(o, do).view(B, H, Sq, 1)) * (1.0 / math.sqrt(D))
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pd, dof)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
@@ -183,7 +198,8 @@ class _Args(ctypes.Structure):
                    ("drop_scale", ctypes.c_float),
                    ("seed", ctypes.c_uint64), ("mask", _MaskView),
                    ("o32", _View), ("heads_total", ctypes.c_int64),
-                   ("head_offset", ctypes.c_int64)])
+                   ("head_offset", ctypes.c_int64),
+                   ("q_row0", ctypes.c_int64)])
 
 
 def _library():
@@ -265,15 +281,19 @@ def _mask_view(mask, B, H, Sq, Sk, device):
 
 
 def _args(q, k, v, causal, mask=None, dropout_p=0.0, seed=None,
-          head_offset=0, heads_total=None, **views):
+          head_offset=0, heads_total=None, q_row0=0, **views):
     B, Sq, H, D = q.shape
     total = H if heads_total is None else int(heads_total)
     if head_offset < 0 or head_offset + H > total:
         raise ValueError(f"heads [{head_offset}, {head_offset + H}) do not "
                          f"lie in the model's {total}")
+    if q_row0 < 0 or q_row0 + Sq > 2 ** 32:
+        raise ValueError(f"query rows [{q_row0}, {q_row0 + Sq}) do not lie "
+                         "in the keep bits' 32-bit row coordinate")
     a = _Args(B=B, H=H, Sq=Sq, Sk=k.shape[1], q=_view(q), k=_view(k),
               v=_view(v), scale=1.0 / math.sqrt(D), causal=int(bool(causal)),
-              heads_total=total, head_offset=int(head_offset))
+              heads_total=total, head_offset=int(head_offset),
+              q_row0=int(q_row0))
     if mask is not None:
         a.has_mask = 1
         a.mask = _MaskView(mask.data_ptr(), *mask.stride())
@@ -303,7 +323,8 @@ def _count(fn, mask, dropout_p):
 
 
 def flash_attention_fwd(q, k, v, causal=False, mask=None, dropout_p=0.0,
-                        seed=None, o32=None, head_offset=0, heads_total=None):
+                        seed=None, o32=None, head_offset=0, heads_total=None,
+                        q_row0=0):
     """The forward kernel. q: [B, Sq, H, D], k and v: [B, Sk, H, D] on the
     card, float32 or bfloat16, D 64 or 128, unit stride on D; `mask`
     (float or bool, broadcastable to [B, H, Sq, Sk]) and dropout as in
@@ -313,7 +334,8 @@ def flash_attention_fwd(q, k, v, causal=False, mask=None, dropout_p=0.0,
     exact, where a bf16 O is not (1/(1 - p) makes O unrepresentable where
     attention sits on one key). `head_offset` and `heads_total` number
     the heads for the keep bits (a tensor-parallel rank's share of the
-    model's heads). Launches on the current stream without
+    model's heads), `q_row0` their query rows (a sequence-parallel rank's
+    offset in the whole sequence). Launches on the current stream without
     synchronising. Counts launches in ``flash_attention_fwd.launches``
     (and `.mask_launches`, `.dropout_launches`)."""
     B, Sq, Sk, H, D = _check_qkv(q, k, v)
@@ -327,7 +349,7 @@ def flash_attention_fwd(q, k, v, causal=False, mask=None, dropout_p=0.0,
         _check("o32", o32, q.shape, torch.float32, q.device)
         views["o32"] = o32
     a = _args(q, k, v, causal, mv, dropout_p, seed, head_offset,
-              heads_total, **views)
+              heads_total, q_row0, **views)
     with torch.cuda.device(q.device):
         err = _library().flash_attention_fwd_launch(
             _DTYPES[q.dtype], D, ctypes.byref(a),
@@ -343,10 +365,12 @@ flash_attention_fwd.dropout_launches = 0
 
 
 def _launch_bwd(q, k, v, do, lse, delta, causal, which, mask=None,
-                dropout_p=0.0, seed=None, head_offset=0, heads_total=None):
+                dropout_p=0.0, seed=None, head_offset=0, heads_total=None,
+                q_row0=0, out=None):
     """Launch the dK/dV kernel (`which` 1), the dQ kernel (2) or both (3);
-    returns (dq, dk, dv), None for what was not computed. Counts nothing:
-    `flash_attention_bwd` is the counted entry."""
+    returns (dq, dk, dv), None for what was not computed. `out`: the (dk,
+    dv) views the dK/dV kernel writes (None: new contiguous tensors).
+    Counts nothing: `flash_attention_bwd` is the counted entry."""
     B, Sq, Sk, H, D = _check_qkv(q, k, v)
     _check("do", do, q.shape, q.dtype, q.device)
     for name, t in (("lse", lse), ("delta", delta)):
@@ -357,13 +381,18 @@ def _launch_bwd(q, k, v, do, lse, delta, causal, which, mask=None,
     mv = None if mask is None else _mask_view(mask, B, H, Sq, Sk, q.device)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format) \
         if which & 2 else None
-    dk = torch.empty((B, Sk, H, D), dtype=q.dtype, device=q.device) \
-        if which & 1 else None
-    dv = torch.empty_like(dk) if which & 1 else None
+    dk = dv = None
+    if which & 1 and out is not None:
+        dk, dv = out
+        for name, t in (("dk", dk), ("dv", dv)):
+            _check(name, t, (B, Sk, H, D), q.dtype, q.device)
+    elif which & 1:
+        dk = torch.empty((B, Sk, H, D), dtype=q.dtype, device=q.device)
+        dv = torch.empty_like(dk)
     views = {n: t for n, t in (("dq", dq), ("dk", dk), ("dv", dv))
              if t is not None}
     a = _args(q, k, v, causal, mv, dropout_p, seed, head_offset, heads_total,
-              dout=do, lse=lse, delta=delta, **views)
+              q_row0, dout=do, lse=lse, delta=delta, **views)
     with torch.cuda.device(q.device):
         err = _library().flash_attention_bwd_launch(
             _DTYPES[q.dtype], D, which, ctypes.byref(a),
@@ -382,16 +411,18 @@ def _delta(o, do):
 
 def flash_attention_bwd(q, k, v, o, do, lse, causal=False, mask=None,
                         dropout_p=0.0, seed=None, head_offset=0,
-                        heads_total=None):
+                        heads_total=None, q_row0=0, out=None):
     """The backward: delta = rowsum(dO * O) in f32 (plain torch), then the
     dK/dV kernel and the dQ kernel. q, k, v, o, lse, the mask and the
     dropout arguments as the forward took and gave them (o may be the
-    forward's `o32`); do is dL/dO [B, Sq, H, D]. Returns (dq, dk, dv) in
-    q's dtype. One counted launch (``flash_attention_bwd.launches``, and
+    forward's `o32`); do is dL/dO [B, Sq, H, D]. `out`: optional (dk, dv)
+    [B, Sk, H, D] views in q's dtype (unit stride on D, 16-byte aligned
+    rows) the dK/dV kernel writes in place. Returns (dq, dk, dv) in q's
+    dtype. One counted launch (``flash_attention_bwd.launches``, and
     `.mask_launches`, `.dropout_launches`) is the pair of CUDA kernels,
     dK/dV then dQ."""
     out = _launch_bwd(q, k, v, do, lse, _delta(o, do), causal, 3, mask,
-                      dropout_p, seed, head_offset, heads_total)
+                      dropout_p, seed, head_offset, heads_total, q_row0, out)
     _count(flash_attention_bwd, mask, dropout_p)
     return out
 

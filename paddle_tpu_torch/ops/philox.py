@@ -9,6 +9,9 @@ the bits a pure function of where they land:
                                          key=(seed & 0xffffffff, seed >> 32))[j & 3]
 
 with `i` the query position, `j` the key position and ``bh = b * H + h``.
+Positions are absolute: a call whose queries start at row ``q_row0`` of
+the whole sequence (a sequence-parallel rank's slice) draws rows
+``q_row0 + i``, the bits one call over the whole sequence draws there.
 The CUDA kernels of ``csrc/flash_attention.cu`` draw the same bits in any
 tiling, and the plain version here replays them, so forward, backward and
 the mask gradient all see one dropout mask with nothing stored.
@@ -65,10 +68,11 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def dropout_bits(seed, bh, sq, sk, device=None):
+def dropout_bits(seed, bh, sq, sk, device=None, q_row0=0):
     """The uint32 bits (as int64) of every (bh, query, key) position:
     ``[len(bh), sq, sk]`` for a sequence of batch*head indices `bh`, or
-    ``[bh, sq, sk]`` for all of ``range(bh)`` when `bh` is an int."""
+    ``[bh, sq, sk]`` for all of ``range(bh)`` when `bh` is an int; the
+    queries are rows ``q_row0 .. q_row0 + sq - 1``."""
     seed = int(seed)
     if seed < 0 or seed >= 2 ** 64:
         raise ValueError(f"dropout seed must be a uint64; got {seed}")
@@ -76,7 +80,8 @@ def dropout_bits(seed, bh, sq, sk, device=None):
         bh = torch.arange(bh, device=device)
     bh = torch.as_tensor(bh, dtype=torch.int64, device=device)
     groups = (sk + 3) // 4
-    i = torch.arange(sq, dtype=torch.int64, device=bh.device)
+    i = torch.arange(q_row0, q_row0 + sq, dtype=torch.int64,
+                     device=bh.device)
     g = torch.arange(groups, dtype=torch.int64, device=bh.device)
     out = philox4x32_10(g[None, None, :], i[None, :, None], bh[:, None, None],
                         0, seed & _U32, seed >> 32)
@@ -84,7 +89,7 @@ def dropout_bits(seed, bh, sq, sk, device=None):
     return torch.stack(out, dim=-1).reshape(len(bh), sq, 4 * groups)[..., :sk]
 
 
-def keep_mask(seed, p, bh, sq, sk, device=None):
+def keep_mask(seed, p, bh, sq, sk, device=None, q_row0=0):
     """Bool ``[bh, sq, sk]``: True where the probability is kept (``bits >=
     threshold(p)``), for drop probability `p` (see `dropout_bits`)."""
-    return dropout_bits(seed, bh, sq, sk, device) >= threshold(p)
+    return dropout_bits(seed, bh, sq, sk, device, q_row0) >= threshold(p)

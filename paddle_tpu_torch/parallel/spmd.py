@@ -129,19 +129,24 @@ values over its dp group.
 **The sequence split** (``sp``, alone or beside ``dp``): with
 ``batch_specs=(("dp", "sp"),) * 2`` (JAX's ``P("dp", "sp")``) each rank's
 rows are its dp index's share, and its slice of their sequence (dim 1)
-its sp index's: ``S / sp`` positions from ``sp_index * S / sp`` (GPT's
-`pos_offset`). The model runs as its rank of the ``sp`` group
-(`GPT.shard_sequence`): ring attention across the group
-(parallel/ring_attention.py), the dropout masks the slice of the whole
-row's draw (every sp peer of a row share takes its seed). The loss is the
-mean of the ranks' means, exact since every rank holds S / sp positions
-of each row (GPT's labels are the targets themselves, cut like the ids),
-and each gradient leaf is averaged over the dp and sp groups
-(`sp_collective_budget` states a step's calls). A model that the split
-does not cover raises `NotImplementedError`, naming its ROADMAP item,
-rather than compute attention over a slice alone: a GPT whose attention
-is not ``"ring"``, remat, ERNIE / BERT, and LocalSGD (distributed/
-mesh.py refuses ``sp`` beside ``mp``, ``pp`` or ``sharding``).
+its sp index's: ``S / sp`` positions from ``sp_index * S / sp`` (the
+model's `pos_offset`). An array whose spec is ``"dp"`` alone (ERNIE's
+padding mask) keeps its whole sequence on every sp rank. The model runs
+as its rank of the ``sp`` group (`GPT.shard_sequence`,
+`Bert.shard_sequence`): attention across the group, the ring
+(parallel/ring_attention.py) under ``attn_impl="ring"`` and K/V gathered
+over the group otherwise (parallel/sequence_attention.py), the dropout
+masks the slice of the whole row's draw (every sp peer of a row share
+takes its seed). GPT's loss is the mean of the ranks' means, exact since
+every rank holds S / sp positions of each row (its labels are the
+targets themselves, cut like the ids); the MLM loss weighs each rank's
+mean by its labelled positions over the dp and sp groups (`loss_weight`,
+below). Each gradient leaf is averaged over the dp and sp groups
+(`sp_collective_budget` states a step's calls). What the split does not
+cover raises `NotImplementedError`, naming its ROADMAP item, rather than
+compute attention over a slice alone: remat, a model without
+`shard_sequence`, and LocalSGD (distributed/mesh.py refuses ``sp`` beside
+``mp``, ``pp`` or ``sharding``).
 
 ``pp`` meshes train through `models/gpt_pipeline.py` (the pipelined GPT's
 step, built on this module's rank jobs).
@@ -175,6 +180,7 @@ from .collectives import (all_gather, all_reduce, collective_counts,
                           quantized_psum_scatter, reduce_scatter,
                           reset_collective_counts)
 from .ring_attention import ring_hops
+from .sequence_attention import gathered_calls
 
 _JOB_IDS = itertools.count(1)
 
@@ -227,8 +233,9 @@ def train_collective_budget(n_param_leaves, dp_degree, quant_grads=False,
 
 
 def hybrid_collective_budget(n_param_leaves=0, row_degrees=(), *,
-                             sp_degree=1, ring_layers=0, mp_degree=1,
-                             mp_calls=(0, 0), moe_layers=0,
+                             sp_degree=1, ring_layers=0, gathered_layers=0,
+                             first_token=False, weighted_loss=False,
+                             mp_degree=1, mp_calls=(0, 0), moe_layers=0,
                              n_zero_leaves=0):
     """EXACT collective counts of ONE hybrid-path train step on every
     rank, the sum of each feature's term:
@@ -236,7 +243,9 @@ def hybrid_collective_budget(n_param_leaves=0, row_degrees=(), *,
     - the data groups (each row axis of `row_degrees` — ``dp``,
       ``sharding`` — and ``sp``, of degree above 1): one ``all-reduce``
       of the loss and one a gradient leaf over each (the mean over the
-      data ranks);
+      data ranks), and with `weighted_loss` (a loss naming its
+      `loss_weight`: the MLM loss's labelled positions) one more of the
+      share's count;
     - ZeRO stages 1 and 2 over ``sharding``: one ``all-gather`` a leaf
       whose update that axis slices (`n_zero_leaves`: the updated
       slices);
@@ -251,30 +260,48 @@ def hybrid_collective_budget(n_param_leaves=0, row_degrees=(), *,
       slots after the lower shares');
     - each of `ring_layers` ring attentions: its hops, each one ``send``
       and one ``recv`` (`ring_attention.ring_hops`);
-    - nothing else: no gather of K/V, no reduction of activations."""
+    - each of `gathered_layers` gathered attentions over ``sp``: one
+      ``all-gather`` of K/V forward and one ``reduce-scatter`` of the
+      dK/dV partials backward (`sequence_attention.gathered_calls`);
+    - `first_token`: at sp above 1, BERT's pooler input handed from sp
+      rank 0 (one ``all-gather``; no loss of the port reads the NSP
+      head, so its gradient makes no call);
+    - nothing else: no reduction of activations."""
     rows = sum(int(d) > 1 for d in row_degrees)
-    groups = rows + int(int(sp_degree) > 1)
+    sp = int(int(sp_degree) > 1)
+    groups = rows + sp
     mp = int(mp_degree) > 1
     moe = int(moe_layers)
     hops = int(ring_layers) * sum(ring_hops(sp_degree))
-    return {"all-reduce": groups * (1 + int(n_param_leaves))
+    ag, rs = (int(gathered_layers) * c for c in gathered_calls(sp_degree))
+    return {"all-reduce": groups * (1 + int(n_param_leaves)
+                                    + int(bool(weighted_loss)))
             + (int(mp_calls[0]) + 2 * moe if mp else 0),
-            "all-gather": rows * moe + int(n_zero_leaves)
+            "all-gather": rows * moe + int(n_zero_leaves) + ag
+            + sp * int(bool(first_token))
             + (int(mp_calls[1]) if mp else 0),
-            "reduce-scatter": 0, "all-to-all": 0,
-            "send": hops, "recv": hops}
+            "reduce-scatter": rs,
+            "all-to-all": 0, "send": hops, "recv": hops}
 
 
 def sp_collective_budget(num_layers, sp_degree, dp_degree=1,
-                         n_param_leaves=0):
-    """`hybrid_collective_budget` of a sequence-parallel GPT step of
-    `num_layers` layers with ring attention over a mesh of ``dp`` x
-    ``sp``: each layer's ring makes ``sp - 1`` hops forward and ``sp``
-    backward; the loss and one a gradient leaf are all-reduced over each
-    of the dp and sp groups of degree above 1."""
-    return hybrid_collective_budget(n_param_leaves, (dp_degree,),
-                                    sp_degree=sp_degree,
-                                    ring_layers=num_layers)
+                         n_param_leaves=0, ring=True, bert=False):
+    """`hybrid_collective_budget` of a sequence-parallel step of
+    `num_layers` layers over a mesh of ``dp`` x ``sp``: each layer's ring
+    makes ``sp - 1`` hops forward and ``sp`` backward, or with `ring`
+    False (GPT's ``"flash"`` / ``"xla"``, and `bert`) each layer gathers
+    K/V forward and reduce-scatters the partials backward; the loss and
+    one a gradient leaf are all-reduced over each of the dp and sp groups
+    of degree above 1. `bert` (with `bert_pretrain_loss_fn`): the
+    labelled positions' count all-reduced over each group too, and the
+    pooler's first token gathered from sp rank 0."""
+    ring = ring and not bert
+    return hybrid_collective_budget(
+        n_param_leaves, (dp_degree,), sp_degree=sp_degree,
+        ring_layers=num_layers if ring else 0,
+        gathered_layers=0 if ring else num_layers,
+        first_token=bert,
+        weighted_loss=bert)
 
 
 def moe_collective_budget(num_moe_layers, mp_degree=1, row_degrees=(),
@@ -988,10 +1015,11 @@ class _Replica:
         loss = self._forward(batch)
         weigh = getattr(self.loss_fn, "loss_weight", None)
         if weigh is not None and not self.explicit and self.data_groups:
-            # a mean over a count that differs between row shares (the
-            # MLM loss's labelled positions): weight this share's mean by
-            # its count over the mean count, so the dp average below is
-            # the whole batch's mean (JAX's GSPMD step computes it whole)
+            # a mean over a count that differs between row shares and
+            # sequence slices (the MLM loss's labelled positions): weight
+            # this share's mean by its count over the mean count, so the
+            # average below over the dp and sp groups is the whole batch's
+            # mean (JAX's GSPMD step computes it whole)
             w = torch.as_tensor(weigh(batch[-1]), dtype=torch.float32,
                                 device=self.device).reshape(1)
             total = w.clone()
@@ -1263,12 +1291,14 @@ def _ranks_of(mesh):
 
 def _data_axes(batch_specs):
     """``(row axes, sequence axis)`` of the batch, from `batch_specs` (one
-    spec an array, every array alike): None or ``"dp"`` (JAX's
+    spec an array, every array's rows alike): None or ``"dp"`` (JAX's
     ``P("dp")``) or a tuple of the axes the rows split over (``("dp",
     "sharding")``); ``("dp", "sp")``, or ``(rows, "sp")``, splits the rows
     over dp and the sequence (dim 1) over ``sp`` (JAX's ``P("dp",
-    "sp")``). The sequence axis is None when no spec names ``"sp"``."""
-    axes = set()
+    "sp")``). The sequence axis is None when no spec names ``"sp"``; an
+    array whose spec does not name it keeps its whole sequence
+    (`_seq_split_arrays`)."""
+    axes, seqs = set(), set()
     for spec in batch_specs or ("dp",):
         spec = (spec,) if spec is None or isinstance(spec, str) \
             else tuple(spec)
@@ -1281,11 +1311,12 @@ def _data_axes(batch_specs):
             spec, seq = spec[:1], "sp"
         if spec and isinstance(spec[0], (tuple, list)):
             spec = tuple(spec[0])     # a JAX-style spec of the rows' axes
-        axes.add((tuple(a for a in spec if a is not None) or ("dp",), seq))
+        axes.add(tuple(a for a in spec if a is not None) or ("dp",))
+        seqs.add(seq)
     if len(axes) != 1:
         raise ValueError(f"batch_specs {batch_specs}: every batch array "
                          "splits its rows over the same axes")
-    ((got, seq),) = axes
+    (got,), seq = axes, ("sp" if "sp" in seqs else None)
     if got[0] != "dp" or not set(got) <= {"dp", "sharding"} \
             or len(set(got)) != len(got):
         raise ValueError(
@@ -1295,32 +1326,32 @@ def _data_axes(batch_specs):
     return got, seq
 
 
+def _seq_split_arrays(batch_specs):
+    """Whether each batch array's spec splits its sequence over ``sp``
+    (`_data_axes`'s specs, in order)."""
+    return tuple("sp" in ((spec,) if spec is None or isinstance(spec, str)
+                          else tuple(spec))
+                 for spec in batch_specs or ("dp",))
+
+
 def _sequence_guard(model, mesh, batch_specs, remat=False):
     """Raise unless the sequence split covers this step (module
     docstring): on a mesh with ``sp`` above 1, the batch must split its
-    sequence over ``sp`` and the model must be a GPT with ring attention
-    and no remat. Each refusal names its ROADMAP item."""
+    sequence over ``sp``, and the model must split its attention over the
+    group (`shard_sequence`) without remat. Each refusal of what is not
+    ported names its ROADMAP item."""
     if mesh.shape.get("sp", 1) <= 1:
         return
     if _data_axes(batch_specs)[1] != "sp":
         raise ValueError(
             f"a mesh with sp={mesh.shape['sp']} splits each row's sequence "
             "over its sp ranks: batch_specs=(('dp', 'sp'),) * 2")
-    from ..models.bert import Bert
-
-    if isinstance(model, Bert):
-        raise NotImplementedError(
-            "ERNIE / BERT under sp is not ported (ROADMAP Queue 1, item "
-            "8b.3): its attention is not a ring")
     cfg = getattr(model, "cfg", None)
-    if not hasattr(model, "shard_sequence") or \
-            getattr(cfg, "attn_impl", None) != "ring":
+    if not hasattr(model, "shard_sequence"):
         raise NotImplementedError(
-            f"{type(model).__name__} at sp={mesh.shape['sp']} with "
-            f"attn_impl={getattr(cfg, 'attn_impl', None)!r}: attention "
-            "over a sequence slice must span the sp group, and only "
-            "GPTConfig(attn_impl='ring') does (ROADMAP Queue 1, item "
-            "8b.4)")
+            f"{type(model).__name__} at sp={mesh.shape['sp']}: attention "
+            "over a sequence slice must span the sp group, and this model "
+            "has no shard_sequence (GPT and Bert have)")
     if remat or getattr(cfg, "remat", False):
         raise NotImplementedError(
             "remat under sp is not ported (ROADMAP Queue 1, item 8b.2)")
@@ -1507,6 +1538,7 @@ class _TrainStep(RankJob):
     def _open(self, model, loss_fn, optimizer, mesh, batch_specs,
               zero_stage=0, **opts):
         data_axes, seq_axis = _data_axes(batch_specs)
+        self._seq_arrays = _seq_split_arrays(batch_specs)
         _expert_guard(model, mesh)
         if mesh.device_type == "cuda" and torch.cuda.is_available():
             torch.cuda.set_device(mesh.devices[0])
@@ -1629,11 +1661,18 @@ class _TrainStep(RankJob):
         (rank 1's), ...]`` as numpy arrays, each array split along its first
         axis as its spec splits it (``P("dp")``: the dp index's share, the
         same on the sharding and mp peers), and under ``("dp", "sp")``
-        along its second too (the sp index's slice of the sequence)."""
+        along its second too (the sp index's slice of the sequence; an
+        array whose spec is ``"dp"`` alone stays whole on the sp ranks)."""
         place = self._place
-        sp = place.seq_degree
         out = [[] for _ in range(self.mesh.size)]
-        for a in arrays:
+        if place.seq_degree > 1 and len(arrays) != len(self._seq_arrays):
+            raise ValueError(
+                f"{len(arrays)} batch arrays against "
+                f"{len(self._seq_arrays)} batch_specs: under sp each array "
+                "names whether its sequence splits")
+        for i, a in enumerate(arrays):
+            sp = place.seq_degree if place.seq_degree > 1 and \
+                self._seq_arrays[i] else 1
             a = a.detach().cpu().numpy() if torch.is_tensor(a) else \
                 np.asarray(a)
             if a.shape[0] % self.dp:

@@ -964,7 +964,7 @@ class ReplicaRouter:
         (bounded by `drain_timeout_s`), hand its warm host-tier KV blocks
         to the survivors (``migrate_on_drain``: the drained engine is
         quiescent, so ``demote=True`` carries device-cached prefixes too
-        — scale-down is zero-rewarm), shut it down, and remove it.
+        — scale-down is zero-rewarm), remove it, and shut it down.
         `replica` may be a `Replica`, a name, or None (the highest-index
         active replica). Refuses to retire the last active replica.
         Returns the retired replica's name."""
@@ -1010,12 +1010,15 @@ class ReplicaRouter:
             except Exception as e:  # noqa: BLE001 — cache carryover is
                 self._log_event(       # an optimization, never a gate
                     replica, "migrate_failed", f"{type(e).__name__}: {e}")
+        # out of the fleet before its engine stops: a health sweep that saw
+        # the stopped engine would eject the replica and start a salvage
+        # task holding its engine (and card memory) past this return
+        self._replicas.remove(replica)
         try:
             await replica.engine.shutdown(drain=True,
                                           timeout_s=drain_timeout_s)
         except Exception:  # noqa: BLE001 — a wedged replica must not
             pass               # survive scale-down by being wedged
-        self._replicas.remove(replica)
         self.metrics.inc("router_scale_downs")
         self._log_event(replica, "remove")
         self._update_gauges()

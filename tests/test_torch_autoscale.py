@@ -296,3 +296,42 @@ def test_a_retired_engine_is_gone_when_the_retire_returns(fleets, how):
     alive, gone = asyncio.run(run())
     assert not alive
     assert gone == (True, True)
+
+
+def test_a_sweep_during_a_retire_leaves_the_retired_replica_alone(fleets):
+    """A health sweep that runs while `retire_replica` shuts the retired
+    engine down (its thread gone: healthz "engine_dead") finds the replica
+    already out of the fleet: it ejects nothing and starts no salvage task
+    that would hold the engine, so the engine is gone when the retire
+    returns (after one gc.collect(), with no wait)."""
+    f = fleets["torch"]
+
+    def factory(i):
+        return f.front(f.engine(max_batch=2, host_kv_blocks=8))
+
+    async def run():
+        # the loop's own sweep stays idle: this test sweeps by hand
+        router = f.router([factory(0), factory(1)], factory=factory,
+                          sweep_interval_s=3600.0)
+        await router.start()
+        fe = router.replicas[-1].engine
+        name, engine = router.replicas[-1].name, weakref.ref(fe.engine)
+        stop = [fe.shutdown]     # emptied by its call: holds fe no longer
+
+        async def shutdown_then_sweep(*args, **kwargs):
+            await stop.pop()(*args, **kwargs)
+            router._sweep_once(time.monotonic())
+
+        fe.shutdown = shutdown_then_sweep
+        del fe
+        assert await router.retire_replica() == name
+        gc.collect()
+        gone = engine() is None
+        events = [e["event"] for e in router.snapshot()["events"]
+                  if e["replica"] == name]
+        await router.shutdown()
+        return gone, events
+
+    gone, events = asyncio.run(run())
+    assert "eject" not in events, events
+    assert gone

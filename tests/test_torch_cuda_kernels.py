@@ -841,6 +841,202 @@ def test_ring_on_the_card_never_takes_the_plain_path(dev, monkeypatch):
                                rtol=0, atol=0)
 
 
+# -- keep bits at a query-row offset; gathered sequence attention -------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("causal,q_row0,sq,sk", [
+    (True, 128, 128, 256), (False, 192, 64, 256)],
+    ids=["causal_rank1of2", "padding_rank3of4"])
+def test_flash_kernels_at_a_query_row_offset(dev, dtype, head_dim, causal,
+                                             q_row0, sq, sk):
+    """A sequence-parallel rank's launch: its `sq` queries from row
+    `q_row0` of a sequence of `sk` keys, dropout 0.1 (with a padding mask
+    when not causal). Forward (O, LSE) and both backward kernels (dQ; dK,
+    dV) against the plain version at the same `q_row0`, within 2e-5 in
+    float32 and 2e-2 in bfloat16; the keep bits move with the offset (O
+    differs from the launch at row 0)."""
+    b, h, p, seed = 2, 3, 0.1, 97
+    q, k, v, do = _flash_inputs(b, sq, sk, h, head_dim, dtype, dev, seed=8)
+    mask = None if causal else _padding_mask(b, sk, dev)
+    o32 = torch.empty(q.shape, device=dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, mask, p, seed, o32,
+                                    q_row0=q_row0)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o32, do, lse, causal, mask,
+                                        p, seed, q_row0=q_row0)
+    at0, _ = fa.flash_attention_fwd(q, k, v, causal, mask, p, seed)
+    torch.cuda.synchronize()
+    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    ref = fa.attention_ref(q32, k32, v32, causal, mask, p, seed,
+                           q_row0=q_row0)
+    ref.backward(do.float())
+    want = (ref.detach(), fa.attention_lse_ref(q32.detach(), k32.detach(),
+                                               causal, mask),
+            q32.grad, k32.grad, v32.grad)
+    gate = F32_GATE if dtype == torch.float32 else TOL[dtype]
+    for name, got, w in zip(("o", "lse", "dq", "dk", "dv"),
+                            (o, lse, dq, dk, dv), want):
+        err = _max_err(got, w)
+        assert err < gate, f"{name}: max err {err}"
+    assert _max_err(o, at0) > 0.1
+
+
+def _row0_zero_digests(dev, **row0):
+    """sha256 (16 hex digits) of every output of one forward and one
+    backward launch on fixed inputs (2 x 200, 3 heads, from a seeded CPU
+    generator), for each dtype, head_dim and variant the main paths run
+    (plain causal, padding mask, causal dropout, padding + dropout, a full
+    mask). `row0` is passed to both launches (``q_row0=0`` or nothing)."""
+    import hashlib
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 128):
+            for causal, variant in ((True, "plain"), (False, "padding"),
+                                    (True, "dropout"),
+                                    (False, "padding+dropout"),
+                                    (True, "mask")):
+                q, k, v, do = _flash_inputs(2, 200, 200, 3, d, dtype, dev,
+                                            seed=21)
+                mask = None
+                if variant == "mask":
+                    g = torch.Generator().manual_seed(22)
+                    mask = torch.randn((2, 3, 200, 200), generator=g).to(dev)
+                elif variant.startswith("padding"):
+                    mask = _padding_mask(2, 200, dev)
+                p, seed = (0.1, 4242) if "dropout" in variant else (0.0, None)
+                o32 = (torch.empty(q.shape, device=dev)
+                       if p and dtype != torch.float32 else None)
+                o, lse = fa.flash_attention_fwd(q, k, v, causal, mask, p,
+                                                seed, o32, **row0)
+                grads = fa.flash_attention_bwd(
+                    q, k, v, o if o32 is None else o32, do, lse, causal,
+                    mask, p, seed, **row0)
+                h = hashlib.sha256()
+                for t in (o, lse) + tuple(grads):
+                    h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                             .tobytes())
+                out[f"{str(dtype)[6:]}-{d}-{variant}"] = h.hexdigest()[:16]
+    return out
+
+
+# `_row0_zero_digests` of the kernels before the keep bits took a query-row
+# offset, on an H100 80GB HBM3 (700 W) with CUDA 12 (the tree at the parent
+# of the change that added `q_row0`, built from its own csrc)
+ROW0_ZERO_DIGESTS = {
+    "float32-64-plain": "693e0f894b8a8ee9",
+    "float32-64-padding": "38814c256890a28f",
+    "float32-64-dropout": "bfa138d246dc239c",
+    "float32-64-padding+dropout": "4da8119200757fd1",
+    "float32-64-mask": "f7747fbcf2236593",
+    "float32-128-plain": "9082ce79778e524f",
+    "float32-128-padding": "999fc41c629c5fa6",
+    "float32-128-dropout": "03bb9c81f841a155",
+    "float32-128-padding+dropout": "c785804218b7e6d6",
+    "float32-128-mask": "71fcc55ad02580b7",
+    "bfloat16-64-plain": "72b372d4836f6162",
+    "bfloat16-64-padding": "c1ef48074de96355",
+    "bfloat16-64-dropout": "400fbbcd20624181",
+    "bfloat16-64-padding+dropout": "3e0d4ff80ea2c5ee",
+    "bfloat16-64-mask": "0724882369a11a6c",
+    "bfloat16-128-plain": "b5cdb16c4b2bfa6a",
+    "bfloat16-128-padding": "0f6958bb7ab659b0",
+    "bfloat16-128-dropout": "bb4dfa130834700b",
+    "bfloat16-128-padding+dropout": "404d977bf23a1915",
+    "bfloat16-128-mask": "3c4be6f722d93a49",
+}
+
+
+def test_row0_zero_launches_are_bit_equal_to_the_kernels_before_it(dev):
+    """Every launch at ``q_row0 = 0`` (and with no `q_row0` at all) gives
+    the outputs the kernels gave before the offset existed, bit for bit
+    (their digests, recorded from that tree on the card)."""
+    assert ROW0_ZERO_DIGESTS, "no recorded digests"
+    assert _row0_zero_digests(dev) == ROW0_ZERO_DIGESTS
+    assert _row0_zero_digests(dev, q_row0=0) == ROW0_ZERO_DIGESTS
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gathered_steps_match_one_flash_call(dev, dtype, n):
+    """The n ranks' gathered steps (`rank_forward`, `rank_backward`) in
+    one process at gpt_1p3b's attention shape (1 x 2048, 16 heads, D 128,
+    causal, dropout 0.1): O and dQ joined, dK and dV summed over the
+    ranks' partials (each rank's written into a strided [S, B, 2, H, D]
+    buffer, as the reduce-scatter takes them), within 2e-5 (f32) of one
+    flash call over the whole sequence, in bf16 within 2e-2 plus one bf16
+    ulp; each rank launches the forward and the backward pair once, over
+    its key prefix, with no host sync."""
+    from paddle_tpu_torch.parallel.sequence_attention import (
+        rank_backward, rank_forward)
+
+    B, S, H, D = 1, 2048, 16, 128
+    p, seed = 0.1, 77
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device=dev)
+                   .to(dtype) for _ in range(4))
+    o32 = torch.empty(q.shape, device=dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, None, p, seed, o32)
+    want = (o,) + tuple(fa.flash_attention_bwd(q, k, v, o32, do, lse, True,
+                                               None, p, seed))
+    L = S // n
+    outs, dqs = [], []
+    dk, dv = (torch.zeros((B, S, H, D), device=dev) for _ in "kv")
+    for i in range(n):
+        rows = slice(i * L, (i + 1) * L)
+        parts = torch.zeros((S, B, 2, H, D), dtype=dtype, device=dev)
+        views = [parts[:(i + 1) * L, :, j].transpose(0, 1) for j in (0, 1)]
+        oi32 = torch.empty((B, L, H, D), device=dev)
+        f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            oi, lsei = rank_forward(q[:, rows], k, v, i, True, None, p, seed,
+                                    o32=oi32)
+            dqi, _, _ = rank_backward(q[:, rows], k, v, oi32, do[:, rows],
+                                      lsei, i, True, None, p, seed,
+                                      out=views)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert (fa.flash_attention_fwd.launches - f0,
+                fa.flash_attention_bwd.launches - b0) == (1, 1)
+        outs.append(oi)
+        dqs.append(dqi)
+        dk += parts[:, :, 0].transpose(0, 1).float()
+        dv += parts[:, :, 1].transpose(0, 1).float()
+    for name, got, w in zip(("o", "dq", "dk", "dv"),
+                            (torch.cat(outs, 1), torch.cat(dqs, 1), dk, dv),
+                            want):
+        err = (got.float() - w.float()).abs()
+        if dtype == torch.bfloat16:
+            _, e = torch.frexp(w.float())
+            err = err - torch.ldexp(torch.ones_like(err), e - 8)
+        assert err.max().item() <= RING_TOL[dtype], (name, err.max().item())
+
+
+def test_gathered_attention_on_the_card_never_takes_the_plain_path(
+        dev, monkeypatch):
+    """On CUDA tensors a rank's gathered steps launch the kernels and never
+    call the plain versions (made to raise here); a group of one is one
+    flash call."""
+    from paddle_tpu_torch.parallel import sequence_attention as sa
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain path ran on a CUDA tensor")
+
+    for name in ("attention_ref", "attention_lse_ref", "attention_bwd_ref"):
+        monkeypatch.setattr(sa, name, refuse)
+    q, k, v, do = _flash_inputs(1, 256, 256, 2, 64, torch.float32, dev)
+    o, lse = sa.rank_forward(q[:, 128:], k, v, 1, True)
+    sa.rank_backward(q[:, 128:], k, v, o, do[:, 128:].contiguous(), lse, 1,
+                     True)
+    f0 = fa.flash_attention_fwd.launches
+    one = sa.gathered_attention(q, k, v, None, causal=True)
+    assert fa.flash_attention_fwd.launches == f0 + 1
+    torch.testing.assert_close(one, fa.flash_attention_fwd(q, k, v, True)[0],
+                               rtol=0, atol=0)
+
+
 def test_sp2_gloo_ranks_on_the_card_equal_one_process(dev):
     """A float32 ring GPT (2 layers, 2 heads of D 128, 2 x 512) over
     {"sp": 2}: two rank processes on one card over gloo (every hop staged

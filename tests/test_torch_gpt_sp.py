@@ -1,29 +1,33 @@
 """Sequence-parallel GPT training in the port (parallel/spmd.py's sequence
-split, parallel/ring_attention.py, distributed/mesh.py's ``sp`` axis)
-against the JAX package's GSPMD step, on the CPU.
+split, parallel/ring_attention.py, parallel/sequence_attention.py,
+distributed/mesh.py's ``sp`` axis) against the JAX package's GSPMD step,
+on the CPU.
 
 The port's ranks are spawned gloo processes, one mesh a degree set
 (``{"sp": 2}``, ``{"dp": 2, "sp": 2}``, ``{"sp": 4}``), kept for the
 module, collectives timing out after 60 s. The JAX side runs
 `make_sharded_train_step(..., batch_specs=(P("dp", "sp"),) * 2)` with
 ``GPTConfig(attn_impl="ring")`` over the same degrees on the
-8-fake-device CPU mesh (its ring is `ring_attention`'s shard_map). Both
+8-fake-device CPU mesh (its ring is `ring_attention`'s shard_map), and
+with ``"flash"`` and ``"xla"`` (attention over the sequence-split input
+as GSPMD partitions it; the port gathers K/V over the sp group). Both
 start from the same numpy weights (`weights.from_jax_state_dict`) and
 train float32 with SGD 0.1 for 3 steps on one seeded batch:
 
 - the losses agree within 1e-5 relative and every gathered parameter
   within 2e-5 (`to_jax_train_state`, the JAX layout);
 - with dropout 0.1 (embeddings and residual branches; the ring takes no
-  attention dropout) ``{"sp": 2}`` equals the port's one process at the
-  same seed: each rank's masks are its slice of the whole row's draw (the
-  JAX package's PRNG cannot match, so this stays inside the port);
-- each rank's sends, receives and all-reduces a step equal
-  `sp_collective_budget`, whose arithmetic is held on its own;
+  attention dropout, flash's draws the whole sequence's keep bits at each
+  rank's rows) ``{"sp": 2}`` equals the port's one process at the same
+  seed: each rank's masks are its slice of the whole row's draw (the JAX
+  package's PRNG cannot match, so this stays inside the port);
+- each rank's sends, receives, all-gathers, reduce-scatters and
+  all-reduces a step equal `sp_collective_budget`, whose arithmetic is
+  held on its own;
 - what the split does not cover raises `NotImplementedError` naming its
-  ROADMAP item (a non-ring GPT, remat, ERNIE, LocalSGD, ``sp`` beside
-  ``mp``), and a sequence that ``sp`` does not divide raises.
+  ROADMAP item (remat, LocalSGD, ``sp`` beside ``mp``), and a sequence
+  that ``sp`` does not divide raises.
 """
-import types
 
 import jax
 import jax.numpy as jnp
@@ -85,14 +89,14 @@ def _batch(rows=4, seq=64, seed=0):
 _JAX = {}
 
 
-def _jax_run(key):
-    """The JAX GSPMD step with ring attention over DEGREES[key] from
+def _jax_run(key, attn_impl="ring"):
+    """The JAX GSPMD step with `attn_impl` over DEGREES[key] from
     paddle.seed(0): (initial numpy weights, losses, natural numpy
     params)."""
-    if key not in _JAX:
+    if (key, attn_impl) not in _JAX:
         jmesh = jax_init_mesh(DEGREES[key])
         paddle.seed(0)
-        model = JaxGPT(JaxGPTConfig(**CFG, attn_impl="ring"))
+        model = JaxGPT(JaxGPTConfig(**CFG, attn_impl=attn_impl))
         init = {k: np.asarray(v)
                 for k, v in state_dict_arrays(model)[0].items()}
         opt = paddle.optimizer.SGD(learning_rate=LR,
@@ -109,9 +113,9 @@ def _jax_run(key):
                 jax.random.PRNGKey(0), *b)
             losses.append(float(np.asarray(loss)))
         jax_set_mesh(None)
-        _JAX[key] = (init, losses,
-                     {k: np.asarray(v) for k, v in params.items()})
-    return _JAX[key]
+        _JAX[key, attn_impl] = (init, losses,
+                                {k: np.asarray(v) for k, v in params.items()})
+    return _JAX[key, attn_impl]
 
 
 def _port_step(mesh, init, dropout=0.0, attn_impl="ring", specs=SPEC,
@@ -160,6 +164,39 @@ def test_sp_steps_match_jax_gspmd(meshes, key):
                                            for k in KEYS}, (c, budget)
 
 
+@pytest.mark.parametrize("key", list(DEGREES))
+@pytest.mark.parametrize("attn_impl", ["flash", "xla"])
+def test_gathered_sp_steps_match_jax_gspmd(meshes, attn_impl, key):
+    """``attn_impl="flash"`` and ``"xla"`` over the same degrees: K/V
+    gathered over the sp group, the JAX step's losses within 1e-5
+    relative and every gathered parameter within 2e-5; each rank's calls
+    a step are `sp_collective_budget`'s (an all-gather and a
+    reduce-scatter a layer, no hop)."""
+    init, want, jparams = _jax_run(key, attn_impl)
+    step = _port_step(meshes[key], init, attn_impl=attn_impl)
+    try:
+        step.rank_reports(zero=True)
+        got = [step(*_batch()) for _ in range(STEPS)]
+        counts = step.collective_counts()
+        params, _, _ = to_jax_train_state(step)
+    finally:
+        step.close()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert set(params) == set(jparams)
+    for k, w in jparams.items():
+        np.testing.assert_allclose(params[k], w, atol=2e-5, rtol=0,
+                                   err_msg=k)
+    deg = DEGREES[key]
+    budget = sp_collective_budget(CFG["num_layers"], deg["sp"],
+                                  deg.get("dp", 1), len(step.names),
+                                  ring=False)
+    assert budget["all-gather"] == budget["reduce-scatter"] == \
+        CFG["num_layers"] and budget["send"] == 0
+    for c in counts:
+        assert {k: c[k] for k in KEYS} == {k: STEPS * budget[k]
+                                           for k in KEYS}, (c, budget)
+
+
 def test_ring_model_equals_one_process_without_a_mesh(meshes):
     """The same weights, batch and steps on one process (no mesh, the
     ring's fallback: flash attention over the whole row) give the sp=2
@@ -200,6 +237,31 @@ def test_dropout_at_sp2_equals_one_process(meshes):
                                    rtol=0, err_msg=k)
 
 
+def test_flash_attention_dropout_at_sp2_equals_one_process(meshes):
+    """``attn_impl="flash"`` with dropout 0.1, attention dropout included:
+    {"sp": 2} gives one process's losses and parameters at the same seed
+    (each rank draws the whole sequence's keep bits at its rows, and its
+    slice of every elementwise mask)."""
+    init = _jax_run("sp2")[0]
+    one = _port_step(build_mesh({"dp": 1}, device="cpu"), init, dropout=0.1,
+                     attn_impl="flash", specs=None)
+    try:
+        want = [one(*_batch(), seed=5) for _ in range(2)]
+        wparams = one.gather_params()
+    finally:
+        one.close()
+    step = _port_step(meshes["sp2"], init, dropout=0.1, attn_impl="flash")
+    try:
+        got = [step(*_batch(), seed=5) for _ in range(2)]
+        params = step.gather_params()
+    finally:
+        step.close()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    for k, w in wparams.items():
+        np.testing.assert_allclose(params[k].numpy(), w.numpy(), atol=2e-5,
+                                   rtol=0, err_msg=k)
+
+
 # -- the arithmetic and the refusals -------------------------------------------
 
 
@@ -209,13 +271,23 @@ def test_dropout_at_sp2_equals_one_process(meshes):
 def test_sp_collective_budget_arithmetic(layers, sp, dp, leaves):
     """Each layer's ring: sp - 1 hops forward and sp backward, a send and
     a receive each; the loss and each leaf all-reduced once over each of
-    the dp and sp groups of degree above 1."""
+    the dp and sp groups of degree above 1. Gathered attention: an
+    all-gather and a reduce-scatter a layer in place of the hops; BERT's
+    adds its labelled-position count a group and the first token's
+    all-gather."""
     b = sp_collective_budget(layers, sp, dp, leaves)
     hops = layers * (2 * sp - 1) if sp > 1 else 0
     groups = (dp > 1) + (sp > 1)
     assert b == {"all-reduce": groups * (1 + leaves), "all-gather": 0,
                  "reduce-scatter": 0, "all-to-all": 0, "send": hops,
                  "recv": hops}
+    g = layers if sp > 1 else 0
+    assert sp_collective_budget(layers, sp, dp, leaves, ring=False) == {
+        "all-reduce": groups * (1 + leaves), "all-gather": g,
+        "reduce-scatter": g, "all-to-all": 0, "send": 0, "recv": 0}
+    assert sp_collective_budget(layers, sp, dp, leaves, bert=True) == {
+        "all-reduce": groups * (2 + leaves), "all-gather": g + int(sp > 1),
+        "reduce-scatter": g, "all-to-all": 0, "send": 0, "recv": 0}
 
 
 def test_meshes_and_topology_take_sp():
@@ -245,23 +317,21 @@ def test_meshes_and_topology_take_sp():
 
 
 def test_what_the_split_does_not_cover_raises(meshes):
-    """At sp > 1: a GPT whose attention is not 'ring' (attention over a
-    slice would be local), remat, ERNIE and LocalSGD raise
+    """At sp > 1: remat, ERNIE's remat and LocalSGD raise
     NotImplementedError naming their ROADMAP items; a batch_specs that
     does not split the sequence, and a sequence sp does not divide, raise
     ValueError. None of them computes."""
     init = _jax_run("sp2")[0]
     mesh = meshes["sp2"]
-    with pytest.raises(NotImplementedError, match="item 8b.4"):
-        _port_step(mesh, init, attn_impl="flash")
     with pytest.raises(NotImplementedError, match="item 8b.2"):
         _port_step(mesh, init, remat=True)
     with pytest.raises(ValueError, match="batch_specs"):
         _port_step(mesh, init, specs=None)
     bert = Bert(BertConfig(vocab_size=64, hidden_size=32, num_layers=1,
                            num_heads=2, intermediate_size=64,
-                           max_position_embeddings=64), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8b.3"):
+                           max_position_embeddings=64, remat=True),
+                device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8b.2"):
         make_sharded_train_step(
             bert, bert_pretrain_loss_fn,
             SGD(learning_rate=LR, parameters=bert.named_parameters()),
@@ -270,9 +340,6 @@ def test_what_the_split_does_not_cover_raises(meshes):
     with pytest.raises(NotImplementedError, match="item 8b.1"):
         LocalSGDTrainStep(model, gpt_loss_fn, SGD(
             learning_rate=LR, parameters=model.named_parameters()), mesh)
-    with pytest.raises(NotImplementedError, match="item 8b.4"):
-        GPT(GPTConfig(**CFG), device="cpu").shard_sequence(
-            types.SimpleNamespace(rank=0, size=2))
     step = _port_step(mesh, init)
     try:
         with pytest.raises(ValueError, match="does not split over sp"):
