@@ -362,20 +362,21 @@ Phases, in order; any failure exits nonzero:
    one process at gpt_1p3b's attention shape (1 x 2048, 16 heads, D 128,
    causal), float32 and bfloat16, against one flash call over the whole
    sequence: O, dQ, dK, dV within 2e-5 / 2e-2, i + 1 forward and backward
-   launches on rank i, no host sync in the steps. (b) gpt_1p3b (vocab
-   50304, hidden 2048, 24 layers, 16 heads, FFN 8192) at its 2048 context
-   in float32 with ring attention, 2 rows, over {"sp": 2}, SGD 0.1, 3
-   steps against the same model in one process: losses within 1e-5
-   relative; each rank's sends, receives and all-reduces a step equal
-   `sp_collective_budget`, 24 x (i + 1) flash launches of each direction
-   a step on sp rank i, no host sync beyond the budget's and the step's
-   own three; the card's free memory back within 64 MiB once the ranks
-   are gone; each rank's step phases (forward and backward with their
-   ring hops, the gradient all-reduce, the update), peak memory and
-   seconds. (c) The flagship widths at 2 layers, float32, ring attention,
-   4 rows over {"dp": 2, "sp": 2} (four ranks) against one process:
-   losses within 1e-5, parameters within 1e-5 relative to their norm, the
-   same gates. `--only 6g` builds the kernels and runs this phase alone.
+   launches on rank i, no host sync in the steps. (b) gpt_1p3b's widths
+   (vocab 50304, hidden 2048, 16 heads, FFN 8192) at 4 layers
+   (`SP_RING_LAYERS`) at its 2048 context in float32 with ring attention,
+   2 rows, over {"sp": 2}, SGD 0.1, 3 steps against the same model in one
+   process: losses within 1e-5 relative, parameters within 1e-5 relative
+   to their norm; each rank's sends, receives and all-reduces a step
+   equal `sp_collective_budget`, 4 x (i + 1) flash launches of each
+   direction a step on sp rank i, no host sync beyond the budget's and
+   the step's own three; each rank's step phases (forward and backward
+   with their ring hops, the gradient all-reduce, the update), peak
+   memory and seconds. (c) The flagship widths at 2 layers, float32, ring
+   attention, 4 rows over {"dp": 2, "sp": 2} (four ranks) against one
+   process, the same gates. (b)'s and (c)'s ranks start together after
+   (a); the card's free memory is back within 64 MiB once they are gone.
+   `--only 6g` builds the kernels and runs this phase alone.
 6h. Expert parallelism and incubate's fused functionals (run last; `--only
    6h` runs it alone). (a) MoELayer(2048, 8192, 8, "switch") (gpt_1p3b's
    hidden and FFN widths) at x [8, 1024, 2048]: its indexed dispatch and
@@ -424,10 +425,46 @@ Phases, in order; any failure exits nonzero:
    step `sp_collective_budget(..., bert=True)`, 12 + 12 flash launches a
    step a rank, host syncs within the budget's; each rank's phases, peak
    and seconds. (c) gpt_1p3b's widths at its 2048 context with
-   attn_impl="flash", 4 layers, f32, 2 rows, over {"sp": 2}, the same
-   gates (4 + 4 launches a step on both ranks: rank 1's whole prefix in
-   one call). (b) and (c) share the two ranks; the card's free memory is
+   attn_impl="flash", 2 layers (`GATHERED_GPT_LAYERS`), f32, 2 rows,
+   over {"sp": 2}, the same gates (2 + 2 launches a step on both ranks:
+   rank 1's whole prefix in one call). (b) and (c) share the two ranks; the card's free memory is
    back within 64 MiB once they are gone.
+6j. Sequence parallelism beside tensor parallelism and ZeRO (run last;
+   `--only 6j` builds the kernels and runs it alone): ranks on cuda:0
+   over an explicit gloo backend, every time labelled "eager, gloo
+   through the host, ranks sharing one card - not an sp or mp speed"
+   beside the card's name and power limit. (a) Every (mp, sp) rank's
+   gathered launches at n = 2 sp ranks by 2 head groups in one process
+   (`head_offset` and `q_row0` together), at gpt_1p3b's attention shape
+   (1 x 2048, 8 of 16 heads a rank, D 128, causal, dropout 0 and 0.1) and
+   ERNIE-base's (32 x 512, 6 of 12 heads, padding lengths 256-512,
+   dropout 0.1), f32 and bf16: each rank's O, LSE, dQ and dK / dV
+   partials against the f32 plain version at its heads, rows, key prefix,
+   mask and seed within 2e-5 / 2e-2; the plain keep bits at its heads and
+   rows equal the whole call's slice bit for bit; one forward and one
+   dK/dV + dQ launch a rank, no host sync; every call's bound, rank (1,
+   1)'s kernel, SDPA and plain times. (b) gpt_1p3b's widths at its 2048
+   context, 2 layers, 2 rows, f32, SGD 0.1, 3 steps over {"sp": 2, "mp":
+   2} against one process: attn_impl="flash" at dropout 0.1, the same
+   with the step's remat, and "ring" at dropout 0: losses within 1e-5
+   relative, parameters within 1e-5 of their norm, each rank's calls a
+   step `hybrid_collective_budget`'s (remat's term included) and its host
+   syncs within them, 2 + 2 flash launches a step a rank (4 forward under
+   remat; the ring 2 (i + 1) each way on sp rank i); the card's free
+   memory back within 64 MiB once the ranks are gone. (c) ERNIE-base at 8
+   x 512, f32, dropout 0.1, over {"sharding": 2, "sp": 2} at ZeRO stage 2
+   (rows over dp and sharding, the mask whole on the sp ranks), AdamW(1e-4,
+   weight decay 0.01), 3 steps, against the same rows over {"dp": 2} (a
+   row share's masks key on its index, so no one process draws them):
+   the loss gate, Adam's moments and every leaf but the biases within
+   1e-5 of their norm, a bias (it starts at zero) entry by entry within
+   Adam's 2 x steps x lr, the key biases' float-noise gradient held
+   apart, the budget, 12 + 12 mask + dropout launches a step a rank, each
+   rank's optimizer bytes half of one process's. The meshes' ranks start
+   together after (a). (d)
+   LocalSGD (k 2, 4 steps) of the flagship widths at 2 layers, f32, 4 x
+   1024 over {"dp": 2, "sp": 2} against LocalSGD over {"dp": 2}: losses
+   and every replica's parameters within 1e-5.
 
 Prints a `{"kernels": [...]}` line (the flash rows also name the bf16
 kernel's design and ptxas's registers and spill bytes for it; a spill in
@@ -5255,143 +5292,61 @@ def _ring_arithmetic():
     return out
 
 
-def _sp_gate(mesh, counts, layers, n_leaves):
-    """Each rank: `sp_collective_budget`'s calls a step; `layers` x (i + 1)
-    flash forward and backward launches a step on sp rank i (nothing
-    above the diagonal); no host sync a step beyond the budget's (a
-    staged send or receive one, an all-reduce two: out and back) and the
-    step's own three (the batch in, the loss out)."""
-    from paddle_tpu_torch.parallel.spmd import sp_collective_budget
-
-    b = sp_collective_budget(layers, mesh.shape["sp"], mesh.shape["dp"],
-                             n_leaves)
-    allowed = 3 + b["send"] + b["recv"] + 2 * b["all-reduce"]
-    for c in counts:
-        steps, i = c["steps"], mesh.coords(c["rank"])["sp"]
-        assert c["collectives"] == {k: v * steps for k, v in b.items()}, (
-            c, b)
-        n = layers * (i + 1) * steps
-        assert (c["fwd_launches"], c["bwd_launches"]) == (n, n), (i, c)
-        assert max(c["host_syncs"]) <= allowed, (c["host_syncs"], allowed)
-    return dict(budget_a_step=b, host_syncs_allowed=allowed)
+# 6g (b)'s depth, cut from gpt_1p3b's 24 layers (an 18.4 s step on an H100
+# 80GB HBM3 at 700 W) so that the whole script, 6j included, stays inside
+# its time limit; 6j (b) runs the ring at gpt_1p3b's widths beside mp
+SP_RING_LAYERS = 4
 
 
-def _sp_run(cfg, mesh, rows, steps, lr):
-    """`steps` SGD(lr) steps of a float32 ring GPT of `cfg` (seed 0) on one
-    batch of `rows` x ``cfg.max_seq_len``: in one process first (model
-    freed after), then over `mesh` with the sequence split
-    (``batch_specs=(("dp", "sp"),) * 2``), every rank's counters set to
-    0 just before and read just after and its host syncs counted. Returns
-    the record; the gates are the caller's."""
-    import gc
+def _sp_1p3b(smi, mesh):
+    """6g (b): gpt_1p3b's widths (vocab 50304, hidden 2048, 16 heads, FFN
+    8192) at its 2048 context in float32 with ring attention, 4 layers
+    (`SP_RING_LAYERS`), 2 rows, over {"sp": 2} (two ranks on cuda:0: 1024
+    positions of each row a rank), SGD 0.1, 3 steps against the same model
+    in one process: `_gathered_train`'s gates with the ring's (4 x (i + 1)
+    flash launches of each direction a step on sp rank i). Each rank's
+    step phases (forward and backward with their ring hops, the gradient
+    all-reduce, the update), peak memory and seconds."""
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig, gpt_loss_fn
 
-    from paddle_tpu_torch.models.gpt import GPT, gpt_loss_fn
-    from paddle_tpu_torch.optimizer import SGD
-    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    batch = train_batch(cfg, rows, cfg.max_seq_len, "cpu")
-    model = GPT(cfg, device="cuda", dtype=torch.float32, seed=0)
-    opt = SGD(learning_rate=lr, parameters=model.named_parameters())
-    model.train()
-    ids, labels = (t.cuda() for t in batch)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    want = [train_step(model, opt, ids, labels).item() for _ in range(steps)]
-    one_s = (time.perf_counter() - t0) / steps
-    one_peak = torch.cuda.max_memory_allocated() / 2**30
-    wparams = {n: p.detach().clone() for n, p in model.named_parameters()} \
-        if cfg.num_layers <= 2 else None
-    del model, opt, ids, labels
-    free0 = _card_free_bytes()
-    alloc0 = torch.cuda.memory_allocated()
-    model = GPT(cfg, device="cuda", dtype=torch.float32, seed=0)
-    opt = SGD(learning_rate=lr, parameters=model.named_parameters())
-    t0 = time.perf_counter()
-    step = make_sharded_train_step(model, gpt_loss_fn, opt, mesh,
-                                   batch_specs=(("dp", "sp"),) * 2)
-    build_s = time.perf_counter() - t0
-    step.count_host_syncs()
-    try:
-        losses, counts, wall, ranks = _dp_run(step, batch, steps, warmup=0)
-        n_leaves = len(step.names)
-        params = step.gather_params() if wparams is not None else None
-    finally:
-        step.close()
-        mesh.close()
-    rel = None
-    if wparams is not None:
-        rel = max(float((params[k] - w).norm() / w.norm())
-                  for k, w in wparams.items())
-    del model, opt, step, params, wparams
-    gc.collect()
-    free1 = _card_free_bytes()
-    rec = dict(label=SP_LABEL, mesh=dict(mesh.shape),
-               batch=[rows, cfg.max_seq_len], layers=cfg.num_layers,
-               hidden=cfg.hidden_size, heads=cfg.num_heads, lr=lr,
-               one_process=want, one_process_step_s=one_s,
-               one_process_peak_gib=one_peak, losses=losses, build_s=build_s,
-               step_s=wall, rank_step_s=ranks, leaves=n_leaves,
-               counts=counts, peak_gib=[c["peak_gib"] for c in counts],
-               param_max_rel_norm_diff=rel,
-               card_free_gib_before=free0 / 2**30,
-               card_free_gib_after=free1 / 2**30,
-               allocated_mib_before=alloc0 / 2**20,
-               allocated_mib_after=torch.cuda.memory_allocated() / 2**20)
-    return rec
+    cfg = GPTConfig(vocab_size=50304, hidden_size=2048,
+                    num_layers=SP_RING_LAYERS, num_heads=16, max_seq_len=2048,
+                    intermediate_size=8192, attn_impl="ring")
+    res = _gathered_train(
+        smi, mesh, lambda p: GPT(cfg, device="cuda", dtype=torch.float32,
+                                 seed=0),
+        gpt_loss_fn, tuple(train_batch(cfg, 2, 2048, "cpu")),
+        (("dp", "sp"),) * 2, SP_RING_LAYERS, bert=False, drops=(0.0,),
+        ring=True)
+    log(f"[sp-1p3b] ({SP_LABEL}; {smi}) " + json.dumps(res))
+    return res
 
 
-def _sp_1p3b(smi):
-    """6g (b): gpt_1p3b (vocab 50304, hidden 2048, 24 layers, 16 heads,
-    FFN 8192) at its 2048 context in float32 with ring attention, 2 rows,
-    over {"sp": 2} (two ranks on cuda:0: 1024 positions of each row a
-    rank), SGD 0.1, 3 steps against the same model in one process (run
-    first and freed): losses within 1e-5 relative, `_sp_gate` on every
-    rank, the card's free memory back within 64 MiB once the job is
-    dropped and the ranks ended. Each rank's step phases (forward and
-    backward with their ring hops, the gradient all-reduce, the update),
-    peak memory and seconds."""
-    from paddle_tpu_torch.models.gpt import GPTConfig
-
-    cfg = GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=24,
-                    num_heads=16, max_seq_len=2048, intermediate_size=8192,
-                    attn_impl="ring")
-    mesh = _hybrid_mesh({"sp": 2})
-    rec = _sp_run(cfg, mesh, 2, 3, 0.1)
-    rec["card"] = smi
-    rec.update(_sp_gate(mesh, rec["counts"], 24, rec["leaves"]))
-    log(f"[sp-1p3b] ({SP_LABEL}; {smi}) " + json.dumps(rec))
-    np.testing.assert_allclose(rec["losses"], rec["one_process"], rtol=1e-5)
-    assert all(np.isfinite(rec["losses"])), rec["losses"]
-    back = rec["card_free_gib_after"] - rec["card_free_gib_before"]
-    assert back * 1024 >= -64, ("card memory not back", back)
-    return rec
-
-
-def _sp_flagship(smi):
+def _sp_flagship(smi, mesh):
     """6g (c): the flagship widths (vocab 32768, hidden 1024, 8 heads,
     seq 1024) at 2 layers with ring attention, float32, 4 rows, over
     {"dp": 2, "sp": 2} (four ranks on cuda:0: 2 rows and 512 positions a
-    rank), SGD 0.1, 3 steps against one process: losses within 1e-5
-    relative, every parameter within 1e-5 of it relative to its norm (the
-    gradient's mean over dp x sp), `_sp_gate` on every rank."""
+    rank), SGD 0.1, 3 steps against one process: `_gathered_train`'s
+    gates (the gradient's mean over dp x sp) with the ring's."""
+    from paddle_tpu_torch.models.gpt import GPT, gpt_loss_fn
+
     cfg = flagship_config(num_layers=2, attn_impl="ring")
-    mesh = _hybrid_mesh({"dp": 2, "sp": 2})
-    rec = _sp_run(cfg, mesh, 4, 3, 0.1)
-    rec["card"] = smi
-    rec.update(_sp_gate(mesh, rec["counts"], 2, rec["leaves"]))
-    log(f"[sp-dp2sp2] ({SP_LABEL}; {smi}) " + json.dumps(rec))
-    np.testing.assert_allclose(rec["losses"], rec["one_process"], rtol=1e-5)
-    assert rec["param_max_rel_norm_diff"] < 1e-5, rec
-    return rec
+    res = _gathered_train(
+        smi, mesh, lambda p: GPT(cfg, device="cuda", dtype=torch.float32,
+                                 seed=0),
+        gpt_loss_fn, tuple(train_batch(cfg, 4, 1024, "cpu")),
+        (("dp", "sp"),) * 2, 2, bert=False, drops=(0.0,), ring=True)
+    log(f"[sp-dp2sp2] ({SP_LABEL}; {smi}) " + json.dumps(res))
+    return res
 
 
 def sequence_train(smi):
     """Phase 6g: sequence-parallel training on the one card (ranks on
     cuda:0 over an explicit gloo backend, every ring hop and all-reduce
     staged through host memory). Run last, after gc.collect() and
-    torch.cuda.empty_cache()."""
+    torch.cuda.empty_cache(). Both meshes' ranks start together after (a)
+    and before (b), so that no step is timed while a rank starts; the
+    card's free memory is back within 64 MiB once they are gone."""
     import gc
 
     gc.collect()
@@ -5399,9 +5354,25 @@ def sequence_train(smi):
     t0 = time.perf_counter()
     base = torch.cuda.memory_allocated() / 2**30
     log(f"[sp] phase 6g starts with {base:.2f} GiB allocated ({smi})")
-    res = dict(base_mem_gib=base, ring=_ring_arithmetic())
-    res["gpt_1p3b"] = _sp_1p3b(smi)
-    res["dp2sp2"] = _sp_flagship(smi)
+    meshes = {"gpt_1p3b": _hybrid_mesh({"sp": 2}),
+              "dp2sp2": _hybrid_mesh({"dp": 2, "sp": 2})}
+    try:
+        res = dict(base_mem_gib=base, ring=_ring_arithmetic())
+        # after (a): this process's first launches grow its own context
+        free0 = _card_free_bytes()
+        t1 = time.perf_counter()
+        _spawn_ranks(list(meshes.values()))
+        res["spawn_s"] = time.perf_counter() - t1
+        res["gpt_1p3b"] = _sp_1p3b(smi, meshes["gpt_1p3b"])
+        meshes.pop("gpt_1p3b").close()
+        res["dp2sp2"] = _sp_flagship(smi, meshes["dp2sp2"])
+    finally:
+        for m in meshes.values():
+            m.close()
+    free1 = _card_free_bytes()
+    res.update(card_free_gib_before=free0 / 2**30,
+               card_free_gib_after=free1 / 2**30)
+    assert (free1 - free0) / 2**20 >= -64, ("card memory not back", res)
     res["seconds"] = time.perf_counter() - t0
     log(f"[sp] phase 6g {res['seconds']:.1f} s")
     return res
@@ -5989,17 +5960,18 @@ def _rank_bounds(B, Sq, Sk, H, D, dtype, causal, q_row0, mask_bytes=0):
 
 
 def _gathered_times(qr, kp, vp, dor, lse, o_bwd, r, causal, m, p, seed,
-                    o32, views, plain):
+                    o32, views, plain, **heads):
     """One rank's call timed: the forward, dK/dV and dQ kernels (CUDA graph
     replays) and SDPA's forward and forward + backward on the same call
     (its mask explicit: a bottom-right causal bool mask, or the padding
     mask; SDPA's `is_causal` is top-left aligned); with `plain`, the plain
-    version's forward and whole backward (CUDA events, eager)."""
+    version's forward and whole backward (CUDA events, eager). `heads`:
+    the rank's ``head_offset`` and ``heads_total`` (an mp rank's)."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     F = torch.nn.functional
     L, keys = qr.shape[1], kp.shape[1]
-    var = dict(q_row0=r * L)
+    var = dict(q_row0=r * L, **heads)
     delta = fa._delta(o_bwd, dor)
     t = dict(
         fwd_ms=time_ms(lambda: fa.flash_attention_fwd(
@@ -6034,16 +6006,17 @@ def _gathered_times(qr, kp, vp, dor, lse, o_bwd, r, causal, m, p, seed,
     return t
 
 
-def _rank_plain_err(qr, kp, vp, dor, m, r, causal, p, seed, got):
+def _rank_plain_err(qr, kp, vp, dor, m, r, causal, p, seed, got, **heads):
     """One rank's launches (`got`: its o, lse, dq and the dK / dV partials
     over the keys it attended) against the float32 plain version on the
     same inputs: `attention_ref`, `attention_lse_ref` and
-    `attention_bwd_ref` at the rank's `q_row0`, key prefix, mask and
-    dropout seed. The largest absolute error of each."""
+    `attention_bwd_ref` at the rank's `q_row0`, key prefix, mask, dropout
+    seed and `heads` (an mp rank's ``head_offset`` and ``heads_total``).
+    The largest absolute error of each."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     q32, k32, v32, do32 = (x.detach().float() for x in (qr, kp, vp, dor))
-    var = dict(q_row0=r * qr.shape[1])
+    var = dict(q_row0=r * qr.shape[1], **heads)
     o = fa.attention_ref(q32, k32, v32, causal, m, p, seed, **var)
     lse = fa.attention_lse_ref(q32, k32, causal, m)
     dq, dk, dv = fa.attention_bwd_ref(q32, k32, v32, o, do32, lse, causal,
@@ -6197,92 +6170,241 @@ def _gathered_arithmetic():
     return out
 
 
-def _gathered_gate(mesh, counts, layers, n_leaves, n_arrays, bert, p):
-    """Each rank: `sp_collective_budget`'s calls a step (gathered
-    attention; BERT's terms with `bert`); `layers` flash forward and
-    backward launches a step on every sp rank (each rank's whole key
-    prefix in one call; ERNIE's all mask launches, and at `p` > 0 all
-    dropout launches); no host sync a step beyond the budget's (a staged
-    collective two: out and back) and the step's own (its `n_arrays`
-    batch arrays in, the loss out)."""
-    from paddle_tpu_torch.parallel.spmd import sp_collective_budget
+def _sp_budget(mesh, layers, n_leaves, bert, ring=False, remat=False,
+               n_zero_leaves=0):
+    """`hybrid_collective_budget` of a sequence-split step of `layers`
+    layers over `mesh` (the rows over its dp and sharding axes, the
+    sequence over sp): the ring's hops or the gathered attention's calls,
+    BERT's terms with `bert`, at mp above 1 the mp layers' calls as
+    `_mp_budget` states them (GPT's vocab-parallel head; ERNIE's gathered
+    MLM logits), the step's remat and the ZeRO gathers."""
+    from paddle_tpu_torch.parallel.spmd import hybrid_collective_budget
 
-    b = sp_collective_budget(layers, mesh.shape["sp"], mesh.shape["dp"],
-                             n_leaves, ring=False, bert=bert)
-    allowed = n_arrays + 1 + 2 * (b["all-reduce"] + b["all-gather"]
-                                  + b["reduce-scatter"])
+    s = mesh.shape
+    fwd = (1 + 2 * layers + (0 if bert else 3), int(bert))
+    return hybrid_collective_budget(
+        n_leaves, (s["dp"], s["sharding"]), sp_degree=s["sp"],
+        ring_layers=layers if ring else 0,
+        gathered_layers=0 if ring else layers, first_token=bert,
+        weighted_loss=bert, mp_degree=s["mp"],
+        mp_calls=(fwd[0] + 2 * layers + 1, fwd[1]), mp_forward=fwd,
+        remat=remat, n_zero_leaves=n_zero_leaves)
+
+
+def _gathered_gate(mesh, counts, layers, n_leaves, n_arrays, bert, p,
+                   ring=False, remat=False, n_zero_leaves=0):
+    """Each rank: `_sp_budget`'s calls a step; flash launches a step:
+    gathered, `layers` of each direction on every rank (each rank's whole
+    key prefix in one call), with the ring `layers` x (i + 1) on sp rank i
+    (nothing above the diagonal), the forward's twice under `remat` (the
+    recomputed forward launches again); ERNIE's all mask launches, and at
+    `p` > 0 (gathered) all dropout launches; no host sync a step beyond
+    the budget's (a staged collective two: out and back; a send or a
+    receive one) and the step's own (its `n_arrays` batch arrays in, the
+    loss out)."""
+    b = _sp_budget(mesh, layers, n_leaves, bert, ring, remat, n_zero_leaves)
+    allowed = n_arrays + 1 + b["send"] + b["recv"] + 2 * (
+        b["all-reduce"] + b["all-gather"] + b["reduce-scatter"])
     for c in counts:
         steps = c["steps"]
         assert c["collectives"] == {k: v * steps for k, v in b.items()}, (
             c, b)
-        n = layers * steps
-        assert (c["fwd_launches"], c["bwd_launches"]) == (n, n), c
-        for d in ("fwd", "bwd"):
-            assert c[f"{d}_mask_launches"] == (n if bert else 0), c
-            assert c[f"{d}_dropout_launches"] == (n if p else 0), c
+        blocks = mesh.coords(c["rank"])["sp"] + 1 if ring else 1
+        n = layers * blocks * steps
+        for d, nd in (("fwd", n * (1 + remat)), ("bwd", n)):
+            assert c[f"{d}_launches"] == nd, (d, c)
+            assert c[f"{d}_mask_launches"] == (nd if bert else 0), c
+            assert c[f"{d}_dropout_launches"] == (
+                nd if p and not ring else 0), c
         assert max(c["host_syncs"]) <= allowed, (c["host_syncs"], allowed)
     return dict(budget_a_step=b, host_syncs_allowed=allowed)
 
 
-def _gathered_train(smi, mesh, make, loss_fn, batch, specs, layers, bert,
-                    steps=3, lr=0.1, drops=(0.0, 0.1)):
-    """`steps` SGD(lr) float32 steps of the model `make(p)` builds on one
-    batch, for each dropout p of `drops`: in one process first (a
-    ``{"dp": 1}`` mesh, the same step code and seeds), then over `mesh`
-    (``{"sp": 2}``) with `specs` (every rank's counters set to 0 just
-    before and read just after, its host syncs counted): losses within
-    1e-5 relative, every parameter within 1e-5 of the one process's
-    relative to its norm, `_gathered_gate` on every rank. Returns the
-    records by p (each rank's step phases, peak and seconds in
-    `counts`)."""
+def _sgd(model):
     from paddle_tpu_torch.optimizer import SGD
-    from paddle_tpu_torch.parallel.spmd import make_sharded_train_step
+
+    return SGD(learning_rate=0.1, parameters=model.named_parameters())
+
+
+def _params_and_opt(step, adam):
+    """(optimizer state dict or None, natural parameters) of `step`: with
+    `adam` both from one `state_dict` (one gather), else the
+    parameters alone."""
+    if not adam:
+        return None, step.gather_params()
+    sd = step.state_dict()
+    return sd["optimizer"], sd["params"]
+
+
+# 6j (c)'s AdamW gates. A leaf that starts at zero (a bias) is held entry
+# by entry, not by its norm: its norm is Adam's three steps, each up to lr
+# (1e-4) whatever its gradient's size, so the rounding of a gradient that
+# nearly cancels, which Adam divides by that gradient's own size, is no
+# small part of it. 5e-6 is 10x the readings (5.03e-7 an entry) and 1/20
+# of one Adam step. An entry whose gradient is zero in exact arithmetic
+# (the key bias) is held by its first moment, float noise in both runs
+ADAM_ZERO_START_TOL = 5e-6
+NOISE_MOMENT_TOL = 1e-4
+
+
+def _param_gate(want, got, noisy=None, zero=(), want_opt=None, got_opt=None):
+    """The parameter gate between a reference run's parameters `want` and
+    a run's `got` ({name: tensor}): each leaf within 1e-5 of the
+    reference's norm. With Adam's state (`want_opt`, `got_opt`: the two
+    runs' optimizer state dicts) the gradients the update saw are held
+    directly, both moments of every leaf within 1e-5 of their norm, and
+    a leaf that starts at zero (`zero`) entry by entry within
+    `ADAM_ZERO_START_TOL` of the reference's in place of its norm. The
+    `noisy` entries ({name: index}: a gradient zero in exact arithmetic,
+    whose sign Adam's step follows) are left out of those gates and held
+    by their first moment, below `NOISE_MOMENT_TOL` of their leaf's
+    largest in both runs. Returns the record; raises when a gate
+    fails."""
+    noisy = noisy or {}
+    adam = want_opt is not None
+    assert adam or not noisy, "float-noise entries are held by Adam's state"
+
+    def kept(k, t):
+        t = t.float().cpu()
+        if k not in noisy:
+            return t
+        keep = torch.ones_like(t, dtype=torch.bool)
+        keep[noisy[k]] = False
+        return t[keep]
+
+    def rel(k, a, b):
+        a, b = kept(k, a), kept(k, b)
+        return float((a - b).norm() / max(float(b.norm()), 1e-12))
+
+    zeros = [k for k in want if adam and k in zero]
+    rels = {k: rel(k, got[k], want[k]) for k in want}
+    out = dict(param_max_rel_norm_diff=max(rels[k] for k in want
+                                           if k not in zeros),
+               param_max_abs_diff=max(float((got[k] - want[k]).abs().max())
+                                      for k in want),
+               param_worst=[(k, rels[k], float((got[k] - want[k]).abs()
+                                               .max()))
+                            for k in sorted(rels, key=rels.get)[-4:]])
+    if adam:
+        moments = {slot: rel(k, got_opt[slot], want_opt[slot])
+                   for k in want for slot in (f"{k}_moment1", f"{k}_moment2")}
+
+        def noise_ratio(opt, k):
+            m = opt[f"{k}_moment1"].float().abs().cpu()
+            return float(m[noisy[k]].max() / m.max())
+
+        out.update(
+            moment_max_rel_norm_diff=max(moments.values()),
+            moment_worst=sorted(moments.items(), key=lambda x: x[1])[-2:],
+            zero_start_leaves=len(zeros),
+            zero_start_max_abs_diff=max(
+                (float((kept(k, got[k]) - kept(k, want[k])).abs().max())
+                 for k in zeros), default=0.0),
+            zero_start_tol=ADAM_ZERO_START_TOL,
+            noise_leaves=len(noisy),
+            noise_moment_max_ratio=max(
+                (noise_ratio(o, k) for o in (want_opt, got_opt)
+                 for k in noisy), default=0.0),
+            noise_moment_tol=NOISE_MOMENT_TOL)
+        assert out["moment_max_rel_norm_diff"] < 1e-5, out
+        assert out["zero_start_max_abs_diff"] <= ADAM_ZERO_START_TOL, out
+        assert out["noise_moment_max_ratio"] < NOISE_MOMENT_TOL, out
+    assert out["param_max_rel_norm_diff"] < 1e-5, out
+    return out
+
+
+def _gathered_train(smi, mesh, make, loss_fn, batch, specs, layers, bert,
+                    steps=3, drops=(0.0, 0.1), ring=False, remats=(False,),
+                    zero_stage=0, make_opt=_sgd, ref_mesh=None, noise=None):
+    """`steps` float32 steps (the optimizer `make_opt(model)`: SGD 0.1) of
+    the model `make(p)` builds on one batch, for each dropout p of
+    `drops`: the reference first, in one process (a ``{"dp": 1}`` mesh,
+    the same step code and seeds) or over `ref_mesh` with `specs` (the
+    hybrid path), then over `mesh` with `specs`, `zero_stage` and each
+    remat flag of `remats` (every rank's counters set to 0 just before
+    and read just after, its host syncs counted): losses within 1e-5
+    relative, `_param_gate` (every parameter within 1e-5 of the
+    reference's norm; under Adam its moments too, and a leaf that starts
+    at zero entry by entry), `_gathered_gate` on every rank, each
+    rank's optimizer bytes reported. `noise(name)` may name entries of a
+    leaf whose gradient is float noise (`_param_gate`). Returns the
+    records by run (``"p0.1"``, ``"p0.1_remat"``; each rank's step
+    phases, peak and seconds in `counts`)."""
+    from paddle_tpu_torch.parallel.spmd import (leaf_layouts,
+                                                make_sharded_train_step)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     runs = {}
     for p in drops:
         model = make(p)
-        opt = SGD(learning_rate=lr, parameters=model.named_parameters())
-        mesh1 = _hybrid_mesh({"dp": 1})
-        step = make_sharded_train_step(model, loss_fn, opt, mesh1)
+        zero = {k for k, t in model.named_parameters() if not t.any()}
+        opt = make_opt(model)
+        adam = "moment2" in getattr(opt, "_slot_names", ())
+        mesh1 = _hybrid_mesh({"dp": 1}) if ref_mesh is None else ref_mesh
+        step = make_sharded_train_step(
+            model, loss_fn, opt, mesh1,
+            **({} if ref_mesh is None else dict(
+                batch_specs=specs, zero_stage=zero_stage,
+                explicit_update=False)))
         try:
             t0 = time.perf_counter()
             want = [step(*batch) for _ in range(steps)]
             one_s = (time.perf_counter() - t0) / steps
-            wparams = step.gather_params()
+            ref_opt = step.per_chip_opt_state_bytes()
+            want_opt, wparams = _params_and_opt(step, adam)
         finally:
             step.close()
-            mesh1.close()
-        model = make(p)
-        opt = SGD(learning_rate=lr, parameters=model.named_parameters())
-        t0 = time.perf_counter()
-        step = make_sharded_train_step(model, loss_fn, opt, mesh,
-                                       batch_specs=specs)
-        build_s = time.perf_counter() - t0
-        step.count_host_syncs()
-        try:
-            losses, counts, wall, ranks = _dp_run(step, batch, steps,
-                                                  warmup=0)
-            n_leaves = len(step.names)
-            params = step.gather_params()
-        finally:
-            step.close()
-        rel = max(float((params[k] - w).norm()
-                        / max(float(w.norm()), 1e-12))
-                  for k, w in wparams.items())
-        rec = dict(label=SP_LABEL, card=smi, mesh=dict(mesh.shape),
-                   dropout=p, one_process=want, one_process_step_s=one_s,
-                   losses=losses, build_s=build_s, step_s=wall,
-                   rank_step_s=ranks, leaves=n_leaves, counts=counts,
-                   peak_gib=[c["peak_gib"] for c in counts],
-                   param_max_rel_norm_diff=rel)
-        rec.update(_gathered_gate(mesh, counts, layers, n_leaves,
-                                  len(batch), bert, p))
-        runs[f"p{p}"] = rec
-        del model, opt, step, params, wparams
-        np.testing.assert_allclose(losses, want, rtol=1e-5)
-        assert rel < 1e-5, rec
+            if ref_mesh is None:
+                mesh1.close()
+        del model, step
+        for remat in remats:
+            model = make(p)
+            zl = sum(zs is not None for _, _, zs in leaf_layouts(
+                model, mesh, zero_stage).values())
+            t0 = time.perf_counter()
+            step = make_sharded_train_step(model, loss_fn, make_opt(model),
+                                           mesh, batch_specs=specs,
+                                           zero_stage=zero_stage,
+                                           remat=remat)
+            build_s = time.perf_counter() - t0
+            step.count_host_syncs()
+            try:
+                losses, counts, wall, ranks = _dp_run(step, batch, steps,
+                                                      warmup=0)
+                n_leaves = len(step.names)
+                opt_bytes = step.per_chip_opt_state_bytes()
+                whole_opt = step.unsharded_opt_state_bytes()
+                got_opt, params = _params_and_opt(step, adam)
+            finally:
+                step.close()
+            noisy = {k: noise(k) for k in wparams} if noise else {}
+            noisy = {k: i for k, i in noisy.items() if i is not None}
+            rec = dict(label=SP_LABEL, card=smi, mesh=dict(mesh.shape),
+                       dropout=p, remat=remat, zero_stage=zero_stage,
+                       reference=("one process" if ref_mesh is None
+                                  else dict(ref_mesh.shape)),
+                       one_process=want, one_process_step_s=one_s,
+                       losses=losses, build_s=build_s, step_s=wall,
+                       rank_step_s=ranks, leaves=n_leaves,
+                       zero_leaves=zl, counts=counts,
+                       peak_gib=[c["peak_gib"] for c in counts],
+                       opt_bytes=opt_bytes, reference_opt_bytes=ref_opt,
+                       unsharded_opt_bytes=whole_opt)
+            runs[f"p{p}" + ("_remat" if remat else "")] = rec
+            del model, step
+            try:
+                rec.update(_gathered_gate(mesh, counts, layers, n_leaves,
+                                          len(batch), bert, p, ring, remat,
+                                          zl))
+                np.testing.assert_allclose(losses, want, rtol=1e-5)
+                assert all(np.isfinite(losses)), losses
+                rec.update(_param_gate(wparams, params, noisy, zero,
+                                       want_opt, got_opt))
+            finally:
+                log(f"[sp-run] {json.dumps(rec, default=str)}")
+            del params, got_opt
+        del wparams, want_opt
     return dict(runs=runs)
 
 
@@ -6307,16 +6429,23 @@ def _gathered_ernie(smi, mesh):
     return res
 
 
+# 6i (c)'s depth, cut from 4 layers so that the whole script, 6j included,
+# stays inside its time limit
+GATHERED_GPT_LAYERS = 2
+
+
 def _gathered_gpt(smi, mesh):
     """6i (c): gpt_1p3b's widths (vocab 50304, hidden 2048, 16 heads, FFN
-    8192) at its 2048 context with attn_impl="flash", 4 layers, float32,
-    2 rows, over {"sp": 2}, SGD 0.1, 3 steps, at dropout 0 and 0.1,
-    against one process; each rank's 4 forward and 4 backward launches a
-    step cover its whole key prefix (rank 1: one call over 2048 keys)."""
+    8192) at its 2048 context with attn_impl="flash", 2 layers
+    (`GATHERED_GPT_LAYERS`), float32, 2 rows, over {"sp": 2}, SGD 0.1, 3
+    steps, at dropout 0 and 0.1, against one process; each rank's 2
+    forward and 2 backward launches a step cover its whole key prefix
+    (rank 1: one call over 2048 keys)."""
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig, gpt_loss_fn
 
     def cfg(p):
-        return GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=4,
+        return GPTConfig(vocab_size=50304, hidden_size=2048,
+                         num_layers=GATHERED_GPT_LAYERS,
                          num_heads=16, max_seq_len=2048,
                          intermediate_size=8192, attn_impl="flash",
                          dropout=p)
@@ -6325,7 +6454,8 @@ def _gathered_gpt(smi, mesh):
     res = _gathered_train(
         smi, mesh, lambda p: GPT(cfg(p), device="cuda", dtype=torch.float32,
                                  seed=0),
-        gpt_loss_fn, batch, (("dp", "sp"),) * 2, 4, bert=False)
+        gpt_loss_fn, batch, (("dp", "sp"),) * 2, GATHERED_GPT_LAYERS,
+        bert=False)
     log(f"[sp-gpt-flash] ({SP_LABEL}; {smi}) " + json.dumps(res))
     return res
 
@@ -6367,10 +6497,347 @@ def gathered_sequence_train(smi):
     return res
 
 
+# -- phase 6j -----------------------------------------------------------------
+
+HYBRID_SP_LABEL = ("eager, gloo through the host, ranks sharing one card - "
+                   "not an sp or mp speed")
+# 6j (a)'s calls: name, (B, S, H, D), causal, padding mask, dropout ps; n = 2
+# sp ranks by mp = 2 head groups
+HYBRID_CASES = (
+    ("gpt_1p3b", (1, 2048, 16, 128), True, False, (0.0, 0.1)),
+    ("ernie_base", (32, 512, 12, 64), False, True, (0.1,)),
+)
+HYBRID_SP = HYBRID_MP = 2
+
+
+def _hybrid_rank_arithmetic():
+    """6j (a): every (mp, sp) rank's share of gathered attention at n = 2
+    sp ranks by 2 head groups (`rank_forward`, `rank_backward` on the
+    gathered [S, B, 2, H/2, D] layout of its heads, the partials written
+    into such a buffer) in one process on cuda:0, at gpt_1p3b's attention
+    shape (1 x 2048, 8 of 16 heads a rank, D 128, causal, dropout 0 and
+    0.1) and ERNIE-base's (32 x 512, 6 of 12 heads, padding lengths
+    256-512, dropout 0.1), f32 and bf16: each launch at ``head_offset``
+    0 or H/2 and ``q_row0`` 0 or S/2 together. Each rank's O, LSE, dQ and
+    dK / dV partials against the float32 plain version at its heads,
+    rows, key prefix, mask and seed (`_rank_plain_err`) within 2e-5 (f32)
+    or 2e-2 (bf16); at dropout 0.1 the plain keep bits at the rank's heads
+    and rows equal the whole call's ``[rows, heads]`` slice bit for bit;
+    one forward and one dK/dV + dQ launch a rank, no host sync. Every
+    call's bound; rank (1, 1)'s kernel times beside SDPA's on the same call
+    and the plain version's."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel.sequence_attention import (
+        attended_keys, rank_backward, rank_forward, rank_mask)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    out = []
+    for name, (B, S, H, D), causal, with_mask, ps in HYBRID_CASES:
+        L, Hr = S // HYBRID_SP, H // HYBRID_MP
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn((B, S, H, D), generator=gen,
+                                       device="cuda").to(dtype)
+                           for _ in range(4))
+            mask = (padding_mask(padding_lengths(
+                B, S, np.random.RandomState(0)), S, "cuda")
+                if with_mask else None)
+            # each mp rank's gathered K/V: its heads, sequence-major
+            whole = []
+            for m in range(HYBRID_MP):
+                hs = slice(m * Hr, (m + 1) * Hr)
+                w = torch.empty((S, B, 2, Hr, D), dtype=dtype, device="cuda")
+                w[:, :, 0] = k[:, :, hs].transpose(0, 1)
+                w[:, :, 1] = v[:, :, hs].transpose(0, 1)
+                whole.append([w.permute(1, 0, 2, 3, 4)[:, :, j]
+                              for j in (0, 1)])
+            for p in ps:
+                seed = DROPOUT_SEED if p else None
+                whole_f = (fa.dropout_factors(seed, p, B, H, S, S, "cuda")
+                           if p else None)
+                ranks = []
+                for m in range(HYBRID_MP):
+                    hs = slice(m * Hr, (m + 1) * Hr)
+                    heads = dict(head_offset=m * Hr, heads_total=H)
+                    kw, vw = whole[m]
+                    for r in range(HYBRID_SP):
+                        rows = slice(r * L, (r + 1) * L)
+                        qr, dor = q[:, rows, hs], do[:, rows, hs]
+                        keys = attended_keys(r, L, S, causal)
+                        parts = torch.zeros((S, B, 2, Hr, D), dtype=dtype,
+                                            device="cuda")
+                        views = [parts[:keys, :, j].transpose(0, 1)
+                                 for j in (0, 1)]
+                        or32 = (torch.empty((B, L, Hr, D), device="cuda")
+                                if p else None)
+                        _zero_flash_counts()
+                        torch.cuda.set_sync_debug_mode("error")
+                        try:
+                            orr, lser = rank_forward(qr, kw, vw, r, causal,
+                                                     mask, p, seed, **heads,
+                                                     o32=or32)
+                            o_bwd = orr if or32 is None else or32
+                            dqr, _, _ = rank_backward(
+                                qr, kw, vw, o_bwd, dor, lser, r, causal,
+                                mask, p, seed, **heads, out=views)
+                        finally:
+                            torch.cuda.set_sync_debug_mode(0)
+                        c = _read_flash_counts()
+                        mr = rank_mask(mask, r, L, keys)
+                        rec_r = dict(
+                            mp_rank=m, sp_rank=r, q_row0=r * L, keys=keys,
+                            **heads,
+                            launches=[c["fwd_launches"], c["bwd_launches"]],
+                            plain_err=_rank_plain_err(
+                                qr, kw[:, :keys], vw[:, :keys], dor, mr, r,
+                                causal, p, seed,
+                                dict(o=orr, lse=lser, dq=dqr, dk=views[0],
+                                     dv=views[1]), **heads),
+                            keep_bits_equal=None if not p else bool(
+                                torch.equal(fa.dropout_factors(
+                                    seed, p, B, Hr, L, S, "cuda",
+                                    q_row0=r * L, **heads),
+                                    whole_f[:, hs, rows])),
+                            **(_gathered_times(
+                                qr, kw[:, :keys], vw[:, :keys], dor, lser,
+                                o_bwd, r, causal, mr, p, seed, or32, views,
+                                plain=True, **heads)
+                               if (m, r) == (1, 1) else {}))
+                        bounds = _rank_bounds(
+                            B, L, keys, Hr, D, dtype, causal, r * L,
+                            0 if mask is None else B * keys * 4)
+                        rec_r.update({f"bound_{x}_ms": b[0]
+                                      for x, b in bounds.items()})
+                        rec_r.update({f"bound_{x}_by": b[1]
+                                      for x, b in bounds.items()})
+                        ranks.append(rec_r)
+                rec = dict(case=name, dtype=str(dtype)[6:], sp=HYBRID_SP,
+                           mp=HYBRID_MP, shape=[B, S, H, D], causal=causal,
+                           mask=None if mask is None else list(mask.shape),
+                           dropout_p=p,
+                           plain_max_err={
+                               x: max(rr["plain_err"][x] for rr in ranks)
+                               for x in ranks[0]["plain_err"]},
+                           plain_tol=GATHER_PLAIN_TOL[dtype], ranks=ranks)
+                log("[sp-mp-arith] " + json.dumps(rec))
+                out.append(rec)
+                assert all(x["launches"] == [1, 1] for x in ranks), rec
+                assert all(x["keep_bits_equal"] in (None, True)
+                           for x in ranks), rec
+                if max(rec["plain_max_err"].values()) > \
+                        GATHER_PLAIN_TOL[dtype]:
+                    raise SystemExit(
+                        f"an sp x mp rank's launches miss "
+                        f"{GATHER_PLAIN_TOL[dtype]} against the plain "
+                        f"version: {rec}")
+                del whole_f
+            del q, k, v, do, whole
+            torch.cuda.empty_cache()
+    return out
+
+
+def _hybrid_gpt(smi, mesh):
+    """6j (b): gpt_1p3b's widths (vocab 50304, hidden 2048, 16 heads, FFN
+    8192) at its 2048 context, 2 layers, 2 rows, float32, SGD 0.1, 3
+    steps over {"sp": 2, "mp": 2} (four ranks: 8 heads and 1024 positions
+    a rank) against the same model in one process: attn_impl="flash" at
+    dropout 0.1, without and with the step's remat (the recomputed
+    forward launches again), and "ring" at dropout 0 (the ring takes no
+    attention dropout). `_gathered_train`'s gates on every rank."""
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig, gpt_loss_fn
+
+    def cfg(impl="flash", p=0.0):
+        return GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=2,
+                         num_heads=16, max_seq_len=2048,
+                         intermediate_size=8192, attn_impl=impl, dropout=p)
+
+    def make(impl):
+        return lambda p: GPT(cfg(impl, p), device="cuda",
+                             dtype=torch.float32, seed=0)
+
+    batch = tuple(train_batch(cfg(), 2, 2048, "cpu"))
+    specs = (("dp", "sp"),) * 2
+    res = {"flash": _gathered_train(smi, mesh, make("flash"), gpt_loss_fn,
+                                    batch, specs, 2, bert=False,
+                                    drops=(0.1,), remats=(False, True)),
+           "ring": _gathered_train(smi, mesh, make("ring"), gpt_loss_fn,
+                                   batch, specs, 2, bert=False,
+                                   drops=(0.0,), ring=True)}
+    log(f"[sp-mp-gpt] ({HYBRID_SP_LABEL}; {smi}) " + json.dumps(res))
+    return res
+
+
+def _hybrid_ernie(smi, mesh, ref_mesh):
+    """6j (c): ERNIE-base (vocab 40000, hidden 768, 12 layers, 12 heads, FFN
+    3072) at 8 x 512 (phase 8's batch: token types, the padding mask, MLM
+    labels), float32, dropout 0.1, over {"sharding": 2, "sp": 2} at ZeRO
+    stage 2, the rows over dp and sharding (``(("dp", "sharding"),
+    "sp")``, the mask ``("dp", "sharding")``), AdamW(1e-4, weight decay
+    0.01), 3 steps. The reference is the same rows over `ref_mesh`
+    ({"dp": 2}, the hybrid path: a pure-dp mesh slices no update, and the
+    numbers are stage 2's): a row share's dropout masks key on its index
+    (JAX folds the replica's index into the key), so no one process draws
+    them, while the same two row shares without sp draw the same masks
+    whole. `_gathered_train`'s gates (`_param_gate`
+    with Adam's moments); each rank's optimizer bytes half of one
+    process's within 1 % (the leaves too small to slice stay whole). The
+    key bias (the middle third of each fused QKV bias: the columns are
+    ``[3, heads, head_dim]``) has no gradient in exact arithmetic, since
+    a query's scores all move by its q . b_k and the softmax takes none
+    of it: its float-noise gradient is held apart, by its first moment
+    in both runs (`NOISE_MOMENT_TOL`)."""
+    from paddle_tpu_torch.models.bert import (bert_pretrain_loss_fn,
+                                              ernie_base)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def adamw(model):
+        return AdamW(learning_rate=1e-4, weight_decay=0.01,
+                     parameters=model.named_parameters())
+
+    rows = ("dp", "sharding")
+    res = _gathered_train(
+        smi, mesh, lambda p: ernie_base(device="cuda", dtype=torch.float32,
+                                        seed=0, dropout=p),
+        bert_pretrain_loss_fn, tuple(ernie_batch(40000, 8, 512, "cpu")[:4]),
+        ((rows, "sp"), (rows, "sp"), rows, (rows, "sp")), 12, bert=True,
+        drops=(0.1,), zero_stage=2, make_opt=adamw, ref_mesh=ref_mesh,
+        noise=lambda name: (slice(768, 1536) if name.endswith(
+            "attn.qkv.bias") else None))
+    rec = res["runs"]["p0.1"]
+    ratio = [b / rec["unsharded_opt_bytes"] for b in rec["opt_bytes"]]
+    rec["opt_bytes_over_one_process"] = ratio
+    log(f"[sp-zero-ernie] ({HYBRID_SP_LABEL}; {smi}) " + json.dumps(res))
+    assert all(abs(x - 0.5) < 0.01 for x in ratio), ratio
+    return res
+
+
+def _localsgd_sp(smi, mesh, ref_mesh):
+    """6j (d): LocalSGD (k 2, 4 steps, SGD 0.1) of the flagship widths at 2
+    layers, float32, 4 x 1024, over {"dp": 2, "sp": 2} (each replica's
+    sequence split over its sp ranks, the parameters averaged over dp)
+    against the port's LocalSGD over {"dp": 2}: losses within 1e-5
+    relative, every replica's parameters within 1e-5 of the reference's
+    relative to their norm; each rank's launches (2 of each direction a
+    step), phases, peak and seconds."""
+    from paddle_tpu_torch.models.gpt import GPT, gpt_loss_fn
+    from paddle_tpu_torch.parallel.spmd import LocalSGDTrainStep
+
+    cfg = flagship_config(num_layers=2)
+    batch = tuple(train_batch(cfg, 4, 1024, "cpu"))
+    out = {}
+    for key, m, specs in (("dp2", ref_mesh, None),
+                          ("dp2sp2", mesh, (("dp", "sp"),) * 2)):
+        model = GPT(cfg, device="cuda", dtype=torch.float32, seed=0)
+        step = LocalSGDTrainStep(model, gpt_loss_fn, _sgd(model), m,
+                                 k_steps=2, batch_specs=specs)
+        try:
+            losses, counts, wall, ranks = _dp_run(step, batch, 4, warmup=0)
+            reps = step.replica_params()
+        finally:
+            step.close()
+        out[key] = dict(losses=losses, counts=counts, step_s=wall,
+                        rank_step_s=ranks, replicas=reps)
+        del model, step
+    want, got = out["dp2"], out["dp2sp2"]
+    rel = max(float((got["replicas"][k] - w).norm()
+                    / max(float(w.norm()), 1e-12))
+              for k, w in want["replicas"].items())
+    for rec in out.values():
+        del rec["replicas"]
+    res = dict(label=HYBRID_SP_LABEL, card=smi, k=2, runs=out,
+               param_max_rel_norm_diff=rel)
+    log(f"[sp-localsgd] ({HYBRID_SP_LABEL}; {smi}) " + json.dumps(res))
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+    assert rel < 1e-5, res
+    for c in got["counts"]:
+        assert (c["fwd_launches"], c["bwd_launches"]) == (8, 8), c
+    return res
+
+
+def _spawn_ranks(meshes):
+    """Start every mesh's rank processes at once, each on a thread of its
+    own (`spmd._ranks_of`: spawn, join the data plane, wait until ready),
+    so that their start-ups overlap, and wait for all of them (raising
+    the first failure). No kernel is timed meanwhile: a rank's CUDA
+    context start would share the card with it."""
+    import threading
+
+    from paddle_tpu_torch.parallel import spmd
+
+    errors = []
+
+    def start(mesh):
+        try:
+            spmd._ranks_of(mesh)
+        except BaseException as e:          # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=start, args=(m,)) for m in meshes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+
+
+def hybrid_sequence_train(smi):
+    """Phase 6j: sequence parallelism beside tensor parallelism and ZeRO on
+    the one card (ranks on cuda:0 over an explicit gloo backend, every
+    collective staged through host memory): (a) every (mp, sp) rank's
+    flash launches, (b) gpt_1p3b's widths over {"sp": 2, "mp": 2}, (c)
+    ERNIE-base over {"sharding": 2, "sp": 2} at stage 2, (d) LocalSGD
+    over {"dp": 2, "sp": 2}; (c) and (d) against the same rows over one
+    {"dp": 2} mesh. Every mesh's ranks start together after (a) and
+    before (b), so that no step is timed while a rank starts. Run last;
+    the card's free memory is back within 64 MiB once the ranks are
+    gone."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[sp-mp] phase 6j starts with "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated ({smi})")
+    meshes = {k: _hybrid_mesh(d) for k, d in (
+        ("gpt_1p3b", {"sp": 2, "mp": 2}), ("ernie", {"sharding": 2, "sp": 2}),
+        ("localsgd", {"dp": 2, "sp": 2}), ("ref", {"dp": 2}))}
+    res = dict(label=HYBRID_SP_LABEL, card=smi)
+    marks = [t0]
+    try:
+        res["arithmetic"] = _hybrid_rank_arithmetic()
+        marks.append(time.perf_counter())
+        # after (a): this process's first launches grow its own context
+        free0 = _card_free_bytes()
+        _spawn_ranks(list(meshes.values()))
+        marks.append(time.perf_counter())
+        for key, run in (("gpt_1p3b", _hybrid_gpt), ("ernie", _hybrid_ernie),
+                         ("localsgd", _localsgd_sp)):
+            if key == "gpt_1p3b":
+                res[key] = run(smi, meshes[key])
+            else:
+                res[key] = run(smi, meshes[key], meshes["ref"])
+            meshes.pop(key).close()
+            marks.append(time.perf_counter())
+            log(f"[sp-mp] 6j ({key}) {marks[-1] - marks[-2]:.1f} s")
+    finally:
+        for m in meshes.values():
+            m.close()
+    free1 = _card_free_bytes()
+    res.update(card_free_gib_before=free0 / 2**30,
+               card_free_gib_after=free1 / 2**30)
+    assert (free1 - free0) / 2**20 >= -64, ("card memory not back", res)
+    res["seconds"] = time.perf_counter() - t0
+    res["part_seconds"] = dict(zip(("a", "ranks", "b", "c", "d"),
+                                   np.diff(marks).tolist()))
+    log(f"[sp-mp] phase 6j {res['seconds']:.1f} s {res['part_seconds']}")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
-    ap.add_argument("--only", choices=("6g", "6h", "6i"),
+    ap.add_argument("--only", choices=("6g", "6h", "6i", "6j"),
                     help="build the kernels and run this phase alone (its "
                          "results, the card line and the device line)")
     args = ap.parse_args()
@@ -6389,7 +6856,8 @@ def main():
     if args.only:
         name, phase = {"6g": ("sequence", sequence_train),
                        "6h": ("moe", moe_train),
-                       "6i": ("gathered", gathered_sequence_train)}[
+                       "6i": ("gathered", gathered_sequence_train),
+                       "6j": ("hybrid_sp", hybrid_sequence_train)}[
                            args.only]
         res = {name: phase(smi)}
         if args.out:
@@ -6432,6 +6900,7 @@ def main():
     sequence = sequence_train(smi)
     moe = moe_train(smi)
     gathered = gathered_sequence_train(smi)
+    hybrid_sp = hybrid_sequence_train(smi)
     # the kernel line's headline numbers: the bf16 decode case (width 1),
     # the launch shape the serving path runs most, and the bf16 flash case
     # at the training shape
@@ -6665,14 +7134,17 @@ def main():
             "library_ms": head["library_fwd_ms"] if key == "fwd" else None,
             "library_bwd_ms": head["library_bwd_ms"],
             # phase 6g: each rank's launches over the counted steps of
-            # gpt_1p3b over {"sp": 2} (f32, 2 x 1024 a rank, 16 heads;
-            # i + 1 blocks a layer on sp rank i) and of the flagship
+            # gpt_1p3b's widths at 4 layers over {"sp": 2} (f32, 2 x 1024
+            # a rank, 16 heads; i + 1 blocks a layer on sp rank i) and of
+            # the flagship
             # widths over {"dp": 2, "sp": 2}; the ring's f32 error
             # against one call over the whole sequence (6g (a))
             "sp2_rank_launches": [
-                c[lk] for c in sequence["gpt_1p3b"]["counts"]],
+                c[lk] for c in sequence["gpt_1p3b"]["runs"]["p0.0"][
+                    "counts"]],
             "dp2sp2_rank_launches": [
-                c[lk] for c in sequence["dp2sp2"]["counts"]],
+                c[lk] for c in sequence["dp2sp2"]["runs"]["p0.0"][
+                    "counts"]],
             "ring_f32_max_abs_err": max(
                 r["max_err"][e] for r in sequence["ring"]
                 if r["dtype"] == "float32"
@@ -6736,6 +7208,66 @@ def main():
                                 ("ernie_base", 0.1))
                 for dtype in ("float32", "bfloat16")},
         })
+    # phase 6j (a): each kernel at an sp x mp rank's call (its heads from
+    # head_offset, its rows from q_row0, over its gathered key prefix): the
+    # headline is gpt_1p3b's rank (mp 1, sp 1) in float32 at dropout 0.1
+    # (1 x 1024 queries from row 1024, heads 8-15 of 16, against 2048
+    # keys, causal); launches are 6j (b)'s flash run's, a step on each rank
+    ja = hybrid_sp["arithmetic"]
+
+    def jhead(case, dtype, p):
+        rec = next(r for r in ja if r["case"] == case
+                   and r["dtype"] == dtype and r["dropout_p"] == p)
+        return next(r for r in rec["ranks"]
+                    if (r["mp_rank"], r["sp_rank"]) == (1, 1))
+
+    jg = jhead("gpt_1p3b", "float32", 0.1)
+    hg = hybrid_sp["gpt_1p3b"]
+    for kname, site, errs in (("fwd", 121, ("o", "lse")),
+                              ("dkv", 238, ("dk", "dv")),
+                              ("dq", 295, ("dq",))):
+        lk = "fwd_launches" if kname == "fwd" else "bwd_launches"
+        mk = lk.replace("launches", "mask_launches")
+        kernels.append({
+            "name": f"flash_attention_{kname}_sp_mp", "route": "cuda",
+            "source": src, "replaces": f"{tpu}:{site}",
+            "launches": hg["flash"]["runs"]["p0.1"]["counts"][0][lk],
+            # 6j (b): every rank's launches over the 3 counted steps of
+            # each run; (c) ERNIE's mask launches; (d) LocalSGD's
+            "sp2mp2_rank_launches": {
+                f"{impl}_{run}": [c[lk] for c in rec["counts"]]
+                for impl in ("flash", "ring")
+                for run, rec in hg[impl]["runs"].items()},
+            "sharding2sp2_rank_mask_launches": [
+                c[mk] for c in hybrid_sp["ernie"]["runs"]["p0.1"]["counts"]],
+            "localsgd_dp2sp2_rank_launches": [
+                c[lk] for c in hybrid_sp["localsgd"]["runs"]["dp2sp2"][
+                    "counts"]],
+            "max_abs_err": max(r["plain_max_err"][e] for r in ja
+                               if r["dtype"] == "float32" for e in errs),
+            "bf16_max_abs_err": max(r["plain_max_err"][e] for r in ja
+                                    if r["dtype"] == "bfloat16"
+                                    for e in errs),
+            "ms": jg[f"{kname}_ms"],
+            "plain_ms": jg["plain_fwd_ms" if kname == "fwd"
+                           else "plain_bwd_ms"],
+            "bound_ms": jg[f"bound_{kname}_ms"],
+            "bound_by": jg[f"bound_{kname}_by"],
+            "library_ms": jg["library_fwd_ms"] if kname == "fwd" else None,
+            "library_bwd_ms": jg["library_bwd_ms"],
+            "headline": "gpt_1p3b sp2 x mp2 rank (1, 1), float32, dropout "
+                        "0.1, 1 x 1024 queries from row 1024, heads 8-15 "
+                        "of 16, against 2048 keys, causal",
+            "rank_cases": {
+                f"{case}_{dtype}_p{p}": {
+                    k: jhead(case, dtype, p)[k] for k in (
+                        f"{kname}_ms", f"bound_{kname}_ms",
+                        f"bound_{kname}_by", "library_fwd_ms",
+                        "library_bwd_ms")}
+                for case, p in (("gpt_1p3b", 0.0), ("gpt_1p3b", 0.1),
+                                ("ernie_base", 0.1))
+                for dtype in ("float32", "bfloat16")},
+        })
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=smi, kind=kind, kernels=kernels,
@@ -6748,7 +7280,8 @@ def main():
                            train_dropout=gpt_drop, ernie_parity=epar,
                            training_surface=surface, zero_dp=zero,
                            hybrid=hybrid, pipeline=pipeline,
-                           sequence=sequence, moe=moe, gathered=gathered),
+                           sequence=sequence, moe=moe, gathered=gathered,
+                           hybrid_sp=hybrid_sp),
                       f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -28,9 +28,12 @@ stages each line's first and last stage also share a group of their own
 (``"pp_ends"``, `axis_group`), where a tied weight's two uses (the
 embedding and the head) sum their gradients. An ``sp`` axis above 1
 splits the sequence (parallel/spmd.py with ``batch_specs=(("dp",
-"sp"),) * 2``): its groups are the rings of parallel/ring_attention.py.
-It runs alone or beside ``dp``; beside ``mp``, ``pp`` or ``sharding``
-`build_mesh` refuses it (ROADMAP Queue 1, item 8b.1).
+"sp"),) * 2``): its groups are the rings of parallel/ring_attention.py
+and the gathers of parallel/sequence_attention.py. It runs alone or
+beside ``dp``, ``mp`` and ``sharding``; beside ``pp`` `build_mesh`
+refuses it (ROADMAP Queue 1, item 8b.1): the reference's pipelined GPT
+never splits the sequence (its microbatches are ``P(None, "dp", None,
+None)``), so an ``sp`` axis there would only replicate.
 
 **Topology** (JAX `:87-262`): `CommunicateTopology` (coordinates and
 ranks over named dims), `HybridCommunicateGroup` (a rank's degrees,
@@ -163,20 +166,20 @@ def rank_at(shape, **coords):
 
 def _degrees(degrees):
     """Every axis's degree from `degrees` (missing axes are 1); raises for
-    an unknown axis, and for ``sp`` above 1 beside ``mp``, ``pp`` or
-    ``sharding`` above 1."""
+    an unknown axis, and for ``sp`` above 1 beside ``pp`` above 1."""
     unknown = sorted(set(degrees) - set(AXES))
     if unknown:
         raise ValueError(f"unknown mesh axes {unknown}; the axes are {AXES}")
     shape = {a: int(degrees.get(a, 1)) for a in AXES}
     if any(d < 1 for d in shape.values()):
         raise ValueError(f"mesh degrees must be >= 1; got {degrees}")
-    beside = [a for a in ("pp", "sharding", "mp") if shape[a] > 1]
-    if shape["sp"] > 1 and beside:
+    if shape["sp"] > 1 and shape["pp"] > 1:
         raise NotImplementedError(
             f"mesh degrees {degrees}: sp={shape['sp']} beside "
-            f"{beside} is not ported (ROADMAP Queue 1, item 8b.1); 'sp' "
-            "runs alone or beside 'dp'")
+            f"pp={shape['pp']} is not ported (ROADMAP Queue 1, item 8b.1): "
+            "the pipelined GPT never splits the sequence, so 'sp' there "
+            "would only replicate; 'sp' runs beside 'dp', 'mp' and "
+            "'sharding'")
     return shape
 
 

@@ -87,14 +87,21 @@ update gathers nothing (the parameters did not change).
 
 **Dropout**: JAX folds the replica's index into the step's key; here each
 rank reseeds its model's `DropoutGenerators` from the step's seed and its
-data index (its dp index, or its row share's index), so the mp and
-sharding peers of one replica draw one set of masks. A model without
-dropout draws nothing, so the stages stay bit-comparable. **Remat**: each
-rank's forward goes through `distributed/fleet/utils.recompute` with the
-model's generators. **Losses**: a loss whose mean runs over a count that
-differs between row shares names it (`loss_weight`, the MLM loss's
-labelled positions), and the hybrid path weights each share's mean by its
-count, the whole batch's mean that JAX's GSPMD step takes; a loss the
+data index (its dp index, or its row share's index), so the mp, sharding
+and sp peers of one row share draw one set of masks: an mp rank draws the
+whole hidden width's elementwise masks and its heads' attention keep
+bits (their offset), an sp rank its slice of the whole row's (its rows).
+A model without dropout draws nothing, so the stages stay
+bit-comparable. **Remat**: each rank's forward goes through
+`distributed/fleet/utils.recompute` with the model's generators, at any
+``sp`` and ``mp``: the recomputed forward replays its masks and makes its
+collectives again (each gathered layer's all-gather of K/V or each ring's
+forward hops, the mp layers' forward all-reduces), which
+`hybrid_collective_budget` counts. **Losses**: a loss whose mean runs
+over a count that differs between row shares names it (`loss_weight`,
+the MLM loss's labelled positions), and the hybrid path weights each
+share's mean by its count, the whole batch's mean that JAX's GSPMD step
+takes; a loss the
 model's own head computes (`tied_head`, GPT's `gpt_loss_fn`) runs there at
 mp > 1, vocab-parallel, instead of on gathered logits.
 
@@ -123,10 +130,15 @@ top-k) runs on neither kind of shard.
 **LocalSGD** runs over any mesh, as the JAX step does: the replicas lie
 on ``dp`` (each dp index its own parameters and optimizer state), and
 every other axis holds them as the hybrid path does (an mp group shards
-each replica's Megatron layers); every k-th step averages each rank's
-values over its dp group.
+each replica's Megatron layers, an sp group splits its rows' sequence and
+averages the replica's gradient over its slices every step, an MLM mean
+weighed over those slices alone); every k-th step averages each rank's
+values over its dp group. The JAX step splits
+no sequence (its sp devices hold the same rows), so LocalSGD under sp
+gives LocalSGD over dp's numbers.
 
-**The sequence split** (``sp``, alone or beside ``dp``): with
+**The sequence split** (``sp``, beside ``dp``, ``mp`` and ``sharding``):
+with
 ``batch_specs=(("dp", "sp"),) * 2`` (JAX's ``P("dp", "sp")``) each rank's
 rows are its dp index's share, and its slice of their sequence (dim 1)
 its sp index's: ``S / sp`` positions from ``sp_index * S / sp`` (the
@@ -141,12 +153,17 @@ takes its seed). GPT's loss is the mean of the ranks' means, exact since
 every rank holds S / sp positions of each row (its labels are the
 targets themselves, cut like the ids); the MLM loss weighs each rank's
 mean by its labelled positions over the dp and sp groups (`loss_weight`,
-below). Each gradient leaf is averaged over the dp and sp groups
-(`sp_collective_budget` states a step's calls). What the split does not
-cover raises `NotImplementedError`, naming its ROADMAP item, rather than
-compute attention over a slice alone: remat, a model without
-`shard_sequence`, and LocalSGD (distributed/mesh.py refuses ``sp`` beside
-``mp``, ``pp`` or ``sharding``).
+below). Each gradient leaf is averaged over the dp, sharding (when the
+rows split over it) and sp groups, an mp layer's on its slice only, and
+ZeRO stages 1 and 2 then update the rank's sharding slice and gather it
+(`sp_collective_budget` and `hybrid_collective_budget` state a step's
+calls). Beside ``mp`` each rank runs its heads over its sp group (the
+ring over them, or the gathered attention with their offset) and its
+loss through the vocab-parallel head on its slice; BERT's pooler takes
+sp rank 0's first token on every mp rank. A model without
+`shard_sequence` raises `NotImplementedError` rather than compute
+attention over a slice alone (distributed/mesh.py refuses ``sp`` beside
+``pp``, ROADMAP Queue 1, item 8b.1).
 
 ``pp`` meshes train through `models/gpt_pipeline.py` (the pipelined GPT's
 step, built on this module's rank jobs).
@@ -236,7 +253,8 @@ def hybrid_collective_budget(n_param_leaves=0, row_degrees=(), *,
                              sp_degree=1, ring_layers=0, gathered_layers=0,
                              first_token=False, weighted_loss=False,
                              mp_degree=1, mp_calls=(0, 0), moe_layers=0,
-                             n_zero_leaves=0):
+                             n_zero_leaves=0, remat=False,
+                             mp_forward=(0, 0)):
     """EXACT collective counts of ONE hybrid-path train step on every
     rank, the sum of each feature's term:
 
@@ -266,20 +284,29 @@ def hybrid_collective_budget(n_param_leaves=0, row_degrees=(), *,
     - `first_token`: at sp above 1, BERT's pooler input handed from sp
       rank 0 (one ``all-gather``; no loss of the port reads the NSP
       head, so its gradient makes no call);
+    - `remat` (the step's ``remat=True``): the backward runs the model's
+      forward once more, and with it every call the forward makes: the
+      mp layers' forward share of `mp_calls` (`mp_forward`, the same
+      pair), each ring's ``sp - 1`` forward hops, each gathered
+      attention's ``all-gather`` of K/V and the first token's
+      ``all-gather``;
     - nothing else: no reduction of activations."""
     rows = sum(int(d) > 1 for d in row_degrees)
     sp = int(int(sp_degree) > 1)
     groups = rows + sp
     mp = int(mp_degree) > 1
     moe = int(moe_layers)
-    hops = int(ring_layers) * sum(ring_hops(sp_degree))
+    again = int(bool(remat))
+    fwd_hops, bwd_hops = ring_hops(sp_degree)
+    hops = int(ring_layers) * ((1 + again) * fwd_hops + bwd_hops)
     ag, rs = (int(gathered_layers) * c for c in gathered_calls(sp_degree))
+    mp_ar, mp_ag = ((int(c) + again * int(f) for c, f in
+                     zip(mp_calls, mp_forward)) if mp else (0, 0))
     return {"all-reduce": groups * (1 + int(n_param_leaves)
                                     + int(bool(weighted_loss)))
-            + (int(mp_calls[0]) + 2 * moe if mp else 0),
-            "all-gather": rows * moe + int(n_zero_leaves) + ag
-            + sp * int(bool(first_token))
-            + (int(mp_calls[1]) if mp else 0),
+            + mp_ar + (2 * moe if mp else 0),
+            "all-gather": rows * moe + int(n_zero_leaves)
+            + (1 + again) * (ag + sp * int(bool(first_token))) + mp_ag,
             "reduce-scatter": rs,
             "all-to-all": 0, "send": hops, "recv": hops}
 
@@ -679,6 +706,8 @@ class _Replica:
         # and the model groups
         self.data_groups = [mesh.axis_group(a) for a in self.place.mean_axes
                             if mesh.shape[a] > 1]
+        self.row_groups = [mesh.axis_group(a) for a in self.place.data_axes
+                           if mesh.shape[a] > 1]
         self.mp_group = mesh.axis_group("mp")
         self.zgroup = mesh.axis_group("sharding")
         self.sp_group = (mesh.axis_group(self.place.seq_axis)
@@ -690,11 +719,9 @@ class _Replica:
         if not self.explicit and self.kind != "localsgd":
             # one program over the global batch (JAX's GSPMD step): the
             # MoE layers route over every row share's tokens
-            rows = [mesh.axis_group(a) for a in self.place.data_axes
-                    if mesh.shape[a] > 1]
             for module in model.modules():
                 if hasattr(module, "shard_rows"):
-                    module.shard_rows(rows)
+                    module.shard_rows(self.row_groups)
         if self.sp_group is not None:
             model.shard_sequence(self.sp_group)
         model.to_empty(device=self.device)
@@ -1014,18 +1041,24 @@ class _Replica:
                 seed, self.place.data_index(self.rank)))
         loss = self._forward(batch)
         weigh = getattr(self.loss_fn, "loss_weight", None)
-        if weigh is not None and not self.explicit and self.data_groups:
+        # a LocalSGD replica's loss is its own rows' mean (JAX vmaps the
+        # loss over the replicas): only its sequence slices weigh
+        local = self.kind == "localsgd"
+        wgroups = ([self.sp_group] if self.sp_group is not None else []) \
+            if local else self.data_groups
+        if weigh is not None and not self.explicit and wgroups:
             # a mean over a count that differs between row shares and
             # sequence slices (the MLM loss's labelled positions): weight
             # this share's mean by its count over the mean count, so the
-            # average below over the dp and sp groups is the whole batch's
-            # mean (JAX's GSPMD step computes it whole)
+            # average over the groups is the whole batch's mean (JAX's
+            # GSPMD step computes it whole), or the replica's
             w = torch.as_tensor(weigh(batch[-1]), dtype=torch.float32,
                                 device=self.device).reshape(1)
             total = w.clone()
-            for g in self.data_groups:
+            for g in wgroups:
                 all_reduce(total, g)
-            loss = loss * (w * self.dp / total)[0]
+            n = self.sp_group.size if local else self.dp
+            loss = loss * (w * n / total)[0]
         if self.sp_group is not None:
             self._mark("forward")
         loss.backward()
@@ -1139,17 +1172,26 @@ class _Replica:
         self._mark("param_gather")
 
     def _local_update(self, lr):
-        self._apply({n: self._grad(n) for n in self.names}, lr)
+        grads = {}
+        for n in self.names:
+            g = self._grad(n)
+            if self.sp_group is not None:
+                # the replica's gradient: the mean over its sequence slices
+                g = g / self.sp_group.size
+                all_reduce(g, self.sp_group)
+            grads[n] = g
+        self._apply(grads, lr)
         self._mark("update")
         self.count += 1
-        if self.count % self.k_steps == 0 and self.dp > 1:
+        replicas = self.place.data_degree
+        if self.count % self.k_steps == 0 and replicas > 1:
             # each rank's values averaged over the replicas (its dp group)
             for n in self.names:
                 p = self.params[n]
                 t = p.detach().float()
-                for g in self.data_groups:
+                for g in self.row_groups:
                     all_reduce(t, g)
-                p.copy_((t / self.dp).to(p.dtype))
+                p.copy_((t / replicas).to(p.dtype))
         self._mark("param_gather")
 
 
@@ -1334,27 +1376,22 @@ def _seq_split_arrays(batch_specs):
                  for spec in batch_specs or ("dp",))
 
 
-def _sequence_guard(model, mesh, batch_specs, remat=False):
+def _sequence_guard(model, mesh, batch_specs):
     """Raise unless the sequence split covers this step (module
     docstring): on a mesh with ``sp`` above 1, the batch must split its
     sequence over ``sp``, and the model must split its attention over the
-    group (`shard_sequence`) without remat. Each refusal of what is not
-    ported names its ROADMAP item."""
+    group (`shard_sequence`)."""
     if mesh.shape.get("sp", 1) <= 1:
         return
     if _data_axes(batch_specs)[1] != "sp":
         raise ValueError(
             f"a mesh with sp={mesh.shape['sp']} splits each row's sequence "
             "over its sp ranks: batch_specs=(('dp', 'sp'),) * 2")
-    cfg = getattr(model, "cfg", None)
     if not hasattr(model, "shard_sequence"):
         raise NotImplementedError(
             f"{type(model).__name__} at sp={mesh.shape['sp']}: attention "
             "over a sequence slice must span the sp group, and this model "
             "has no shard_sequence (GPT and Bert have)")
-    if remat or getattr(cfg, "remat", False):
-        raise NotImplementedError(
-            "remat under sp is not ported (ROADMAP Queue 1, item 8b.2)")
 
 
 def _expert_guard(model, mesh):
@@ -1824,7 +1861,7 @@ class ShardedTrainStep(_TrainStep):
                 "quant_grads rides the explicit weight-update path "
                 "(int8 reduce-scatter) — it needs zero_stage >= 2 on a "
                 "pure-dp mesh, or explicit_update=True")
-        _sequence_guard(model, mesh, batch_specs, self.remat)
+        _sequence_guard(model, mesh, batch_specs)
         if self.explicit_update:
             if optimizer._grad_clip is not None:
                 raise ValueError(
@@ -1881,8 +1918,10 @@ class LocalSGDTrainStep(_TrainStep):
     gradient sync; every `k_steps`-th step one all-reduce a leaf over the
     dp group averages the parameters. On a hybrid mesh the other axes
     hold each replica as the hybrid path does (mp shards its Megatron
-    layers). Buffers are averaged every step; the loss is the mean over
-    the replicas."""
+    layers; sp splits its rows' sequence, with ``batch_specs=(("dp",
+    "sp"),) * 2``, and averages its gradient over the sp group every
+    step). Buffers are averaged every step; the loss is the mean over the
+    replicas."""
 
     _kind = "localsgd"
 
@@ -1893,10 +1932,7 @@ class LocalSGDTrainStep(_TrainStep):
             raise ValueError(
                 f"LocalSGDTrainStep over {dict(mesh.shape)}: a 'pp' mesh "
                 "trains through models/gpt_pipeline.py")
-        if mesh.shape.get("sp", 1) > 1:
-            raise NotImplementedError(
-                f"LocalSGDTrainStep over {dict(mesh.shape)}: LocalSGD "
-                "under sp is not ported (ROADMAP Queue 1, item 8b.1)")
+        _sequence_guard(model, mesh, batch_specs)
         self.k = int(k_steps)
         self._open(model, loss_fn, optimizer, mesh, batch_specs,
                    stage3=False, explicit=False, quant=False, gm_k=1,

@@ -882,6 +882,48 @@ def test_flash_kernels_at_a_query_row_offset(dev, dtype, head_dim, causal,
     assert _max_err(o, at0) > 0.1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "padding"])
+def test_flash_kernels_at_a_head_and_row_offset(dev, dtype, head_dim,
+                                                causal):
+    """An sp x mp rank's launch: heads [3, 6) of 6 (`head_offset` 3) and
+    queries from row 128 (`q_row0`) over 256 keys, dropout 0.1, with a
+    padding mask when not causal. The keep bits the plain version draws at
+    those heads and rows are the whole call's ``[heads, rows]`` slice bit
+    for bit; forward (O, LSE) and both backward kernels (dQ; dK, dV)
+    against the plain version at the same offsets, within 2e-5 in float32
+    and 2e-2 in bfloat16; the bits move with both offsets (O differs from
+    the launch at head 0 and row 0)."""
+    b, h, total, off, q_row0, sq, sk = 2, 3, 6, 3, 128, 128, 256
+    p, seed = 0.1, 131
+    q, k, v, do = _flash_inputs(b, sq, sk, h, head_dim, dtype, dev, seed=9)
+    mask = None if causal else _padding_mask(b, sk, dev)
+    at = dict(head_offset=off, heads_total=total, q_row0=q_row0)
+    whole = fa.dropout_factors(seed, p, b, total, q_row0 + sq, sk, dev)
+    mine = fa.dropout_factors(seed, p, b, h, sq, sk, dev, **at)
+    assert torch.equal(mine, whole[:, off:, q_row0:])
+    o32 = torch.empty(q.shape, device=dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, mask, p, seed, o32,
+                                    **at)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o32, do, lse, causal, mask,
+                                        p, seed, **at)
+    at0, _ = fa.flash_attention_fwd(q, k, v, causal, mask, p, seed)
+    torch.cuda.synchronize()
+    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    ref = fa.attention_ref(q32, k32, v32, causal, mask, p, seed, **at)
+    ref.backward(do.float())
+    want = (ref.detach(), fa.attention_lse_ref(q32.detach(), k32.detach(),
+                                               causal, mask),
+            q32.grad, k32.grad, v32.grad)
+    gate = F32_GATE if dtype == torch.float32 else TOL[dtype]
+    for name, got, w in zip(("o", "lse", "dq", "dk", "dv"),
+                            (o, lse, dq, dk, dv), want):
+        err = _max_err(got, w)
+        assert err < gate, f"{name}: max err {err}"
+    assert _max_err(o, at0) > 0.1
+
+
 def _row0_zero_digests(dev, **row0):
     """sha256 (16 hex digits) of every output of one forward and one
     backward launch on fixed inputs (2 x 200, 3 heads, from a seeded CPU

@@ -24,8 +24,10 @@ train float32 with SGD 0.1 for 3 steps on one seeded batch:
 - each rank's sends, receives, all-gathers, reduce-scatters and
   all-reduces a step equal `sp_collective_budget`, whose arithmetic is
   held on its own;
-- what the split does not cover raises `NotImplementedError` naming its
-  ROADMAP item (remat, LocalSGD, ``sp`` beside ``mp``), and a sequence
+- ``sp`` builds beside ``mp`` and ``sharding`` and is refused beside
+  ``pp``, naming its ROADMAP item; remat and LocalSGD run under it
+  (test_torch_sp_hybrid.py holds them against the JAX package); a model
+  without `shard_sequence` raises `NotImplementedError`, and a sequence
   that ``sp`` does not divide raises.
 """
 
@@ -33,6 +35,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.core.functional import state_dict_arrays
@@ -291,16 +294,27 @@ def test_sp_collective_budget_arithmetic(layers, sp, dp, leaves):
 
 
 def test_meshes_and_topology_take_sp():
-    """`build_mesh` takes sp alone and beside dp (sp fastest), refuses it
-    beside mp, pp and sharding naming item 8b.1; fleet's sep_degree
-    reaches the mesh's sp axis."""
+    """`build_mesh` takes sp alone and beside dp, mp and sharding (sp
+    fastest, every axis's groups in `AXES` order), and refuses it beside
+    pp naming item 8b.1 and why; fleet's sep_degree reaches the mesh's sp
+    axis."""
     m = build_mesh({"dp": 2, "sp": 2}, device="cpu")
     assert m.comm_lists("sp") == [[0, 1], [2, 3]]
     assert m.comm_lists("dp") == [[0, 2], [1, 3]]
     assert build_mesh({"sp": 4}, device="cpu").size == 4
-    for other in ("mp", "pp", "sharding"):
-        with pytest.raises(NotImplementedError, match="item 8b.1"):
-            build_mesh({"sp": 2, other: 2}, device="cpu")
+    m = build_mesh({"sp": 2, "mp": 2}, device="cpu")
+    assert m.comm_lists("sp") == [[0, 1], [2, 3]]
+    assert m.comm_lists("mp") == [[0, 2], [1, 3]]
+    m = build_mesh({"dp": 2, "sp": 2, "mp": 2}, device="cpu")
+    assert m.comm_lists("sp") == [[0, 1], [2, 3], [4, 5], [6, 7]]
+    assert m.comm_lists("mp") == [[0, 2], [1, 3], [4, 6], [5, 7]]
+    assert m.comm_lists("dp") == [[0, 4], [1, 5], [2, 6], [3, 7]]
+    m = build_mesh({"sharding": 2, "sp": 2}, device="cpu")
+    assert m.comm_lists("sp") == [[0, 1], [2, 3]]
+    assert m.comm_lists("sharding") == [[0, 2], [1, 3]]
+    with pytest.raises(NotImplementedError,
+                       match="item 8b.1.*never splits the sequence"):
+        build_mesh({"sp": 2, "pp": 2}, device="cpu")
     strategy = fleet.DistributedStrategy()
     strategy.hybrid_configs.update(dict(dp_degree=2, sep_degree=2))
     fleet.init(is_collective=True, strategy=strategy, device="cpu")
@@ -317,29 +331,41 @@ def test_meshes_and_topology_take_sp():
 
 
 def test_what_the_split_does_not_cover_raises(meshes):
-    """At sp > 1: remat, ERNIE's remat and LocalSGD raise
-    NotImplementedError naming their ROADMAP items; a batch_specs that
-    does not split the sequence, and a sequence sp does not divide, raise
-    ValueError. None of them computes."""
-    init = _jax_run("sp2")[0]
+    """At sp > 1 the step's remat, BERT's own remat and LocalSGD run (one
+    step each, the split step's first loss); a model without
+    `shard_sequence` raises NotImplementedError; a batch_specs that does
+    not split the sequence, and a sequence sp does not divide, raise
+    ValueError. None of the refused computes."""
+    init, want, _ = _jax_run("sp2")
     mesh = meshes["sp2"]
-    with pytest.raises(NotImplementedError, match="item 8b.2"):
-        _port_step(mesh, init, remat=True)
+    for step in (_port_step(mesh, init, remat=True),
+                 LocalSGDTrainStep(*_gpt_parts(init), mesh,
+                                   batch_specs=SPEC)):
+        try:
+            np.testing.assert_allclose(step(*_batch()), want[0], rtol=1e-5)
+        finally:
+            step.close()
     with pytest.raises(ValueError, match="batch_specs"):
         _port_step(mesh, init, specs=None)
     bert = Bert(BertConfig(vocab_size=64, hidden_size=32, num_layers=1,
                            num_heads=2, intermediate_size=64,
                            max_position_embeddings=64, remat=True),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8b.2"):
+    step = make_sharded_train_step(
+        bert, bert_pretrain_loss_fn,
+        SGD(learning_rate=LR, parameters=bert.named_parameters()),
+        mesh, batch_specs=(("dp", "sp"),) * 2)
+    try:
+        ids = np.random.RandomState(0).randint(0, 64, (2, 32))
+        assert np.isfinite(step(ids, ids))
+    finally:
+        step.close()
+    plain = torch.nn.Linear(4, 4)
+    with pytest.raises(NotImplementedError, match="no shard_sequence"):
         make_sharded_train_step(
-            bert, bert_pretrain_loss_fn,
-            SGD(learning_rate=LR, parameters=bert.named_parameters()),
-            mesh, batch_specs=(("dp", "sp"),) * 4)
-    model = GPT(GPTConfig(**CFG, attn_impl="ring"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8b.1"):
-        LocalSGDTrainStep(model, gpt_loss_fn, SGD(
-            learning_rate=LR, parameters=model.named_parameters()), mesh)
+            plain, gpt_loss_fn,
+            SGD(learning_rate=LR, parameters=plain.named_parameters()),
+            mesh, batch_specs=SPEC)
     step = _port_step(mesh, init)
     try:
         with pytest.raises(ValueError, match="does not split over sp"):
@@ -348,3 +374,11 @@ def test_what_the_split_does_not_cover_raises(meshes):
             _port_step(mesh, init, specs=(("sp", "dp"),) * 2)
     finally:
         step.close()
+
+
+def _gpt_parts(init):
+    """A ring GPT from `init`, its loss and an SGD over it."""
+    model = GPT(GPTConfig(**CFG, attn_impl="ring"), device="cpu")
+    from_jax_state_dict(model, init)
+    return model, gpt_loss_fn, SGD(learning_rate=LR,
+                                   parameters=model.named_parameters())

@@ -25,7 +25,8 @@ and train float32 for 3 steps:
 - the global-norm clip over mp-sharded gradients equals one process;
 - a step's collective calls on every rank equal the arithmetic below;
 - the train state crosses to and from the JAX layout on a hybrid step;
-- the topology answers, the "pure-dp" guard, and ``pp`` / ``sp`` refused.
+- the topology answers, the "pure-dp" guard, and ``sp`` beside ``pp``
+  refused.
 """
 import jax
 import jax.numpy as jnp
@@ -491,13 +492,14 @@ def test_explicit_update_on_a_hybrid_mesh_raises_the_jax_error(meshes):
 def test_pipeline_and_sequence_axes_are_refused_naming_item_8(deg):
     """A 'pp' axis builds (the pipeline's stage lines, models/
     gpt_pipeline.py); so does 'sp' (the rings of parallel/
-    ring_attention.py), which beside 'mp' is still refused, naming its
-    ROADMAP item."""
+    ring_attention.py), beside 'mp' too, while beside 'pp' it is still
+    refused, naming its ROADMAP item."""
     if "sp" in deg:
         mesh = build_mesh(deg, device="cpu")
         assert mesh.size == 2 and mesh.axis_group("sp") is mesh.group
+        assert build_mesh(dict(deg, mp=2), device="cpu").size == 4
         with pytest.raises(NotImplementedError, match="item 8b"):
-            build_mesh(dict(deg, mp=2), device="cpu")
+            build_mesh(dict(deg, pp=2), device="cpu")
         return
     mesh = build_mesh(deg, device="cpu")
     assert mesh.size == 2 * deg.get("dp", 1)

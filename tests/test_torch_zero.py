@@ -576,8 +576,8 @@ def test_guards_raise_with_the_jax_words(mesh):
 
     # Lamb and Lars now build on the explicit path (their norms sum the
     # shards over dp: test_torch_meta_optimizers.py trains them), as in
-    # the JAX step; 'pp' and 'sp' meshes build, 'sp' beside 'sharding' is
-    # still refused
+    # the JAX step; 'pp' and 'sp' meshes build, and 'sp' beside 'sharding'
+    # (test_torch_sp_hybrid.py trains it); 'sp' beside 'pp' is refused
     from paddle_tpu_torch.optimizer import Lamb, Lars
 
     for rule in (Lamb, Lars):
@@ -589,8 +589,9 @@ def test_guards_raise_with_the_jax_words(mesh):
     assert build_mesh({"dp": 1, "sharding": 2}, device="cpu").size == 2
     assert build_mesh({"dp": 2, "pp": 2}, device="cpu").size == 4
     assert build_mesh({"dp": 2, "sp": 2}, device="cpu").size == 4
+    assert build_mesh({"sp": 2, "sharding": 2}, device="cpu").size == 4
     with pytest.raises(NotImplementedError, match="item 8b"):
-        build_mesh({"sp": 2, "sharding": 2}, device="cpu")
+        build_mesh({"sp": 2, "pp": 2}, device="cpu")
     with pytest.raises(ValueError, match="unknown mesh axes"):
         build_mesh({"tp": 2}, device="cpu")
 
